@@ -1,0 +1,20 @@
+"""mamimo_tpu_torch — the PyTorch/CUDA port of ``mamimo_tpu`` for NVIDIA
+Hopper (H100).
+
+A second package beside the JAX one, which stays the reference. Plain
+tensor code is PyTorch; each TPU kernel on the ported path is a CUDA C++
+kernel written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
+first use into ``_build/`` and bound through ``ctypes``.
+
+- ``config``            : SimConfig / TrainConfig (same fields and JSON)
+- ``ops.ltf``           : LTF sequence, Hadamard P, sounding preamble
+- ``ops.estimate``      : LS estimate from flat planes (plain version)
+- ``ops.kernels``       : kernel wrappers (LS, fused factored DNN)
+- ``models``            : the CSI MLP (eval) and ``CSIPredictor``
+- ``train.ckpt``        : npz checkpoints, interchangeable with the JAX
+                          package's
+"""
+
+__version__ = "0.1.0"
+
+from mamimo_tpu_torch.config import SimConfig, TrainConfig  # noqa: F401

@@ -1,0 +1,259 @@
+"""The CSI denoiser MLP (the port's copy of ``mamimo_tpu/models/mlp.py``,
+eval mode), the reference's FC model
+(``massiveMIMO_CSI_prediction_DNN.py:195-234``):
+
+    [time-domain LTF at one Rx antenna  ⧺  pilot column P[:, iTx]]
+        → Dense(h₀, relu) → BN → Dropout
+        → Dense(h₁, relu) → BN
+        → Dense(num_carriers, linear)
+
+Two real-valued networks (real plane, imaginary plane) are stored as one
+stacked model: every parameter has a leading plane axis of size 2.
+Parameters are plain dictionaries of tensors with the JAX package's
+structure::
+
+    params   = {"dense": [{"w", "b"}, ...], "out": {"w", "b"},
+                "bn": [{"scale", "bias"}, ...]}
+    bn_state = {"mean": [...], "var": [...]}
+
+so checkpoints move between the two packages leaf for leaf
+(``train/ckpt.py``). Keras conventions: glorot-uniform init, BatchNorm
+with momentum 0.99 / eps 1e-3 applied after the ReLU. Training mode is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from mamimo_tpu_torch.config import SimConfig, TrainConfig
+from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
+
+Params = Dict[str, Any]
+
+
+def model_input_spec(cfg: SimConfig, tcfg: TrainConfig) -> Tuple[int, int]:
+    """(signal_len, total_in_dim) after fraction/decimation options."""
+    sig_len = cfg.len_ltf // int(tcfg.in_fraction)
+    if tcfg.decimate in ("max", "avg"):
+        sig_len //= 2
+    return sig_len, sig_len + cfg.num_tx
+
+
+def require_full_input(tcfg: TrainConfig) -> None:
+    """The factored forms share layer 1 across heads, which needs the
+    whole LTF as the signal input (no fraction, no decimation)."""
+    if tcfg.in_fraction != 1 or tcfg.decimate != "none":
+        raise ValueError("factored inference requires the default input "
+                         f"pipeline, got in_fraction={tcfg.in_fraction}, "
+                         f"decimate={tcfg.decimate!r}")
+
+
+def _glorot(gen: torch.Generator, fan_in: int, fan_out: int) -> torch.Tensor:
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand((fan_in, fan_out), generator=gen, dtype=torch.float32)
+    return u * (2 * lim) - lim
+
+
+def init_csi_mlp(gen: torch.Generator, cfg: SimConfig, tcfg: TrainConfig,
+                 device=None) -> Tuple[Params, Params]:
+    """Initialize one plane's parameters from ``gen`` (a CPU generator).
+
+    Returns (params, bn_state) with unit BN scale, zero biases, zero
+    running mean and unit running variance.
+    """
+    _, in_dim = model_input_spec(cfg, tcfg)
+    dims = (in_dim,) + tuple(tcfg.hidden)
+    dense, bn, bn_mean, bn_var = [], [], [], []
+    for i, h in enumerate(tcfg.hidden):
+        dense.append({"w": _glorot(gen, dims[i], h), "b": torch.zeros(h)})
+        if tcfg.use_bn:
+            bn.append({"scale": torch.ones(h), "bias": torch.zeros(h)})
+            bn_mean.append(torch.zeros(h))
+            bn_var.append(torch.ones(h))
+    out = {"w": _glorot(gen, dims[-1], cfg.num_carriers),
+           "b": torch.zeros(cfg.num_carriers)}
+    params = {"dense": dense, "out": out, "bn": bn}
+    bn_state = {"mean": bn_mean, "var": bn_var}
+    return tree_map(lambda t: t.to(device), params), \
+        tree_map(lambda t: t.to(device), bn_state)
+
+
+def init_stacked(gen: torch.Generator, cfg: SimConfig, tcfg: TrainConfig,
+                 device=None) -> Tuple[Params, Params]:
+    """Init both planes: every leaf gains a leading axis of size 2
+    ([0]=real, [1]=imag)."""
+    p0, s0 = init_csi_mlp(gen, cfg, tcfg, device)
+    p1, s1 = init_csi_mlp(gen, cfg, tcfg, device)
+    stack = lambda a, b: torch.stack([a, b])          # noqa: E731
+    return tree_map(stack, p0, p1), tree_map(stack, s0, s1)
+
+
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts/lists (jax.tree.map for
+    the parameter structures used here)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of nested dicts/lists in jax ``tree_flatten`` order: dict
+    keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for t in tree for l in tree_leaves(t)]
+    return [tree]
+
+
+def params_from_jax(params, bn_state, device=None) -> Tuple[Params, Params]:
+    """The JAX package's stacked pytrees (numpy leaves, leading plane axis
+    of size 2) as the port's parameters: float32 tensors on ``device``,
+    same structure."""
+    conv = lambda a: torch.tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=device)
+    return tree_map(conv, params), tree_map(conv, bn_state)
+
+
+def plane(tree, d: int):
+    """One plane's slice of stacked parameters."""
+    return tree_map(lambda t: t[d], tree)
+
+
+def preprocess_input(cfg: SimConfig, tcfg: TrainConfig, sig: torch.Tensor,
+                     pilot: torch.Tensor) -> torch.Tensor:
+    """Apply fraction/decimation and concat the pilot column.
+
+    sig: (..., len_sig) real plane of the received LTF;
+    pilot: (..., num_tx).
+    """
+    sig = sig[..., : cfg.len_ltf // int(tcfg.in_fraction)]
+    if tcfg.decimate == "max":
+        sig = sig.reshape(sig.shape[:-1] + (-1, 2)).amax(-1)
+    elif tcfg.decimate == "avg":
+        sig = sig.reshape(sig.shape[:-1] + (-1, 2)).mean(-1)
+    return torch.cat([sig, pilot.to(sig.dtype)], dim=-1)
+
+
+def _bn_affine(tcfg: TrainConfig, pp, bb, i: int):
+    """Eval-mode BN of layer i as (a, c): BN(h) = h·a + c, float32."""
+    a = torch.rsqrt(bb["var"][i] + tcfg.bn_eps) * pp["bn"][i]["scale"]
+    c = pp["bn"][i]["bias"] - bb["mean"][i] * a
+    return a, c
+
+
+def csi_mlp_apply(tcfg: TrainConfig, params: Params, bn_state: Params,
+                  x: torch.Tensor, *, train: bool = False):
+    """One plane's forward pass on a preprocessed batch x (batch, in_dim),
+    eval mode. Returns (y, bn_state)."""
+    if train:
+        raise NotImplementedError("training mode is not ported yet")
+    h = x
+    for i, lyr in enumerate(params["dense"]):
+        h = torch.relu(h @ lyr["w"] + lyr["b"])
+        if params["bn"]:
+            h = (h - bn_state["mean"][i]) * torch.rsqrt(
+                bn_state["var"][i] + tcfg.bn_eps)
+            h = h * params["bn"][i]["scale"] + params["bn"][i]["bias"]
+    return h @ params["out"]["w"] + params["out"]["b"], bn_state
+
+
+def stacked_apply(tcfg: TrainConfig, params: Params, bn_state: Params,
+                  x2: torch.Tensor):
+    """Apply both planes: x2 (2, batch, in_dim) → ((2, batch, C), bn)."""
+    ys = [csi_mlp_apply(tcfg, plane(params, d), plane(bn_state, d), x2[d])[0]
+          for d in range(2)]
+    return torch.stack(ys), bn_state
+
+
+def factored_heads_apply(tcfg: TrainConfig, pp, bb, sig_proj: torch.Tensor,
+                         pil_rows: torch.Tensor, sig_len: int) -> torch.Tensor:
+    """Everything after the shared layer-1 signal matmul of the factored
+    eval-mode MLP: per-head pilot projection + bias, relu, BN affine,
+    remaining dense layers, output head.
+
+    Args:
+      sig_proj: (S, H) precomputed ``signal @ W1[:sig_len]``.
+      pil_rows: (n_heads, num_tx) pilot rows.
+
+    Returns:
+      (S, n_heads, num_carriers) float32.
+    """
+    w1 = pp["dense"][0]["w"]
+    pil_proj = pil_rows.to(w1) @ w1[sig_len:]          # (n_heads, H)
+    h = torch.relu(sig_proj[:, None, :] + pil_proj[None, :, :]
+                   + pp["dense"][0]["b"])
+    if pp["bn"]:
+        a, c = _bn_affine(tcfg, pp, bb, 0)
+        h = h * a + c
+    for i in range(1, len(pp["dense"])):
+        h = torch.relu(h @ pp["dense"][i]["w"] + pp["dense"][i]["b"])
+        if pp["bn"]:
+            a, c = _bn_affine(tcfg, pp, bb, i)
+            h = h * a + c
+    return (h @ pp["out"]["w"] + pp["out"]["b"]).float()
+
+
+def factored_plane_apply(tcfg: TrainConfig, pp, bb, x: torch.Tensor,
+                         pil_rows: torch.Tensor) -> torch.Tensor:
+    """One plane's factored eval-mode MLP: the (L, H) signal matmul runs
+    once per sample and is shared by every pilot head (an exact
+    restructuring of the concatenated-input forward pass).
+
+    x: (S, L) real signal plane. Returns (S, n_heads, num_carriers)."""
+    L = x.shape[-1]
+    sig_proj = x @ pp["dense"][0]["w"][:L]             # (S, H)
+    return factored_heads_apply(tcfg, pp, bb, sig_proj, pil_rows, L)
+
+
+def _factored_all_pairs(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
+                        planes: torch.Tensor) -> torch.Tensor:
+    """Factored all-pairs body in float32: planes (2, S, len_ltf) →
+    (2, S, num_tx, num_carriers). The plain version of the fused
+    factored DNN kernels."""
+    require_full_input(tcfg)
+    pil =pilot_p_matrix(cfg.num_tx, device=planes.device).T
+    return torch.stack([
+        factored_plane_apply(tcfg, plane(params, d), plane(bn_state, d),
+                             planes[d].float(), pil)
+        for d in range(2)])
+
+
+def predict_all_pairs_planes_flat(cfg: SimConfig, tcfg: TrainConfig, params,
+                                  bn_state, planes: torch.Tensor):
+    """Factored all-pairs inference from flat planes (2, S, len_ltf) →
+    (S, num_tx, num_carriers) complex64."""
+    y2 = _factored_all_pairs(cfg, tcfg, params, bn_state, planes)
+    return torch.complex(y2[0], y2[1])
+
+
+def predict_all_pairs_planes(cfg: SimConfig, tcfg: TrainConfig, params,
+                             bn_state, rx_planes: torch.Tensor):
+    """Factored all-pairs inference from rx-major planes
+    (2, B, num_rx, len_ltf) → (B, num_rx, num_tx, num_carriers)
+    complex64."""
+    _, b, nrx, L = rx_planes.shape
+    y = predict_all_pairs_planes_flat(cfg, tcfg, params, bn_state,
+                                      rx_planes.reshape(2, b * nrx, L))
+    return y.reshape(b, nrx, cfg.num_tx, cfg.num_carriers)
+
+
+def predict_complex(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
+                    sig: torch.Tensor, pilot: torch.Tensor) -> torch.Tensor:
+    """Deployment-style complex prediction (inference.py:24-32): the real
+    plane through model[0], the imaginary plane through model[1].
+
+    sig: (batch, len_ltf) complex; pilot: (batch, num_tx) real.
+    Returns (batch, num_carriers) complex64."""
+    xr = preprocess_input(cfg, tcfg, sig.real.float(), pilot)
+    xi = preprocess_input(cfg, tcfg, sig.imag.float(), pilot)
+    y2, _ = stacked_apply(tcfg, params, bn_state, torch.stack([xr, xi]))
+    return torch.complex(y2[0], y2[1])

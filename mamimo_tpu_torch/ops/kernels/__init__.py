@@ -1,0 +1,18 @@
+"""Wrappers of the hand-written CUDA kernels (counterpart of
+``mamimo_tpu/ops/pallas``). Each wrapper launches its kernel on CUDA
+tensors and runs the kernel's plain version on CPU tensors; each keeps a
+``launches`` count of kernel launches."""
+
+from mamimo_tpu_torch.ops.kernels.fused_factored import (  # noqa: F401
+    factored_sig_proj,
+    factored_tail,
+    fused_factored_planes,
+    predict_all_pairs_planes_kernel,
+    prepare_factored_weights,
+)
+from mamimo_tpu_torch.ops.kernels.fused_ls import (  # noqa: F401
+    ls_kernel_constants,
+    ls_planes_pallas_v2_constants,
+    ls_planes_v2,
+    ls_v2_to_complex,
+)

@@ -1,0 +1,23 @@
+"""Shared helpers of the port's kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    """Round x up to a multiple of m (tile padding)."""
+    return ((x + m - 1) // m) * m
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on a CUDA device, False when every
+    tensor lies on the CPU. A wrapper launches its kernel for the first
+    and runs the kernel's plain version for the second; any other mix
+    raises, so a CUDA tensor never reaches the plain version."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors must all lie on cuda or all on cpu, got {kinds}")
