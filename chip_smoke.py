@@ -301,7 +301,9 @@ def main() -> int:
         z = torch.stack([zr, zi]).view(2, S, nt, C)
         return torch.matmul(pm, z)
 
-    ls_bytes = 2 * S * L * 2 + consts.numel() * 2 + 2 * S * nt * C * 4
+    # the kernel reads only the fft samples of each symbol, never the CP
+    ls_bytes = (2 * S * nt * cfg.fft_length * 2 + consts.numel() * 2
+                + 2 * S * nt * C * 4)
     ls_flops = 2.0 * (S * nt) * (2 * cfg.fft_length) * (2 * C)
     rows.append(("ls_planes_v2", "mamimo_tpu_torch/csrc/ls_v2.cu",
                  "mamimo_tpu/ops/pallas/fused_ls.py:424",

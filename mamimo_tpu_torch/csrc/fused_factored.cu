@@ -83,6 +83,14 @@ __global__ void __launch_bounds__(g128::THREADS, 2)
 // ---------------------------------------------------------------------
 // heads, layers 2 and 3
 // ---------------------------------------------------------------------
+// Phase cuts for tools/probe_tail.py, which times the tail kernel built
+// with -DTAIL_CUT=<bits> (its answers are then wrong): 1 skips building h,
+// 2 the ring loop, 4 the layer-3 products, 8 the layer-2 products. The
+// default, 0, is the kernel.
+#ifndef TAIL_CUT
+#define TAIL_CUT 0
+#endif
+
 constexpr int TBM = 64;       // samples per block (one head)
 constexpr int NC = 128;       // W2 column chunk = layer-3 k chunk
 constexpr int TBK2 = 64;      // k rows of a W2 tile
@@ -176,7 +184,8 @@ __global__ void __launch_bounds__(TTHREADS, 1)
 
   // h = relu(sig_proj + hb[t]) * a1 + c1, bf16, rows past S are zero
 #pragma unroll 4
-  for (int idx = tid * 4; idx < TBM * H; idx += TTHREADS * 4) {
+  for (int idx = tid * 4; !(TAIL_CUT & 1) && idx < TBM * H;
+       idx += TTHREADS * 4) {
     const int r = idx / H, k = idx - r * H;
     const int s = s0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -217,7 +226,7 @@ __global__ void __launch_bounds__(TTHREADS, 1)
       for (int e = 0; e < 4; ++e) accy[i][j][e] = 0.f;
   }
 
-  for (int it = 0; it < NIT; ++it) {
+  for (int it = 0; !(TAIL_CUT & 2) && it < NIT; ++it) {
     // the barrier also publishes sH (first step) and the h2 chunk (first
     // W3 step of each chunk)
     cp_async_wait<TSTAGES - 2>();
@@ -232,8 +241,9 @@ __global__ void __launch_bounds__(TTHREADS, 1)
       const bf16* a = sH + wm * HP + r * TBK2;
 #pragma unroll
       for (int kk = 0; kk < TBK2 / 16; ++kk)
-        warp_mma_k16<2, 4>(acc2, a + kk * 16, HP, b + kk * 16 * W2P + wn2,
-                           W2P, lane);
+        if (!(TAIL_CUT & 8))
+          warp_mma_k16<2, 4>(acc2, a + kk * 16, HP, b + kk * 16 * W2P + wn2,
+                             W2P, lane);
       if (r == KT - 1) {
         // h2 chunk: bias, ReLU, BN affine (f32) -> bf16 in shared memory
 #pragma unroll
@@ -261,8 +271,9 @@ __global__ void __launch_bounds__(TTHREADS, 1)
       const bf16* a = sH2 + wm * H2P + (r - KT) * TBK3;
 #pragma unroll
       for (int kk = 0; kk < TBK3 / 16; ++kk)
-        warp_mma_k16<2, 8>(accy, a + kk * 16, H2P, b + kk * 16 * W3P + wn3,
-                           W3P, lane);
+        if (!(TAIL_CUT & 4))
+          warp_mma_k16<2, 8>(accy, a + kk * 16, H2P, b + kk * 16 * W3P + wn3,
+                             W3P, lane);
     }
   }
   cp_async_wait<0>();

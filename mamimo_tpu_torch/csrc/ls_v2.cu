@@ -21,9 +21,10 @@
 // * Output is the dense (2, S, nt, C) f32 planes, no carrier padding.
 //
 // Bound on an H100 at the serving shape (S = 4096, nt = 32): the bf16
-// input read (168 MB) plus the f32 output write (245 MB) against
-// 3.35 TB/s is about 0.12 ms; the GEMM is about 63 GFLOP (0.06 ms at
-// the bf16 tensor-core peak), so it is memory-bound.
+// input read (134 MB: the 256 FFT samples of each 320-sample symbol, the
+// CP is never read) plus the f32 output write (245 MB) against 3.35 TB/s
+// is about 0.113 ms; the GEMM is about 63 GFLOP (0.06 ms at the bf16
+// tensor-core peak), so it is memory-bound.
 #include "mma_tile.cuh"
 
 using namespace mamimo;

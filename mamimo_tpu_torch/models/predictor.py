@@ -11,6 +11,7 @@ package's CPU branch does.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -44,6 +45,21 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run float32 products on the card in full float32, not TF32, for
+    the duration; the caller's settings are restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 class CSIPredictor:
     """Load a trained model directory and serve complex CSI predictions."""
 
@@ -52,11 +68,6 @@ class CSIPredictor:
         self.path = model_path
         self.experiment = experiment
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the float32 path on the card (inference) must not run its
-            # products in TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         ck = load_checkpoint(os.path.join(model_path, "best"))
         self.cfg: SimConfig = ck["cfg"]
         self.tcfg: TrainConfig = ck["tcfg"]
@@ -75,10 +86,11 @@ class CSIPredictor:
 
     def _kernel_weights(self):
         """BN/pilot-folded bf16 weights and the LS kernel's DFT matrix,
-        made once per predictor."""
+        made once per predictor (the float32 folds in full float32)."""
         if self._prepared is None:
-            self._prepared = prepare_factored_weights(
-                self.cfg, self.tcfg, self.params, self.bn_state)
+            with full_f32_matmul():
+                self._prepared = prepare_factored_weights(
+                    self.cfg, self.tcfg, self.params, self.bn_state)
             self._ls_consts = ls_kernel_constants(self.cfg, self.device)
         return self._prepared, self._ls_consts
 
@@ -141,8 +153,9 @@ class CSIPredictor:
         sig = torch.as_tensor(np.asarray(x, np.complex64), device=self.device)
         pil = torch.as_tensor(np.asarray(pilot, np.float32),
                               device=self.device)
-        y = predict_complex(self.cfg, self.tcfg, self.params, self.bn_state,
-                            sig, pil)
+        with full_f32_matmul():
+            y = predict_complex(self.cfg, self.tcfg, self.params,
+                                self.bn_state, sig, pil)
         return self.postprocess_data(y.cpu().numpy())
 
     # ------------------------------------------------------------------

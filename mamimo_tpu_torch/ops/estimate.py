@@ -46,8 +46,8 @@ def ls_planes_constants(cfg: SimConfig, dtype=torch.float32, device=None):
             torch.as_tensor(_hadamard_np(cfg.num_tx), device=device))
 
 
-def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor, consts=None,
-                       dtype=None) -> torch.Tensor:
+def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor,
+                       consts=None) -> torch.Tensor:
     """LS estimation from canonical rx-major real planes.
 
     * input is (2, S, len_ltf) ([0]=real, [1]=imag, S = B·num_rx in
@@ -59,10 +59,8 @@ def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor, consts=None,
 
     Args:
       planes: (2, S, len_ltf) float32 or bfloat16.
-      consts: optional (At_r, At_i, P) from ls_planes_constants.
-      dtype: optional operand dtype of the DFT products (e.g.
-        torch.bfloat16): operands are rounded to it, products and sums
-        stay float32.
+      consts: optional (At_r, At_i, P) from ls_planes_constants; the
+        products and sums are float32 whatever their dtype.
 
     Returns:
       (S, num_tx, num_carriers) complex64, rx-major.
@@ -72,12 +70,7 @@ def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor, consts=None,
     at_r, at_i, p = consts
     _, s, _ = planes.shape
     nsym, c = cfg.num_tx, cfg.num_carriers
-    x = planes.reshape(2, s * nsym, cfg.sym_len)
-    if dtype is not None:
-        x = x.to(dtype)
-        at_r = at_r.to(dtype)
-        at_i = at_i.to(dtype)
-    x = x.float()
+    x = planes.reshape(2, s * nsym, cfg.sym_len).float()
     at_r = at_r.float()
     at_i = at_i.float()
     zr = x[0] @ at_r - x[1] @ at_i                     # (S·nsym, C)

@@ -3,8 +3,8 @@
 Each source ``mamimo_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library with a plain C interface,
 ``mamimo_tpu_torch/_build/<name>-<hash>.so``, and loaded with
-``ctypes``. The hash covers the sources and the flags, so an edited
-source is rebuilt. Builds happen at first use (or in one parallel batch
+``ctypes``. The hash covers the sources, the flags and any ``-D``
+defines, so an edited source is rebuilt. Builds happen at first use (or in one parallel batch
 through ``build_all``); nothing is compiled when a module is imported.
 """
 
@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -37,26 +37,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines=()) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _target(name: str, defines=()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict[str, float]:
+def build_all(names=SOURCES, defines=()) -> dict[str, float]:
     """Compile every source whose library is missing, all at once (one
-    ``nvcc`` each). Returns the wall seconds of each build started; the
+    ``nvcc`` each), with ``-D`` for each of ``defines``. Returns the wall seconds of each build started; the
     ptxas report (registers, shared memory, spills) lands next to each
     library as ``<name>-<hash>.log``. Raises on the first failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        time.perf_counter(), tmp, out)
@@ -83,14 +88,16 @@ def ptxas_report(name: str) -> str:
                      if "Used" in l or "spill" in l or "Compiling" in l)
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+def library(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``
+    (none for the kernels the package launches), built if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build_all((name,))
-            lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
+            build_all((name,), defines)
+            lib = ctypes.CDLL(str(_target(name, defines)))
+            _libs[key] = lib
         return lib
 
 

@@ -198,8 +198,8 @@ def predict_all_pairs_planes_kernel(cfg: SimConfig, tcfg: TrainConfig,
                                              cfg.num_carriers)
 
 
-def _ff_lib() -> ctypes.CDLL:
-    lib = _build.library("fused_factored")
+def _ff_lib(defines=()) -> ctypes.CDLL:
+    lib = _build.library("fused_factored", defines)
     f = lib.factored_sig_proj_launch
     f.restype = ctypes.c_int
     f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \

@@ -9,32 +9,29 @@ Two measurements at the full BS32 width (H = 1024, num_tx = 32,
 1. blocks in flight: the kernel at S = 64, 128, 256 and 4096 rows
    (64 to 4096 blocks). If its time per wave of 132 blocks stays flat,
    the limit is inside each SM, not a resource the SMs share (L2, HBM);
-2. ablations: copies of ``csrc/fused_factored.cu`` with one phase cut
-   out (building h, the whole ring loop, the layer-3 products, all
-   products), built into ``_build/`` beside the real library and timed
-   at S = 4096. The differences split the kernel's time by phase.
+2. ablations: the kernel built with ``-DTAIL_CUT=<bits>`` (see
+   ``csrc/fused_factored.cu``), each cutting one phase out (building h,
+   the whole ring loop, the layer-3 products, all products), timed at
+   S = 4096. The differences split the kernel's time by phase.
 
-The ablated copies compute wrong answers by design and are never used
-outside this probe.
+The cut builds compute wrong answers by design and are never used
+outside this probe. PERF.md section 5 cites this probe's phase split;
+keep it while it does.
 """
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-CUTS = {
-    "no h build": ("for (int idx = tid * 4; idx < TBM * H;",
-                   "for (int idx = tid * 4; idx < 0;"),
-    "no ring loop": ("for (int it = 0; it < NIT; ++it) {",
-                     "for (int it = 0; it < 0; ++it) {"),
-    "no layer-3 mma": ("warp_mma_k16<2, 8>(accy", "if (0) warp_mma_k16<2, 8>(accy"),
-    "no mma": ("warp_mma_k16<2, 8>(accy", "if (0) warp_mma_k16<2, 8>(accy",
-               "warp_mma_k16<2, 4>(acc2", "if (0) warp_mma_k16<2, 4>(acc2"),
+CUTS = {                 # TAIL_CUT bits of csrc/fused_factored.cu
+    "no h build": 1,
+    "no ring loop": 2,
+    "no layer-3 mma": 4,
+    "no mma": 4 | 8,
 }
 
 
@@ -54,27 +51,6 @@ def _time_ms(fn, iters=10):
     return a.elapsed_time(b) / iters
 
 
-def _build_cut(name: str, subs) -> ctypes.CDLL:
-    from mamimo_tpu_torch.ops.kernels import _build
-
-    src = (_build.CSRC / "fused_factored.cu").read_text()
-    for old, new in zip(subs[::2], subs[1::2]):
-        if old not in src:
-            raise RuntimeError(f"{name}: {old!r} not in the kernel source")
-        src = src.replace(old, new)
-    tag = name.replace(" ", "_").replace("-", "")
-    cu = _build.BUILD_DIR / f"probe_{tag}.cu"
-    so = cu.with_suffix(".so")
-    cu.write_text(src)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                    "-o", str(so), str(cu)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    lib.factored_tail_launch.restype = ctypes.c_int
-    lib.factored_tail_launch.argtypes = [ctypes.c_void_p] * 11 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return lib
-
-
 def main() -> int:
     import torch
 
@@ -87,6 +63,7 @@ def main() -> int:
     from mamimo_tpu_torch.ops.kernels import _build
     from mamimo_tpu_torch.ops.kernels.fused_factored import (
         _TAIL_KEYS,
+        _ff_lib,
         factored_tail,
         prepare_factored_weights,
     )
@@ -118,8 +95,9 @@ def main() -> int:
     out = torch.empty((2, s, nt, C), device="cuda")
     args = [sp.data_ptr(), *(prep[k].data_ptr() for k in _TAIL_KEYS),
             out.data_ptr(), s, nt, H, C]
-    libs = {"full": _build.library("fused_factored")}
-    libs.update({name: _build_cut(name, subs) for name, subs in CUTS.items()})
+    libs = {"full": _ff_lib()}
+    libs.update({name: _ff_lib((f"TAIL_CUT={bits}",))
+                 for name, bits in CUTS.items()})
     for name, lib in libs.items():
         def run(lib=lib):
             rc = lib.factored_tail_launch(

@@ -20,7 +20,7 @@ from mamimo_tpu.models.predictor import CSIPredictor as JPredictor
 from mamimo_tpu.train import ckpt as jckpt
 from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models import mlp
-from mamimo_tpu_torch.models.predictor import CSIPredictor
+from mamimo_tpu_torch.models.predictor import CSIPredictor, full_f32_matmul
 from mamimo_tpu_torch.train import ckpt
 
 REPO = Path(__file__).resolve().parents[1]
@@ -160,6 +160,24 @@ def test_cuda_without_gpu_raises(served, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         CSIPredictor(served[1].path, device="cuda")
+
+
+def test_full_f32_matmul_restores_caller_settings():
+    """The predictor turns TF32 off only around its float32 products: the
+    caller's settings come back after, also when the body raises."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        with pytest.raises(ValueError):
+            with full_f32_matmul():
+                assert [f.allow_tf32 for f in flags] == [False, False]
+                raise ValueError
+        assert [f.allow_tf32 for f in flags] == [True, True]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
 
 
 def test_port_imports_without_jax():
