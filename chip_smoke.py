@@ -6,27 +6,40 @@
 Run from the root of a checkout. Phases (each prints one line, any
 failure ends the run with a non-zero exit code):
 
-1. card     — device name, and name + power limit from nvidia-smi;
-2. build    — nvcc builds every kernel of mamimo_tpu_torch/csrc (one
-              process per source, all at once);
-3. kernels  — each hand-written kernel against its plain PyTorch version
-              on the same inputs, at the full BS32 width (Nt=32, Nr=4,
-              hidden 1024/1024, len_ltf 10240), S = 256 rows; then at
-              S = 28 and on a small config (Nt=8, hidden 128, S = 11),
-              where the last tiles are partly empty;
-4. physics  — the sounding preamble through random flat channels, no
-              noise: the served LS must recover every channel on every
-              carrier;
-5. serving  — a glorot-initialized model (seeded torch.Generator) saved
-              as an npz checkpoint, loaded by CSIPredictor on the card,
-              answers 3 requests of 64 packets; every kernel's launch
-              count must have risen during those requests;
-6. timing   — each kernel, its plain version and a library yardstick at
-              the bench shape (1024 packets, S = 4096), CUDA events.
+1.  card     — device name, visible cards, name + power limit from
+               nvidia-smi (the run uses one card, cuda:0);
+2.  build    — nvcc builds every kernel of mamimo_tpu_torch/csrc (one
+               process per source, all at once);
+3.  kernels  — each hand-written kernel against its plain PyTorch version
+               on the same inputs, at the full BS32 width (Nt=32, Nr=4,
+               hidden 1024/1024, len_ltf 10240), S = 256 rows; then at
+               S = 28 and on a small config (Nt=8, hidden 128, S = 11),
+               where the last tiles are partly empty. The int8 GEMM is
+               held to its float64 plain version exactly, at the three
+               layer shapes with a ragged M;
+4.  physics  — the sounding preamble through random flat channels, no
+               noise: the served LS must recover every channel on every
+               carrier;
+5.  serving  — a glorot-initialized model (seeded torch.Generator) saved
+               as an npz checkpoint, loaded by CSIPredictor on the card,
+               answers 3 requests of 64 packets through estimate_full;
+               every kernel's launch count must have risen during them;
+5b. int8     — the same predictor answers 3 requests of 64 packets
+               through all_pairs(int8=True); the int8 GEMM must have
+               launched, and the first answer is held to the float32
+               all-pairs DNN and to the int8 path on the CPU;
+5c. planes   — each of the four bf16-input bench paths of
+               mamimo_tpu_torch/bench.py answers once; every kernel it
+               names must have launched;
+6.  timing   — each kernel, its plain version and a library yardstick at
+               the bench shape (1024 packets, S = 4096), CUDA events; the
+               device time of estimate_full, all_pairs(int8=True) and the
+               four planes paths.
 
-Prints a JSON line of per-kernel numbers before the last line, which is
-{"ok": true, "device": {...}}. Needs a CUDA GPU and the repository's
-sources; exits non-zero without either.
+Launch counts are set to 0 just before each of phases 5, 5b and 5c and
+read just after. Prints a JSON line of per-kernel numbers before the
+last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
+the repository's sources; exits non-zero without either.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM bf16 dense tensor cores
+INT8_OPS = 1979e12                 # H100 SXM int8 dense tensor cores
 S_CHECK = 256                      # rows of the kernel checks (64 packets)
 BENCH_PACKETS = 1024               # the bench shape: S = 4096
 
@@ -52,6 +66,20 @@ def nmse_db(got, ref) -> float:
     got, ref = np.asarray(got, np.complex128), np.asarray(ref, np.complex128)
     return float(10 * np.log10(np.sum(np.abs(got - ref) ** 2)
                                / np.sum(np.abs(ref) ** 2)))
+
+
+def to_np(t):
+    """A tensor on any device as a numpy array (bf16 widened to f32)."""
+    t = t.detach()
+    if t.dtype.is_floating_point and t.element_size() < 4:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def finite(x):
+    """x, or None where it is not finite (an exact match has NMSE -inf,
+    which JSON cannot hold)."""
+    return x if np.isfinite(x) else None
 
 
 def check(name: str, got, ref, limit_db: float) -> dict:
@@ -64,15 +92,36 @@ def check(name: str, got, ref, limit_db: float) -> dict:
                              f"{tuple(ref.shape)}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite output")
-    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    got = to_np(got).astype(np.complex128)
+    ref = to_np(ref).astype(np.complex128)
     db, err = nmse_db(got, ref), float(np.abs(got - ref).max())
     print(f"  {name}: NMSE {db:.2f} dB (limit {limit_db} dB), "
           f"max|err| {err:.3e}, max|ref| {np.abs(ref).max():.3e}")
     if not db <= limit_db:
         raise AssertionError(f"{name}: NMSE {db:.2f} dB > {limit_db} dB")
-    # an exact match has NMSE -inf, which JSON cannot hold
-    return {"nmse_db": db if db > float("-inf") else None,
-            "max_abs_err": err}
+    return {"nmse_db": finite(db), "max_abs_err": err}
+
+
+def check_exact(name: str, got, ref) -> dict:
+    """Hold an integer kernel's output to its reference bit for bit."""
+    import torch
+
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    bad = int((got != ref).sum())
+    print(f"  {name}: {'exact' if not bad else f'{bad} values differ'}")
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {got.numel()} values differ")
+    return {"nmse_db": None, "max_abs_err": 0.0, "exact": True}
+
+
+def check_pads_zero(name: str, hr, hi, s: int, nt: int, c: int) -> None:
+    """The raw LS planes' pad rows (samples >= s) and pad lanes (>= c)
+    must be exactly zero."""
+    for h in (hr, hi):
+        if bool((h[s * nt:] != 0).any()) or bool((h[:, c:] != 0).any()):
+            raise AssertionError(f"{name}: a pad row or lane is not zero")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -92,10 +141,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, ops: float, peak: float = BF16_FLOPS):
+    """The least time for moving `nbytes` and doing `ops` at `peak`."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOPS * 1e3
+    t_f = ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def int_mm_library(a, bt):
+    """torch._int_mm on the GEMM's operands, the library yardstick (the
+    port never calls it): B as (K, N), N padded to a multiple of 8 as its
+    shape rules need."""
+    import torch
+
+    n = bt.shape[0]
+    b = torch.zeros((bt.shape[1], -(-n // 8) * 8), dtype=torch.int8,
+                    device=bt.device)
+    b[:, :n] = bt.T
+    return lambda: torch._int_mm(a, b)
 
 
 def make_model(cfg, tcfg, seed: int, device):
@@ -134,8 +197,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from mamimo_tpu_torch.bench import PATHS, make_estimation_fn_planes
     from mamimo_tpu_torch.config import SimConfig, TrainConfig
-    from mamimo_tpu_torch.models.mlp import _factored_all_pairs
+    from mamimo_tpu_torch.models.mlp import (
+        _factored_all_pairs,
+        predict_all_pairs_planes,
+    )
     from mamimo_tpu_torch.models.predictor import CSIPredictor
     from mamimo_tpu_torch.ops.estimate import ls_estimate_planes, ls_planes_constants
     from mamimo_tpu_torch.ops.kernels import _build
@@ -147,15 +214,24 @@ def main() -> int:
         prepare_factored_weights,
     )
     from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_v1_plain,
         ls_kernel_constants,
+        ls_planes_pallas,
         ls_planes_pallas_v2_constants,
+        ls_planes_v1,
         ls_planes_v2,
+        ls_raw_to_complex,
+    )
+    from mamimo_tpu_torch.ops.kernels.int8_mm import (
+        _matmul_int8_plain,
+        matmul_int8,
     )
     from mamimo_tpu_torch.ops.ltf import gen_preamble, preamble_scale
     from mamimo_tpu_torch.train.ckpt import save_checkpoint
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    bf16 = torch.bfloat16
 
     # 1. card ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -163,7 +239,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"[1 card] {name}; torch {torch.__version__}, "
+    print(f"[1 card] {name}; {torch.cuda.device_count()} visible, this run "
+          f"uses 1 (cuda:0); torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     print(smi)
 
@@ -177,41 +254,74 @@ def main() -> int:
             print(f"  {src}: {line.strip()}")
 
     # 3. kernels against their plain versions --------------------------
+    def randint8(g, shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
     def check_kernels(cfg, tcfg, s, seed, tag):
-        """Each kernel against its plain version on the same bf16 inputs
-        and a seeded model; returns the model and the per-kernel
-        results."""
+        """Each kernel against its plain version on the same inputs and a
+        seeded model; returns the model and the per-kernel results."""
         params, bn = make_model(cfg, tcfg, seed=seed, device=dev)
         prep = prepare_factored_weights(cfg, tcfg, params, bn)
         g = torch.Generator(device=dev).manual_seed(seed + 1)
         x16 = torch.randn((2, s, cfg.len_ltf), generator=g,
-                          device=dev).to(torch.bfloat16)
+                          device=dev).to(bf16)
         x32 = x16.float()
-        print(f"[3 kernels] {tag}: Nt {cfg.num_tx}, hidden {tcfg.hidden}, "
-              f"S = {s}")
+        nt, C = cfg.num_tx, cfg.num_carriers
+        print(f"[3 kernels] {tag}: Nt {nt}, hidden {tcfg.hidden}, S = {s}")
         res = {}
-        ls2 = ls_planes_v2(cfg, x16, ls_kernel_constants(cfg, dev))
+        kc = ls_kernel_constants(cfg, dev)
+        ls2 = ls_planes_v2(cfg, x16, kc)
         h = ls_estimate_planes(cfg, x32, ls_planes_constants(cfg, device=dev))
         res["ls_planes_v2"] = check(
             "ls_planes_v2 vs ls_estimate_planes (f32)",
             ls2, torch.stack([h.real, h.imag]), -45.0)
+        # v1: the raw padded planes in f32 and bf16, and the complex form
+        ref_raw = torch.stack(_ls_v1_plain(cfg, x16, 8, torch.float32))
+        for dt in (torch.float32, bf16):
+            hr, hi = ls_planes_v1(cfg, x16, kc, out_dtype=dt)
+            if hr.dtype != dt:
+                raise AssertionError(f"ls_planes_v1 gave {hr.dtype}, want {dt}")
+            check_pads_zero("ls_planes_v1", hr, hi, s, nt, C)
+            r = check(f"ls_planes_v1 raw {str(dt)[6:]} vs its plain version "
+                      f"(f32), pads zero", torch.stack([hr, hi]), ref_raw,
+                      -45.0)
+            res.setdefault("ls_planes_v1", r)
+        check("ls_planes_pallas complex vs its plain version (f32)",
+              ls_planes_pallas(cfg, x16, kc),
+              ls_raw_to_complex(cfg, ref_raw[0], ref_raw[1], s), -45.0)
         sp = factored_sig_proj(x16, prep["w1"])
         res["factored_sig_proj"] = check(
             "factored_sig_proj vs f32 x @ W1 (same bf16 operands)",
             sp, x32 @ prep["w1"].float(), -70.0)
-        y = factored_tail(prep, sp, cfg.num_carriers)
+        y = factored_tail(prep, sp, C)
         res["factored_tail"] = check(
             "factored_tail vs its plain version (same sig_proj)",
-            y, _tail_plain(prep, sp, cfg.num_carriers), -40.0)
+            y, _tail_plain(prep, sp, C), -40.0)
         check("fused DNN vs f32 _factored_all_pairs (bf16-valued weights)",
               fused_factored_planes(cfg, tcfg, prep, x16),
               _factored_all_pairs(cfg, tcfg, params, bn, x32), -40.0)
+        # int8 GEMM at the three layer shapes of the int8 DNN, M ragged
+        H1, H2 = tcfg.hidden
+        for lyr, m, k, n in (("layer 1", s, cfg.len_ltf, H1),
+                             ("layer 2", s * nt - 3, H1, H2),
+                             ("layer 3", s * nt - 3, H2, C)):
+            a, bt = randint8(g, (m, k)), randint8(g, (n, k))
+            res.setdefault("matmul_int8", check_exact(
+                f"matmul_int8 {lyr} ({m}, {k}) @ ({k}, {n}) vs float64 plain",
+                matmul_int8(a, bt), _matmul_int8_plain(a, bt.T)))
         torch.cuda.synchronize()
         return params, bn, prep, res
 
     cfg, tcfg = SimConfig(), TrainConfig()
     params, bn, prep, res = check_kernels(cfg, tcfg, S_CHECK, 0,
                                           "BS32, full width")
+    # the largest int32 sum layer 1 can make: 10240 products of 127·(−127)
+    a = torch.full((64, cfg.len_ltf), 127, dtype=torch.int8, device=dev)
+    bt = torch.full((tcfg.hidden[0], cfg.len_ltf), -127, dtype=torch.int8,
+                    device=dev)
+    check_exact("matmul_int8 all ±127, K = 10240 (int32 range)",
+                matmul_int8(a, bt), _matmul_int8_plain(a, bt.T))
     # ragged edges: rows past the last full tile of each kernel
     check_kernels(cfg, tcfg, 7 * cfg.num_rx, 10, "BS32, 7 packets")
     check_kernels(SimConfig(num_tx=8, num_rx=2), TrainConfig(hidden=(128, 128)),
@@ -224,21 +334,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(str(Path(tmp) / "best"), cfg, tcfg, params, bn)
         pred = CSIPredictor(tmp, device="cuda")
+        pred_cpu = CSIPredictor(tmp, device="cpu")
     nb, nt, nr = 64, cfg.num_tx, cfg.num_rx
+    L, C = cfg.len_ltf, cfg.num_carriers
     gc = torch.Generator().manual_seed(2)
     H = torch.complex(torch.randn((nb, nt, nr), generator=gc),
                       torch.randn((nb, nt, nr), generator=gc)).numpy()
     pre = gen_preamble(cfg)                                 # (L, Nt)
     rx = pre[None] @ H                                      # (B, L, Nr)
-    rxm = rx.transpose(0, 2, 1).reshape(nb * nr, cfg.len_ltf)
+    rxm = rx.transpose(0, 2, 1).reshape(nb * nr, L)
     planes = np.stack([rxm.real, rxm.imag]).astype(np.float32)
     h_ls, _ = pred.estimate_full(planes)                    # (S, Nt, C)
     want = np.broadcast_to(
         (H.transpose(0, 2, 1).reshape(nb * nr, nt)
          * preamble_scale(cfg, nt))[:, :, None], h_ls.shape)
     err = nmse_db(h_ls, want)
-    worst = max(nmse_db(h_ls[..., c], want[..., c])
-                for c in range(cfg.num_carriers))
+    worst = max(nmse_db(h_ls[..., c], want[..., c]) for c in range(C))
     print(f"[4 physics] {nb} packets, flat channels, no noise: served LS "
           f"NMSE {err:.2f} dB, worst carrier {worst:.2f} dB (limit -40 dB "
           f"on every carrier)")
@@ -246,16 +357,30 @@ def main() -> int:
         raise AssertionError(f"physics: a carrier's LS NMSE is {worst:.2f} dB "
                              f"> -40 dB")
 
+    all_kernels = (ls_planes_v2, factored_sig_proj, factored_tail,
+                   ls_planes_v1, matmul_int8)
+
+    def counted(fn):
+        """Run fn with every launch count set to 0 just before; returns
+        fn's result and the counts just after."""
+        for k in all_kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.__name__: k.launches for k in all_kernels}
+
+    def require_launched(what, counts, names):
+        print(f"  launches in {what}: {counts}")
+        idle = [n for n in names if counts[n] == 0]
+        if idle:
+            raise AssertionError(f"{what}: {idle} never launched: {counts}")
+
     # 5. serving: the main path, counted --------------------------------
-    counted = (ls_planes_v2, factored_sig_proj, factored_tail)
-    for k in counted:
-        k.launches = 0
     gr = torch.Generator().manual_seed(3)
-    reqs = [torch.randn((2, 64 * nr, cfg.len_ltf), generator=gr).numpy()
+    reqs = [torch.randn((2, 64 * nr, L), generator=gr).numpy()
             for _ in range(3)]
-    outs = [pred.estimate_full(r) for r in reqs]
-    launches = {k.__name__: k.launches for k in counted}
-    shape = (64 * nr, nt, cfg.num_carriers)
+    outs, cnt_serve = counted(lambda: [pred.estimate_full(r) for r in reqs])
+    shape = (64 * nr, nt, C)
     for h_ls, h_dnn in outs:
         for a in (h_ls, h_dnn):
             if a.shape != shape or a.dtype.name != "complex64":
@@ -275,22 +400,82 @@ def main() -> int:
             raise AssertionError(f"served {nm}: NMSE {db:.2f} dB > -40 dB")
     print(f"[5 serving] 3 requests x 64 packets -> {shape} complex64 x2, "
           f"finite; vs f32 plain: h_ls {served['h_ls']:.2f} dB, "
-          f"h_dnn {served['h_dnn']:.2f} dB; launches {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
+          f"h_dnn {served['h_dnn']:.2f} dB")
+    require_launched("estimate_full", cnt_serve,
+                     ("ls_planes_v2", "factored_sig_proj", "factored_tail"))
+
+    # 5b. int8 serving: all_pairs(int8=True), counted ------------------
+    reqs4 = [torch.randn((2, 64, nr, L), generator=gr).numpy()
+             for _ in range(3)]
+    outs8, cnt_int8 = counted(
+        lambda: [pred.all_pairs(r, int8=True) for r in reqs4])
+    shape4 = (64, nr, nt, C)
+    for a in outs8:
+        if a.shape != shape4 or a.dtype.name != "complex64" \
+                or not np.isfinite(a).all():
+            raise AssertionError(f"all_pairs(int8=True) gave {a.shape} "
+                                 f"{a.dtype}, want finite {shape4} complex64")
+    ref_f32 = predict_all_pairs_planes(
+        cfg, tcfg, params, bn, torch.from_numpy(reqs4[0]).to(dev)).cpu().numpy()
+    ref_cpu = pred_cpu.all_pairs(reqs4[0], int8=True)
+    int8_db = {"vs_f32_plain": nmse_db(outs8[0], ref_f32),
+               "vs_int8_cpu": nmse_db(outs8[0], ref_cpu)}
+    print(f"[5b int8] 3 requests x 64 packets -> {shape4} complex64, finite; "
+          f"vs f32 all-pairs DNN {int8_db['vs_f32_plain']:.2f} dB (limit "
+          f"-25), vs the int8 path on the CPU {int8_db['vs_int8_cpu']:.2f} dB "
+          f"(limit -40)")
+    require_launched("all_pairs(int8=True)", cnt_int8, ("matmul_int8",))
+    if not (int8_db["vs_f32_plain"] <= -25.0
+            and int8_db["vs_int8_cpu"] <= -40.0):
+        raise AssertionError(f"all_pairs(int8=True) off its references: "
+                             f"{int8_db}")
+
+    # 5c. the four bf16-input planes paths, each counted ----------------
+    def kernels_of(opts):
+        ls_k = ("ls_planes_v1",) if opts.get("ls_pallas") else ()
+        dnn_k = (("matmul_int8",) if opts.get("dnn_int8")
+                 else ("factored_sig_proj", "factored_tail"))
+        return ls_k + dnn_k
+
+    fns = {pname: make_estimation_fn_planes(cfg, tcfg, params, bn,
+                                            input_bf16=True, **opts)
+           for pname, opts in PATHS.items()}
+    xp16 = torch.randn((2, S_CHECK, L), generator=g, device=dev).to(bf16)
+    xp32 = xp16.float()
+    ls_ref = ls_estimate_planes(cfg, xp32, f32_consts)
+    dnn_ref = _factored_all_pairs(cfg, tcfg, params, bn, xp32)
+    dnn_ref = torch.complex(dnn_ref[0], dnn_ref[1])
+    print(f"[5c planes] 4 bench paths, S = {S_CHECK} bf16 planes")
+    cnt_paths, path_db = {}, {}
+    for pname, fn in fns.items():
+        (h_ls, h_dnn), cnt = counted(lambda: fn(xp16))
+        if PATHS[pname].get("serving_planes"):
+            h_ls = ls_raw_to_complex(cfg, h_ls[0], h_ls[1], S_CHECK)
+            h_dnn = torch.complex(h_dnn[0].float(), h_dnn[1].float())
+        lim = -25.0 if PATHS[pname].get("dnn_int8") else -40.0
+        path_db[pname] = {
+            "h_ls": check(f"{pname} h_ls vs f32 LS", h_ls, ls_ref, -45.0),
+            "h_dnn": check(f"{pname} h_dnn vs f32 DNN", h_dnn, dnn_ref, lim)}
+        require_launched(pname, cnt, kernels_of(PATHS[pname]))
+        cnt_paths[pname] = cnt
+    ls_v1_launches = sum(c["ls_planes_v1"] for c in cnt_paths.values())
 
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
-    H1 = tcfg.hidden[0]
-    L, C = cfg.len_ltf, cfg.num_carriers
-    xb16 = torch.randn((2, S, L), generator=g, device=dev).to(torch.bfloat16)
+    H1, H2 = tcfg.hidden
+    xb16 = torch.randn((2, S, L), generator=g, device=dev).to(bf16)
     xb32 = xb16.float()
     print(f"[6 timing] S = {S} ({BENCH_PACKETS} packets), {smi}")
     rows = []
 
+    def row(kname, shape_, src, repl, kern, plain, lib, nbytes, ops,
+            launches, path, peak=BF16_FLOPS):
+        rows.append(dict(name=kname, shape=shape_, source=src, replaces=repl,
+                         kern=kern, plain=plain, lib=lib, nbytes=nbytes,
+                         ops=ops, peak=peak, launches=launches, path=path))
+
     # LS: kernel, plain (f32), library (bf16 matmul DFT-select + despread)
-    bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, torch.bfloat16, dev)
+    bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, bf16, dev)
     cp_ = bv2.shape[1] // 2
     pm = f32_consts[2]
 
@@ -301,81 +486,135 @@ def main() -> int:
         z = torch.stack([zr, zi]).view(2, S, nt, C)
         return torch.matmul(pm, z)
 
-    # the kernel reads only the fft samples of each symbol, never the CP
-    ls_bytes = (2 * S * nt * cfg.fft_length * 2 + consts.numel() * 2
-                + 2 * S * nt * C * 4)
-    ls_flops = 2.0 * (S * nt) * (2 * cfg.fft_length) * (2 * C)
-    rows.append(("ls_planes_v2", "mamimo_tpu_torch/csrc/ls_v2.cu",
-                 "mamimo_tpu/ops/pallas/fused_ls.py:424",
-                 lambda: ls_planes_v2(cfg, xb16, consts),
-                 lambda: ls_estimate_planes(cfg, xb32, f32_consts),
-                 ls_library, ls_bytes, ls_flops))
+    # the LS kernels read only the fft samples of each symbol, never the CP
+    ls_in = 2 * S * nt * cfg.fft_length * 2 + consts.numel() * 2
+    ls_ops = 2.0 * (S * nt) * (2 * cfg.fft_length) * (2 * C)
+    row("ls_planes_v2", f"planes (2, {S}, {L}) bf16 -> (2, {S}, {nt}, {C}) f32",
+        "mamimo_tpu_torch/csrc/ls_v2.cu",
+        "mamimo_tpu/ops/pallas/fused_ls.py:424",
+        lambda: ls_planes_v2(cfg, xb16, consts),
+        lambda: ls_estimate_planes(cfg, xb32, f32_consts),
+        ls_library, ls_in + 2 * S * nt * C * 4, ls_ops,
+        cnt_serve["ls_planes_v2"], "estimate_full x3")
+    rows_out = -(-S // 8) * 8 * nt
+    row("ls_planes_v1", f"planes (2, {S}, {L}) bf16 -> raw 2 x ({rows_out}, "
+        f"{cp_}) bf16", "mamimo_tpu_torch/csrc/ls_v1.cu",
+        "mamimo_tpu/ops/pallas/fused_ls.py:253",
+        lambda: ls_planes_v1(cfg, xb16, consts, out_dtype=bf16),
+        lambda: _ls_v1_plain(cfg, xb16, 8, bf16),
+        ls_library, ls_in + 2 * rows_out * cp_ * 2, ls_ops,
+        ls_v1_launches, "planes paths x4")
+    row("ls_planes_v1", f"planes (2, {S}, {L}) bf16 -> ({S}, {nt}, {C}) "
+        f"complex64 (raw f32 + densify)", "mamimo_tpu_torch/csrc/ls_v1.cu",
+        "mamimo_tpu/ops/pallas/fused_ls.py:253",
+        lambda: ls_planes_pallas(cfg, xb16, consts),
+        lambda: ls_raw_to_complex(cfg, *_ls_v1_plain(cfg, xb16, 8,
+                                                     torch.float32), S),
+        ls_library, ls_in + S * nt * C * 8, ls_ops,
+        ls_v1_launches, "planes paths x4")
 
     spb = factored_sig_proj(xb16, prep["w1"])
     w1f = prep["w1"].float()
-    sp_bytes = 2 * S * L * 2 + prep["w1"].numel() * 2 + 2 * S * H1 * 4
-    sp_flops = 2.0 * 2 * S * L * H1
-    rows.append(("factored_sig_proj", "mamimo_tpu_torch/csrc/fused_factored.cu",
-                 "mamimo_tpu/ops/pallas/fused_factored.py:169",
-                 lambda: factored_sig_proj(xb16, prep["w1"]),
-                 lambda: torch.matmul(xb32, w1f),
-                 lambda: torch.matmul(xb16, prep["w1"]), sp_bytes, sp_flops))
-
-    H2 = tcfg.hidden[1]
+    row("factored_sig_proj", f"(2, {S}, {L}) @ (2, {L}, {H1}) bf16 -> f32",
+        "mamimo_tpu_torch/csrc/fused_factored.cu",
+        "mamimo_tpu/ops/pallas/fused_factored.py:169",
+        lambda: factored_sig_proj(xb16, prep["w1"]),
+        lambda: torch.matmul(xb32, w1f),
+        lambda: torch.matmul(xb16, prep["w1"]),
+        2 * S * L * 2 + prep["w1"].numel() * 2 + 2 * S * H1 * 4,
+        2.0 * 2 * S * L * H1, cnt_serve["factored_sig_proj"],
+        "estimate_full x3")
 
     def tail_library():
         p = prep
         hh = (torch.relu(spb[:, :, None, :] + p["hb"][:, None])
-              * p["a1"][:, None] + p["c1"][:, None]).to(torch.bfloat16)
+              * p["a1"][:, None] + p["c1"][:, None]).to(bf16)
         h2 = torch.relu(torch.matmul(hh, p["w2"][:, None]) + p["b2"][:, None])
-        h2 = (h2 * p["a2"][:, None] + p["c2"][:, None]).to(torch.bfloat16)
+        h2 = (h2 * p["a2"][:, None] + p["c2"][:, None]).to(bf16)
         return torch.matmul(h2, p["w3"][:, None])[..., :C]
 
     tail_bytes = (2 * S * H1 * 4 + sum(prep[k].numel() * prep[k].element_size()
                                        for k in ("hb", "a1", "c1", "w2", "b2",
                                                  "a2", "c2", "w3", "b3"))
                   + 2 * S * nt * C * 4)
-    tail_flops = 2.0 * 2 * S * nt * (H1 * H2 + H2 * C)
-    rows.append(("factored_tail", "mamimo_tpu_torch/csrc/fused_factored.cu",
-                 "mamimo_tpu/ops/pallas/fused_factored.py:169",
-                 lambda: factored_tail(prep, spb, C),
-                 lambda: _tail_plain(prep, spb, C),
-                 tail_library, tail_bytes, tail_flops))
+    row("factored_tail", f"sig_proj (2, {S}, {H1}) f32 -> (2, {S}, {nt}, {C}) "
+        f"f32", "mamimo_tpu_torch/csrc/fused_factored.cu",
+        "mamimo_tpu/ops/pallas/fused_factored.py:169",
+        lambda: factored_tail(prep, spb, C),
+        lambda: _tail_plain(prep, spb, C),
+        tail_library, tail_bytes, 2.0 * 2 * S * nt * (H1 * H2 + H2 * C),
+        cnt_serve["factored_tail"], "estimate_full x3")
+
+    # int8 GEMM at the int8 DNN's per-plane layer shapes
+    gemm_ms = {}
+    for lyr, m, k, n in (("layer 1", S, L, H1), ("layer 2", S * nt, H1, H2),
+                         ("layer 3", S * nt, H2, C)):
+        a, bt = randint8(g, (m, k)), randint8(g, (n, k))
+        row("matmul_int8", f"{lyr}: ({m}, {k}) @ ({k}, {n}) int8 -> int32",
+            "mamimo_tpu_torch/csrc/int8_mm.cu",
+            "mamimo_tpu/ops/pallas/int8_mm.py:50",
+            lambda a=a, bt=bt: matmul_int8(a, bt),
+            lambda a=a, bt=bt: _matmul_int8_plain(a, bt.T),
+            int_mm_library(a, bt), m * k + n * k + m * n * 4, 2.0 * m * n * k,
+            cnt_int8["matmul_int8"], "all_pairs(int8=True) x3",
+            peak=INT8_OPS)
 
     kernels = []
-    for (kname, src, repl, kern, plain, lib, nbytes, flops) in rows:
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain, iters=3, warmup=1)
-        lib_ms = time_ms(lib)
-        bms, by = bound_ms(nbytes, flops)
-        print(f"  {kname}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
-              f"{bms / ms * 100:.1f}% of it); plain {plain_ms:.4f} ms; "
-              f"library {lib_ms:.4f} ms  [{smi}]")
+    for r in rows:
+        ms = time_ms(r["kern"])
+        plain_ms = time_ms(r["plain"], iters=3, warmup=1)
+        lib_ms = time_ms(r["lib"])
+        bms, by = bound_ms(r["nbytes"], r["ops"], r["peak"])
+        if r["name"] == "matmul_int8":
+            gemm_ms[r["shape"].split(":")[0]] = ms
+        print(f"  {r['name']} [{r['shape']}]: {ms:.4f} ms (bound {bms:.4f} ms "
+              f"by {by}, {bms / ms * 100:.1f}% of it); "
+              f"plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms  [{smi}]")
         kernels.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[kname],
-            "max_abs_err": res[kname]["max_abs_err"],
-            "nmse_db": res[kname]["nmse_db"],
+            "name": r["name"], "shape": r["shape"], "route": "cuda",
+            "source": r["source"], "replaces": r["replaces"],
+            "launches": r["launches"], "launches_in": r["path"],
+            "max_abs_err": res[r["name"]]["max_abs_err"],
+            "nmse_db": res[r["name"]]["nmse_db"],
+            "exact": res[r["name"]].get("exact", False),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms,
         })
 
-    # the whole serving call on the device (planes in, both estimates out)
-    xf = xb32.contiguous()
-    full_ms = time_ms(lambda: pred.serve_planes(xf), iters=10)
+    # the serving calls on the device (planes in, estimates out)
     n_est = S * nt
-    print(f"  estimate_full device time: {full_ms:.4f} ms for {n_est} "
-          f"estimates = {n_est / full_ms * 1e3:.6g} estimates/s  [{smi}]")
+    calls = {}
+    xf = xb32.contiguous()
+    calls["estimate_full"] = time_ms(lambda: pred.serve_planes(xf), iters=10)
+    x4 = xf.view(2, BENCH_PACKETS, nr, L)
+    calls["all_pairs(int8=True)"] = time_ms(
+        lambda: pred.all_pairs_planes(x4, int8=True), iters=5)
+    for pname, fn in fns.items():
+        calls[pname] = time_ms(lambda fn=fn: fn(xb16), iters=5)
+    for cname, ms in calls.items():
+        print(f"  {cname} device time: {ms:.4f} ms for {n_est} estimates = "
+              f"{n_est / ms * 1e3:.6g} estimates/s  [{smi}]")
+    gemms = 2 * sum(gemm_ms.values())
+    int8_ms = calls["all_pairs(int8=True)"]
+    print(f"  all_pairs(int8=True) split: 6 int8 GEMMs {gemms:.4f} ms "
+          f"({gemms / int8_ms * 100:.1f}%), the rest (quantise, dequantise, "
+          f"bias/relu/BN, complex) {int8_ms - gemms:.4f} ms  [{smi}]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "serving": {
-        "S": S, "estimate_full_ms": full_ms,
-        "estimates_per_s": n_est / full_ms * 1e3,
-        "served_nmse_db": served, "physics_ls_nmse_db": err,
+        "S": S, "device_ms": calls,
+        "estimates_per_s": {k: n_est / v * 1e3 for k, v in calls.items()},
+        "int8_gemm_ms": gemms,
+        "served_nmse_db": {k: finite(v) for k, v in served.items()},
+        "int8_nmse_db": {k: finite(v) for k, v in int8_db.items()},
+        "planes_paths_nmse_db": {k: {h: v[h]["nmse_db"] for h in v}
+                                 for k, v in path_db.items()},
+        "physics_ls_nmse_db": err,
         "physics_worst_carrier_nmse_db": worst},
         "card": smi}))
+    # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

@@ -9,8 +9,11 @@ first use into ``_build/`` and bound through ``ctypes``.
 - ``config``            : SimConfig / TrainConfig (same fields and JSON)
 - ``ops.ltf``           : LTF sequence, Hadamard P, sounding preamble
 - ``ops.estimate``      : LS estimate from flat planes (plain version)
-- ``ops.kernels``       : kernel wrappers (LS, fused factored DNN)
-- ``models``            : the CSI MLP (eval) and ``CSIPredictor``
+- ``ops.kernels``       : kernel wrappers (LS v2 and v1, fused factored
+                          DNN, int8 GEMM)
+- ``models``            : the CSI MLP (eval), its int8 quantized form
+                          (``models.quant``) and ``CSIPredictor``
+- ``bench``             : the bf16-input planes estimation paths
 - ``train.ckpt``        : npz checkpoints, interchangeable with the JAX
                           package's
 """

@@ -6,7 +6,9 @@ serve channel estimates, with the per-experiment pre/post-processing of
 ``estimate_full`` is the serving call. On the card it runs the two
 hand-written kernels (LS, then the fused factored DNN) on bfloat16
 planes; on the CPU it runs their float32 plain versions, as the JAX
-package's CPU branch does.
+package's CPU branch does. ``all_pairs(int8=True)`` serves the int8
+quantized DNN (``models/quant.py``), whose three products per plane run
+the int8 GEMM kernel on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ from mamimo_tpu_torch.models.mlp import (
     predict_all_pairs_planes,
     predict_complex,
     tree_leaves,
+)
+from mamimo_tpu_torch.models.quant import (
+    predict_all_pairs_planes_int8,
+    prepare_int8_serving,
+    quantize_params_int8,
 )
 from mamimo_tpu_torch.ops.estimate import ls_estimate_planes, ls_planes_constants
 from mamimo_tpu_torch.ops.kernels.fused_factored import (
@@ -75,6 +82,7 @@ class CSIPredictor:
             ck["params"], ck["bn_state"], device=self.device)
         self._prepared = None
         self._ls_consts = None
+        self._qparams = None
         if verbose:
             n = sum(t.numel() for t in tree_leaves(self.params))
             print(f"[CSIPredictor] loaded {model_path}: {n} params on "
@@ -93,6 +101,18 @@ class CSIPredictor:
                     self.cfg, self.tcfg, self.params, self.bn_state)
             self._ls_consts = ls_kernel_constants(self.cfg, self.device)
         return self._prepared, self._ls_consts
+
+    def _int8_weights(self):
+        """The int8 serving tree (split W1 signal/pilot scales, folded
+        BN, the kernel's transposed weights and the pilot-row product),
+        made once per predictor in full float32."""
+        if self._qparams is None:
+            with full_f32_matmul():
+                self._qparams = prepare_int8_serving(
+                    self.cfg, quantize_params_int8(
+                        self.tcfg, self.params, self.bn_state,
+                        sig_len=self.cfg.len_ltf))
+        return self._qparams
 
     def serve_planes(self, planes: torch.Tensor):
         """The device side of estimate_full: planes (2, S, len_ltf) on
@@ -130,20 +150,34 @@ class CSIPredictor:
         return tuple(torch.complex(a[0], a[1]).cpu().numpy()
                      for a in (ls2, y2))
 
-    def all_pairs(self, rx_planes: np.ndarray) -> np.ndarray:
-        """All-pairs DNN CSI from rx-major planes (2, B, num_rx, len_ltf)
-        float32 → (B, num_rx, num_tx, num_carriers) complex64. CUDA: the
-        fused factored kernels (bf16 operands); CPU: float32."""
-        x = torch.as_tensor(np.asarray(rx_planes, np.float32),
-                            device=self.device)
+    def all_pairs_planes(self, rx_planes: torch.Tensor,
+                         int8: bool = False) -> torch.Tensor:
+        """The device side of all_pairs: rx-major planes (2, B, num_rx,
+        len_ltf) on this predictor's device → (B, num_rx, num_tx,
+        num_carriers) complex64 on the device."""
+        if int8:
+            return predict_all_pairs_planes_int8(
+                self.cfg, self.tcfg, self._int8_weights(), rx_planes)
         if self.on_cuda:
             prepared, _ = self._kernel_weights()
-            y = predict_all_pairs_planes_kernel(self.cfg, self.tcfg,
-                                                prepared, x)
-        else:
-            y = predict_all_pairs_planes(self.cfg, self.tcfg, self.params,
-                                         self.bn_state, x)
-        return y.cpu().numpy()
+            return predict_all_pairs_planes_kernel(self.cfg, self.tcfg,
+                                                   prepared, rx_planes)
+        return predict_all_pairs_planes(self.cfg, self.tcfg, self.params,
+                                        self.bn_state, rx_planes)
+
+    def all_pairs(self, rx_planes: np.ndarray,
+                  int8: bool = False) -> np.ndarray:
+        """All-pairs DNN CSI from rx-major planes (2, B, num_rx, len_ltf)
+        float32 → (B, num_rx, num_tx, num_carriers) complex64.
+
+        int8=False — CUDA: the fused factored kernels (bf16 operands);
+        CPU: float32. int8=True — the quantized DNN (int8 weights folded
+        once per predictor, dynamic per-row activation scales); CUDA: its
+        products run the int8 GEMM kernel; CPU: its exact plain version.
+        """
+        x = torch.as_tensor(np.asarray(rx_planes, np.float32),
+                            device=self.device)
+        return self.all_pairs_planes(x, int8).cpu().numpy()
 
     def inference(self, input_batch: np.ndarray, pilot: np.ndarray):
         """input_batch: (B, len_ltf) complex; pilot: (B, num_tx).

@@ -12,7 +12,15 @@ from mamimo_tpu_torch.ops.kernels.fused_factored import (  # noqa: F401
 )
 from mamimo_tpu_torch.ops.kernels.fused_ls import (  # noqa: F401
     ls_kernel_constants,
+    ls_planes_pallas,
+    ls_planes_pallas_constants,
     ls_planes_pallas_v2_constants,
+    ls_planes_v1,
     ls_planes_v2,
+    ls_raw_to_complex,
     ls_v2_to_complex,
+)
+from mamimo_tpu_torch.ops.kernels.int8_mm import (  # noqa: F401
+    matmul_int8,
+    matmul_pallas,
 )

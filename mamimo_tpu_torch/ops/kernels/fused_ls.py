@@ -1,9 +1,12 @@
-"""LS estimate from the canonical flat planes: wrapper of the hand-written
-CUDA kernel ``csrc/ls_v2.cu`` (the counterpart of
-``mamimo_tpu/ops/pallas/fused_ls.py``, v2 flat-planes kernel).
+"""LS estimate from the canonical flat planes: wrappers of the hand-written
+CUDA kernels ``csrc/ls_v2.cu`` and ``csrc/ls_v1.cu`` (the counterparts of
+the v2 and v1 flat-planes kernels of ``mamimo_tpu/ops/pallas/fused_ls.py``).
+Both kernels share their GEMM and Walsh–Hadamard body
+(``csrc/ls_core.cuh``) and differ in the output form.
 
-On a CUDA tensor ``ls_planes_v2`` launches the kernel; on a CPU tensor it
-runs the kernel's plain version, ``ops/estimate.py::ls_estimate_planes``.
+On a CUDA tensor ``ls_planes_v2`` and ``ls_planes_v1`` launch their
+kernel; on a CPU tensor they run the kernel's plain version
+(``ops/estimate.py::ls_estimate_planes``, ``_ls_v1_plain``).
 """
 
 from __future__ import annotations
@@ -19,32 +22,47 @@ from mamimo_tpu_torch.ops.kernels import _build
 from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda
 from mamimo_tpu_torch.ops.ltf import _hadamard_np
 
+def ls_planes_pallas_constants(cfg: SimConfig, block_samples: int = 8,
+                               dtype=torch.float32, device=None):
+    """The TPU v1 kernel's constants (At_r, At_i, K): At =
+    dft_selected_padded_np(cfg).T as real planes (sym_len, Cp), the CP
+    drop as zero rows and the carriers padded to Cp = round_up(
+    num_carriers, 128); K = I_block ⊗ P. The CUDA kernels' DFT matrix is
+    derived from them (``ls_kernel_constants``)."""
+    at = dft_selected_padded_np(cfg).T                 # (sym_len, C)
+    cp_ = _round_up(cfg.num_carriers, 128)
+    atp = np.zeros((cfg.sym_len, cp_), np.complex64)
+    atp[:, :cfg.num_carriers] = at
+    k = np.kron(np.eye(block_samples, dtype=np.float32),
+                _hadamard_np(cfg.num_tx).astype(np.float32))
+    return tuple(torch.as_tensor(a, device=device).to(dtype)
+                 for a in (np.real(atp).copy(), np.imag(atp).copy(), k))
+
 
 def ls_planes_pallas_v2_constants(cfg: SimConfig, block_samples: int = 8,
                                   dtype=torch.float32, device=None):
-    """The TPU kernel's constants (B, K): B = [At_r | At_i] of shape
-    (sym_len, 2·Cp) with the CP drop as zero rows and the carriers padded
-    to Cp = round_up(num_carriers, 128); K = I_block ⊗ P. The CUDA
-    kernel's DFT matrix is derived from B (``ls_kernel_constants``)."""
-    at = dft_selected_padded_np(cfg).T                 # (sym_len, C)
-    cp_ = _round_up(cfg.num_carriers, 128)
-    b = np.zeros((cfg.sym_len, 2 * cp_), np.float32)
-    b[:, :cfg.num_carriers] = np.real(at)
-    b[:, cp_:cp_ + cfg.num_carriers] = np.imag(at)
-    k = np.kron(np.eye(block_samples, dtype=np.float32),
-                _hadamard_np(cfg.num_tx).astype(np.float32))
-    return (torch.as_tensor(b, device=device).to(dtype),
-            torch.as_tensor(k, device=device).to(dtype))
+    """The TPU v2 kernel's constants (B, K): B = [At_r | At_i] of shape
+    (sym_len, 2·Cp), K = I_block ⊗ P, from ls_planes_pallas_constants."""
+    at_r, at_i, k = ls_planes_pallas_constants(cfg, block_samples,
+                                               device=device)
+    return torch.cat([at_r, at_i], 1).to(dtype), k.to(dtype)
+
+
+def ls_raw_to_complex(cfg: SimConfig, hr: torch.Tensor, hi: torch.Tensor,
+                      s: int) -> torch.Tensor:
+    """Densify the raw padded (hr, hi) planes, each (rows, Cp), to
+    (S, num_tx, num_carriers) complex64 rx-major."""
+    nsym, c = cfg.num_tx, cfg.num_carriers
+    hr = hr[: s * nsym, :c].reshape(s, nsym, c).float()
+    hi = hi[: s * nsym, :c].reshape(s, nsym, c).float()
+    return torch.complex(hr, hi)
 
 
 def ls_v2_to_complex(cfg: SimConfig, h: torch.Tensor, s: int) -> torch.Tensor:
-    """Densify the TPU kernel's (rows, 2·Cp) output to (S, num_tx,
+    """Densify the TPU v2 kernel's (rows, 2·Cp) output to (S, num_tx,
     num_carriers) complex64 rx-major."""
     cp_ = h.shape[1] // 2
-    nsym, c = cfg.num_tx, cfg.num_carriers
-    hr = h[: s * nsym, :c].reshape(s, nsym, c).float()
-    hi = h[: s * nsym, cp_:cp_ + c].reshape(s, nsym, c).float()
-    return torch.complex(hr, hi)
+    return ls_raw_to_complex(cfg, h[:, :cp_], h[:, cp_:], s)
 
 
 def ls_kernel_constants(cfg: SimConfig, device=None) -> torch.Tensor:
@@ -122,5 +140,98 @@ def _ls_lib() -> ctypes.CDLL:
     fn = lib.ls_planes_v2_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    return lib
+
+
+# ----------------------------------------------------------------------
+# v1: the raw padded (hr, hi) serving form
+# ----------------------------------------------------------------------
+
+def _ls_v1_plain(cfg: SimConfig, planes: torch.Tensor, block_samples: int,
+                 out_dtype: torch.dtype):
+    """Plain version of the v1 kernel: the float32 plain LS laid out as
+    the kernel's raw planes, zero pad rows and lanes included."""
+    h = ls_estimate_planes(cfg, planes.float())        # (S, nt, C)
+    s, nt, c = h.shape
+    raw = torch.zeros((2, _round_up(s, block_samples) * nt,
+                       _round_up(c, 128)), device=planes.device)
+    raw[0, :s * nt, :c] = h.real.reshape(s * nt, c)
+    raw[1, :s * nt, :c] = h.imag.reshape(s * nt, c)
+    return raw[0].to(out_dtype), raw[1].to(out_dtype)
+
+
+def ls_planes_v1(cfg: SimConfig, planes: torch.Tensor,
+                 consts: torch.Tensor | None = None, *,
+                 block_samples: int = 8, out_dtype=torch.float32):
+    """The v1 kernel's raw output: (hr, hi), each (round_up(S,
+    block_samples)·num_tx, Cp) in ``out_dtype`` (float32 or bfloat16),
+    row s·num_tx + j, lane c; pad rows and pad lanes are zero.
+
+    Args:
+      planes: (2, S, len_ltf) — bfloat16 on CUDA (the kernel's input);
+        float32 or bfloat16 on the CPU.
+      consts: CUDA only, ``ls_kernel_constants(cfg, device)``; built per
+        call when omitted.
+    """
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    if not on_cuda(planes):
+        return _ls_v1_plain(cfg, planes, block_samples, out_dtype)
+    if consts is None:
+        consts = ls_kernel_constants(cfg, planes.device)
+    planes = planes.contiguous()
+    _check_kernel_shapes(cfg, planes, consts)
+    s = planes.shape[1]
+    s_out = _round_up(s, block_samples)
+    cp_ = consts.shape[1] // 2
+    hr, hi = (torch.empty((s_out * cfg.num_tx, cp_), dtype=out_dtype,
+                          device=planes.device) for _ in range(2))
+    lib = _ls_v1_lib()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ls_planes_v1_launch(
+            planes.data_ptr(), consts.data_ptr(), hr.data_ptr(),
+            hi.data_ptr(), s, s_out, cfg.num_tx, cfg.sym_len, cfg.cp_length,
+            cfg.fft_length, cp_, int(out_dtype == torch.bfloat16), stream)
+    _build.check(rc, lib, "ls_planes_v1_error_string", "ls_planes_v1")
+    ls_planes_v1.launches += 1
+    return hr, hi
+
+
+ls_planes_v1.launches = 0
+
+
+def ls_planes_pallas(cfg: SimConfig, planes: torch.Tensor,
+                     consts: torch.Tensor | None = None, *,
+                     block_samples: int = 8, raw: bool = False,
+                     out_dtype=None):
+    """LS estimation from flat canonical planes through the v1 kernel
+    (the port of the JAX ``ls_planes_pallas``; its ``as_planes`` form has
+    no caller in the port and is not ported).
+
+    Args:
+      planes: (2, S, len_ltf); bfloat16 on CUDA.
+      consts: CUDA only, ``ls_kernel_constants(cfg, device)``.
+      raw: return the kernel's padded (hr, hi) untouched — the serving
+        form (see ``ls_planes_v1``).
+      out_dtype: float32 (default) or bfloat16 storage of (hr, hi).
+
+    Returns:
+      (S, num_tx, num_carriers) complex64 rx-major, or the raw (hr, hi).
+    """
+    hr, hi = ls_planes_v1(cfg, planes, consts, block_samples=block_samples,
+                          out_dtype=out_dtype or torch.float32)
+    if raw:
+        return hr, hi
+    return ls_raw_to_complex(cfg, hr, hi, planes.shape[1])
+
+
+def _ls_v1_lib() -> ctypes.CDLL:
+    lib = _build.library("ls_v1")
+    fn = lib.ls_planes_v1_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     return lib

@@ -185,6 +185,7 @@ def test_port_imports_without_jax():
     or the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import mamimo_tpu_torch, mamimo_tpu_torch.models.predictor, "
+            "mamimo_tpu_torch.models.quant, mamimo_tpu_torch.bench, "
             "mamimo_tpu_torch.ops.kernels, mamimo_tpu_torch.train; "
             "bad = [m for m in sys.modules if m == 'mamimo_tpu' "
             "or m.startswith('mamimo_tpu.')]; "
