@@ -16,7 +16,9 @@ failure ends the run with a non-zero exit code):
                S = 28 and on a small config (Nt=8, hidden 128, S = 11),
                where the last tiles are partly empty. The int8 GEMM is
                held to its float64 plain version exactly, at the three
-               layer shapes with a ragged M;
+               layer shapes with a ragged M. The per-pair LS takes whole
+               packets (64, 7 and 7) of time-major preambles; the fused
+               MLP takes S*Nt - 3 materialized rows;
 4.  physics  — the sounding preamble through random flat channels, no
                noise: the served LS must recover every channel on every
                carrier;
@@ -31,13 +33,22 @@ failure ends the run with a non-zero exit code):
 5c. planes   — each of the four bf16-input bench paths of
                mamimo_tpu_torch/bench.py answers once; every kernel it
                names must have launched;
+5d. per pair — the bench path pallas_full (make_estimation_fn with
+               use_pallas, from_planes) answers 3 requests of 64 packets
+               of float32 planes: the per-pair LS kernel and the fused MLP
+               on the materialized input must have launched; the first
+               answer is held to the float32 branch (factored DNN), and
+               its first 3 packets' DNN to the plain float32 chain on
+               their materialized rows. predict_complex_pallas answers
+               256 rows, held to the float32 predict_complex;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events; the
-               device time of estimate_full, all_pairs(int8=True) and the
-               four planes paths.
+               device time of estimate_full, all_pairs(int8=True), the
+               four planes paths and pallas_full, and pallas_full's peak
+               device memory.
 
-Launch counts are set to 0 just before each of phases 5, 5b and 5c and
-read just after. Prints a JSON line of per-kernel numbers before the
+Launch counts are set to 0 just before each of phases 5, 5b, 5c and 5d
+and read just after. Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
 the repository's sources; exits non-zero without either.
 """
@@ -58,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM bf16 dense tensor cores
 INT8_OPS = 1979e12                 # H100 SXM int8 dense tensor cores
 S_CHECK = 256                      # rows of the kernel checks (64 packets)
+MAT_PACKETS = 3                    # packets of the plain materialized check
 BENCH_PACKETS = 1024               # the bench shape: S = 4096
 
 
@@ -197,14 +209,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from mamimo_tpu_torch.bench import PATHS, make_estimation_fn_planes
+    from mamimo_tpu_torch.bench import (
+        ESTIMATION_PATHS,
+        PATHS,
+        _planes_to_time_major,
+        make_estimation_fn,
+        make_estimation_fn_planes,
+    )
     from mamimo_tpu_torch.config import SimConfig, TrainConfig
     from mamimo_tpu_torch.models.mlp import (
         _factored_all_pairs,
+        plane,
         predict_all_pairs_planes,
+        predict_complex,
+        preprocess_input,
     )
-    from mamimo_tpu_torch.models.predictor import CSIPredictor
-    from mamimo_tpu_torch.ops.estimate import ls_estimate_planes, ls_planes_constants
+    from mamimo_tpu_torch.models.predictor import CSIPredictor, full_f32_matmul
+    from mamimo_tpu_torch.ops.estimate import (
+        ls_estimate_matmul,
+        ls_estimate_planes,
+        ls_matmul_constants,
+        ls_planes_constants,
+    )
     from mamimo_tpu_torch.ops.kernels import _build
     from mamimo_tpu_torch.ops.kernels.fused_factored import (
         _tail_plain,
@@ -215,18 +241,34 @@ def main() -> int:
     )
     from mamimo_tpu_torch.ops.kernels.fused_ls import (
         _ls_v1_plain,
+        ls_estimate_pallas,
         ls_kernel_constants,
+        ls_pair_kernel,
         ls_planes_pallas,
         ls_planes_pallas_v2_constants,
         ls_planes_v1,
         ls_planes_v2,
         ls_raw_to_complex,
+        pair_planes,
     )
     from mamimo_tpu_torch.ops.kernels.int8_mm import (
         _matmul_int8_plain,
         matmul_int8,
     )
-    from mamimo_tpu_torch.ops.ltf import gen_preamble, preamble_scale
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import (
+        _layer1_plain,
+        _tail_plain as _mlp_tail_plain,
+        mlp_infer_layer1,
+        mlp_infer_pallas,
+        mlp_infer_tail,
+        predict_complex_pallas,
+        prepare_mlp_infer_weights,
+    )
+    from mamimo_tpu_torch.ops.ltf import (
+        gen_preamble,
+        pilot_p_matrix,
+        preamble_scale,
+    )
     from mamimo_tpu_torch.train.ckpt import save_checkpoint
 
     dev = torch.device("cuda", 0)
@@ -258,9 +300,10 @@ def main() -> int:
         return torch.randint(-127, 128, shape, generator=g, device=dev,
                              dtype=torch.int8)
 
-    def check_kernels(cfg, tcfg, s, seed, tag):
+    def check_kernels(cfg, tcfg, s, seed, tag, packets):
         """Each kernel against its plain version on the same inputs and a
-        seeded model; returns the model and the per-kernel results."""
+        seeded model (the per-pair LS on `packets` whole packets); returns
+        the model and the per-kernel results."""
         params, bn = make_model(cfg, tcfg, seed=seed, device=dev)
         prep = prepare_factored_weights(cfg, tcfg, params, bn)
         g = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -301,6 +344,34 @@ def main() -> int:
         check("fused DNN vs f32 _factored_all_pairs (bf16-valued weights)",
               fused_factored_planes(cfg, tcfg, prep, x16),
               _factored_all_pairs(cfg, tcfg, params, bn, x32), -40.0)
+        # per-pair LS on the time-major form of whole packets' planes
+        nr = cfg.num_rx
+        rx = _planes_to_time_major(torch.randn(
+            (2, packets * nr, cfg.len_ltf), generator=g,
+            device=dev).to(bf16).float(), nr)
+        with full_f32_matmul():
+            ref_pp = ls_estimate_matmul(cfg, rx)
+        res["ls_pair_kernel"] = check(
+            f"ls_estimate_pallas ({packets} packets) vs ls_estimate_matmul "
+            f"(f32)", ls_estimate_pallas(cfg, rx, consts=kc), ref_pp, -45.0)
+        # fused MLP on materialized rows, M ragged, plane 1's weights
+        with full_f32_matmul():
+            p1 = plane(prepare_mlp_infer_weights(tcfg, params, bn), 1)
+        m, k = s * nt - 3, cfg.len_ltf + nt
+        xm = torch.randn((m, k), generator=g, device=dev).to(bf16)
+        h1 = mlp_infer_layer1(p1, xm)
+        res["mlp_infer_layer1"] = check(
+            f"mlp_infer_layer1 ({m}, {k}) vs its plain version (same bf16 "
+            f"operands)", h1, _layer1_plain(p1, xm), -45.0)
+        res["mlp_infer_tail"] = check(
+            "mlp_infer_tail vs its plain version (same h1)",
+            mlp_infer_tail(p1, h1), _mlp_tail_plain(p1, h1), -40.0)
+        with full_f32_matmul():
+            ref_mlp = _mlp_tail_plain(p1, _layer1_plain(
+                p1, xm, torch.float32), torch.float32)
+        check("mlp_infer_pallas vs its plain version in f32 (bf16-valued "
+              "weights)", mlp_infer_pallas(tcfg, p1, None, xm), ref_mlp,
+              -40.0)
         # int8 GEMM at the three layer shapes of the int8 DNN, M ragged
         H1, H2 = tcfg.hidden
         for lyr, m, k, n in (("layer 1", s, cfg.len_ltf, H1),
@@ -315,7 +386,8 @@ def main() -> int:
 
     cfg, tcfg = SimConfig(), TrainConfig()
     params, bn, prep, res = check_kernels(cfg, tcfg, S_CHECK, 0,
-                                          "BS32, full width")
+                                          "BS32, full width",
+                                          S_CHECK // cfg.num_rx)
     # the largest int32 sum layer 1 can make: 10240 products of 127·(−127)
     a = torch.full((64, cfg.len_ltf), 127, dtype=torch.int8, device=dev)
     bt = torch.full((tcfg.hidden[0], cfg.len_ltf), -127, dtype=torch.int8,
@@ -323,9 +395,9 @@ def main() -> int:
     check_exact("matmul_int8 all ±127, K = 10240 (int32 range)",
                 matmul_int8(a, bt), _matmul_int8_plain(a, bt.T))
     # ragged edges: rows past the last full tile of each kernel
-    check_kernels(cfg, tcfg, 7 * cfg.num_rx, 10, "BS32, 7 packets")
+    check_kernels(cfg, tcfg, 7 * cfg.num_rx, 10, "BS32, 7 packets", 7)
     check_kernels(SimConfig(num_tx=8, num_rx=2), TrainConfig(hidden=(128, 128)),
-                  11, 20, "small config, odd S")
+                  11, 20, "small config, odd S", 7)
     consts = ls_kernel_constants(cfg, dev)
     f32_consts = ls_planes_constants(cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -358,7 +430,8 @@ def main() -> int:
                              f"> -40 dB")
 
     all_kernels = (ls_planes_v2, factored_sig_proj, factored_tail,
-                   ls_planes_v1, matmul_int8)
+                   ls_planes_v1, matmul_int8, ls_pair_kernel,
+                   mlp_infer_layer1, mlp_infer_tail)
 
     def counted(fn):
         """Run fn with every launch count set to 0 just before; returns
@@ -460,19 +533,92 @@ def main() -> int:
         cnt_paths[pname] = cnt
     ls_v1_launches = sum(c["ls_planes_v1"] for c in cnt_paths.values())
 
+    # 5d. the per-pair path pallas_full and predict_complex_pallas ------
+    fn_full = make_estimation_fn(cfg, tcfg, params, bn,
+                                 **ESTIMATION_PATHS["pallas_full"])
+    fn_f32 = make_estimation_fn(cfg, tcfg, params, bn, from_planes=True)
+    reqs_pf = [torch.randn((2, 64 * nr, L), generator=g, device=dev)
+               for _ in range(3)]
+    outs_pf, cnt_pf = counted(lambda: [fn_full(r) for r in reqs_pf])
+    shape_pf = (64, C, nt, nr)
+    for h_ls, h_dnn in outs_pf:
+        for a in (h_ls, h_dnn):
+            if tuple(a.shape) != shape_pf or a.dtype != torch.complex64 \
+                    or not bool(torch.isfinite(torch.view_as_real(a)).all()):
+                raise AssertionError(f"pallas_full gave {tuple(a.shape)} "
+                                     f"{a.dtype}, want finite {shape_pf} "
+                                     f"complex64")
+    print(f"[5d per pair] pallas_full: 3 requests x 64 packets of f32 "
+          f"planes -> {shape_pf} complex64 x2, finite")
+    ref_ls, ref_dnn = fn_f32(reqs_pf[0])
+    # a second DNN witness, unlike the factored f32 branch: the plain f32
+    # chain on the materialized rows (b, r, t) = [sample b·Nr + r ‖ P.T[t]]
+    # of the first MAT_PACKETS packets
+    pil_t = pilot_p_matrix(nt, device=dev).T
+    n_pair = MAT_PACKETS * nr
+    with full_f32_matmul():
+        prep_mlp = prepare_mlp_infer_weights(tcfg, params, bn)
+        ys = []
+        for d in range(2):
+            p_d = plane(prep_mlp, d)
+            xm_d = preprocess_input(
+                cfg, tcfg, reqs_pf[0][d, :n_pair, None, :].expand(-1, nt, -1),
+                pil_t.expand(n_pair, -1, -1)).reshape(n_pair * nt, -1)
+            ys.append(_mlp_tail_plain(p_d, _layer1_plain(
+                p_d, xm_d, torch.float32), torch.float32))
+    mat = torch.complex(ys[0], ys[1]).view(MAT_PACKETS, nr, nt, C) \
+        .permute(0, 3, 2, 1)
+    full_db = {
+        "h_ls": check("pallas_full h_ls vs the f32 branch (ls_estimate_matmul)",
+                      outs_pf[0][0], ref_ls, -45.0),
+        "h_dnn": check("pallas_full h_dnn vs the f32 branch "
+                       "(predict_all_pairs, factored)", outs_pf[0][1], ref_dnn,
+                       -40.0),
+        "h_dnn_vs_materialized": check(
+            f"pallas_full h_dnn, first {MAT_PACKETS} packets, vs the plain f32 "
+            f"chain on their {n_pair * nt} materialized rows",
+            outs_pf[0][1][:MAT_PACKETS], mat, -40.0)}
+    require_launched("pallas_full", cnt_pf, ("ls_pair_kernel",
+                                             "mlp_infer_layer1",
+                                             "mlp_infer_tail"))
+    sig =torch.complex(torch.randn((256, L), generator=g, device=dev),
+                        torch.randn((256, L), generator=g, device=dev))
+    pil = pilot_p_matrix(nt, device=dev).T[torch.arange(256, device=dev) % nt]
+    got_pc, cnt_pc = counted(lambda: predict_complex_pallas(
+        cfg, tcfg, prep_mlp, None, sig, pil))
+    with full_f32_matmul():
+        ref_pc = predict_complex(cfg, tcfg, params, bn, sig, pil)
+    full_db["predict_complex_pallas"] = check(
+        "predict_complex_pallas (256 rows) vs f32 predict_complex",
+        got_pc, ref_pc, -40.0)
+    require_launched("predict_complex_pallas", cnt_pc,
+                     ("mlp_infer_layer1", "mlp_infer_tail"))
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
     xb16 = torch.randn((2, S, L), generator=g, device=dev).to(bf16)
     xb32 = xb16.float()
     print(f"[6 timing] S = {S} ({BENCH_PACKETS} packets), {smi}")
+    # peak device memory of one pallas_full call on the bench shape
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn_full(xb32)
+    torch.cuda.synchronize()
+    peak_full = torch.cuda.max_memory_allocated()
+    del out
+    print(f"  pallas_full peak device memory: {peak_full / 2**30:.3f} GiB "
+          f"allocated, {(peak_full - live) / 2**30:.3f} GiB above the "
+          f"{live / 2**30:.3f} GiB live before the call  [{smi}]")
     rows = []
 
     def row(kname, shape_, src, repl, kern, plain, lib, nbytes, ops,
-            launches, path, peak=BF16_FLOPS):
+            launches, path, peak=BF16_FLOPS, call=None):
         rows.append(dict(name=kname, shape=shape_, source=src, replaces=repl,
                          kern=kern, plain=plain, lib=lib, nbytes=nbytes,
-                         ops=ops, peak=peak, launches=launches, path=path))
+                         ops=ops, peak=peak, launches=launches, path=path,
+                         call=call))
 
     # LS: kernel, plain (f32), library (bf16 matmul DFT-select + despread)
     bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, bf16, dev)
@@ -559,17 +705,74 @@ def main() -> int:
             cnt_int8["matmul_int8"], "all_pairs(int8=True) x3",
             peak=INT8_OPS)
 
+    # per-pair LS: the kernel alone on the pair planes (the wrapper's
+    # layout pass is timed as call_ms), plain f32, library bf16 matmuls
+    rx_b = _planes_to_time_major(xb32, nr)                  # (B, L, Nr)
+    ppl = pair_planes(rx_b)
+    lsc = ls_matmul_constants(cfg, device=dev)
+    row("ls_pair_kernel", f"rx ({BENCH_PACKETS}, {L}, {nr}) c64 -> "
+        f"({BENCH_PACKETS}, {C}, {nt}, {nr}) c64",
+        "mamimo_tpu_torch/csrc/ls_pair.cu",
+        "mamimo_tpu/ops/pallas/fused_ls.py:110",
+        lambda: ls_pair_kernel(cfg, ppl, nr, consts),
+        lambda: ls_estimate_matmul(cfg, rx_b, lsc),
+        ls_library, ls_in + S * nt * C * 8, ls_ops,
+        cnt_pf["ls_pair_kernel"], "pallas_full x3",
+        call=lambda: ls_estimate_pallas(cfg, rx_b, consts=consts))
+
+    # fused MLP on the materialized rows of plane 0, per launch form
+    M, K = S * nt, L + nt
+    pm0 = plane(prep_mlp, 0)
+    xm = torch.empty((S, nt, K), dtype=bf16, device=dev)
+    xm[:, :, :L] = xb16[0][:, None, :]
+    xm[:, :, L:] = pilot_p_matrix(nt, device=dev).T.to(bf16)
+    xm = xm.view(M, K)
+    h1b = mlp_infer_layer1(pm0, xm)
+    w1k = pm0["w1"][:K]
+    w3c = pm0["w3"][:, :C]
+
+    def mlp_l1_library():
+        h = torch.relu(torch.matmul(xm, w1k) + pm0["b1"])
+        return (h * pm0["s1"] + pm0["t1"]).to(bf16)
+
+    def mlp_tail_library():
+        h = torch.relu(torch.matmul(h1b, pm0["w2"]) + pm0["b2"])
+        return torch.matmul((h * pm0["s2"] + pm0["t2"]).to(bf16), w3c) \
+            + pm0["b3"]
+
+    nbytes_of = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+    row("mlp_infer_layer1", f"({M}, {K}) @ ({K}, {H1}) bf16 -> h1 bf16",
+        "mamimo_tpu_torch/csrc/mlp_infer.cu",
+        "mamimo_tpu/ops/pallas/mlp_infer.py:144",
+        lambda: mlp_infer_layer1(pm0, xm), lambda: _layer1_plain(pm0, xm),
+        mlp_l1_library,
+        nbytes_of(xm, w1k, pm0["b1"], pm0["s1"], pm0["t1"], h1b),
+        2.0 * M * K * H1, cnt_pf["mlp_infer_layer1"], "pallas_full x3")
+    row("mlp_infer_tail", f"h1 ({M}, {H1}) bf16 -> ({M}, {C}) f32",
+        "mamimo_tpu_torch/csrc/mlp_infer.cu",
+        "mamimo_tpu/ops/pallas/mlp_infer.py:144",
+        lambda: mlp_infer_tail(pm0, h1b), lambda: _mlp_tail_plain(pm0, h1b),
+        mlp_tail_library,
+        nbytes_of(h1b, pm0["w2"], pm0["b2"], pm0["s2"], pm0["t2"], w3c,
+                  pm0["b3"]) + M * C * 4,
+        2.0 * M * (H1 * H2 + H2 * C), cnt_pf["mlp_infer_tail"],
+        "pallas_full x3")
+
     kernels = []
     for r in rows:
         ms = time_ms(r["kern"])
         plain_ms = time_ms(r["plain"], iters=3, warmup=1)
         lib_ms = time_ms(r["lib"])
+        call_ms = time_ms(r["call"]) if r["call"] else None
         bms, by = bound_ms(r["nbytes"], r["ops"], r["peak"])
         if r["name"] == "matmul_int8":
             gemm_ms[r["shape"].split(":")[0]] = ms
         print(f"  {r['name']} [{r['shape']}]: {ms:.4f} ms (bound {bms:.4f} ms "
               f"by {by}, {bms / ms * 100:.1f}% of it); "
-              f"plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms  [{smi}]")
+              f"plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms"
+              + (f"; whole wrapper {call_ms:.4f} ms" if call_ms else "")
+              + f"  [{smi}]")
         kernels.append({
             "name": r["name"], "shape": r["shape"], "route": "cuda",
             "source": r["source"], "replaces": r["replaces"],
@@ -578,7 +781,7 @@ def main() -> int:
             "nmse_db": res[r["name"]]["nmse_db"],
             "exact": res[r["name"]].get("exact", False),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "call_ms": call_ms,
         })
 
     # the serving calls on the device (planes in, estimates out)
@@ -591,6 +794,7 @@ def main() -> int:
         lambda: pred.all_pairs_planes(x4, int8=True), iters=5)
     for pname, fn in fns.items():
         calls[pname] = time_ms(lambda fn=fn: fn(xb16), iters=5)
+    calls["pallas_full"] = time_ms(lambda: fn_full(xb32), iters=5)
     for cname, ms in calls.items():
         print(f"  {cname} device time: {ms:.4f} ms for {n_est} estimates = "
               f"{n_est / ms * 1e3:.6g} estimates/s  [{smi}]")
@@ -599,6 +803,15 @@ def main() -> int:
     print(f"  all_pairs(int8=True) split: 6 int8 GEMMs {gemms:.4f} ms "
           f"({gemms / int8_ms * 100:.1f}%), the rest (quantise, dequantise, "
           f"bias/relu/BN, complex) {int8_ms - gemms:.4f} ms  [{smi}]")
+    k_ms = {k["name"]: k["ms"] for k in kernels}
+    ls_pp = k_ms["ls_pair_kernel"]
+    mlp_ms = 2 * (k_ms["mlp_infer_layer1"] + k_ms["mlp_infer_tail"])
+    full_ms = calls["pallas_full"]
+    print(f"  pallas_full split: per-pair LS kernel {ls_pp:.4f} ms, "
+          f"2 x (mlp_infer_layer1 + mlp_infer_tail) {mlp_ms:.4f} ms "
+          f"({mlp_ms / full_ms * 100:.1f}%), the rest (planes to complex, "
+          f"pair planes, materialized x, complex out) "
+          f"{full_ms - mlp_ms - ls_pp:.4f} ms  [{smi}]")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "serving": {
@@ -609,6 +822,9 @@ def main() -> int:
         "int8_nmse_db": {k: finite(v) for k, v in int8_db.items()},
         "planes_paths_nmse_db": {k: {h: v[h]["nmse_db"] for h in v}
                                  for k, v in path_db.items()},
+        "pallas_full_nmse_db": {k: v["nmse_db"] for k, v in full_db.items()},
+        "pallas_full_peak_bytes": peak_full,
+        "pallas_full_peak_above_live_bytes": peak_full - live,
         "physics_ls_nmse_db": err,
         "physics_worst_carrier_nmse_db": worst},
         "card": smi}))

@@ -8,12 +8,15 @@ first use into ``_build/`` and bound through ``ctypes``.
 
 - ``config``            : SimConfig / TrainConfig (same fields and JSON)
 - ``ops.ltf``           : LTF sequence, Hadamard P, sounding preamble
-- ``ops.estimate``      : LS estimate from flat planes (plain version)
-- ``ops.kernels``       : kernel wrappers (LS v2 and v1, fused factored
-                          DNN, int8 GEMM)
+- ``ops.estimate``      : LS estimate from flat planes and from
+                          time-major preambles (plain versions)
+- ``ops.kernels``       : kernel wrappers (LS v2, v1 and per pair, fused
+                          factored DNN, fused MLP on the materialized
+                          input, int8 GEMM)
 - ``models``            : the CSI MLP (eval), its int8 quantized form
                           (``models.quant``) and ``CSIPredictor``
-- ``bench``             : the bf16-input planes estimation paths
+- ``bench``             : the bench's estimation paths (per pair, and
+                          the bf16-input planes paths)
 - ``train.ckpt``        : npz checkpoints, interchangeable with the JAX
                           package's
 """

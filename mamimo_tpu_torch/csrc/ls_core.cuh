@@ -35,6 +35,9 @@ constexpr int LS_EPITCH = g128::BN + 4;  // f32 epilogue tile pitch
 // with s the global sample, plane 0 (real) or 1 (imaginary), c the
 // padded carrier index (< cpad) and v the sample's nt despread values at
 // v[j * LS_EPITCH], j = 0..nt-1. Neighbouring threads get neighbouring c.
+// The despread tile stays in dynamic shared memory after the call, as
+// f32 at [(sl * nt + j) * LS_EPITCH + column], for a caller that stores
+// it cooperatively after a __syncthreads() (ls_pair.cu).
 template <class Store>
 __device__ __forceinline__ void ls_tile(const bf16* __restrict__ planes,
                                         const bf16* __restrict__ bmat,

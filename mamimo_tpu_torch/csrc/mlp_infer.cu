@@ -1,0 +1,178 @@
+// Fused 3-layer MLP inference on the materialized input, two kernels.
+//
+// Replaces the TPU kernel mamimo_tpu/ops/pallas/mlp_infer.py::
+// mlp_infer_pallas (body _kernel), one plane per call:
+//
+//   h1 = bf16(relu(x @ W1 + b1) * s1 + t1)         (M, H1)
+//   h2 = bf16(relu(h1 @ W2 + b2) * s2 + t2)        (M, H2), on chip
+//   y  = h2 @ W3 + b3                              (M, C) f32
+//
+// with the BN folded into the post-ReLU affines (s, t)
+// (fold_bn_into_dense); bf16 operands, f32 accumulation.
+//
+// Design for the card:
+// * mlp_layer1_kernel: the K-streamed layer-1 GEMM on the 128x128 tile
+//   main loop of mma_tile.cuh (cp.async ring, mma.sync). The TPU kernel
+//   kept a (256, 1024) f32 accumulator in VMEM across its K grid and ran
+//   layers 2-3 in the last step; a Hopper block has 227 KB of shared
+//   memory, so the epilogue applies bias, ReLU, the affine and the bf16
+//   rounding (which the TPU kernel also applies before its second dot)
+//   and writes h1 to device memory. x is not padded: rows past M and the
+//   K tail past in_dim read as zero (in_dim % 8 == 0 for the 16-byte
+//   copies), and W1 carries zero rows up to a multiple of 32.
+// * mlp_tail_kernel: 64 rows of h1 per block, loaded into shared memory,
+//   then the W2/W3 ring of mlp_tail.cuh (shared with the factored tail
+//   kernel): h2 never reaches device memory. C <= 256 is masked.
+//
+// Bound on an H100 at the bench shape (S = 4096 pairs, 32 heads: M =
+// 131072 rows, in_dim 10272, H 1024/1024, C = 234), per plane: 2.76
+// TFLOP of layer 1 (2.79 ms at the 989 TFLOP/s bf16 peak) against 2.7 GB
+// of x (0.80 ms at 3.35 TB/s); layers 2-3 0.34 TFLOP (0.34 ms). It is
+// compute-bound; h1's round trip (268 MB written, read once) adds about
+// 0.16 ms of traffic per plane.
+#include "mlp_tail.cuh"
+
+using namespace mamimo;
+
+namespace {
+
+// h1 = bf16(relu(x @ w1 + b1) * s1 + t1); x (M, K) bf16, w1 (Kp, H1)
+// bf16 with rows K..Kp zero, Kp = round_up(K, 32).
+__global__ void __launch_bounds__(g128::THREADS, 2)
+    mlp_layer1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                      const float* __restrict__ b1,
+                      const float* __restrict__ s1,
+                      const float* __restrict__ t1, bf16* __restrict__ h1,
+                      int M, int K, int Kp, int H1) {
+  using namespace g128;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+
+  auto a_src = [&](int row, int k, bool& ok) -> const bf16* {
+    const int gr = m0 + row;
+    ok = gr < M && k < K;
+    return ok ? x + (long long)gr * K + k : x;
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  gemm128_mainloop(acc, smem, a_src, w1, H1, n0, Kp);
+
+  const int g = lane >> 2, q = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn + j * 8 + q;
+    const float bb0 = b1[col], bb1 = b1[col + 1];
+    const float ss0 = s1[col], ss1 = s1[col + 1];
+    const float tt0 = t1[col], tt1 = t1[col + 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + wm + i * 16 + g + hh * 8;
+        if (row >= M) continue;
+        *reinterpret_cast<__nv_bfloat162*>(h1 + (long long)row * H1 + col) =
+            __floats2bfloat162_rn(
+                fmaxf(acc[i][j][2 * hh] + bb0, 0.f) * ss0 + tt0,
+                fmaxf(acc[i][j][2 * hh + 1] + bb1, 0.f) * ss1 + tt1);
+      }
+    }
+  }
+}
+
+// y = (relu(h1 @ w2 + b2) * s2 + t2) @ w3 + b3 for 64 rows of h1 per
+// block; w3 (H2, 256) zero-padded, b3 (C).
+__global__ void __launch_bounds__(tail::THREADS, 1)
+    mlp_tail_kernel(const bf16* __restrict__ h1, const bf16* __restrict__ w2,
+                    const float* __restrict__ b2,
+                    const float* __restrict__ s2,
+                    const float* __restrict__ t2,
+                    const bf16* __restrict__ w3,
+                    const float* __restrict__ b3, float* __restrict__ y,
+                    int M, int H1, int H2, int C) {
+  using namespace tail;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * TBM;
+
+  float accy[2][8][4];
+  tail_layers23(accy, w2, b2, s2, t2, w3, H1, H2, [&](bf16* sH, int HP) {
+    const int vpr = H1 / 8;          // 16-byte vectors per row
+    for (int idx = tid; idx < TBM * vpr; idx += THREADS) {
+      const int r = idx / vpr, k = (idx - r * vpr) * 8;
+      const int s = s0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (s < M)
+        v = *reinterpret_cast<const uint4*>(h1 + (long long)s * H1 + k);
+      *reinterpret_cast<uint4*>(sH + r * HP + k) = v;
+    }
+  });
+
+  const int wm = (warp >> 2) * 32, wn3 = (warp & 3) * 64;
+  const int g = lane >> 2, q = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = wn3 + j * 8 + q;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int s = s0 + wm + i * 16 + g + hh * 8;
+        if (s >= M) continue;
+        float* o = y + (long long)s * C;
+        if (col < C) o[col] = accy[i][j][2 * hh] + b3[col];
+        if (col + 1 < C) o[col + 1] = accy[i][j][2 * hh + 1] + b3[col + 1];
+      }
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (M, K) bf16; w1 (Kp, H1) bf16; b1, s1, t1 (H1) f32; h1 (M, H1) bf16.
+// K % 8 == 0, Kp % 32 == 0, Kp >= K, H1 % 128 == 0.
+int mlp_layer1_launch(const void* x, const void* w1, const void* b1,
+                      const void* s1, const void* t1, void* h1, int M, int K,
+                      int Kp, int H1, void* stream) {
+  const int smem = g128::SMEM_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      mlp_layer1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H1 / g128::BN, (M + g128::BM - 1) / g128::BM);
+  mlp_layer1_kernel<<<grid, g128::THREADS, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const float*)s1,
+      (const float*)t1, (bf16*)h1, M, K, Kp, H1);
+  return (int)cudaGetLastError();
+}
+
+// h1 (M, H1) bf16; w2 (H1, H2) bf16; b2, s2, t2 (H2) f32; w3 (H2, 256)
+// bf16; b3 (C) f32; y (M, C) f32. H1, H2 % 128 == 0, H1 <= 1024, C <= 256.
+int mlp_tail_launch(const void* h1, const void* w2, const void* b2,
+                    const void* s2, const void* t2, const void* w3,
+                    const void* b3, void* y, int M, int H1, int H2, int C,
+                    void* stream) {
+  const int smem = tail::smem_bytes(H1);
+  cudaError_t e = cudaFuncSetAttribute(
+      mlp_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  mlp_tail_kernel<<<(M + tail::TBM - 1) / tail::TBM, tail::THREADS, smem,
+                    (cudaStream_t)stream>>>(
+      (const bf16*)h1, (const bf16*)w2, (const float*)b2, (const float*)s2,
+      (const float*)t2, (const bf16*)w3, (const float*)b3, (float*)y, M, H1,
+      H2, C);
+  return (int)cudaGetLastError();
+}
+
+const char* mlp_infer_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+
+}  // extern "C"

@@ -128,6 +128,18 @@ def plane(tree, d: int):
     return tree_map(lambda t: t[d], tree)
 
 
+def preprocess_signal(cfg: SimConfig, tcfg: TrainConfig,
+                      sig: torch.Tensor) -> torch.Tensor:
+    """The signal part of the model input: fraction and decimation of
+    sig (..., len_sig); a view of sig when neither applies."""
+    sig = sig[..., : cfg.len_ltf // int(tcfg.in_fraction)]
+    if tcfg.decimate == "max":
+        sig = sig.reshape(sig.shape[:-1] + (-1, 2)).amax(-1)
+    elif tcfg.decimate == "avg":
+        sig = sig.reshape(sig.shape[:-1] + (-1, 2)).mean(-1)
+    return sig
+
+
 def preprocess_input(cfg: SimConfig, tcfg: TrainConfig, sig: torch.Tensor,
                      pilot: torch.Tensor) -> torch.Tensor:
     """Apply fraction/decimation and concat the pilot column.
@@ -135,11 +147,7 @@ def preprocess_input(cfg: SimConfig, tcfg: TrainConfig, sig: torch.Tensor,
     sig: (..., len_sig) real plane of the received LTF;
     pilot: (..., num_tx).
     """
-    sig = sig[..., : cfg.len_ltf // int(tcfg.in_fraction)]
-    if tcfg.decimate == "max":
-        sig = sig.reshape(sig.shape[:-1] + (-1, 2)).amax(-1)
-    elif tcfg.decimate == "avg":
-        sig = sig.reshape(sig.shape[:-1] + (-1, 2)).mean(-1)
+    sig = preprocess_signal(cfg, tcfg, sig)
     return torch.cat([sig, pilot.to(sig.dtype)], dim=-1)
 
 
@@ -244,6 +252,24 @@ def predict_all_pairs_planes(cfg: SimConfig, tcfg: TrainConfig, params,
     y = predict_all_pairs_planes_flat(cfg, tcfg, params, bn_state,
                                       rx_planes.reshape(2, b * nrx, L))
     return y.reshape(b, nrx, cfg.num_tx, cfg.num_carriers)
+
+
+def predict_all_pairs(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
+                      rx: torch.Tensor) -> torch.Tensor:
+    """Factored all-pairs inference from time-major received preambles,
+    float32.
+
+    Args:
+      rx: (B, len_ltf, num_rx) complex64.
+
+    Returns:
+      (B, num_carriers, num_tx, num_rx) complex64 (a permuted view).
+    """
+    b, L, nrx = rx.shape
+    sig = rx.transpose(1, 2).reshape(b * nrx, L)
+    y = predict_all_pairs_planes_flat(cfg, tcfg, params, bn_state,
+                                      torch.stack([sig.real, sig.imag]))
+    return y.reshape(b, nrx, cfg.num_tx, cfg.num_carriers).permute(0, 3, 2, 1)
 
 
 def predict_complex(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,

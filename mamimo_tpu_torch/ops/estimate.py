@@ -1,9 +1,11 @@
-"""Least-squares channel estimation from the canonical real planes (the
-port's copy of the LS planes form of ``mamimo_tpu/ops/estimate.py``).
+"""Least-squares channel estimation (the port's copy of the planes and
+matmul forms of ``mamimo_tpu/ops/estimate.py``).
 
-``ls_estimate_planes`` is the plain PyTorch version of the LS kernel
-(``ops/kernels/fused_ls.py``): the CPU path of the serving call and the
-reference the kernel is held to on the card.
+``ls_estimate_planes`` (flat rx-major planes) is the plain PyTorch
+version of the flat-planes LS kernels, ``ls_estimate_matmul``
+(time-major complex preambles) that of the per-pair LS kernel
+(``ops/kernels/fused_ls.py``): the CPU paths, and the references the
+kernels are held to on the card.
 """
 
 from __future__ import annotations
@@ -34,6 +36,37 @@ def dft_selected_padded_np(cfg: SimConfig) -> np.ndarray:
     out = np.zeros((a.shape[0], cfg.sym_len), np.complex64)
     out[:, cfg.cp_length:] = a
     return out
+
+
+def ls_matmul_constants(cfg: SimConfig, device=None):
+    """Constants of ls_estimate_matmul: (A, P) with A =
+    dft_selected_np(cfg), (num_carriers, fft_length) complex64, and P the
+    float32 ±1 Hadamard matrix."""
+    return (torch.as_tensor(dft_selected_np(cfg), device=device),
+            torch.as_tensor(_hadamard_np(cfg.num_tx), device=device))
+
+
+def ls_estimate_matmul(cfg: SimConfig, rx: torch.Tensor,
+                       consts=None) -> torch.Tensor:
+    """LS estimation from time-major received preambles as two batched
+    products: the despread over the symbols (CP dropped), then the
+    DFT-select over time. The plain version of the per-pair LS kernel
+    (``ops/kernels/fused_ls.py::ls_estimate_pallas``).
+
+    Args:
+      rx: (B, len_ltf, num_rx) complex64.
+      consts: optional (A, P) from ls_matmul_constants.
+
+    Returns:
+      (B, num_carriers, num_tx, num_rx) complex64.
+    """
+    if consts is None:
+        consts = ls_matmul_constants(cfg, device=rx.device)
+    a, p = consts
+    b, _, nrx = rx.shape
+    x = rx.reshape(b, cfg.num_tx, cfg.sym_len, nrx)[:, :, cfg.cp_length:, :]
+    y = torch.einsum("jn,bntr->bjtr", p.to(rx.dtype), x)
+    return torch.einsum("ct,bjtr->bcjr", a.to(rx.dtype), y)
 
 
 def ls_planes_constants(cfg: SimConfig, dtype=torch.float32, device=None):

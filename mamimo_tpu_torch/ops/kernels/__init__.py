@@ -11,6 +11,7 @@ from mamimo_tpu_torch.ops.kernels.fused_factored import (  # noqa: F401
     prepare_factored_weights,
 )
 from mamimo_tpu_torch.ops.kernels.fused_ls import (  # noqa: F401
+    ls_estimate_pallas,
     ls_kernel_constants,
     ls_planes_pallas,
     ls_planes_pallas_constants,
@@ -23,4 +24,12 @@ from mamimo_tpu_torch.ops.kernels.fused_ls import (  # noqa: F401
 from mamimo_tpu_torch.ops.kernels.int8_mm import (  # noqa: F401
     matmul_int8,
     matmul_pallas,
+)
+from mamimo_tpu_torch.ops.kernels.mlp_infer import (  # noqa: F401
+    fold_bn_into_dense,
+    mlp_infer_layer1,
+    mlp_infer_pallas,
+    mlp_infer_tail,
+    predict_complex_pallas,
+    prepare_mlp_infer_weights,
 )

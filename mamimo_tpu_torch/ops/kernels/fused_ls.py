@@ -1,12 +1,13 @@
-"""LS estimate from the canonical flat planes: wrappers of the hand-written
-CUDA kernels ``csrc/ls_v2.cu`` and ``csrc/ls_v1.cu`` (the counterparts of
-the v2 and v1 flat-planes kernels of ``mamimo_tpu/ops/pallas/fused_ls.py``).
-Both kernels share their GEMM and Walsh–Hadamard body
-(``csrc/ls_core.cuh``) and differ in the output form.
+"""LS estimate: wrappers of the hand-written CUDA kernels
+``csrc/ls_v2.cu``, ``csrc/ls_v1.cu`` (the v2 and v1 flat-planes kernels of
+``mamimo_tpu/ops/pallas/fused_ls.py``) and ``csrc/ls_pair.cu`` (its
+per-pair ``ls_estimate_pallas``). The three kernels share their GEMM and
+Walsh–Hadamard body (``csrc/ls_core.cuh``) and differ in the output form.
 
-On a CUDA tensor ``ls_planes_v2`` and ``ls_planes_v1`` launch their
-kernel; on a CPU tensor they run the kernel's plain version
-(``ops/estimate.py::ls_estimate_planes``, ``_ls_v1_plain``).
+On a CUDA tensor ``ls_planes_v2``, ``ls_planes_v1`` and
+``ls_estimate_pallas`` launch their kernel; on a CPU tensor they run the
+kernel's plain version (``ops/estimate.py::ls_estimate_planes``,
+``_ls_v1_plain``, ``ops/estimate.py::ls_estimate_matmul``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ import numpy as np
 import torch
 
 from mamimo_tpu_torch.config import SimConfig
-from mamimo_tpu_torch.ops.estimate import dft_selected_padded_np, ls_estimate_planes
+from mamimo_tpu_torch.ops.estimate import (
+    dft_selected_padded_np,
+    ls_estimate_matmul,
+    ls_estimate_planes,
+)
 from mamimo_tpu_torch.ops.kernels import _build
 from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda
 from mamimo_tpu_torch.ops.ltf import _hadamard_np
@@ -233,5 +238,88 @@ def _ls_v1_lib() -> ctypes.CDLL:
     fn = lib.ls_planes_v1_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    return lib
+
+
+# ----------------------------------------------------------------------
+# per-pair LS on time-major complex preambles
+# ----------------------------------------------------------------------
+
+def pair_planes(rx: torch.Tensor) -> torch.Tensor:
+    """Time-major complex rx (B, len_ltf, num_rx) as the per-pair
+    kernel's bf16 planes (2, B·num_rx, len_ltf), sample b·num_rx + r: one
+    strided read of rx, one write."""
+    b, L, nrx = rx.shape
+    out = torch.empty((2, b, nrx, L), dtype=torch.bfloat16, device=rx.device)
+    out.copy_(torch.view_as_real(rx).permute(3, 0, 2, 1))
+    return out.view(2, b * nrx, L)
+
+
+def ls_pair_kernel(cfg: SimConfig, planes: torch.Tensor, num_rx: int,
+                   consts: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the per-pair LS kernel (CUDA only) on bf16 pair planes
+    (2, B·num_rx, len_ltf) from ``pair_planes``. Returns (B, C, num_tx,
+    num_rx) complex64."""
+    if consts is None:
+        consts = ls_kernel_constants(cfg, planes.device)
+    planes = planes.contiguous()
+    _check_kernel_shapes(cfg, planes, consts)
+    s = planes.shape[1]
+    if s % num_rx:
+        raise ValueError(f"{s} rows are not whole packets of {num_rx}")
+    out = torch.empty((s // num_rx, cfg.num_carriers, cfg.num_tx, num_rx),
+                      dtype=torch.complex64, device=planes.device)
+    if s == 0:
+        return out
+    lib = _ls_pair_lib()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ls_pair_launch(
+            planes.data_ptr(), consts.data_ptr(), out.data_ptr(), s, num_rx,
+            cfg.num_tx, cfg.num_carriers, cfg.sym_len, cfg.cp_length,
+            cfg.fft_length, consts.shape[1] // 2, stream)
+    _build.check(rc, lib, "ls_pair_error_string", "ls_pair")
+    ls_pair_kernel.launches += 1
+    return out
+
+
+ls_pair_kernel.launches = 0
+
+
+def ls_estimate_pallas(cfg: SimConfig, rx: torch.Tensor, *,
+                       pairs_per_block: int = 8, interpret=None,
+                       consts: torch.Tensor | None = None) -> torch.Tensor:
+    """LS channel estimation from raw time-major preambles, per (packet,
+    rx) pair (the port of the JAX ``ls_estimate_pallas``).
+
+    Args:
+      rx: (B, len_ltf, num_rx) complex64.
+      pairs_per_block, interpret: accepted for the JAX signature and
+        ignored (the CUDA kernel picks its own tiling).
+      consts: CUDA only, ``ls_kernel_constants(cfg, device)``; built per
+        call when omitted.
+
+    Returns:
+      (B, num_carriers, num_tx, num_rx) complex64.
+
+    CUDA: one layout pass to bf16 pair planes (``pair_planes``), then the
+    kernel ``csrc/ls_pair.cu`` (the bf16 input costs about −50 dB against
+    float32). CPU: the float32 plain version, ``ls_estimate_matmul``.
+    """
+    del pairs_per_block, interpret
+    if not on_cuda(rx):
+        return ls_estimate_matmul(cfg, rx)
+    if rx.dtype != torch.complex64:
+        raise TypeError(f"ls_estimate_pallas takes complex64 rx, got "
+                        f"{rx.dtype}")
+    return ls_pair_kernel(cfg, pair_planes(rx), rx.shape[2], consts)
+
+
+def _ls_pair_lib() -> ctypes.CDLL:
+    lib = _build.library("ls_pair")
+    fn = lib.ls_pair_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     return lib

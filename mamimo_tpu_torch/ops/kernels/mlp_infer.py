@@ -1,0 +1,251 @@
+"""Fused 3-layer MLP inference on the materialized input: wrappers of the
+hand-written CUDA kernels in ``csrc/mlp_infer.cu`` (the counterpart of
+``mamimo_tpu/ops/pallas/mlp_infer.py``).
+
+    h1 = bf16(relu(x @ W1 + b1) · s1 + t1)        mlp_infer_layer1
+    h2 = bf16(relu(h1 @ W2 + b2) · s2 + t2)       mlp_infer_tail
+    y  = h2 @ W3 + b3                             mlp_infer_tail
+
+(s, t) are the eval-mode BatchNorm affines folded after each ReLU
+(``fold_bn_into_dense``). The products take bf16 operands and sum in
+float32. On CUDA tensors each wrapper launches its kernel; on CPU tensors
+it runs the kernel's plain version, which rounds the same operands.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mamimo_tpu_torch.config import SimConfig, TrainConfig
+from mamimo_tpu_torch.models.mlp import _bn_affine, plane, preprocess_input
+from mamimo_tpu_torch.ops.kernels import _build
+from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda
+
+_OP = 256           # the tail kernel's padded output width
+_KEYS = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3")
+
+
+def fold_bn_into_dense(tcfg: TrainConfig, params, bn_state):
+    """Fold inference-mode BatchNorm into post-ReLU affines, one plane.
+
+    Returns (ws, bs, scales, shifts): the dense weights and biases of the
+    three layers, and per hidden layer the (scale, shift) applied to the
+    output of its ReLU (identity without BN), all float32.
+    """
+    ws = [l["w"] for l in params["dense"]] + [params["out"]["w"]]
+    bs = [l["b"] for l in params["dense"]] + [params["out"]["b"]]
+    scales, shifts = [], []
+    for i in range(len(params["dense"])):
+        if params["bn"]:
+            a, c = _bn_affine(tcfg, params, bn_state, i)
+        else:
+            a = torch.ones(ws[i].shape[1], device=ws[i].device)
+            c = torch.zeros(ws[i].shape[1], device=ws[i].device)
+        scales.append(a)
+        shifts.append(c)
+    return ws, bs, scales, shifts
+
+
+def _prepare_plane(tcfg: TrainConfig, params, bn_state, dot_dtype):
+    if len(params["dense"]) != 2:
+        raise ValueError("the fused MLP kernel supports 2 hidden layers, "
+                         f"got {len(params['dense'])}")
+    (w1, w2, w3), (b1, b2, b3), (s1, s2), (t1, t2) = \
+        fold_bn_into_dense(tcfg, params, bn_state)
+    k, c = w1.shape[0], w3.shape[1]
+    w1p = torch.zeros((_round_up(k, 32), w1.shape[1]), device=w1.device)
+    w1p[:k] = w1
+    w3p = torch.zeros((w3.shape[0], _round_up(c, _OP)), device=w3.device)
+    w3p[:, :c] = w3
+    f32 = lambda t: t.float().contiguous()                   # noqa: E731
+    return {"w1": w1p.to(dot_dtype), "b1": f32(b1), "s1": f32(s1),
+            "t1": f32(t1), "w2": w2.to(dot_dtype).contiguous(),
+            "b2": f32(b2), "s2": f32(s2), "t2": f32(t2),
+            "w3": w3p.to(dot_dtype), "b3": f32(b3)}
+
+
+def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state):
+    """The kernels' weights for both planes of stacked parameters, folded
+    once: a dict of stacked (plane-leading) tensors
+
+      w1 (2, Kp, H1) bf16 — rows past in_dim zero, Kp = round_up(in_dim,
+                            32)
+      b1, s1, t1 (2, H1) f32 — bias and post-ReLU affine of layer 1
+      w2 (2, H1, H2) bf16; b2, s2, t2 (2, H2) f32
+      w3 (2, H2, 256) bf16 — carriers zero-padded
+      b3 (2, C) f32
+
+    Run it under ``full_f32_matmul()`` on the card, as the serving paths
+    do. ``plane(prepared, d)`` is one plane's tree for ``mlp_infer_pallas``.
+    """
+    planes = [_prepare_plane(tcfg, plane(params, d), plane(bn_state, d),
+                             torch.bfloat16) for d in range(2)]
+    return {k: torch.stack([p[k] for p in planes]) for k in _KEYS}
+
+
+def _prepared(tcfg, params, bn_state, dot_dtype):
+    """One plane's kernel tree: ``params`` as it is when it is one
+    already, else folded from the JAX-style (params, bn_state)."""
+    if "w1" in params:
+        return params
+    return _prepare_plane(tcfg, params, bn_state, dot_dtype)
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor, dot_dtype) -> torch.Tensor:
+    """a @ w with both rounded to dot_dtype, multiplied and summed in
+    float32."""
+    return a.to(dot_dtype).float() @ w.to(dot_dtype).float()
+
+
+def _layer1_plain(p, x: torch.Tensor, dot_dtype=torch.bfloat16):
+    """Plain version of the layer-1 kernel: h1 (M, H1) in dot_dtype."""
+    h = torch.relu(_mm(x, p["w1"][:x.shape[1]], dot_dtype) + p["b1"])
+    return (h * p["s1"] + p["t1"]).to(dot_dtype)
+
+
+def _tail_plain(p, h1: torch.Tensor, dot_dtype=torch.bfloat16):
+    """Plain version of the tail kernel: y (M, C) float32."""
+    h2 = torch.relu(_mm(h1, p["w2"], dot_dtype) + p["b2"])
+    h2 = h2 * p["s2"] + p["t2"]
+    c = p["b3"].shape[-1]
+    return _mm(h2, p["w3"][:, :c], dot_dtype) + p["b3"]
+
+
+def mlp_infer_layer1(p, x: torch.Tensor) -> torch.Tensor:
+    """Layer 1 of one plane: x (M, in_dim) → h1 (M, H1) bfloat16.
+
+    CUDA: the K-streamed GEMM kernel with the bias, ReLU, affine and
+    bf16 rounding in its epilogue (x float32 is cast to bf16 first).
+    CPU: the plain version."""
+    if not on_cuda(x, *(p[k] for k in ("w1", "b1", "s1", "t1"))):
+        return _layer1_plain(p, x)
+    w1 = p["w1"]
+    m, k = x.shape
+    kp, h1 = w1.shape
+    if w1.dtype != torch.bfloat16:
+        raise TypeError(f"mlp_infer_layer1 takes bf16 w1, got {w1.dtype}")
+    if k % 8 or kp != _round_up(k, 32) or h1 % 128:
+        raise ValueError(f"the layer-1 kernel needs in_dim % 8 == 0, w1 of "
+                         f"round_up(in_dim, 32) rows and H1 % 128 == 0; got "
+                         f"x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+    x = x.to(torch.bfloat16).contiguous()
+    out = torch.empty((m, h1), dtype=torch.bfloat16, device=x.device)
+    if m == 0:
+        return out
+    lib = _mlp_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mlp_layer1_launch(
+            x.data_ptr(), w1.contiguous().data_ptr(),
+            *(p[n].contiguous().data_ptr() for n in ("b1", "s1", "t1")),
+            out.data_ptr(), m, k, kp, h1, stream)
+    _build.check(rc, lib, "mlp_infer_error_string", "mlp_infer_layer1")
+    mlp_infer_layer1.launches += 1
+    return out
+
+
+mlp_infer_layer1.launches = 0
+
+
+def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
+    """Layers 2 and 3 of one plane: h1 (M, H1) bfloat16 → y (M, C)
+    float32. CUDA: the kernel that keeps h2 on chip; CPU: the plain
+    version."""
+    keys = ("w2", "b2", "s2", "t2", "w3", "b3")
+    if not on_cuda(h1, *(p[k] for k in keys)):
+        return _tail_plain(p, h1)
+    q = {k: p[k].contiguous() for k in keys}
+    m, H1 = h1.shape
+    H2 = q["w2"].shape[1]
+    c = q["b3"].shape[-1]
+    if h1.dtype != torch.bfloat16 or q["w2"].dtype != torch.bfloat16 \
+            or q["w3"].dtype != torch.bfloat16:
+        raise TypeError("mlp_infer_tail takes bf16 h1, w2 and w3")
+    # h1 (64 x H1 bf16) must fit in shared memory beside the ring
+    if H1 % 128 or H1 > 1024 or H2 % 128 or c > _OP \
+            or tuple(q["w2"].shape) != (H1, H2) \
+            or tuple(q["w3"].shape) != (H2, _OP):
+        raise ValueError(f"the tail kernel needs H1, H2 % 128 == 0, H1 <= "
+                         f"1024, w3 (H2, {_OP}) and C <= {_OP}")
+    h1 = h1.contiguous()
+    out = torch.empty((m, c), dtype=torch.float32, device=h1.device)
+    if m == 0:
+        return out
+    lib = _mlp_lib()
+    with torch.cuda.device(h1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mlp_tail_launch(h1.data_ptr(),
+                                 *(q[k].data_ptr() for k in keys),
+                                 out.data_ptr(), m, H1, H2, c, stream)
+    _build.check(rc, lib, "mlp_infer_error_string", "mlp_infer_tail")
+    mlp_infer_tail.launches += 1
+    return out
+
+
+mlp_infer_tail.launches = 0
+
+
+def mlp_infer_pallas(tcfg: TrainConfig, params, bn_state, x: torch.Tensor,
+                     *, block_b: int = 256, block_k: int = 1152,
+                     dot_dtype=torch.bfloat16, interpret=None):
+    """Fused inference of one plane on a preprocessed batch.
+
+    Args:
+      params, bn_state: ONE plane's parameters (no stacked axis), or one
+        plane of ``prepare_mlp_infer_weights`` (bn_state then unused). Two
+        hidden layers (the paper's 1024/1024).
+      x: (B, in_dim) float32 or bfloat16.
+      dot_dtype: the products' operand type: bfloat16 (the kernels') or,
+        on the CPU only, float32.
+      block_b, block_k, interpret: accepted for the JAX signature and
+        ignored (the CUDA kernels pick their own tiling).
+
+    Returns:
+      (B, out_dim) float32. CUDA: ``mlp_infer_layer1`` then
+      ``mlp_infer_tail``, h1 in device memory as bf16. CPU: the plain
+      version, every operand rounded to dot_dtype.
+    """
+    del block_b, block_k, interpret
+    if dot_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dot_dtype must be bfloat16 or float32, got "
+                        f"{dot_dtype}")
+    if on_cuda(x) and dot_dtype != torch.bfloat16:
+        raise TypeError("the CUDA MLP kernels take bfloat16 operands only; "
+                        "dot_dtype=float32 is not ported")
+    p = _prepared(tcfg, params, bn_state, dot_dtype)
+    if not on_cuda(x):
+        return _tail_plain(p, _layer1_plain(p, x, dot_dtype), dot_dtype)
+    return mlp_infer_tail(p, mlp_infer_layer1(p, x))
+
+
+def predict_complex_pallas(cfg: SimConfig, tcfg: TrainConfig, params,
+                           bn_state, sig: torch.Tensor, pilot: torch.Tensor,
+                           **kw) -> torch.Tensor:
+    """Complex CSI prediction through the fused kernels (both planes): the
+    real plane through plane 0's weights, the imaginary plane through
+    plane 1's. Drop-in fast path for ``models.mlp.predict_complex``.
+
+    params: stacked parameters (with bn_state) or the stacked tree of
+    ``prepare_mlp_infer_weights``. sig: (B, len_ltf) complex; pilot:
+    (B, num_tx). Returns (B, num_carriers) complex64."""
+    bn = bn_state if "dense" in params else {}
+    ys = [mlp_infer_pallas(
+        tcfg, plane(params, d), plane(bn, d),
+        preprocess_input(cfg, tcfg, part.float(), pilot), **kw)
+        for d, part in enumerate((sig.real, sig.imag))]
+    return torch.complex(ys[0], ys[1])
+
+
+def _mlp_lib() -> ctypes.CDLL:
+    lib = _build.library("mlp_infer")
+    f = lib.mlp_layer1_launch
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    f = lib.mlp_tail_launch
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    return lib

@@ -10,7 +10,7 @@ Two measurements at the full BS32 width (H = 1024, num_tx = 32,
    (64 to 4096 blocks). If its time per wave of 132 blocks stays flat,
    the limit is inside each SM, not a resource the SMs share (L2, HBM);
 2. ablations: the kernel built with ``-DTAIL_CUT=<bits>`` (see
-   ``csrc/fused_factored.cu``), each cutting one phase out (building h,
+   ``csrc/mlp_tail.cuh``), each cutting one phase out (building h,
    the whole ring loop, the layer-3 products, all products), timed at
    S = 4096. The differences split the kernel's time by phase.
 
@@ -27,7 +27,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-CUTS = {                 # TAIL_CUT bits of csrc/fused_factored.cu
+CUTS = {                 # TAIL_CUT bits of csrc/mlp_tail.cuh
     "no h build": 1,
     "no ring loop": 2,
     "no layer-3 mma": 4,
