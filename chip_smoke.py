@@ -41,14 +41,29 @@ failure ends the run with a non-zero exit code):
                its first 3 packets' DNN to the plain float32 chain on
                their materialized rows. predict_complex_pallas answers
                256 rows, held to the float32 predict_complex;
+5e. seq-par. — the sequence-parallel path on a mesh of virtual ranks,
+               all on the one card (cuda:0): the halo-exchange kernel on
+               the padded BS32 preamble's 4 rank chunks with the 512 taps
+               of a seeded scattering realization (exact against the
+               plain exchange, rank 0's halo zero), the sharded FIR
+               convolution sharded_apply_channel_rdma (against the
+               unsharded one and the exact phase-ramp channel), the
+               sharded LS sharded_ls_pallas_v2 in seq (2, 4 ranks) and
+               data (4 ranks) modes, and the sharded inference forms
+               (sharded_ls_estimate, sharded_predict_all_pairs,
+               sharded_estimate_combined on data 2 x seq 2 x antenna 2)
+               against their unsharded float32 counterparts;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events; the
                device time of estimate_full, all_pairs(int8=True), the
                four planes paths and pallas_full, and pallas_full's peak
-               device memory.
+               device memory; the halo kernel per rank and the LS
+               kernel's seq mode per rank, and the whole-call time of
+               sharded_apply_channel_rdma and sharded_ls_pallas_v2
+               (seq, 4 ranks), split into kernels and the rest.
 
-Launch counts are set to 0 just before each of phases 5, 5b, 5c and 5d
-and read just after. Prints a JSON line of per-kernel numbers before the
+Launch counts are set to 0 just before each main-path call of phases 5,
+5b, 5c, 5d and 5e and read just after. Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
 the repository's sources; exits non-zero without either.
 """
@@ -239,8 +254,16 @@ def main() -> int:
         fused_factored_planes,
         prepare_factored_weights,
     )
+    from mamimo_tpu_torch.channel.scattering import (
+        ChannelRealization,
+        apply_channel,
+        make_scenario,
+        realize_channel,
+    )
+    from mamimo_tpu_torch.models.mlp import predict_all_pairs
     from mamimo_tpu_torch.ops.kernels.fused_ls import (
         _ls_v1_plain,
+        _ls_v2_plain,
         ls_estimate_pallas,
         ls_kernel_constants,
         ls_pair_kernel,
@@ -269,6 +292,27 @@ def main() -> int:
         pilot_p_matrix,
         preamble_scale,
     )
+    from mamimo_tpu_torch.parallel.halo import (
+        apply_channel_taps,
+        channel_taps,
+        sharded_apply_channel,
+    )
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+    from mamimo_tpu_torch.parallel.rdma_halo import (
+        _halo_lib,
+        _launch as halo_launch,
+        ext_block_plain,
+        halo_exchange_pallas,
+        sharded_apply_channel_rdma,
+    )
+    from mamimo_tpu_torch.parallel.sharded import (
+        sharded_estimate_combined,
+        sharded_ls_estimate,
+        sharded_ls_pallas_v2,
+        sharded_predict_all_pairs,
+        sum_onto,
+    )
+    from mamimo_tpu_torch.pipeline.sounding import pad_signal
     from mamimo_tpu_torch.train.ckpt import save_checkpoint
 
     dev = torch.device("cuda", 0)
@@ -319,6 +363,18 @@ def main() -> int:
         res["ls_planes_v2"] = check(
             "ls_planes_v2 vs ls_estimate_planes (f32)",
             ls2, torch.stack([h.real, h.imag]), -45.0)
+        # seq mode: each rank's partial despread of its own symbols
+        for n in (2, 4, 8):
+            lq = cfg.len_ltf // n
+            for i in range(n):
+                r = check(f"ls_planes_v2 seq rank {i} of {n} vs its plain "
+                          f"version (f32)", ls_planes_v2(
+                              cfg, x16[:, :, i * lq:(i + 1) * lq].contiguous(),
+                              kc, seq_shard=(i, n)),
+                          _ls_v2_plain(cfg, x32[:, :, i * lq:(i + 1) * lq],
+                                       (i, n)), -45.0)
+                if (i, n) == (1, 4):        # the rank phase 6 times
+                    res["ls_planes_v2 seq"] = r
         # v1: the raw padded planes in f32 and bf16, and the complex form
         ref_raw = torch.stack(_ls_v1_plain(cfg, x16, 8, torch.float32))
         for dt in (torch.float32, bf16):
@@ -431,7 +487,7 @@ def main() -> int:
 
     all_kernels = (ls_planes_v2, factored_sig_proj, factored_tail,
                    ls_planes_v1, matmul_int8, ls_pair_kernel,
-                   mlp_infer_layer1, mlp_infer_tail)
+                   mlp_infer_layer1, mlp_infer_tail, halo_exchange_pallas)
 
     def counted(fn):
         """Run fn with every launch count set to 0 just before; returns
@@ -594,6 +650,96 @@ def main() -> int:
     require_launched("predict_complex_pallas", cnt_pc,
                      ("mlp_infer_layer1", "mlp_infer_tail"))
 
+    # 5e. the sequence-parallel path on virtual ranks of one card -------
+    d_seq = 4
+    mesh = make_mesh({"seq": d_seq}, devices=[dev] * d_seq)
+    gch = torch.Generator().manual_seed(5)
+    chan = realize_channel(cfg, gch, make_scenario(cfg, gch))
+    chan = ChannelRealization(*(t.to(dev) for t in chan))
+    sig = pad_signal(cfg, gen_preamble(cfg)).to(dev)        # (11200, Nt)
+    taps = channel_taps(cfg, chan, n_taps=cfg.fir_taps)
+    chunk, halo = sig.shape[0] // d_seq, taps.shape[0] - 1
+    print(f"[5e seq-parallel] {d_seq} virtual ranks on one card (cuda:0): "
+          f"padded BS32 preamble {tuple(sig.shape)}, chunk {chunk}, "
+          f"{taps.shape[0]} taps (halo {halo})")
+    planes_r = [torch.view_as_real(sig[r * chunk:(r + 1) * chunk])
+                .permute(2, 0, 1).contiguous() for r in range(d_seq)]
+    ext_k = halo_exchange_pallas(mesh, planes_r, halo)
+    for r, (got, x) in enumerate(zip(ext_k, planes_r)):
+        r_res = check_exact(f"halo_exchange_pallas rank {r} vs the plain "
+                            f"exchange", got, ext_block_plain(
+                                x, planes_r[r - 1] if r else None, halo))
+        if r == 1:                          # the rank phase 6 times
+            res["halo_exchange_pallas"] = r_res
+    if bool((ext_k[0][:, :halo] != 0).any()):
+        raise AssertionError("halo_exchange_pallas: rank 0's halo is not zero")
+    # the scalar path (nt % 4 != 0) and a 3-rank ring, random planes
+    odd = [torch.randn((2, 50, 3), generator=g, device=dev) for _ in range(3)]
+    m3 = make_mesh({"seq": 3}, devices=[dev] * 3)
+    for r, got in enumerate(halo_exchange_pallas(m3, odd, 7)):
+        check_exact(f"halo_exchange_pallas scalar path, rank {r} of 3",
+                    got, ext_block_plain(odd[r], odd[r - 1] if r else None, 7))
+    ext, cnt_halo = counted(lambda: halo_exchange_pallas(mesh, planes_r, halo))
+    conv, cnt_conv = counted(
+        lambda: sharded_apply_channel_rdma(cfg, mesh, sig, taps))
+    for what, cnt in (("halo_exchange_pallas", cnt_halo),
+                      ("sharded_apply_channel_rdma", cnt_conv)):
+        print(f"  launches in {what}: {cnt}")
+        if cnt["halo_exchange_pallas"] != d_seq:
+            raise AssertionError(f"{what}: {cnt['halo_exchange_pallas']} halo "
+                                 f"launches, want {d_seq}")
+    ref_taps = apply_channel_taps(sig, taps)
+    exact = apply_channel(cfg, sig, chan)
+    seq_err = {
+        "conv_vs_unsharded": float(torch.linalg.norm(conv - ref_taps)
+                                   / torch.linalg.norm(ref_taps)),
+        "conv_vs_phase_ramp": float(torch.linalg.norm(conv - exact)
+                                    / torch.linalg.norm(exact))}
+    print(f"  sharded_apply_channel_rdma {tuple(conv.shape)}: rel err "
+          f"{seq_err['conv_vs_unsharded']:.3e} vs apply_channel_taps (limit "
+          f"1e-4), {seq_err['conv_vs_phase_ramp']:.3e} vs apply_channel "
+          f"(limit 5e-2, the band limit)")
+    if not (seq_err["conv_vs_unsharded"] <= 1e-4
+            and seq_err["conv_vs_phase_ramp"] <= 5e-2
+            and bool(torch.isfinite(torch.view_as_real(conv)).all())):
+        raise AssertionError(f"sharded_apply_channel_rdma: {seq_err}")
+    # the sharded LS on bf16 planes, each mode counted
+    xs16 = torch.randn((2, S_CHECK, L), generator=g, device=dev).to(bf16)
+    un2 = ls_planes_v2(cfg, xs16, consts)
+    un_c = torch.complex(un2[0], un2[1])
+    ls_f32 = ls_estimate_planes(cfg, xs16.float(), f32_consts)
+    cnt_sls = {}
+    for mode, n in (("seq", 2), ("seq", 4), ("data", 4)):
+        m = make_mesh({mode: n}, devices=[dev] * n)
+        h, cnt = counted(lambda: sharded_ls_pallas_v2(cfg, m, xs16, mode=mode))
+        tag = f"sharded_ls_pallas_v2 {mode} {n}"
+        seq_err[f"{mode}{n}_vs_unsharded_db"] = check(
+            f"{tag} vs unsharded ls_planes_v2", h, un_c, -100.0)["nmse_db"]
+        seq_err[f"{mode}{n}_vs_f32_db"] = check(
+            f"{tag} vs f32 ls_estimate_planes", h, ls_f32, -45.0)["nmse_db"]
+        print(f"  launches in {tag}: {cnt}")
+        if cnt["ls_planes_v2"] != n:
+            raise AssertionError(f"{tag}: {cnt['ls_planes_v2']} LS launches, "
+                                 f"want {n}")
+        cnt_sls[(mode, n)] = cnt["ls_planes_v2"]
+    # the sharded inference forms against the unsharded f32 ones
+    rx_i = torch.complex(torch.randn((8, L, nr), generator=g, device=dev),
+                         torch.randn((8, L, nr), generator=g, device=dev))
+    ref_ls_i = ls_estimate_matmul(cfg, rx_i)
+    ref_dnn_i = predict_all_pairs(cfg, tcfg, params, bn, rx_i)
+    mesh3 = make_mesh({"data": 2, "seq": 2, "antenna": 2}, devices=[dev] * 8)
+    c_ls, c_dnn = sharded_estimate_combined(cfg, tcfg, mesh3, params, bn, rx_i)
+    for tag, got, ref in (
+            ("sharded_ls_estimate (seq 4)", sharded_ls_estimate(
+                cfg, make_mesh({"seq": 4}, devices=[dev] * 4), rx_i), ref_ls_i),
+            ("sharded_predict_all_pairs (antenna 4)", sharded_predict_all_pairs(
+                cfg, tcfg, make_mesh({"antenna": 4}, devices=[dev] * 4),
+                params, bn, rx_i), ref_dnn_i),
+            ("sharded_estimate_combined h_ls (2 x 2 x 2)", c_ls, ref_ls_i),
+            ("sharded_estimate_combined h_dnn (2 x 2 x 2)", c_dnn, ref_dnn_i)):
+        seq_err[tag] = check(f"{tag} vs unsharded f32", got, ref,
+                             -80.0)["nmse_db"]
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -614,11 +760,11 @@ def main() -> int:
     rows = []
 
     def row(kname, shape_, src, repl, kern, plain, lib, nbytes, ops,
-            launches, path, peak=BF16_FLOPS, call=None):
+            launches, path, peak=BF16_FLOPS, call=None, key=None):
         rows.append(dict(name=kname, shape=shape_, source=src, replaces=repl,
                          kern=kern, plain=plain, lib=lib, nbytes=nbytes,
                          ops=ops, peak=peak, launches=launches, path=path,
-                         call=call))
+                         call=call, key=key or kname))
 
     # LS: kernel, plain (f32), library (bf16 matmul DFT-select + despread)
     bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, bf16, dev)
@@ -759,6 +905,48 @@ def main() -> int:
         2.0 * M * (H1 * H2 + H2 * C), cnt_pf["mlp_infer_tail"],
         "pallas_full x3")
 
+    # kernel 7 per rank: rank 1 of 4 (body copy + tail put) on the
+    # preamble's chunks; plain: the rank's plain exchange; library: one
+    # torch.cat of the left tail and the chunk (the whole exchange is
+    # timed as call_ms)
+    nt_ = planes_r[0].shape[2]
+    halo_lib, stream = _halo_lib(), torch.cuda.current_stream()
+    row("halo_exchange_pallas", f"rank 1 of {d_seq}: (2, {chunk}, {nt_}) f32 "
+        f"-> (2, {halo + chunk}, {nt_}) f32, tail {halo} rows put into rank "
+        f"2's block", "mamimo_tpu_torch/csrc/halo.cu",
+        "mamimo_tpu/parallel/rdma_halo.py:111",
+        lambda: halo_launch(halo_lib, planes_r[1], ext[1], ext[2], halo,
+                            False, stream),
+        lambda: ext_block_plain(planes_r[1], planes_r[0], halo),
+        lambda: torch.cat([planes_r[0][:, chunk - halo:], planes_r[1]], 1),
+        2 * chunk * nt_ * 4 + 2 * (halo + chunk) * nt_ * 4, 0.0,
+        cnt_halo["halo_exchange_pallas"], f"halo_exchange_pallas, "
+        f"{d_seq} ranks", call=lambda: halo_exchange_pallas(mesh, planes_r,
+                                                            halo))
+    # kernel 1's seq mode per rank: rank 1 of 4 (loc 8 symbols) at S = 4096
+    loc = nt // 4
+    lq = loc * cfg.sym_len
+    xq16 = xb16[:, :, lq:2 * lq].contiguous()
+    xq32 = xq16.float()
+    pcols = pm[:, loc:2 * loc]
+
+    def ls_seq_library():
+        t = torch.matmul(xq16.view(2, S * loc, cfg.sym_len), bv2).float()
+        zr = t[0, :, :C] - t[1, :, cp_:cp_ + C]
+        zi = t[0, :, cp_:cp_ + C] + t[1, :, :C]
+        return torch.matmul(pcols, torch.stack([zr, zi]).view(2, S, loc, C))
+
+    row("ls_planes_v2", f"seq rank 1 of 4: planes (2, {S}, {lq}) bf16 -> "
+        f"partial (2, {S}, {nt}, {C}) f32", "mamimo_tpu_torch/csrc/ls_v2.cu",
+        "mamimo_tpu/ops/pallas/fused_ls.py:424",
+        lambda: ls_planes_v2(cfg, xq16, consts, seq_shard=(1, 4)),
+        lambda: _ls_v2_plain(cfg, xq32, (1, 4)), ls_seq_library,
+        2 * S * loc * cfg.fft_length * 2 + consts.numel() * 2
+        + 2 * S * nt * C * 4,
+        2.0 * (S * loc) * (2 * cfg.fft_length) * (2 * C),
+        cnt_sls[("seq", 4)], "sharded_ls_pallas_v2(seq, 4)",
+        key="ls_planes_v2 seq")
+
     kernels = []
     for r in rows:
         ms = time_ms(r["kern"])
@@ -768,7 +956,7 @@ def main() -> int:
         bms, by = bound_ms(r["nbytes"], r["ops"], r["peak"])
         if r["name"] == "matmul_int8":
             gemm_ms[r["shape"].split(":")[0]] = ms
-        print(f"  {r['name']} [{r['shape']}]: {ms:.4f} ms (bound {bms:.4f} ms "
+        print(f"  {r['name']} [{r['shape']}]: {ms:.5f} ms (bound {bms:.5f} ms "
               f"by {by}, {bms / ms * 100:.1f}% of it); "
               f"plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms"
               + (f"; whole wrapper {call_ms:.4f} ms" if call_ms else "")
@@ -777,9 +965,9 @@ def main() -> int:
             "name": r["name"], "shape": r["shape"], "route": "cuda",
             "source": r["source"], "replaces": r["replaces"],
             "launches": r["launches"], "launches_in": r["path"],
-            "max_abs_err": res[r["name"]]["max_abs_err"],
-            "nmse_db": res[r["name"]]["nmse_db"],
-            "exact": res[r["name"]].get("exact", False),
+            "max_abs_err": res[r["key"]]["max_abs_err"],
+            "nmse_db": res[r["key"]]["nmse_db"],
+            "exact": res[r["key"]].get("exact", False),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "call_ms": call_ms,
         })
@@ -812,6 +1000,44 @@ def main() -> int:
           f"({mlp_ms / full_ms * 100:.1f}%), the rest (planes to complex, "
           f"pair planes, materialized x, complex out) "
           f"{full_ms - mlp_ms - ls_pp:.4f} ms  [{smi}]")
+    # the sequence-parallel calls, split into kernels and the rest
+    k_halo = next(k for k in kernels if k["name"] == "halo_exchange_pallas")
+    k_seq = next(k for k in kernels if k["shape"].startswith("seq rank"))
+    par = {"sharded_apply_channel_rdma (seq 4)": time_ms(
+        lambda: sharded_apply_channel_rdma(cfg, mesh, sig, taps), iters=10),
+        "sharded_apply_channel (plain exchange, seq 4)": time_ms(
+        lambda: sharded_apply_channel(cfg, mesh, sig, taps), iters=10)}
+    m_seq4 = make_mesh({"seq": 4}, devices=[dev] * 4)
+    par["sharded_ls_pallas_v2 (seq 4)"] = time_ms(
+        lambda: sharded_ls_pallas_v2(cfg, m_seq4, xb16, mode="seq",
+                                     consts=consts), iters=5)
+    shard_copies = lambda: [xb16[:, :, i * lq:(i + 1) * lq].contiguous()  # noqa: E731
+                            for i in range(4)]
+    copies_ms = time_ms(shard_copies, iters=5)
+    parts = [ls_planes_v2(cfg, x, consts, seq_shard=(i, 4))
+             for i, x in enumerate(shard_copies())]
+    allreduce_ms = time_ms(lambda: sum_onto(parts, dev), iters=5)
+    hsum = sum_onto(parts, dev)
+    complex_ms = time_ms(lambda: torch.complex(hsum[0], hsum[1]), iters=5)
+    for cname, ms in par.items():
+        print(f"  {cname} device time: {ms:.4f} ms  [{smi}]")
+    rdma_ms = par["sharded_apply_channel_rdma (seq 4)"]
+    print(f"  sharded_apply_channel_rdma split: {d_seq} halo launches "
+          f"{d_seq * k_halo['ms']:.4f} ms ({d_seq * k_halo['ms'] / rdma_ms * 100:.1f}%),"
+          f" the rest (chunk planes, complex blocks, FFTs, products, "
+          f"gather) {rdma_ms - d_seq * k_halo['ms']:.4f} ms  [{smi}]")
+    sls_ms = par["sharded_ls_pallas_v2 (seq 4)"]
+    print(f"  sharded_ls_pallas_v2 (seq 4) split: 4 LS seq kernels about "
+          f"{4 * k_seq['ms']:.4f} ms (rank 1's time x 4), shard copies "
+          f"{copies_ms:.4f} ms, all-reduce (sum of 4 partials) "
+          f"{allreduce_ms:.4f} ms, complex out {complex_ms:.4f} ms, the rest "
+          f"{sls_ms - 4 * k_seq['ms'] - copies_ms - allreduce_ms - complex_ms:.4f}"
+          f" ms  [{smi}]")
+    par_split = {"halo_kernels_ms": d_seq * k_halo["ms"],
+                 "ls_seq_kernels_ms": 4 * k_seq["ms"],
+                 "ls_seq_shard_copies_ms": copies_ms,
+                 "ls_seq_allreduce_ms": allreduce_ms,
+                 "ls_seq_complex_ms": complex_ms}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "serving": {
@@ -827,6 +1053,16 @@ def main() -> int:
         "pallas_full_peak_above_live_bytes": peak_full - live,
         "physics_ls_nmse_db": err,
         "physics_worst_carrier_nmse_db": worst},
+        "seq_parallel": {
+            "ranks": "virtual, all on cuda:0", "chunk": chunk, "halo": halo,
+            "device_ms": par, "split_ms": par_split,
+            "launches": {"halo_exchange_pallas": cnt_halo[
+                "halo_exchange_pallas"], "sharded_apply_channel_rdma":
+                cnt_conv["halo_exchange_pallas"],
+                **{f"sharded_ls_pallas_v2 {m} {n}": c
+                   for (m, n), c in cnt_sls.items()}},
+            "errors": {k: finite(v) if v is not None else None
+                       for k, v in seq_err.items()}},
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

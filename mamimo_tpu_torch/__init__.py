@@ -6,19 +6,27 @@ tensor code is PyTorch; each TPU kernel on the ported path is a CUDA C++
 kernel written by hand for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
 first use into ``_build/`` and bound through ``ctypes``.
 
-- ``config``            : SimConfig / TrainConfig (same fields and JSON)
+- ``config``            : SimConfig / TrainConfig (same fields and JSON),
+                          ``default_fft_size``
 - ``ops.ltf``           : LTF sequence, Hadamard P, sounding preamble
 - ``ops.estimate``      : LS estimate from flat planes and from
                           time-major preambles (plain versions)
 - ``ops.kernels``       : kernel wrappers (LS v2, v1 and per pair, fused
                           factored DNN, fused MLP on the materialized
-                          input, int8 GEMM)
+                          input, int8 GEMM); the halo-exchange kernel's
+                          wrapper is in ``parallel.rdma_halo``
 - ``models``            : the CSI MLP (eval), its int8 quantized form
                           (``models.quant``) and ``CSIPredictor``
 - ``bench``             : the bench's estimation paths (per pair, and
                           the bf16-input planes paths)
 - ``train.ckpt``        : npz checkpoints, interchangeable with the JAX
                           package's
+- ``channel.scattering``: the single-bounce scattering channel
+- ``pipeline.sounding`` : ``pad_signal`` (the sounding loop is not ported)
+- ``parallel``          : meshes of torch devices, the sequence-parallel
+                          channel convolution with its halo-exchange
+                          kernel, the sharded LS and DNN inference forms
+- ``utils.numerics``    : ``unit_phasor``, ``full_f32_matmul``
 """
 
 __version__ = "0.1.0"

@@ -206,6 +206,21 @@ class TrainConfig:
         return cls(**d)
 
 
+def default_fft_size(cfg: SimConfig, data_leg: bool = False) -> int:
+    """Smallest power-of-two FFT covering the padded signal for the
+    frequency-domain channel application (sounding preamble + tail pad;
+    the data leg additionally carries the priming preamble + data frame,
+    helperApplyMUChannel.m:26-35)."""
+    n = cfg.len_ltf + cfg.num_pad_zeros
+    if data_leg:
+        n += cfg.num_pad_zeros + (cfg.num_sts + cfg.num_data_symbols) \
+            * cfg.sym_len
+    size = 1
+    while size < n:
+        size *= 2
+    return size
+
+
 def carrier_bins(cfg: SimConfig) -> np.ndarray:
     """Signed DFT bin index for each data carrier.
 

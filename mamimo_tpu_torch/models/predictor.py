@@ -13,7 +13,6 @@ the int8 GEMM kernel on the card.
 
 from __future__ import annotations
 
-import contextlib
 import os
 
 import numpy as np
@@ -40,6 +39,7 @@ from mamimo_tpu_torch.ops.kernels.fused_factored import (
 )
 from mamimo_tpu_torch.ops.kernels.fused_ls import ls_kernel_constants, ls_planes_v2
 from mamimo_tpu_torch.train.ckpt import load_checkpoint
+from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
 
 def resolve_device(device) -> torch.device:
@@ -50,21 +50,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but no CUDA GPU "
                            "is available")
     return dev
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """Run float32 products on the card in full float32, not TF32, for
-    the duration; the caller's settings are restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 class CSIPredictor:

@@ -91,9 +91,13 @@ def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor,
       axis with P.
 
     Args:
-      planes: (2, S, len_ltf) float32 or bfloat16.
+      planes: (2, S, nsym·sym_len) float32 or bfloat16: the whole
+        preamble (nsym = num_tx), or one rank's nsym contiguous symbols
+        of a sequence-sharded preamble.
       consts: optional (At_r, At_i, P) from ls_planes_constants; the
-        products and sums are float32 whatever their dtype.
+        products and sums are float32 whatever their dtype. For a
+        rank's symbols P is their columns (num_tx, nsym) of the full P,
+        and the result is the rank's partial despread.
 
     Returns:
       (S, num_tx, num_carriers) complex64, rx-major.
@@ -101,8 +105,8 @@ def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor,
     if consts is None:
         consts = ls_planes_constants(cfg, device=planes.device)
     at_r, at_i, p = consts
-    _, s, _ = planes.shape
-    nsym, c = cfg.num_tx, cfg.num_carriers
+    _, s, L = planes.shape
+    nsym, c = L // cfg.sym_len, cfg.num_carriers
     x = planes.reshape(2, s * nsym, cfg.sym_len).float()
     at_r = at_r.float()
     at_i = at_i.float()

@@ -6,8 +6,11 @@ Walsh–Hadamard body (``csrc/ls_core.cuh``) and differ in the output form.
 
 On a CUDA tensor ``ls_planes_v2``, ``ls_planes_v1`` and
 ``ls_estimate_pallas`` launch their kernel; on a CPU tensor they run the
-kernel's plain version (``ops/estimate.py::ls_estimate_planes``,
-``_ls_v1_plain``, ``ops/estimate.py::ls_estimate_matmul``).
+kernel's plain version (``_ls_v2_plain`` on
+``ops/estimate.py::ls_estimate_planes``, ``_ls_v1_plain``,
+``ops/estimate.py::ls_estimate_matmul``). ``ls_planes_v2(seq_shard=(i,
+n))`` is the v2 kernel's sequence-sharded mode: rank i's partial
+despread of its own symbols.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from mamimo_tpu_torch.ops.estimate import (
     dft_selected_padded_np,
     ls_estimate_matmul,
     ls_estimate_planes,
+    ls_planes_constants,
 )
 from mamimo_tpu_torch.ops.kernels import _build
 from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda
@@ -83,13 +87,17 @@ def ls_kernel_constants(cfg: SimConfig, device=None) -> torch.Tensor:
 
 
 def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
-                         bmat: torch.Tensor) -> None:
+                         bmat: torch.Tensor, nsym_in: int | None = None
+                         ) -> None:
+    """Raise unless the LS kernels take these operands: planes of
+    ``nsym_in`` symbols per sample (default num_tx, the whole preamble)."""
     nt = cfg.num_tx
+    length = (nsym_in or nt) * cfg.sym_len
     if planes.dtype != torch.bfloat16 or bmat.dtype != torch.bfloat16:
         raise TypeError("the LS kernel takes bfloat16 planes and constants")
     if planes.dim() != 3 or planes.shape[0] != 2 \
-            or planes.shape[2] != cfg.len_ltf:
-        raise ValueError(f"planes must be (2, S, {cfg.len_ltf}), "
+            or planes.shape[2] != length:
+        raise ValueError(f"planes must be (2, S, {length}), "
                          f"got {tuple(planes.shape)}")
     cp_ = _round_up(cfg.num_carriers, 128)
     if tuple(bmat.shape) != (2 * cfg.fft_length, 2 * cp_):
@@ -101,27 +109,61 @@ def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
                          "fft_length % 32 == 0 and cp_length % 8 == 0")
 
 
+def seq_shard_symbols(cfg: SimConfig, seq_shard) -> int:
+    """loc = num_tx / n, the symbols per sample of rank i of n in a
+    sequence-sharded preamble; raises unless 0 <= i < n, n a power of 2
+    dividing num_tx."""
+    i, n = seq_shard
+    if n < 1 or n & (n - 1) or cfg.num_tx % n or not 0 <= i < n:
+        raise ValueError(f"seq_shard {seq_shard}: need rank 0 <= i < n, n "
+                         f"a power of 2 dividing num_tx={cfg.num_tx}")
+    return cfg.num_tx // n
+
+
+def _ls_v2_plain(cfg: SimConfig, planes: torch.Tensor,
+                 seq_shard=None) -> torch.Tensor:
+    """Plain version of the v2 kernel: the float32 LS, or with
+    ``seq_shard`` = (i, n) the float32 DFT-select of rank i's symbols
+    despread with P[:, i·loc:(i+1)·loc]."""
+    at_r, at_i, p = ls_planes_constants(cfg, device=planes.device)
+    if seq_shard is not None:
+        loc = seq_shard_symbols(cfg, seq_shard)
+        p = p[:, seq_shard[0] * loc:(seq_shard[0] + 1) * loc]
+    h = ls_estimate_planes(cfg, planes.float(), (at_r, at_i, p))
+    return torch.stack([h.real, h.imag])
+
+
 def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
-                 consts: torch.Tensor | None = None) -> torch.Tensor:
+                 consts: torch.Tensor | None = None, *,
+                 seq_shard: tuple[int, int] | None = None) -> torch.Tensor:
     """LS estimate of every (sample, tx, carrier) from flat planes.
 
     Args:
       planes: (2, S, len_ltf) — bfloat16 on CUDA (the kernel's input);
-        float32 or bfloat16 on the CPU.
+        float32 or bfloat16 on the CPU. With ``seq_shard``, rank i's
+        contiguous symbols (2, S, loc·sym_len), loc = num_tx / n.
       consts: CUDA only, ``ls_kernel_constants(cfg, device)``; built per
         call when omitted.
+      seq_shard: (i, n) — return rank i of n's PARTIAL despread of its
+        symbols (the rectangular K of the TPU kernel's sequence mode);
+        the sum of the n partials is the estimate.
 
     Returns:
       (2, S, num_tx, num_carriers) float32 planes ([0]=real, [1]=imag),
       dense (no padding), rx-major.
     """
+    loc, rank = cfg.num_tx, 0
+    if seq_shard is not None:
+        loc, rank = seq_shard_symbols(cfg, seq_shard), seq_shard[0]
+    if planes.dim() != 3 or planes.shape[2] != loc * cfg.sym_len:
+        raise ValueError(f"planes must be (2, S, {loc * cfg.sym_len}), "
+                         f"got {tuple(planes.shape)}")
     if not on_cuda(planes):
-        h = ls_estimate_planes(cfg, planes.float())
-        return torch.stack([h.real, h.imag])
+        return _ls_v2_plain(cfg, planes, seq_shard)
     if consts is None:
         consts = ls_kernel_constants(cfg, planes.device)
     planes = planes.contiguous()
-    _check_kernel_shapes(cfg, planes, consts)
+    _check_kernel_shapes(cfg, planes, consts, loc)
     s = planes.shape[1]
     out = torch.empty((2, s, cfg.num_tx, cfg.num_carriers),
                       dtype=torch.float32, device=planes.device)
@@ -130,8 +172,8 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_planes_v2_launch(
             planes.data_ptr(), consts.data_ptr(), out.data_ptr(), s,
-            cfg.num_tx, cfg.num_carriers, cfg.sym_len, cfg.cp_length,
-            cfg.fft_length, consts.shape[1] // 2, stream)
+            cfg.num_tx, loc, rank, cfg.num_carriers, cfg.sym_len,
+            cfg.cp_length, cfg.fft_length, consts.shape[1] // 2, stream)
     _build.check(rc, lib, "ls_planes_v2_error_string", "ls_planes_v2")
     ls_planes_v2.launches += 1
     return out
@@ -144,7 +186,7 @@ def _ls_lib() -> ctypes.CDLL:
     lib = _build.library("ls_v2")
     fn = lib.ls_planes_v2_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     return lib
 

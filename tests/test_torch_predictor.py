@@ -189,7 +189,13 @@ def test_port_imports_without_jax():
             "mamimo_tpu_torch.ops.kernels, mamimo_tpu_torch.train, "
             "mamimo_tpu_torch.ops.kernels.mlp_infer, "
             "mamimo_tpu_torch.ops.kernels.fused_ls, "
-            "mamimo_tpu_torch.ops.estimate, mamimo_tpu_torch.models.mlp; "
+            "mamimo_tpu_torch.ops.estimate, mamimo_tpu_torch.models.mlp, "
+            "mamimo_tpu_torch.utils.numerics, "
+            "mamimo_tpu_torch.channel.scattering, "
+            "mamimo_tpu_torch.pipeline.sounding, "
+            "mamimo_tpu_torch.parallel.mesh, mamimo_tpu_torch.parallel.halo, "
+            "mamimo_tpu_torch.parallel.rdma_halo, "
+            "mamimo_tpu_torch.parallel.sharded; "
             "bad = [m for m in sys.modules if m == 'mamimo_tpu' "
             "or m.startswith('mamimo_tpu.')]; "
             "assert not bad, bad")
