@@ -18,7 +18,11 @@ failure ends the run with a non-zero exit code):
                held to its float64 plain version exactly, at the three
                layer shapes with a ragged M. The per-pair LS takes whole
                packets (64, 7 and 7) of time-major preambles; the fused
-               MLP takes S*Nt - 3 materialized rows;
+               MLP takes S*Nt - 3 materialized rows. The two layer-1
+               GEMMs (factored_sig_proj, mlp_infer_layer1) also run at 1
+               row, at S*Nt - 3 rows and at a K that is not a multiple
+               of their 64-wide k-step; float32 (not bf16-valued) planes
+               go through ls_planes_v2 and sharded_ls_pallas_v2;
 4.  physics  — the sounding preamble through random flat channels, no
                noise: the served LS must recover every channel on every
                carrier;
@@ -91,8 +95,9 @@ BENCH_PACKETS = 1024               # the bench shape: S = 4096
 def nmse_db(got, ref) -> float:
     """NMSE of numpy arrays (real or complex) in dB, in float64."""
     got, ref = np.asarray(got, np.complex128), np.asarray(ref, np.complex128)
-    return float(10 * np.log10(np.sum(np.abs(got - ref) ** 2)
-                               / np.sum(np.abs(ref) ** 2)))
+    with np.errstate(divide="ignore"):          # an exact match is -inf
+        return float(10 * np.log10(np.sum(np.abs(got - ref) ** 2)
+                                   / np.sum(np.abs(ref) ** 2)))
 
 
 def to_np(t):
@@ -166,6 +171,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def trace_kernels_ms(fn, calls: int = 3) -> dict:
+    """Device time per call (ms) of each kernel fn() launches, by name,
+    from a torch.profiler trace of `calls` back-to-back calls; {} when the
+    trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:       # a measurement, not a check
+        print(f"  torch.profiler failed: {e}")
+        return {}
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            out[e.key] = us / 1e3 / calls
+    return out
 
 
 def bound_ms(nbytes: float, ops: float, peak: float = BF16_FLOPS):
@@ -389,10 +423,34 @@ def main() -> int:
         check("ls_planes_pallas complex vs its plain version (f32)",
               ls_planes_pallas(cfg, x16, kc),
               ls_raw_to_complex(cfg, ref_raw[0], ref_raw[1], s), -45.0)
-        sp = factored_sig_proj(x16, prep["w1"])
+        # float32 planes: cast once to bf16 by the wrappers
+        xf = torch.randn((2, s, cfg.len_ltf), generator=g, device=dev)
+        hf = ls_estimate_planes(cfg, xf, ls_planes_constants(cfg, device=dev))
+        hf = torch.stack([hf.real, hf.imag])
+        check("ls_planes_v2, float32 planes, vs ls_estimate_planes (f32)",
+              ls_planes_v2(cfg, xf, kc), hf, -45.0)
+        for mode, n in (("seq", 2), ("data", 2 if s % 2 == 0 else 1)):
+            check(f"sharded_ls_pallas_v2 {mode} {n}, float32 planes, vs "
+                  f"ls_estimate_planes (f32)", sharded_ls_pallas_v2(
+                      cfg, make_mesh({mode: n}, devices=[dev] * n), xf,
+                      mode=mode, consts=kc), torch.complex(hf[0], hf[1]),
+                  -45.0)
+        sp = factored_sig_proj(x16, prep["w1"], prep["w1t"])
         res["factored_sig_proj"] = check(
             "factored_sig_proj vs f32 x @ W1 (same bf16 operands)",
             sp, x32 @ prep["w1"].float(), -70.0)
+        # the layer-1 GEMM's edges: 1 row, S*Nt - 3 rows, K % 64 != 0
+        L1 = cfg.len_ltf - 24
+        xr = torch.randn((2, s * nt - 3, cfg.len_ltf), generator=g,
+                         device=dev).to(bf16)
+        for tag, xe, w1e in (
+                ("1 row", x16[:, :1], prep["w1"]),
+                (f"{s * nt - 3} rows", xr, prep["w1"]),
+                (f"K = {L1}", x16[:, :, :L1], prep["w1"][:, :L1])):
+            check(f"factored_sig_proj {tag} vs f32 x @ W1", factored_sig_proj(
+                xe, w1e, w1e.transpose(1, 2).contiguous()),
+                xe.float() @ w1e.float(), -70.0)
+        del xr
         y = factored_tail(prep, sp, C)
         res["factored_tail"] = check(
             "factored_tail vs its plain version (same sig_proj)",
@@ -417,8 +475,18 @@ def main() -> int:
         xm = torch.randn((m, k), generator=g, device=dev).to(bf16)
         h1 = mlp_infer_layer1(p1, xm)
         res["mlp_infer_layer1"] = check(
-            f"mlp_infer_layer1 ({m}, {k}) vs its plain version (same bf16 "
-            f"operands)", h1, _layer1_plain(p1, xm), -45.0)
+            f"mlp_infer_layer1 ({m}, {k}), K % 64 = {k % 64}, vs its plain "
+            f"version (same bf16 operands)", h1, _layer1_plain(p1, xm), -45.0)
+        # 1 row; a K 24 shorter (its own zero-padded W1, K % 64 != 0)
+        check(f"mlp_infer_layer1 (1, {k}) vs its plain version",
+              mlp_infer_layer1(p1, xm[:1]), _layer1_plain(p1, xm[:1]), -45.0)
+        k2 = k - 24
+        w1k = torch.zeros_like(p1["w1"][:-(-k2 // 32) * 32])
+        w1k[:k2] = p1["w1"][:k2]
+        p1k = {**p1, "w1": w1k, "w1t": w1k.T.contiguous()}
+        check(f"mlp_infer_layer1 ({m}, {k2}), K % 64 = {k2 % 64}, vs its "
+              f"plain version", mlp_infer_layer1(p1k, xm[:, :k2]),
+              _layer1_plain(p1k, xm[:, :k2]), -45.0)
         res["mlp_infer_tail"] = check(
             "mlp_infer_tail vs its plain version (same h1)",
             mlp_infer_tail(p1, h1), _mlp_tail_plain(p1, h1), -40.0)
@@ -805,12 +873,12 @@ def main() -> int:
         ls_library, ls_in + S * nt * C * 8, ls_ops,
         ls_v1_launches, "planes paths x4")
 
-    spb = factored_sig_proj(xb16, prep["w1"])
+    spb = factored_sig_proj(xb16, prep["w1"], prep["w1t"])
     w1f = prep["w1"].float()
     row("factored_sig_proj", f"(2, {S}, {L}) @ (2, {L}, {H1}) bf16 -> f32",
         "mamimo_tpu_torch/csrc/fused_factored.cu",
         "mamimo_tpu/ops/pallas/fused_factored.py:169",
-        lambda: factored_sig_proj(xb16, prep["w1"]),
+        lambda: factored_sig_proj(xb16, prep["w1"], prep["w1t"]),
         lambda: torch.matmul(xb32, w1f),
         lambda: torch.matmul(xb16, prep["w1"]),
         2 * S * L * 2 + prep["w1"].numel() * 2 + 2 * S * H1 * 4,
@@ -1000,6 +1068,33 @@ def main() -> int:
           f"({mlp_ms / full_ms * 100:.1f}%), the rest (planes to complex, "
           f"pair planes, materialized x, complex out) "
           f"{full_ms - mlp_ms - ls_pp:.4f} ms  [{smi}]")
+    # the same calls traced: each kernel's own time inside the call
+    traced = {}
+    for cname, fn, ours in (
+            ("estimate_full", lambda: pred.serve_planes(xf),
+             ("ls_planes_v2_kernel", "factored_sig_proj_kernel",
+              "factored_tail_kernel")),
+            ("pallas_full", lambda: fn_full(xb32),
+             ("ls_pair_kernel", "mlp_layer1_kernel", "mlp_tail_kernel"))):
+        per = trace_kernels_ms(fn)
+        if not per:
+            print(f"  {cname} trace: no device time in the profiler's "
+                  f"trace  [{smi}]")
+            continue
+        split = {k: sum(v for n, v in per.items() if k in n) for k in ours}
+        others = sorted(((v, n) for n, v in per.items()
+                         if not any(k in n for k in ours)), reverse=True)
+        busy = sum(per.values())
+        traced[cname] = {"kernels_ms": split, "other_kernels_ms":
+                         sum(v for v, _ in others), "busy_ms": busy,
+                         "call_ms": calls[cname]}
+        print(f"  {cname} trace, device ms per call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; {len(others)} other kernels "
+              f"{traced[cname]['other_kernels_ms']:.4f} (largest: "
+              + ", ".join(f"{n[:60]} {v:.4f}" for v, n in others[:4])
+              + f"); busy {busy:.4f} of the {calls[cname]:.4f} ms call, "
+              f"idle {(1 - busy / calls[cname]) * 100:.1f}%  [{smi}]")
     # the sequence-parallel calls, split into kernels and the rest
     k_halo = next(k for k in kernels if k["name"] == "halo_exchange_pallas")
     k_seq = next(k for k in kernels if k["shape"].startswith("seq rank"))
@@ -1051,6 +1146,7 @@ def main() -> int:
         "pallas_full_nmse_db": {k: v["nmse_db"] for k, v in full_db.items()},
         "pallas_full_peak_bytes": peak_full,
         "pallas_full_peak_above_live_bytes": peak_full - live,
+        "traced_ms": traced,
         "physics_ls_nmse_db": err,
         "physics_worst_carrier_nmse_db": worst},
         "seq_parallel": {

@@ -13,9 +13,12 @@
 // products' operands are bf16 with f32 accumulation.
 //
 // Design for the card:
-// * factored_sig_proj_kernel: the layer-1 GEMM, a 128x128 bf16 tile GEMM
-//   (mma.sync, cp.async ring). Its f32 output is S x H per plane, small
-//   next to the (S*nt) x H activations that follow.
+// * factored_sig_proj_kernel: the layer-1 GEMM on the Hopper main loop of
+//   gemm_sm90.cuh (TMA ring, mbarriers, wgmma; 128 x 256 tiles). Its
+//   B operand is w1t = W1[:L] transposed (2, H, L), kept by
+//   prepare_factored_weights, so both operands are K-major. Its f32
+//   output is S x H per plane, small next to the (S*nt) x H activations
+//   that follow; the epilogue stores it straight from the accumulators.
 // * factored_tail_kernel: one block owns 64 samples of one head t. It
 //   builds h in shared memory (bf16), then walks W2 in 128-column chunks:
 //   each chunk's h2 = h @ W2[:, chunk] goes through its bias, ReLU and BN
@@ -28,6 +31,7 @@
 // H = 1024, C = 234): about 848 GFLOP (172 layer 1, 550 layer 2, 126
 // layer 3), 0.86 ms at the 989 TFLOP/s bf16 tensor-core peak; it is
 // compute-bound (inputs, weights and output are about 0.5 GB).
+#include "gemm_sm90.cuh"
 #include "mlp_tail.cuh"
 
 using namespace mamimo;
@@ -35,50 +39,19 @@ using namespace mamimo;
 namespace {
 
 // ---------------------------------------------------------------------
-// layer 1: out[p] = x[p] @ w1[p], x (2, S, L) bf16, w1 (2, L, H) bf16
+// layer 1: out[p] = x[p] @ w1[p], x (2, S, L) bf16 through map mx, w1t
+// (2, H, L) bf16 through map mw (make_map), out (2, S, H) f32
 // ---------------------------------------------------------------------
-__global__ void __launch_bounds__(g128::THREADS, 2)
-    factored_sig_proj_kernel(const bf16* __restrict__ x,
-                             const bf16* __restrict__ w1,
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    factored_sig_proj_kernel(const __grid_constant__ CUtensorMap mx,
+                             const __grid_constant__ CUtensorMap mw,
                              float* __restrict__ out, int S, int L, int H) {
-  using namespace g128;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, p = blockIdx.z;
-  const bf16* xp = x + (long long)p * S * L;
-  const bf16* wp = w1 + (long long)p * L * H;
-  float* op = out + (long long)p * S * H;
-
-  auto a_src = [&](int row, int k, bool& ok) -> const bf16* {
-    const int gr = m0 + row;
-    ok = gr < S;
-    return ok ? xp + (long long)gr * L + k : xp;
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  gemm128_mainloop(acc, smem, a_src, wp, H, n0, L);
-
-  const int g = lane >> 2, q = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = m0 + wm + i * 16 + g, col = n0 + wn + j * 8 + q;
-      if (row < S)
-        *reinterpret_cast<float2*>(op + (long long)row * H + col) =
-            make_float2(acc[i][j][0], acc[i][j][1]);
-      if (row + 8 < S)
-        *reinterpret_cast<float2*>(op + (long long)(row + 8) * H + col) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
-    }
+  sm90::gemm_persistent(
+      &mx, &mw, S, H, 2, L, [&](int p, int row, int col, float v0, float v1) {
+        if (row < S && col < H)
+          *reinterpret_cast<float2*>(out + ((long long)p * S + row) * H +
+                                     col) = make_float2(v0, v1);
+      });
 }
 
 // ---------------------------------------------------------------------
@@ -162,19 +135,17 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
 
 extern "C" {
 
-// x (2, S, L) bf16; w1 (2, L, H) bf16; out (2, S, H) f32.
-int factored_sig_proj_launch(const void* x, const void* w1, void* out, int S,
-                             int L, int H, void* stream) {
-  const int smem = g128::SMEM_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      factored_sig_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(H / g128::BN, (S + g128::BM - 1) / g128::BM, 2);
-  factored_sig_proj_kernel<<<grid, g128::THREADS, smem,
-                             (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (float*)out, S, L, H);
-  return (int)cudaGetLastError();
+// x (2, S, L) bf16; w1t (2, H, L) bf16 (W1[:L] transposed); out (2, S, H)
+// f32. L % 8 == 0, H % 128 == 0, x and w1t 16-byte aligned.
+int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
+                             int S, int L, int H, void* stream) {
+  CUtensorMap mx, mw;
+  int rc = sm90::make_map(&mx, x, L, S, 2, sm90::BM, L);
+  if (rc == 0)
+    rc = sm90::make_map(&mw, w1t, L, H, 2, sm90::B_SLICE_ROWS, L);
+  if (rc != 0) return rc;
+  return sm90::launch(factored_sig_proj_kernel, S, H, 2,
+                      (cudaStream_t)stream, mx, mw, (float*)out, S, L, H);
 }
 
 // sp (2, S, H) f32; hb (2, nt, H) f32; a1, c1, b2, a2, c2 (2, H) f32;
@@ -198,7 +169,7 @@ int factored_tail_launch(const void* sp, const void* hb, const void* a1,
 }
 
 const char* fused_factored_error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
+  return sm90::error_string(e);
 }
 
 }  // extern "C"

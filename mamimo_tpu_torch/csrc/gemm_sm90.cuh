@@ -1,0 +1,496 @@
+// Hopper GEMM main loop of the port's two layer-1 GEMMs: TMA loads into
+// a ring of shared-memory stages ordered by mbarriers, and wgmma
+// (m64n256k16, bf16 -> f32) from shared memory.
+//
+// Serves the layer-1 products of two TPU kernels:
+//   mamimo_tpu/ops/pallas/fused_factored.py::fused_factored_planes
+//     (fused_factored.cu, factored_sig_proj_kernel: out[p] = x[p] @ W1[p]);
+//   mamimo_tpu/ops/pallas/mlp_infer.py::mlp_infer_pallas
+//     (mlp_infer.cu, mlp_layer1_kernel: h1 = bf16(relu(x @ W1 + b1) s1 + t1)).
+//
+// Bound on an H100 (989 TFLOP/s bf16): both are deep, compute-bound
+// GEMMs. factored_sig_proj at S = 4096: 2 x 4096 x 10240 x 1024, 172 GFLOP
+// (0.174 ms) against 0.24 GB of operands and output (0.073 ms at
+// 3.35 TB/s); mlp_infer_layer1 at M = 131072: 131072 x 10272 x 1024, 2.76
+// TFLOP (2.79 ms) against 3.0 GB (0.89 ms). The main loop is the whole
+// cost, so it is built from what Hopper offers for it:
+//
+// * Block tile 128 x 256, k-step 64 (128 bytes of bf16), 384 threads:
+//   warpgroup 0 is the producer, warpgroups 1 and 2 the consumers, each
+//   owning 64 rows of the tile (128 f32 accumulators a thread).
+//   setmaxnreg moves registers from the producer (40) to the consumers
+//   (232).
+// * One producer thread issues cp.async.bulk.tensor (TMA) for the A tile
+//   (128 x 64) and the B tile (256 x 64) of each k-step into a STAGES-deep
+//   ring, with expect_tx on the stage's "full" mbarrier; the consumers
+//   release a stage on its "empty" mbarrier once the wgmma reading it has
+//   completed. No thread computes an address and there is no
+//   __syncthreads() in the loop.
+// * Clusters of CLUSTER = 2 blocks take two M-tiles of one N-tile: each
+//   block loads half of the B tile and multicasts it to both, so a block
+//   reads 32 KB of a k-step's 48 KB from L2 instead of 48 (an odd last
+//   M-tile is paired with one past M, which reads zeros). A stage is free
+//   again once the consumers of both blocks have released it.
+// * A persistent grid, as many clusters as fit on the card (one block per
+//   SM), walks the tiles; the ring runs on across tile boundaries, so the
+//   producer loads the next tile while the consumers run the epilogue of
+//   this one.
+// * Both operands are K-major (A is x, B is W1 transposed, kept by the
+//   weight-preparing functions as w1t), loaded with 128-byte swizzle;
+//   one shared-memory descriptor form (SW128, 1024-byte 8-row groups)
+//   serves both, and the k16 slices of a stage are 32-byte steps of its
+//   start address.
+// * Each k-step's four wgmma form one group; wgmma.wait_group 1 keeps
+//   that group in flight while the next stage's wait and issue proceed.
+// * Ragged edges come from TMA's zero fill of out-of-bounds elements: rows
+//   past M, columns past N (BN = 256 over N % 128 == 0) and the K tail
+//   (the maps carry the true K, which need only be a multiple of 8 for the
+//   16-byte row pitch). The epilogue masks its stores.
+//
+// The tensor maps are made on the host (make_map) through
+// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPointByVersion
+// (cudaGetDriverEntryPoint before CUDA 12.5) so the library needs no
+// -lcuda, and passed as __grid_constant__ parameters.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mamimo {
+namespace sm90 {
+
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+constexpr int THREADS = 384;             // producer + 2 consumer warpgroups
+constexpr int A_BYTES = BM * BK * 2;     // 16 KB
+constexpr int B_BYTES = BN * BK * 2;     // 32 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+// the ring, its 2 x STAGES barriers, and room to align the ring to 1024
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int ACC = BN / 2;              // f32 accumulators a consumer thread
+// CTAs of a cluster: they take consecutive M-tiles of one N-tile, and each
+// loads 1/CLUSTER of the shared B tile and multicasts it to all of them
+constexpr int CLUSTER = 2;
+constexpr int B_SLICE_ROWS = BN / CLUSTER;
+constexpr int B_SLICE = B_BYTES / CLUSTER;
+// returned by make_map (and the launch functions) when the driver refuses
+// a tensor map; no cudaError_t has this value
+constexpr int ERR_TENSOR_MAP = 100000;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed. A wait
+// that lasts about 9 s (2^34 cycles) can only be a lost arrival: it traps,
+// so the launch fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = -1;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 < 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1LL << 34))
+      __trap();
+  }
+}
+
+// Arrives on the mbarrier at shared offset `bar` of CTA `cta` of the
+// cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// This CTA's rank in its cluster, the cluster's index in the grid, and the
+// number of clusters (1-d clusters along x).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// TMA: the box at (c0, c1, c2) of a 3-d map into shared memory at dst,
+// completing its bytes on the mbarrier bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// The same box written at dst of every CTA in `mask` of the cluster, each
+// completing its bytes on its own mbarrier at offset bar.
+__device__ __forceinline__ void tma_load_3d_multicast(
+    uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+    int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving other accesses of the accumulators
+// across the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a K-major bf16 tile stored as
+// 128-byte rows with the 128-byte swizzle (what TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B): start address >> 4, leading offset 16 B
+// (unused by this layout), 8-row groups 1024 B apart, layout SW128.
+// The tile must start on a 1024-byte boundary (base offset 0); a k16
+// slice starts 32 bytes further per slice.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// d (64 x 256 of the warpgroup, f32) += A (64 x 16) @ B (256 x 16)^T.
+// Fragment layout: d[4j + e] is row 16 * warp + lane / 4 + 8 * (e / 2),
+// column 8j + 2 * (lane % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC],
+                                                 uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// C(z) = A(z) @ B(z)^T over k in [0, K) for z < Z, A (M x K) and B
+// (N x K) the planes of the 3-d maps ma (box BK x BM) and mb (box BK x
+// B_SLICE_ROWS) (make_map), in 128 x 256 tiles. A persistent grid of
+// clusters walks groups of CLUSTER M-tiles of one N-tile: cluster c takes
+// groups c, c + (number of clusters), ... (group g: N-tile g % ntn, then
+// M-tile group, then plane), and CTA rank r of the cluster the group's
+// M-tile r; one tile's epilogue overlaps the producer's first loads of
+// the next. After each tile's main loop every consumer thread calls
+// epi(z, row, col, v0, v1) for each of its pairs of adjacent accumulators
+// (columns col, col + 1; col even; row and col may lie past M and N).
+// Launch through launch(); nothing may follow the call in the kernel (the
+// producer and consumer paths never rejoin).
+template <class Epi>
+__device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
+                                                const CUtensorMap* mb, int M,
+                                                int N, int Z, int K,
+                                                Epi&& epi) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (saddr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES;  // STAGES x 8 bytes
+  const uint32_t empty = full + STAGES * 8;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const uint32_t rank = cluster_rank();
+  const int cid = cluster_index(), ncl = cluster_count();
+  const int KT = (K + BK - 1) / BK;
+  const int ntn = (N + BN - 1) / BN;
+  const int ntg = ((M + BM - 1) / BM + CLUSTER - 1) / CLUSTER;
+  const int T = ntn * ntg * Z;
+  auto coords = [&](int t, int& m0, int& n0, int& z) {
+    n0 = (t % ntn) * BN;
+    t /= ntn;
+    m0 = ((t % ntg) * CLUSTER + rank) * BM;
+    z = t / ntg;
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);  // the producer's expect_tx
+      // one arrival per consumer warpgroup of every CTA of the cluster:
+      // each stage holds B slices written by all of them
+      mbar_init(empty + 8 * s, 2 * CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every barrier of the cluster is set before any CTA loads or arrives
+  cluster_sync();
+
+  // `it` counts k-steps over all of the block's tiles: stage it % STAGES,
+  // pass it / STAGES over the ring
+  if (wg == 0) {
+    // producer: one thread keeps the ring full, across tile boundaries
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int it = 0;
+      for (int t = cid; t < T; t += ncl) {
+        int m0, n0, z;
+        coords(t, m0, n0, z);
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % STAGES;
+          // the first pass over the ring finds every stage free
+          mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          const uint32_t a = ring + s * STAGE_BYTES;
+          mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+          tma_load_3d(a, ma, full + 8 * s, kt * BK, m0, z);
+          // this CTA's slice of B, into every CTA of the cluster
+          tma_load_3d_multicast(a + A_BYTES + rank * B_SLICE, mb,
+                                full + 8 * s, kt * BK,
+                                n0 + rank * B_SLICE_ROWS, z,
+                                (uint16_t)((1u << CLUSTER) - 1));
+        }
+      }
+      // stay until every stage's last use is released by every CTA of
+      // the cluster: no CTA may exit while another still arrives on its
+      // barriers
+      for (int j = 0; j < STAGES; ++j, ++it)
+        mbar_wait(empty + 8 * (it % STAGES), ((it / STAGES) & 1) ^ 1);
+    }
+  } else {
+    // consumers: warpgroup 1 rows 0..63 of each tile, warpgroup 2 64..127
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r = cw * 64 + warp * 16 + lane / 4, q = (lane % 4) * 2;
+    // the stage of k-step i is free here and in the other CTAs
+    auto release = [&](int i) {
+      if (tid == 0)
+#pragma unroll
+        for (int c = 0; c < CLUSTER; ++c)
+          mbar_arrive_cluster(empty + 8 * (i % STAGES), c);
+    };
+    int it = 0;
+    for (int t = cid; t < T; t += ncl) {
+      int m0, n0, z;
+      coords(t, m0, n0, z);
+      float acc[ACC];
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full + 8 * s, (it / STAGES) & 1);
+        const uint32_t a = ring + s * STAGE_BYTES + cw * (64 * BK * 2);
+        const uint32_t b = ring + s * STAGE_BYTES + A_BYTES;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_m64n256k16(acc, desc_sw128(a + kk * 32),
+                           desc_sw128(b + kk * 32));
+        wgmma_commit();
+        fence_acc(acc);
+        // the previous k-step's group is done: release its stage
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (kt > 0) release(it - 1);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release(it - 1);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        epi(z, m0 + r, n0 + 8 * j + q, acc[4 * j], acc[4 * j + 1]);
+        epi(z, m0 + r + 8, n0 + 8 * j + q, acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 3-d map of bf16 data: `planes` planes of `rows` rows, each row
+// `inner` elements long at a pitch of `pitch` elements (inner <= pitch,
+// pitch % 8 == 0, ptr 16-byte aligned). Its box is BK x box_rows x 1 with
+// the 128-byte swizzle; elements outside [0, inner) x [0, rows) read as
+// zero. Returns 0 or ERR_TENSOR_MAP.
+inline int make_map(CUtensorMap* map, const void* ptr, int inner, int rows,
+                    int planes, int box_rows, long long pitch) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return ERR_TENSOR_MAP;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2,
+                                 (cuuint64_t)pitch * 2 * (cuuint64_t)rows};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
+// Launches a kernel built on gemm_persistent for an M x N output over Z
+// planes: clusters of CLUSTER blocks of THREADS threads with SMEM_BYTES of
+// dynamic shared memory, as many clusters as fit on the device at once
+// (cudaOccupancyMaxActiveClusters, asked once per kernel) and never more
+// than there are tile groups. Returns a cudaError_t code.
+template <class... Params, class... Args>
+inline int launch(void (*kernel)(Params...), int M, int N, int Z,
+                  cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int resident = 0;  // clusters that fit on the device at once
+  if (resident == 0) {
+    e = cudaOccupancyMaxActiveClusters(&resident, (void*)kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long groups = (long long)(((M + BM - 1) / BM + CLUSTER - 1) /
+                                       CLUSTER) *
+                           ((N + BN - 1) / BN) * Z;
+  cfg.gridDim = dim3(CLUSTER * (int)(groups < resident ? groups : resident),
+                     1, 1);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Error text of a launch function's return code.
+inline const char* error_string(int e) {
+  if (e == ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map (or is missing)";
+  return cudaGetErrorString((cudaError_t)e);
+}
+
+}  // namespace sm90
+}  // namespace mamimo

@@ -11,15 +11,17 @@
 // (fold_bn_into_dense); bf16 operands, f32 accumulation.
 //
 // Design for the card:
-// * mlp_layer1_kernel: the K-streamed layer-1 GEMM on the 128x128 tile
-//   main loop of mma_tile.cuh (cp.async ring, mma.sync). The TPU kernel
-//   kept a (256, 1024) f32 accumulator in VMEM across its K grid and ran
-//   layers 2-3 in the last step; a Hopper block has 227 KB of shared
-//   memory, so the epilogue applies bias, ReLU, the affine and the bf16
-//   rounding (which the TPU kernel also applies before its second dot)
-//   and writes h1 to device memory. x is not padded: rows past M and the
-//   K tail past in_dim read as zero (in_dim % 8 == 0 for the 16-byte
-//   copies), and W1 carries zero rows up to a multiple of 32.
+// * mlp_layer1_kernel: the K-streamed layer-1 GEMM on the Hopper main
+//   loop of gemm_sm90.cuh (TMA ring, mbarriers, wgmma; 128 x 256 tiles).
+//   Its B operand is w1t = W1 transposed (H1, Kp), kept by
+//   prepare_mlp_infer_weights, so both operands are K-major. The TPU
+//   kernel kept a (256, 1024) f32 accumulator in VMEM across its K grid
+//   and ran layers 2-3 in the last step; a Hopper block has 227 KB of
+//   shared memory, so the epilogue applies bias, ReLU, the affine and the
+//   bf16 rounding (which the TPU kernel also applies before its second
+//   dot) and writes h1 to device memory. x is not padded: the tensor maps
+//   carry the true in_dim (in_dim % 8 == 0 for the 16-byte row pitch), so
+//   rows past M and the K tail read as zero.
 // * mlp_tail_kernel: 64 rows of h1 per block, loaded into shared memory,
 //   then the W2/W3 ring of mlp_tail.cuh (shared with the factored tail
 //   kernel): h2 never reaches device memory. C <= 256 is masked.
@@ -30,62 +32,30 @@
 // of x (0.80 ms at 3.35 TB/s); layers 2-3 0.34 TFLOP (0.34 ms). It is
 // compute-bound; h1's round trip (268 MB written, read once) adds about
 // 0.16 ms of traffic per plane.
+#include "gemm_sm90.cuh"
 #include "mlp_tail.cuh"
 
 using namespace mamimo;
 
 namespace {
 
-// h1 = bf16(relu(x @ w1 + b1) * s1 + t1); x (M, K) bf16, w1 (Kp, H1)
-// bf16 with rows K..Kp zero, Kp = round_up(K, 32).
-__global__ void __launch_bounds__(g128::THREADS, 2)
-    mlp_layer1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+// h1 = bf16(relu(x @ w1 + b1) * s1 + t1); x (M, K) bf16 through map mx,
+// w1t (H1, Kp) bf16 through map mw (make_map, both with the true K).
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    mlp_layer1_kernel(const __grid_constant__ CUtensorMap mx,
+                      const __grid_constant__ CUtensorMap mw,
                       const float* __restrict__ b1,
                       const float* __restrict__ s1,
                       const float* __restrict__ t1, bf16* __restrict__ h1,
-                      int M, int K, int Kp, int H1) {
-  using namespace g128;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-
-  auto a_src = [&](int row, int k, bool& ok) -> const bf16* {
-    const int gr = m0 + row;
-    ok = gr < M && k < K;
-    return ok ? x + (long long)gr * K + k : x;
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  gemm128_mainloop(acc, smem, a_src, w1, H1, n0, Kp);
-
-  const int g = lane >> 2, q = (lane & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn + j * 8 + q;
-    const float bb0 = b1[col], bb1 = b1[col + 1];
-    const float ss0 = s1[col], ss1 = s1[col + 1];
-    const float tt0 = t1[col], tt1 = t1[col + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + wm + i * 16 + g + hh * 8;
-        if (row >= M) continue;
+                      int M, int K, int H1) {
+  sm90::gemm_persistent(
+      &mx, &mw, M, H1, 1, K, [&](int, int row, int col, float v0, float v1) {
+        if (row >= M || col >= H1) return;
         *reinterpret_cast<__nv_bfloat162*>(h1 + (long long)row * H1 + col) =
             __floats2bfloat162_rn(
-                fmaxf(acc[i][j][2 * hh] + bb0, 0.f) * ss0 + tt0,
-                fmaxf(acc[i][j][2 * hh + 1] + bb1, 0.f) * ss1 + tt1);
-      }
-    }
-  }
+                fmaxf(v0 + b1[col], 0.f) * s1[col] + t1[col],
+                fmaxf(v1 + b1[col + 1], 0.f) * s1[col + 1] + t1[col + 1]);
+      });
 }
 
 // y = (relu(h1 @ w2 + b2) * s2 + t2) @ w3 + b3 for 64 rows of h1 per
@@ -137,20 +107,20 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
 
 extern "C" {
 
-// x (M, K) bf16; w1 (Kp, H1) bf16; b1, s1, t1 (H1) f32; h1 (M, H1) bf16.
-// K % 8 == 0, Kp % 32 == 0, Kp >= K, H1 % 128 == 0.
-int mlp_layer1_launch(const void* x, const void* w1, const void* b1,
+// x (M, K) bf16; w1t (H1, Kp) bf16 (W1 transposed, columns past K
+// zero); b1, s1, t1 (H1) f32; h1 (M, H1) bf16. K % 8 == 0, Kp % 8 == 0,
+// Kp >= K, H1 % 128 == 0, x and w1t 16-byte aligned.
+int mlp_layer1_launch(const void* x, const void* w1t, const void* b1,
                       const void* s1, const void* t1, void* h1, int M, int K,
                       int Kp, int H1, void* stream) {
-  const int smem = g128::SMEM_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      mlp_layer1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(H1 / g128::BN, (M + g128::BM - 1) / g128::BM);
-  mlp_layer1_kernel<<<grid, g128::THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const float*)s1,
-      (const float*)t1, (bf16*)h1, M, K, Kp, H1);
-  return (int)cudaGetLastError();
+  CUtensorMap mx, mw;
+  int rc = sm90::make_map(&mx, x, K, M, 1, sm90::BM, K);
+  if (rc == 0)
+    rc = sm90::make_map(&mw, w1t, K, H1, 1, sm90::B_SLICE_ROWS, Kp);
+  if (rc != 0) return rc;
+  return sm90::launch(mlp_layer1_kernel, M, H1, 1, (cudaStream_t)stream, mx,
+                      mw, (const float*)b1, (const float*)s1,
+                      (const float*)t1, (bf16*)h1, M, K, H1);
 }
 
 // h1 (M, H1) bf16; w2 (H1, H2) bf16; b2, s2, t2 (H2) f32; w3 (H2, 256)
@@ -172,7 +142,7 @@ int mlp_tail_launch(const void* h1, const void* w2, const void* b2,
 }
 
 const char* mlp_infer_error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
+  return sm90::error_string(e);
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
 // Tile-level building blocks shared by the port's hand-written kernels:
 // cp.async copies into shared memory, ldmatrix fragment loads and the
 // bf16 m16n8k16 tensor-core product (mma.sync, f32 accumulation), plus
-// one 128x128x32 block-tile GEMM main loop used by the LS kernel and the
-// layer-1 GEMM of the factored DNN.
+// one 128x128x32 block-tile GEMM main loop used by the LS kernels
+// (ls_core.cuh); the MLP tails (mlp_tail.cuh) and the int8 GEMM use the
+// copy and fragment helpers.
 //
 // Built for sm_90a. mma.sync reaches a fraction of Hopper's wgmma rate;
-// it keeps these first kernels simple and is the part a later speed
-// change replaces.
+// the two layer-1 GEMMs moved to the TMA + wgmma main loop of
+// gemm_sm90.cuh, and these kernels are next in line for it.
 #pragma once
 
 #include <cuda_bf16.h>

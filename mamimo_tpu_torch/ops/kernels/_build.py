@@ -81,12 +81,15 @@ def build_all(names=SOURCES, defines=()) -> dict[str, float]:
 
 
 def ptxas_report(name: str) -> str:
-    """The ptxas lines of the last build of ``name`` ('' if none)."""
+    """The ptxas lines of the last build of ``name`` ('' if none):
+    registers, spills and any warning (a wgmma the compiler serialized,
+    a setmaxnreg it ignored)."""
     log = _target(name).with_suffix(".log")
     if not log.exists():
         return ""
+    keys = ("Used", "spill", "Compiling", "warning")
     return "\n".join(l.strip() for l in log.read_text().splitlines()
-                     if "Used" in l or "spill" in l or "Compiling" in l)
+                     if any(k in l for k in keys))
 
 
 def library(name: str, defines=()) -> ctypes.CDLL:

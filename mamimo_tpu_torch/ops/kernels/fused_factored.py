@@ -23,7 +23,11 @@ import torch
 from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models.mlp import _bn_affine, plane, require_full_input
 from mamimo_tpu_torch.ops.kernels import _build
-from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda
+from mamimo_tpu_torch.ops.kernels.util import (
+    _round_up,
+    on_cuda,
+    tma_operand,
+)
 from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
 
 _TAIL_OP = 256      # the tail kernel's padded output width
@@ -35,6 +39,8 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
     of weights). Returns a dict of stacked (plane-leading) tensors:
 
       w1   (2, L, H)       dot_dtype — signal half of layer 1
+      w1t  (2, H, L)       dot_dtype — w1 transposed, the layer-1
+                                       kernel's K-major B operand
       hb   (2, num_tx, H)  f32       — per-head bias P[:,t]@W1[L:] + b1
       a1,c1,a2,c2 (2,1,H)  f32       — eval-mode BN affines (identity
                                        without BN)
@@ -73,8 +79,10 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
     w3p[:, :, :C] = w3
     b3p = torch.zeros((2, op), device=dev)
     b3p[:, :C] = params["out"]["b"]
+    w1 = w1_full[:, :L].to(dot_dtype)
     return {
-        "w1": w1_full[:, :L].to(dot_dtype).contiguous(),
+        "w1": w1.contiguous(),
+        "w1t": w1.transpose(1, 2).contiguous(),
         "hb": hb.float().contiguous(),
         "a1": a1, "c1": c1, "a2": a2, "c2": c2,
         "w2": w2.to(dot_dtype).contiguous(),
@@ -89,25 +97,36 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(w.dtype).float() @ w.float()
 
 
-def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
+                      w1t: torch.Tensor | None = None) -> torch.Tensor:
     """Layer 1 of both planes: x (2, S, L) @ w1 (2, L, H) → (2, S, H)
-    float32. CUDA: bfloat16 x and w1, the hand-written GEMM kernel."""
+    float32. CUDA: bfloat16 x and w1, the hand-written GEMM kernel, which
+    reads W1 K-major from ``w1t`` (2, H, L), ``prepared["w1t"]``; it is
+    required there. CPU: the plain version (w1t unused)."""
     if not on_cuda(x, w1):
         return _mm(x, w1)
     if x.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16:
         raise TypeError("factored_sig_proj takes bfloat16 x and w1 on CUDA")
-    x, w1 = x.contiguous(), w1.contiguous()
     _, s, L = x.shape
     H = w1.shape[2]
-    if tuple(w1.shape) != (2, L, H) or x.shape[0] != 2 or L % 32 or H % 128:
+    if tuple(w1.shape) != (2, L, H) or x.shape[0] != 2 or L % 8 or H % 128:
         raise ValueError(f"factored_sig_proj needs x (2,S,L), w1 (2,L,H) "
-                         f"with L % 32 == 0 and H % 128 == 0, got "
+                         f"with L % 8 == 0 and H % 128 == 0, got "
                          f"{tuple(x.shape)}, {tuple(w1.shape)}")
+    if w1t is None:
+        raise ValueError("factored_sig_proj needs w1t, prepared['w1t'], on "
+                         "CUDA")
+    if tuple(w1t.shape) != (2, H, L) or w1t.dtype != torch.bfloat16:
+        raise ValueError(f"factored_sig_proj needs w1t (2, {H}, {L}) bf16, "
+                         f"got {tuple(w1t.shape)} {w1t.dtype}")
     out = torch.empty((2, s, H), dtype=torch.float32, device=x.device)
+    if s == 0:
+        return out
+    x, w1t = tma_operand(x), tma_operand(w1t)
     lib = _ff_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.factored_sig_proj_launch(x.data_ptr(), w1.data_ptr(),
+        rc = lib.factored_sig_proj_launch(x.data_ptr(), w1t.data_ptr(),
                                           out.data_ptr(), s, L, H, stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_sig_proj")
     factored_sig_proj.launches += 1
@@ -180,7 +199,7 @@ def fused_factored_planes(cfg: SimConfig, tcfg: TrainConfig, prepared,
       serving call's output).
     """
     require_full_input(tcfg)
-    sig_proj = factored_sig_proj(planes, prepared["w1"])
+    sig_proj = factored_sig_proj(planes, prepared["w1"], prepared["w1t"])
     return factored_tail(prepared, sig_proj, cfg.num_carriers)
 
 

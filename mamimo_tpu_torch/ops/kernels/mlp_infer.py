@@ -21,10 +21,15 @@ import torch
 from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models.mlp import _bn_affine, plane, preprocess_input
 from mamimo_tpu_torch.ops.kernels import _build
-from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda
+from mamimo_tpu_torch.ops.kernels.util import (
+    _round_up,
+    on_cuda,
+    tma_operand,
+)
 
 _OP = 256           # the tail kernel's padded output width
-_KEYS = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3")
+_KEYS = ("w1", "w1t", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3",
+         "b3")
 
 
 def fold_bn_into_dense(tcfg: TrainConfig, params, bn_state):
@@ -60,8 +65,9 @@ def _prepare_plane(tcfg: TrainConfig, params, bn_state, dot_dtype):
     w3p = torch.zeros((w3.shape[0], _round_up(c, _OP)), device=w3.device)
     w3p[:, :c] = w3
     f32 = lambda t: t.float().contiguous()                   # noqa: E731
-    return {"w1": w1p.to(dot_dtype), "b1": f32(b1), "s1": f32(s1),
-            "t1": f32(t1), "w2": w2.to(dot_dtype).contiguous(),
+    w1p = w1p.to(dot_dtype)
+    return {"w1": w1p, "w1t": w1p.T.contiguous(), "b1": f32(b1),
+            "s1": f32(s1), "t1": f32(t1), "w2": w2.to(dot_dtype).contiguous(),
             "b2": f32(b2), "s2": f32(s2), "t2": f32(t2),
             "w3": w3p.to(dot_dtype), "b3": f32(b3)}
 
@@ -72,6 +78,8 @@ def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state):
 
       w1 (2, Kp, H1) bf16 — rows past in_dim zero, Kp = round_up(in_dim,
                             32)
+      w1t (2, H1, Kp) bf16 — w1 transposed, the layer-1 kernel's K-major
+                             B operand
       b1, s1, t1 (2, H1) f32 — bias and post-ReLU affine of layer 1
       w2 (2, H1, H2) bf16; b2, s2, t2 (2, H2) f32
       w3 (2, H2, 256) bf16 — carriers zero-padded
@@ -117,28 +125,33 @@ def mlp_infer_layer1(p, x: torch.Tensor) -> torch.Tensor:
     """Layer 1 of one plane: x (M, in_dim) → h1 (M, H1) bfloat16.
 
     CUDA: the K-streamed GEMM kernel with the bias, ReLU, affine and
-    bf16 rounding in its epilogue (x float32 is cast to bf16 first).
+    bf16 rounding in its epilogue (x float32 is cast to bf16 first); it
+    reads W1 K-major, the tree's ``w1t`` (``prepare_mlp_infer_weights``).
     CPU: the plain version."""
     if not on_cuda(x, *(p[k] for k in ("w1", "b1", "s1", "t1"))):
         return _layer1_plain(p, x)
     w1 = p["w1"]
     m, k = x.shape
     kp, h1 = w1.shape
-    if w1.dtype != torch.bfloat16:
+    w1t = p["w1t"]
+    if w1.dtype != torch.bfloat16 or w1t.dtype != torch.bfloat16:
         raise TypeError(f"mlp_infer_layer1 takes bf16 w1, got {w1.dtype}")
-    if k % 8 or kp != _round_up(k, 32) or h1 % 128:
+    if k % 8 or kp != _round_up(k, 32) or h1 % 128 \
+            or tuple(w1t.shape) != (h1, kp):
         raise ValueError(f"the layer-1 kernel needs in_dim % 8 == 0, w1 of "
-                         f"round_up(in_dim, 32) rows and H1 % 128 == 0; got "
-                         f"x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
-    x = x.to(torch.bfloat16).contiguous()
+                         f"round_up(in_dim, 32) rows, w1t its transpose and "
+                         f"H1 % 128 == 0; got x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w1t {tuple(w1t.shape)}")
+    x = tma_operand(x.to(torch.bfloat16))
     out = torch.empty((m, h1), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out
+    w1t = tma_operand(w1t)
     lib = _mlp_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mlp_layer1_launch(
-            x.data_ptr(), w1.contiguous().data_ptr(),
+            x.data_ptr(), w1t.data_ptr(),
             *(p[n].contiguous().data_ptr() for n in ("b1", "s1", "t1")),
             out.data_ptr(), m, k, kp, h1, stream)
     _build.check(rc, lib, "mlp_infer_error_string", "mlp_infer_layer1")

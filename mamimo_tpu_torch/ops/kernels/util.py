@@ -21,3 +21,10 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors must all lie on cuda or all on cpu, got {kinds}")
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous tensor whose data starts on a 16-byte boundary,
+    as a TMA tensor map needs (a copy only when t is not one already)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

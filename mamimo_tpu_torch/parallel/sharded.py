@@ -117,9 +117,9 @@ def sharded_ls_pallas_v2(cfg: SimConfig, mesh: Mesh, planes,
     run per rank of a mesh.
 
     Args:
-      planes: (2, S, len_ltf) canonical planes (S = B·num_rx); bfloat16
-        for CUDA ranks (the kernel's input), float32 or bfloat16 on CPU
-        ranks.
+      planes: (2, S, len_ltf) canonical planes (S = B·num_rx), float32
+        or bfloat16; a CUDA rank casts its float32 share once to bfloat16,
+        the kernel's input (``ls_planes_v2``).
       mode:
         'data' — S splits over ``data_axis``; each rank runs the kernel
           on its samples; no collective;
