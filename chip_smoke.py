@@ -9,7 +9,9 @@ failure ends the run with a non-zero exit code):
 1.  card     — device name, visible cards, name + power limit from
                nvidia-smi (the run uses one card, cuda:0);
 2.  build    — nvcc builds every kernel of mamimo_tpu_torch/csrc (one
-               process per source, all at once);
+               process per source, all at once); prints the ptxas
+               report, and checks with cuobjdump that the layer-1 GEMMs
+               and the MLP tails run wgmma (HGMMA) and no mma.sync (HMMA);
 3.  kernels  — each hand-written kernel against its plain PyTorch version
                on the same inputs, at the full BS32 width (Nt=32, Nr=4,
                hidden 1024/1024, len_ltf 10240), S = 256 rows; then at
@@ -21,8 +23,12 @@ failure ends the run with a non-zero exit code):
                MLP takes S*Nt - 3 materialized rows. The two layer-1
                GEMMs (factored_sig_proj, mlp_infer_layer1) also run at 1
                row, at S*Nt - 3 rows and at a K that is not a multiple
-               of their 64-wide k-step; float32 (not bf16-valued) planes
-               go through ls_planes_v2 and sharded_ls_pallas_v2;
+               of their 64-wide k-step; the tails at their edges
+               (factored_tail at S = 1, S = 65 and 3 heads, so that a
+               cluster's last block lies past the heads; mlp_infer_tail
+               at 1 row, a cluster's last block past M); float32 (not
+               bf16-valued) planes go through ls_planes_v2 and
+               sharded_ls_pallas_v2;
 4.  physics  — the sounding preamble through random flat channels, no
                noise: the served LS must recover every channel on every
                carrier;
@@ -372,6 +378,18 @@ def main() -> int:
     for src in _build.SOURCES:
         for line in _build.ptxas_report(src).splitlines():
             print(f"  {src}: {line.strip()}")
+    # the Hopper kernels must run wgmma (HGMMA), the tails with no
+    # mma.sync (HMMA) left
+    for src, kerns in (("fused_factored", ("factored_sig_proj_kernel",
+                                           "factored_tail_kernel")),
+                       ("mlp_infer", ("mlp_layer1_kernel",
+                                      "mlp_tail_kernel"))):
+        for kname, ops in _build.sass_counts(src, kerns).items():
+            print(f"  {src}: {kname} SASS: {ops['HGMMA']} HGMMA, "
+                  f"{ops['HMMA']} HMMA")
+            if ops["HGMMA"] == 0 or ops["HMMA"] != 0:
+                raise AssertionError(f"{kname}: want HGMMA and no HMMA in "
+                                     f"its SASS, got {ops}")
 
     # 3. kernels against their plain versions --------------------------
     def randint8(g, shape):
@@ -455,6 +473,16 @@ def main() -> int:
         res["factored_tail"] = check(
             "factored_tail vs its plain version (same sig_proj)",
             y, _tail_plain(prep, sp, C), -40.0)
+        # the tail's edges: 1 sample, 65 samples (a second, almost empty
+        # row block), 3 heads (the last cluster of heads half past nt)
+        sp65 = torch.randn((2, 65, sp.shape[2]), generator=g,
+                           device=dev) * sp.std()
+        prep3 = {**prep, "hb": prep["hb"][:, :3].contiguous()}
+        for tag, spe, pe in (("S = 1", sp[:, :1], prep),
+                             ("S = 65", sp65, prep),
+                             (f"3 heads, S = {s}", sp, prep3)):
+            check(f"factored_tail {tag} vs its plain version",
+                  factored_tail(pe, spe, C), _tail_plain(pe, spe, C), -40.0)
         check("fused DNN vs f32 _factored_all_pairs (bf16-valued weights)",
               fused_factored_planes(cfg, tcfg, prep, x16),
               _factored_all_pairs(cfg, tcfg, params, bn, x32), -40.0)
@@ -488,8 +516,11 @@ def main() -> int:
               f"plain version", mlp_infer_layer1(p1k, xm[:, :k2]),
               _layer1_plain(p1k, xm[:, :k2]), -45.0)
         res["mlp_infer_tail"] = check(
-            "mlp_infer_tail vs its plain version (same h1)",
+            f"mlp_infer_tail ({m} rows) vs its plain version (same h1)",
             mlp_infer_tail(p1, h1), _mlp_tail_plain(p1, h1), -40.0)
+        # 1 row: the cluster's second block lies wholly past M
+        check("mlp_infer_tail (1 row) vs its plain version",
+              mlp_infer_tail(p1, h1[:1]), _mlp_tail_plain(p1, h1[:1]), -40.0)
         with full_f32_matmul():
             ref_mlp = _mlp_tail_plain(p1, _layer1_plain(
                 p1, xm, torch.float32), torch.float32)
@@ -886,12 +917,14 @@ def main() -> int:
         "estimate_full x3")
 
     def tail_library():
+        # one bmm over the planes per layer: (2, S*nt, H) @ (2, H, H)
         p = prep
         hh = (torch.relu(spb[:, :, None, :] + p["hb"][:, None])
               * p["a1"][:, None] + p["c1"][:, None]).to(bf16)
-        h2 = torch.relu(torch.matmul(hh, p["w2"][:, None]) + p["b2"][:, None])
-        h2 = (h2 * p["a2"][:, None] + p["c2"][:, None]).to(bf16)
-        return torch.matmul(h2, p["w3"][:, None])[..., :C]
+        h2 = torch.relu(torch.bmm(hh.view(2, S * nt, H1), p["w2"])
+                        + p["b2"])
+        h2 = (h2 * p["a2"] + p["c2"]).to(bf16)
+        return torch.bmm(h2, p["w3"]).view(2, S, nt, -1)[..., :C]
 
     tail_bytes = (2 * S * H1 * 4 + sum(prep[k].numel() * prep[k].element_size()
                                        for k in ("hb", "a1", "c1", "w2", "b2",

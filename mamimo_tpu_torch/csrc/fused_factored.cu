@@ -19,20 +19,23 @@
 //   prepare_factored_weights, so both operands are K-major. Its f32
 //   output is S x H per plane, small next to the (S*nt) x H activations
 //   that follow; the epilogue stores it straight from the accumulators.
-// * factored_tail_kernel: one block owns 64 samples of one head t. It
-//   builds h in shared memory (bf16), then walks W2 in 128-column chunks:
-//   each chunk's h2 = h @ W2[:, chunk] goes through its bias, ReLU and BN
-//   affine into shared memory, and y += h2_chunk @ W3[chunk] accumulates
-//   in registers (the W2/W3 ring of mlp_tail.cuh, shared with the
-//   materialized-input MLP of mlp_infer.cu). h and h2 never reach device
-//   memory; y is written straight into the rx-major (2, S, nt, C) layout.
+// * factored_tail_kernel: one block owns 64 samples of one head t; the
+//   blocks of a cluster take neighbouring heads of the same samples (they
+//   read the same sig_proj rows and share every W2/W3 tile by TMA
+//   multicast). Its threads build h in shared memory (bf16, in the
+//   swizzled layout wgmma reads), then the Hopper tail of tail_sm90.cuh
+//   (shared with the materialized-input MLP of mlp_infer.cu) walks W2 in
+//   128-column chunks: each chunk's h2 = h @ W2[:, chunk] goes through its
+//   bias, ReLU and BN affine in registers, and y += h2_chunk @ W3[chunk]
+//   accumulates in registers. h and h2 never reach device memory; y is
+//   written straight into the rx-major (2, S, nt, C) layout. W2 and W3
+//   are read K-major from w2t and w3t (prepare_factored_weights).
 //
 // Bound on an H100 at the serving shape (S = 4096, nt = 32, L = 10240,
 // H = 1024, C = 234): about 848 GFLOP (172 layer 1, 550 layer 2, 126
 // layer 3), 0.86 ms at the 989 TFLOP/s bf16 tensor-core peak; it is
 // compute-bound (inputs, weights and output are about 0.5 GB).
-#include "gemm_sm90.cuh"
-#include "mlp_tail.cuh"
+#include "tail_sm90.cuh"
 
 using namespace mamimo;
 
@@ -57,78 +60,93 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 // ---------------------------------------------------------------------
 // heads, layers 2 and 3
 // ---------------------------------------------------------------------
-// One block: 64 samples s0.. of head t of plane p. It builds h in shared
-// memory and runs the W2/W3 ring of mlp_tail.cuh (tail_layers23).
+// One block: 64 samples s0.. of head t of plane p (heads t >= nt pad the
+// last cluster: they load their share of the weights and store nothing).
+// It builds h in shared memory and runs tail::layers23; w2t (2, H, H) and
+// w3t (2, 256, H) come through the maps mw2 and mw3.
 __global__ void __launch_bounds__(tail::THREADS, 1)
-    factored_tail_kernel(const float* __restrict__ sp,
+    factored_tail_kernel(const __grid_constant__ CUtensorMap mw2,
+                         const __grid_constant__ CUtensorMap mw3,
+                         const float* __restrict__ sp,
                          const float* __restrict__ hb,
                          const float* __restrict__ a1,
                          const float* __restrict__ c1,
-                         const bf16* __restrict__ w2,
                          const float* __restrict__ b2,
                          const float* __restrict__ a2,
                          const float* __restrict__ c2,
-                         const bf16* __restrict__ w3,
                          const float* __restrict__ b3,
                          float* __restrict__ out, int S, int nt, int H,
                          int C) {
   using namespace tail;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = blockIdx.x, s0 = blockIdx.y * TBM, p = blockIdx.z;
+  const int t = blockIdx.x, s0 = blockIdx.y * ROWS, p = blockIdx.z;
+  const bool head = t < nt;
   sp += (long long)p * S * H;
-  hb += ((long long)p * nt + t) * H;
+  hb += ((long long)p * nt + (head ? t : 0)) * H;
   a1 += (long long)p * H;
   c1 += (long long)p * H;
-  w2 += (long long)p * H * H;
   b2 += (long long)p * H;
   a2 += (long long)p * H;
   c2 += (long long)p * H;
-  w3 += (long long)p * H * OPP;
   b3 += (long long)p * OPP;
-
-  float accy[2][8][4];
-  // h = relu(sig_proj + hb[t]) * a1 + c1, bf16, rows past S are zero
-  tail_layers23(accy, w2, b2, a2, c2, w3, H, H, [&](bf16* sH, int HP) {
-#pragma unroll 4
-    for (int idx = tid * 4; idx < TBM * H; idx += THREADS * 4) {
-      const int r = idx / H, k = idx - r * H;
-      const int s = s0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (s < S) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(sp + (long long)s * H + k);
-        const float4 b = *reinterpret_cast<const float4*>(hb + k);
-        const float4 a = *reinterpret_cast<const float4*>(a1 + k);
-        const float4 c = *reinterpret_cast<const float4*>(c1 + k);
-        v.x = fmaxf(x.x + b.x, 0.f) * a.x + c.x;
-        v.y = fmaxf(x.y + b.y, 0.f) * a.y + c.y;
-        v.z = fmaxf(x.z + b.z, 0.f) * a.z + c.z;
-        v.w = fmaxf(x.w + b.w, 0.f) * a.w + c.w;
-      }
-      __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(sH + r * HP + k);
-      d[0] = __floats2bfloat162_rn(v.x, v.y);
-      d[1] = __floats2bfloat162_rn(v.z, v.w);
-    }
-  });
-
-  // y + b3 -> out[p][s][t][c], c < C
-  const int wm = (warp >> 2) * 32, wn3 = (warp & 3) * 64;
-  const int g = lane >> 2, q = (lane & 3) * 2;
   float* op = out + (long long)p * S * nt * C;
+
+  tail::layers23<false>(
+      nullptr, 0, &mw2, &mw3, p, H, H, b2, a2, c2,
+      // h = relu(sig_proj + hb[t]) * a1 + c1, bf16; rows past S zero
+      [&](unsigned char* sh, int i) {
+        const int vpr = H / 8;           // 16-byte chunks of an h row
+        // ROWS * vpr is a multiple of 4 * 256: four chunks a thread per
+        // pass, their sig_proj loads issued together
+        for (int idx0 = i; idx0 < ROWS * vpr; idx0 += 4 * 256) {
+          float4 x[4][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+          for (int u = 0; u < 4; ++u) {
+            const int idx = idx0 + u * 256, r = idx / vpr;
+            const int k = (idx - r * vpr) * 8, s = s0 + r;
+            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+            const float4* src =
+                reinterpret_cast<const float4*>(sp + (long long)s * H + k);
+            x[u][0] = (s < S && head) ? __ldg(src) : z;
+            x[u][1] = (s < S && head) ? __ldg(src + 1) : z;
+          }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = wn3 + j * 8 + q;
+          for (int u = 0; u < 4; ++u) {
+            const int idx = idx0 + u * 256, r = idx / vpr;
+            const int kc = idx - r * vpr, k = kc * 8, s = s0 + r;
+            uint4 v = make_uint4(0u, 0u, 0u, 0u);
+            if (s < S && head) {
+              const float4* b = reinterpret_cast<const float4*>(hb + k);
+              const float4* a = reinterpret_cast<const float4*>(a1 + k);
+              const float4* c = reinterpret_cast<const float4*>(c1 + k);
+              uint32_t* o = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int s = s0 + wm + i * 16 + g + hh * 8;
-        if (s >= S) continue;
-        float* o = op + ((long long)s * nt + t) * C;
-        if (col < C) o[col] = accy[i][j][2 * hh] + b3[col];
-        if (col + 1 < C) o[col + 1] = accy[i][j][2 * hh + 1] + b3[col + 1];
-      }
-    }
+              for (int h = 0; h < 2; ++h) {
+                const float4 xx = x[u][h], bb = b[h], aa = a[h], cc = c[h];
+                o[2 * h] =
+                    pack_bf16(fmaxf(xx.x + bb.x, 0.f) * aa.x + cc.x,
+                              fmaxf(xx.y + bb.y, 0.f) * aa.y + cc.y);
+                o[2 * h + 1] =
+                    pack_bf16(fmaxf(xx.z + bb.z, 0.f) * aa.z + cc.z,
+                              fmaxf(xx.w + bb.w, 0.f) * aa.w + cc.w);
+              }
+            }
+            *reinterpret_cast<uint4*>(sh + h_offset(r, kc)) = v;
+          }
+        }
+      },
+      // y + b3 -> out[p][s][t][c], c < C
+      [&](int row, int col, float v0, float v1) {
+        const int s = s0 + row;
+        if (!head || s >= S || col >= C) return;
+        float* o = op + ((long long)s * nt + t) * C + col;
+        if ((C & 1) == 0) {
+          *reinterpret_cast<float2*>(o) =
+              make_float2(v0 + b3[col], v1 + b3[col + 1]);
+        } else {
+          o[0] = v0 + b3[col];
+          if (col + 1 < C) o[1] = v1 + b3[col + 1];
+        }
+      });
 }
 
 }  // namespace
@@ -149,23 +167,26 @@ int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
 }
 
 // sp (2, S, H) f32; hb (2, nt, H) f32; a1, c1, b2, a2, c2 (2, H) f32;
-// w2 (2, H, H) bf16; w3 (2, H, 256) bf16; b3 (2, 256) f32;
-// out (2, S, nt, C) f32.
+// w2t (2, H, H) bf16 (W2 transposed); w3t (2, 256, H) bf16 (padded W3
+// transposed); b3 (2, 256) f32; out (2, S, nt, C) f32. H % 128 == 0,
+// H <= 1024, C <= 256, w2t and w3t 16-byte aligned.
 int factored_tail_launch(const void* sp, const void* hb, const void* a1,
-                         const void* c1, const void* w2, const void* b2,
-                         const void* a2, const void* c2, const void* w3,
+                         const void* c1, const void* w2t, const void* b2,
+                         const void* a2, const void* c2, const void* w3t,
                          const void* b3, void* out, int S, int nt, int H,
                          int C, void* stream) {
-  const int smem = tail::smem_bytes(H);
-  cudaError_t e = cudaFuncSetAttribute(
-      factored_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(nt, (S + tail::TBM - 1) / tail::TBM, 2);
-  factored_tail_kernel<<<grid, tail::THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)sp, (const float*)hb, (const float*)a1, (const float*)c1,
-      (const bf16*)w2, (const float*)b2, (const float*)a2, (const float*)c2,
-      (const bf16*)w3, (const float*)b3, (float*)out, S, nt, H, C);
-  return (int)cudaGetLastError();
+  CUtensorMap mw2, mw3;
+  int rc = sm90::make_map(&mw2, w2t, H, H, 2, tail::SLICE_ROWS, H);
+  if (rc == 0)
+    rc = sm90::make_map(&mw3, w3t, H, tail::OPP, 2, tail::SLICE_ROWS, H);
+  if (rc != 0) return rc;
+  const dim3 grid((nt + tail::CL - 1) / tail::CL * tail::CL,
+                  (S + tail::ROWS - 1) / tail::ROWS, 2);
+  return tail::launch(factored_tail_kernel, grid, tail::smem_bytes(H),
+                      (cudaStream_t)stream, mw2, mw3, (const float*)sp,
+                      (const float*)hb, (const float*)a1, (const float*)c1,
+                      (const float*)b2, (const float*)a2, (const float*)c2,
+                      (const float*)b3, (float*)out, S, nt, H, C);
 }
 
 const char* fused_factored_error_string(int e) {

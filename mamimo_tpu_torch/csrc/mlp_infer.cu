@@ -22,9 +22,12 @@
 //   dot) and writes h1 to device memory. x is not padded: the tensor maps
 //   carry the true in_dim (in_dim % 8 == 0 for the 16-byte row pitch), so
 //   rows past M and the K tail read as zero.
-// * mlp_tail_kernel: 64 rows of h1 per block, loaded into shared memory,
-//   then the W2/W3 ring of mlp_tail.cuh (shared with the factored tail
-//   kernel): h2 never reaches device memory. C <= 256 is masked.
+// * mlp_tail_kernel: 64 rows of h1 per block, loaded by TMA into shared
+//   memory in wgmma's swizzled layout (rows past M read as zero), then
+//   the Hopper tail of tail_sm90.cuh (shared with the factored tail
+//   kernel): W2 and W3 K-major (w2t, w3t of prepare_mlp_infer_weights)
+//   by TMA multicast to a cluster of blocks with neighbouring rows, wgmma,
+//   h2 never in device memory. C <= 256 is masked.
 //
 // Bound on an H100 at the bench shape (S = 4096 pairs, 32 heads: M =
 // 131072 rows, in_dim 10272, H 1024/1024, C = 234), per plane: 2.76
@@ -32,8 +35,7 @@
 // of x (0.80 ms at 3.35 TB/s); layers 2-3 0.34 TFLOP (0.34 ms). It is
 // compute-bound; h1's round trip (268 MB written, read once) adds about
 // 0.16 ms of traffic per plane.
-#include "gemm_sm90.cuh"
-#include "mlp_tail.cuh"
+#include "tail_sm90.cuh"
 
 using namespace mamimo;
 
@@ -59,48 +61,32 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 }
 
 // y = (relu(h1 @ w2 + b2) * s2 + t2) @ w3 + b3 for 64 rows of h1 per
-// block; w3 (H2, 256) zero-padded, b3 (C).
+// block (blocks past M pad the last cluster and store nothing); h1, w2t
+// (H2, H1) and w3t (256, H2) through the maps mh, mw2, mw3; b3 (C).
 __global__ void __launch_bounds__(tail::THREADS, 1)
-    mlp_tail_kernel(const bf16* __restrict__ h1, const bf16* __restrict__ w2,
+    mlp_tail_kernel(const __grid_constant__ CUtensorMap mh,
+                    const __grid_constant__ CUtensorMap mw2,
+                    const __grid_constant__ CUtensorMap mw3,
                     const float* __restrict__ b2,
                     const float* __restrict__ s2,
                     const float* __restrict__ t2,
-                    const bf16* __restrict__ w3,
                     const float* __restrict__ b3, float* __restrict__ y,
                     int M, int H1, int H2, int C) {
-  using namespace tail;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int s0 = blockIdx.x * TBM;
-
-  float accy[2][8][4];
-  tail_layers23(accy, w2, b2, s2, t2, w3, H1, H2, [&](bf16* sH, int HP) {
-    const int vpr = H1 / 8;          // 16-byte vectors per row
-    for (int idx = tid; idx < TBM * vpr; idx += THREADS) {
-      const int r = idx / vpr, k = (idx - r * vpr) * 8;
-      const int s = s0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (s < M)
-        v = *reinterpret_cast<const uint4*>(h1 + (long long)s * H1 + k);
-      *reinterpret_cast<uint4*>(sH + r * HP + k) = v;
-    }
-  });
-
-  const int wm = (warp >> 2) * 32, wn3 = (warp & 3) * 64;
-  const int g = lane >> 2, q = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = wn3 + j * 8 + q;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int s = s0 + wm + i * 16 + g + hh * 8;
-        if (s >= M) continue;
-        float* o = y + (long long)s * C;
-        if (col < C) o[col] = accy[i][j][2 * hh] + b3[col];
-        if (col + 1 < C) o[col + 1] = accy[i][j][2 * hh + 1] + b3[col + 1];
-      }
-    }
+  const int m0 = blockIdx.x * tail::ROWS;
+  tail::layers23<true>(
+      &mh, m0, &mw2, &mw3, 0, H1, H2, b2, s2, t2, [](unsigned char*, int) {},
+      [&](int row, int col, float v0, float v1) {
+        const int m = m0 + row;
+        if (m >= M || col >= C) return;
+        float* o = y + (long long)m * C + col;
+        if ((C & 1) == 0) {
+          *reinterpret_cast<float2*>(o) =
+              make_float2(v0 + b3[col], v1 + b3[col + 1]);
+        } else {
+          o[0] = v0 + b3[col];
+          if (col + 1 < C) o[1] = v1 + b3[col + 1];
+        }
+      });
 }
 
 }  // namespace
@@ -123,22 +109,27 @@ int mlp_layer1_launch(const void* x, const void* w1t, const void* b1,
                       (const float*)t1, (bf16*)h1, M, K, H1);
 }
 
-// h1 (M, H1) bf16; w2 (H1, H2) bf16; b2, s2, t2 (H2) f32; w3 (H2, 256)
-// bf16; b3 (C) f32; y (M, C) f32. H1, H2 % 128 == 0, H1 <= 1024, C <= 256.
-int mlp_tail_launch(const void* h1, const void* w2, const void* b2,
-                    const void* s2, const void* t2, const void* w3,
+// h1 (M, H1) bf16; w2t (H2, H1) bf16 (W2 transposed); b2, s2, t2 (H2)
+// f32; w3t (256, H2) bf16 (padded W3 transposed); b3 (C) f32; y (M, C)
+// f32. H1, H2 % 128 == 0, H1 <= 1024, C <= 256; h1, w2t, w3t 16-byte
+// aligned.
+int mlp_tail_launch(const void* h1, const void* w2t, const void* b2,
+                    const void* s2, const void* t2, const void* w3t,
                     const void* b3, void* y, int M, int H1, int H2, int C,
                     void* stream) {
-  const int smem = tail::smem_bytes(H1);
-  cudaError_t e = cudaFuncSetAttribute(
-      mlp_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  mlp_tail_kernel<<<(M + tail::TBM - 1) / tail::TBM, tail::THREADS, smem,
-                    (cudaStream_t)stream>>>(
-      (const bf16*)h1, (const bf16*)w2, (const float*)b2, (const float*)s2,
-      (const float*)t2, (const bf16*)w3, (const float*)b3, (float*)y, M, H1,
-      H2, C);
-  return (int)cudaGetLastError();
+  CUtensorMap mh, mw2, mw3;
+  int rc = sm90::make_map(&mh, h1, H1, M, 1, tail::ROWS, H1);
+  if (rc == 0)
+    rc = sm90::make_map(&mw2, w2t, H1, H2, 1, tail::SLICE_ROWS, H1);
+  if (rc == 0)
+    rc = sm90::make_map(&mw3, w3t, H2, tail::OPP, 1, tail::SLICE_ROWS, H2);
+  if (rc != 0) return rc;
+  const int blocks = (M + tail::ROWS - 1) / tail::ROWS;
+  const dim3 grid((blocks + tail::CL - 1) / tail::CL * tail::CL, 1, 1);
+  return tail::launch(mlp_tail_kernel, grid, tail::smem_bytes(H1),
+                      (cudaStream_t)stream, mh, mw2, mw3, (const float*)b2,
+                      (const float*)s2, (const float*)t2, (const float*)b3,
+                      (float*)y, M, H1, H2, C);
 }
 
 const char* mlp_infer_error_string(int e) {

@@ -2,12 +2,11 @@
 // cp.async copies into shared memory, ldmatrix fragment loads and the
 // bf16 m16n8k16 tensor-core product (mma.sync, f32 accumulation), plus
 // one 128x128x32 block-tile GEMM main loop used by the LS kernels
-// (ls_core.cuh); the MLP tails (mlp_tail.cuh) and the int8 GEMM use the
-// copy and fragment helpers.
+// (ls_core.cuh); the int8 GEMM uses the copy and fragment helpers.
 //
 // Built for sm_90a. mma.sync reaches a fraction of Hopper's wgmma rate;
-// the two layer-1 GEMMs moved to the TMA + wgmma main loop of
-// gemm_sm90.cuh, and these kernels are next in line for it.
+// the two layer-1 GEMMs and the MLP tails moved to TMA + wgmma
+// (gemm_sm90.cuh, tail_sm90.cuh), and these kernels are next in line.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -92,6 +92,29 @@ def ptxas_report(name: str) -> str:
                      if any(k in l for k in keys))
 
 
+def sass_counts(name: str, kernels) -> dict:
+    """How many wgmma (HGMMA) and mma.sync (HMMA) instructions the SASS of
+    each kernel of the built library ``name`` holds (``cuobjdump -sass``):
+    {kernel: {"HGMMA": n, "HMMA": n}}. A kernel is matched by a substring
+    of its mangled name."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {k: {"HGMMA": 0, "HMMA": 0} for k in kernels}
+    current = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            current = next((k for k in kernels if k in line), None)
+        elif current is not None and "*/" in line:
+            # "/*0450*/  @P0 HGMMA.64x64x16.F32.BF16 R24, ... ;  /* 0x.. */"
+            for tok in line.split("*/")[1].split():
+                op = tok.split(".")[0]
+                if op in counts[current]:
+                    counts[current][op] += 1
+    return counts
+
+
 def library(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` built with ``defines``
     (none for the kernels the package launches), built if needed."""

@@ -25,6 +25,7 @@ from mamimo_tpu_torch.models.mlp import _bn_affine, plane, require_full_input
 from mamimo_tpu_torch.ops.kernels import _build
 from mamimo_tpu_torch.ops.kernels.util import (
     _round_up,
+    kmajor_weight,
     on_cuda,
     tma_operand,
 )
@@ -45,8 +46,14 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
       a1,c1,a2,c2 (2,1,H)  f32       — eval-mode BN affines (identity
                                        without BN)
       w2   (2, H, H)       dot_dtype
+      w2t  (2, H, H)       dot_dtype — w2 transposed, the tail kernel's
+                                       K-major layer-2 operand
       b2   (2, 1, H)       f32
       w3   (2, H, OP)      dot_dtype — OP = round_up(num_carriers, 128)
+      w3t  (2, OPT, H)     dot_dtype — w3 zero-padded to OPT = max(OP,
+                                       256) columns and transposed, the
+                                       tail kernel's K-major layer-3
+                                       operand
       b3   (2, 1, OP)      f32
     """
     if len(tcfg.hidden) != 2:
@@ -80,14 +87,20 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
     b3p = torch.zeros((2, op), device=dev)
     b3p[:, :C] = params["out"]["b"]
     w1 = w1_full[:, :L].to(dot_dtype)
+    w2 = w2.to(dot_dtype)
+    w3t = torch.zeros((2, max(op, _TAIL_OP), w3.shape[1]), device=dev,
+                      dtype=dot_dtype)
+    w3t[:, :C] = w3.transpose(1, 2).to(dot_dtype)
     return {
         "w1": w1.contiguous(),
         "w1t": w1.transpose(1, 2).contiguous(),
         "hb": hb.float().contiguous(),
         "a1": a1, "c1": c1, "a2": a2, "c2": c2,
-        "w2": w2.to(dot_dtype).contiguous(),
+        "w2": w2.contiguous(),
+        "w2t": w2.transpose(1, 2).contiguous(),
         "b2": params["dense"][1]["b"][:, None, :].float().contiguous(),
         "w3": w3p.to(dot_dtype).contiguous(),
+        "w3t": w3t,
         "b3": b3p[:, None, :].contiguous(),
     }
 
@@ -136,6 +149,8 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
 factored_sig_proj.launches = 0
 
 _TAIL_KEYS = ("hb", "a1", "c1", "w2", "b2", "a2", "c2", "w3", "b3")
+# the kernel's operands, in its launch order
+_TAIL_ARGS = ("hb", "a1", "c1", "w2t", "b2", "a2", "c2", "w3t", "b3")
 
 
 def _tail_plain(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
@@ -152,7 +167,9 @@ def _tail_plain(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
 def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
     """Heads, layers 2 and 3 of both planes from sig_proj (2, S, H) f32:
     returns y (2, S, num_tx, C) float32, rx-major. CUDA: the fused tail
-    kernel; h and h2 stay on chip."""
+    kernel, which reads W2 and W3 K-major from ``prepared["w2t"]`` and
+    ``prepared["w3t"]`` (required there); h and h2 stay on chip. CPU: the
+    plain version."""
     if not on_cuda(sig_proj, *(prepared[k] for k in _TAIL_KEYS)):
         return _tail_plain(prepared, sig_proj, C)
     p = {k: prepared[k].contiguous() for k in _TAIL_KEYS}
@@ -167,13 +184,17 @@ def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
             or C > _TAIL_OP or tuple(p["w2"].shape) != (2, H, H):
         raise ValueError(f"factored_tail needs H % 128 == 0, H <= 1024, "
                          f"w3 (2, H, {_TAIL_OP}) and C <= {_TAIL_OP}")
+    for key, shape in (("w2t", (2, H, H)), ("w3t", (2, _TAIL_OP, H))):
+        p[key] = kmajor_weight(prepared, key, shape, "factored_tail")
     out = torch.empty((2, s, nt, C), dtype=torch.float32,
                       device=sig_proj.device)
+    if s == 0:
+        return out
     lib = _ff_lib()
     with torch.cuda.device(sig_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.factored_tail_launch(
-            sig_proj.data_ptr(), *(p[k].data_ptr() for k in _TAIL_KEYS),
+            sig_proj.data_ptr(), *(p[k].data_ptr() for k in _TAIL_ARGS),
             out.data_ptr(), s, nt, H, C, stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_tail")
     factored_tail.launches += 1

@@ -23,13 +23,14 @@ from mamimo_tpu_torch.models.mlp import _bn_affine, plane, preprocess_input
 from mamimo_tpu_torch.ops.kernels import _build
 from mamimo_tpu_torch.ops.kernels.util import (
     _round_up,
+    kmajor_weight,
     on_cuda,
     tma_operand,
 )
 
 _OP = 256           # the tail kernel's padded output width
-_KEYS = ("w1", "w1t", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3",
-         "b3")
+_KEYS = ("w1", "w1t", "b1", "s1", "t1", "w2", "w2t", "b2", "s2", "t2",
+         "w3", "w3t", "b3")
 
 
 def fold_bn_into_dense(tcfg: TrainConfig, params, bn_state):
@@ -65,11 +66,12 @@ def _prepare_plane(tcfg: TrainConfig, params, bn_state, dot_dtype):
     w3p = torch.zeros((w3.shape[0], _round_up(c, _OP)), device=w3.device)
     w3p[:, :c] = w3
     f32 = lambda t: t.float().contiguous()                   # noqa: E731
-    w1p = w1p.to(dot_dtype)
+    w1p, w2, w3p = (w.to(dot_dtype) for w in (w1p, w2, w3p))
     return {"w1": w1p, "w1t": w1p.T.contiguous(), "b1": f32(b1),
-            "s1": f32(s1), "t1": f32(t1), "w2": w2.to(dot_dtype).contiguous(),
-            "b2": f32(b2), "s2": f32(s2), "t2": f32(t2),
-            "w3": w3p.to(dot_dtype), "b3": f32(b3)}
+            "s1": f32(s1), "t1": f32(t1), "w2": w2.contiguous(),
+            "w2t": w2.T.contiguous(), "b2": f32(b2), "s2": f32(s2),
+            "t2": f32(t2), "w3": w3p, "w3t": w3p.T.contiguous(),
+            "b3": f32(b3)}
 
 
 def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state):
@@ -82,7 +84,11 @@ def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state):
                              B operand
       b1, s1, t1 (2, H1) f32 — bias and post-ReLU affine of layer 1
       w2 (2, H1, H2) bf16; b2, s2, t2 (2, H2) f32
+      w2t (2, H2, H1) bf16 — w2 transposed, the tail kernel's K-major
+                             layer-2 operand
       w3 (2, H2, 256) bf16 — carriers zero-padded
+      w3t (2, 256, H2) bf16 — w3 transposed, the tail kernel's K-major
+                              layer-3 operand
       b3 (2, C) f32
 
     Run it under ``full_f32_matmul()`` on the card, as the serving paths
@@ -164,7 +170,9 @@ mlp_infer_layer1.launches = 0
 
 def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
     """Layers 2 and 3 of one plane: h1 (M, H1) bfloat16 → y (M, C)
-    float32. CUDA: the kernel that keeps h2 on chip; CPU: the plain
+    float32. CUDA: the kernel that keeps h2 on chip; it reads W2 and W3
+    K-major from the tree's ``w2t`` and ``w3t``
+    (``prepare_mlp_infer_weights``), required there. CPU: the plain
     version."""
     keys = ("w2", "b2", "s2", "t2", "w3", "b3")
     if not on_cuda(h1, *(p[k] for k in keys)):
@@ -182,16 +190,19 @@ def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
             or tuple(q["w3"].shape) != (H2, _OP):
         raise ValueError(f"the tail kernel needs H1, H2 % 128 == 0, H1 <= "
                          f"1024, w3 (H2, {_OP}) and C <= {_OP}")
-    h1 = h1.contiguous()
+    q["w2t"] = kmajor_weight(p, "w2t", (H2, H1), "mlp_infer_tail")
+    q["w3t"] = kmajor_weight(p, "w3t", (_OP, H2), "mlp_infer_tail")
     out = torch.empty((m, c), dtype=torch.float32, device=h1.device)
     if m == 0:
         return out
+    h1 = tma_operand(h1)
     lib = _mlp_lib()
     with torch.cuda.device(h1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mlp_tail_launch(h1.data_ptr(),
-                                 *(q[k].data_ptr() for k in keys),
-                                 out.data_ptr(), m, H1, H2, c, stream)
+        rc = lib.mlp_tail_launch(
+            h1.data_ptr(), *(q[k].data_ptr() for k in
+                             ("w2t", "b2", "s2", "t2", "w3t", "b3")),
+            out.data_ptr(), m, H1, H2, c, stream)
     _build.check(rc, lib, "mlp_infer_error_string", "mlp_infer_tail")
     mlp_infer_tail.launches += 1
     return out

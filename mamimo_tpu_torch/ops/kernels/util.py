@@ -28,3 +28,15 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
     as a TMA tensor map needs (a copy only when t is not one already)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def kmajor_weight(prepared, key: str, shape: tuple, who: str) -> torch.Tensor:
+    """prepared[key], a K-major bf16 weight a tail kernel reads by TMA:
+    raises ValueError naming the key when it is missing or ill-shaped."""
+    t = prepared.get(key)
+    if t is None or tuple(t.shape) != shape or t.dtype != torch.bfloat16:
+        got = "missing" if t is None else f"{tuple(t.shape)} {t.dtype}"
+        raise ValueError(f"{who} needs prepared['{key}'] {shape} bf16 on "
+                         f"CUDA (from the weight-preparing function), got "
+                         f"{got}")
+    return tma_operand(t)
