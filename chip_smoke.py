@@ -10,8 +10,10 @@ failure ends the run with a non-zero exit code):
                nvidia-smi (the run uses one card, cuda:0);
 2.  build    — nvcc builds every kernel of mamimo_tpu_torch/csrc (one
                process per source, all at once); prints the ptxas
-               report, and checks with cuobjdump that the layer-1 GEMMs
-               and the MLP tails run wgmma (HGMMA) and no mma.sync (HMMA);
+               report, and checks with cuobjdump that the layer-1 GEMMs,
+               the MLP tails and the two serving LS kernels
+               (ls_planes_v2_kernel, ls_pair_kernel) run wgmma (HGMMA)
+               and no mma.sync (HMMA);
 3.  kernels  — each hand-written kernel against its plain PyTorch version
                on the same inputs, at the full BS32 width (Nt=32, Nr=4,
                hidden 1024/1024, len_ltf 10240), S = 256 rows; then at
@@ -28,7 +30,14 @@ failure ends the run with a non-zero exit code):
                cluster's last block lies past the heads; mlp_infer_tail
                at 1 row, a cluster's last block past M); float32 (not
                bf16-valued) planes go through ls_planes_v2 and
-               sharded_ls_pallas_v2;
+               sharded_ls_pallas_v2. The two Hopper LS kernels also run
+               at their tile edges: S = 1, S = 5 (the last 128-row tile
+               partly past the rows), seq ranks of n = 2, 4 and 32 (one
+               symbol a rank; the sum of all partials within -100 dB of
+               the full kernel), 1 and 3 packets per pair, Nt = 8 at
+               S = 1 and Nt = 128 at S = 3 (one sample a tile, the
+               despread's shuffle stages); constants of the other layout
+               are refused;
 4.  physics  — the sounding preamble through random flat channels, no
                noise: the served LS must recover every channel on every
                carrier;
@@ -312,6 +321,7 @@ def main() -> int:
         ls_planes_v1,
         ls_planes_v2,
         ls_raw_to_complex,
+        ls_sm90_constants,
         pair_planes,
     )
     from mamimo_tpu_torch.ops.kernels.int8_mm import (
@@ -378,12 +388,13 @@ def main() -> int:
     for src in _build.SOURCES:
         for line in _build.ptxas_report(src).splitlines():
             print(f"  {src}: {line.strip()}")
-    # the Hopper kernels must run wgmma (HGMMA), the tails with no
-    # mma.sync (HMMA) left
+    # the Hopper kernels must run wgmma (HGMMA) and no mma.sync (HMMA)
     for src, kerns in (("fused_factored", ("factored_sig_proj_kernel",
                                            "factored_tail_kernel")),
                        ("mlp_infer", ("mlp_layer1_kernel",
-                                      "mlp_tail_kernel"))):
+                                      "mlp_tail_kernel")),
+                       ("ls_v2", ("ls_planes_v2_kernel",)),
+                       ("ls_pair", ("ls_pair_kernel",))):
         for kname, ops in _build.sass_counts(src, kerns).items():
             print(f"  {src}: {kname} SASS: {ops['HGMMA']} HGMMA, "
                   f"{ops['HMMA']} HMMA")
@@ -409,8 +420,9 @@ def main() -> int:
         nt, C = cfg.num_tx, cfg.num_carriers
         print(f"[3 kernels] {tag}: Nt {nt}, hidden {tcfg.hidden}, S = {s}")
         res = {}
-        kc = ls_kernel_constants(cfg, dev)
-        ls2 = ls_planes_v2(cfg, x16, kc)
+        kc = ls_kernel_constants(cfg, dev)      # the v1 kernel's
+        k90 = ls_sm90_constants(cfg, dev)       # the Hopper LS kernels'
+        ls2 = ls_planes_v2(cfg, x16, k90)
         h = ls_estimate_planes(cfg, x32, ls_planes_constants(cfg, device=dev))
         res["ls_planes_v2"] = check(
             "ls_planes_v2 vs ls_estimate_planes (f32)",
@@ -422,7 +434,7 @@ def main() -> int:
                 r = check(f"ls_planes_v2 seq rank {i} of {n} vs its plain "
                           f"version (f32)", ls_planes_v2(
                               cfg, x16[:, :, i * lq:(i + 1) * lq].contiguous(),
-                              kc, seq_shard=(i, n)),
+                              k90, seq_shard=(i, n)),
                           _ls_v2_plain(cfg, x32[:, :, i * lq:(i + 1) * lq],
                                        (i, n)), -45.0)
                 if (i, n) == (1, 4):        # the rank phase 6 times
@@ -446,12 +458,12 @@ def main() -> int:
         hf = ls_estimate_planes(cfg, xf, ls_planes_constants(cfg, device=dev))
         hf = torch.stack([hf.real, hf.imag])
         check("ls_planes_v2, float32 planes, vs ls_estimate_planes (f32)",
-              ls_planes_v2(cfg, xf, kc), hf, -45.0)
+              ls_planes_v2(cfg, xf, k90), hf, -45.0)
         for mode, n in (("seq", 2), ("data", 2 if s % 2 == 0 else 1)):
             check(f"sharded_ls_pallas_v2 {mode} {n}, float32 planes, vs "
                   f"ls_estimate_planes (f32)", sharded_ls_pallas_v2(
                       cfg, make_mesh({mode: n}, devices=[dev] * n), xf,
-                      mode=mode, consts=kc), torch.complex(hf[0], hf[1]),
+                      mode=mode, consts=k90), torch.complex(hf[0], hf[1]),
                   -45.0)
         sp = factored_sig_proj(x16, prep["w1"], prep["w1t"])
         res["factored_sig_proj"] = check(
@@ -495,7 +507,7 @@ def main() -> int:
             ref_pp = ls_estimate_matmul(cfg, rx)
         res["ls_pair_kernel"] = check(
             f"ls_estimate_pallas ({packets} packets) vs ls_estimate_matmul "
-            f"(f32)", ls_estimate_pallas(cfg, rx, consts=kc), ref_pp, -45.0)
+            f"(f32)", ls_estimate_pallas(cfg, rx, consts=k90), ref_pp, -45.0)
         # fused MLP on materialized rows, M ragged, plane 1's weights
         with full_f32_matmul():
             p1 = plane(prepare_mlp_infer_weights(tcfg, params, bn), 1)
@@ -553,7 +565,68 @@ def main() -> int:
     check_kernels(cfg, tcfg, 7 * cfg.num_rx, 10, "BS32, 7 packets", 7)
     check_kernels(SimConfig(num_tx=8, num_rx=2), TrainConfig(hidden=(128, 128)),
                   11, 20, "small config, odd S", 7)
-    consts = ls_kernel_constants(cfg, dev)
+
+    def check_ls_edges(cfg, s, seed, tag, seqs, packets):
+        """The two Hopper LS kernels at a tile edge: S = s samples (s * nt
+        rows, the last 128-row tile partly past them), the seq mode at n
+        ranks for each n of seqs (ranks 0, 1 and n - 1 against their
+        plain version, the sum of all n partials against the full
+        kernel), and `packets` whole packets through the per-pair
+        kernel."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        k90 = ls_sm90_constants(cfg, dev)
+        nt, nr, L = cfg.num_tx, cfg.num_rx, cfg.len_ltf
+        x16 = torch.randn((2, s, L), generator=g, device=dev).to(bf16)
+        x32 = x16.float()
+        print(f"[3 LS edges] {tag}: Nt {nt}, S = {s} ({s * nt} rows, "
+              f"{s * nt % 128 or 128} in the last tile)")
+        full = ls_planes_v2(cfg, x16, k90)
+        check(f"ls_planes_v2 {tag} vs its plain version (f32)", full,
+              _ls_v2_plain(cfg, x32), -45.0)
+        for n in seqs:
+            lq = L // n
+            parts = [ls_planes_v2(cfg, x16[:, :, i * lq:(i + 1) * lq]
+                                  .contiguous(), k90, seq_shard=(i, n))
+                     for i in range(n)]
+            for i in sorted({0, 1, n - 1}):
+                check(f"ls_planes_v2 {tag} seq rank {i} of {n} (loc "
+                      f"{nt // n}) vs its plain version (f32)", parts[i],
+                      _ls_v2_plain(cfg, x32[:, :, i * lq:(i + 1) * lq],
+                                   (i, n)), -45.0)
+            check(f"ls_planes_v2 {tag}: sum of the {n} seq partials vs the "
+                  f"full kernel", sum(parts), full, -100.0)
+        rx = _planes_to_time_major(torch.randn(
+            (2, packets * nr, L), generator=g, device=dev).to(bf16).float(),
+            nr)
+        with full_f32_matmul():
+            ref = ls_estimate_matmul(cfg, rx)
+        rows = packets * nr * nt
+        check(f"ls_estimate_pallas {tag}, {packets} packets ({rows} rows) "
+              f"vs ls_estimate_matmul (f32)",
+              ls_estimate_pallas(cfg, rx, consts=k90), ref, -45.0)
+        return x16, rx, k90
+
+    x1, rx1, k90 = check_ls_edges(cfg, 1, 30, "BS32, S = 1", (2, 4, 32), 1)
+    check_ls_edges(cfg, 5, 31, "BS32, S = 5", (2, 4, 32), 3)
+    check_ls_edges(SimConfig(num_tx=8, num_rx=2), 1, 32, "Nt 8, S = 1",
+                   (2, 8), 1)
+    check_ls_edges(SimConfig(num_tx=128, num_rx=2), 3, 33, "Nt 128, S = 3",
+                   (2, 4, 128), 2)
+    # constants of the other layout are refused, not read
+    kc1 = ls_kernel_constants(cfg, dev)
+    for what, call in (
+            ("ls_planes_v2", lambda: ls_planes_v2(cfg, x1, kc1)),
+            ("ls_pair_kernel", lambda: ls_pair_kernel(
+                cfg, pair_planes(rx1), cfg.num_rx, kc1)),
+            ("ls_planes_v1", lambda: ls_planes_v1(cfg, x1, k90))):
+        try:
+            call()
+        except TypeError as e:
+            print(f"  {what} refuses the other layout's constants: {e}")
+        else:
+            raise AssertionError(f"{what} took the other layout's constants")
+    consts = ls_kernel_constants(cfg, dev)      # the v1 kernel's
+    consts90 = ls_sm90_constants(cfg, dev)      # the Hopper LS kernels'
     f32_consts = ls_planes_constants(cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -804,7 +877,7 @@ def main() -> int:
         raise AssertionError(f"sharded_apply_channel_rdma: {seq_err}")
     # the sharded LS on bf16 planes, each mode counted
     xs16 = torch.randn((2, S_CHECK, L), generator=g, device=dev).to(bf16)
-    un2 = ls_planes_v2(cfg, xs16, consts)
+    un2 = ls_planes_v2(cfg, xs16, consts90)
     un_c = torch.complex(un2[0], un2[1])
     ls_f32 = ls_estimate_planes(cfg, xs16.float(), f32_consts)
     cnt_sls = {}
@@ -883,7 +956,7 @@ def main() -> int:
     row("ls_planes_v2", f"planes (2, {S}, {L}) bf16 -> (2, {S}, {nt}, {C}) f32",
         "mamimo_tpu_torch/csrc/ls_v2.cu",
         "mamimo_tpu/ops/pallas/fused_ls.py:424",
-        lambda: ls_planes_v2(cfg, xb16, consts),
+        lambda: ls_planes_v2(cfg, xb16, consts90),
         lambda: ls_estimate_planes(cfg, xb32, f32_consts),
         ls_library, ls_in + 2 * S * nt * C * 4, ls_ops,
         cnt_serve["ls_planes_v2"], "estimate_full x3")
@@ -961,11 +1034,11 @@ def main() -> int:
         f"({BENCH_PACKETS}, {C}, {nt}, {nr}) c64",
         "mamimo_tpu_torch/csrc/ls_pair.cu",
         "mamimo_tpu/ops/pallas/fused_ls.py:110",
-        lambda: ls_pair_kernel(cfg, ppl, nr, consts),
+        lambda: ls_pair_kernel(cfg, ppl, nr, consts90),
         lambda: ls_estimate_matmul(cfg, rx_b, lsc),
         ls_library, ls_in + S * nt * C * 8, ls_ops,
         cnt_pf["ls_pair_kernel"], "pallas_full x3",
-        call=lambda: ls_estimate_pallas(cfg, rx_b, consts=consts))
+        call=lambda: ls_estimate_pallas(cfg, rx_b, consts=consts90))
 
     # fused MLP on the materialized rows of plane 0, per launch form
     M, K = S * nt, L + nt
@@ -1040,7 +1113,7 @@ def main() -> int:
     row("ls_planes_v2", f"seq rank 1 of 4: planes (2, {S}, {lq}) bf16 -> "
         f"partial (2, {S}, {nt}, {C}) f32", "mamimo_tpu_torch/csrc/ls_v2.cu",
         "mamimo_tpu/ops/pallas/fused_ls.py:424",
-        lambda: ls_planes_v2(cfg, xq16, consts, seq_shard=(1, 4)),
+        lambda: ls_planes_v2(cfg, xq16, consts90, seq_shard=(1, 4)),
         lambda: _ls_v2_plain(cfg, xq32, (1, 4)), ls_seq_library,
         2 * S * loc * cfg.fft_length * 2 + consts.numel() * 2
         + 2 * S * nt * C * 4,
@@ -1138,11 +1211,11 @@ def main() -> int:
     m_seq4 = make_mesh({"seq": 4}, devices=[dev] * 4)
     par["sharded_ls_pallas_v2 (seq 4)"] = time_ms(
         lambda: sharded_ls_pallas_v2(cfg, m_seq4, xb16, mode="seq",
-                                     consts=consts), iters=5)
+                                     consts=consts90), iters=5)
     shard_copies = lambda: [xb16[:, :, i * lq:(i + 1) * lq].contiguous()  # noqa: E731
                             for i in range(4)]
     copies_ms = time_ms(shard_copies, iters=5)
-    parts = [ls_planes_v2(cfg, x, consts, seq_shard=(i, 4))
+    parts = [ls_planes_v2(cfg, x, consts90, seq_shard=(i, 4))
              for i, x in enumerate(shard_copies())]
     allreduce_ms = time_ms(lambda: sum_onto(parts, dev), iters=5)
     hsum = sum_onto(parts, dev)

@@ -72,6 +72,7 @@ from mamimo_tpu_torch.ops.kernels.fused_ls import (
     ls_estimate_pallas,
     ls_kernel_constants,
     ls_planes_pallas,
+    ls_sm90_constants,
 )
 from mamimo_tpu_torch.ops.kernels.mlp_infer import (
     mlp_infer_pallas,
@@ -130,7 +131,7 @@ def make_estimation_fn(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
         if use_pallas:
             prepared = prepare_mlp_infer_weights(tcfg, params, bn_state)
             pil = pilot_p_matrix(nt, device=dev).T.to(torch.bfloat16)
-            kconsts = ls_kernel_constants(cfg, dev) \
+            kconsts = ls_sm90_constants(cfg, dev) \
                 if dev.type == "cuda" else None
         elif use_bf16:
             factored = prepare_factored_weights(cfg, tcfg, params, bn_state)

@@ -1,6 +1,8 @@
-// The body shared by the two LS kernels (ls_v2.cu, ls_v1.cu): one
-// 128 x 128 tile of the DFT-select GEMM followed by the Walsh-Hadamard
-// despread, with the store left to the caller.
+// The body of the v1 LS kernel (ls_v1.cu), its only user: one 128 x 128
+// tile of the DFT-select GEMM (the mma.sync main loop of mma_tile.cuh)
+// followed by the Walsh-Hadamard despread, with the store left to the
+// caller. The two serving LS kernels (ls_v2.cu, ls_pair.cu) run on the
+// Hopper body of ls_sm90.cuh instead.
 //
 //   z[s,n,c] = sum_t x[s, n*sym_len + cp + t] * A[c,t]   (complex)
 //   h[s,j,c] = sum_n P[j,n] * z[s,n,c]                    (P Sylvester +-1)
@@ -35,9 +37,6 @@ constexpr int LS_EPITCH = g128::BN + 4;  // f32 epilogue tile pitch
 // with s the global sample, plane 0 (real) or 1 (imaginary), c the
 // padded carrier index (< cpad) and v the sample's nt despread values at
 // v[j * LS_EPITCH], j = 0..nt-1. Neighbouring threads get neighbouring c.
-// The despread tile stays in dynamic shared memory after the call, as
-// f32 at [(sl * nt + j) * LS_EPITCH + column], for a caller that stores
-// it cooperatively after a __syncthreads() (ls_pair.cu).
 template <class Store>
 __device__ __forceinline__ void ls_tile(const bf16* __restrict__ planes,
                                         const bf16* __restrict__ bmat,

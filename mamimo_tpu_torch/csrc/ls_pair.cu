@@ -6,87 +6,96 @@
 // kernel despreads Y = P x over the nt symbols (CP dropped) and then
 // DFT-selects est = A Y^T with four real dots. Despread and DFT-select
 // act on different axes, so their order does not change the result: this
-// kernel runs the GEMM and Walsh-Hadamard body of ls_core.cuh (shared
-// with ls_v2.cu and ls_v1.cu) on the pairs' rows as bf16 planes
-// (2, B*nr, len_ltf), sample s = b*nr + r, which the wrapper makes from
-// the complex input in one pass. Only the store is this file's.
+// kernel runs the GEMM and Walsh-Hadamard body of ls_sm90.cuh (shared
+// with ls_v2.cu) on the pairs' rows as bf16 planes (2, B*nr, len_ltf),
+// sample s = b*nr + r, which the wrapper makes from the complex input in
+// one pass. Only the store is this file's.
 //
-// Store: out is complex64 viewed as float pairs; the value of sample s,
-// symbol j, carrier c goes to element ((b*C + c)*nt + j)*nr + r, real
-// part for plane 0 and imaginary part for plane 1. A column block lies
-// in one plane (cpad is a multiple of 128). After the butterflies the
-// block's despread tile stays in shared memory, and the block writes it
-// cooperatively with the sample index fastest, then j, then c: at BS32
-// (nt = 32, nr = 4) a 128-row tile is exactly one packet, so a warp
-// writes every other float of 256 contiguous bytes instead of 32
-// scattered floats. Any nr is correct; smaller configs coalesce less.
+// Store: out is complex64; the value of sample s, symbol j, carrier c is
+// element ((b*C + c)*nt + j)*nr + r. A block owns the real and the
+// imaginary column of each of its 64 carriers (the permuted constants),
+// so every complex value is written whole, as one float2, straight from
+// the accumulators (the real and imaginary part sit at the same index of
+// the two sets). At BS32 (nt = 32, nr = 4) a tile is one packet and the
+// 4 lanes of a quad hold its 4 rx of one symbol and carrier: each quad
+// writes one whole 32-byte sector, a warp 8. Any nr is correct; other
+// configs fill sectors less.
 //
 // Bound on an H100 at the bench shape (1024 packets, S = 4096 pairs,
 // nt = 32): the bf16 planes' FFT samples are read once (134 MB, the CP is
 // never read) and 245 MB of complex64 written: about 0.113 ms at
-// 3.35 TB/s. The GEMM is about 63 GFLOP (0.064 ms at the bf16
-// tensor-core peak), so it is memory-bound, like ls_v2.
-#include "ls_core.cuh"
+// 3.35 TB/s. The GEMM is about 69 GFLOP (0.07 ms at the bf16 tensor-core
+// peak), so it is memory-bound, like ls_v2.
+#include "ls_sm90.cuh"
 
 using namespace mamimo;
 
 namespace {
 
-__global__ void __launch_bounds__(g128::THREADS, 2)
-    ls_pair_kernel(const bf16* __restrict__ planes,
-                   const bf16* __restrict__ bmat, float* __restrict__ out,
-                   int S, int nr, int nt, int log_nt, int C, int sym_len,
-                   int cp, int fft, int cpad) {
-  ls_tile(planes, bmat, S, nt, sym_len, cp, fft, cpad,
-          [](int, int, int, const float*) {});
-  __syncthreads();
+struct PairEpi {
+  float* __restrict__ out;
+  int S, nr, nt, log_nt, C, c0;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  const float* sE = reinterpret_cast<const float*>(smem);
-  const int n0 = blockIdx.x * g128::BN;
-  const int plane = n0 >= cpad;
-  const int c0 = n0 - plane * cpad;
-  const int log_spt = 7 - log_nt;  // samples per 128-row tile
-  const int spt = 1 << log_spt;
-  const int s0 = blockIdx.y * spt;
-  const int total = g128::BN << 7;  // 128 columns x 128 rows
-  for (int k = threadIdx.x; k < total; k += g128::THREADS) {
-    const int sl = k & (spt - 1);
-    const int j = (k >> log_spt) & (nt - 1);
-    const int cl = k >> 7;
-    const int s = s0 + sl, c = c0 + cl;
-    if (s >= S || c >= C) continue;
-    const int b = s / nr, r = s - b * nr;
-    out[2 * ((((long long)b * C + c) * nt + j) * nr + r) + plane] =
-        sE[(sl * nt + j) * LS_EPITCH + cl];
+  // value 4j + 2h + e of the two sets: carrier c0 + 16*warp + 8h + lane/4
+  // at tile row 8j + 2*(lane%4) + e (ls90::row_coords gives its sample
+  // and symbol), as one complex; needs no staging
+  __device__ __forceinline__ void store(const float (&acc0)[64],
+                                        const float (&acc1)[64], int s0,
+                                        int warp, int lane, float*, int) {
+    if ((LS_CUT & 4) && S >= 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 16 * warp + 8 * h + lane / 4;
+      if (c >= C) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          int smp, sym;
+          ls90::row_coords(8 * j + 2 * (lane & 3) + e, log_nt, smp, sym);
+          const int s = s0 + smp;
+          if (s >= S) continue;
+          const int b = s / nr, r = s - b * nr;
+          *reinterpret_cast<float2*>(
+              out + 2 * ((((long long)b * C + c) * nt + sym) * nr + r)) =
+              make_float2(acc0[4 * j + 2 * h + e], acc1[4 * j + 2 * h + e]);
+        }
+    }
   }
+};
+
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_pair_kernel(const __grid_constant__ CUtensorMap ma,
+                   const __grid_constant__ CUtensorMap mb,
+                   float* __restrict__ out, int S, int nr, int nt,
+                   int log_nt, int C, int cp, int fft) {
+  PairEpi epi{out, S, nr, nt, log_nt, C, 64 * (int)sm90::cluster_rank()};
+  ls90::ls_body(&ma, &mb, S, log_nt, fft, cp, epi);
 }
 
 }  // namespace
 
 extern "C" {
 
-// planes (2, S, nt*sym_len) bf16 with S = B*nr; bmat (2*fft, 2*cpad)
-// bf16; out (B, C, nt, nr) complex64 as floats. nt a power of 2 <= 128.
-// Returns the CUDA error code of the launch.
-int ls_pair_launch(const void* planes, const void* bmat, void* out, int S,
+// planes (2, S, nt*sym_len) bf16 with S = B*nr, 16-byte aligned; bt
+// (2*cpad, 2*fft) bf16, the permuted K-major constants
+// (fused_ls.py::ls_sm90_constants); out (B, C, nt, nr) complex64 as
+// floats. nt a power of 2 <= 128, fft % 64 == 0, fft <= 256, sym_len %
+// 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of the launch
+// (or sm90::ERR_TENSOR_MAP).
+int ls_pair_launch(const void* planes, const void* bt, void* out, int S,
                    int nr, int nt, int C, int sym_len, int cp, int fft,
                    int cpad, void* stream) {
-  const int smem = g128::SMEM_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      ls_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
-  ls_pair_kernel<<<ls_grid(S * nt, cpad), g128::THREADS, smem,
-                   (cudaStream_t)stream>>>(
-      (const bf16*)planes, (const bf16*)bmat, (float*)out, S, nr, nt, log_nt,
-      C, sym_len, cp, fft, cpad);
-  return (int)cudaGetLastError();
+  CUtensorMap ma, mb;
+  if (ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft, cpad))
+    return sm90::ERR_TENSOR_MAP;
+  return ls90::launch(ls_pair_kernel, 2 * cpad / 128, ls90::tiles(S, log_nt),
+                      (cudaStream_t)stream, ma, mb, (float*)out, S, nr, nt,
+                      log_nt, C, cp, fft);
 }
 
-const char* ls_pair_error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
-}
+const char* ls_pair_error_string(int e) { return sm90::error_string(e); }
 
 }  // extern "C"

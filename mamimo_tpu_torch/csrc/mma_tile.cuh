@@ -1,12 +1,13 @@
 // Tile-level building blocks shared by the port's hand-written kernels:
 // cp.async copies into shared memory, ldmatrix fragment loads and the
 // bf16 m16n8k16 tensor-core product (mma.sync, f32 accumulation), plus
-// one 128x128x32 block-tile GEMM main loop used by the LS kernels
+// one 128x128x32 block-tile GEMM main loop used by the v1 LS kernel
 // (ls_core.cuh); the int8 GEMM uses the copy and fragment helpers.
 //
 // Built for sm_90a. mma.sync reaches a fraction of Hopper's wgmma rate;
-// the two layer-1 GEMMs and the MLP tails moved to TMA + wgmma
-// (gemm_sm90.cuh, tail_sm90.cuh), and these kernels are next in line.
+// the layer-1 GEMMs, the MLP tails and the serving LS kernels moved to
+// TMA + wgmma (gemm_sm90.cuh, tail_sm90.cuh, ls_sm90.cuh), and these two
+// kernels are next in line.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -37,7 +37,7 @@ from mamimo_tpu_torch.ops.kernels.fused_factored import (
     predict_all_pairs_planes_kernel,
     prepare_factored_weights,
 )
-from mamimo_tpu_torch.ops.kernels.fused_ls import ls_kernel_constants, ls_planes_v2
+from mamimo_tpu_torch.ops.kernels.fused_ls import ls_planes_v2, ls_sm90_constants
 from mamimo_tpu_torch.train.ckpt import load_checkpoint
 from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
@@ -84,7 +84,7 @@ class CSIPredictor:
             with full_f32_matmul():
                 self._prepared = prepare_factored_weights(
                     self.cfg, self.tcfg, self.params, self.bn_state)
-            self._ls_consts = ls_kernel_constants(self.cfg, self.device)
+            self._ls_consts = ls_sm90_constants(self.cfg, self.device)
         return self._prepared, self._ls_consts
 
     def _int8_weights(self):

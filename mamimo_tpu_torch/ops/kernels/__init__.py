@@ -11,6 +11,7 @@ from mamimo_tpu_torch.ops.kernels.fused_factored import (  # noqa: F401
     prepare_factored_weights,
 )
 from mamimo_tpu_torch.ops.kernels.fused_ls import (  # noqa: F401
+    LsSm90Constants,
     ls_estimate_pallas,
     ls_kernel_constants,
     ls_planes_pallas,
@@ -19,6 +20,8 @@ from mamimo_tpu_torch.ops.kernels.fused_ls import (  # noqa: F401
     ls_planes_v1,
     ls_planes_v2,
     ls_raw_to_complex,
+    ls_sm90_constants,
+    ls_sm90_row_order,
     ls_v2_to_complex,
 )
 from mamimo_tpu_torch.ops.kernels.int8_mm import (  # noqa: F401

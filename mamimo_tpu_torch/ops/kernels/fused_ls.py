@@ -1,8 +1,12 @@
 """LS estimate: wrappers of the hand-written CUDA kernels
 ``csrc/ls_v2.cu``, ``csrc/ls_v1.cu`` (the v2 and v1 flat-planes kernels of
 ``mamimo_tpu/ops/pallas/fused_ls.py``) and ``csrc/ls_pair.cu`` (its
-per-pair ``ls_estimate_pallas``). The three kernels share their GEMM and
-Walsh–Hadamard body (``csrc/ls_core.cuh``) and differ in the output form.
+per-pair ``ls_estimate_pallas``). The three compute one GEMM and
+Walsh–Hadamard despread and differ in the output form. The two serving
+kernels, v2 and per-pair, run on the Hopper body ``csrc/ls_sm90.cuh`` and
+take the K-major constants of ``ls_sm90_constants``; v1 runs on
+``csrc/ls_core.cuh`` and takes the (2·fft, 2·Cp) matrix of
+``ls_kernel_constants``. Each wrapper refuses the other form.
 
 On a CUDA tensor ``ls_planes_v2``, ``ls_planes_v1`` and
 ``ls_estimate_pallas`` launch their kernel; on a CPU tensor they run the
@@ -16,6 +20,7 @@ despread of its own symbols.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -28,7 +33,7 @@ from mamimo_tpu_torch.ops.estimate import (
     ls_planes_constants,
 )
 from mamimo_tpu_torch.ops.kernels import _build
-from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda
+from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda, tma_operand
 from mamimo_tpu_torch.ops.ltf import _hadamard_np
 
 def ls_planes_pallas_constants(cfg: SimConfig, block_samples: int = 8,
@@ -86,27 +91,87 @@ def ls_kernel_constants(cfg: SimConfig, device=None) -> torch.Tensor:
     return torch.cat([top, bot]).to(device=device, dtype=torch.bfloat16)
 
 
+def ls_sm90_row_order(cpad: int) -> np.ndarray:
+    """The row order of the Hopper LS kernels' constants: row p of
+    ``ls_sm90_constants`` is row ``order[p]`` of Bᵀ =
+    ``ls_kernel_constants(cfg).T`` (rows g < cpad: the real part of
+    carrier g; cpad + g: its imaginary part). Slab q = rows 128q ..
+    128q + 127 holds the real parts of carriers 64q .. 64q + 63, then
+    their imaginary parts, so the block that owns a slab writes whole
+    complex values."""
+    if cpad % 64:
+        raise ValueError(f"cpad must be a multiple of 64, got {cpad}")
+    p = np.arange(2 * cpad)
+    return (p // 128) * 64 + p % 64 + cpad * ((p % 128) // 64)
+
+
+@dataclass(frozen=True)
+class LsSm90Constants:
+    """The constants of the Hopper LS kernels (``csrc/ls_sm90.cuh``):
+    ``bt`` (2·Cp, 2·fft) bfloat16, Bᵀ K-major with its rows in
+    ``ls_sm90_row_order``. A type of its own, so that neither these nor
+    the (2·fft, 2·Cp) matrix of ``ls_kernel_constants`` (the v1 kernel's,
+    the same shape at BS32) reaches a kernel that reads the other."""
+
+    bt: torch.Tensor
+
+    def to(self, device) -> "LsSm90Constants":
+        return LsSm90Constants(self.bt.to(device))
+
+
+def ls_sm90_constants(cfg: SimConfig, device=None) -> LsSm90Constants:
+    """The constants of ``ls_planes_v2`` and ``ls_pair_kernel`` on CUDA:
+    ``ls_kernel_constants(cfg)`` transposed to K-major and its rows
+    permuted by ``ls_sm90_row_order``; made once per caller."""
+    b = ls_kernel_constants(cfg)
+    order = torch.from_numpy(ls_sm90_row_order(b.shape[1] // 2))
+    return LsSm90Constants(b.T[order].contiguous().to(device))
+
+
+def _sm90_consts(cfg: SimConfig, consts, device, who: str
+                 ) -> LsSm90Constants:
+    """consts, or ``ls_sm90_constants`` built now when it is None; raises
+    TypeError for any other kind of constants."""
+    if consts is None:
+        return ls_sm90_constants(cfg, device)
+    if not isinstance(consts, LsSm90Constants):
+        raise TypeError(f"{who} takes ls_sm90_constants(cfg, device) (Bᵀ, "
+                        f"K-major, rows permuted), got {type(consts).__name__}"
+                        f"; the (2·fft, 2·Cp) matrix of ls_kernel_constants "
+                        f"is the v1 kernel's")
+    return consts
+
+
 def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
-                         bmat: torch.Tensor, nsym_in: int | None = None
-                         ) -> None:
+                         bmat, nsym_in: int | None = None) -> None:
     """Raise unless the LS kernels take these operands: planes of
-    ``nsym_in`` symbols per sample (default num_tx, the whole preamble)."""
+    ``nsym_in`` symbols per sample (default num_tx, the whole preamble),
+    and ``bmat`` the Hopper kernels' ``LsSm90Constants`` or the v1
+    kernel's (2·fft, 2·Cp) matrix."""
     nt = cfg.num_tx
     length = (nsym_in or nt) * cfg.sym_len
-    if planes.dtype != torch.bfloat16 or bmat.dtype != torch.bfloat16:
+    sm90 = isinstance(bmat, LsSm90Constants)
+    mat = bmat.bt if sm90 else bmat
+    if planes.dtype != torch.bfloat16 or mat.dtype != torch.bfloat16:
         raise TypeError("the LS kernel takes bfloat16 planes and constants")
     if planes.dim() != 3 or planes.shape[0] != 2 \
             or planes.shape[2] != length:
         raise ValueError(f"planes must be (2, S, {length}), "
                          f"got {tuple(planes.shape)}")
-    cp_ = _round_up(cfg.num_carriers, 128)
-    if tuple(bmat.shape) != (2 * cfg.fft_length, 2 * cp_):
-        raise ValueError(f"kernel constants must be ({2 * cfg.fft_length}, "
-                         f"{2 * cp_}), got {tuple(bmat.shape)}")
-    if nt > 128 or nt & (nt - 1) or cfg.fft_length % 32 \
-            or cfg.cp_length % 8:
+    if mat.device != planes.device:
+        raise ValueError(f"constants on {mat.device}, planes on "
+                         f"{planes.device}")
+    cp_, fft = _round_up(cfg.num_carriers, 128), cfg.fft_length
+    want = (2 * cp_, 2 * fft) if sm90 else (2 * fft, 2 * cp_)
+    if tuple(mat.shape) != want:
+        raise ValueError(f"kernel constants must be {want}, got "
+                         f"{tuple(mat.shape)}")
+    if nt > 128 or nt & (nt - 1) or fft % 32 or cfg.cp_length % 8:
         raise ValueError("the LS kernel needs num_tx a power of 2 <= 128, "
                          "fft_length % 32 == 0 and cp_length % 8 == 0")
+    if sm90 and (fft % 64 or fft > 256 or cp_ not in (128, 256, 512)):
+        raise ValueError("the Hopper LS kernels need fft_length a multiple "
+                         "of 64 up to 256 and at most 512 padded carriers")
 
 
 def seq_shard_symbols(cfg: SimConfig, seq_shard) -> int:
@@ -134,7 +199,7 @@ def _ls_v2_plain(cfg: SimConfig, planes: torch.Tensor,
 
 
 def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
-                 consts: torch.Tensor | None = None, *,
+                 consts: LsSm90Constants | None = None, *,
                  seq_shard: tuple[int, int] | None = None) -> torch.Tensor:
     """LS estimate of every (sample, tx, carrier) from flat planes.
 
@@ -144,8 +209,8 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
         computes at the bf16-input precision (about −58 dB NMSE against
         the float32 LS, PERF.md). With ``seq_shard``, rank i's contiguous
         symbols (2, S, loc·sym_len), loc = num_tx / n.
-      consts: CUDA only, ``ls_kernel_constants(cfg, device)``; built per
-        call when omitted.
+      consts: CUDA only, ``ls_sm90_constants(cfg, device)`` (any other
+        kind raises TypeError); built per call when omitted.
       seq_shard: (i, n) — return rank i of n's PARTIAL despread of its
         symbols (the rectangular K of the TPU kernel's sequence mode);
         the sum of the n partials is the estimate.
@@ -162,22 +227,23 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
                          f"got {tuple(planes.shape)}")
     if not on_cuda(planes):
         return _ls_v2_plain(cfg, planes, seq_shard)
-    if consts is None:
-        consts = ls_kernel_constants(cfg, planes.device)
+    consts = _sm90_consts(cfg, consts, planes.device, "ls_planes_v2")
     if planes.dtype == torch.float32:
         planes = planes.to(torch.bfloat16)
-    planes = planes.contiguous()
+    planes = tma_operand(planes)
     _check_kernel_shapes(cfg, planes, consts, loc)
     s = planes.shape[1]
     out = torch.empty((2, s, cfg.num_tx, cfg.num_carriers),
                       dtype=torch.float32, device=planes.device)
+    if s == 0:
+        return out
     lib = _ls_lib()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_planes_v2_launch(
-            planes.data_ptr(), consts.data_ptr(), out.data_ptr(), s,
+            planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(), s,
             cfg.num_tx, loc, rank, cfg.num_carriers, cfg.sym_len,
-            cfg.cp_length, cfg.fft_length, consts.shape[1] // 2, stream)
+            cfg.cp_length, cfg.fft_length, consts.bt.shape[0] // 2, stream)
     _build.check(rc, lib, "ls_planes_v2_error_string", "ls_planes_v2")
     ls_planes_v2.launches += 1
     return out
@@ -232,6 +298,9 @@ def ls_planes_v1(cfg: SimConfig, planes: torch.Tensor,
         return _ls_v1_plain(cfg, planes, block_samples, out_dtype)
     if consts is None:
         consts = ls_kernel_constants(cfg, planes.device)
+    if not isinstance(consts, torch.Tensor):
+        raise TypeError(f"ls_planes_v1 takes ls_kernel_constants(cfg, "
+                        f"device), got {type(consts).__name__}")
     planes = planes.contiguous()
     _check_kernel_shapes(cfg, planes, consts)
     s = planes.shape[1]
@@ -303,13 +372,13 @@ def pair_planes(rx: torch.Tensor) -> torch.Tensor:
 
 
 def ls_pair_kernel(cfg: SimConfig, planes: torch.Tensor, num_rx: int,
-                   consts: torch.Tensor | None = None) -> torch.Tensor:
+                   consts: LsSm90Constants | None = None) -> torch.Tensor:
     """Launch the per-pair LS kernel (CUDA only) on bf16 pair planes
-    (2, B·num_rx, len_ltf) from ``pair_planes``. Returns (B, C, num_tx,
-    num_rx) complex64."""
-    if consts is None:
-        consts = ls_kernel_constants(cfg, planes.device)
-    planes = planes.contiguous()
+    (2, B·num_rx, len_ltf) from ``pair_planes``, with the constants of
+    ``ls_sm90_constants`` (built per call when omitted; any other kind
+    raises TypeError). Returns (B, C, num_tx, num_rx) complex64."""
+    consts = _sm90_consts(cfg, consts, planes.device, "ls_pair_kernel")
+    planes = tma_operand(planes)
     _check_kernel_shapes(cfg, planes, consts)
     s = planes.shape[1]
     if s % num_rx:
@@ -322,9 +391,9 @@ def ls_pair_kernel(cfg: SimConfig, planes: torch.Tensor, num_rx: int,
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_pair_launch(
-            planes.data_ptr(), consts.data_ptr(), out.data_ptr(), s, num_rx,
-            cfg.num_tx, cfg.num_carriers, cfg.sym_len, cfg.cp_length,
-            cfg.fft_length, consts.shape[1] // 2, stream)
+            planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(), s,
+            num_rx, cfg.num_tx, cfg.num_carriers, cfg.sym_len, cfg.cp_length,
+            cfg.fft_length, consts.bt.shape[0] // 2, stream)
     _build.check(rc, lib, "ls_pair_error_string", "ls_pair")
     ls_pair_kernel.launches += 1
     return out
@@ -335,7 +404,8 @@ ls_pair_kernel.launches = 0
 
 def ls_estimate_pallas(cfg: SimConfig, rx: torch.Tensor, *,
                        pairs_per_block: int = 8, interpret=None,
-                       consts: torch.Tensor | None = None) -> torch.Tensor:
+                       consts: LsSm90Constants | None = None
+                       ) -> torch.Tensor:
     """LS channel estimation from raw time-major preambles, per (packet,
     rx) pair (the port of the JAX ``ls_estimate_pallas``).
 
@@ -343,7 +413,7 @@ def ls_estimate_pallas(cfg: SimConfig, rx: torch.Tensor, *,
       rx: (B, len_ltf, num_rx) complex64.
       pairs_per_block, interpret: accepted for the JAX signature and
         ignored (the CUDA kernel picks its own tiling).
-      consts: CUDA only, ``ls_kernel_constants(cfg, device)``; built per
+      consts: CUDA only, ``ls_sm90_constants(cfg, device)``; built per
         call when omitted.
 
     Returns:

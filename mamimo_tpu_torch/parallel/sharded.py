@@ -36,8 +36,8 @@ from mamimo_tpu_torch.models.mlp import (
     tree_map,
 )
 from mamimo_tpu_torch.ops.kernels.fused_ls import (
-    ls_kernel_constants,
     ls_planes_v2,
+    ls_sm90_constants,
     seq_shard_symbols,
 )
 from mamimo_tpu_torch.ops.ltf import _hadamard_np, _ltf_np
@@ -127,7 +127,7 @@ def sharded_ls_pallas_v2(cfg: SimConfig, mesh: Mesh, planes,
           rank runs the kernel's partial-despread mode on its symbols
           (``seq_shard=(i, n)``), and the partials are summed onto the
           first rank's device (the JAX package's psum).
-      consts: CUDA ranks only, ``ls_kernel_constants(cfg, device)`` on
+      consts: CUDA ranks only, ``ls_sm90_constants(cfg, device)`` on
         any device, copied to each rank's card; built per call when
         omitted (a host build that costs more than the kernels).
 
@@ -142,7 +142,7 @@ def sharded_ls_pallas_v2(cfg: SimConfig, mesh: Mesh, planes,
     devs = mesh.axis_devices(data_axis if mode == "data" else seq_axis)
     cards = {dev for dev in devs if dev.type == "cuda"}
     if cards and consts is None:
-        consts = ls_kernel_constants(cfg)
+        consts = ls_sm90_constants(cfg)
     per_card = {dev: consts.to(dev) for dev in cards}
     if mode == "data":
         s_loc = _divide(s, len(devs), "samples")

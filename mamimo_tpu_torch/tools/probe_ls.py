@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Where the two LS kernels of the serving paths spend their time, on the
+card.
+
+    python3 mamimo_tpu_torch/tools/probe_ls.py [--old DIR]
+
+At the bench shape (BS32: num_tx = 32, 234 carriers, S = 4096 rows of
+10240 samples, 1024 packets of 4 rx), seeded random bf16 planes, CUDA
+events, with the card's SM clock and power draw sampled by
+``nvidia-smi`` beside each timed window (``tools/probe_tail.py``'s
+timer):
+
+1. phase cuts: ``ls_planes_v2_kernel`` (full mode, and seq rank 1 of 4)
+   and ``ls_pair_kernel`` built with ``-DLS_CUT=<bits>`` (1 no products,
+   2 no despread, 4 no store; each build hashed apart in ``_build/``).
+   The cut builds compute wrong answers by design and are never used
+   outside this probe; the differences split each kernel's time by
+   phase, and the build with every cut is what the loads alone take;
+2. with ``--old DIR``: each kernel against an earlier design whose
+   sources (``ls_v2.cu``, ``ls_pair.cu`` and their headers, e.g. a ``git
+   archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``) lie in DIR
+   and keep the same C launch functions, timed in turns (old, new, new,
+   old) in one process, after holding the two designs' answers to each
+   other. The earlier design takes the (2·fft, 2·Cp) constants of
+   ``ls_kernel_constants``.
+
+Prints one line per measurement, and a JSON summary as the last line.
+Card only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+CUTS = {                  # LS_CUT bits of the LS kernels' sources
+    "no products": 1,
+    "no despread": 2,
+    "no store": 4,
+    "loads only": 1 | 2 | 4,
+}
+PACKETS = 1024
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument types of the two launch functions of a built library."""
+    for fn, n_int in (("ls_planes_v2_launch", 9), ("ls_pair_launch", 8)):
+        f = getattr(lib, fn, None)
+        if f is not None:
+            f.restype = ctypes.c_int
+            f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int \
+                + [ctypes.c_void_p]
+    return lib
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", type=Path, default=None,
+                    help="directory of an earlier design's csrc sources")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("probe_ls: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from mamimo_tpu_torch.config import SimConfig
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        ls_kernel_constants,
+        ls_sm90_constants,
+    )
+    from mamimo_tpu_torch.tools.probe_tail import _fmt, _old_lib, _time_ms
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    print(card)
+    _build.build_all(("ls_v2", "ls_pair"))
+    for name in ("ls_v2", "ls_pair"):
+        for line in _build.ptxas_report(name).splitlines():
+            print(f"  {name}: {line}")
+
+    cfg = SimConfig()
+    nt, nr, C = cfg.num_tx, cfg.num_rx, cfg.num_carriers
+    S, L = PACKETS * nr, cfg.len_ltf
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, S, L), generator=g, device=dev).to(torch.bfloat16)
+    lq = L // 4
+    xq = x[:, :, lq:2 * lq].contiguous()       # seq rank 1 of 4
+    kc_old = ls_kernel_constants(cfg, dev)
+    kc_new = ls_sm90_constants(cfg, dev).bt
+    cpad = kc_old.shape[1] // 2
+    out = torch.empty((2, S, nt, C), device=dev)
+    out_p = torch.empty((PACKETS, C, nt, nr), dtype=torch.complex64,
+                        device=dev)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    geo = (C, cfg.sym_len, cfg.cp_length, cfg.fft_length, cpad)
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"{what}: CUDA error {rc}")
+
+    def both(libs, consts):
+        """The three timed launches on a built (ls_v2, ls_pair) pair."""
+        v2, pr = libs
+        return {
+            "ls_planes_v2": lambda: check(v2.ls_planes_v2_launch(
+                x.data_ptr(), consts.data_ptr(), out.data_ptr(), S, nt, nt,
+                0, *geo, stream()), "ls_planes_v2_launch"),
+            "ls_planes_v2 seq 1/4": lambda: check(v2.ls_planes_v2_launch(
+                xq.data_ptr(), consts.data_ptr(), out.data_ptr(), S, nt,
+                nt // 4, 1, *geo, stream()), "ls_planes_v2_launch (seq)"),
+            "ls_pair_kernel": lambda: check(pr.ls_pair_launch(
+                x.data_ptr(), consts.data_ptr(), out_p.data_ptr(), S, nr, nt,
+                *geo, stream()), "ls_pair_launch")}
+
+    def lib_pair(defines=()):
+        return (_bind(_build.library("ls_v2", defines)),
+                _bind(_build.library("ls_pair", defines)))
+
+    summary = {"card": card, "S": S}
+    print(f"phase cuts, S = {S}:")
+    variants = {"kernel": ()}
+    variants.update({n: (f"LS_CUT={b}",) for n, b in CUTS.items()})
+    with ThreadPoolExecutor(len(variants)) as pool:   # one nvcc each
+        list(pool.map(lambda d: _build.build_all(("ls_v2", "ls_pair"), d),
+                      variants.values()))
+    cut = {}
+    for vname, defines in variants.items():
+        fns = both(lib_pair(defines), kc_new)
+        for kname, fn in fns.items():
+            ms, clk, pwr = _time_ms(fn)
+            print(f"  {kname} {vname}: {_fmt(ms, clk, pwr)}  [{card}]")
+            cut.setdefault(kname, {})[vname] = ms
+    for kname, t in cut.items():
+        k = t["kernel"]
+        split = {"products": k - t["no products"],
+                 "despread": k - t["no despread"],
+                 "store": k - t["no store"], "loads only": t["loads only"]}
+        print(f"  {kname} split: " + ", ".join(
+            f"{n} {v:.4f} ms" for n, v in split.items()) + f" of {k:.4f}")
+        cut[kname]["split"] = split
+    summary["cuts"] = cut
+
+    if args.old is not None:
+        old = (_bind(_old_lib(args.old, "ls_v2")),
+               _bind(_old_lib(args.old, "ls_pair")))
+        fns = {"old": both(old, kc_old), "new": both(lib_pair(), kc_new)}
+        for kname in fns["new"]:
+            got = {}
+            for tag in ("old", "new"):
+                fns[tag][kname]()
+                torch.cuda.synchronize()
+                got[tag] = (out if "v2" in kname
+                            else torch.view_as_real(out_p)).clone()
+            err = float(torch.sum((got["new"] - got["old"]) ** 2)
+                        / torch.sum(got["old"] ** 2))
+            db = 10 * torch.log10(torch.tensor(max(err, 1e-30))).item()
+            print(f"  {kname}: new vs old NMSE {db:.2f} dB")
+            if not db <= -45.0:
+                raise AssertionError(f"{kname}: the designs disagree "
+                                     f"({db:.2f} dB)")
+        print(f"A/B in turns (old, new, new, old), S = {S}:")
+        ab = {k: [] for k in fns["new"]}
+        for tag in ("old", "new", "new", "old"):
+            for kname, fn in fns[tag].items():
+                ms, clk, pwr = _time_ms(fn)
+                print(f"  {tag} {kname}: {_fmt(ms, clk, pwr)}  [{card}]")
+                ab[kname].append((tag, ms, clk, pwr))
+        summary["ab"] = ab
+
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

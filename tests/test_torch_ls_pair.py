@@ -24,8 +24,8 @@ from mamimo_tpu_torch.ops.estimate import (
 )
 from mamimo_tpu_torch.ops.kernels.fused_ls import (
     ls_estimate_pallas,
-    ls_kernel_constants,
     ls_pair_kernel,
+    ls_sm90_constants,
     pair_planes,
 )
 
@@ -113,7 +113,7 @@ def test_empty_batch_counts_no_launch(pcfg):
     launch, so its launch count does not move."""
     before = ls_pair_kernel.launches
     planes = torch.empty((2, 0, pcfg.len_ltf), dtype=torch.bfloat16)
-    out = ls_pair_kernel(pcfg, planes, pcfg.num_rx, ls_kernel_constants(pcfg))
+    out = ls_pair_kernel(pcfg, planes, pcfg.num_rx, ls_sm90_constants(pcfg))
     assert tuple(out.shape) == (0, pcfg.num_carriers, pcfg.num_tx,
                                 pcfg.num_rx)
     assert ls_pair_kernel.launches == before
