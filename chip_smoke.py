@@ -11,9 +11,11 @@ failure ends the run with a non-zero exit code):
 2.  build    — nvcc builds every kernel of mamimo_tpu_torch/csrc (one
                process per source, all at once); prints the ptxas
                report, and checks with cuobjdump that the layer-1 GEMMs,
-               the MLP tails and the two serving LS kernels
-               (ls_planes_v2_kernel, ls_pair_kernel) run wgmma (HGMMA)
-               and no mma.sync (HMMA);
+               the MLP tails and the three LS kernels
+               (ls_planes_v2_kernel, ls_planes_v1_kernel, ls_pair_kernel)
+               run wgmma (HGMMA) and no mma.sync (HMMA), and the int8
+               GEMM (int8_mm_kernel_slab, int8_mm_kernel_ring) int8
+               wgmma (IGMMA) and no int8 mma.sync (IMMA);
 3.  kernels  — each hand-written kernel against its plain PyTorch version
                on the same inputs, at the full BS32 width (Nt=32, Nr=4,
                hidden 1024/1024, len_ltf 10240), S = 256 rows; then at
@@ -37,7 +39,12 @@ failure ends the run with a non-zero exit code):
                the full kernel), 1 and 3 packets per pair, Nt = 8 at
                S = 1 and Nt = 128 at S = 3 (one sample a tile, the
                despread's shuffle stages); constants of the other layout
-               are refused;
+               are refused. The v1 LS kernel runs at S = 1, 3 and 33 on
+               Nt = 8, 32 and 128, both output dtypes, block_samples 8
+               and 1 (the last tile partly past s_out), pads exactly
+               zero; the int8 GEMM bit-exact at M = 1, 129 and S*Nt - 3,
+               N = 8, 234 and 1024, K = 16, 1024 (its resident-slab body)
+               and 1040 (its ring body, a K tail);
 4.  physics  — the sounding preamble through random flat channels, no
                noise: the served LS must recover every channel on every
                carrier;
@@ -388,18 +395,23 @@ def main() -> int:
     for src in _build.SOURCES:
         for line in _build.ptxas_report(src).splitlines():
             print(f"  {src}: {line.strip()}")
-    # the Hopper kernels must run wgmma (HGMMA) and no mma.sync (HMMA)
-    for src, kerns in (("fused_factored", ("factored_sig_proj_kernel",
-                                           "factored_tail_kernel")),
-                       ("mlp_infer", ("mlp_layer1_kernel",
-                                      "mlp_tail_kernel")),
-                       ("ls_v2", ("ls_planes_v2_kernel",)),
-                       ("ls_pair", ("ls_pair_kernel",))):
+    # the Hopper kernels must run wgmma (HGMMA; IGMMA for int8) and no
+    # mma.sync (HMMA; IMMA)
+    for src, kerns, want, ban in (
+            ("fused_factored", ("factored_sig_proj_kernel",
+                                "factored_tail_kernel"), "HGMMA", "HMMA"),
+            ("mlp_infer", ("mlp_layer1_kernel", "mlp_tail_kernel"),
+             "HGMMA", "HMMA"),
+            ("ls_v2", ("ls_planes_v2_kernel",), "HGMMA", "HMMA"),
+            ("ls_v1", ("ls_planes_v1_kernel",), "HGMMA", "HMMA"),
+            ("ls_pair", ("ls_pair_kernel",), "HGMMA", "HMMA"),
+            ("int8_mm", ("int8_mm_kernel_slab", "int8_mm_kernel_ring"),
+             "IGMMA", "IMMA")):
         for kname, ops in _build.sass_counts(src, kerns).items():
-            print(f"  {src}: {kname} SASS: {ops['HGMMA']} HGMMA, "
-                  f"{ops['HMMA']} HMMA")
-            if ops["HGMMA"] == 0 or ops["HMMA"] != 0:
-                raise AssertionError(f"{kname}: want HGMMA and no HMMA in "
+            print(f"  {src}: {kname} SASS: {ops[want]} {want}, "
+                  f"{ops[ban]} {ban}")
+            if ops[want] == 0 or ops[ban] != 0:
+                raise AssertionError(f"{kname}: want {want} and no {ban} in "
                                      f"its SASS, got {ops}")
 
     # 3. kernels against their plain versions --------------------------
@@ -420,8 +432,7 @@ def main() -> int:
         nt, C = cfg.num_tx, cfg.num_carriers
         print(f"[3 kernels] {tag}: Nt {nt}, hidden {tcfg.hidden}, S = {s}")
         res = {}
-        kc = ls_kernel_constants(cfg, dev)      # the v1 kernel's
-        k90 = ls_sm90_constants(cfg, dev)       # the Hopper LS kernels'
+        k90 = ls_sm90_constants(cfg, dev)       # the LS kernels'
         ls2 = ls_planes_v2(cfg, x16, k90)
         h = ls_estimate_planes(cfg, x32, ls_planes_constants(cfg, device=dev))
         res["ls_planes_v2"] = check(
@@ -442,7 +453,7 @@ def main() -> int:
         # v1: the raw padded planes in f32 and bf16, and the complex form
         ref_raw = torch.stack(_ls_v1_plain(cfg, x16, 8, torch.float32))
         for dt in (torch.float32, bf16):
-            hr, hi = ls_planes_v1(cfg, x16, kc, out_dtype=dt)
+            hr, hi = ls_planes_v1(cfg, x16, k90, out_dtype=dt)
             if hr.dtype != dt:
                 raise AssertionError(f"ls_planes_v1 gave {hr.dtype}, want {dt}")
             check_pads_zero("ls_planes_v1", hr, hi, s, nt, C)
@@ -451,7 +462,7 @@ def main() -> int:
                       -45.0)
             res.setdefault("ls_planes_v1", r)
         check("ls_planes_pallas complex vs its plain version (f32)",
-              ls_planes_pallas(cfg, x16, kc),
+              ls_planes_pallas(cfg, x16, k90),
               ls_raw_to_complex(cfg, ref_raw[0], ref_raw[1], s), -45.0)
         # float32 planes: cast once to bf16 by the wrappers
         xf = torch.randn((2, s, cfg.len_ltf), generator=g, device=dev)
@@ -612,21 +623,55 @@ def main() -> int:
                    (2, 8), 1)
     check_ls_edges(SimConfig(num_tx=128, num_rx=2), 3, 33, "Nt 128, S = 3",
                    (2, 4, 128), 2)
+
+    # the v1 kernel where its tiles (128/Nt samples) end: S = 1, 3, 33;
+    # block_samples 1 leaves the last tile partly past s_out at Nt 8, 32
+    for nt_e in (8, 32, 128):
+        cfg_e = SimConfig(num_tx=nt_e, num_rx=2)
+        k90e = ls_sm90_constants(cfg_e, dev)
+        ge = torch.Generator(device=dev).manual_seed(40 + nt_e)
+        for s_e in (1, 3, 33):
+            x_e = torch.randn((2, s_e, cfg_e.len_ltf), generator=ge,
+                              device=dev).to(bf16)
+            for block in (8, 1):
+                ref_e = torch.stack(_ls_v1_plain(cfg_e, x_e, block,
+                                                 torch.float32))
+                for dt in (torch.float32, bf16):
+                    hr, hi = ls_planes_v1(cfg_e, x_e, k90e,
+                                          block_samples=block, out_dtype=dt)
+                    tag = (f"ls_planes_v1 Nt {nt_e}, S = {s_e}, block "
+                           f"{block}, {str(dt)[6:]}")
+                    if hr.dtype != dt or hr.shape != ref_e[0].shape:
+                        raise AssertionError(f"{tag}: {hr.dtype} "
+                                             f"{tuple(hr.shape)}")
+                    check_pads_zero(tag, hr, hi, s_e, nt_e,
+                                    cfg_e.num_carriers)
+                    check(f"{tag} vs its plain version (f32), pads zero",
+                          torch.stack([hr, hi]), ref_e, -45.0)
+    # the int8 GEMM at ragged M and N, through both of its bodies
+    gi = torch.Generator(device=dev).manual_seed(50)
+    for k_e in (16, 1024, 1040):
+        for m_e in (1, 129, S_CHECK * cfg.num_tx - 3):
+            for n_e in (8, 234, 1024):
+                a, bt = randint8(gi, (m_e, k_e)), randint8(gi, (n_e, k_e))
+                a[0], bt[-1] = 127, -127        # the extremes in place
+                check_exact(f"matmul_int8 ({m_e}, {k_e}) @ ({k_e}, {n_e}) vs "
+                            f"float64 plain", matmul_int8(a, bt),
+                            _matmul_int8_plain(a, bt.T))
     # constants of the other layout are refused, not read
     kc1 = ls_kernel_constants(cfg, dev)
     for what, call in (
             ("ls_planes_v2", lambda: ls_planes_v2(cfg, x1, kc1)),
             ("ls_pair_kernel", lambda: ls_pair_kernel(
                 cfg, pair_planes(rx1), cfg.num_rx, kc1)),
-            ("ls_planes_v1", lambda: ls_planes_v1(cfg, x1, k90))):
+            ("ls_planes_v1", lambda: ls_planes_v1(cfg, x1, kc1))):
         try:
             call()
         except TypeError as e:
             print(f"  {what} refuses the other layout's constants: {e}")
         else:
             raise AssertionError(f"{what} took the other layout's constants")
-    consts = ls_kernel_constants(cfg, dev)      # the v1 kernel's
-    consts90 = ls_sm90_constants(cfg, dev)      # the Hopper LS kernels'
+    consts90 = ls_sm90_constants(cfg, dev)      # the LS kernels'
     f32_consts = ls_planes_constants(cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -951,7 +996,7 @@ def main() -> int:
         return torch.matmul(pm, z)
 
     # the LS kernels read only the fft samples of each symbol, never the CP
-    ls_in = 2 * S * nt * cfg.fft_length * 2 + consts.numel() * 2
+    ls_in = 2 * S * nt * cfg.fft_length * 2 + consts90.bt.numel() * 2
     ls_ops = 2.0 * (S * nt) * (2 * cfg.fft_length) * (2 * C)
     row("ls_planes_v2", f"planes (2, {S}, {L}) bf16 -> (2, {S}, {nt}, {C}) f32",
         "mamimo_tpu_torch/csrc/ls_v2.cu",
@@ -964,14 +1009,14 @@ def main() -> int:
     row("ls_planes_v1", f"planes (2, {S}, {L}) bf16 -> raw 2 x ({rows_out}, "
         f"{cp_}) bf16", "mamimo_tpu_torch/csrc/ls_v1.cu",
         "mamimo_tpu/ops/pallas/fused_ls.py:253",
-        lambda: ls_planes_v1(cfg, xb16, consts, out_dtype=bf16),
+        lambda: ls_planes_v1(cfg, xb16, consts90, out_dtype=bf16),
         lambda: _ls_v1_plain(cfg, xb16, 8, bf16),
         ls_library, ls_in + 2 * rows_out * cp_ * 2, ls_ops,
         ls_v1_launches, "planes paths x4")
     row("ls_planes_v1", f"planes (2, {S}, {L}) bf16 -> ({S}, {nt}, {C}) "
         f"complex64 (raw f32 + densify)", "mamimo_tpu_torch/csrc/ls_v1.cu",
         "mamimo_tpu/ops/pallas/fused_ls.py:253",
-        lambda: ls_planes_pallas(cfg, xb16, consts),
+        lambda: ls_planes_pallas(cfg, xb16, consts90),
         lambda: ls_raw_to_complex(cfg, *_ls_v1_plain(cfg, xb16, 8,
                                                      torch.float32), S),
         ls_library, ls_in + S * nt * C * 8, ls_ops,
@@ -1115,7 +1160,7 @@ def main() -> int:
         "mamimo_tpu/ops/pallas/fused_ls.py:424",
         lambda: ls_planes_v2(cfg, xq16, consts90, seq_shard=(1, 4)),
         lambda: _ls_v2_plain(cfg, xq32, (1, 4)), ls_seq_library,
-        2 * S * loc * cfg.fft_length * 2 + consts.numel() * 2
+        2 * S * loc * cfg.fft_length * 2 + consts90.bt.numel() * 2
         + 2 * S * nt * C * 4,
         2.0 * (S * loc) * (2 * cfg.fft_length) * (2 * C),
         cnt_sls[("seq", 4)], "sharded_ls_pallas_v2(seq, 4)",

@@ -70,7 +70,6 @@ from mamimo_tpu_torch.ops.kernels.fused_factored import (
 )
 from mamimo_tpu_torch.ops.kernels.fused_ls import (
     ls_estimate_pallas,
-    ls_kernel_constants,
     ls_planes_pallas,
     ls_sm90_constants,
 )
@@ -199,7 +198,7 @@ def make_estimation_fn_planes(cfg: SimConfig, tcfg: TrainConfig, params,
         raise ValueError("only the bf16-input planes paths are ported; "
                          "CSIPredictor serves float32 planes")
     dev = params["out"]["w"].device
-    kconsts = ls_kernel_constants(cfg, dev) if dev.type == "cuda" else None
+    kconsts = ls_sm90_constants(cfg, dev) if dev.type == "cuda" else None
     pconsts = ls_planes_constants(cfg, device=dev)
 
     def ls(planes):

@@ -1,12 +1,14 @@
-// The Hopper LS body of the port's two serving LS kernels: ls_v2.cu
-// (ls_planes_v2_kernel, dense planes, full and sequence-sharded mode)
-// and ls_pair.cu (ls_pair_kernel, the per-pair complex64 layout).
+// The Hopper LS body of the port's three LS kernels: ls_v2.cu
+// (ls_planes_v2_kernel, dense planes, full and sequence-sharded mode),
+// ls_v1.cu (ls_planes_v1_kernel, the raw padded (hr, hi) planes) and
+// ls_pair.cu (ls_pair_kernel, the per-pair complex64 layout).
 //
 //   z[s,n,c] = sum_t x[s, n*sym_len + cp + t] * A[c,t]   (complex)
 //   h[s,j,c] = sum_n P[j,n] * z[s,n,c]                    (P Sylvester +-1)
 //
 // Replaces the LS body of the TPU kernels mamimo_tpu/ops/pallas/
-// fused_ls.py::ls_planes_pallas_v2 and ::ls_estimate_pallas. The complex
+// fused_ls.py::ls_planes_pallas_v2, ::ls_planes_pallas and
+// ::ls_estimate_pallas. The complex
 // DFT-select is one real bf16 GEMM with f32 accumulation over K = [xr |
 // xi], the fft samples of each symbol (the CP is skipped by the load's
 // coordinate), against the constants Bt = [[Ar, -Ai], [Ai, Ar]] (2*cpad,
@@ -23,8 +25,8 @@
 //   imaginary, x 2*fft: 128 KB at fft = 256) in shared memory for its
 //   whole life, loaded once by TMA. The input reaches each SM once per
 //   tile of its cluster (CL x 134 MB over the card), where the mma.sync
-//   body of ls_core.cuh read each input tile once per column block and
-//   B once per tile (1.07 GB).
+//   body these kernels replaced read each input tile once per column
+//   block and B once per tile (1.07 GB).
 // * A tile is SPT = 128/loc samples x loc symbols (128 GEMM rows). One
 //   producer thread loads it in k-steps of 64 (16 KB) into a ring of
 //   STAGES stages, as 16 boxes of 8 rows each multicast to the cluster
@@ -43,9 +45,9 @@
 //   and imaginary part of a value sit at the same index of the two sets.
 // * Two consumer warpgroups take the cluster's tiles in turns
 //   (ping-pong): one runs its epilogue (despread and stores: the pair
-//   layout's straight from registers, the dense planes' through the
-//   warpgroup's two 8 KB staging buffers) while the other runs its
-//   products. Each releases a stage as soon as its own products on it
+//   layout's straight from registers, the planes' of ls_v2 and ls_v1
+//   through the warpgroup's two 8 KB staging buffers) while the other
+//   runs its products. Each releases a stage as soon as its own products on it
 //   are done; the producer runs ahead across tile boundaries.
 #pragma once
 

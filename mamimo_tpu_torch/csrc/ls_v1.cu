@@ -5,92 +5,141 @@
 // real dots against separate Ar, Ai planes (sym_len x Cp, the CP as zero
 // rows) and despreads with a block-diagonal K = I (x) P matmul; this
 // kernel computes the same function with the GEMM and Walsh-Hadamard
-// body of ls_core.cuh, shared with ls_v2.cu. Only the epilogue differs:
-// it writes the TPU kernel's raw serving form, two planes
+// body of ls_sm90.cuh, shared with ls_v2.cu and ls_pair.cu. Only the
+// store is this file's: the TPU kernel's raw serving form, two planes
 //
-//   hr, hi : (rows_out, cpad) in f32 or bf16, row s*nt + j, lane c,
+//   hr, hi : (s_out*nt, cpad) in f32 or bf16, row s*nt + j, lane c,
 //
-// with rows_out = round_up(S, block_samples) * nt and cpad =
-// round_up(C, 128). The pad lanes (c >= C) are zero because B's columns
-// there are zero; the pad rows (samples S..) are zero because their A
-// rows read as zero. The grid covers rows_out, so every pad row is
-// written by the kernel and nothing is zeroed beforehand.
+// with s_out = round_up(S, block_samples) and cpad = round_up(C, 128).
+// The pad lanes (c >= C) are zero because the rows of the constants for
+// those carriers are zero; the pad rows (samples S .. s_out - 1) are zero
+// because the body walks s_out samples over a map of S samples, whose
+// zero fill gives their input. Every pad row is written by the kernel;
+// nothing is zeroed beforehand.
 //
 // Bound on an H100 at the bench shape (S = 4096, nt = 32, cpad = 256):
 // it reads the 256 FFT samples of each symbol (134 MB bf16, the CP is
 // never read) and writes 2 x 131072 x 256 values: 134 MB in bf16 (about
 // 0.080 ms at 3.35 TB/s) or 268 MB in f32 (about 0.120 ms). The GEMM is
 // about 69 GFLOP (0.07 ms at the bf16 tensor-core peak), so it is
-// memory-bound; the design keeps z in shared memory and writes each
-// output value once, from threads on neighbouring lanes.
-#include "ls_core.cuh"
+// memory-bound.
+//
+// Store: block rank q owns carriers 64q .. 64q + 63, so it writes lanes
+// 64q .. 64q + 63 of every row of both planes: set 0 (real) into hr, set
+// 1 (imaginary) into hi. Through the warpgroup's staging buffers, as
+// ls_v2.cu, so that a warp writes a row's 64 lanes as one contiguous
+// piece (256 bytes in f32, 128 in bf16): whole sectors.
+#include "ls_sm90.cuh"
 
 using namespace mamimo;
 
 namespace {
 
-template <class T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
+
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  // round to nearest, as __float2bfloat16
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <class T>
-__global__ void __launch_bounds__(g128::THREADS, 2)
-    ls_planes_v1_kernel(const bf16* __restrict__ planes,
-                        const bf16* __restrict__ bmat, T* __restrict__ hr,
-                        T* __restrict__ hi, int S, int s_out, int nt,
-                        int sym_len, int cp, int fft, int cpad) {
-  ls_tile(planes, bmat, S, nt, sym_len, cp, fft, cpad,
-          [&](int s, int plane, int c, const float* v) {
-            if (s >= s_out) return;
-            T* o = (plane ? hi : hr) + (long long)s * nt * cpad + c;
-            for (int j = 0; j < nt; ++j)
-              o[(long long)j * cpad] = from_f32<T>(v[j * LS_EPITCH]);
-          });
-}
+struct V1Epi {
+  T* __restrict__ hr;
+  T* __restrict__ hi;
+  int s_out, nt, log_nt, cpad, c0;
+
+  __device__ __forceinline__ void store(const float (&acc0)[64],
+                                        const float (&acc1)[64], int s0,
+                                        int warp, int lane, float* stg,
+                                        int bar) {
+    rounds(acc0, hr, s0, warp, lane, stg, bar);
+    rounds(acc1, hi, s0, warp, lane, stg, bar);
+  }
+
+  // Four rounds a set: per 32-row group, the threads put their values
+  // (carrier c0 + 16*warp + 8h + lane/4 at tile row 8j + 2*(lane%4) + e)
+  // into a staging buffer, then each warp writes whole staged rows, lane
+  // l lanes c0 + 2l and c0 + 2l + 1, as row s*nt + sym (ls90::row_coords
+  // gives sample and symbol); rows of samples >= s_out are not written.
+  __device__ __forceinline__ void rounds(const float (&acc)[64], T* out,
+                                         int s0, int warp, int lane,
+                                         float* stg, int bar) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      // the other buffer was read before the last barrier
+      float* buf = stg + (g & 1) * ls90::STG_FLOATS;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            buf[ls90::stg_index(8 * jj + 2 * (lane & 3) + e,
+                                16 * warp + 8 * h + lane / 4)] =
+                acc[4 * (4 * g + jj) + 2 * h + e];
+      sm90::bar_sync(bar, 128);
+      if ((LS_CUT & 4) && s_out >= 0) continue;
+#pragma unroll 2
+      for (int k = 0; k < ls90::STG_ROWS / 4; ++k) {
+        const int row = warp + 4 * k;
+        const float2 v = *reinterpret_cast<const float2*>(
+            buf + ls90::stg_index(row, 2 * lane));
+        int smp, sym;
+        ls90::row_coords(32 * g + row, log_nt, smp, sym);
+        const int s = s0 + smp;
+        if (s >= s_out) continue;
+        put2(out + ((long long)s * nt + sym) * cpad + c0 + 2 * lane, v.x,
+             v.y);
+      }
+    }
+  }
+};
 
 template <class T>
-int launch(const void* planes, const void* bmat, void* hr, void* hi, int S,
-           int s_out, int nt, int sym_len, int cp, int fft, int cpad,
-           cudaStream_t stream) {
-  const int smem = g128::SMEM_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      ls_planes_v1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  ls_planes_v1_kernel<T><<<ls_grid(s_out * nt, cpad), g128::THREADS, smem,
-                           stream>>>((const bf16*)planes, (const bf16*)bmat,
-                                     (T*)hr, (T*)hi, S, s_out, nt, sym_len,
-                                     cp, fft, cpad);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_planes_v1_kernel(const __grid_constant__ CUtensorMap ma,
+                        const __grid_constant__ CUtensorMap mb,
+                        T* __restrict__ hr, T* __restrict__ hi, int s_out,
+                        int nt, int log_nt, int cpad, int cp, int fft) {
+  V1Epi<T> epi{hr, hi, s_out, nt, log_nt, cpad,
+               64 * (int)sm90::cluster_rank()};
+  // s_out samples over the map's S: the tiles past S read zeros
+  ls90::ls_body(&ma, &mb, s_out, log_nt, fft, cp, epi);
 }
 
 }  // namespace
 
 extern "C" {
 
-// planes (2, S, nt*sym_len) bf16; bmat (2*fft, 2*cpad) bf16; hr, hi
-// (s_out*nt, cpad) each, bf16 when out_bf16 != 0 else f32; s_out >= S.
-// Returns the CUDA error code of the launch.
-int ls_planes_v1_launch(const void* planes, const void* bmat, void* hr,
+// planes (2, S, nt*sym_len) bf16, 16-byte aligned; bt (2*cpad, 2*fft)
+// bf16, the permuted K-major constants (fused_ls.py::ls_sm90_constants);
+// hr, hi (s_out*nt, cpad) each, bf16 when out_bf16 != 0 else f32;
+// s_out >= S >= 1. nt a power of 2 <= 128, fft % 64 == 0, fft <= 256,
+// sym_len % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of
+// the launch (or sm90::ERR_TENSOR_MAP).
+int ls_planes_v1_launch(const void* planes, const void* bt, void* hr,
                         void* hi, int S, int s_out, int nt, int sym_len,
                         int cp, int fft, int cpad, int out_bf16,
                         void* stream) {
+  int log_nt = 0;
+  while ((1 << log_nt) < nt) ++log_nt;
+  CUtensorMap ma, mb;
+  if (ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft, cpad))
+    return sm90::ERR_TENSOR_MAP;
+  const int cl = 2 * cpad / 128, tiles = ls90::tiles(s_out, log_nt);
   if (out_bf16)
-    return launch<bf16>(planes, bmat, hr, hi, S, s_out, nt, sym_len, cp, fft,
-                        cpad, (cudaStream_t)stream);
-  return launch<float>(planes, bmat, hr, hi, S, s_out, nt, sym_len, cp, fft,
-                       cpad, (cudaStream_t)stream);
+    return ls90::launch(ls_planes_v1_kernel<__nv_bfloat16>, cl, tiles,
+                        (cudaStream_t)stream, ma, mb, (__nv_bfloat16*)hr,
+                        (__nv_bfloat16*)hi, s_out, nt, log_nt, cpad, cp, fft);
+  return ls90::launch(ls_planes_v1_kernel<float>, cl, tiles,
+                      (cudaStream_t)stream, ma, mb, (float*)hr, (float*)hi,
+                      s_out, nt, log_nt, cpad, cp, fft);
 }
 
 const char* ls_planes_v1_error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
+  return sm90::error_string(e);
 }
 
 }  // extern "C"

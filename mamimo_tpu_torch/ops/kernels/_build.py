@@ -93,15 +93,17 @@ def ptxas_report(name: str) -> str:
 
 
 def sass_counts(name: str, kernels) -> dict:
-    """How many wgmma (HGMMA) and mma.sync (HMMA) instructions the SASS of
-    each kernel of the built library ``name`` holds (``cuobjdump -sass``):
-    {kernel: {"HGMMA": n, "HMMA": n}}. A kernel is matched by a substring
-    of its mangled name."""
+    """How many wgmma (HGMMA bf16, IGMMA int8) and mma.sync (HMMA bf16,
+    IMMA int8) instructions the SASS of each kernel of the built library
+    ``name`` holds (``cuobjdump -sass``): {kernel: {"HGMMA": n, "HMMA": n,
+    "IGMMA": n, "IMMA": n}}. A kernel is matched by a substring of its
+    mangled name; the instantiations of a template add up."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(_target(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    counts = {k: {"HGMMA": 0, "HMMA": 0} for k in kernels}
+    counts = {k: dict.fromkeys(("HGMMA", "HMMA", "IGMMA", "IMMA"), 0)
+              for k in kernels}
     current = None
     for line in text.splitlines():
         if "Function :" in line:

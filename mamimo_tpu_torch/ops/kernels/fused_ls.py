@@ -2,11 +2,9 @@
 ``csrc/ls_v2.cu``, ``csrc/ls_v1.cu`` (the v2 and v1 flat-planes kernels of
 ``mamimo_tpu/ops/pallas/fused_ls.py``) and ``csrc/ls_pair.cu`` (its
 per-pair ``ls_estimate_pallas``). The three compute one GEMM and
-Walsh–Hadamard despread and differ in the output form. The two serving
-kernels, v2 and per-pair, run on the Hopper body ``csrc/ls_sm90.cuh`` and
-take the K-major constants of ``ls_sm90_constants``; v1 runs on
-``csrc/ls_core.cuh`` and takes the (2·fft, 2·Cp) matrix of
-``ls_kernel_constants``. Each wrapper refuses the other form.
+Walsh–Hadamard despread on the Hopper body ``csrc/ls_sm90.cuh`` and
+differ in the output form; all take the K-major constants of
+``ls_sm90_constants`` (``LsSm90Constants``) and refuse any other kind.
 
 On a CUDA tensor ``ls_planes_v2``, ``ls_planes_v1`` and
 ``ls_estimate_pallas`` launch their kernel; on a CPU tensor they run the
@@ -80,10 +78,11 @@ def ls_v2_to_complex(cfg: SimConfig, h: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def ls_kernel_constants(cfg: SimConfig, device=None) -> torch.Tensor:
-    """The CUDA kernel's DFT-select matrix, (2·fft, 2·Cp) bf16: the real
-    form [[Ar, Ai], [-Ai, Ar]] of the complex product, rows over the fft
-    samples only (the kernel skips the CP by address), so that
-    [xr | xi] @ it = [zr | zi]."""
+    """The DFT-select matrix in real form, (2·fft, 2·Cp) bf16:
+    [[Ar, Ai], [-Ai, Ar]], rows over the fft samples only (the kernels
+    skip the CP by coordinate), so that [xr | xi] @ it = [zr | zi]. No
+    kernel takes it: it is the source of ``ls_sm90_constants``, the
+    kernels' layout."""
     b, _ = ls_planes_pallas_v2_constants(cfg, 1)
     cp_ = b.shape[1] // 2
     top = b[cfg.cp_length:]                            # xr rows: [Ar | Ai]
@@ -109,9 +108,9 @@ def ls_sm90_row_order(cpad: int) -> np.ndarray:
 class LsSm90Constants:
     """The constants of the Hopper LS kernels (``csrc/ls_sm90.cuh``):
     ``bt`` (2·Cp, 2·fft) bfloat16, Bᵀ K-major with its rows in
-    ``ls_sm90_row_order``. A type of its own, so that neither these nor
-    the (2·fft, 2·Cp) matrix of ``ls_kernel_constants`` (the v1 kernel's,
-    the same shape at BS32) reaches a kernel that reads the other."""
+    ``ls_sm90_row_order``. A type of its own, so that the (2·fft, 2·Cp)
+    matrix of ``ls_kernel_constants`` (the same shape at BS32) never
+    reaches a kernel."""
 
     bt: torch.Tensor
 
@@ -120,7 +119,8 @@ class LsSm90Constants:
 
 
 def ls_sm90_constants(cfg: SimConfig, device=None) -> LsSm90Constants:
-    """The constants of ``ls_planes_v2`` and ``ls_pair_kernel`` on CUDA:
+    """The constants of the LS kernels (``ls_planes_v2``,
+    ``ls_planes_v1``, ``ls_pair_kernel``) on CUDA:
     ``ls_kernel_constants(cfg)`` transposed to K-major and its rows
     permuted by ``ls_sm90_row_order``; made once per caller."""
     b = ls_kernel_constants(cfg)
@@ -137,21 +137,20 @@ def _sm90_consts(cfg: SimConfig, consts, device, who: str
     if not isinstance(consts, LsSm90Constants):
         raise TypeError(f"{who} takes ls_sm90_constants(cfg, device) (Bᵀ, "
                         f"K-major, rows permuted), got {type(consts).__name__}"
-                        f"; the (2·fft, 2·Cp) matrix of ls_kernel_constants "
-                        f"is the v1 kernel's")
+                        f"; no kernel reads the (2·fft, 2·Cp) matrix of "
+                        f"ls_kernel_constants")
     return consts
 
 
 def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
-                         bmat, nsym_in: int | None = None) -> None:
+                         consts: LsSm90Constants,
+                         nsym_in: int | None = None) -> None:
     """Raise unless the LS kernels take these operands: planes of
-    ``nsym_in`` symbols per sample (default num_tx, the whole preamble),
-    and ``bmat`` the Hopper kernels' ``LsSm90Constants`` or the v1
-    kernel's (2·fft, 2·Cp) matrix."""
+    ``nsym_in`` symbols per sample (default num_tx, the whole preamble)
+    and the constants of ``ls_sm90_constants``."""
     nt = cfg.num_tx
     length = (nsym_in or nt) * cfg.sym_len
-    sm90 = isinstance(bmat, LsSm90Constants)
-    mat = bmat.bt if sm90 else bmat
+    mat = consts.bt
     if planes.dtype != torch.bfloat16 or mat.dtype != torch.bfloat16:
         raise TypeError("the LS kernel takes bfloat16 planes and constants")
     if planes.dim() != 3 or planes.shape[0] != 2 \
@@ -162,14 +161,14 @@ def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
         raise ValueError(f"constants on {mat.device}, planes on "
                          f"{planes.device}")
     cp_, fft = _round_up(cfg.num_carriers, 128), cfg.fft_length
-    want = (2 * cp_, 2 * fft) if sm90 else (2 * fft, 2 * cp_)
+    want = (2 * cp_, 2 * fft)
     if tuple(mat.shape) != want:
         raise ValueError(f"kernel constants must be {want}, got "
                          f"{tuple(mat.shape)}")
-    if nt > 128 or nt & (nt - 1) or fft % 32 or cfg.cp_length % 8:
-        raise ValueError("the LS kernel needs num_tx a power of 2 <= 128, "
-                         "fft_length % 32 == 0 and cp_length % 8 == 0")
-    if sm90 and (fft % 64 or fft > 256 or cp_ not in (128, 256, 512)):
+    if nt > 128 or nt & (nt - 1) or cfg.cp_length % 8:
+        raise ValueError("the LS kernel needs num_tx a power of 2 <= 128 "
+                         "and cp_length % 8 == 0")
+    if fft % 64 or fft > 256 or cp_ not in (128, 256, 512):
         raise ValueError("the Hopper LS kernels need fft_length a multiple "
                          "of 64 up to 256 and at most 512 padded carriers")
 
@@ -279,7 +278,7 @@ def _ls_v1_plain(cfg: SimConfig, planes: torch.Tensor, block_samples: int,
 
 
 def ls_planes_v1(cfg: SimConfig, planes: torch.Tensor,
-                 consts: torch.Tensor | None = None, *,
+                 consts: LsSm90Constants | None = None, *,
                  block_samples: int = 8, out_dtype=torch.float32):
     """The v1 kernel's raw output: (hr, hi), each (round_up(S,
     block_samples)·num_tx, Cp) in ``out_dtype`` (float32 or bfloat16),
@@ -288,31 +287,29 @@ def ls_planes_v1(cfg: SimConfig, planes: torch.Tensor,
     Args:
       planes: (2, S, len_ltf) — bfloat16 on CUDA (the kernel's input);
         float32 or bfloat16 on the CPU.
-      consts: CUDA only, ``ls_kernel_constants(cfg, device)``; built per
-        call when omitted.
+      consts: CUDA only, ``ls_sm90_constants(cfg, device)`` (any other
+        kind raises TypeError); built per call when omitted.
     """
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
     if not on_cuda(planes):
         return _ls_v1_plain(cfg, planes, block_samples, out_dtype)
-    if consts is None:
-        consts = ls_kernel_constants(cfg, planes.device)
-    if not isinstance(consts, torch.Tensor):
-        raise TypeError(f"ls_planes_v1 takes ls_kernel_constants(cfg, "
-                        f"device), got {type(consts).__name__}")
-    planes = planes.contiguous()
+    consts = _sm90_consts(cfg, consts, planes.device, "ls_planes_v1")
+    planes = tma_operand(planes)
     _check_kernel_shapes(cfg, planes, consts)
     s = planes.shape[1]
     s_out = _round_up(s, block_samples)
-    cp_ = consts.shape[1] // 2
+    cp_ = consts.bt.shape[0] // 2
     hr, hi = (torch.empty((s_out * cfg.num_tx, cp_), dtype=out_dtype,
                           device=planes.device) for _ in range(2))
+    if s == 0:
+        return hr, hi
     lib = _ls_v1_lib()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_planes_v1_launch(
-            planes.data_ptr(), consts.data_ptr(), hr.data_ptr(),
+            planes.data_ptr(), consts.bt.data_ptr(), hr.data_ptr(),
             hi.data_ptr(), s, s_out, cfg.num_tx, cfg.sym_len, cfg.cp_length,
             cfg.fft_length, cp_, int(out_dtype == torch.bfloat16), stream)
     _build.check(rc, lib, "ls_planes_v1_error_string", "ls_planes_v1")
@@ -324,7 +321,7 @@ ls_planes_v1.launches = 0
 
 
 def ls_planes_pallas(cfg: SimConfig, planes: torch.Tensor,
-                     consts: torch.Tensor | None = None, *,
+                     consts: LsSm90Constants | None = None, *,
                      block_samples: int = 8, raw: bool = False,
                      out_dtype=None):
     """LS estimation from flat canonical planes through the v1 kernel
@@ -333,7 +330,7 @@ def ls_planes_pallas(cfg: SimConfig, planes: torch.Tensor,
 
     Args:
       planes: (2, S, len_ltf); bfloat16 on CUDA.
-      consts: CUDA only, ``ls_kernel_constants(cfg, device)``.
+      consts: CUDA only, ``ls_sm90_constants(cfg, device)``.
       raw: return the kernel's padded (hr, hi) untouched — the serving
         form (see ``ls_planes_v1``).
       out_dtype: float32 (default) or bfloat16 storage of (hr, hi).

@@ -1,9 +1,12 @@
 """int8 GEMM with int32 accumulation: wrapper of the hand-written CUDA
 kernel ``csrc/int8_mm.cu`` (the counterpart of
-``mamimo_tpu/ops/pallas/int8_mm.py::matmul_pallas``, int8 mode).
+``mamimo_tpu/ops/pallas/int8_mm.py::matmul_pallas``, int8 mode; TMA and
+s8 wgmma, a resident slab of B for K <= 1024, a ring of both operands
+above).
 
 ``matmul_int8(a, bt)`` takes B transposed, (N, K), which is the kernel's
-operand layout; the int8 serving weights carry that copy
+operand layout (wgmma reads 8-bit operands only K-major); the int8
+serving weights carry that copy
 (``models/quant.py::prepare_int8_serving``). ``matmul_pallas(a, b)``
 keeps the JAX signature, B (K, N), and transposes per call.
 
@@ -62,6 +65,8 @@ def matmul_int8(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out
+    if k == 0:
+        return out.zero_()
     lib = _int8_lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

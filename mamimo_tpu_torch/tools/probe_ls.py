@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the two LS kernels of the serving paths spend their time, on the
+"""Where the three LS kernels (csrc/ls_sm90.cuh) spend their time, on the
 card.
 
     python3 mamimo_tpu_torch/tools/probe_ls.py [--old DIR]
@@ -10,19 +10,22 @@ events, with the card's SM clock and power draw sampled by
 ``nvidia-smi`` beside each timed window (``tools/probe_tail.py``'s
 timer):
 
-1. phase cuts: ``ls_planes_v2_kernel`` (full mode, and seq rank 1 of 4)
-   and ``ls_pair_kernel`` built with ``-DLS_CUT=<bits>`` (1 no products,
+1. phase cuts: ``ls_planes_v2_kernel`` (full mode, and seq rank 1 of 4),
+   ``ls_planes_v1_kernel`` (raw f32 and raw bf16 planes) and
+   ``ls_pair_kernel`` built with ``-DLS_CUT=<bits>`` (1 no products,
    2 no despread, 4 no store; each build hashed apart in ``_build/``).
    The cut builds compute wrong answers by design and are never used
    outside this probe; the differences split each kernel's time by
    phase, and the build with every cut is what the loads alone take;
 2. with ``--old DIR``: each kernel against an earlier design whose
-   sources (``ls_v2.cu``, ``ls_pair.cu`` and their headers, e.g. a ``git
-   archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``) lie in DIR
-   and keep the same C launch functions, timed in turns (old, new, new,
-   old) in one process, after holding the two designs' answers to each
-   other. The earlier design takes the (2·fft, 2·Cp) constants of
-   ``ls_kernel_constants``.
+   sources (``ls_v2.cu``, ``ls_v1.cu``, ``ls_pair.cu`` and their
+   headers, e.g. a ``git archive`` of an earlier commit's
+   ``mamimo_tpu_torch/csrc``) lie in DIR and keep the same C launch
+   functions, timed in turns (old, new, new, old) in one process, after
+   holding the two designs' answers to each other (NMSE, and whether
+   they are bit-identical). An earlier design's kernel takes the
+   (2·fft, 2·Cp) constants of ``ls_kernel_constants`` where its source
+   does not include ``ls_sm90.cuh`` (the mma.sync bodies before them).
 
 Prints one line per measurement, and a JSON summary as the last line.
 Card only.
@@ -49,15 +52,26 @@ CUTS = {                  # LS_CUT bits of the LS kernels' sources
 PACKETS = 1024
 
 
+SOURCES = ("ls_v2", "ls_v1", "ls_pair")
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Argument types of the two launch functions of a built library."""
-    for fn, n_int in (("ls_planes_v2_launch", 9), ("ls_pair_launch", 8)):
+    """Argument types of the launch function of a built library."""
+    for fn, n_ptr, n_int in (("ls_planes_v2_launch", 3, 9),
+                             ("ls_planes_v1_launch", 4, 8),
+                             ("ls_pair_launch", 3, 8)):
         f = getattr(lib, fn, None)
         if f is not None:
             f.restype = ctypes.c_int
-            f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int \
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
                 + [ctypes.c_void_p]
     return lib
+
+
+def _hopper(src_dir: Path, name: str) -> bool:
+    """Whether csrc/<name>.cu in src_dir runs on ls_sm90.cuh (and so takes
+    the permuted constants of ls_sm90_constants)."""
+    return '#include "ls_sm90.cuh"' in (src_dir / f"{name}.cu").read_text()
 
 
 def main() -> int:
@@ -83,8 +97,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(card)
-    _build.build_all(("ls_v2", "ls_pair"))
-    for name in ("ls_v2", "ls_pair"):
+    _build.build_all(SOURCES)
+    for name in SOURCES:
         for line in _build.ptxas_report(name).splitlines():
             print(f"  {name}: {line}")
 
@@ -102,6 +116,8 @@ def main() -> int:
     out = torch.empty((2, S, nt, C), device=dev)
     out_p = torch.empty((PACKETS, C, nt, nr), dtype=torch.complex64,
                         device=dev)
+    raw = {dt: torch.empty((2, S * nt, cpad), dtype=dt, device=dev)
+           for dt in (torch.float32, torch.bfloat16)}
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     geo = (C, cfg.sym_len, cfg.cp_length, cfg.fft_length, cpad)
 
@@ -109,35 +125,51 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"{what}: CUDA error {rc}")
 
-    def both(libs, consts):
-        """The three timed launches on a built (ls_v2, ls_pair) pair."""
-        v2, pr = libs
-        return {
-            "ls_planes_v2": lambda: check(v2.ls_planes_v2_launch(
-                x.data_ptr(), consts.data_ptr(), out.data_ptr(), S, nt, nt,
-                0, *geo, stream()), "ls_planes_v2_launch"),
-            "ls_planes_v2 seq 1/4": lambda: check(v2.ls_planes_v2_launch(
-                xq.data_ptr(), consts.data_ptr(), out.data_ptr(), S, nt,
-                nt // 4, 1, *geo, stream()), "ls_planes_v2_launch (seq)"),
-            "ls_pair_kernel": lambda: check(pr.ls_pair_launch(
-                x.data_ptr(), consts.data_ptr(), out_p.data_ptr(), S, nr, nt,
-                *geo, stream()), "ls_pair_launch")}
+    def v1(lib, consts, dt):
+        h = raw[dt]
+        return lambda: check(lib.ls_planes_v1_launch(
+            x.data_ptr(), consts.data_ptr(), h[0].data_ptr(),
+            h[1].data_ptr(), S, S, nt, *geo[1:], int(dt == torch.bfloat16),
+            stream()), "ls_planes_v1_launch")
 
-    def lib_pair(defines=()):
-        return (_bind(_build.library("ls_v2", defines)),
-                _bind(_build.library("ls_pair", defines)))
+    def both(libs, consts):
+        """The five timed launches on built (ls_v2, ls_v1, ls_pair)
+        libraries, each with its output; consts[name]: the constants each
+        library takes."""
+        v2, l1, pr = libs
+        return {
+            "ls_planes_v2": (lambda: check(v2.ls_planes_v2_launch(
+                x.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(), S,
+                nt, nt, 0, *geo, stream()), "ls_planes_v2_launch"), out),
+            "ls_planes_v2 seq 1/4": (lambda: check(v2.ls_planes_v2_launch(
+                xq.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(), S,
+                nt, nt // 4, 1, *geo, stream()),
+                "ls_planes_v2_launch (seq)"), out),
+            "ls_planes_v1 raw f32": (v1(l1, consts["ls_v1"], torch.float32),
+                                     raw[torch.float32]),
+            "ls_planes_v1 raw bf16": (v1(l1, consts["ls_v1"], torch.bfloat16),
+                                      raw[torch.bfloat16]),
+            "ls_pair_kernel": (lambda: check(pr.ls_pair_launch(
+                x.data_ptr(), consts["ls_pair"].data_ptr(), out_p.data_ptr(),
+                S, nr, nt, *geo, stream()), "ls_pair_launch"),
+                torch.view_as_real(out_p))}
+
+    def new_libs(defines=()):
+        return tuple(_bind(_build.library(n, defines)) for n in SOURCES)
+
+    k_new = dict.fromkeys(SOURCES, kc_new)
 
     summary = {"card": card, "S": S}
     print(f"phase cuts, S = {S}:")
     variants = {"kernel": ()}
     variants.update({n: (f"LS_CUT={b}",) for n, b in CUTS.items()})
     with ThreadPoolExecutor(len(variants)) as pool:   # one nvcc each
-        list(pool.map(lambda d: _build.build_all(("ls_v2", "ls_pair"), d),
+        list(pool.map(lambda d: _build.build_all(SOURCES, d),
                       variants.values()))
     cut = {}
     for vname, defines in variants.items():
-        fns = both(lib_pair(defines), kc_new)
-        for kname, fn in fns.items():
+        fns = both(new_libs(defines), k_new)
+        for kname, (fn, _) in fns.items():
             ms, clk, pwr = _time_ms(fn)
             print(f"  {kname} {vname}: {_fmt(ms, clk, pwr)}  [{card}]")
             cut.setdefault(kname, {})[vname] = ms
@@ -152,27 +184,32 @@ def main() -> int:
     summary["cuts"] = cut
 
     if args.old is not None:
-        old = (_bind(_old_lib(args.old, "ls_v2")),
-               _bind(_old_lib(args.old, "ls_pair")))
-        fns = {"old": both(old, kc_old), "new": both(lib_pair(), kc_new)}
+        old = tuple(_bind(_old_lib(args.old, n)) for n in SOURCES)
+        k_old = {n: kc_new if _hopper(args.old, n) else kc_old
+                 for n in SOURCES}
+        fns = {"old": both(old, k_old), "new": both(new_libs(), k_new)}
+        same = {}
         for kname in fns["new"]:
             got = {}
             for tag in ("old", "new"):
-                fns[tag][kname]()
+                fn, res = fns[tag][kname]
+                fn()
                 torch.cuda.synchronize()
-                got[tag] = (out if "v2" in kname
-                            else torch.view_as_real(out_p)).clone()
+                got[tag] = res.float().clone()
             err = float(torch.sum((got["new"] - got["old"]) ** 2)
                         / torch.sum(got["old"] ** 2))
             db = 10 * torch.log10(torch.tensor(max(err, 1e-30))).item()
-            print(f"  {kname}: new vs old NMSE {db:.2f} dB")
+            same[kname] = bool(torch.equal(got["new"], got["old"]))
+            print(f"  {kname}: new vs old NMSE {db:.2f} dB, "
+                  f"{'bit-identical' if same[kname] else 'not identical'}")
             if not db <= -45.0:
                 raise AssertionError(f"{kname}: the designs disagree "
                                      f"({db:.2f} dB)")
+        summary["identical_to_old"] = same
         print(f"A/B in turns (old, new, new, old), S = {S}:")
         ab = {k: [] for k in fns["new"]}
         for tag in ("old", "new", "new", "old"):
-            for kname, fn in fns[tag].items():
+            for kname, (fn, _) in fns[tag].items():
                 ms, clk, pwr = _time_ms(fn)
                 print(f"  {tag} {kname}: {_fmt(ms, clk, pwr)}  [{card}]")
                 ab[kname].append((tag, ms, clk, pwr))

@@ -5,7 +5,7 @@ sequence-sharded mode, and ls_pair_kernel) on the CPU.
 The kernels read the DFT-select matrix K-major, Bᵀ (2·Cp, 2·fft), with
 its rows permuted so that one block owns the real and the imaginary
 column of each of its carriers (``ls_sm90_row_order``); here that
-layout is held to the v1 kernel's B and to JAX's v2 constants, the
+layout is held to ls_kernel_constants' B and to JAX's v2 constants, the
 permutation to the product it stands for, and the wrappers' CUDA
 branches (their device test made to answer CUDA, the launch cut off
 before any build) to their refusal of constants of the other layout.
@@ -150,22 +150,22 @@ def _calls(which):
     xq = x[:, :, :CFG.len_ltf // 2].contiguous()
     rx = torch.complex(x[0].float(), x[1].float()).view(
         1, CFG.num_rx, CFG.len_ltf).transpose(1, 2)
-    old, new = ls_kernel_constants(CFG), ls_sm90_constants(CFG)
+    old = ls_kernel_constants(CFG)
     return {
         "v2": lambda: ls_planes_v2(CFG, x, old),
         "v2 seq": lambda: ls_planes_v2(CFG, xq, old, seq_shard=(1, 2)),
         "pair": lambda: ls_pair_kernel(CFG, x, CFG.num_rx, old),
         "estimate_pallas": lambda: ls_estimate_pallas(CFG, rx, consts=old),
-        "v1": lambda: ls_planes_v1(CFG, x, new),
+        "v1": lambda: ls_planes_v1(CFG, x, old),
     }[which]
 
 
 @pytest.mark.parametrize("which", ["v2", "v2 seq", "pair", "estimate_pallas",
                                    "v1"])
 def test_kernel_branches_refuse_the_other_layout(monkeypatch, which):
-    """ls_planes_v2 and the per-pair kernel take only LsSm90Constants, the
-    v1 kernel only its (2·fft, 2·Cp) matrix: at BS32 both are 512 × 512
-    bf16, so the type, not the shape, tells them apart."""
+    """Every LS kernel (v2, v1, per pair) takes only LsSm90Constants and
+    refuses the (2·fft, 2·Cp) matrix of ls_kernel_constants: at BS32 both
+    are 512 × 512 bf16, so the type, not the shape, tells them apart."""
     _kernel_branch(monkeypatch)
     with pytest.raises(TypeError, match="ls_sm90_constants|"
                        "ls_kernel_constants"):

@@ -4,10 +4,17 @@ ls_planes_pallas in interpret mode.
 
 Inputs are made with numpy and handed to both packages. The CUDA kernel
 (csrc/ls_v1.cu) runs only on the card (chip_smoke.py); here the wrapper's
-CPU path (the kernel's plain version) is held to the JAX kernel, and the
-layout the CUDA kernel writes — the shared GEMM and Walsh–Hadamard body
-of csrc/ls_core.cuh, stored as padded (hr, hi) rows — is rebuilt in
-float64 numpy and held to the plain version.
+CPU path (the kernel's plain version) is held to the JAX kernel, at the
+Hopper body's tile edges too (one sample, odd S, one sample a block,
+num_tx 8 and 32); the layout the CUDA kernel writes — the GEMM and
+Walsh–Hadamard body of csrc/ls_sm90.cuh against the permuted constants
+of ls_sm90_constants, block q's two accumulator sets stored as lanes
+64q .. 64q + 63 of the padded (hr, hi) rows — is rebuilt in float64
+numpy and held to the plain version; and the wrapper's CUDA branch (its
+device test made to answer CUDA, the launch cut off before any build)
+is held to the constants it takes. Tolerances: atol 2e-4 against JAX
+in float32 (sums over a few thousand terms on both sides), plus one
+bf16 rounding step relative for bf16 storage.
 """
 
 import jax.numpy as jnp
@@ -22,12 +29,15 @@ from mamimo_tpu.ops.pallas.fused_ls import (
     ls_raw_to_complex as j_raw_to_complex,
 )
 from mamimo_tpu_torch.config import SimConfig
+from mamimo_tpu_torch.ops.kernels import fused_ls
 from mamimo_tpu_torch.ops.kernels.fused_ls import (
+    LsSm90Constants,
     ls_kernel_constants,
     ls_planes_pallas,
     ls_planes_pallas_constants,
     ls_planes_v1,
     ls_raw_to_complex,
+    ls_sm90_constants,
 )
 
 CFG = SimConfig(num_tx=8, num_rx=2)
@@ -121,22 +131,28 @@ def _fwht_rows(z, nt):
 @pytest.mark.parametrize("cfg,block", [(CFG, 4), (SimConfig(), 8)])
 def test_ls_v1_kernel_layout(cfg, block):
     """The CUDA kernel's formulation in float64 numpy: [xr | xi] over the
-    fft samples @ ls_kernel_constants (bf16), butterflies along each
-    sample's num_tx rows, every sample of the padded row range stored at
-    row s·num_tx + j, lane c of hr (columns < Cp) or hi (columns >= Cp).
-    Held to the plain version within the bf16 DFT matrix's rounding
-    (about −58 dB), with exactly zero pads."""
+    fft samples of every sample of the padded range (zeros past S, as the
+    map's zero fill gives them) against the permuted Bᵀ of
+    ls_sm90_constants (bf16), butterflies along each sample's num_tx
+    rows, and block q's sets — rows 128q .. 128q + 63 (real) and
+    128q + 64 .. 128q + 127 (imaginary) of Bᵀ — stored as lanes
+    64q .. 64q + 63 of hr and hi at row s·num_tx + j. Held to the plain
+    version within the bf16 DFT matrix's rounding (about −58 dB), with
+    exactly zero pads."""
     s, nt = 5, cfg.num_tx
     x = np.random.default_rng(8).standard_normal(
         (2, s, cfg.len_ltf)).astype(np.float32)
-    b = ls_kernel_constants(cfg).float().numpy().astype(np.float64)
-    cp_ = b.shape[1] // 2
+    bt = ls_sm90_constants(cfg).bt.float().numpy().astype(np.float64)
+    cp_ = bt.shape[0] // 2
     s_out = -(-s // block) * block
     rows = np.zeros((2, s_out * nt, cfg.fft_length))
     rows[:, :s * nt] = x.reshape(2, s * nt, cfg.sym_len)[:, :, cfg.cp_length:]
-    h = _fwht_rows(np.concatenate([rows[0], rows[1]], axis=1) @ b, nt)
-    h = h.reshape(s_out * nt, 2 * cp_)
-    hr, hi = h[:, :cp_], h[:, cp_:]
+    z = _fwht_rows(np.concatenate([rows[0], rows[1]], axis=1) @ bt.T, nt)
+    z = z.reshape(s_out * nt, 2 * cp_)
+    hr, hi = np.zeros((s_out * nt, cp_)), np.zeros((s_out * nt, cp_))
+    for q in range(2 * cp_ // 128):
+        hr[:, 64 * q:64 * q + 64] = z[:, 128 * q:128 * q + 64]
+        hi[:, 64 * q:64 * q + 64] = z[:, 128 * q + 64:128 * q + 128]
     _assert_raw_pads_zero(torch.from_numpy(hr), torch.from_numpy(hi), s, nt,
                           cfg.num_carriers)
 
@@ -156,3 +172,102 @@ def test_ls_v1_refuses_bad_arguments():
         ls_planes_v1(CFG, x, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="cuda or all on cpu"):
         ls_planes_v1(CFG, torch.empty((2, 3, CFG.len_ltf), device="meta"))
+
+
+EDGE_CFGS = {8: (CFG, JCFG), 32: (SimConfig(), JSimConfig())}
+
+
+@pytest.mark.parametrize("form", ["complex", "raw_f32", "raw_bf16"])
+@pytest.mark.parametrize("block", [1, 8])
+@pytest.mark.parametrize("nt", [8, 32])
+@pytest.mark.parametrize("s", [1, 3, 17])
+def test_plain_matches_jax_at_tile_edges(s, nt, block, form):
+    """The plain version against JAX's kernel in interpret mode where the
+    Hopper body's tiles end (128/num_tx samples a tile: 16 at num_tx 8, 4
+    at 32): one sample, S = 3 and 17 (the last tile partly past them),
+    and pad rows up to block_samples (none at 1). Pads exactly zero."""
+    cfg, jcfg = EDGE_CFGS[nt]
+    x = np.random.default_rng(100 + s + nt + block).standard_normal(
+        (2, s, cfg.len_ltf)).astype(np.float32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if form == "complex":
+        ref = np.asarray(j_ls_planes_pallas(jcfg, jx, block_samples=block))
+        got = ls_planes_pallas(cfg, tx, block_samples=block).numpy()
+        assert got.shape == (s, nt, cfg.num_carriers)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4)
+        return
+    dt, jdt = ((torch.float32, jnp.float32) if form == "raw_f32"
+               else (torch.bfloat16, jnp.bfloat16))
+    jhr, jhi = j_ls_planes_pallas(jcfg, jx, block_samples=block, raw=True,
+                                  out_dtype=jdt)
+    hr, hi = ls_planes_pallas(cfg, tx, block_samples=block, raw=True,
+                              out_dtype=dt)
+    rows = -(-s // block) * block * nt
+    for got, ref in ((hr, jhr), (hi, jhi)):
+        assert got.dtype == dt and tuple(got.shape) == (rows, 256)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+            rtol=0 if dt == torch.float32 else BF16_STEP, atol=2e-4)
+    _assert_raw_pads_zero(hr, hi, s, nt, cfg.num_carriers)
+
+
+class _Stop(Exception):
+    pass
+
+
+def _kernel_branch(monkeypatch):
+    """Make the wrapper's device test answer CUDA and stop at the build of
+    any kernel library, so the CUDA branch runs up to the launch."""
+    monkeypatch.setattr(fused_ls, "on_cuda", lambda *t: True)
+
+    def no_build(name, defines=()):
+        raise _Stop(name)
+
+    monkeypatch.setattr(fused_ls._build, "library", no_build)
+
+
+@pytest.mark.parametrize("call", ["v1", "pallas"])
+def test_kernel_branch_refuses_ls_kernel_constants(monkeypatch, call):
+    """On the card v1 takes only LsSm90Constants: the (2·fft, 2·Cp)
+    matrix of ls_kernel_constants is refused before any launch."""
+    _kernel_branch(monkeypatch)
+    x = torch.from_numpy(_planes()).to(torch.bfloat16)
+    fn = ls_planes_v1 if call == "v1" else ls_planes_pallas
+    with pytest.raises(TypeError, match="ls_sm90_constants"):
+        fn(CFG, x, ls_kernel_constants(CFG))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_branch_builds_sm90_constants(monkeypatch, out_dtype):
+    """Without constants the CUDA branch builds ls_sm90_constants and
+    reaches the launch of the ls_v1 library (cut off here at its build);
+    given them, it reaches the same launch."""
+    _kernel_branch(monkeypatch)
+    built = []
+    real = fused_ls.ls_sm90_constants
+
+    def spy(cfg, device=None):
+        built.append(device)
+        return real(cfg, device)
+
+    monkeypatch.setattr(fused_ls, "ls_sm90_constants", spy)
+    x = torch.from_numpy(_planes()).to(torch.bfloat16)
+    with pytest.raises(_Stop, match="ls_v1"):
+        ls_planes_v1(CFG, x, out_dtype=out_dtype)
+    assert len(built) == 1
+    with pytest.raises(_Stop, match="ls_v1"):
+        ls_planes_v1(CFG, x, real(CFG), out_dtype=out_dtype)
+    assert len(built) == 1
+    with pytest.raises(ValueError, match=r"\(512, 256\)"):
+        ls_planes_v1(CFG, x, LsSm90Constants(torch.zeros(
+            (512, 256), dtype=torch.bfloat16)))
+
+
+def test_kernel_branch_empty_batch_counts_no_launch(monkeypatch):
+    """S = 0: empty (hr, hi), no library built, no launch counted."""
+    _kernel_branch(monkeypatch)
+    before = ls_planes_v1.launches
+    hr, hi = ls_planes_v1(CFG, torch.empty((2, 0, CFG.len_ltf),
+                                           dtype=torch.bfloat16))
+    assert tuple(hr.shape) == tuple(hi.shape) == (0, 256)
+    assert ls_planes_v1.launches == before
