@@ -68,10 +68,14 @@ failure ends the run with a non-zero exit code):
                their materialized rows. predict_complex_pallas answers
                256 rows, held to the float32 predict_complex;
 5e. seq-par. — the sequence-parallel path on a mesh of virtual ranks,
-               all on the one card (cuda:0): the halo-exchange kernel on
-               the padded BS32 preamble's 4 rank chunks with the 512 taps
-               of a seeded scattering realization (exact against the
-               plain exchange, rank 0's halo zero), the sharded FIR
+               all on the one card (cuda:0): the halo-exchange kernel,
+               one launch for all ranks of the card, on the padded BS32
+               preamble's 4 rank chunks with the 512 taps of a seeded
+               scattering realization, as planes and as complex64 rows,
+               then on its scalar path (rows of 3 and 6 floats, a 4-byte
+               offset), rows of 1028 floats, halo 0 and 8 ranks (each
+               exact against the plain exchange, rank 0's halo zero), the
+               sharded FIR
                convolution sharded_apply_channel_rdma (against the
                unsharded one and the exact phase-ramp channel), the
                sharded LS sharded_ls_pallas_v2 in seq (2, 4 ranks) and
@@ -83,10 +87,13 @@ failure ends the run with a non-zero exit code):
                the bench shape (1024 packets, S = 4096), CUDA events; the
                device time of estimate_full, all_pairs(int8=True), the
                four planes paths and pallas_full, and pallas_full's peak
-               device memory; the halo kernel per rank and the LS
-               kernel's seq mode per rank, and the whole-call time of
-               sharded_apply_channel_rdma and sharded_ls_pallas_v2
-               (seq, 4 ranks), split into kernels and the rest.
+               device memory; the LS kernel's seq mode per rank; the
+               halo kernel's device time for one whole 4-rank exchange
+               from a profiler trace; the host time per call of
+               halo_exchange_pallas, sharded_apply_channel_rdma, the
+               plain-exchange sharded_apply_channel and
+               sharded_ls_pallas_v2 (seq, 4 ranks) beside each call's
+               traced device-busy time.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
 5b, 5c, 5d and 5e and read just after. Prints a JSON line of per-kernel numbers before the
@@ -193,6 +200,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def host_ms(fn, iters: int = 10, batches: int = 5, warmup: int = 3):
+    """Host time of fn() in ms per call, what a caller waits for a call
+    whose time the host sets: the median over `batches` batches of
+    `iters` back-to-back calls (the card synchronized before and after
+    each) of the batch's mean (the host is shared; one batch can catch a
+    stall)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) / iters * 1e3)
+    return float(np.median(per))
 
 
 def trace_kernels_ms(fn, calls: int = 3) -> dict:
@@ -356,8 +384,8 @@ def main() -> int:
     )
     from mamimo_tpu_torch.parallel.mesh import make_mesh
     from mamimo_tpu_torch.parallel.rdma_halo import (
-        _halo_lib,
-        _launch as halo_launch,
+        _ext_complex_plain,
+        _halo_exchange_complex,
         ext_block_plain,
         halo_exchange_pallas,
         sharded_apply_channel_rdma,
@@ -881,30 +909,70 @@ def main() -> int:
           f"{taps.shape[0]} taps (halo {halo})")
     planes_r = [torch.view_as_real(sig[r * chunk:(r + 1) * chunk])
                 .permute(2, 0, 1).contiguous() for r in range(d_seq)]
-    ext_k = halo_exchange_pallas(mesh, planes_r, halo)
-    for r, (got, x) in enumerate(zip(ext_k, planes_r)):
-        r_res = check_exact(f"halo_exchange_pallas rank {r} vs the plain "
-                            f"exchange", got, ext_block_plain(
-                                x, planes_r[r - 1] if r else None, halo))
-        if r == 1:                          # the rank phase 6 times
-            res["halo_exchange_pallas"] = r_res
-    if bool((ext_k[0][:, :halo] != 0).any()):
-        raise AssertionError("halo_exchange_pallas: rank 0's halo is not zero")
-    # the scalar path (nt % 4 != 0) and a 3-rank ring, random planes
-    odd = [torch.randn((2, 50, 3), generator=g, device=dev) for _ in range(3)]
-    m3 = make_mesh({"seq": 3}, devices=[dev] * 3)
-    for r, got in enumerate(halo_exchange_pallas(m3, odd, 7)):
-        check_exact(f"halo_exchange_pallas scalar path, rank {r} of 3",
-                    got, ext_block_plain(odd[r], odd[r - 1] if r else None, 7))
+    chunks_r = [sig[r * chunk:(r + 1) * chunk] for r in range(d_seq)]
+
+    def exchange_exact(tag, xs, halo_, complex_form=False):
+        """Kernel 7 on every rank of a mesh of virtual ranks of this
+        card, in the planes or the complex form: one launch, each block
+        bit-exact against the plain exchange, rank 0's halo zero."""
+        m = make_mesh({"seq": len(xs)}, devices=[dev] * len(xs))
+        fn, plain = ((_halo_exchange_complex, _ext_complex_plain)
+                     if complex_form else
+                     (halo_exchange_pallas, ext_block_plain))
+        got, cnt = counted(lambda: fn(m, xs, halo_))
+        if cnt["halo_exchange_pallas"] != 1:
+            raise AssertionError(f"halo_exchange_pallas {tag}: "
+                                 f"{cnt['halo_exchange_pallas']} launches "
+                                 f"for {len(xs)} ranks on one card, want 1")
+        bad = [r for r, (b, x) in enumerate(zip(got, xs))
+               if not torch.equal(b, plain(x, xs[r - 1] if r else None,
+                                           halo_))]
+        zero = got[0][..., :halo_, :] if not complex_form else got[0][:halo_]
+        print(f"  halo_exchange_pallas {tag}, {len(xs)} ranks, 1 launch: "
+              + (f"ranks {bad} differ from the plain exchange" if bad
+                 else "exact"))
+        if bad or bool((zero != 0).any()):
+            raise AssertionError(f"halo_exchange_pallas {tag}: ranks {bad} "
+                                 f"differ, or rank 0's halo is not zero")
+        return check_exact(f"halo_exchange_pallas {tag}, rank 1", got[1],
+                           plain(xs[1], xs[0], halo_))
+
+    # the vector path (16-byte columns): the preamble's chunks as planes
+    # (nt = 32) and as complex64 rows (64 floats), as the sharded
+    # convolution passes them
+    res["halo_exchange_pallas"] = exchange_exact(
+        f"planes (2, {chunk}, 32), halo {halo}", planes_r, halo)
+    exchange_exact(f"complex ({chunk}, 32), halo {halo}", chunks_r, halo,
+                   complex_form=True)
+    # the scalar path: rows that are not a multiple of 4 floats (nt = 3
+    # planes, nt = 3 complex = 6 floats) and 16-byte rows at a 4-byte
+    # offset; then rows of more than 256 16-byte columns, halo 0, 8 ranks
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    crnd = lambda *s: torch.complex(rnd(*s), rnd(*s))         # noqa: E731
+    exchange_exact("scalar path, planes (2, 50, 3)",
+                   [rnd(2, 50, 3) for _ in range(3)], 7)
+    exchange_exact("scalar path, complex (50, 3)",
+                   [crnd(50, 3) for _ in range(3)], 49, complex_form=True)
+    exchange_exact("scalar path, planes (2, 37, 6)",
+                   [rnd(2, 37, 6) for _ in range(4)], 36)
+    exchange_exact("scalar path, planes (2, 40, 32) 4 bytes off 16", [
+        rnd(2 * 40 * 32 + 1)[1:].view(2, 40, 32) for _ in range(4)], 9)
+    exchange_exact("vector path, planes (2, 20, 1028)",
+                   [rnd(2, 20, 1028) for _ in range(3)], 19)
+    exchange_exact("vector path, halo 0", [rnd(2, 16, 8) for _ in range(2)],
+                   0)
+    exchange_exact("vector path, 8 ranks", [crnd(64, 4) for _ in range(8)],
+                   33, complex_form=True)
     ext, cnt_halo = counted(lambda: halo_exchange_pallas(mesh, planes_r, halo))
     conv, cnt_conv = counted(
         lambda: sharded_apply_channel_rdma(cfg, mesh, sig, taps))
     for what, cnt in (("halo_exchange_pallas", cnt_halo),
                       ("sharded_apply_channel_rdma", cnt_conv)):
         print(f"  launches in {what}: {cnt}")
-        if cnt["halo_exchange_pallas"] != d_seq:
+        if cnt["halo_exchange_pallas"] != 1:
             raise AssertionError(f"{what}: {cnt['halo_exchange_pallas']} halo "
-                                 f"launches, want {d_seq}")
+                                 f"launches for {d_seq} ranks on one card, "
+                                 f"want 1")
     ref_taps = apply_channel_taps(sig, taps)
     exact = apply_channel(cfg, sig, chan)
     seq_err = {
@@ -977,11 +1045,17 @@ def main() -> int:
     rows = []
 
     def row(kname, shape_, src, repl, kern, plain, lib, nbytes, ops,
-            launches, path, peak=BF16_FLOPS, call=None, key=None):
+            launches, path, peak=BF16_FLOPS, call=None, key=None,
+            traced=None):
+        """One kernel row. ms: CUDA events around back-to-back launches,
+        or with ``traced`` the device time per call of the kernels whose
+        name holds it in a profiler trace of kern (a call whose time the
+        host sets); call_ms: CUDA events around the whole wrapper, or the
+        host time per call with ``traced``."""
         rows.append(dict(name=kname, shape=shape_, source=src, replaces=repl,
                          kern=kern, plain=plain, lib=lib, nbytes=nbytes,
                          ops=ops, peak=peak, launches=launches, path=path,
-                         call=call, key=key or kname))
+                         call=call, key=key or kname, traced=traced))
 
     # LS: kernel, plain (f32), library (bf16 matmul DFT-select + despread)
     bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, bf16, dev)
@@ -1124,24 +1198,28 @@ def main() -> int:
         2.0 * M * (H1 * H2 + H2 * C), cnt_pf["mlp_infer_tail"],
         "pallas_full x3")
 
-    # kernel 7 per rank: rank 1 of 4 (body copy + tail put) on the
-    # preamble's chunks; plain: the rank's plain exchange; library: one
-    # torch.cat of the left tail and the chunk (the whole exchange is
-    # timed as call_ms)
+    # kernel 7: one whole exchange over the 4 virtual ranks (one launch)
+    # on the preamble's chunks, its device time from the profiler's trace
+    # (the host time of the call apart, as call_ms); plain: every rank's
+    # plain exchange; library: one torch.cat per rank of its left tail
+    # (zeros on rank 0) and its chunk
     nt_ = planes_r[0].shape[2]
-    halo_lib, stream = _halo_lib(), torch.cuda.current_stream()
-    row("halo_exchange_pallas", f"rank 1 of {d_seq}: (2, {chunk}, {nt_}) f32 "
-        f"-> (2, {halo + chunk}, {nt_}) f32, tail {halo} rows put into rank "
-        f"2's block", "mamimo_tpu_torch/csrc/halo.cu",
+    tails = [torch.zeros((2, halo, nt_), device=dev)] + [
+        x[:, chunk - halo:] for x in planes_r[:-1]]
+    row("halo_exchange_pallas", f"{d_seq} ranks, one launch: {d_seq} x "
+        f"(2, {chunk}, {nt_}) f32 -> {d_seq} x (2, {halo + chunk}, {nt_}) "
+        f"f32, {d_seq - 1} tails of {halo} rows put",
+        "mamimo_tpu_torch/csrc/halo.cu",
         "mamimo_tpu/parallel/rdma_halo.py:111",
-        lambda: halo_launch(halo_lib, planes_r[1], ext[1], ext[2], halo,
-                            False, stream),
-        lambda: ext_block_plain(planes_r[1], planes_r[0], halo),
-        lambda: torch.cat([planes_r[0][:, chunk - halo:], planes_r[1]], 1),
-        2 * chunk * nt_ * 4 + 2 * (halo + chunk) * nt_ * 4, 0.0,
+        lambda: halo_exchange_pallas(mesh, planes_r, halo),
+        lambda: [ext_block_plain(x, planes_r[r - 1] if r else None, halo)
+                 for r, x in enumerate(planes_r)],
+        lambda: [torch.cat([t, x], 1) for t, x in zip(tails, planes_r)],
+        d_seq * (2 * chunk * nt_ * 4 + 2 * (halo + chunk) * nt_ * 4), 0.0,
         cnt_halo["halo_exchange_pallas"], f"halo_exchange_pallas, "
         f"{d_seq} ranks", call=lambda: halo_exchange_pallas(mesh, planes_r,
-                                                            halo))
+                                                            halo),
+        traced="halo_card_kernel")
     # kernel 1's seq mode per rank: rank 1 of 4 (loc 8 symbols) at S = 4096
     loc = nt // 4
     lq = loc * cfg.sym_len
@@ -1168,17 +1246,26 @@ def main() -> int:
 
     kernels = []
     for r in rows:
-        ms = time_ms(r["kern"])
+        if r["traced"]:
+            per = trace_kernels_ms(r["kern"], calls=20)
+            ms = sum(v for n, v in per.items() if r["traced"] in n)
+            if not ms > 0:
+                raise AssertionError(f"{r['name']}: no {r['traced']} device "
+                                     f"time in the profiler's trace: {per}")
+            call_ms = host_ms(r["call"])
+        else:
+            ms = time_ms(r["kern"])
+            call_ms = time_ms(r["call"]) if r["call"] else None
         plain_ms = time_ms(r["plain"], iters=3, warmup=1)
         lib_ms = time_ms(r["lib"])
-        call_ms = time_ms(r["call"]) if r["call"] else None
         bms, by = bound_ms(r["nbytes"], r["ops"], r["peak"])
         if r["name"] == "matmul_int8":
             gemm_ms[r["shape"].split(":")[0]] = ms
         print(f"  {r['name']} [{r['shape']}]: {ms:.5f} ms (bound {bms:.5f} ms "
               f"by {by}, {bms / ms * 100:.1f}% of it); "
               f"plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms"
-              + (f"; whole wrapper {call_ms:.4f} ms" if call_ms else "")
+              + (f"; whole wrapper {call_ms:.4f} ms"
+                 + (" host" if r["traced"] else "") if call_ms else "")
               + f"  [{smi}]")
         kernels.append({
             "name": r["name"], "shape": r["shape"], "route": "cuda",
@@ -1189,6 +1276,8 @@ def main() -> int:
             "exact": res[r["key"]].get("exact", False),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "call_ms": call_ms,
+            "ms_from": "trace" if r["traced"] else "events",
+            "call_ms_from": "host" if r["traced"] else "events",
         })
 
     # the serving calls on the device (planes in, estimates out)
@@ -1246,17 +1335,34 @@ def main() -> int:
               + ", ".join(f"{n[:60]} {v:.4f}" for v, n in others[:4])
               + f"); busy {busy:.4f} of the {calls[cname]:.4f} ms call, "
               f"idle {(1 - busy / calls[cname]) * 100:.1f}%  [{smi}]")
-    # the sequence-parallel calls, split into kernels and the rest
+    # the sequence-parallel calls: the host time per call (what a caller
+    # waits: these calls are host-bound) beside the device-busy time of
+    # the same call in a profiler trace (every kernel's own time)
     k_halo = next(k for k in kernels if k["name"] == "halo_exchange_pallas")
     k_seq = next(k for k in kernels if k["shape"].startswith("seq rank"))
-    par = {"sharded_apply_channel_rdma (seq 4)": time_ms(
-        lambda: sharded_apply_channel_rdma(cfg, mesh, sig, taps), iters=10),
-        "sharded_apply_channel (plain exchange, seq 4)": time_ms(
-        lambda: sharded_apply_channel(cfg, mesh, sig, taps), iters=10)}
     m_seq4 = make_mesh({"seq": 4}, devices=[dev] * 4)
-    par["sharded_ls_pallas_v2 (seq 4)"] = time_ms(
-        lambda: sharded_ls_pallas_v2(cfg, m_seq4, xb16, mode="seq",
-                                     consts=consts90), iters=5)
+    par_fns = {
+        "halo_exchange_pallas (seq 4)":
+            lambda: halo_exchange_pallas(mesh, planes_r, halo),
+        "sharded_apply_channel_rdma (seq 4)":
+            lambda: sharded_apply_channel_rdma(cfg, mesh, sig, taps),
+        "sharded_apply_channel (plain exchange, seq 4)":
+            lambda: sharded_apply_channel(cfg, mesh, sig, taps),
+        "sharded_ls_pallas_v2 (seq 4)":
+            lambda: sharded_ls_pallas_v2(cfg, m_seq4, xb16, mode="seq",
+                                         consts=consts90)}
+    par_host, par_busy, par_halo = {}, {}, {}
+    for cname, fn in par_fns.items():
+        par_host[cname] = host_ms(fn)
+        per = trace_kernels_ms(fn, calls=5)
+        par_busy[cname] = sum(per.values()) if per else None
+        par_halo[cname] = sum(v for n, v in per.items()
+                              if "halo_card_kernel" in n)
+        share = par_busy[cname] / par_host[cname] * 100 if per else 0.0
+        busy = (f"{par_busy[cname]:.4f} ms ({share:.1f}% of the host time)"
+                if per else "not traced")
+        print(f"  {cname}: host {par_host[cname]:.4f} ms per call; traced "
+              f"device busy {busy}  [{smi}]")
     shard_copies = lambda: [xb16[:, :, i * lq:(i + 1) * lq].contiguous()  # noqa: E731
                             for i in range(4)]
     copies_ms = time_ms(shard_copies, iters=5)
@@ -1265,21 +1371,20 @@ def main() -> int:
     allreduce_ms = time_ms(lambda: sum_onto(parts, dev), iters=5)
     hsum = sum_onto(parts, dev)
     complex_ms = time_ms(lambda: torch.complex(hsum[0], hsum[1]), iters=5)
-    for cname, ms in par.items():
-        print(f"  {cname} device time: {ms:.4f} ms  [{smi}]")
-    rdma_ms = par["sharded_apply_channel_rdma (seq 4)"]
-    print(f"  sharded_apply_channel_rdma split: {d_seq} halo launches "
-          f"{d_seq * k_halo['ms']:.4f} ms ({d_seq * k_halo['ms'] / rdma_ms * 100:.1f}%),"
-          f" the rest (chunk planes, complex blocks, FFTs, products, "
-          f"gather) {rdma_ms - d_seq * k_halo['ms']:.4f} ms  [{smi}]")
-    sls_ms = par["sharded_ls_pallas_v2 (seq 4)"]
+    for cname in ("sharded_apply_channel_rdma (seq 4)",
+                  "sharded_apply_channel (plain exchange, seq 4)"):
+        if par_busy[cname] is not None:
+            print(f"  {cname} split: halo kernel {par_halo[cname]:.4f} ms, "
+                  f"other kernels {par_busy[cname] - par_halo[cname]:.4f} ms "
+                  f"(traced); host time not covered by device work "
+                  f"{par_host[cname] - par_busy[cname]:.4f} ms  [{smi}]")
+    sls_ms = par_host["sharded_ls_pallas_v2 (seq 4)"]
     print(f"  sharded_ls_pallas_v2 (seq 4) split: 4 LS seq kernels about "
           f"{4 * k_seq['ms']:.4f} ms (rank 1's time x 4), shard copies "
           f"{copies_ms:.4f} ms, all-reduce (sum of 4 partials) "
-          f"{allreduce_ms:.4f} ms, complex out {complex_ms:.4f} ms, the rest "
-          f"{sls_ms - 4 * k_seq['ms'] - copies_ms - allreduce_ms - complex_ms:.4f}"
-          f" ms  [{smi}]")
-    par_split = {"halo_kernels_ms": d_seq * k_halo["ms"],
+          f"{allreduce_ms:.4f} ms, complex out {complex_ms:.4f} ms (CUDA "
+          f"events, each alone), of the {sls_ms:.4f} ms host time  [{smi}]")
+    par_split = {"halo_kernel_ms": k_halo["ms"],
                  "ls_seq_kernels_ms": 4 * k_seq["ms"],
                  "ls_seq_shard_copies_ms": copies_ms,
                  "ls_seq_allreduce_ms": allreduce_ms,
@@ -1302,7 +1407,8 @@ def main() -> int:
         "physics_worst_carrier_nmse_db": worst},
         "seq_parallel": {
             "ranks": "virtual, all on cuda:0", "chunk": chunk, "halo": halo,
-            "device_ms": par, "split_ms": par_split,
+            "host_ms": par_host, "device_busy_ms": par_busy,
+            "halo_kernel_traced_ms": par_halo, "split_ms": par_split,
             "launches": {"halo_exchange_pallas": cnt_halo[
                 "halo_exchange_pallas"], "sharded_apply_channel_rdma":
                 cnt_conv["halo_exchange_pallas"],

@@ -51,7 +51,10 @@ class Mesh:
 
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along ``axis`` (index 0 on every other axis)."""
-        return [self.device(**{axis: i}) for i in range(self.shape[axis])]
+        if axis not in self.axis_names:
+            raise KeyError(axis)
+        return list(self.devices[tuple(slice(None) if a == axis else 0
+                                       for a in self.axis_names)])
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -5,34 +5,42 @@
 
 Needs two or more CUDA cards that can reach each other (peer access) and
 uses every visible one. ``chip_smoke.py`` runs the sequence-parallel
-path on virtual ranks of one card, where all ranks share one stream;
+path on virtual ranks of one card, where one launch covers every rank;
 this script drives what only several cards exercise: peer access, the
 kernel's store through a pointer into another card's memory, and the
-ordering of the ranks' streams (the barrier before the launches, the
-``recv_sem`` wait after them) in ``parallel/rdma_halo.py``.
+device-side flags that order neighbours on different cards (the barrier
+before a put, the arrival flag after it, each holding a call's epoch) in
+``csrc/halo.cu``.
 
-Two meshes of the ``seq`` axis at BS32 (Nt 32, the padded 11200-sample
-preamble, the 512 taps of a seeded scattering realization):
+Three meshes of the ``seq`` axis at BS32 (Nt 32, the padded 11200-sample
+preamble, the 512 taps of a seeded scattering realization), over n
+cards:
 
 * one rank per card (n ranks, every neighbour on another card);
 * two ranks per card (2n ranks, neighbours alternately on one card and
-  across cards).
+  across cards);
+* interleaved, [c0, c1, ..., c0, c1, ...] (2n ranks, every neighbour on
+  another card, two ranks of each card in one launch).
 
 On each, checked (any failure ends the run with a non-zero exit code):
 
 1. ``halo_exchange_pallas`` on the preamble's chunks, bit-equal to the
    plain exchange (``ext_block_plain``), rank 0's halo zero, one launch
-   per rank; then 50 calls back to back on fresh random planes, each
-   checked bit for bit as the calls go;
+   per card; then 50 calls back to back on fresh random planes (50
+   epochs of the flags), each checked bit for bit as the calls go;
 2. ``sharded_apply_channel_rdma`` against the unsharded
    ``apply_channel_taps`` on cuda:0, rel err <= 1e-4 (TF32 off);
 3. ``sharded_ls_pallas_v2`` seq and data over the cards (bf16 planes,
    S = 256) against the unsharded ``ls_planes_v2``, <= -100 dB.
 
-Times, on the host clock with every card synchronized (launch overhead
-included): the whole exchange across the cards, the same number of
-virtual ranks on cuda:0, and the plain exchange across the cards.
-Prints one JSON line last.
+Times: the host time per call with every card synchronized (launch
+overhead included) of the exchange across the cards, of the same number
+of virtual ranks on cuda:0, of the plain exchange across the cards and
+of both sharded convolutions; and each card's device time of the halo
+kernel and its device-busy time in a ``torch.profiler`` trace of the
+exchange and of ``sharded_apply_channel_rdma`` (``probe_halo.
+trace_device``), with the share of halo-kernel time during which another
+card ran it too. Prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -45,25 +53,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 REPEATS = 50
-
-
-def _wall_ms(fn, devs, iters: int = 50) -> float:
-    """Mean host time of fn() in ms over back-to-back calls, every card
-    in ``devs`` synchronized before and after."""
-    import torch
-
-    def sync():
-        for d in set(devs):
-            torch.cuda.synchronize(d)
-
-    for _ in range(3):
-        fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    sync()
-    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def main() -> int:
@@ -92,12 +81,14 @@ def main() -> int:
     )
     from mamimo_tpu_torch.parallel.mesh import make_mesh
     from mamimo_tpu_torch.parallel.rdma_halo import (
+        MAX_RANKS_PER_CARD,
         ext_block_plain,
         halo_exchange_pallas,
         sharded_apply_channel_rdma,
     )
     from mamimo_tpu_torch.parallel.sharded import sharded_ls_pallas_v2
     from mamimo_tpu_torch.pipeline.sounding import pad_signal
+    from mamimo_tpu_torch.tools.probe_halo import host_ms, trace_device
 
     n = torch.cuda.device_count()
     cards = [torch.device("cuda", i) for i in range(n)]
@@ -134,9 +125,10 @@ def main() -> int:
     def exchange_exact(tag, mesh, planes):
         k = halo_exchange_pallas.launches
         outs = halo_exchange_pallas(mesh, planes, halo)
-        if halo_exchange_pallas.launches - k != len(planes):
+        n_cards = len(set(x.device for x in planes))
+        if halo_exchange_pallas.launches - k != n_cards:
             raise AssertionError(f"{tag}: {halo_exchange_pallas.launches - k} "
-                                 f"launches, want {len(planes)}")
+                                 f"launches, want one per card ({n_cards})")
         for r, (got, x) in enumerate(zip(outs, planes)):
             want = ext_block_plain(x, planes[r - 1] if r else None, halo)
             if got.device != x.device or not torch.equal(got, want):
@@ -146,12 +138,14 @@ def main() -> int:
             raise AssertionError(f"{tag}: rank 0's halo is not zero")
 
     result = {"cards": n, "card": smi, "peer": peer, "meshes": {}}
-    for per_card in (1, 2):
-        d = n * per_card
-        devs = [cards[r // per_card] for r in range(d)]
+    layouts = {"one rank per card": cards,
+               "two ranks per card": [c for c in cards for _ in range(2)],
+               "interleaved": cards + cards}
+    for layout, devs in layouts.items():
+        d = len(devs)
         mesh = make_mesh({"seq": d}, devices=devs)
         chunk = sig.shape[0] // d
-        tag = f"seq {d}, {per_card} rank(s) per card"
+        tag = f"seq {d}, {layout}"
         planes = [torch.view_as_real(sig[r * chunk:(r + 1) * chunk])
                   .permute(2, 0, 1).contiguous().to(dev)
                   for r, dev in enumerate(devs)]
@@ -183,27 +177,43 @@ def main() -> int:
         virt = make_mesh({"seq": d}, devices=[dev0] * d)
         planes0 = [x.to(dev0) for x in planes]
         times = {
-            "exchange_across_cards_ms": _wall_ms(
+            "exchange_across_cards_ms": host_ms(
                 lambda: halo_exchange_pallas(mesh, planes, halo), devs),
-            "exchange_virtual_ranks_cuda0_ms": _wall_ms(
-                lambda: halo_exchange_pallas(virt, planes0, halo), [dev0]),
-            "plain_exchange_across_cards_ms": _wall_ms(
+            "exchange_virtual_ranks_cuda0_ms": host_ms(
+                lambda: halo_exchange_pallas(virt, planes0, halo), [dev0])
+            if d <= MAX_RANKS_PER_CARD else None,
+            "plain_exchange_across_cards_ms": host_ms(
                 lambda: [ext_block_plain(x, planes[r - 1] if r else None,
                                          halo)
                          for r, x in enumerate(planes)], devs),
-            "sharded_apply_channel_rdma_ms": _wall_ms(
+            "sharded_apply_channel_rdma_ms": host_ms(
                 lambda: sharded_apply_channel_rdma(cfg, mesh, sig, taps),
                 devs, iters=10),
-            "sharded_apply_channel_plain_ms": _wall_ms(
+            "sharded_apply_channel_plain_ms": host_ms(
                 lambda: sharded_apply_channel(cfg, mesh, sig, taps),
                 devs, iters=10)}
+        traced = {
+            "exchange": trace_device(
+                lambda: halo_exchange_pallas(mesh, planes, halo)),
+            "sharded_apply_channel_rdma": trace_device(
+                lambda: sharded_apply_channel_rdma(cfg, mesh, sig, taps))}
         print(f"[{tag}] chunk {chunk}, halo {halo}: exchange exact "
-              f"({1 + REPEATS} calls), conv rel err {rel:.3e}, LS "
+              f"({1 + REPEATS} calls, one launch per card), conv rel err "
+              f"{rel:.3e}, LS "
               f"{ {k: round(v, 2) for k, v in ls_db.items()} } dB; host ms "
-              f"{ {k: round(v, 4) for k, v in times.items()} }  [{smi[0]}]")
-        result["meshes"][tag] = {"ranks": d, "chunk": chunk, "halo": halo,
+              f"{ {k: v and round(v, 4) for k, v in times.items()} }  "
+              f"[{smi[0]}]")
+        for what, tr in traced.items():
+            print(f"  {what} traced, device ms per call by card: "
+                  + "; ".join(f"cuda:{i} halo kernel {c['match_ms']:.5f}, "
+                              f"busy {c['busy_ms']:.4f}"
+                              for i, c in sorted(tr["cards"].items()))
+                  + f"; halo kernels overlapping another card's "
+                  f"{tr['overlap'] * 100:.1f}% of their time  [{smi[0]}]")
+        result["meshes"][tag] = {"ranks": d, "cards": [x.index for x in devs],
+                                 "chunk": chunk, "halo": halo,
                                  "conv_rel_err": rel, "ls_nmse_db": ls_db,
-                                 "host_ms": times}
+                                 "host_ms": times, "traced": traced}
     print(json.dumps(result))
     return 0
 

@@ -122,6 +122,28 @@ def test_sharded_apply_channel_matches_jax(channel, d):
         assert err < 1e-4, (fn.__name__, d, err)
 
 
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_apply_channel_rdma_matches_jax_rdma(channel, d):
+    """The port's fused convolution (complex chunks through kernel 7's
+    plain version) against JAX's sharded_apply_channel_rdma, its Pallas
+    exchange in interpret mode, with test_sharded_apply_channel_matches_jax's
+    tolerances."""
+    from mamimo_tpu.parallel.rdma_halo import (
+        sharded_apply_channel_rdma as j_rdma,
+    )
+
+    _, _, sig, jtaps = channel
+    ref = np.asarray(j_rdma(JCFG, _jax_mesh(seq=d), sig, jtaps))
+    unsharded = np.asarray(jhalo.apply_channel_taps(sig, jtaps))
+    got = sharded_apply_channel_rdma(
+        CFG, _cpu_mesh(seq=d), torch.tensor(np.asarray(sig)),
+        torch.tensor(np.asarray(jtaps))).numpy()
+    assert got.shape == ref.shape and got.dtype == np.complex64
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4 * np.abs(ref).max())
+    err = np.linalg.norm(got - unsharded) / np.linalg.norm(unsharded)
+    assert err < 1e-4, (d, err)
+
+
 def test_halo_block_bit_equal_to_jax_kernel():
     """The port's extended blocks equal, bit for bit, those of the JAX
     kernel run under shard_map in interpret mode (tests/test_rdma_halo.py's
