@@ -12,8 +12,10 @@ failure ends the run with a non-zero exit code):
                process per source, all at once); prints the ptxas
                report, and checks with cuobjdump that the layer-1 GEMMs,
                the MLP tails and the three LS kernels
-               (ls_planes_v2_kernel, ls_planes_v1_kernel, ls_pair_kernel)
-               run wgmma (HGMMA) and no mma.sync (HMMA), and the int8
+               (ls_planes_v2_kernel, each of its four variants: f32 or
+               bf16 store, with or without the sums of h^2;
+               ls_planes_v1_kernel, ls_pair_kernel) run wgmma (HGMMA) and
+               no mma.sync (HMMA), and the int8
                GEMM (int8_mm_kernel_slab, int8_mm_kernel_ring) int8
                wgmma (IGMMA) and no int8 mma.sync (IMMA);
 3.  kernels  — each hand-written kernel against its plain PyTorch version
@@ -44,7 +46,13 @@ failure ends the run with a non-zero exit code):
                and 1 (the last tile partly past s_out), pads exactly
                zero; the int8 GEMM bit-exact at M = 1, 129 and S*Nt - 3,
                N = 8, 234 and 1024, K = 16, 1024 (its resident-slab body)
-               and 1040 (its ring body, a K tail);
+               and 1040 (its ring body, a K tail). ls_planes_v2's bf16 store and
+               per-tile sums of h^2 (out_dtype=bfloat16, with_ssq) run
+               at S = 256, 1 and 5, full mode and seq ranks of n = 2 and
+               4: the estimate within -45 dB of the float32 plain
+               version, the sums within 1e-4 relative per tile of the
+               plain version's on the kernel's own bf16 constants, the
+               same sums from a second call (no atomics);
 4.  physics  — the sounding preamble through random flat channels, no
                noise: the served LS must recover every channel on every
                carrier;
@@ -83,10 +91,20 @@ failure ends the run with a non-zero exit code):
                (sharded_ls_estimate, sharded_predict_all_pairs,
                sharded_estimate_combined on data 2 x seq 2 x antenna 2)
                against their unsharded float32 counterparts;
+5f. bench    — the headline bench path pallas_ls_v2_serving_r3
+               (make_estimation_fn_serving_r3) answers 3 requests of 64
+               packets of bf16 planes: ls_planes_v2 and the fused
+               factored kernels must have launched; the first answer's
+               sums of h^2 and DNN planes are held to the float32 plain
+               path; entry() runs once (its LS held to the float32 LS);
+               run_bench (64 packets, 2 calls a window) yields a line
+               with all 15 paths;
 6.  timing   — each kernel, its plain version and a library yardstick at
-               the bench shape (1024 packets, S = 4096), CUDA events; the
+               the bench shape (1024 packets, S = 4096), CUDA events (the
+               LS kernel also in its bf16-store-and-sums variant); the
                device time of estimate_full, all_pairs(int8=True), the
-               four planes paths and pallas_full, and pallas_full's peak
+               four planes paths, pallas_ls_v2_serving_r3 and
+               pallas_full, and pallas_full's peak
                device memory; the LS kernel's seq mode per rank; the
                halo kernel's device time for one whole 4-rank exchange
                from a profiler trace; the host time per call of
@@ -96,7 +114,9 @@ failure ends the run with a non-zero exit code):
                traced device-busy time.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d and 5e and read just after. Prints a JSON line of per-kernel numbers before the
+5b, 5c, 5d, 5e and 5f and read just after; estimate_full,
+pallas_ls_v2_serving_r3 and pallas_full are also traced
+(torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
 the repository's sources; exits non-zero without either.
 """
@@ -119,6 +139,12 @@ INT8_OPS = 1979e12                 # H100 SXM int8 dense tensor cores
 S_CHECK = 256                      # rows of the kernel checks (64 packets)
 MAT_PACKETS = 3                    # packets of the plain materialized check
 BENCH_PACKETS = 1024               # the bench shape: S = 4096
+# ls_planes_v2_kernel's variants, by a piece of their mangled names:
+# <float, false> is the default float32 store without sums
+V2_VARIANTS = {"f32": "ls_planes_v2_kernelIfLb0E",
+               "f32 + ssq": "ls_planes_v2_kernelIfLb1E",
+               "bf16 out": "ls_planes_v2_kernelI13__nv_bfloat16Lb0E",
+               "bf16 out + ssq": "ls_planes_v2_kernelI13__nv_bfloat16Lb1E"}
 
 
 def nmse_db(got, ref) -> float:
@@ -314,7 +340,10 @@ def main() -> int:
         _planes_to_time_major,
         make_estimation_fn,
         make_estimation_fn_planes,
+        make_estimation_fn_serving_r3,
+        run_bench,
     )
+    from mamimo_tpu_torch.entry import entry
     from mamimo_tpu_torch.config import SimConfig, TrainConfig
     from mamimo_tpu_torch.models.mlp import (
         _factored_all_pairs,
@@ -348,6 +377,7 @@ def main() -> int:
     from mamimo_tpu_torch.ops.kernels.fused_ls import (
         _ls_v1_plain,
         _ls_v2_plain,
+        _ssq_plain,
         ls_estimate_pallas,
         ls_kernel_constants,
         ls_pair_kernel,
@@ -357,6 +387,7 @@ def main() -> int:
         ls_planes_v2,
         ls_raw_to_complex,
         ls_sm90_constants,
+        ls_v2_tiles,
         pair_planes,
     )
     from mamimo_tpu_torch.ops.kernels.int8_mm import (
@@ -430,7 +461,7 @@ def main() -> int:
                                 "factored_tail_kernel"), "HGMMA", "HMMA"),
             ("mlp_infer", ("mlp_layer1_kernel", "mlp_tail_kernel"),
              "HGMMA", "HMMA"),
-            ("ls_v2", ("ls_planes_v2_kernel",), "HGMMA", "HMMA"),
+            ("ls_v2", tuple(V2_VARIANTS.values()), "HGMMA", "HMMA"),
             ("ls_v1", ("ls_planes_v1_kernel",), "HGMMA", "HMMA"),
             ("ls_pair", ("ls_pair_kernel",), "HGMMA", "HMMA"),
             ("int8_mm", ("int8_mm_kernel_slab", "int8_mm_kernel_ring"),
@@ -446,6 +477,54 @@ def main() -> int:
     def randint8(g, shape):
         return torch.randint(-127, 128, shape, generator=g, device=dev,
                              dtype=torch.int8)
+
+    def check_v2_modes(cfg, x16, k90, tag, seq=None):
+        """ls_planes_v2's bf16 store and per-tile sums of h^2 (and the
+        f32 store with sums) against the plain version on the same bf16
+        planes: the estimate within -45 dB of the float32 plain version;
+        the sums within 1e-4 relative per tile of the plain version's
+        sums on the kernel's own constants (bf16-valued: against the
+        float32 DFT the estimate differs by about -58 dB, which moves a
+        tile's sums by up to about 3e-3), and equal from a second call.
+        Returns the results by (out_dtype, with_ssq)."""
+        loc = cfg.num_tx if seq is None else cfg.num_tx // seq[1]
+        x32 = x16.float()
+        ref = _ls_v2_plain(cfg, x32, seq)
+        at_r, at_i, pm_ = ls_planes_constants(cfg, bf16, device=dev)
+        if seq is not None:
+            pm_ = pm_[:, seq[0] * loc:(seq[0] + 1) * loc]
+        hk = ls_estimate_planes(cfg, x32, (at_r, at_i, pm_))
+        ssq_ref = _ssq_plain(torch.stack([hk.real, hk.imag]), loc)
+        out = {}
+        for dt, ws in ((bf16, True), (bf16, False), (torch.float32, True)):
+            what = (f"ls_planes_v2 {tag}{'' if seq is None else f' seq {seq}'}"
+                    f" {str(dt)[6:]} out{' + ssq' if ws else ''}")
+            got = ls_planes_v2(cfg, x16, k90, seq_shard=seq, out_dtype=dt,
+                               with_ssq=ws)
+            h, q = got if ws else (got, None)
+            if h.dtype != dt:
+                raise AssertionError(f"{what}: {h.dtype}, want {dt}")
+            r = check(f"{what} vs its plain version (f32)", h, ref, -45.0)
+            if ws:
+                if q.shape != ssq_ref.shape or not bool(
+                        torch.isfinite(q).all()):
+                    raise AssertionError(f"{what}: sums {tuple(q.shape)}, "
+                                         f"want {tuple(ssq_ref.shape)}")
+                rel = float(((q - ssq_ref).abs()
+                             / ssq_ref.abs().clamp_min(1e-30)).max())
+                again = ls_planes_v2(cfg, x16, k90, seq_shard=seq,
+                                     out_dtype=dt, with_ssq=True)[1]
+                same = bool(torch.equal(q, again))
+                print(f"  {what}: sums {tuple(q.shape)}, max rel err per "
+                      f"tile {rel:.3e} (limit 1e-4) vs the plain version on "
+                      f"the kernel's constants; second call "
+                      f"{'identical' if same else 'DIFFERS'}")
+                if not (rel <= 1e-4 and same):
+                    raise AssertionError(f"{what}: sums off by {rel:.3e} or "
+                                         f"not deterministic")
+                r["ssq_max_rel_err"] = rel
+            out[(dt, ws)] = r
+        return out
 
     def check_kernels(cfg, tcfg, s, seed, tag, packets):
         """Each kernel against its plain version on the same inputs and a
@@ -478,6 +557,13 @@ def main() -> int:
                                        (i, n)), -45.0)
                 if (i, n) == (1, 4):        # the rank phase 6 times
                     res["ls_planes_v2 seq"] = r
+        # the bf16 store and the sums of h^2, full mode and two seq ranks
+        res["ls_planes_v2 bf16 ssq"] = check_v2_modes(
+            cfg, x16, k90, f"S = {s}")[(bf16, True)]
+        for i, n in ((1, 2), (3, 4)):
+            lq = cfg.len_ltf // n
+            check_v2_modes(cfg, x16[:, :, i * lq:(i + 1) * lq].contiguous(),
+                           k90, f"S = {s}", (i, n))
         # v1: the raw padded planes in f32 and bf16, and the complex form
         ref_raw = torch.stack(_ls_v1_plain(cfg, x16, 8, torch.float32))
         for dt in (torch.float32, bf16):
@@ -646,7 +732,15 @@ def main() -> int:
         return x16, rx, k90
 
     x1, rx1, k90 = check_ls_edges(cfg, 1, 30, "BS32, S = 1", (2, 4, 32), 1)
-    check_ls_edges(cfg, 5, 31, "BS32, S = 5", (2, 4, 32), 3)
+    x5, _, _ = check_ls_edges(cfg, 5, 31, "BS32, S = 5", (2, 4, 32), 3)
+    # the bf16 store and the sums at S = 1 and 5 (the last tile partly
+    # past S), full mode and seq ranks of n = 2 and 4
+    for xe in (x1, x5):
+        for seq in (None, (1, 2), (3, 4)):
+            lq = cfg.len_ltf // (1 if seq is None else seq[1])
+            i = 0 if seq is None else seq[0]
+            check_v2_modes(cfg, xe[:, :, i * lq:(i + 1) * lq].contiguous(),
+                           k90, f"BS32, S = {xe.shape[1]}", seq)
     check_ls_edges(SimConfig(num_tx=8, num_rx=2), 1, 32, "Nt 8, S = 1",
                    (2, 8), 1)
     check_ls_edges(SimConfig(num_tx=128, num_rx=2), 3, 33, "Nt 128, S = 3",
@@ -1025,6 +1119,61 @@ def main() -> int:
         seq_err[tag] = check(f"{tag} vs unsharded f32", got, ref,
                              -80.0)["nmse_db"]
 
+    # 5f. the bench: pallas_ls_v2_serving_r3, entry(), run_bench --------
+    fn_r3 = make_estimation_fn_serving_r3(cfg, tcfg, params, bn)
+    reqs_r3 = [torch.randn((2, 64 * nr, L), generator=g, device=dev)
+               .to(bf16) for _ in range(3)]
+    outs_r3, cnt_r3 = counted(lambda: [fn_r3(r) for r in reqs_r3])
+    shape_y2 = (2, 64 * nr, nt, C)
+    shape_ssq = (ls_v2_tiles(64 * nr, nt), 2, C)
+    for ssq, y2 in outs_r3:
+        if tuple(y2.shape) != shape_y2 or y2.dtype != bf16 \
+                or tuple(ssq.shape) != shape_ssq \
+                or ssq.dtype != torch.float32 \
+                or not bool(torch.isfinite(y2.float()).all()) \
+                or not bool(torch.isfinite(ssq).all()):
+            raise AssertionError(
+                f"pallas_ls_v2_serving_r3 gave ssq {tuple(ssq.shape)} "
+                f"{ssq.dtype}, y2 {tuple(y2.shape)} {y2.dtype}; want finite "
+                f"{shape_ssq} float32 and {shape_y2} bfloat16")
+    print(f"[5f bench] pallas_ls_v2_serving_r3: 3 requests x 64 packets of "
+          f"bf16 planes -> sums {shape_ssq} f32, y2 {shape_y2} bf16, finite")
+    x_r3 = reqs_r3[0].float()
+    h_r3 = ls_estimate_planes(cfg, x_r3, f32_consts)
+    bench_db = {
+        "ssq": check("pallas_ls_v2_serving_r3 sums of h^2 vs the f32 plain "
+                     "LS's", outs_r3[0][0], _ssq_plain(
+                         torch.stack([h_r3.real, h_r3.imag]), nt), -40.0),
+        "y2": check("pallas_ls_v2_serving_r3 y2 vs f32 _factored_all_pairs",
+                    outs_r3[0][1], _factored_all_pairs(cfg, tcfg, params, bn,
+                                                       x_r3), -40.0)}
+    require_launched("pallas_ls_v2_serving_r3", cnt_r3,
+                     ("ls_planes_v2", "factored_sig_proj", "factored_tail"))
+    fn_e, (planes_e,) = entry()                 # BS32, 4 packets
+    (e_ls, e_dnn), cnt_e = counted(lambda: fn_e(planes_e))
+    ecfg = SimConfig()
+    shape_e = (2, planes_e.shape[1], ecfg.num_tx, ecfg.num_carriers)
+    for a in (e_ls, e_dnn):
+        if tuple(a.shape) != shape_e or a.dtype != bf16 \
+                or not bool(torch.isfinite(a.float()).all()):
+            raise AssertionError(f"entry() gave {tuple(a.shape)} {a.dtype}, "
+                                 f"want finite {shape_e} bfloat16")
+    h_e = ls_estimate_planes(ecfg, planes_e)
+    bench_db["entry_h_ls"] = check(
+        "entry() h_ls (bf16) vs f32 ls_estimate_planes", e_ls,
+        torch.stack([h_e.real, h_e.imag]), -45.0)
+    require_launched("entry()", cnt_e,
+                     ("ls_planes_v2", "factored_sig_proj", "factored_tail"))
+    t_rb = time.perf_counter()
+    short = run_bench(batch_packets=64, iters=2, print_result=False)
+    eps = short["extra"]["estimates_per_s"]
+    print(f"  run_bench(64 packets, 2 calls a window): "
+          f"{time.perf_counter() - t_rb:.1f} s, {len(eps)} paths, value "
+          f"{short['value']:.6g} estimates/s by {short['extra']['best_path']}"
+          f", device {short['extra']['device']}")
+    if len(eps) != 15 or not all(v > 0 for v in eps.values()):
+        raise AssertionError(f"run_bench gave {len(eps)} paths: {eps}")
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -1079,6 +1228,23 @@ def main() -> int:
         lambda: ls_estimate_planes(cfg, xb32, f32_consts),
         ls_library, ls_in + 2 * S * nt * C * 4, ls_ops,
         cnt_serve["ls_planes_v2"], "estimate_full x3")
+    tiles_b = ls_v2_tiles(S, nt)
+
+    def ls_bf16_ssq_library():
+        h = ls_library()
+        return h.to(bf16), (h * h).view(2, tiles_b, -1, C).sum(2)
+
+    row("ls_planes_v2", f"planes (2, {S}, {L}) bf16 -> (2, {S}, {nt}, {C}) "
+        f"bf16 + sums of h^2 ({tiles_b}, 2, {C}) f32",
+        "mamimo_tpu_torch/csrc/ls_v2.cu",
+        "mamimo_tpu/ops/pallas/fused_ls.py:424",
+        lambda: ls_planes_v2(cfg, xb16, consts90, out_dtype=bf16,
+                             with_ssq=True),
+        lambda: _ls_v2_plain(cfg, xb32, None, bf16, True),
+        ls_bf16_ssq_library,
+        ls_in + 2 * S * nt * C * 2 + tiles_b * 2 * C * 4, ls_ops,
+        cnt_r3["ls_planes_v2"], "pallas_ls_v2_serving_r3 x3",
+        key="ls_planes_v2 bf16 ssq")
     rows_out = -(-S // 8) * 8 * nt
     row("ls_planes_v1", f"planes (2, {S}, {L}) bf16 -> raw 2 x ({rows_out}, "
         f"{cp_}) bf16", "mamimo_tpu_torch/csrc/ls_v1.cu",
@@ -1291,6 +1457,7 @@ def main() -> int:
     for pname, fn in fns.items():
         calls[pname] = time_ms(lambda fn=fn: fn(xb16), iters=5)
     calls["pallas_full"] = time_ms(lambda: fn_full(xb32), iters=5)
+    calls["pallas_ls_v2_serving_r3"] = time_ms(lambda: fn_r3(xb16), iters=10)
     for cname, ms in calls.items():
         print(f"  {cname} device time: {ms:.4f} ms for {n_est} estimates = "
               f"{n_est / ms * 1e3:.6g} estimates/s  [{smi}]")
@@ -1312,6 +1479,9 @@ def main() -> int:
     traced = {}
     for cname, fn, ours in (
             ("estimate_full", lambda: pred.serve_planes(xf),
+             ("ls_planes_v2_kernel", "factored_sig_proj_kernel",
+              "factored_tail_kernel")),
+            ("pallas_ls_v2_serving_r3", lambda: fn_r3(xb16),
              ("ls_planes_v2_kernel", "factored_sig_proj_kernel",
               "factored_tail_kernel")),
             ("pallas_full", lambda: fn_full(xb32),
@@ -1400,6 +1570,10 @@ def main() -> int:
         "planes_paths_nmse_db": {k: {h: v[h]["nmse_db"] for h in v}
                                  for k, v in path_db.items()},
         "pallas_full_nmse_db": {k: v["nmse_db"] for k, v in full_db.items()},
+        "bench_nmse_db": {k: v["nmse_db"] for k, v in bench_db.items()},
+        "run_bench_64": {"value": short["value"],
+                         "best_path": short["extra"]["best_path"],
+                         "estimates_per_s": eps},
         "pallas_full_peak_bytes": peak_full,
         "pallas_full_peak_above_live_bytes": peak_full - live,
         "traced_ms": traced,

@@ -17,8 +17,10 @@ first use into ``_build/`` and bound through ``ctypes``.
                           wrapper is in ``parallel.rdma_halo``
 - ``models``            : the CSI MLP (eval), its int8 quantized form
                           (``models.quant``) and ``CSIPredictor``
-- ``bench``             : the bench's estimation paths (per pair, and
-                          the bf16-input planes paths)
+- ``bench``             : the TPU bench's estimation paths and
+                          ``run_bench`` (``python3 -m
+                          mamimo_tpu_torch.bench``)
+- ``entry``             : the serving step of ``__graft_entry__.py``
 - ``train.ckpt``        : npz checkpoints, interchangeable with the JAX
                           package's
 - ``channel.scattering``: the single-bounce scattering channel

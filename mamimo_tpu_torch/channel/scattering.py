@@ -245,7 +245,8 @@ def realize_channel(cfg: SimConfig, gen: torch.Generator,
     if cfg.channel_model not in ("scattering", "fir"):
         raise NotImplementedError(
             f"channel_model {cfg.channel_model!r}: the CDL realization "
-            f"(channel/cdl.py) is not ported yet (ROADMAP §1.8)")
+            f"(channel/cdl.py) is not ported yet: it comes with the "
+            f"data-generation slice of ROADMAP.md")
     return realize_scattering(cfg, gen, scen)
 
 

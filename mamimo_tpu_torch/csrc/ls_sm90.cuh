@@ -357,8 +357,11 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
 // Launches a kernel built on ls_body for `tiles` tiles: clusters of cl
 // blocks of THREADS threads with SMEM_BYTES of dynamic shared memory, as
 // many clusters as fit on the device at once
-// (cudaOccupancyMaxActiveClusters, asked once per kernel and cluster
-// size) and never more than there are tiles. Returns a cudaError_t code.
+// (cudaOccupancyMaxActiveClusters, asked once per kernel signature and
+// cluster size: kernels of one signature, such as ls_v2.cu's variants,
+// share the answer, which holds because every kernel on ls_body runs one
+// block an SM) and never more than there are tiles. Returns a
+// cudaError_t code.
 template <class... Params, class... Args>
 inline int launch(void (*kernel)(Params...), int cl, int tiles,
                   cudaStream_t stream, Args... args) {

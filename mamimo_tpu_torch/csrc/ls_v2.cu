@@ -1,11 +1,13 @@
 // LS channel estimate from the canonical flat planes, dense output, in
-// full mode or as one rank's partial of the sequence-sharded estimate.
+// full mode or as one rank's partial of the sequence-sharded estimate;
+// float32 or bfloat16 output, optionally with per-tile sums of h^2.
 //
 // Replaces the TPU kernel mamimo_tpu/ops/pallas/fused_ls.py::
 // ls_planes_pallas_v2 (body _planes_kernel_v2): the DFT-select GEMM and
 // Walsh-Hadamard despread of ls_sm90.cuh, with A the selected-bin DFT
 // scaled by 1/(nltf*ltf_c). This file is only the store: the dense
-// (2, S, nt, C) f32 planes, no carrier padding.
+// (2, S, nt, C) planes, no carrier padding, in T (float or bf16), and
+// with SSQ the sums of h^2 per tile.
 //
 // Sequence-sharded mode (the TPU kernel's rectangular K = I (x)
 // P[:, local cols], parallel/sharded.py::sharded_ls_pallas_v2 mode
@@ -16,27 +18,58 @@
 // sample (w = H_loc z) and the store writes row a*loc + b as
 // H_n[a, i] * w[b]. No K matrix exists; full mode is loc = nt, rank 0.
 //
+// Sums of h^2 (the TPU kernel's with_ssq, its benchmark checksum): ssq
+// (tiles, 2, C) f32, row t the column sums over tile t's stored rows of
+// each plane, taken from the f32 accumulators before any bf16 rounding.
+// Each block writes its own 64 carriers of the row; a warp owns 16
+// carriers, so the sum is each thread's 32 squares in a fixed order, then
+// two xor shuffles over the 4 lanes of a carrier: deterministic, no
+// atomics. A seq rank stores each despread value n times (once per a), so
+// its sums are n * sum w^2. The TPU layout (n_blocks, 8, 2*Cp), broadcast
+// over 8 sublanes, is not copied.
+//
 // Bound on an H100 at the serving shape (S = 4096, nt = 32): the bf16
 // input read (134 MB: the 256 FFT samples of each 320-sample symbol, the
-// CP is never read) plus the f32 output write (245 MB) against 3.35 TB/s
-// is about 0.113 ms; the GEMM is about 69 GFLOP (0.07 ms at the bf16
+// CP is never read) plus the output write (245 MB in f32, 123 MB in bf16,
+// plus 1.9 MB of sums) against 3.35 TB/s is about 0.113 ms in f32 and
+// 0.077 ms in bf16; the GEMM is about 69 GFLOP (0.07 ms at the bf16
 // tensor-core peak), so it is memory-bound. A seq rank reads 1/n of the
 // input and still writes the whole (2, S, nt, C) partial, so it is
 // output-bound (the JAX design: a psum of full partials).
 //
 // Store: through the warpgroup's staging buffers, so that a warp writes
-// the block's 64 carriers of one output row as 256 contiguous bytes (32
-// float2; the 936-byte row pitch is not a multiple of 16, so no TMA
-// store can write them). Straight from the accumulators a warp would
-// write 4 runs of 32 bytes, and the kernel takes twice as long (PERF.md).
+// the block's 64 carriers of one output row as one contiguous piece (256
+// bytes as 32 float2 in f32, 128 bytes as 32 bf16x2 in bf16; the 936- or
+// 468-byte row pitch is not a multiple of 16, so no TMA store can write
+// them). Straight from the accumulators a warp would write 4 runs of 32
+// bytes, and the kernel takes twice as long (PERF.md). The variants are
+// template parameters of one epilogue (V2Epi<T, SSQ>); the float32
+// variant without sums is the store of the earlier single-variant kernel.
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
 
 namespace {
 
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  // round to nearest even, as torch's float32 -> bfloat16 cast
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void put1(float* p, float a) { *p = a; }
+
+__device__ __forceinline__ void put1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
+
+template <class T, bool SSQ>
 struct V2Epi {
-  float* __restrict__ out;
+  T* __restrict__ out;
+  float* __restrict__ ssq;   // (tiles, 2, C) when SSQ, else unused
   int S, nt, log_loc, rank, C, c0;
 
   // Eight rounds a tile: per set (plane) and 32-row group, the threads
@@ -48,8 +81,45 @@ struct V2Epi {
                                         const float (&acc1)[64], int s0,
                                         int warp, int lane, float* stg,
                                         int bar) {
+    if constexpr (SSQ) {
+      const int tile = s0 >> (7 - log_loc);
+      sums(acc0, 0, tile, warp, lane);
+      sums(acc1, 1, tile, warp, lane);
+    }
     rounds(acc0, 0, s0, warp, lane, stg, bar);
     rounds(acc1, 1, s0, warp, lane, stg, bar);
+  }
+
+  // Row `tile` of ssq, this thread's carriers of one set: its 32 values
+  // of each carrier squared and summed in order, then summed over the 4
+  // lanes of the carrier (lane bits 0-1) by two xor shuffles, which
+  // leave every lane the same sum. Rows of samples >= S are zero (the
+  // load's zero fill), and n copies of each value are stored.
+  __device__ __forceinline__ void sums(const float (&acc)[64], int plane,
+                                       int tile, int warp, int lane) {
+    float p[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = acc[4 * j + 2 * h + e];
+          p[h] = fmaf(v, v, p[h]);
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      p[h] += __shfl_xor_sync(0xffffffffu, p[h], 1);
+      p[h] += __shfl_xor_sync(0xffffffffu, p[h], 2);
+    }
+    if (lane & 3) return;
+    const float copies = (float)(nt >> log_loc);
+    float* row = ssq + ((long long)tile * 2 + plane) * C;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 16 * warp + 8 * h + lane / 4;
+      if (c < C) row[c] = copies * p[h];
+    }
   }
 
   __device__ __forceinline__ void rounds(const float (&acc)[64], int plane,
@@ -82,15 +152,14 @@ struct V2Epi {
         ls90::row_coords(32 * g + row, log_loc, smp, sym);
         const int s = s0 + smp;
         if (s >= S || c >= C) continue;
-        float* o = out + (((long long)plane * S + s) * nt + sym) * C + c;
+        T* o = out + (((long long)plane * S + s) * nt + sym) * C + c;
         for (int a = 0; a < n; ++a) {
           const float sg = (__popc(a & rank) & 1) ? -1.f : 1.f;
           if ((C & 1) == 0) {
-            *reinterpret_cast<float2*>(o + a * step) =
-                make_float2(sg * v.x, sg * v.y);
+            put2(o + a * step, sg * v.x, sg * v.y);
           } else {
-            o[a * step] = sg * v.x;
-            if (c + 1 < C) o[a * step + 1] = sg * v.y;
+            put1(o + a * step, sg * v.x);
+            if (c + 1 < C) put1(o + a * step + 1, sg * v.y);
           }
         }
       }
@@ -98,13 +167,25 @@ struct V2Epi {
   }
 };
 
+template <class T, bool SSQ>
 __global__ void __launch_bounds__(ls90::THREADS, 1)
     ls_planes_v2_kernel(const __grid_constant__ CUtensorMap ma,
                         const __grid_constant__ CUtensorMap mb,
-                        float* __restrict__ out, int S, int nt, int log_loc,
-                        int rank, int C, int cp, int fft) {
-  V2Epi epi{out, S, nt, log_loc, rank, C, 64 * (int)sm90::cluster_rank()};
+                        T* __restrict__ out, float* __restrict__ ssq, int S,
+                        int nt, int log_loc, int rank, int C, int cp,
+                        int fft) {
+  V2Epi<T, SSQ> epi{out, ssq, S, nt, log_loc, rank, C,
+                    64 * (int)sm90::cluster_rank()};
   ls90::ls_body(&ma, &mb, S, log_loc, fft, cp, epi);
+}
+
+template <class T, bool SSQ>
+int launch_v2(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
+              void* ssq, int S, int nt, int log_loc, int rank, int C,
+              int cp, int fft, int cpad, cudaStream_t stream) {
+  return ls90::launch(ls_planes_v2_kernel<T, SSQ>, 2 * cpad / 128,
+                      ls90::tiles(S, log_loc), stream, ma, mb, (T*)out,
+                      (float*)ssq, S, nt, log_loc, rank, C, cp, fft);
 }
 
 }  // namespace
@@ -113,21 +194,38 @@ extern "C" {
 
 // planes (2, S, loc*sym_len) bf16, the rank's contiguous symbols, 16-byte
 // aligned; bt (2*cpad, 2*fft) bf16, the permuted K-major constants
-// (fused_ls.py::ls_sm90_constants); out (2, S, nt, C) f32. Full mode:
-// loc = nt, rank = 0. loc a power of 2 <= 128, fft % 64 == 0, fft <= 256,
-// sym_len % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of
-// the launch (or sm90::ERR_TENSOR_MAP).
+// (fused_ls.py::ls_sm90_constants); out (2, S, nt, C), bf16 when mode
+// bit 0 is set, else f32; with mode bit 1, ssq (tiles(S, log2 loc), 2, C)
+// f32, else unused. Full mode: loc = nt, rank = 0. loc a power of 2 <=
+// 128, fft % 64 == 0, fft <= 256, sym_len % 8 == 0, cpad 128, 256 or
+// 512. Returns the CUDA error code of the launch (or
+// sm90::ERR_TENSOR_MAP).
 int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
-                        int S, int nt, int loc, int rank, int C, int sym_len,
-                        int cp, int fft, int cpad, void* stream) {
+                        void* ssq, int S, int nt, int loc, int rank, int C,
+                        int sym_len, int cp, int fft, int cpad, int mode,
+                        void* stream) {
   int log_loc = 0;
   while ((1 << log_loc) < loc) ++log_loc;
   CUtensorMap ma, mb;
   if (ls90::make_maps(&ma, &mb, planes, bt, S, log_loc, sym_len, fft, cpad))
     return sm90::ERR_TENSOR_MAP;
-  return ls90::launch(ls_planes_v2_kernel, 2 * cpad / 128,
-                      ls90::tiles(S, log_loc), (cudaStream_t)stream, ma, mb,
-                      (float*)out, S, nt, log_loc, rank, C, cp, fft);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case 0:
+      return launch_v2<float, false>(ma, mb, out, ssq, S, nt, log_loc, rank,
+                                     C, cp, fft, cpad, st);
+    case 1:
+      return launch_v2<__nv_bfloat16, false>(ma, mb, out, ssq, S, nt,
+                                             log_loc, rank, C, cp, fft, cpad,
+                                             st);
+    case 2:
+      return launch_v2<float, true>(ma, mb, out, ssq, S, nt, log_loc, rank,
+                                    C, cp, fft, cpad, st);
+    case 3:
+      return launch_v2<__nv_bfloat16, true>(ma, mb, out, ssq, S, nt, log_loc,
+                                            rank, C, cp, fft, cpad, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* ls_planes_v2_error_string(int e) {

@@ -182,8 +182,16 @@ def stacked_apply(tcfg: TrainConfig, params: Params, bn_state: Params,
     return torch.stack(ys), bn_state
 
 
+def _caster(dtype):
+    """t → t in ``dtype``, or t itself when dtype is None."""
+    if dtype is None:
+        return lambda t: t
+    return lambda t: t.to(dtype)
+
+
 def factored_heads_apply(tcfg: TrainConfig, pp, bb, sig_proj: torch.Tensor,
-                         pil_rows: torch.Tensor, sig_len: int) -> torch.Tensor:
+                         pil_rows: torch.Tensor, sig_len: int,
+                         dtype=None) -> torch.Tensor:
     """Everything after the shared layer-1 signal matmul of the factored
     eval-mode MLP: per-head pilot projection + bias, relu, BN affine,
     remaining dense layers, output head.
@@ -191,76 +199,89 @@ def factored_heads_apply(tcfg: TrainConfig, pp, bb, sig_proj: torch.Tensor,
     Args:
       sig_proj: (S, H) precomputed ``signal @ W1[:sig_len]``.
       pil_rows: (n_heads, num_tx) pilot rows.
+      dtype: optional compute dtype (e.g. bfloat16): every product and
+        bias runs in it; the eval-mode BN affine is folded in float32,
+        then cast.
 
     Returns:
       (S, n_heads, num_carriers) float32.
     """
-    w1 = pp["dense"][0]["w"]
+    cast = _caster(dtype)
+    w1 = cast(pp["dense"][0]["w"])
     pil_proj = pil_rows.to(w1) @ w1[sig_len:]          # (n_heads, H)
-    h = torch.relu(sig_proj[:, None, :] + pil_proj[None, :, :]
-                   + pp["dense"][0]["b"])
+    h = torch.relu(cast(sig_proj)[:, None, :] + pil_proj[None, :, :]
+                   + cast(pp["dense"][0]["b"]))
     if pp["bn"]:
         a, c = _bn_affine(tcfg, pp, bb, 0)
-        h = h * a + c
+        h = h * cast(a) + cast(c)
     for i in range(1, len(pp["dense"])):
-        h = torch.relu(h @ pp["dense"][i]["w"] + pp["dense"][i]["b"])
+        h = torch.relu(h @ cast(pp["dense"][i]["w"])
+                       + cast(pp["dense"][i]["b"]))
         if pp["bn"]:
             a, c = _bn_affine(tcfg, pp, bb, i)
-            h = h * a + c
-    return (h @ pp["out"]["w"] + pp["out"]["b"]).float()
+            h = h * cast(a) + cast(c)
+    return (h @ cast(pp["out"]["w"]) + cast(pp["out"]["b"])).float()
 
 
 def factored_plane_apply(tcfg: TrainConfig, pp, bb, x: torch.Tensor,
-                         pil_rows: torch.Tensor) -> torch.Tensor:
+                         pil_rows: torch.Tensor, dtype=None) -> torch.Tensor:
     """One plane's factored eval-mode MLP: the (L, H) signal matmul runs
     once per sample and is shared by every pilot head (an exact
     restructuring of the concatenated-input forward pass).
 
-    x: (S, L) real signal plane. Returns (S, n_heads, num_carriers)."""
+    x: (S, L) real signal plane; dtype: optional compute dtype
+    (``factored_heads_apply``). Returns (S, n_heads, num_carriers)
+    float32."""
+    cast = _caster(dtype)
     L = x.shape[-1]
-    sig_proj = x @ pp["dense"][0]["w"][:L]             # (S, H)
-    return factored_heads_apply(tcfg, pp, bb, sig_proj, pil_rows, L)
+    sig_proj = cast(x) @ cast(pp["dense"][0]["w"])[:L]  # (S, H)
+    return factored_heads_apply(tcfg, pp, bb, sig_proj, pil_rows, L,
+                                dtype=dtype)
 
 
 def _factored_all_pairs(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
-                        planes: torch.Tensor) -> torch.Tensor:
-    """Factored all-pairs body in float32: planes (2, S, len_ltf) →
-    (2, S, num_tx, num_carriers). The plain version of the fused
+                        planes: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Factored all-pairs body: planes (2, S, len_ltf) → (2, S, num_tx,
+    num_carriers) float32, computed in float32 or, with ``dtype``, in
+    that dtype (``factored_heads_apply``). The plain version of the fused
     factored DNN kernels."""
     require_full_input(tcfg)
-    pil =pilot_p_matrix(cfg.num_tx, device=planes.device).T
+    pil = pilot_p_matrix(cfg.num_tx, device=planes.device).T
     return torch.stack([
         factored_plane_apply(tcfg, plane(params, d), plane(bn_state, d),
-                             planes[d].float(), pil)
+                             planes[d] if dtype is not None
+                             else planes[d].float(), pil, dtype=dtype)
         for d in range(2)])
 
 
 def predict_all_pairs_planes_flat(cfg: SimConfig, tcfg: TrainConfig, params,
-                                  bn_state, planes: torch.Tensor):
+                                  bn_state, planes: torch.Tensor, dtype=None):
     """Factored all-pairs inference from flat planes (2, S, len_ltf) →
-    (S, num_tx, num_carriers) complex64."""
-    y2 = _factored_all_pairs(cfg, tcfg, params, bn_state, planes)
+    (S, num_tx, num_carriers) complex64; ``dtype`` as in
+    ``_factored_all_pairs``."""
+    y2 = _factored_all_pairs(cfg, tcfg, params, bn_state, planes, dtype)
     return torch.complex(y2[0], y2[1])
 
 
 def predict_all_pairs_planes(cfg: SimConfig, tcfg: TrainConfig, params,
-                             bn_state, rx_planes: torch.Tensor):
+                             bn_state, rx_planes: torch.Tensor, dtype=None):
     """Factored all-pairs inference from rx-major planes
     (2, B, num_rx, len_ltf) → (B, num_rx, num_tx, num_carriers)
-    complex64."""
+    complex64; ``dtype`` as in ``_factored_all_pairs``."""
     _, b, nrx, L = rx_planes.shape
     y = predict_all_pairs_planes_flat(cfg, tcfg, params, bn_state,
-                                      rx_planes.reshape(2, b * nrx, L))
+                                      rx_planes.reshape(2, b * nrx, L), dtype)
     return y.reshape(b, nrx, cfg.num_tx, cfg.num_carriers)
 
 
 def predict_all_pairs(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
-                      rx: torch.Tensor) -> torch.Tensor:
-    """Factored all-pairs inference from time-major received preambles,
-    float32.
+                      rx: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Factored all-pairs inference from time-major received preambles.
 
     Args:
       rx: (B, len_ltf, num_rx) complex64.
+      dtype: optional compute dtype of the MLP (e.g. bfloat16; BN folds
+        to a float32 affine either way). Output is always complex64.
 
     Returns:
       (B, num_carriers, num_tx, num_rx) complex64 (a permuted view).
@@ -268,7 +289,8 @@ def predict_all_pairs(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
     b, L, nrx = rx.shape
     sig = rx.transpose(1, 2).reshape(b * nrx, L)
     y = predict_all_pairs_planes_flat(cfg, tcfg, params, bn_state,
-                                      torch.stack([sig.real, sig.imag]))
+                                      torch.stack([sig.real, sig.imag]),
+                                      dtype)
     return y.reshape(b, nrx, cfg.num_tx, cfg.num_carriers).permute(0, 3, 2, 1)
 
 

@@ -10,11 +10,14 @@ kernels are held to on the card.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
 from mamimo_tpu_torch.config import SimConfig
 from mamimo_tpu_torch.ops.ltf import _hadamard_np, _ltf_np
+from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
 
 def dft_selected_np(cfg: SimConfig) -> np.ndarray:
@@ -80,7 +83,7 @@ def ls_planes_constants(cfg: SimConfig, dtype=torch.float32, device=None):
 
 
 def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor,
-                       consts=None) -> torch.Tensor:
+                       consts=None, dtype=None) -> torch.Tensor:
     """LS estimation from canonical rx-major real planes.
 
     * input is (2, S, len_ltf) ([0]=real, [1]=imag, S = B·num_rx in
@@ -98,6 +101,11 @@ def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor,
         products and sums are float32 whatever their dtype. For a
         rank's symbols P is their columns (num_tx, nsym) of the full P,
         and the result is the rank's partial despread.
+      dtype: optional operand dtype of the DFT products (e.g. bfloat16,
+        the JAX function's bf16 matrix-unit path): the planes and the DFT
+        planes are rounded to it, and the products still accumulate and
+        return float32 (in full float32 on the card, not TF32), as JAX's
+        ``preferred_element_type=float32`` does.
 
     Returns:
       (S, num_tx, num_carriers) complex64, rx-major.
@@ -107,12 +115,14 @@ def ls_estimate_planes(cfg: SimConfig, planes: torch.Tensor,
     at_r, at_i, p = consts
     _, s, L = planes.shape
     nsym, c = L // cfg.sym_len, cfg.num_carriers
-    x = planes.reshape(2, s * nsym, cfg.sym_len).float()
-    at_r = at_r.float()
-    at_i = at_i.float()
-    zr = x[0] @ at_r - x[1] @ at_i                     # (S·nsym, C)
-    zi = x[0] @ at_i + x[1] @ at_r
-    pp = p.to(zr)
-    hr = torch.einsum("jn,snc->sjc", pp, zr.reshape(s, nsym, c))
-    hi = torch.einsum("jn,snc->sjc", pp, zi.reshape(s, nsym, c))
+    x = planes.reshape(2, s * nsym, cfg.sym_len)
+    if dtype is not None:
+        x, at_r, at_i = (t.to(dtype) for t in (x, at_r, at_i))
+    x, at_r, at_i = x.float(), at_r.float(), at_i.float()
+    with full_f32_matmul() if dtype is not None else nullcontext():
+        zr = x[0] @ at_r - x[1] @ at_i                 # (S·nsym, C)
+        zi = x[0] @ at_i + x[1] @ at_r
+        pp = p.to(zr)
+        hr = torch.einsum("jn,snc->sjc", pp, zr.reshape(s, nsym, c))
+        hi = torch.einsum("jn,snc->sjc", pp, zi.reshape(s, nsym, c))
     return torch.complex(hr, hi)

@@ -12,7 +12,9 @@ kernel's plain version (``_ls_v2_plain`` on
 ``ops/estimate.py::ls_estimate_planes``, ``_ls_v1_plain``,
 ``ops/estimate.py::ls_estimate_matmul``). ``ls_planes_v2(seq_shard=(i,
 n))`` is the v2 kernel's sequence-sharded mode: rank i's partial
-despread of its own symbols.
+despread of its own symbols; its ``out_dtype=torch.bfloat16`` and
+``with_ssq`` are the TPU kernel's bf16 store and per-tile sums of h²
+(the headline bench path's), compile-time variants of the same kernel.
 """
 
 from __future__ import annotations
@@ -184,22 +186,48 @@ def seq_shard_symbols(cfg: SimConfig, seq_shard) -> int:
     return cfg.num_tx // n
 
 
-def _ls_v2_plain(cfg: SimConfig, planes: torch.Tensor,
-                 seq_shard=None) -> torch.Tensor:
+def ls_v2_tiles(s: int, loc: int) -> int:
+    """The v2 kernel's tiles of S samples of loc symbols: 128/loc samples
+    a tile (``ls90::tiles``), the rows of its ``with_ssq`` sums."""
+    spt = 128 // loc
+    return -(-s // spt)
+
+
+def _ssq_plain(h: torch.Tensor, loc: int) -> torch.Tensor:
+    """Per-tile sums of h² of the dense (2, S, nt, C) float32 planes:
+    (tiles, 2, C), row t the column sums over the rows of tile t's
+    samples (128/loc samples a tile)."""
+    _, s, nt, c = h.shape
+    spt, n = 128 // loc, ls_v2_tiles(s, loc)
+    hp = torch.zeros((2, n * spt, nt, c), dtype=h.dtype, device=h.device)
+    hp[:, :s] = h
+    return (hp * hp).view(2, n, spt * nt, c).sum(2).transpose(0, 1) \
+        .contiguous()
+
+
+def _ls_v2_plain(cfg: SimConfig, planes: torch.Tensor, seq_shard=None,
+                 out_dtype=torch.float32, with_ssq: bool = False):
     """Plain version of the v2 kernel: the float32 LS, or with
     ``seq_shard`` = (i, n) the float32 DFT-select of rank i's symbols
-    despread with P[:, i·loc:(i+1)·loc]."""
+    despread with P[:, i·loc:(i+1)·loc]; stored in ``out_dtype``, and
+    with ``with_ssq`` also the per-tile sums of h² of the float32 values
+    (``_ssq_plain``)."""
     at_r, at_i, p = ls_planes_constants(cfg, device=planes.device)
+    loc = cfg.num_tx
     if seq_shard is not None:
         loc = seq_shard_symbols(cfg, seq_shard)
         p = p[:, seq_shard[0] * loc:(seq_shard[0] + 1) * loc]
     h = ls_estimate_planes(cfg, planes.float(), (at_r, at_i, p))
-    return torch.stack([h.real, h.imag])
+    h = torch.stack([h.real, h.imag])
+    if not with_ssq:
+        return h.to(out_dtype)
+    return h.to(out_dtype), _ssq_plain(h, loc)
 
 
 def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
                  consts: LsSm90Constants | None = None, *,
-                 seq_shard: tuple[int, int] | None = None) -> torch.Tensor:
+                 seq_shard: tuple[int, int] | None = None,
+                 out_dtype=torch.float32, with_ssq: bool = False):
     """LS estimate of every (sample, tx, carrier) from flat planes.
 
     Args:
@@ -213,11 +241,23 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
       seq_shard: (i, n) — return rank i of n's PARTIAL despread of its
         symbols (the rectangular K of the TPU kernel's sequence mode);
         the sum of the n partials is the estimate.
+      out_dtype: float32 (default) or bfloat16, the estimate's storage.
+      with_ssq: also return the sums of h² per tile (the TPU kernel's
+        benchmark checksum), taken from the float32 values before any
+        bf16 rounding.
 
     Returns:
-      (2, S, num_tx, num_carriers) float32 planes ([0]=real, [1]=imag),
-      dense (no padding), rx-major.
+      h, (2, S, num_tx, num_carriers) planes in ``out_dtype`` ([0]=real,
+      [1]=imag), dense (no padding), rx-major; with ``with_ssq`` the
+      pair (h, ssq), ssq (ls_v2_tiles(S, loc), 2, num_carriers) float32:
+      row t holds, per plane, the column sums of h² over the rows of
+      tile t's 128/loc samples (a seq rank's partial counts each of its
+      n stored copies). The TPU kernel's (n_blocks, 8, 2·Cp) layout,
+      which sums to 8·Σh², is not copied.
     """
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
     loc, rank = cfg.num_tx, 0
     if seq_shard is not None:
         loc, rank = seq_shard_symbols(cfg, seq_shard), seq_shard[0]
@@ -225,7 +265,7 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
         raise ValueError(f"planes must be (2, S, {loc * cfg.sym_len}), "
                          f"got {tuple(planes.shape)}")
     if not on_cuda(planes):
-        return _ls_v2_plain(cfg, planes, seq_shard)
+        return _ls_v2_plain(cfg, planes, seq_shard, out_dtype, with_ssq)
     consts = _sm90_consts(cfg, consts, planes.device, "ls_planes_v2")
     if planes.dtype == torch.float32:
         planes = planes.to(torch.bfloat16)
@@ -233,19 +273,25 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
     _check_kernel_shapes(cfg, planes, consts, loc)
     s = planes.shape[1]
     out = torch.empty((2, s, cfg.num_tx, cfg.num_carriers),
-                      dtype=torch.float32, device=planes.device)
+                      dtype=out_dtype, device=planes.device)
+    ssq = torch.empty((ls_v2_tiles(s, loc), 2, cfg.num_carriers),
+                      dtype=torch.float32, device=planes.device) \
+        if with_ssq else None
+    result = (out, ssq) if with_ssq else out
     if s == 0:
-        return out
+        return result
     lib = _ls_lib()
+    mode = int(out_dtype == torch.bfloat16) | 2 * int(with_ssq)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_planes_v2_launch(
-            planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(), s,
-            cfg.num_tx, loc, rank, cfg.num_carriers, cfg.sym_len,
-            cfg.cp_length, cfg.fft_length, consts.bt.shape[0] // 2, stream)
+            planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(),
+            ssq.data_ptr() if with_ssq else None, s, cfg.num_tx, loc, rank,
+            cfg.num_carriers, cfg.sym_len, cfg.cp_length, cfg.fft_length,
+            consts.bt.shape[0] // 2, mode, stream)
     _build.check(rc, lib, "ls_planes_v2_error_string", "ls_planes_v2")
     ls_planes_v2.launches += 1
-    return out
+    return result
 
 
 ls_planes_v2.launches = 0
@@ -255,7 +301,7 @@ def _ls_lib() -> ctypes.CDLL:
     lib = _build.library("ls_v2")
     fn = lib.ls_planes_v2_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     return lib
 

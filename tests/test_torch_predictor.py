@@ -186,6 +186,7 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import mamimo_tpu_torch, mamimo_tpu_torch.models.predictor, "
             "mamimo_tpu_torch.models.quant, mamimo_tpu_torch.bench, "
+            "mamimo_tpu_torch.entry, "
             "mamimo_tpu_torch.ops.kernels, mamimo_tpu_torch.train, "
             "mamimo_tpu_torch.ops.kernels.mlp_infer, "
             "mamimo_tpu_torch.ops.kernels.fused_ls, "
