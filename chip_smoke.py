@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU (sm_90a).
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU (sm_90a).
 
     python3 chip_smoke.py
 
@@ -99,6 +100,18 @@ failure ends the run with a non-zero exit code):
                path; entry() runs once (its LS held to the float32 LS);
                run_bench (64 packets, 2 calls a window) yields a line
                with all 15 paths;
+5g. train    — the training step (train/loop.py) at the full BS32 width,
+               a seeded model and a seeded 64-packet device dataset: one
+               f32 and one bf16 step (method 'default', dropout 0) on the
+               card held to the same step on the CPU (loss, BN
+               statistics, gradients, Adam moments, Δparams; limits in
+               TRAIN_LIMITS); 32 steps on one fixed batch, AWGN off, whose
+               loss must fall (the step reaches no TPU kernel: the
+               kernels' launch counts are read around them and printed);
+               one train_step.multi of the default configuration
+               (rbg_clt, dropout 0.15, default_snr), finite;
+               run_train_bench at 2 calls, a row for every default
+               variant;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -111,10 +124,15 @@ failure ends the run with a non-zero exit code):
                halo_exchange_pallas, sharded_apply_channel_rdma, the
                plain-exchange sharded_apply_channel and
                sharded_ls_pallas_v2 (seq, 4 ranks) beside each call's
-               traced device-busy time.
+               traced device-busy time; the training step: the line of
+               run_train_bench (f32, bf16, f32_rbg at batch 256 and
+               1024: ms/step, steps/s, samples/s, achieved TFLOP/s)
+               beside each step's bound, and one 16-step .multi call per
+               row traced (device-busy ms) beside its host time, the
+               device-idle share.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e and 5f and read just after; estimate_full,
+5b, 5c, 5d, 5e, 5f and 5g and read just after; estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
 (torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
@@ -139,6 +157,25 @@ INT8_OPS = 1979e12                 # H100 SXM int8 dense tensor cores
 S_CHECK = 256                      # rows of the kernel checks (64 packets)
 MAT_PACKETS = 3                    # packets of the plain materialized check
 BENCH_PACKETS = 1024               # the bench shape: S = 4096
+FP32_FLOPS = 67e12                 # H100 SXM float32, no tensor cores
+TRAIN_PACKETS = 64                 # the training bench's device dataset
+TRAIN_BS = 256                     # the batch of the card-vs-CPU steps
+# phase 5g's limits, card step against the same step on the CPU: loss and
+# BN statistics (relative), gradients and Adam moments (worst leaf, NMSE
+# dB), Δparams (all parameters as one vector, NMSE dB). A ReLU is a kink:
+# where the card's float32 forward (about 1e-5 from float64 at K = 10272,
+# ten times the CPU's error) puts a pre-activation on the other side of 0,
+# that sample's whole contribution to the layer's gradients changes; two
+# such flips in the 524288 pre-activations of a layer move that layer's
+# gradient leaves to about -45 dB, while the loss agrees to 1e-7 (see
+# relu_flips). bf16: the card also rounds each incoming cotangent to bf16
+# for the tensor cores (the CPU keeps it float32, models/mlp.py::
+# Bf16Dense). The first Adam step is about -lr·sign(g), so elements whose
+# |g| lies under the gradient error change sign: Δparams is far looser.
+TRAIN_LIMITS = {"f32": {"loss": 1e-5, "bn": 1e-5, "grads_db": -35.0,
+                        "moments_db": -35.0, "delta_db": -20.0},
+                "bf16": {"loss": 1e-4, "bn": 1e-4, "grads_db": -30.0,
+                         "moments_db": -30.0, "delta_db": -15.0}}
 # ls_planes_v2_kernel's variants, by a piece of their mangled names:
 # <float, false> is the default float32 store without sums
 V2_VARIANTS = {"f32": "ls_planes_v2_kernelIfLb0E",
@@ -278,6 +315,34 @@ def trace_kernels_ms(fn, calls: int = 3) -> dict:
     return out
 
 
+def trace_call(fn) -> tuple:
+    """One call of fn() traced on the host and the card, after one call
+    untraced: ({kernel name: device ms}, the device kernels it ran, the
+    aten operator calls it made, nested ones included); the first is {}
+    when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per, kernels, aten = {}, 0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", DeviceType.CPU) == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                per[e.key] = us / 1e3
+                kernels += e.count
+        elif e.key.startswith("aten::"):
+            aten += e.count
+    return per, kernels, aten
+
+
 def bound_ms(nbytes: float, ops: float, peak: float = BF16_FLOPS):
     """The least time for moving `nbytes` and doing `ops` at `peak`."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -318,6 +383,269 @@ def make_model(cfg, tcfg, seed: int, device):
         bn["var"][i] = 0.5 + 1.5 * torch.rand(bn["var"][i].shape, generator=g)
     to = lambda t: t.to(device)                              # noqa: E731
     return tree_map(to, params), tree_map(to, bn)
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref| of tensors on any device."""
+    got, ref = to_np(got).astype(np.float64), to_np(ref).astype(np.float64)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def relu_flips(tcfg, pa, pb, xa, xb) -> list:
+    """Per hidden layer, the pre-activations (train-mode forward, batch BN
+    statistics) whose sign differs between two runs of the same model:
+    parameters pa, pb and model inputs xa, xb on two devices."""
+    import torch
+
+    flips = []
+    for i in range(len(pa["dense"])):
+        za, zb = (x @ p["dense"][i]["w"] + p["dense"][i]["b"].unsqueeze(-2)
+                  for x, p in ((xa, pa), (xb, pb)))
+        flips.append(int(((za > 0).cpu() != (zb > 0).cpu()).sum()))
+        xa, xb = (torch.relu(z) for z in (za, zb))
+        xa, xb = ((h - h.mean(-2, keepdim=True))
+                  * torch.rsqrt(h.var(-2, correction=0, keepdim=True)
+                                + tcfg.bn_eps)
+                  * p["bn"][i]["scale"].unsqueeze(-2)
+                  + p["bn"][i]["bias"].unsqueeze(-2)
+                  for h, p in ((xa, pa), (xb, pb)))
+    return flips
+
+
+def train_step_check(cfg, dt: str, batch, dev) -> dict:
+    """One training step (method 'default', dropout 0, matmul_dtype dt)
+    on the card and the same step on the CPU, from the same seeded model
+    and batch: the loss, the new BN statistics, the gradients, the Adam
+    moments and Δparams of the card held to the CPU's (TRAIN_LIMITS)."""
+    import torch
+
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.models.mlp import preprocess_input, tree_leaves, \
+        tree_map
+    from mamimo_tpu_torch.train.loop import make_batch_update, make_optimizer
+
+    tcfg = TrainConfig(matmul_dtype=dt, method="default", dropout=0.0,
+                       batch_size=batch[0].shape[1])
+    cast = ((lambda t: t.to(torch.bfloat16)) if dt == "bf16"  # noqa: E731
+            else (lambda t: t))
+    run = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        params, bn = make_model(cfg, tcfg, seed=40, device=d)
+        p0 = tree_map(torch.clone, params)
+        opt = make_optimizer(tcfg)
+        st = opt.init(params)
+        update, _ = make_batch_update(cfg, tcfg, 1.0, opt)
+        x2, pilot, y2 = (t.to(d) for t in batch)
+        _, _, grads = update.loss_and_grads(params, bn, cast(x2), cast(pilot),
+                                            y2, None)
+        params, bn, st, loss = update(params, bn, st, x2, pilot, y2, None,
+                                      tcfg.lr)
+        run[where] = {
+            "p0": p0, "x": preprocess_input(cfg, tcfg, cast(x2),
+                                            cast(torch.stack([pilot, pilot]))),
+            "loss": loss, "bn": tree_leaves(bn), "grads": tree_leaves(grads),
+            "moments": tree_leaves(st.mu) + tree_leaves(st.nu),
+            "delta": torch.cat([(p - q).flatten().cpu() for p, q in
+                                zip(tree_leaves(params), tree_leaves(p0))])}
+    c, r = run["card"], run["cpu"]
+    got = {"loss": rel_err(c["loss"], r["loss"]),
+           "bn": max(rel_err(a, b) for a, b in zip(c["bn"], r["bn"])),
+           "grads_db": max(nmse_db(to_np(a), to_np(b))
+                           for a, b in zip(c["grads"], r["grads"])),
+           "moments_db": max(nmse_db(to_np(a), to_np(b))
+                             for a, b in zip(c["moments"], r["moments"])),
+           "delta_db": nmse_db(to_np(c["delta"]), to_np(r["delta"]))}
+    flips = None                 # the float32 forward's, so f32 steps only
+    if dt == "f32":
+        with torch.no_grad():
+            flips = relu_flips(tcfg, c["p0"], r["p0"], c["x"], r["x"])
+    lim = TRAIN_LIMITS[dt]
+    print(f"  {dt} step, card vs CPU (bs {tcfg.batch_size}): loss "
+          f"{to_np(c['loss'])} vs {to_np(r['loss'])}, rel "
+          f"{got['loss']:.3e} (limit {lim['loss']}); BN rel {got['bn']:.3e} "
+          f"({lim['bn']}); grads worst leaf {got['grads_db']:.2f} dB "
+          f"({lim['grads_db']}); Adam moments worst leaf "
+          f"{got['moments_db']:.2f} dB ({lim['moments_db']}); Δparams "
+          f"{got['delta_db']:.2f} dB ({lim['delta_db']})"
+          + (f"; ReLU pre-activations of another sign, per hidden layer: "
+             f"{flips} of {2 * tcfg.batch_size * tcfg.hidden[0]}"
+             if flips is not None else ""))
+    for k, v in got.items():
+        if not v <= lim[k]:
+            raise AssertionError(f"{dt} training step, card vs CPU: {k} "
+                                 f"{v} > {lim[k]}")
+    return {**{k: finite(v) for k, v in got.items()}, "relu_flips": flips}
+
+
+def train_bound_ms(cfg, tcfg) -> tuple:
+    """The least time of one training step on the card: the bytes it must
+    move (the batch gathered from the complex dataset, params, both Adam
+    moments and BN state each read once and written once) at 3.35 TB/s,
+    and its operations (3 x the forward's) at the bf16 tensor-core peak,
+    or for f32 at the float32 peak without tensor cores."""
+    from mamimo_tpu_torch.bench import train_flops
+    from mamimo_tpu_torch.models.mlp import model_input_spec
+
+    _, in_dim = model_input_spec(cfg, tcfg)
+    dims = (in_dim,) + tuple(tcfg.hidden) + (cfg.num_carriers,)
+    n_par = 2 * sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    n_bn = 2 * 2 * sum(tcfg.hidden)               # scale, bias per plane
+    n_stat = n_bn                                  # running mean, var
+    mu_bytes = 2 if tcfg.opt_dtype == "bf16" else 4
+    bs = tcfg.batch_size
+    nbytes = (2 * (n_par + n_bn) * (4 + mu_bytes + 4) + 2 * n_stat * 4
+              + bs * (cfg.len_ltf + cfg.num_carriers) * 8
+              + bs * cfg.num_tx * 4)
+    peak = BF16_FLOPS if tcfg.matmul_dtype == "bf16" else FP32_FLOPS
+    return bound_ms(nbytes, train_flops(cfg, tcfg), peak) + (nbytes,)
+
+
+def train_phase(cfg, dev, counted) -> dict:
+    """Phase 5g: the training step at the width of cfg on the card, with a
+    seeded model and a seeded TRAIN_PACKETS-packet device dataset: one f32
+    and one bf16 step held to the CPU's (train_step_check); 32 steps on
+    one fixed batch, AWGN off, whose loss must fall (the port's kernel
+    launch counts read around them: the step reaches none); one
+    train_step.multi of the default configuration, finite; and
+    run_train_bench at 2 calls, a row for every default variant. Returns
+    the results and, under "data", the dataset."""
+    import torch
+
+    from mamimo_tpu_torch.bench import (
+        run_train_bench,
+        train_bench_data,
+        train_bench_setup,
+    )
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.train.loop import _gather_batch
+
+    t0 = time.perf_counter()
+    data = train_bench_data(cfg, TRAIN_PACKETS, dev)
+    n_samples = TRAIN_PACKETS * cfg.num_tx * cfg.num_rx
+    gi = torch.Generator(device=dev).manual_seed(41)
+    idx = torch.randint(0, n_samples, (TRAIN_BS,), generator=gi, device=dev)
+    batch = _gather_batch(cfg, data, idx)
+    print(f"[5g train] Nt {cfg.num_tx}, Nr {cfg.num_rx}, {TRAIN_PACKETS}-"
+          f"packet seeded device dataset, batch x2 {tuple(batch[0].shape)}")
+    step_db = {dt: train_step_check(cfg, dt, batch, dev)
+               for dt in ("f32", "bf16")}
+
+    # 32 steps on one fixed batch, AWGN off: the loss falls
+    tc = TrainConfig(method="default", dropout=0.0, batch_size=TRAIN_BS)
+    state, step, _ = train_bench_setup(cfg, tc, data)
+    losses = []
+
+    def fixed_batch_steps():
+        for _ in range(32):
+            out = step(*state, idx, None, tc.lr)
+            state[:] = out[:3]
+            losses.append(float(out[3].sum()))
+
+    _, launches = counted(fixed_batch_steps)
+    print(f"  32 steps on one batch (f32, no AWGN, dropout 0): summed loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} (every 8th: "
+          + ", ".join(f"{v:.5f}" for v in losses[::8]) + ")")
+    print(f"  launches of the port's kernels in those steps (the training "
+          f"step reaches no TPU kernel): {launches}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    # the default configuration: rbg_clt AWGN, dropout 0.15, default_snr
+    tc = TrainConfig(steps_per_call=4)
+    state, step, mk_args = train_bench_setup(cfg, tc, data)
+    *_, loss = step.multi(*state, *mk_args(42), tc.lr)
+    print(f"  train_step.multi, default config ({tc.awgn_rng}, dropout "
+          f"{tc.dropout}, {tc.method}), 4 steps of {tc.batch_size}: "
+          f"per-plane loss {to_np(loss)}")
+    if tuple(loss.shape) != (2,) or not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"default-config multi step gave {loss}")
+    del state, step
+
+    short = run_train_bench(calls=2, print_result=False)
+    paths = short["extra"]["paths"]
+    want = {f"{v}_bs{b}" for v in ("f32", "bf16", "f32_rbg")
+            for b in (256, 1024)}
+    print(f"  run_train_bench(2 calls of 16 steps): {len(paths)} rows, value "
+          f"{short['value']:.6g} TFLOP/s, device {short['extra']['device']}")
+    if set(paths) != want or not all(r["step_ms"] > 0
+                                     for r in paths.values()):
+        raise AssertionError(f"run_train_bench gave {sorted(paths)}")
+    print(f"  phase 5g: {time.perf_counter() - t0:.1f} s")
+    return {"data": data, "step_vs_cpu": step_db, "limits": TRAIN_LIMITS,
+            "fixed_batch_losses": losses[::4], "launches": launches,
+            "default_config_loss": to_np(loss).tolist(),
+            "bench_short": short}
+
+
+def train_timing(cfg, data, smi) -> dict:
+    """Phase 6, the training step: run_train_bench's line (10 calls of 16
+    steps a row, the host clock closed by a loss fetch), then for each row
+    one .multi call traced (every kernel's own device time, the kernels
+    and aten operator calls per step) beside its host time (median of 5),
+    its device-idle share, its peak device memory above what was live
+    before it, and the step's bound (train_bound_ms). Returns the rows by
+    name."""
+    import torch
+
+    from mamimo_tpu_torch.bench import (
+        run_train_bench,
+        train_bench_setup,
+        train_flops,
+        train_variant_config,
+    )
+
+    t0 = time.perf_counter()
+    line = run_train_bench(print_result=False)
+    rows = {}
+    for prec in ("f32", "bf16", "f32_rbg"):
+        for bs in (256, 1024):
+            tc = train_variant_config(prec, bs, 16)
+            state, step, mk_args = train_bench_setup(cfg, tc, data)
+            idx2, gen = mk_args(1)
+
+            def one_call():
+                state[:] = step.multi(*state, idx2, gen, tc.lr)[:3]
+
+            one_call()
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            one_call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - live
+            host = host_ms(one_call, iters=1, batches=5, warmup=1)
+            per, kernels, aten = trace_call(one_call)
+            busy = sum(per.values()) if per else None
+            bms, by, nbytes = train_bound_ms(cfg, tc)
+            r = dict(line["extra"]["paths"][f"{prec}_bs{bs}"])
+            r.update(call_host_ms=host, call_busy_ms=busy,
+                     idle_share=(1 - busy / host) if busy else None,
+                     bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+                     flops=train_flops(cfg, tc),
+                     kernels_per_step=kernels / tc.steps_per_call,
+                     aten_ops_per_step=aten / tc.steps_per_call,
+                     peak_above_live_bytes=peak, live_bytes=live)
+            rows[f"{prec}_bs{bs}"] = r
+            top = sorted(((v, n) for n, v in per.items()), reverse=True)[:3]
+            print(f"  train {prec} bs {bs}: {r['step_ms']:.4f} ms/step, "
+                  f"{r['steps_per_s']:.1f} steps/s, "
+                  f"{r['samples_per_s']:.0f} samples/s, "
+                  f"{r['achieved_tflops']:.2f} TFLOP/s; bound {bms:.4f} ms by "
+                  f"{by} ({bms / r['step_ms'] * 100:.1f}% of it); one .multi "
+                  f"call of 16 steps: host {host:.3f} ms, traced busy "
+                  + (f"{busy:.3f} ms, idle {(1 - busy / host) * 100:.1f}%"
+                     if busy else "not traced")
+                  + f"; per step {r['kernels_per_step']:.1f} kernels, "
+                  f"{r['aten_ops_per_step']:.1f} aten calls; peak memory "
+                  f"{peak / 2**30:.3f} GiB above the {live / 2**30:.3f} GiB "
+                  f"live (model, optimizer state, dataset and earlier "
+                  f"phases') (largest: "
+                  + ", ".join(f"{n[:50]} {v:.3f}" for v, n in top)
+                  + f")  [{smi}]")
+            del state, step
+    print(f"  training timing: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -1174,6 +1502,9 @@ def main() -> int:
     if len(eps) != 15 or not all(v > 0 for v in eps.values()):
         raise AssertionError(f"run_bench gave {len(eps)} paths: {eps}")
 
+    # 5g. the training step at the full BS32 width -----------------------
+    train = train_phase(cfg, dev, counted)
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -1559,6 +1890,7 @@ def main() -> int:
                  "ls_seq_shard_copies_ms": copies_ms,
                  "ls_seq_allreduce_ms": allreduce_ms,
                  "ls_seq_complex_ms": complex_ms}
+    train["rows"] = train_timing(cfg, train.pop("data"), smi)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "serving": {
@@ -1590,6 +1922,7 @@ def main() -> int:
                    for (m, n), c in cnt_sls.items()}},
             "errors": {k: finite(v) if v is not None else None
                        for k, v in seq_err.items()}},
+        "train": train,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

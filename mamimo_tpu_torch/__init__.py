@@ -15,14 +15,19 @@ first use into ``_build/`` and bound through ``ctypes``.
                           factored DNN, fused MLP on the materialized
                           input, int8 GEMM); the halo-exchange kernel's
                           wrapper is in ``parallel.rdma_halo``
-- ``models``            : the CSI MLP (eval), its int8 quantized form
+- ``models``            : the CSI MLP (eval and train mode), its int8
+                          quantized form
                           (``models.quant``) and ``CSIPredictor``
-- ``bench``             : the TPU bench's estimation paths and
+- ``bench``             : the TPU bench's estimation paths,
                           ``run_bench`` (``python3 -m
-                          mamimo_tpu_torch.bench``)
+                          mamimo_tpu_torch.bench``) and
+                          ``run_train_bench`` (``... --train``)
 - ``entry``             : the serving step of ``__graft_entry__.py``
-- ``train.ckpt``        : npz checkpoints, interchangeable with the JAX
-                          package's
+- ``train.ckpt``        : npz checkpoints with the optimizer state,
+                          interchangeable with the JAX package's
+- ``train.loop``        : the training step in array form (Adam
+                          scaling, the AWGN batch update, the in-gather
+                          step and its multi-step form)
 - ``channel.scattering``: the single-bounce scattering channel
 - ``pipeline.sounding`` : ``pad_signal`` (the sounding loop is not ported)
 - ``parallel``          : meshes of torch devices, the sequence-parallel

@@ -43,6 +43,10 @@ exists because the TPU runtime's ``block_until_ready`` could return
 before the work ran, identical calls could be answered from a cache, and
 each call paid a ~2 ms dispatch floor. On the card CUDA events around
 back-to-back calls time the work itself (``_time_fn``).
+
+``run_train_bench`` is the training half (``python3 -m
+mamimo_tpu_torch.bench --train``): optimizer steps per second and achieved
+TFLOP/s of ``train/loop.py::make_train_step``'s multi-step call.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import torch
 from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models.mlp import (
     init_stacked,
+    model_input_spec,
     plane,
     predict_all_pairs,
     predict_all_pairs_planes_flat,
@@ -93,6 +98,7 @@ from mamimo_tpu_torch.ops.kernels.mlp_infer import (
     prepare_mlp_infer_weights,
 )
 from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
+from mamimo_tpu_torch.train.loop import make_optimizer, make_train_step
 from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
 # the bench's names of the bf16-input planes paths and their options
@@ -640,22 +646,168 @@ def run_bench(batch_packets: int = 64, iters: int = 20,
     return result
 
 
+def train_variant_config(prec: str, batch_size: int, steps_per_call: int,
+                         hidden=(1024, 1024)) -> TrainConfig:
+    """The TrainConfig of one training-bench variant, named by the JAX
+    bench's grammar ``<f32|bf16>[_rbg|_rbgclt][_mubf16][_noawgn]``: the
+    matmul dtype, the AWGN draw (``threefry`` when unnamed; ``rbg`` and
+    ``threefry`` are the same ``torch.randn`` draw here), bf16 Adam first
+    moment, and ``_noawgn`` (method ``default``: no AWGN)."""
+    awgn = "threefry"
+    if "_rbgclt" in prec:
+        awgn = "rbg_clt"
+    elif "_rbg" in prec:
+        awgn = "rbg"
+    return TrainConfig(hidden=tuple(hidden), batch_size=batch_size,
+                       matmul_dtype=prec.split("_")[0], awgn_rng=awgn,
+                       method="default" if "_noawgn" in prec
+                       else "default_snr",
+                       opt_dtype="bf16" if "_mubf16" in prec else "f32",
+                       steps_per_call=steps_per_call)
+
+
+def train_flops(cfg: SimConfig, tcfg: TrainConfig) -> float:
+    """The operations of one training step as the JAX bench counts them:
+    3 × the forward's, 2·2·bs·(in_dim·h1 + h1·h2 + h2·C) over both
+    planes."""
+    _, in_dim = model_input_spec(cfg, tcfg)
+    h1, h2 = tcfg.hidden
+    fwd = 2 * 2.0 * tcfg.batch_size * (in_dim * h1 + h1 * h2
+                                       + h2 * cfg.num_carriers)
+    return 3.0 * fwd
+
+
+def train_bench_data(cfg: SimConfig, num_packets: int, device) -> dict:
+    """The training bench's synthetic device dataset, seeded: {"rx": (B,
+    L, R), "h": (B, C, T, R) complex64 of unit normal parts, "P": (T, T)
+    float32}, made on ``device``."""
+    g = torch.Generator(device=device).manual_seed(0)
+    rx = torch.randn((num_packets, cfg.len_ltf, cfg.num_rx, 2), generator=g,
+                     device=device)
+    h = torch.randn((num_packets, cfg.num_carriers, cfg.num_tx, cfg.num_rx,
+                     2), generator=g, device=device)
+    return {"rx": torch.view_as_complex(rx), "h": torch.view_as_complex(h),
+            "P": pilot_p_matrix(cfg.num_tx, device=device)}
+
+
+def train_bench_setup(cfg: SimConfig, tcfg: TrainConfig, data: dict):
+    """One variant's model, optimizer state, multi-step call and argument
+    maker, on the data's device: (state, step, mk_args) with state =
+    [params, bn_state, opt_state], step = ``make_train_step(...)[0]``
+    (avg_sig_pow 1.0), and mk_args(seed) → (idx2 (steps_per_call, bs) of
+    the dataset's samples, generator) drawn on the device."""
+    dev = data["P"].device
+    n_samples = data["rx"].shape[0] * cfg.num_tx * cfg.num_rx
+    params, bn_state = init_stacked(torch.Generator().manual_seed(0), cfg,
+                                    tcfg, device=dev)
+    # make_train_step applies -lr·u itself: the optimizer is bare Adam
+    # scaling (make_optimizer), whose own lr would compose to lr²
+    opt = make_optimizer(tcfg)
+    state = [params, bn_state, opt.init(params)]
+    step = make_train_step(cfg, tcfg, data, 1.0, opt)[0]
+
+    def mk_args(seed: int):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        idx2 = torch.randint(0, n_samples, (tcfg.steps_per_call,
+                                            tcfg.batch_size),
+                             generator=g, device=dev)
+        return idx2, g
+
+    return state, step, mk_args
+
+
+def run_train_bench(batch_sizes=(256, 1024), steps_per_call: int = 16,
+                    calls: int = 10, num_packets: int = 64,
+                    hidden=(1024, 1024), print_result: bool = True,
+                    device=None) -> dict:
+    """Training throughput: optimizer steps/s and achieved TFLOP/s of the
+    training step, one line (the JAX ``run_train_bench``).
+
+    Times ``train_step.multi`` of ``make_train_step`` (the batch gathered
+    on the device from a seeded ``num_packets``-packet dataset, the
+    per-plane AWGN draw, autograd of the stacked MLP, Adam scaling,
+    in-place updates), ``steps_per_call`` steps a call, ``calls`` calls
+    after one warm-up call; the indices and generators of the timed calls
+    are made before the window; the host clock closes the window on a
+    float32 loss fetch (which waits for the card). Variants
+    ``BENCH_TRAIN_VARIANTS`` (default ``f32,bf16,f32_rbg``, the grammar of
+    ``train_variant_config``), batches ``BENCH_TRAIN_BATCHES`` or
+    ``batch_sizes``, configuration ``BENCH_NT``/``BENCH_NR`` (default
+    BS32); FLOPs as ``train_flops``.
+
+    Args:
+      hidden: the hidden widths (the bench's are the TrainConfig
+        default's; the tests pass small ones).
+      device: where it runs; None means cuda:0, and raises without a CUDA
+        device (the tests pass "cpu", whose times are host times).
+
+    Returns the result dict: ``{"metric": "train_step_tflops", "value",
+    "unit", "extra": {"device", "steps_per_call", "paths"}}``, each path
+    ``{"step_ms", "steps_per_s", "samples_per_s", "achieved_tflops"}``,
+    unrounded.
+    """
+    dev = resolve_device("cuda:0" if device is None else device)
+    cfg = SimConfig(num_tx=int(os.environ.get("BENCH_NT", "32")),
+                    num_rx=int(os.environ.get("BENCH_NR", "4")))
+    data = train_bench_data(cfg, num_packets, dev)
+    variants = os.environ.get("BENCH_TRAIN_VARIANTS",
+                              "f32,bf16,f32_rbg").split(",")
+    if os.environ.get("BENCH_TRAIN_BATCHES"):
+        batch_sizes = [int(b) for b in
+                       os.environ["BENCH_TRAIN_BATCHES"].split(",")]
+    results = {}
+    for prec in variants:
+        for bs in batch_sizes:
+            tcfg = train_variant_config(prec, bs, steps_per_call, hidden)
+            state, step, mk_args = train_bench_setup(cfg, tcfg, data)
+            idx2, g = mk_args(1)
+            *state, loss = step.multi(*state, idx2, g, tcfg.lr)
+            float(loss[0])                              # warm-up, waited for
+            call_args = [mk_args(2 + i) for i in range(calls)]
+            t0 = time.perf_counter()
+            for idx2, g in call_args:
+                *state, loss = step.multi(*state, idx2, g, tcfg.lr)
+            float(loss[0])                              # the barrier
+            dt = (time.perf_counter() - t0) / (calls * steps_per_call)
+            results[f"{prec}_bs{bs}"] = {
+                "step_ms": dt * 1e3,
+                "steps_per_s": 1.0 / dt,
+                "samples_per_s": bs / dt,
+                "achieved_tflops": train_flops(cfg, tcfg) / dt / 1e12,
+            }
+    best = max(results.values(), key=lambda r: r["achieved_tflops"])
+    out = {
+        "metric": "train_step_tflops",
+        "value": best["achieved_tflops"],
+        "unit": "TFLOP/s",
+        "extra": {"device": _card_name(dev),
+                  "steps_per_call": steps_per_call,
+                  "paths": results},
+    }
+    if print_result:
+        print(json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
-    """``python3 -m mamimo_tpu_torch.bench``: the inference branch of the
-    root ``bench.py`` on the card. Batches: ``BENCH_BATCH`` packets, else
-    256 and 1024; ``BENCH_ITERS`` calls a window (default 20). Prints
-    each batch's line on stderr and the best batch's line as the one
-    line of stdout."""
+    """``python3 -m mamimo_tpu_torch.bench``: the root ``bench.py`` on the
+    card. With ``--train`` its training branch, ``run_train_bench``'s one
+    line on stdout. Otherwise the inference branch: batches
+    ``BENCH_BATCH`` packets, else 256 and 1024; ``BENCH_ITERS`` calls a
+    window (default 20); each batch's line on stderr and the best batch's
+    line as the one line of stdout. ``--gen`` and no CUDA device exit 2
+    with nothing on stdout."""
     argv = sys.argv[1:] if argv is None else argv
-    for flag, slice_ in (("--train", "training"),
-                         ("--gen", "data-generation")):
-        if flag in argv:
-            print(f"bench: {flag} comes with the {slice_} slice of the port "
-                  f"(ROADMAP.md); nothing was run", file=sys.stderr)
-            return 2
+    if "--gen" in argv:
+        print("bench: --gen comes with the data-generation slice of the "
+              "port (ROADMAP.md); nothing was run", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("bench: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if "--train" in argv:
+        run_train_bench()
+        return 0
     iters = int(os.environ.get("BENCH_ITERS", "20"))
     if os.environ.get("BENCH_BATCH"):
         batches = [int(os.environ["BENCH_BATCH"])]

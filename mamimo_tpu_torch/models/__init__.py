@@ -1,4 +1,4 @@
-"""The CSI denoiser MLP (eval mode) and, in ``models.predictor``, the
+"""The CSI denoiser MLP (eval and training mode) and, in ``models.predictor``, the
 deployment wrapper ``CSIPredictor``."""
 
 from mamimo_tpu_torch.models.mlp import (  # noqa: F401

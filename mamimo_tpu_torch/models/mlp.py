@@ -18,8 +18,15 @@ structure::
 
 so checkpoints move between the two packages leaf for leaf
 (``train/ckpt.py``). Keras conventions: glorot-uniform init, BatchNorm
-with momentum 0.99 / eps 1e-3 applied after the ReLU. Training mode is
-not ported yet.
+with momentum 0.99 / eps 1e-3 applied after the ReLU; in training mode
+batch statistics (biased variance) and the Keras running update
+``new = m·old + (1 − m)·batch``, and inverted dropout between hidden
+layers only, its masks drawn from an explicit ``torch.Generator``.
+
+``tcfg.matmul_dtype='bf16'`` rounds both operands of every dense product
+to bf16 and keeps a float32 result (float32 accumulation), in both modes,
+as the JAX module does; its backward rounds each operand's cotangent to
+bf16 at JAX's points (``Bf16Dense``).
 """
 
 from __future__ import annotations
@@ -93,25 +100,47 @@ def init_stacked(gen: torch.Generator, cfg: SimConfig, tcfg: TrainConfig,
     return tree_map(stack, p0, p1), tree_map(stack, s0, s1)
 
 
+def _sequence(like, items):
+    """A list, tuple or NamedTuple of ``like``'s type holding ``items``."""
+    items = list(items)
+    return type(like)(*items) if hasattr(like, "_fields") \
+        else type(like)(items)
+
+
 def tree_map(fn, tree, *rest):
-    """Map ``fn`` over the leaves of nested dicts/lists (jax.tree.map for
-    the parameter structures used here)."""
+    """Map ``fn`` over the leaves of nested dicts, lists and tuples
+    (NamedTuples too; jax.tree.map for the structures used here)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
-                          for i, t in enumerate(tree))
+        return _sequence(tree, (tree_map(fn, t, *(r[i] for r in rest))
+                                for i, t in enumerate(tree)))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of nested dicts/lists in jax ``tree_flatten`` order: dict
-    keys sorted, lists in order."""
+    """Leaves of nested dicts/lists/tuples in jax ``tree_flatten`` order:
+    dict keys sorted, sequences (and a NamedTuple's fields) in order."""
     if isinstance(tree, dict):
         return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [l for t in tree for l in tree_leaves(t)]
     return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """The structure of ``like`` with the leaves taken in order from the
+    iterable ``leaves`` (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def rec(t):
+        if isinstance(t, dict):
+            return {k: rec(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return _sequence(t, (rec(x) for x in t))
+        return next(it)
+
+    return rec(like)
 
 
 def params_from_jax(params, bn_state, device=None) -> Tuple[Params, Params]:
@@ -158,28 +187,101 @@ def _bn_affine(tcfg: TrainConfig, pp, bb, i: int):
     return a, c
 
 
+def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bfloat16 (or bf16-valued) operands, float32 result with
+    float32 accumulation; a and b are 2-d, or 3-d with one batch axis.
+    On the card bf16 tensor-core products with a float32 output
+    (``torch.mm``/``torch.bmm`` with ``out_dtype``); on the CPU, which has
+    no such kernel, the float32 product of the bf16 values (each product
+    exact)."""
+    if a.is_cuda:
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                  out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class Bf16Dense(torch.autograd.Function):
+    """x @ w with both operands rounded to bf16 and a float32 result: JAX's
+    ``matmul(x.astype(bf16), w.astype(bf16), preferred_element_type=f32)``.
+
+    The backward keeps JAX's rounding points. ``dot_general``'s transpose
+    rules convert each operand's cotangent to that operand's dtype (bf16),
+    and the transpose of ``astype`` returns it to the input's dtype, so
+    dx = bf16(g @ w_bf16ᵀ) and dw = bf16(x_bf16ᵀ @ g), each then widened.
+    On the CPU the incoming cotangent g stays float32 (each product exact,
+    as XLA's CPU dot of f32 by bf16). On the card g is rounded to bf16
+    first, to run the products on the tensor cores: the card's dx and dw
+    differ from the CPU's by that rounding (2⁻⁹ relative a value), as the
+    TPU's single-pass bf16 products did.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return _bf16_product(xb, wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _bf16_product(g, wb.mT).to(torch.bfloat16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            dw = _bf16_product(xb.mT, g).to(torch.bfloat16).to(ctx.dtypes[1])
+        return dx, dw
+
+
 def csi_mlp_apply(tcfg: TrainConfig, params: Params, bn_state: Params,
-                  x: torch.Tensor, *, train: bool = False):
-    """One plane's forward pass on a preprocessed batch x (batch, in_dim),
-    eval mode. Returns (y, bn_state)."""
-    if train:
-        raise NotImplementedError("training mode is not ported yet")
+                  x: torch.Tensor, *, train: bool = False,
+                  gen: torch.Generator | None = None):
+    """The MLP on a preprocessed batch x: one plane's parameters with x
+    (batch, in_dim), or stacked parameters (leading plane axis) with x
+    (2, batch, in_dim), each plane's product then one batched product.
+
+    Returns (y, bn_state). In train mode BN uses the batch statistics and
+    returns the updated running statistics (when the model has BN), and
+    dropout (masks from ``gen``, a generator on x's device) runs between
+    hidden layers, not after the last one."""
+    dense = Bf16Dense.apply if tcfg.matmul_dtype == "bf16" else torch.matmul
+    row = lambda t: t.unsqueeze(-2)            # noqa: E731  (..., 1, H)
+    new_mean, new_var = [], []
     h = x
+    n_hidden = len(params["dense"])
     for i, lyr in enumerate(params["dense"]):
-        h = torch.relu(h @ lyr["w"] + lyr["b"])
+        h = torch.relu(dense(h, lyr["w"]) + row(lyr["b"]))
         if params["bn"]:
-            h = (h - bn_state["mean"][i]) * torch.rsqrt(
-                bn_state["var"][i] + tcfg.bn_eps)
-            h = h * params["bn"][i]["scale"] + params["bn"][i]["bias"]
-    return h @ params["out"]["w"] + params["out"]["b"], bn_state
+            if train:
+                mu = h.mean(-2)
+                var = h.var(-2, correction=0)          # biased, as jnp.var
+                m = tcfg.bn_momentum
+                new_mean.append(m * bn_state["mean"][i]
+                                + (1 - m) * mu.detach())
+                new_var.append(m * bn_state["var"][i]
+                               + (1 - m) * var.detach())
+            else:
+                mu, var = bn_state["mean"][i], bn_state["var"][i]
+            h = (h - row(mu)) * torch.rsqrt(row(var) + tcfg.bn_eps)
+            h = h * row(params["bn"][i]["scale"]) + row(params["bn"][i]["bias"])
+        if train and tcfg.dropout > 0.0 and i < n_hidden - 1:
+            keep = 1.0 - tcfg.dropout
+            mask = torch.rand(h.shape, generator=gen, device=h.device) < keep
+            h = torch.where(mask, h / keep, 0.0)
+    y = dense(h, params["out"]["w"]) + row(params["out"]["b"])
+    if train and params["bn"]:
+        bn_state = {"mean": new_mean, "var": new_var}
+    return y, bn_state
 
 
 def stacked_apply(tcfg: TrainConfig, params: Params, bn_state: Params,
-                  x2: torch.Tensor):
-    """Apply both planes: x2 (2, batch, in_dim) → ((2, batch, C), bn)."""
-    ys = [csi_mlp_apply(tcfg, plane(params, d), plane(bn_state, d), x2[d])[0]
-          for d in range(2)]
-    return torch.stack(ys), bn_state
+                  x2: torch.Tensor, *, train: bool = False,
+                  gen: torch.Generator | None = None):
+    """Apply both planes: x2 (2, batch, in_dim) → ((2, batch, C), bn);
+    ``train`` and ``gen`` as in ``csi_mlp_apply`` (one draw covers both
+    planes)."""
+    return csi_mlp_apply(tcfg, params, bn_state, x2, train=train, gen=gen)
 
 
 def _caster(dtype):

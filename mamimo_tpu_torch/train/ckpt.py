@@ -7,8 +7,13 @@ and ``<prefix>.json`` (the two configs). The leaf order is jax
 ``tree_flatten`` order: dict keys sorted, lists in order. For the MLP
 that is ``bn_state.mean[i]``, ``bn_state.var[i]``, ``params.bn[i].bias``,
 ``params.bn[i].scale``, ``params.dense[i].b``, ``params.dense[i].w``,
-``params.out.b``, ``params.out.w``. Checkpoints written here load in the
-JAX package and the reverse. The orbax backend is not ported.
+``params.out.b``, ``params.out.w``. With an optimizer state a third file,
+``<prefix>_opt.npz``, holds it in optax's leaf order: ``count`` (an int32
+scalar), the first-moment leaves, then the second-moment leaves
+(``train.loop.AdamState``). A bfloat16 first moment is stored as JAX
+stores it, two raw bytes a value (numpy's ``V2``); ``bf16_from_numpy``
+reads it back. Checkpoints written here load in the JAX package and the
+reverse. The orbax backend is not ported.
 """
 
 from __future__ import annotations
@@ -22,15 +27,7 @@ import torch
 
 from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models.mlp import tree_leaves as _flatten
-
-
-def _unflatten(like, leaves):
-    """Rebuild the structure of ``like`` from an iterator of leaves."""
-    if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(t, leaves) for t in like)
-    return next(leaves)
+from mamimo_tpu_torch.models.mlp import tree_unflatten
 
 
 def _treedef_str(tree) -> str:
@@ -47,9 +44,28 @@ def _treedef_str(tree) -> str:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor as its raw 2-byte values (the
+    ``V2`` array JAX's numpy form of bfloat16 saves as)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.dtype("V2"))
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def is_bf16_numpy(a: np.ndarray) -> bool:
+    """True for numpy bfloat16 as either package meets it: ml_dtypes'
+    bfloat16, or the raw ``V2`` values an npz file gives back."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
+def bf16_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
+    """A numpy bfloat16 array (``is_bf16_numpy``) as a bfloat16 tensor
+    holding the same values, bit for bit."""
+    bits = np.ascontiguousarray(a).view(np.uint16).astype(np.uint32) << 16
+    return torch.from_numpy(bits.view(np.float32)).to(
+        device=device, dtype=torch.bfloat16)
 
 
 def save_pytree(path: str, tree) -> None:
@@ -71,7 +87,7 @@ def load_pytree(path: str, like):
             raise ValueError(f"{path}: {n} leaves, structure wants "
                              f"{len(_flatten(like))}")
         leaves = [z[f"leaf_{i}"] for i in range(n)]
-    return _unflatten(like, iter(leaves))
+    return tree_unflatten(like, leaves)
 
 
 def param_structure(cfg: SimConfig, tcfg: TrainConfig):
@@ -91,30 +107,37 @@ def param_structure(cfg: SimConfig, tcfg: TrainConfig):
 
 def save_checkpoint(prefix: str, cfg: SimConfig, tcfg: TrainConfig, params,
                     bn_state, extra: Dict[str, Any] | None = None,
-                    backend: str = "npz") -> None:
-    """Write <prefix>.npz and <prefix>.json (npz backend only)."""
+                    opt_state=None, backend: str = "npz") -> None:
+    """Write <prefix>.npz, with ``opt_state`` (``train.loop.AdamState``)
+    also <prefix>_opt.npz, and <prefix>.json (npz backend only)."""
     if backend != "npz":
         raise ValueError(f"checkpoint backend {backend!r} is not ported; "
                          "use 'npz'")
     os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
     save_pytree(prefix + ".npz", {"params": params, "bn_state": bn_state})
+    if opt_state is not None:
+        save_pytree(prefix + "_opt.npz", opt_state)
     meta = {
         "cfg": json.loads(cfg.to_json()),
         "tcfg": json.loads(tcfg.to_json()),
         "extra": extra or {},
         "backend": backend,
-        "has_opt": False,
+        "has_opt": opt_state is not None,
     }
     with open(prefix + ".json", "w") as f:
         json.dump(meta, f, indent=2)
 
 
-def load_checkpoint(prefix: str) -> Dict[str, Any]:
+def load_checkpoint(prefix: str, like_opt_state=None) -> Dict[str, Any]:
     """Load a checkpoint written by save_checkpoint of either package.
 
     Returns {"cfg", "tcfg", "extra", "params", "bn_state"}; parameters
     are numpy float32 arrays in the JAX package's structure (convert with
-    ``models.mlp.params_from_jax``). Raises for an orbax checkpoint.
+    ``models.mlp.params_from_jax``). With ``like_opt_state`` (a state of
+    the structure wanted, e.g. ``make_optimizer(tcfg).init(params)``) and
+    a <prefix>_opt.npz, also "opt_state": numpy leaves in that structure
+    (convert with ``train.loop.opt_state_from_jax``). Raises for an orbax
+    checkpoint.
     """
     with open(prefix + ".json") as f:
         meta = json.load(f)
@@ -127,5 +150,8 @@ def load_checkpoint(prefix: str) -> Dict[str, Any]:
     cfg = SimConfig(**meta["cfg"])
     tcfg = TrainConfig.from_json(json.dumps(meta["tcfg"]))
     state = load_pytree(prefix + ".npz", param_structure(cfg, tcfg))
-    return {"cfg": cfg, "tcfg": tcfg, "extra": meta.get("extra", {}),
-            "params": state["params"], "bn_state": state["bn_state"]}
+    out = {"cfg": cfg, "tcfg": tcfg, "extra": meta.get("extra", {}),
+           "params": state["params"], "bn_state": state["bn_state"]}
+    if like_opt_state is not None and os.path.exists(prefix + "_opt.npz"):
+        out["opt_state"] = load_pytree(prefix + "_opt.npz", like_opt_state)
+    return out

@@ -158,13 +158,13 @@ def test_run_bench_defaults_to_the_card(monkeypatch):
                          ids=["bench", "train", "gen"])
 def test_bench_module_exits_nonzero_without_cuda(args):
     """python3 -m mamimo_tpu_torch.bench prints no line and exits
-    non-zero without a CUDA device; --train and --gen name the slices
-    they come with."""
+    non-zero without a CUDA device, --train (ported) included; --gen
+    names the slice it comes with."""
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     r = subprocess.run([sys.executable, "-m", "mamimo_tpu_torch.bench",
                         *args], cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode != 0
     assert r.stdout == ""
-    want = {"--train": "training slice", "--gen": "data-generation slice"}
+    want = {"--train": "no CUDA device", "--gen": "data-generation slice"}
     assert (want[args[0]] if args else "no CUDA device") in r.stderr

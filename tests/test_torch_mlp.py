@@ -202,7 +202,21 @@ def test_fused_kernels_need_two_hidden_layers():
 
 
 def test_training_mode_not_ported():
-    tcfg, _, _, (tp, tb) = _models(True, seed=9)
-    with pytest.raises(NotImplementedError):
-        mlp.csi_mlp_apply(tcfg, mlp.plane(tp, 0), mlp.plane(tb, 0),
-                          torch.zeros(1, CFG.len_ltf + 8), train=True)
+    """Training mode, once refused, is ported: one plane's train-mode
+    forward with dropout 0 (batch BN statistics, biased variance, the
+    Keras running update) against JAX's, outputs and new statistics to
+    1e-5 relative."""
+    tcfg, jtcfg, (jp, jb), (tp, tb) = _models(True, seed=9)
+    tcfg = tcfg.replace(dropout=0.0)
+    jtcfg = jtcfg.replace(dropout=0.0)
+    x = np.random.default_rng(10).standard_normal(
+        (12, CFG.len_ltf + 8)).astype(np.float32)
+    p0 = jax.tree.map(lambda a: a[0], (jp, jb))
+    ref, ref_bn = jmlp.csi_mlp_apply(jtcfg, p0[0], p0[1], jnp.asarray(x),
+                                     train=True, rng=jax.random.PRNGKey(0))
+    got, got_bn = mlp.csi_mlp_apply(tcfg, mlp.plane(tp, 0), mlp.plane(tb, 0),
+                                    torch.from_numpy(x), train=True)
+    _close(got, ref, 1e-5)
+    for k in ("mean", "var"):
+        for g, r in zip(got_bn[k], ref_bn[k]):
+            _close(g, r, 1e-5)

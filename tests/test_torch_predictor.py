@@ -188,6 +188,7 @@ def test_port_imports_without_jax():
             "mamimo_tpu_torch.models.quant, mamimo_tpu_torch.bench, "
             "mamimo_tpu_torch.entry, "
             "mamimo_tpu_torch.ops.kernels, mamimo_tpu_torch.train, "
+            "mamimo_tpu_torch.train.loop, "
             "mamimo_tpu_torch.ops.kernels.mlp_infer, "
             "mamimo_tpu_torch.ops.kernels.fused_ls, "
             "mamimo_tpu_torch.ops.estimate, mamimo_tpu_torch.models.mlp, "
