@@ -99,7 +99,7 @@ failure ends the run with a non-zero exit code):
                sums of h^2 and DNN planes are held to the float32 plain
                path; entry() runs once (its LS held to the float32 LS);
                run_bench (64 packets, 2 calls a window) yields a line
-               with all 15 paths;
+               with all 16 paths;
 5g. train    — the training step (train/loop.py) at the full BS32 width,
                a seeded model and a seeded 64-packet device dataset: one
                f32 and one bf16 step (method 'default', dropout 0) on the
@@ -112,6 +112,29 @@ failure ends the run with a non-zero exit code):
                (rbg_clt, dropout 0.15, default_snr), finite;
                run_train_bench at 2 calls, a row for every default
                variant;
+5h. sounding — the sounding path at BS32 (ops/ofdm.py, the LS forms and
+               LMMSE forms of ops/estimate.py, channel/noise.py,
+               channel/cdl.py, pipeline/sounding.py, pipeline/dataset.py):
+               (a) the OFDM round trip of 64 packets' grids; (b) on 64
+               sounded packets the FFT-form LS against the matmul and
+               rx-major forms (-100 dB) and the per-pair LS kernel on the
+               same rx (-50 dB); (c) the dense, direct, eigenbasis,
+               chunked and CG LMMSE against a float64 solve at -10, 0 and
+               20 dB (2e-4 of the scale; CG 2e-3), and the CG against the
+               direct solve at 30, 40 and 120 dB (2e-3, 8e-3, 3e-3); (d)
+               generate_dataset on the card (128 packets, chunk 64, 10 dB,
+               CG labels): finite, realized SNR within 1 dB, LMMSE NMSE
+               below LS's, the same at chunk 32 (draws identical, arrays
+               within -100 dB), a packet regenerated alone from
+               packet_generator, the CPU port on 4 packets from the same
+               draws (2e-2 relative) and from the card's realization (-80
+               dB), the first chunk fetched synchronously (-100 dB); (e)
+               the nf and sinr receivers and the cdl_nlos and cdl_los
+               channels on 8 packets each, finite and held to the CPU the
+               same two ways; (f) the corpus's planes (S = 512) through
+               estimate_full, one launch of each of its kernels, its LS
+               within -50 dB of the corpus's; (g) run_gen_bench at 128
+               packets, four modes with positive rates;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -129,10 +152,16 @@ failure ends the run with a non-zero exit code):
                1024: ms/step, steps/s, samples/s, achieved TFLOP/s)
                beside each step's bound, and one 16-step .multi call per
                row traced (device-busy ms) beside its host time, the
-               device-idle share.
+               device-idle share; the sounding path: run_gen_bench's line
+               (512 packets, chunk 64), one generate_dataset call of 128
+               packets ('ls' and 'lmmse') on the host clock beside its
+               traced device-busy time and idle share, one chunk of 64
+               through sound_from_draws traced (largest kernels), each
+               LMMSE form at 64 packets (CUDA events), the bench path
+               ls_fft at the bench shape.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f and 5g and read just after; estimate_full,
+5b, 5c, 5d, 5e, 5f, 5g and 5h and read just after; estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
 (torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
@@ -160,6 +189,9 @@ BENCH_PACKETS = 1024               # the bench shape: S = 4096
 FP32_FLOPS = 67e12                 # H100 SXM float32, no tensor cores
 TRAIN_PACKETS = 64                 # the training bench's device dataset
 TRAIN_BS = 256                     # the batch of the card-vs-CPU steps
+SOUND_PACKETS = 64                 # phase 5h: the LS and LMMSE checks
+GEN_PACKETS, GEN_CHUNK = 128, 64   # phase 5h: generate_dataset
+GEN_SEED = 13
 # phase 5g's limits, card step against the same step on the CPU: loss and
 # BN statistics (relative), gradients and Adam moments (worst leaf, NMSE
 # dB), Δparams (all parameters as one vector, NMSE dB). A ReLU is a kink:
@@ -646,6 +678,398 @@ def train_timing(cfg, data, smi) -> dict:
             del state, step
     print(f"  training timing: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def lmmse_f64(num_carriers: int, h, tau, snr_db):
+    """The LMMSE estimate M·h = Rf·(Rf + I/snr)⁻¹·h in float64 numpy (the
+    reference's LMMSE_ce.m with its delays-as-h rms-delay proxy): h (B, C,
+    s, R), tau (B, ns), snr_db (B, R) → (B, C, s, R) complex128."""
+    tau = np.asarray(tau, np.float64)
+    k = np.arange(tau.shape[-1])
+    w = tau * tau
+    hh = w.sum(-1)
+    r = (w * k).sum(-1) / hh
+    r2 = (w * k * k).sum(-1) / hh
+    trms = np.sqrt(np.maximum(r2 - r * r, 0.0))
+    a = np.arange(num_carriers)
+    rf = 1.0 / (1.0 + 1j * 2 * np.pi * trms[:, None, None] / num_carriers
+                * (a[:, None] - a[None, :]))                   # (B, C, C)
+    sig2 = 10.0 ** (-np.asarray(snr_db, np.float64) / 10.0)   # (B, R)
+    rpp = rf[:, None] + sig2[:, :, None, None] * np.eye(num_carriers)
+    x = np.linalg.solve(rpp, np.moveaxis(np.asarray(h, np.complex128), -1, 1))
+    return np.moveaxis(rf[:, None] @ x, 1, -1)
+
+
+def sounding_phase(cfg, dev, counted, require_launched, pred) -> dict:
+    """Phase 5h: the sounding path at the width of cfg on the card: (a)
+    the OFDM round trip; (b) the LS forms on SOUND_PACKETS sounded
+    packets, and kernel 4 on the same rx; (c) every LMMSE form against a
+    float64 solve; (d) generate_dataset (GEN_PACKETS, chunk GEN_CHUNK, 10
+    dB, CG labels): finite, its SNR, LMMSE below LS, the same at half the
+    chunk, packet regeneration, the CPU port from the same draws and from
+    the same realization, a synchronous fetch; (e) the nf and sinr
+    receivers and the two CDL models against the CPU; (f) the corpus's
+    planes through estimate_full, counted; (g) run_gen_bench, short.
+    Returns the numbers."""
+    import torch
+
+    from mamimo_tpu_torch.bench import run_gen_bench
+    from mamimo_tpu_torch.channel.scattering import make_scenario
+    from mamimo_tpu_torch.ops.estimate import (
+        lmmse_estimate,
+        lmmse_estimate_cg,
+        lmmse_estimate_chunked,
+        lmmse_estimate_direct,
+        lmmse_estimate_eig,
+        ls_estimate,
+        ls_estimate_matmul,
+        ls_estimate_rxmajor,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        ls_estimate_pallas,
+        ls_sm90_constants,
+    )
+    from mamimo_tpu_torch.ops.ofdm import ofdm_demodulate, ofdm_modulate
+    from mamimo_tpu_torch.pipeline.dataset import (
+        generate_dataset,
+        packet_generator,
+        scenario_generator,
+    )
+    from mamimo_tpu_torch.pipeline.sounding import (
+        channel_from_draws,
+        draw_sounding,
+        sound_from_draws,
+        sound_realization,
+    )
+    from mamimo_tpu_torch.utils.numerics import fetch_tree
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    nt, nr, C = cfg.num_tx, cfg.num_rx, cfg.num_carriers
+    g = torch.Generator(device=dev).manual_seed(51)
+    out = {}
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device=dev),
+                             torch.randn(shape, generator=g, device=dev))
+
+    def rel(a, b):
+        a, b = (np.asarray(to_np(x) if hasattr(x, "detach") else x,
+                           np.complex128) for x in (a, b))
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def on(tree, d):
+        return type(tree)(*(None if t is None else t.to(d) for t in tree))
+
+    # (a) OFDM round trip
+    data = crandn(SOUND_PACKETS, C, nt, nr)
+    sig = ofdm_modulate(cfg, data)
+    back, _ = ofdm_demodulate(cfg, sig)
+    out["ofdm_round_trip_rel"] = rel(back, data)
+    print(f"[5h sounding] OFDM round trip {tuple(data.shape)} -> "
+          f"{tuple(sig.shape)} -> back: rel err "
+          f"{out['ofdm_round_trip_rel']:.3e} (limit 1e-6)")
+    if not out["ofdm_round_trip_rel"] <= 1e-6:
+        raise AssertionError(f"OFDM round trip: {out['ofdm_round_trip_rel']}")
+
+    # (b) the LS forms on sounded packets
+    scen = make_scenario(cfg, scenario_generator(GEN_SEED, dev))
+    draws = draw_sounding(cfg, [packet_generator(GEN_SEED, p, dev)
+                                for p in range(SOUND_PACKETS)])
+    res, chan = sound_from_draws(cfg, scen, draws, 10.0)
+    rx = res.rx
+    grid, _ = ofdm_demodulate(cfg, rx, nsym=nt)
+    h_fft = ls_estimate(cfg, grid)
+    out["ls"] = {
+        "matmul": check("ls_estimate(ofdm_demodulate(rx)) vs "
+                        "ls_estimate_matmul", h_fft,
+                        ls_estimate_matmul(cfg, rx), -100.0),
+        "rxmajor": check("ls_estimate(ofdm_demodulate(rx)) vs "
+                         "ls_estimate_rxmajor", h_fft, ls_estimate_rxmajor(
+                             cfg, rx.transpose(1, 2).contiguous())
+                         .permute(0, 3, 2, 1), -100.0),
+        "ls_pair_kernel": check(
+            "ls_estimate(ofdm_demodulate(rx)) vs ls_estimate_pallas "
+            "(kernel 4)", h_fft, ls_estimate_pallas(
+                cfg, rx, consts=ls_sm90_constants(cfg, dev)), -50.0)}
+
+    # (c) every LMMSE form against a float64 solve, unit-scale h on the
+    # sounded packets' delays
+    h = crandn(SOUND_PACKETS, C, nt, nr)
+    tau = res.tau
+    forms = {"dense": lmmse_estimate, "direct": lmmse_estimate_direct,
+             "eig": lmmse_estimate_eig,
+             "chunked": lambda *a: lmmse_estimate_chunked(*a, chunk=32),
+             "cg": lmmse_estimate_cg}
+    out["lmmse"] = {}
+    for snr in (-10.0, 0.0, 20.0):
+        s = torch.full((SOUND_PACKETS, nr), snr, device=dev)
+        ref = lmmse_f64(C, to_np(h), to_np(tau), to_np(s))
+        scale = np.abs(ref).max()
+        for name, fn in forms.items():
+            err = float(np.abs(to_np(fn(cfg, h, tau, s)) - ref).max())
+            lim = 2e-3 if name == "cg" else 2e-4 * scale
+            out["lmmse"][f"{name} {snr:g} dB"] = err
+            print(f"  lmmse {name} at {snr:g} dB vs float64 solve: max|err| "
+                  f"{err:.3e} (limit {lim:.3e}; max|ref| {scale:.3f})")
+            if not err <= lim:
+                raise AssertionError(f"lmmse {name} at {snr} dB: {err}")
+    for snr, lim in ((30.0, 2e-3), (40.0, 8e-3), (120.0, 3e-3)):
+        s = torch.full((SOUND_PACKETS, nr), snr, device=dev)
+        err = float((lmmse_estimate_cg(cfg, h, tau, s)
+                     - lmmse_estimate_direct(cfg, h, tau, s)).abs().max())
+        out["lmmse"][f"cg vs direct {snr:g} dB"] = err
+        print(f"  lmmse cg vs direct at {snr:g} dB: max|err| {err:.3e} "
+              f"(limit {lim})")
+        if not err <= lim:
+            raise AssertionError(f"lmmse cg at {snr} dB: {err}")
+
+    # (d) generate_dataset on the card
+    kw = dict(with_mmse=True, device=dev)
+    ds = generate_dataset(cfg, GEN_SEED, GEN_PACKETS, 10.0, chunk=GEN_CHUNK,
+                          **kw)
+    arrays = ("rx", "h_ls", "h_perfect", "h_mmse", "snr_cs", "noise_db",
+              "tau", "chan_delay")
+    bad = [f for f in arrays if not np.isfinite(getattr(ds, f)).all()]
+    ls_db = nmse_db(ds.h_ls, ds.h_perfect)
+    mmse_db = nmse_db(ds.h_mmse, ds.h_perfect)
+    snr_mean = float(ds.snr_cs.mean())
+    out["gen"] = {"snr_cs_mean": snr_mean, "ls_nmse_db": ls_db,
+                  "mmse_nmse_db": mmse_db}
+    print(f"  generate_dataset({GEN_PACKETS} packets, chunk {GEN_CHUNK}, 10 "
+          f"dB, CG labels) on the card: rx {ds.rx.shape}; realized SNR "
+          f"{snr_mean:.3f} dB; NMSE vs h_perfect: LS {ls_db:.2f} dB, LMMSE "
+          f"{mmse_db:.2f} dB; non-finite: {bad}")
+    if bad or abs(snr_mean - 10.0) > 1.0 or not mmse_db < ls_db:
+        raise AssertionError(f"generate_dataset: {out['gen']}, {bad}")
+    half = generate_dataset(cfg, GEN_SEED, GEN_PACKETS, 10.0,
+                            chunk=GEN_CHUNK // 2, **kw)
+    split = draw_sounding(cfg, [packet_generator(GEN_SEED, p, dev)
+                                for p in range(GEN_CHUNK // 2)])
+    whole = draw_sounding(cfg, [packet_generator(GEN_SEED, p, dev)
+                                for p in range(GEN_CHUNK)])
+    same = all(torch.equal(a, b[:GEN_CHUNK // 2]) for a, b in
+               zip(split, whole) if a is not None)
+    half_db = {f: nmse_db(getattr(half, f), getattr(ds, f)) for f in arrays}
+    worst = max(half_db.values())
+    print(f"  chunk {GEN_CHUNK // 2} against chunk {GEN_CHUNK}: draws "
+          f"{'identical' if same else 'DIFFER'}; worst array {worst:.2f} dB "
+          f"(limit -100)")
+    if not same or not worst <= -100.0:
+        raise AssertionError(f"chunk size changed the dataset: {half_db}")
+    p_re = GEN_PACKETS - 1 - GEN_PACKETS // 3
+    regen, _ = sound_from_draws(
+        cfg, ds.scenario, draw_sounding(cfg, [ds.packet_generator(p_re)]),
+        10.0, with_mmse=True)
+    re_db = max(nmse_db(to_np(getattr(regen, f)[0]), getattr(ds, f)[p_re])
+                for f in arrays)
+    print(f"  packet {p_re} regenerated alone by packet_generator: worst "
+          f"array {re_db:.2f} dB (limit -100)")
+    if not re_db <= -100.0:
+        raise AssertionError(f"packet {p_re} regenerated at {re_db} dB")
+
+    def card_vs_cpu(c, draws_c, tag, rows=None, **skw):
+        """The card's sounding of draws_c against the CPU port's, from the
+        same draws (2e-2 relative, the phase amplification) and from the
+        card's own realization (-80 dB). rows: the card's result to hold
+        (default: sounded here)."""
+        scen_c = make_scenario(c, scenario_generator(GEN_SEED, dev))
+        chan_c = channel_from_draws(c, scen_c, draws_c)
+        if rows is None:
+            rows = {f: to_np(v) for f, v in sound_realization(
+                c, scen_c, chan_c, draws_c, 10.0, **skw)._asdict().items()}
+        scen_h, draws_h = on(scen_c, cpu), on(draws_c, cpu)
+        res_d, _ = sound_from_draws(c, scen_h, draws_h, 10.0, **skw)
+        res_r = sound_realization(c, scen_h, on(chan_c, cpu), draws_h,
+                                  10.0, **skw)
+        r = {"same_draws_rel": {f: rel(getattr(res_d, f), rows[f])
+                                for f in ("rx", "h_ls", "h_perfect",
+                                          "h_mmse")},
+             "same_realization_db": {f: nmse_db(to_np(getattr(res_r, f)),
+                                                rows[f])
+                                     for f in ("rx", "h_ls", "h_perfect",
+                                               "h_mmse", "snr_cs",
+                                               "noise_db")}}
+        wd = max(r["same_draws_rel"].values())
+        wr = max(r["same_realization_db"].values())
+        r["same_realization_db"] = {k: finite(v) for k, v in
+                                    r["same_realization_db"].items()}
+        print(f"  {tag}: card vs CPU port, same draws worst rel {wd:.3e} "
+              f"(limit 2e-2), same realization worst {wr:.2f} dB (limit "
+              f"-80)")
+        if not (wd <= 2e-2 and wr <= -80.0):
+            raise AssertionError(f"{tag}: card vs CPU {r}")
+        return r
+
+    d4 = draw_sounding(cfg, [packet_generator(GEN_SEED, p, dev)
+                             for p in range(4)])
+    out["gen"]["vs_cpu"] = card_vs_cpu(
+        cfg, d4, f"generate_dataset packets 0-3", with_mmse=True,
+        rows={f: getattr(ds, f)[:4] for f in arrays})
+    res0, _ = sound_from_draws(cfg, ds.scenario, whole, 10.0, with_mmse=True)
+    sync = fetch_tree(res0)._asdict()
+    sync_db = max(nmse_db(sync[f], getattr(ds, f)[:GEN_CHUNK])
+                  for f in arrays)
+    exact = all(np.array_equal(sync[f], getattr(ds, f)[:GEN_CHUNK])
+                for f in arrays)
+    out["gen"]["sync_fetch_worst_db"] = finite(sync_db)
+    print(f"  chunk 0 fetched synchronously (fetch_tree) against the "
+          f"overlapped fetch: "
+          f"worst array {sync_db:.2f} dB (limit -100), "
+          f"{'bit-identical' if exact else 'not bit-identical'}")
+    if not sync_db <= -100.0:
+        raise AssertionError(f"the overlapped fetch differs: {sync_db} dB")
+
+    # (e) the other receivers and the CDL models, 8 packets each
+    out["modes"] = {}
+    for tag, ckw, mode in (("nf", {}, "nf"), ("sinr", {}, "sinr"),
+                           ("cdl_nlos", {"channel_model": "cdl_nlos"}, "snr"),
+                           ("cdl_los", {"channel_model": "cdl_los"}, "snr")):
+        c = cfg.replace(**ckw)
+        d8 = generate_dataset(c, GEN_SEED, 8, 10.0, noise_mode=mode, chunk=8,
+                              **kw)
+        bad = [f for f in arrays if not np.isfinite(getattr(d8, f)).all()]
+        print(f"  generate_dataset {tag} (8 packets): realized SNR "
+              f"{float(d8.snr_cs.mean()):.2f} dB, LS NMSE "
+              f"{nmse_db(d8.h_ls, d8.h_perfect):.2f} dB, non-finite: {bad}")
+        if bad:
+            raise AssertionError(f"{tag}: non-finite {bad}")
+        out["modes"][tag] = card_vs_cpu(
+            c, draw_sounding(c, [packet_generator(GEN_SEED, p, dev)
+                                 for p in range(8)], mode), tag,
+            with_mmse=True, noise_mode=mode)
+
+    # (f) the corpus through the serving call, counted
+    planes = ds.rx_planes()
+    (f_ls, _), cnt = counted(lambda: pred.estimate_full(planes))
+    print(f"  estimate_full on the corpus's planes {planes.shape}")
+    require_launched("estimate_full (generated corpus)", cnt,
+                     ("ls_planes_v2", "factored_sig_proj", "factored_tail"))
+    once = {k: cnt[k] for k in ("ls_planes_v2", "factored_sig_proj",
+                                "factored_tail")}
+    if set(once.values()) != {1}:
+        raise AssertionError(f"estimate_full launched {once}, want 1 each")
+    want_ls = ds.h_ls.transpose(0, 3, 2, 1).reshape(f_ls.shape)
+    out["estimate_full_ls"] = check(
+        "estimate_full LS on the corpus vs its h_ls", torch.from_numpy(f_ls),
+        torch.from_numpy(want_ls), -50.0)
+    out["estimate_full_launches"] = cnt
+
+    # (g) the generation bench, short
+    short = run_gen_bench(num_packets=GEN_PACKETS, chunk=GEN_CHUNK,
+                          print_result=False)
+    modes = short["extra"]["modes"]
+    print(f"  run_gen_bench({GEN_PACKETS} packets, chunk {GEN_CHUNK}): "
+          + ", ".join(f"{k} {v['packets_per_s']:.1f}" for k, v in
+                      modes.items()) + " packets/s")
+    if tuple(modes) != ("ls", "ls_bf16fetch", "lmmse", "device_sounding") \
+            or not all(v["packets_per_s"] > 0 for v in modes.values()):
+        raise AssertionError(f"run_gen_bench gave {modes}")
+    out["gen_bench_short"] = short
+    print(f"  phase 5h: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def sounding_timing(cfg, dev, smi, planes) -> dict:
+    """Phase 6, the sounding path: run_gen_bench's line (512 packets, chunk
+    64); one generate_dataset call of GEN_PACKETS in the 'ls' and 'lmmse'
+    modes, host time (median of 3) beside its traced device-busy time and
+    idle share; one chunk of GEN_CHUNK through sound_from_draws traced
+    (its largest kernels); each LMMSE form at SOUND_PACKETS packets (CUDA
+    events); the bench path ls_fft on ``planes`` (the bench shape)."""
+    import torch
+
+    from mamimo_tpu_torch.bench import _planes_to_time_major, run_gen_bench
+    from mamimo_tpu_torch.channel.scattering import make_scenario
+    from mamimo_tpu_torch.ops.estimate import (
+        lmmse_estimate,
+        lmmse_estimate_cg,
+        lmmse_estimate_chunked,
+        lmmse_estimate_direct,
+        lmmse_estimate_eig,
+    )
+    from mamimo_tpu_torch.pipeline.dataset import (
+        generate_dataset,
+        packet_generator,
+        scenario_generator,
+    )
+    from mamimo_tpu_torch.pipeline.sounding import (
+        draw_sounding,
+        estimate_from_rx,
+        sound_from_draws,
+    )
+
+    t0 = time.perf_counter()
+    out = {"line": run_gen_bench(print_result=False)}
+    for k, v in out["line"]["extra"]["modes"].items():
+        print(f"  run_gen_bench {k}: {v['packets_per_s']:.2f} packets/s "
+              f"({v['estimates_per_s']:.6g} estimates/s), 512 packets in "
+              f"{v['wall_s']:.4f} s  [{smi}]")
+    out["calls"] = {}
+    for mode, kw in (("ls", {}), ("lmmse", {"with_mmse": True})):
+        fn = lambda kw=kw: generate_dataset(  # noqa: E731
+            cfg, 9, GEN_PACKETS, 0.0, chunk=GEN_CHUNK, device=dev, **kw)
+        host = host_ms(fn, iters=1, batches=3, warmup=1)
+        per, kernels, aten = trace_call(fn)
+        busy = sum(per.values()) if per else None
+        top = sorted(((v, n) for n, v in per.items()), reverse=True)[:5]
+        out["calls"][mode] = {"host_ms": host, "busy_ms": busy,
+                              "idle_share": (1 - busy / host) if busy
+                              else None, "kernels": kernels, "aten": aten,
+                              "packets_per_s": GEN_PACKETS / host * 1e3,
+                              "top_kernels_ms": {n: v for v, n in top}}
+        print(f"  generate_dataset {mode}, {GEN_PACKETS} packets: host "
+              f"{host:.3f} ms ({GEN_PACKETS / host * 1e3:.1f} packets/s), "
+              f"traced busy " + (f"{busy:.3f} ms, idle "
+                                 f"{(1 - busy / host) * 100:.1f}%" if busy
+                                 else "not traced")
+              + f"; {kernels} kernels, {aten} aten calls; largest: "
+              + ", ".join(f"{n[:50]} {v:.3f}" for v, n in top)
+              + f"  [{smi}]")
+    scen = make_scenario(cfg, scenario_generator(GEN_SEED, dev))
+    draws = draw_sounding(cfg, [packet_generator(GEN_SEED, p, dev)
+                                for p in range(GEN_CHUNK)])
+    for mode, kw in (("ls", {}), ("lmmse", {"with_mmse": True})):
+        fn = lambda kw=kw: sound_from_draws(  # noqa: E731
+            cfg, scen, draws, 0.0, **kw)
+        host = host_ms(fn, iters=3, batches=3, warmup=1)
+        per, kernels, aten = trace_call(fn)
+        busy = sum(per.values()) if per else None
+        top = sorted(((v, n) for n, v in per.items()), reverse=True)[:6]
+        out["calls"][f"chunk {mode}"] = {
+            "host_ms": host, "busy_ms": busy, "kernels": kernels,
+            "aten": aten, "top_kernels_ms": {n: v for v, n in top}}
+        print(f"  sound_from_draws, one chunk of {GEN_CHUNK} ({mode}): host "
+              f"{host:.3f} ms, traced busy "
+              + (f"{busy:.3f} ms" if busy else "not traced")
+              + f"; {kernels} kernels, {aten} aten calls; largest: "
+              + ", ".join(f"{n[:50]} {v:.4f}" for v, n in top)
+              + f"  [{smi}]")
+    res, _ = sound_from_draws(cfg, scen, draws, 0.0)
+    g = torch.Generator(device=dev).manual_seed(52)
+    h = torch.complex(*(torch.randn((GEN_CHUNK, cfg.num_carriers, cfg.num_tx,
+                                     cfg.num_rx), generator=g, device=dev)
+                        for _ in range(2)))
+    s = torch.zeros((GEN_CHUNK, cfg.num_rx), device=dev)
+    out["lmmse_ms"] = {}
+    for name, fn in (("dense", lmmse_estimate), ("direct",
+                                                 lmmse_estimate_direct),
+                     ("eig", lmmse_estimate_eig),
+                     ("chunked", lambda *a: lmmse_estimate_chunked(
+                         *a, chunk=32)), ("cg", lmmse_estimate_cg)):
+        ms = time_ms(lambda fn=fn: fn(cfg, h, res.tau, s), iters=3, warmup=1)
+        out["lmmse_ms"][name] = ms
+        print(f"  lmmse {name}, {GEN_CHUNK} packets x {cfg.num_rx} antennas "
+              f"x {cfg.num_tx} streams, 0 dB: {ms:.4f} ms  [{smi}]")
+    nr = cfg.num_rx
+    out["ls_fft_ms"] = time_ms(lambda: estimate_from_rx(
+        cfg, _planes_to_time_major(planes, nr))[0], iters=10)
+    n_est = planes.shape[1] * cfg.num_tx
+    print(f"  bench path ls_fft at {planes.shape[1] // nr} packets: "
+          f"{out['ls_fft_ms']:.4f} ms, {n_est / out['ls_fft_ms'] * 1e3:.6g} "
+          f"estimates/s  [{smi}]")
+    print(f"  sounding timing: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1498,12 +1922,16 @@ def main() -> int:
     print(f"  run_bench(64 packets, 2 calls a window): "
           f"{time.perf_counter() - t_rb:.1f} s, {len(eps)} paths, value "
           f"{short['value']:.6g} estimates/s by {short['extra']['best_path']}"
-          f", device {short['extra']['device']}")
-    if len(eps) != 15 or not all(v > 0 for v in eps.values()):
+          f", ls_fft {eps.get('ls_fft', 0):.6g} estimates/s, device "
+          f"{short['extra']['device']}")
+    if len(eps) != 16 or not all(v > 0 for v in eps.values()):
         raise AssertionError(f"run_bench gave {len(eps)} paths: {eps}")
 
     # 5g. the training step at the full BS32 width -----------------------
     train = train_phase(cfg, dev, counted)
+
+    # 5h. the sounding path: OFDM, LS forms, LMMSE, generate_dataset ------
+    sound = sounding_phase(cfg, dev, counted, require_launched, pred)
 
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
@@ -1891,6 +2319,7 @@ def main() -> int:
                  "ls_seq_allreduce_ms": allreduce_ms,
                  "ls_seq_complex_ms": complex_ms}
     train["rows"] = train_timing(cfg, train.pop("data"), smi)
+    sound["timing"] = sounding_timing(cfg, dev, smi, xb32)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "serving": {
@@ -1923,6 +2352,7 @@ def main() -> int:
             "errors": {k: finite(v) if v is not None else None
                        for k, v in seq_err.items()}},
         "train": train,
+        "sounding": sound,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

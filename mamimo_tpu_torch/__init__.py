@@ -9,8 +9,10 @@ first use into ``_build/`` and bound through ``ctypes``.
 - ``config``            : SimConfig / TrainConfig (same fields and JSON),
                           ``default_fft_size``
 - ``ops.ltf``           : LTF sequence, Hadamard P, sounding preamble
-- ``ops.estimate``      : LS estimate from flat planes and from
-                          time-major preambles (plain versions)
+- ``ops.ofdm``          : OFDM grid, modulation and demodulation
+- ``ops.estimate``      : the LS estimate in its FFT, time-major,
+                          rx-major and flat-planes forms (plain
+                          versions), and the five LMMSE forms
 - ``ops.kernels``       : kernel wrappers (LS v2, v1 and per pair, fused
                           factored DNN, fused MLP on the materialized
                           input, int8 GEMM); the halo-exchange kernel's
@@ -20,20 +22,25 @@ first use into ``_build/`` and bound through ``ctypes``.
                           (``models.quant``) and ``CSIPredictor``
 - ``bench``             : the TPU bench's estimation paths,
                           ``run_bench`` (``python3 -m
-                          mamimo_tpu_torch.bench``) and
-                          ``run_train_bench`` (``... --train``)
+                          mamimo_tpu_torch.bench``),
+                          ``run_train_bench`` (``... --train``) and
+                          ``run_gen_bench`` (``... --gen``)
 - ``entry``             : the serving step of ``__graft_entry__.py``
 - ``train.ckpt``        : npz checkpoints with the optimizer state,
                           interchangeable with the JAX package's
 - ``train.loop``        : the training step in array form (Adam
                           scaling, the AWGN batch update, the in-gather
                           step and its multi-step form)
-- ``channel.scattering``: the single-bounce scattering channel
-- ``pipeline.sounding`` : ``pad_signal`` (the sounding loop is not ported)
+- ``channel``           : the single-bounce scattering channel, the CDL
+                          channel and the receiver noise chains
+- ``pipeline``          : the sounding of a batch of packets
+                          (``sounding``) and single-user dataset
+                          generation (``dataset``)
 - ``parallel``          : meshes of torch devices, the sequence-parallel
                           channel convolution with its halo-exchange
                           kernel, the sharded LS and DNN inference forms
-- ``utils.numerics``    : ``unit_phasor``, ``full_f32_matmul``
+- ``utils.numerics``    : ``unit_phasor``, the precision of products,
+                          device-to-host copies
 """
 
 __version__ = "0.1.0"

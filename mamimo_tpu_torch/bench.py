@@ -33,8 +33,8 @@ parameters (the port's stacked float32 parameters):
   and the fused factored DNN kernels' output cast to bf16. The headline
   path, ``pallas_ls_v2_serving_r3``.
 
-``bench_paths`` names the 15 paths ``run_bench`` times (JAX's ``ls_fft``
-waits for the OFDM slice, ROADMAP.md §1.3) with the options of each.
+``bench_paths`` names the 16 paths ``run_bench`` times with the options
+of each.
 
 The JAX module's timing harness (``_chained_step``,
 ``_chained_step_invariant``, ``_perturb``, ``_abs_sum``, the ``unroll``
@@ -47,6 +47,8 @@ back-to-back calls time the work itself (``_time_fn``).
 ``run_train_bench`` is the training half (``python3 -m
 mamimo_tpu_torch.bench --train``): optimizer steps per second and achieved
 TFLOP/s of ``train/loop.py::make_train_step``'s multi-step call.
+``run_gen_bench`` is the data-generation half (``... --gen``): packets
+per second of ``pipeline/dataset.py::generate_dataset``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ import time
 
 import torch
 
+from mamimo_tpu_torch.channel.scattering import make_scenario
 from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models.mlp import (
     init_stacked,
@@ -97,7 +100,17 @@ from mamimo_tpu_torch.ops.kernels.mlp_infer import (
     mlp_infer_pallas,
     prepare_mlp_infer_weights,
 )
-from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
+from mamimo_tpu_torch.ops.ltf import gen_preamble, pilot_p_matrix
+from mamimo_tpu_torch.pipeline.dataset import (
+    generate_dataset,
+    packet_generator,
+    scenario_generator,
+)
+from mamimo_tpu_torch.pipeline.sounding import (
+    draw_sounding,
+    estimate_from_rx,
+    sound_from_draws,
+)
 from mamimo_tpu_torch.train.loop import make_optimizer, make_train_step
 from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
@@ -391,7 +404,7 @@ def bench_paths(cfg: SimConfig, tcfg: TrainConfig, params, bn_state):
     bf16_input)}, fn taking the flat planes (2, S, len_ltf), float32 or,
     with bf16_input, bfloat16, on the device of ``params``. The JAX
     bench's paths (``mamimo_tpu/bench.py:822-968``) without ``noop``
-    (the TPU's dispatch floor) and ``ls_fft`` (the OFDM slice)."""
+    (the TPU's dispatch floor)."""
     dev = params["out"]["w"].device
     nr = cfg.num_rx
     lsc = ls_matmul_constants(cfg, device=dev)
@@ -426,6 +439,8 @@ def bench_paths(cfg: SimConfig, tcfg: TrainConfig, params, bn_state):
     paths["xla_planes_bf16in"] = (planes_fn(input_bf16=True), True)
     paths["xla_timemajor_bf16"] = (timemajor_bf16, False)
     paths["ls_planes"] = (ls_planes, False)
+    paths["ls_fft"] = (lambda planes: estimate_from_rx(
+        cfg, _planes_to_time_major(planes, nr))[0], False)
     paths["ls_matmul"] = (ls_matmul, False)
     paths["pallas_factored"] = (make_estimation_fn_pallas_factored(
         cfg, tcfg, params, bn_state), False)
@@ -789,24 +804,108 @@ def run_train_bench(batch_sizes=(256, 1024), steps_per_call: int = 16,
     return out
 
 
+def run_gen_bench(num_packets: int = 512, chunk: int = 64,
+                  print_result: bool = True, device=None) -> dict:
+    """Dataset-generation throughput: packets/s of the sounding pipeline
+    on the card (the reference's hot loop, generate_maMIMO_LTF.m:197-366,
+    which it runs one packet per MATLAB iteration), the JAX
+    ``run_gen_bench``'s one line.
+
+    Modes, each a whole ``generate_dataset`` call at 0 dB including the
+    copy of the corpus to host memory (the reference likewise pays the
+    .mat write), timed on the host clock after a warm-up call of 2·chunk
+    packets: sounding only ('ls'), the same with the bf16 fetch
+    ('ls_bf16fetch'), and with the CG LMMSE labels ('lmmse'). JAX's
+    'with_ber' mode (the data-transmission leg) waits for the closed-loop
+    slice (ROADMAP.md §1.6). 'device_sounding': num_packets // chunk
+    chunks sounded back to back from fresh generators, no corpus copy,
+    one float32 scalar fetch closing the window, which separates the
+    card's sounding rate from the fetch pipeline's. ``BENCH_NT`` /
+    ``BENCH_NR`` select the configuration (default BS32).
+
+    Args:
+      device: where it runs; None means cuda:0, and raises without a CUDA
+        device (the tests pass "cpu", whose times are host times).
+
+    Returns ``{"metric": "gen_packets_per_s", "value" (the 'ls' mode),
+    "unit", "extra": {"device", "num_packets", "chunk", "config",
+    "modes"}}``, each mode ``{"wall_s", "packets_per_s",
+    "estimates_per_s"}``, unrounded.
+    """
+    dev = resolve_device("cuda:0" if device is None else device)
+    cfg = SimConfig(num_tx=int(os.environ.get("BENCH_NT", "32")),
+                    num_rx=int(os.environ.get("BENCH_NR", "4")))
+    per_pkt = cfg.num_tx * cfg.num_rx
+    modes = {"ls": {}, "ls_bf16fetch": {"fetch_dtype": "bf16"},
+             "lmmse": {"with_mmse": True}}
+    results = {}
+
+    def rates(n, dt):
+        return {"wall_s": dt, "packets_per_s": n / dt,
+                "estimates_per_s": n * per_pkt / dt}
+
+    for name, kw in modes.items():
+        generate_dataset(cfg, seed=1, num_packets=2 * chunk, snr_db=0.0,
+                         chunk=chunk, device=dev, **kw)         # warm-up
+        t0 = time.perf_counter()
+        ds = generate_dataset(cfg, seed=2, num_packets=num_packets,
+                              snr_db=0.0, chunk=chunk, device=dev, **kw)
+        dt = time.perf_counter() - t0
+        if ds.num_packets != num_packets:
+            raise RuntimeError(f"{name}: {ds.num_packets} packets, want "
+                               f"{num_packets}")
+        results[name] = rates(num_packets, dt)
+
+    scen = make_scenario(cfg, scenario_generator(0, dev))
+    pre = torch.as_tensor(gen_preamble(cfg, cfg.num_tx), device=dev)
+    n_chunks = max(1, num_packets // chunk)
+
+    def run(seed0):
+        acc = None
+        for i in range(n_chunks):
+            gens = [packet_generator(seed0 + i, p, dev) for p in range(chunk)]
+            res, _ = sound_from_draws(cfg, scen, draw_sounding(cfg, gens),
+                                      0.0, preamble=pre)
+            s = res.snr_cs.sum()
+            acc = s if acc is None else acc + s
+        return float(acc)
+
+    run(100)                                              # warm-up
+    t0 = time.perf_counter()
+    run(200)
+    results["device_sounding"] = rates(n_chunks * chunk,
+                                       time.perf_counter() - t0)
+    out = {
+        "metric": "gen_packets_per_s",
+        "value": results["ls"]["packets_per_s"],
+        "unit": "packets/s",
+        "extra": {"device": _card_name(dev), "num_packets": num_packets,
+                  "chunk": chunk, "config": f"BS{cfg.num_tx}",
+                  "modes": results},
+    }
+    if print_result:
+        print(json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     """``python3 -m mamimo_tpu_torch.bench``: the root ``bench.py`` on the
     card. With ``--train`` its training branch, ``run_train_bench``'s one
-    line on stdout. Otherwise the inference branch: batches
+    line on stdout; with ``--gen`` its data-generation branch,
+    ``run_gen_bench``'s. Otherwise the inference branch: batches
     ``BENCH_BATCH`` packets, else 256 and 1024; ``BENCH_ITERS`` calls a
     window (default 20); each batch's line on stderr and the best batch's
-    line as the one line of stdout. ``--gen`` and no CUDA device exit 2
-    with nothing on stdout."""
+    line as the one line of stdout. No CUDA device: exit 2 with nothing
+    on stdout."""
     argv = sys.argv[1:] if argv is None else argv
-    if "--gen" in argv:
-        print("bench: --gen comes with the data-generation slice of the "
-              "port (ROADMAP.md); nothing was run", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("bench: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     if "--train" in argv:
         run_train_bench()
+        return 0
+    if "--gen" in argv:
+        run_gen_bench()
         return 0
     iters = int(os.environ.get("BENCH_ITERS", "20"))
     if os.environ.get("BENCH_BATCH"):

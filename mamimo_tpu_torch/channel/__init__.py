@@ -1,3 +1,3 @@
-"""Channel models (the port's copy of ``mamimo_tpu/channel``): so far the
-single-bounce scattering channel, ``channel.scattering``. The CDL model
-and the receiver noise chains wait for the data-generation slice."""
+"""Channel models (the port's copy of ``mamimo_tpu/channel``): the
+single-bounce scattering channel (``scattering``), the clustered delay
+line (``cdl``) and the receiver noise chains (``noise``)."""

@@ -14,11 +14,15 @@ Random draws come from an explicit ``torch.Generator`` in place of a JAX
 key. The two give different numbers for the same seed, so the
 realization math is also exposed on given draws (``scenario_from_draws``,
 ``scattering_from_draws``), which the tests feed with the JAX package's
-draws. Every float32 operation runs in the JAX package's order. The
-carrier phase ``unit_phasor(−d/λ)`` turns one float32 ulp of a 1 km path
-(about 6e-5 m) into about 0.006 cycles, so the phase of ``cr`` agrees
-with JAX only to a few ulp(d)/λ, never bit for bit; it stays float32 as
-in JAX (float64 would move it further from the reference).
+draws. Every float32 operation runs in the JAX package's order, and the
+path lengths with the fused multiply-adds of XLA's compiled code
+(``fma32``: the scatterer positions and the norms' sums of squares), as
+JAX computes them under ``jit`` (``generate_dataset``). The carrier
+phase ``unit_phasor(−d/λ)`` turns one float32 ulp of a 1 km path (about
+6e-5 m) into about 0.006 cycles: one rounding more or less in d (JAX
+eager against JAX jit) moves ``cr`` by about 1e-2 relative, so d is
+computed in JAX's roundings; it stays float32 as in JAX (float64 would
+move it further from the reference).
 
 The channel is applied in the frequency domain (``apply_channel``): each
 path's fractional delay is an exact phase ramp over a zero-padded FFT.
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from mamimo_tpu_torch.config import SimConfig
-from mamimo_tpu_torch.utils.numerics import full_f32_matmul, unit_phasor
+from mamimo_tpu_torch.utils.numerics import fma32, full_f32_matmul, unit_phasor
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -193,37 +197,48 @@ def make_scenario(cfg: SimConfig, gen: torch.Generator) -> Scenario:
     return scenario_from_draws(cfg, rng, az, el, gen.device)
 
 
-def _norm0(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over axis 0, as sqrt(Σ x²) in float32."""
-    return torch.sqrt(torch.sum(x * x, dim=0))
+def _norm(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Euclidean norm over ``dim`` (of size 3), in float32 as XLA's
+    compiled norm computes it: sqrt(fma(x2, x2, fma(x1, x1, x0·x0))),
+    the square root correctly rounded (through float64: torch's float32
+    sqrt on the CPU is not always)."""
+    x0, x1, x2 = x.unbind(dim)
+    return torch.sqrt(fma32(x2, x2, fma32(x1, x1, x0 * x0)).double()).float()
 
 
 def scattering_from_draws(cfg: SimConfig, scen: Scenario, u,
                           g) -> ChannelRealization:
-    """One packet's path responses for given draws: ``u`` (3, ns)
-    uniform in [−1, 1) places the scatterers in the box around the Rx,
-    ``g`` (2, ns) standard normal makes the CN(0, 1) gains."""
+    """The path responses for given draws: ``u`` (..., 3, ns) uniform in
+    [−1, 1) places the scatterers in the box around the Rx, ``g`` (..., 2,
+    ns) standard normal makes the CN(0, 1) gains. Leading dims (...) are
+    packets; the realization's tensors carry them (cr (..., Nt, Nr, ns),
+    tau (..., ns), chan_delay (...))."""
     dev = scen.rx_pos.device
     u, g = _f32(u, dev), _f32(g, dev)
     rad = scen.mobile_range * cfg.scat_radius_frac
-    scat = scen.rx_pos[:, None] + u * rad                       # (3, ns)
+    scat = fma32(u, rad, scen.rx_pos[:, None])                  # (..., 3, ns)
     g = g / math.sqrt(2.0)
-    gains = torch.complex(g[0], g[1])                           # CN(0,1)
+    gains = torch.complex(g[..., 0, :], g[..., 1, :])           # CN(0,1)
 
     # distances Tx element -> scatterer, scatterer -> Rx element
-    d_tx = _norm0(scat[:, None, :] - scen.tx_elem[:, :, None])  # (Nt, ns)
+    d_tx = _norm(scat[..., :, None, :] - scen.tx_elem[:, :, None],
+                 -3)                                            # (..., Nt, ns)
     rx_glob = scen.rx_pos[:, None] + scen.rx_elem               # (3, Nr)
-    d_rx = _norm0(scat[:, None, :] - rx_glob[:, :, None])       # (Nr, ns)
-    d = d_tx[:, None, :] + d_rx[None, :, :]                     # (Nt, Nr, ns)
+    d_rx = _norm(scat[..., :, None, :] - rx_glob[:, :, None],
+                 -3)                                            # (..., Nr, ns)
+    d = d_tx[..., :, None, :] + d_rx[..., None, :, :]           # (..., Nt, Nr, ns)
     amp = cfg.lam / (4.0 * math.pi * d)
-    # carrier phase with argument reduction (utils/numerics.py)
-    phase = unit_phasor(-d / cfg.lam)
-    cr = gains[None, None, :] * amp * phase
+    # carrier phase with argument reduction (utils/numerics.py); XLA's
+    # compiled code (and PyTorch's CUDA division by a scalar) divides by
+    # the constant λ as a product with its float32 reciprocal
+    phase = unit_phasor(-d * np.float32(1.0 / cfg.lam))
+    cr = gains[..., None, None, :] * amp * phase
 
     # reference-position path delays (tau output of helperApplyMUChannel)
-    d_ref = _norm0(scat) + _norm0(scat - scen.rx_pos[:, None])  # (ns,)
-    tau = d_ref / cfg.c_light
-    chan_delay = torch.floor(torch.min(tau) * cfg.chan_srate).to(torch.int32)
+    d_ref = _norm(scat, -2) + _norm(scat - scen.rx_pos[:, None], -2)
+    tau = d_ref / cfg.c_light                                   # (..., ns)
+    chan_delay = torch.floor(torch.amin(tau, dim=-1)
+                             * cfg.chan_srate).to(torch.int32)
     return ChannelRealization(cr, tau, chan_delay)
 
 
@@ -241,12 +256,12 @@ def realize_channel(cfg: SimConfig, gen: torch.Generator,
                     scen: Scenario) -> ChannelRealization:
     """Draw one packet's channel under ``cfg.channel_model``: 'scattering'
     and 'fir' share the one-ring realization (only the application
-    differs, ``apply_channel_model``). The CDL models are not ported."""
+    differs, ``apply_channel_model``); the CDL models ('cdl_nlos',
+    'cdl_los') draw ``channel/cdl.py::realize_cdl``."""
     if cfg.channel_model not in ("scattering", "fir"):
-        raise NotImplementedError(
-            f"channel_model {cfg.channel_model!r}: the CDL realization "
-            f"(channel/cdl.py) is not ported yet: it comes with the "
-            f"data-generation slice of ROADMAP.md")
+        from mamimo_tpu_torch.channel.cdl import realize_cdl
+
+        return realize_cdl(cfg, gen, scen)
     return realize_scattering(cfg, gen, scen)
 
 
@@ -264,28 +279,32 @@ def apply_channel(cfg: SimConfig, sig, chan: ChannelRealization,
     (fractional) path delay in samples. Products run in full float32.
 
     Args:
-      sig: (nsamp, num_tx) complex, zero-padded at the tail by at least
-        the largest path delay (``pipeline/sounding.py::pad_signal``), on
-        the realization's device.
+      sig: (..., nsamp, num_tx) complex, zero-padded at the tail by at
+        least the largest path delay (``pipeline/sounding.py::pad_signal``),
+        on the realization's device; one signal for every packet of a
+        realization with leading packet dims, or one per packet.
       fft_size: FFT length >= nsamp (+ delay headroom).
 
     Returns:
-      (nsamp, num_rx) complex64 faded signal.
+      (..., nsamp, num_rx) complex64 faded signal, with the realization's
+      leading dims. The frequency response is materialized: (..., F,
+      num_tx, num_rx) complex64, 16 MB a packet at BS32 (F = 16384).
     """
     sig = torch.as_tensor(sig).to(torch.complex64)
-    nsamp = sig.shape[0]
+    nsamp = sig.shape[-2]
     if fft_size < nsamp:
         raise ValueError(f"fft_size {fft_size} must cover the {nsamp}-sample "
                          f"padded signal")
-    delays = chan.tau * cfg.chan_srate                         # (ns,) samples
+    delays = chan.tau * cfg.chan_srate                         # (..., ns)
     k = torch.as_tensor(_signed_bins(fft_size), dtype=torch.float32,
                         device=delays.device)                  # (F,)
-    ramp = unit_phasor(-k[:, None] * delays[None, :] / fft_size)  # (F, ns)
+    ramp = unit_phasor(-k[:, None] * delays[..., None, :]
+                       / fft_size)                             # (..., F, ns)
     with full_f32_matmul():
-        hf = torch.einsum("mns,fs->fmn", chan.cr, ramp)        # (F, Nt, Nr)
-        xf = torch.fft.fft(sig, n=fft_size, dim=0)             # (F, Nt)
-        yf = torch.einsum("fm,fmn->fn", xf, hf)
-    return torch.fft.ifft(yf, dim=0)[:nsamp]
+        hf = torch.einsum("...mns,...fs->...fmn", chan.cr, ramp)
+        xf = torch.fft.fft(sig, n=fft_size, dim=-2)            # (..., F, Nt)
+        yf = torch.einsum("...fm,...fmn->...fn", xf, hf)
+    return torch.fft.ifft(yf, dim=-2)[..., :nsamp, :]
 
 
 def apply_channel_model(cfg: SimConfig, sig, chan: ChannelRealization,

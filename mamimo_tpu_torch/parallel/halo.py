@@ -30,34 +30,38 @@ from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 def channel_taps(cfg: SimConfig, chan: ChannelRealization,
                  n_taps: int = 512) -> torch.Tensor:
     """Impulse response h[d, m, n] = Σ_s cr(m,n,s)·sinc(d − τ_s·Fs),
-    (n_taps, num_tx, num_rx) complex64.
+    (..., n_taps, num_tx, num_rx) complex64 for a realization with
+    leading packet dims (...) or none.
 
     Full-length sinc interpolation (no window): on the sounding grid the
     reconstruction error is limited by the sinc tail beyond n_taps,
     which num_pad_zeros covers for the default geometry.
     """
-    delays = chan.tau * cfg.chan_srate                  # (ns,) samples
+    delays = chan.tau * cfg.chan_srate                  # (..., ns) samples
     d = torch.arange(n_taps, dtype=torch.float32, device=delays.device)
-    w = torch.sinc(d[None, :] - delays[:, None])        # (ns, n_taps)
+    w = torch.sinc(d - delays[..., None])               # (..., ns, n_taps)
     with full_f32_matmul():
-        return torch.einsum("mns,sd->dmn", chan.cr, w.to(torch.complex64))
+        return torch.einsum("...mns,...sd->...dmn", chan.cr,
+                            w.to(torch.complex64))
 
 
 def _fft_conv(x: torch.Tensor, taps: torch.Tensor, size: int):
-    """Circular convolution of x (n, Nt) with taps (T, Nt, Nr) over
-    ``size`` points, summed over Nt: (size, Nr) complex64."""
-    xf = torch.fft.fft(x, n=size, dim=0)
-    hf = torch.fft.fft(taps, n=size, dim=0)
+    """Circular convolution of x (..., n, Nt) with taps (..., T, Nt, Nr)
+    over ``size`` points, summed over Nt: (..., size, Nr) complex64."""
+    xf = torch.fft.fft(x, n=size, dim=-2)
+    hf = torch.fft.fft(taps, n=size, dim=-3)
     with full_f32_matmul():
-        yf = torch.einsum("fm,fmn->fn", xf, hf)
-    return torch.fft.ifft(yf, dim=0)
+        yf = torch.einsum("...fm,...fmn->...fn", xf, hf)
+    return torch.fft.ifft(yf, dim=-2)
 
 
 def apply_channel_taps(sig: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Unsharded linear convolution via FFT (the oracle of the sharded
-    forms). sig (N, Nt), taps (T, Nt, Nr) -> (N, Nr) complex64."""
-    n = sig.shape[0]
-    return _fft_conv(sig.to(torch.complex64), taps, n + taps.shape[0])[:n]
+    forms). sig (..., N, Nt), taps (..., T, Nt, Nr) -> (..., N, Nr)
+    complex64."""
+    n = sig.shape[-2]
+    return _fft_conv(sig.to(torch.complex64), taps,
+                     n + taps.shape[-3])[..., :n, :]
 
 
 def overlap_save(ext: torch.Tensor, taps: torch.Tensor, chunk: int,

@@ -1,2 +1,3 @@
-"""Channel-sounding pipeline (so far only ``sounding.pad_signal``; the
-rest of ``mamimo_tpu/pipeline`` waits for the data-generation slice)."""
+"""Channel-sounding pipeline (the port's copy of ``mamimo_tpu/pipeline``,
+single user): ``sounding`` (a batch of packets from their draws) and
+``dataset`` (``generate_dataset``, ``CSIDataset``)."""

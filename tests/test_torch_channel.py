@@ -47,9 +47,14 @@ def _jax_draws(cfg, key):
 
 
 def _jax_realization(cfg, seed):
+    """JAX's realization under jit, as generate_dataset computes it (XLA's
+    compiled code fuses multiply-adds into the path lengths, which eager
+    dispatch does not; the port follows the compiled roundings)."""
     key = jax.random.PRNGKey(seed)
     scen = js.make_scenario(cfg, key)
-    return scen, js.realize_channel(cfg, jax.random.fold_in(key, 0), scen)
+    chan = jax.jit(lambda k: js.realize_channel(cfg, k, scen))(
+        jax.random.fold_in(key, 0))
+    return scen, chan
 
 
 def _as_port(chan):
@@ -131,13 +136,15 @@ def test_realize_channel_draws_from_a_generator():
     assert chan.cr.dtype == torch.complex64 and chan.tau.dtype == torch.float32
     assert chan.chan_delay.dtype == torch.int32
     assert torch.isfinite(torch.view_as_real(chan.cr)).all()
-    # the same seed gives the same channel; CDL is not ported
+    # the same seed gives the same channel; the CDL models draw the CDL
+    # realization (channel/cdl.py)
     gen2 = torch.Generator().manual_seed(3)
     ps.make_scenario(CFG, gen2)
     again = ps.realize_channel(CFG, gen2, scen)
     torch.testing.assert_close(again.cr, chan.cr, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.realize_channel(CFG.replace(channel_model="cdl_nlos"), gen, scen)
+    cdl = ps.realize_channel(CFG.replace(channel_model="cdl_nlos"), gen, scen)
+    assert cdl.cr.shape == (CFG.num_tx, CFG.num_rx, 20)
+    assert torch.isfinite(torch.view_as_real(cdl.cr)).all()
 
 
 @pytest.mark.parametrize("model", ["scattering", "fir"])

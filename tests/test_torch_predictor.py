@@ -195,6 +195,8 @@ def test_port_imports_without_jax():
             "mamimo_tpu_torch.utils.numerics, "
             "mamimo_tpu_torch.channel.scattering, "
             "mamimo_tpu_torch.pipeline.sounding, "
+            "mamimo_tpu_torch.pipeline.dataset, mamimo_tpu_torch.ops.ofdm, "
+            "mamimo_tpu_torch.channel.noise, mamimo_tpu_torch.channel.cdl, "
             "mamimo_tpu_torch.parallel.mesh, mamimo_tpu_torch.parallel.halo, "
             "mamimo_tpu_torch.parallel.rdma_halo, "
             "mamimo_tpu_torch.parallel.sharded; "
