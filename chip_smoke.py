@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-GPU (sm_90a).
+"""Drive the PyTorch/CUDA port's serving, training and data paths on one
+NVIDIA GPU (sm_90a).
 
     python3 chip_smoke.py
 
@@ -135,6 +135,28 @@ failure ends the run with a non-zero exit code):
                estimate_full, one launch of each of its kernels, its LS
                within -50 dB of the corpus's; (g) run_gen_bench at 128
                packets, four modes with positive rates;
+5i. pipeline — the training pipeline at BS32, TF32 off: (a) 128 packets
+               at 120 dB generated on the card, written as the raw
+               container; the native C++ loader in use, its gather,
+               gather_packets and prefetch/wait bit-equal to the NumPy
+               plain version; (b) fit for 3 epochs in the in-HBM mode
+               (steps_per_call 4) and the host_stream mode from one
+               epoch-0 checkpoint (method 'default', dropout 0, batch
+               1024): histories within 1e-5 relative; window streaming
+               (32 packets a window): finite, the training loss falling;
+               (c) with the AWGN on (rbg_clt, dropout 0.15) 2 epochs and
+               a resume to 3 against 3 straight (1e-6); (d) at Nt 8, Nr
+               2, hidden (64, 64) the card's fit against the CPU's from
+               one checkpoint (1e-4), ReLU flips counted; (e)
+               evaluate_dataset and nmse_vs_snr on 64 packets at 10 dB,
+               finite; (f) the trained 'best' checkpoint through
+               CSIPredictor.estimate_full: one launch of ls_planes_v2,
+               factored_sig_proj and factored_tail, the DNN within -40 dB
+               of evaluate_dataset's prediction, the LS within -45 dB of
+               the corpus's h_ls; (g) python3 -m mamimo_tpu_torch.cli gen
+               -> train -> test (--export-mat --exec-time) at Nt 8 on the
+               card as subprocesses, each exiting 0, test_report.json
+               written;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -158,10 +180,15 @@ failure ends the run with a non-zero exit code):
                traced device-busy time and idle share, one chunk of 64
                through sound_from_draws traced (largest kernels), each
                LMMSE form at 64 packets (CUDA events), the bench path
-               ls_fft at the bench shape.
+               ls_fft at the bench shape; the training pipeline: fit's
+               seconds per epoch and steps/s in each of its three modes
+               (128 packets, batch 1024, with a workdir), one epoch of
+               each traced (device-busy ms beside its host ms, the idle
+               share), one epoch's checkpoint writes, and
+               evaluate_dataset in packets/s at 4 and 32 packets a batch.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f, 5g and 5h and read just after; estimate_full,
+5b, 5c, 5d, 5e, 5f, 5g, 5h and 5i and read just after; estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
 (torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
@@ -192,6 +219,17 @@ TRAIN_BS = 256                     # the batch of the card-vs-CPU steps
 SOUND_PACKETS = 64                 # phase 5h: the LS and LMMSE checks
 GEN_PACKETS, GEN_CHUNK = 128, 64   # phase 5h: generate_dataset
 GEN_SEED = 13
+PIPE_PACKETS = 128                 # phase 5i: the training pipeline's corpus
+PIPE_BS = 1024                     # phase 5i: fit's batch
+PIPE_WINDOW = 32                   # phase 5i: packets a streamed window
+PIPE_SEED = 23
+# phase 5i's limits: two modes of fit on the same batches (relative, per
+# epoch loss), a resumed run against the uninterrupted one, the card's fit
+# against the CPU's at Nt 8 (a ReLU kink moves a sample's gradient share,
+# see TRAIN_LIMITS), the served DNN (bf16 kernels) against the float32
+# evaluate_dataset and the served LS against the corpus's labels (dB)
+PIPE_LIMITS = {"modes_rel": 1e-5, "resume_rel": 1e-6, "card_cpu_rel": 1e-4,
+               "served_dnn_db": -40.0, "served_ls_db": -45.0}
 # phase 5g's limits, card step against the same step on the CPU: loss and
 # BN statistics (relative), gradients and Adam moments (worst leaf, NMSE
 # dB), Δparams (all parameters as one vector, NMSE dB). A ReLU is a kink:
@@ -1072,6 +1110,388 @@ def sounding_timing(cfg, dev, smi, planes) -> dict:
     return out
 
 
+def hist_rel(a: dict, b: dict) -> float:
+    """The largest relative difference of two fit histories' per-epoch
+    losses (max |a - b| / max |b| per curve)."""
+    worst = 0.0
+    for k in ("loss_real", "loss_imag", "val_loss_real", "val_loss_imag"):
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        if x.shape != y.shape:
+            return float("inf")
+        worst = max(worst, float(np.abs(x - y).max() / np.abs(y).max()))
+    return worst
+
+
+def seed_checkpoint(workdir: str, cfg, tcfg, seed: int) -> None:
+    """An epoch-0 'last' checkpoint with its optimizer state in workdir:
+    weights from init_stacked on a seeded generator, Adam at count 0."""
+    import os
+
+    import torch
+
+    from mamimo_tpu_torch.models.mlp import init_stacked
+    from mamimo_tpu_torch.train.ckpt import save_checkpoint
+    from mamimo_tpu_torch.train.loop import make_optimizer
+
+    params, bn = init_stacked(torch.Generator().manual_seed(seed), cfg, tcfg)
+    save_checkpoint(os.path.join(workdir, "last"), cfg, tcfg, params, bn,
+                    extra={"epoch": 0},
+                    opt_state=make_optimizer(tcfg).init(params))
+
+
+def pipeline_phase(cfg, dev, counted, require_launched, tmp) -> dict:
+    """Phase 5i: the training pipeline at the width of cfg on the card, in
+    directories under tmp: (a) a PIPE_PACKETS-packet corpus at 120 dB, its
+    raw container and the native loader (using_native; gather,
+    gather_packets and prefetch/wait bit-equal to the NumPy plain
+    version); (b) fit for 3 epochs in the in-HBM mode (steps_per_call 4)
+    and the host_stream mode from one epoch-0 checkpoint (method
+    'default', dropout 0, batch PIPE_BS): histories within
+    PIPE_LIMITS["modes_rel"]; window streaming (PIPE_WINDOW packets),
+    finite and falling; (c) with the AWGN on (rbg_clt), 2 epochs and a
+    resume to 3 against 3 straight; (d) at Nt 8, Nr 2, hidden (64, 64) the
+    card's fit against the CPU's from one checkpoint, the ReLU flips
+    between them counted; (e) evaluate_dataset and nmse_vs_snr on a 10 dB
+    corpus, finite; (f) the trained 'best' checkpoint served through
+    CSIPredictor.estimate_full, one launch of each kernel; (g) the CLI's
+    gen -> train -> test as subprocesses at Nt 8, hidden (64, 64), on the
+    card; (h) that model's all_pairs on the card (the factored kernels on
+    weights padded to 128 units) against the kernels' plain version. Returns the
+    numbers and, under "keep", what phase 6 times."""
+    import os
+    import shutil
+
+    import torch
+
+    from mamimo_tpu_torch.config import SimConfig, TrainConfig
+    from mamimo_tpu_torch.data.native_loader import NativeBatchLoader
+    from mamimo_tpu_torch.eval.closed_loop import nmse_vs_snr
+    from mamimo_tpu_torch.models.mlp import preprocess_input, tree_leaves
+    from mamimo_tpu_torch.models.predictor import CSIPredictor
+    from mamimo_tpu_torch.ops.kernels.fused_factored import _mm, _tail_plain
+    from mamimo_tpu_torch.pipeline.dataset import generate_dataset
+    from mamimo_tpu_torch.train.ckpt import load_checkpoint
+    from mamimo_tpu_torch.train.loop import (
+        _device_data,
+        _gather_batch,
+        evaluate_dataset,
+        fit,
+        params_from_jax,
+    )
+
+    t0 = time.perf_counter()
+    out = {"limits": PIPE_LIMITS}
+    cpu = torch.device("cpu")
+
+    # (a) corpus, raw container, loader
+    ds = generate_dataset(cfg, PIPE_SEED, PIPE_PACKETS, 120.0, chunk=64,
+                          device=dev)
+    raw = os.path.join(tmp, "corpus.raw")
+    ds.save_raw(raw)
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, ds.num_samples, PIPE_BS)
+    pkts = rng.permutation(PIPE_PACKETS)[:PIPE_WINDOW]
+    with NativeBatchLoader(raw) as ld, \
+            NativeBatchLoader(raw, native=False) as plain:
+        if not ld.using_native:
+            raise AssertionError("the native loader is not in use")
+        same = {"gather": all(np.array_equal(a, b) for a, b in
+                              zip(ld.gather(idx), plain.gather(idx))),
+                "gather_packets": all(np.array_equal(a, b) for a, b in zip(
+                    ld.gather_packets(pkts), plain.gather_packets(pkts)))}
+        ld.prefetch(idx[::-1])
+        same["prefetch/wait"] = all(np.array_equal(a, b) for a, b in zip(
+            ld.wait(), plain.gather(idx[::-1])))
+    out["loader_bit_equal"] = same
+    print(f"[5i pipeline] corpus {ds.rx.shape} ({PIPE_PACKETS} packets, 120 "
+          f"dB) -> raw container {os.path.getsize(raw) / 2**20:.1f} MiB; "
+          f"native loader in use; bit-equal to the NumPy plain version: "
+          f"{same}")
+    if not all(same.values()):
+        raise AssertionError(f"native loader differs from plain: {same}")
+
+    # (b) the in-HBM and host_stream modes on the same batches; windows
+    tc = TrainConfig(method="default", dropout=0.0, batch_size=PIPE_BS,
+                     epochs=3, steps_per_call=4, early_stop_patience=50)
+    seed_dir = os.path.join(tmp, "seed")
+    seed_checkpoint(seed_dir, cfg, tc, seed=PIPE_SEED)
+    runs, walls = {}, {}
+    for mode, kw in (("in_hbm", {}), ("host_stream", {"host_stream": True})):
+        wd = os.path.join(tmp, mode)
+        shutil.copytree(seed_dir, wd)
+        t1 = time.perf_counter()
+        runs[mode], cnt = counted(lambda wd=wd, kw=kw: fit(
+            cfg, tc, ds, workdir=wd, verbose=False, resume=True, device=dev,
+            **kw))
+        walls[mode] = time.perf_counter() - t1
+    rel = hist_rel(runs["host_stream"].history, runs["in_hbm"].history)
+    out["modes_rel"] = rel
+    print(f"  fit, 3 epochs of batch {PIPE_BS} (f32, no AWGN, dropout 0) "
+          f"from one checkpoint: in-HBM (steps_per_call 4) "
+          f"{walls['in_hbm']:.2f} s, host_stream {walls['host_stream']:.2f} "
+          f"s; val loss {np.round(runs['in_hbm'].history['val_loss_real'], 6)}"
+          f"; histories differ by {rel:.3e} relative (limit "
+          f"{PIPE_LIMITS['modes_rel']}); launches of the port's kernels in "
+          f"the fit (the step reaches none): {cnt}")
+    if not rel <= PIPE_LIMITS["modes_rel"]:
+        raise AssertionError(f"in-HBM and host_stream fit differ: {rel}")
+    wd = os.path.join(tmp, "window")
+    t1 = time.perf_counter()
+    rw = fit(cfg, tc, ds, workdir=wd, verbose=False, host_stream=True,
+             stream_window_packets=PIPE_WINDOW, device=dev)
+    walls["window"] = time.perf_counter() - t1
+    hw = rw.history
+    tr_loss = [a + b for a, b in zip(hw["loss_real"], hw["loss_imag"])]
+    va_loss = [a + b for a, b in zip(hw["val_loss_real"],
+                                     hw["val_loss_imag"])]
+    out["window"] = {"train_loss": tr_loss, "val_loss": va_loss,
+                     "wall_s": walls["window"]}
+    print(f"  fit with window streaming ({PIPE_WINDOW} packets a window), 3 "
+          f"epochs: {walls['window']:.2f} s; summed train loss "
+          f"{np.round(tr_loss, 6)}, val {np.round(va_loss, 6)}")
+    # the val loss is read in eval mode through BN running statistics that
+    # 3 epochs at momentum 0.99 have barely moved: only the training loss
+    # must fall
+    if not (np.isfinite(tr_loss + va_loss).all()
+            and tr_loss[-1] < tr_loss[0]):
+        raise AssertionError(f"window streaming did not train: {hw}")
+    out["fit_wall_s"] = walls
+
+    # (c) resume with the AWGN on
+    ta = TrainConfig(batch_size=PIPE_BS, epochs=3, steps_per_call=4,
+                     early_stop_patience=50, seed=3)
+    straight = fit(cfg, ta, ds, workdir=os.path.join(tmp, "straight"),
+                   verbose=False, device=dev)
+    rd = os.path.join(tmp, "resumed")
+    fit(cfg, ta.replace(epochs=2), ds, workdir=rd, verbose=False, device=dev)
+    resumed = fit(cfg, ta, ds, workdir=rd, verbose=False, resume=True,
+                  device=dev)
+    rel = hist_rel(resumed.history, straight.history)
+    pv = [torch.cat([t.flatten() for t in tree_leaves(r.params)])
+          for r in (resumed, straight)]
+    prel = float((pv[0] - pv[1]).norm() / pv[1].norm())
+    out["resume"] = {"history_rel": rel, "params_rel": prel,
+                     "awgn_rng": ta.awgn_rng}
+    print(f"  resume ({ta.awgn_rng} AWGN, dropout {ta.dropout}): 2 epochs + "
+          f"resume to 3 vs 3 straight: histories {rel:.3e} relative, best "
+          f"weights {prel:.3e} of their norm (limit "
+          f"{PIPE_LIMITS['resume_rel']})")
+    if not (rel <= PIPE_LIMITS["resume_rel"]
+            and prel <= PIPE_LIMITS["resume_rel"]):
+        raise AssertionError(f"resume differs: {rel}, {prel}")
+
+    # (d) the card's fit against the CPU's at Nt 8, Nr 2, hidden (64, 64)
+    c8 = SimConfig(num_tx=8, num_rx=2)
+    t8 = TrainConfig(hidden=(64, 64), method="default", dropout=0.0,
+                     batch_size=32, epochs=3, early_stop_patience=50)
+    d8 = generate_dataset(c8, PIPE_SEED, 16, 120.0, chunk=16, device=dev)
+    seed8 = os.path.join(tmp, "nt8_seed")
+    seed_checkpoint(seed8, c8, t8, seed=PIPE_SEED)
+    res8 = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        wd = os.path.join(tmp, f"nt8_{where}")
+        shutil.copytree(seed8, wd)
+        res8[where] = fit(c8, t8, d8, workdir=wd, verbose=False,
+                          resume=True, device=d)
+    rel = hist_rel(res8["card"].history, res8["cpu"].history)
+    ck = load_checkpoint(os.path.join(seed8, "last"))
+    idx8 = torch.arange(t8.batch_size)
+    flips = {}
+    for when, pair in (("start", None), ("end", (res8["card"].params,
+                                                 res8["cpu"].params))):
+        xs, ps = [], []
+        for i, d in enumerate((dev, cpu)):
+            x2, pilot, _ = _gather_batch(c8, _device_data(d8, d),
+                                         idx8.to(d))
+            xs.append(preprocess_input(c8, t8, x2, torch.stack([pilot,
+                                                                 pilot])))
+            ps.append(params_from_jax(ck["params"], ck["bn_state"], d)[0]
+                      if pair is None else pair[i])
+        with torch.no_grad():
+            flips[when] = relu_flips(t8, ps[0], ps[1], xs[0], xs[1])
+    out["card_vs_cpu"] = {"history_rel": rel, "relu_flips": flips}
+    print(f"  fit at Nt 8, Nr 2, hidden (64, 64), 3 epochs of batch 32, card "
+          f"vs CPU from one checkpoint: histories {rel:.3e} relative (limit "
+          f"{PIPE_LIMITS['card_cpu_rel']}); ReLU pre-activations of another "
+          f"sign on the first batch, per hidden layer, at the start "
+          f"{flips['start']} and with the final weights {flips['end']} of "
+          f"{2 * t8.batch_size * t8.hidden[0]}")
+    if not rel <= PIPE_LIMITS["card_cpu_rel"]:
+        raise AssertionError(f"card and CPU fit differ: {rel}")
+
+    # (e) evaluation on a 10 dB corpus, with the in-HBM run's best weights
+    ev = generate_dataset(cfg, PIPE_SEED + 1, 64, 10.0, with_mmse=True,
+                          chunk=64, device=dev)
+    best_dir = os.path.join(tmp, "in_hbm")
+    bck = load_checkpoint(os.path.join(best_dir, "best"))
+    pred, mse = evaluate_dataset(cfg, bck["tcfg"], bck["params"],
+                                 bck["bn_state"], ev, device=dev)
+    nm = {k: float(10 * np.log10(np.mean(v)))
+          for k, v in nmse_vs_snr(ev, pred, device=dev).items()}
+    out["evaluate"] = {"mse": mse.tolist(), "nmse_db": nm}
+    print(f"  evaluate_dataset on 64 packets at 10 dB (3-epoch model): "
+          f"per-plane MSE {mse}; nmse_vs_snr: "
+          + ", ".join(f"{k} {v:.2f} dB" for k, v in nm.items()))
+    if not (np.isfinite(mse).all() and np.isfinite(list(nm.values())).all()
+            and np.isfinite(pred).all()):
+        raise AssertionError(f"evaluation not finite: {out['evaluate']}")
+
+    # (f) the trained checkpoint served, counted
+    pred_srv = CSIPredictor(best_dir, device=dev)
+    planes = ev.rx_planes()
+    (h_ls, h_dnn), cnt = counted(lambda: pred_srv.estimate_full(planes))
+    require_launched("estimate_full (the trained checkpoint)", cnt,
+                     ("ls_planes_v2", "factored_sig_proj", "factored_tail"))
+    once = {k: cnt[k] for k in ("ls_planes_v2", "factored_sig_proj",
+                                "factored_tail")}
+    if set(once.values()) != {1}:
+        raise AssertionError(f"estimate_full launched {once}, want 1 each")
+    want_dnn = pred.transpose(0, 3, 2, 1).reshape(h_dnn.shape)
+    want_ls = ev.h_ls.transpose(0, 3, 2, 1).reshape(h_ls.shape)
+    out["served"] = {
+        "dnn_vs_evaluate": check(
+            "estimate_full DNN (trained checkpoint) vs evaluate_dataset",
+            torch.from_numpy(h_dnn), torch.from_numpy(want_dnn),
+            PIPE_LIMITS["served_dnn_db"]),
+        "ls_vs_corpus": check(
+            "estimate_full LS vs the corpus's h_ls", torch.from_numpy(h_ls),
+            torch.from_numpy(want_ls), PIPE_LIMITS["served_ls_db"]),
+        "launches": cnt}
+
+    # (g) the CLI on the card, as subprocesses (hidden 64: --exec-time
+    # runs the factored kernels on weights padded to 128 units)
+    cli = os.path.join(tmp, "cli")
+    common = ["--num-tx", "8", "--num-rx", "2"]
+    steps = (["gen", *common, "--packets", "16", "--snr", "120", "-o",
+              f"{cli}/train.npz"],
+             ["train", "-x", f"{cli}/train.npz", "-d", f"{cli}/model",
+              "--nn", "64", "64", "--bs", "64", "--epochs", "2"],
+             ["gen", *common, "--packets", "8", "--snr", "10", "--mmse",
+              "-o", f"{cli}/test.npz"],
+             ["test", "-x", f"{cli}/test.npz", "--modeldir", f"{cli}/model",
+              "-d", f"{cli}/out", "--export-mat", "--exec-time"])
+    t1 = time.perf_counter()
+    for argv in steps:
+        r = subprocess.run([sys.executable, "-m", "mamimo_tpu_torch.cli",
+                            *argv], cwd=str(ROOT), capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"cli {argv[0]} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        last = [l for l in r.stdout.splitlines() if l.startswith("[")]
+        print(f"  cli {argv[0]}: exit 0; {last[-1] if last else ''}")
+    with open(f"{cli}/out/test_report.json") as f:
+        out["cli_report"] = json.load(f)
+    print(f"  cli gen -> train -> test: {time.perf_counter() - t1:.1f} s, "
+          f"test_report.json {out['cli_report']}")
+
+    # (h) all_pairs of the CLI's hidden-64 model on the card: the factored
+    # kernels on its padded weights against their plain version
+    pr64 = CSIPredictor(f"{cli}/model", device=dev)
+    b8 = d8.rx.shape[0]
+    x8 = torch.as_tensor(d8.rx_planes(), device=dev).reshape(
+        2, b8, c8.num_rx, c8.len_ltf)
+    y64, cnt = counted(lambda: pr64.all_pairs_planes(x8))
+    require_launched("all_pairs (hidden 64)", cnt,
+                     ("factored_sig_proj", "factored_tail"))
+    prep64, _ = pr64._kernel_weights()
+    x16 = x8.reshape(2, -1, c8.len_ltf).to(torch.bfloat16)
+    yp = _tail_plain(prep64, _mm(x16, prep64["w1"]), c8.num_carriers)
+    out["all_pairs_hidden64"] = check(
+        f"all_pairs, hidden {pr64.tcfg.hidden} (padded to "
+        f"{prep64['w2'].shape[-1]}), vs the kernels' plain version",
+        y64, torch.complex(yp[0], yp[1]).reshape(y64.shape), -40.0)
+    print(f"  phase 5i: {time.perf_counter() - t0:.1f} s")
+    out["keep"] = {"ds": ds, "ev": ev, "tmp": tmp}
+    return out
+
+
+def pipeline_timing(cfg, dev, smi, keep) -> dict:
+    """Phase 6, the training pipeline, in a warm process, with a workdir
+    as the CLI runs it (each epoch writes 'last' with the optimizer state,
+    history.json and, on improvement, 'best'): fit's seconds per epoch and
+    steps/s in each mode over 3 epochs at PIPE_PACKETS packets (host
+    clock; fit fetches the losses each epoch), one epoch of each mode
+    traced (device-busy ms beside its host ms, the idle share), the host
+    time of one epoch's checkpoint writes, and evaluate_dataset in
+    packets/s (median of 3 calls) at 4 and 32 packets a batch."""
+    import os
+
+    import torch
+
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.train.ckpt import save_checkpoint
+    from mamimo_tpu_torch.train.loop import evaluate_dataset, fit, \
+        make_optimizer
+
+    t0 = time.perf_counter()
+    ds, ev, tmp = keep["ds"], keep["ev"], keep["tmp"]
+    tc = TrainConfig(method="default", dropout=0.0, batch_size=PIPE_BS,
+                     epochs=3, steps_per_call=4, early_stop_patience=50)
+    modes = {"in_hbm": {}, "host_stream": {"host_stream": True},
+             "window": {"host_stream": True,
+                        "stream_window_packets": PIPE_WINDOW}}
+    per_pkt = cfg.num_tx * cfg.num_rx
+    n_val = int(np.floor(PIPE_PACKETS * tc.val_train_ratio))
+    rows = {}
+    for mode, kw in modes.items():
+        wd = os.path.join(tmp, f"time_{mode}")
+        one = lambda wd=wd, kw=kw: fit(  # noqa: E731
+            cfg, tc.replace(epochs=1), ds, workdir=wd, verbose=False,
+            device=dev, **kw)
+        one()               # the raw container is written before timing
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = fit(cfg, tc, ds, workdir=wd, verbose=False, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        steps = (PIPE_PACKETS - n_val) * per_pkt // PIPE_BS
+        if mode == "window":
+            n_tr = PIPE_PACKETS - n_val
+            steps = sum(min(PIPE_WINDOW, n_tr - k) * per_pkt // PIPE_BS
+                        for k in range(0, n_tr, PIPE_WINDOW))
+        host1 = host_ms(one, iters=1, batches=1, warmup=0)
+        per, kernels, aten = trace_call(one)
+        busy = sum(per.values()) if per else None
+        rows[mode] = {"s_per_epoch": wall / r.epochs_ran,
+                      "steps_per_epoch": steps,
+                      "steps_per_s": steps * r.epochs_ran / wall,
+                      "epoch_host_ms": host1, "epoch_busy_ms": busy,
+                      "epoch_idle_share": (1 - busy / host1) if busy
+                      else None, "epoch_kernels": kernels,
+                      "epoch_aten_ops": aten}
+        print(f"  fit {mode}, {PIPE_PACKETS} packets, batch {PIPE_BS}: "
+              f"{wall / r.epochs_ran:.4f} s/epoch, "
+              f"{steps * r.epochs_ran / wall:.2f} steps/s ({steps} steps an "
+              f"epoch; 3 epochs); one epoch: host {host1:.2f} ms, traced "
+              f"busy " + (f"{busy:.2f} ms, idle "
+                          f"{(1 - busy / host1) * 100:.1f}%" if busy
+                          else "not traced")
+              + f", {kernels} kernels, {aten} aten calls  [{smi}]")
+    opt = make_optimizer(tc)
+    ost = opt.init(r.params)
+    ck_ms = host_ms(lambda: (
+        save_checkpoint(os.path.join(tmp, "ck", "last"), cfg, tc, r.params,
+                        r.bn_state, opt_state=ost),
+        save_checkpoint(os.path.join(tmp, "ck", "best"), cfg, tc, r.params,
+                        r.bn_state)), iters=1, batches=3, warmup=1)
+    rows["checkpoint_writes_ms"] = ck_ms
+    print(f"  one epoch's checkpoint writes ('last' with the optimizer "
+          f"state, 'best'): {ck_ms:.2f} ms  [{smi}]")
+    for bp in (4, 32):
+        fn = lambda bp=bp: evaluate_dataset(  # noqa: E731
+            cfg, tc, r.params, r.bn_state, ev, batch_packets=bp, device=dev)
+        ms = host_ms(fn, iters=1, batches=3, warmup=1)
+        rows[f"evaluate_dataset_bp{bp}"] = {
+            "host_ms": ms, "packets_per_s": ev.num_packets / ms * 1e3}
+        print(f"  evaluate_dataset, {ev.num_packets} packets, {bp} a batch: "
+              f"{ms:.2f} ms, {ev.num_packets / ms * 1e3:.1f} packets/s  "
+              f"[{smi}]")
+    print(f"  pipeline timing: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+
 def main() -> int:
     import torch
 
@@ -1933,6 +2353,10 @@ def main() -> int:
     # 5h. the sounding path: OFDM, LS forms, LMMSE, generate_dataset ------
     sound = sounding_phase(cfg, dev, counted, require_launched, pred)
 
+    # 5i. the training pipeline: loader, fit, evaluation, serving, CLI ---
+    pipe_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_")
+    pipe = pipeline_phase(cfg, dev, counted, require_launched, pipe_dir.name)
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -2320,6 +2744,8 @@ def main() -> int:
                  "ls_seq_complex_ms": complex_ms}
     train["rows"] = train_timing(cfg, train.pop("data"), smi)
     sound["timing"] = sounding_timing(cfg, dev, smi, xb32)
+    pipe["timing"] = pipeline_timing(cfg, dev, smi, pipe.pop("keep"))
+    pipe_dir.cleanup()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels, "serving": {
@@ -2353,6 +2779,7 @@ def main() -> int:
                        for k, v in seq_err.items()}},
         "train": train,
         "sounding": sound,
+        "pipeline": pipe,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,15 @@ first use into ``_build/`` and bound through ``ctypes``.
                           interchangeable with the JAX package's
 - ``train.loop``        : the training step in array form (Adam
                           scaling, the AWGN batch update, the in-gather
-                          step and its multi-step form)
+                          step and its multi-step form), ``fit`` in its
+                          three single-card modes and
+                          ``evaluate_dataset``
+- ``data``              : the raw container and its native C++ loader,
+                          the reference's MATLAB and pickle formats, the
+                          datasource registry
+- ``eval``, ``ops.metrics`` : NMSE/MSE/EVM/BER, ``nmse_vs_snr``, plots
+- ``cli``               : ``python3 -m mamimo_tpu_torch.cli gen|train|
+                          test|convert|bench``
 - ``channel``           : the single-bounce scattering channel, the CDL
                           channel and the receiver noise chains
 - ``pipeline``          : the sounding of a batch of packets
@@ -40,7 +48,8 @@ first use into ``_build/`` and bound through ``ctypes``.
                           channel convolution with its halo-exchange
                           kernel, the sharded LS and DNN inference forms
 - ``utils.numerics``    : ``unit_phasor``, the precision of products,
-                          device-to-host copies
+                          device-to-host copies; ``utils.profiling``:
+                          traces and inference timing
 """
 
 __version__ = "0.1.0"

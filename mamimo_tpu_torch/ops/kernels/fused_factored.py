@@ -55,6 +55,10 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
                                        tail kernel's K-major layer-3
                                        operand
       b3   (2, 1, OP)      f32
+
+    H is both hidden widths rounded up to one multiple of 128, the
+    kernels' tile: the extra units get zero weights, biases and BN
+    affines, so they stay 0 through ReLU and add nothing to any output.
     """
     if len(tcfg.hidden) != 2:
         raise ValueError("the fused kernels support 2 hidden layers, got "
@@ -67,8 +71,12 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
     P = pilot_p_matrix(cfg.num_tx, device=dev)
     hb = torch.einsum("tj,djh->dth", P.T, w1_full[:, L:]) \
         + params["dense"][0]["b"][:, None, :]
-    w2 = params["dense"][1]["w"]
-    w3 = params["out"]["w"]
+    h1, h2 = tcfg.hidden
+    H = _round_up(max(h1, h2), 128)
+    hb = _pad_to(hb, H)
+    w1_full = _pad_to(w1_full, H)
+    w2 = _pad_to(_pad_to(params["dense"][1]["w"], H), H, dim=-2)
+    w3 = _pad_to(params["out"]["w"], H, dim=-2)
 
     def bn_affine(i, h_dim):
         if params["bn"]:
@@ -78,10 +86,11 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
         else:
             a = torch.ones((2, h_dim), device=dev)
             c = torch.zeros((2, h_dim), device=dev)
-        return a[:, None, :].float(), c[:, None, :].float()
+        return (_pad_to(a[:, None, :].float(), H),
+                _pad_to(c[:, None, :].float(), H))
 
-    a1, c1 = bn_affine(0, w2.shape[-2])
-    a2, c2 = bn_affine(1, w2.shape[-1])
+    a1, c1 = bn_affine(0, h1)
+    a2, c2 = bn_affine(1, h2)
     w3p = torch.zeros((2, w3.shape[1], op), device=dev)
     w3p[:, :, :C] = w3
     b3p = torch.zeros((2, op), device=dev)
@@ -98,11 +107,22 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
         "a1": a1, "c1": c1, "a2": a2, "c2": c2,
         "w2": w2.contiguous(),
         "w2t": w2.transpose(1, 2).contiguous(),
-        "b2": params["dense"][1]["b"][:, None, :].float().contiguous(),
+        "b2": _pad_to(params["dense"][1]["b"][:, None, :].float(), H)
+        .contiguous(),
         "w3": w3p.to(dot_dtype).contiguous(),
         "w3t": w3t,
         "b3": b3p[:, None, :].contiguous(),
     }
+
+
+def _pad_to(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """t zero-padded at the end of `dim` to n entries."""
+    extra = n - t.shape[dim]
+    if extra == 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = extra
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,7 @@ generate_maMIMO_LTF.m:33-41). The numbers are not JAX's: the JAX
 package folds p into a PRNG key.
 
 Not ported yet, and refused: ``with_ber`` (the data-transmission leg,
-ROADMAP.md §1.6), more than one user (§1.7) and ``save_raw`` (the native
-loader's container, §1.4).
+ROADMAP.md §1.6) and more than one user (§1.7).
 """
 
 from __future__ import annotations
@@ -152,11 +151,12 @@ class CSIDataset:
             **scen)
 
     def save_raw(self, path: str) -> None:
-        """The native loader's raw container: not ported yet."""
-        raise NotImplementedError(
-            "save_raw: the raw container of the native C++ loader "
-            "(data/native_loader.py) is not ported yet; it comes with the "
-            "rest of the data-generation slice of ROADMAP.md (§1.4)")
+        """Write the raw container the native C++ loader streams from
+        (``data.native_loader.write_raw``): byte for byte the JAX
+        package's file for the same arrays."""
+        from mamimo_tpu_torch.data.native_loader import write_raw
+
+        write_raw(path, self.rx, self.h_ls)
 
     @classmethod
     def load(cls, path: str) -> "CSIDataset":

@@ -37,11 +37,11 @@ CFG = SimConfig(num_tx=8, num_rx=2)
 JCFG = JSimConfig(num_tx=8, num_rx=2)
 
 
-def _models(use_bn, seed):
+def _models(use_bn, seed, hidden=(128, 128)):
     """JAX and port parameters of one model; the BN state is made
     non-trivial so the folded affines are exercised."""
-    tcfg = TrainConfig(hidden=(128, 128), use_bn=use_bn)
-    jtcfg = JTrainConfig(hidden=(128, 128), use_bn=use_bn)
+    tcfg = TrainConfig(hidden=hidden, use_bn=use_bn)
+    jtcfg = JTrainConfig(hidden=hidden, use_bn=use_bn)
     jp, jb = jmlp.init_stacked(jax.random.PRNGKey(seed), JCFG, jtcfg)
     jp, jb = jax.tree.map(np.asarray, (jp, jb))
     rng = np.random.default_rng(seed)
@@ -164,6 +164,37 @@ def test_prepared_weights_and_fused_wrapper_match_jax_kernel(use_bn):
     rx = torch.from_numpy(x).reshape(2, 3, 2, -1)
     _close(predict_all_pairs_planes_kernel(CFG, tcfg, prep, rx).numpy(),
            mlp.predict_all_pairs_planes(CFG, tcfg, tp, tb, rx).numpy(), 2e-4)
+
+
+@pytest.mark.parametrize("use_bn, hidden", [(True, (64, 64)),
+                                            (False, (96, 40))])
+def test_prepared_weights_pad_hidden_widths_to_the_kernel_tile(use_bn,
+                                                               hidden):
+    """Hidden widths that are no multiple of 128 are zero-padded to one
+    when the weights are prepared (the kernels' tile); the padded units
+    stay 0, so the fused wrapper equals JAX's plain all-pairs model."""
+    tcfg, jtcfg, (jp, jb), (tp, tb) = _models(use_bn, seed=11, hidden=hidden)
+    prep = prepare_factored_weights(CFG, tcfg, tp, tb, dot_dtype=torch.float32)
+    h1, h2 = hidden
+    assert tuple(prep["w1t"].shape) == (2, 128, CFG.len_ltf)
+    assert tuple(prep["w2t"].shape) == (2, 128, 128)
+    assert tuple(prep["w3t"].shape) == (2, 256, 128)
+    for k in ("w1", "hb", "a1", "c1"):
+        assert prep[k].shape[-1] == 128 and not bool(prep[k][..., h1:].any())
+    for k in ("b2", "a2", "c2"):
+        assert prep[k].shape[-1] == 128 and not bool(prep[k][..., h2:].any())
+    assert not bool(prep["w2"][:, h1:].any())
+    assert not bool(prep["w2"][:, :, h2:].any())
+    assert not bool(prep["w3"][:, h2:].any())
+
+    x = _planes(6, seed=12)
+    rx = x.reshape(2, 3, 2, -1)
+    ref = np.asarray(jmlp.predict_all_pairs_planes(
+        JCFG, jtcfg, jax.tree.map(jnp.asarray, jp),
+        jax.tree.map(jnp.asarray, jb), jnp.asarray(rx)))
+    got = predict_all_pairs_planes_kernel(CFG, tcfg, prep,
+                                          torch.from_numpy(rx)).numpy()
+    _close(got, ref, 2e-4)
 
 
 def test_bf16_prepared_weights_stay_close():

@@ -199,7 +199,13 @@ def test_port_imports_without_jax():
             "mamimo_tpu_torch.channel.noise, mamimo_tpu_torch.channel.cdl, "
             "mamimo_tpu_torch.parallel.mesh, mamimo_tpu_torch.parallel.halo, "
             "mamimo_tpu_torch.parallel.rdma_halo, "
-            "mamimo_tpu_torch.parallel.sharded; "
+            "mamimo_tpu_torch.parallel.sharded, mamimo_tpu_torch.data, "
+            "mamimo_tpu_torch.data.native_loader, "
+            "mamimo_tpu_torch.data.matlab_io, mamimo_tpu_torch.data.sources, "
+            "mamimo_tpu_torch.ops.metrics, mamimo_tpu_torch.eval, "
+            "mamimo_tpu_torch.eval.closed_loop, mamimo_tpu_torch.eval.plots, "
+            "mamimo_tpu_torch.utils.profiling, mamimo_tpu_torch.cli, "
+            "mamimo_tpu_torch.tools.train_parity; "
             "bad = [m for m in sys.modules if m == 'mamimo_tpu' "
             "or m.startswith('mamimo_tpu.')]; "
             "assert not bad, bad")
