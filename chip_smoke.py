@@ -157,6 +157,25 @@ failure ends the run with a non-zero exit code):
                -> train -> test (--export-mat --exec-time) at Nt 8 on the
                card as subprocesses, each exiting 0, test_report.json
                written;
+5j. closed   — the closed loop at BS32 (500 rays, 10 data symbols, the
+    loop       data leg's FFT 16384): (a) 32 packets with LMMSE labels at
+               0 and 20 dB; (b) the DNN CSI of 5i's trained checkpoint
+               through estimate_full, one launch of each of its kernels,
+               within -40 dB of evaluate_dataset; (c)
+               evaluate_closed_loop over ls, lmmse, dnn and perfect:
+               finite, at 20 dB perfect CSI with mean BER < 1e-2 and mean
+               BF gain > 3 dB, a table of BER, EVM, NMSE and BF gain; (d)
+               2 packets sounded on the CPU: the OMP weights on the card
+               and on the CPU (1e-4, the digital ones up to the SVD's
+               phase per carrier), then the data leg of the CPU's weights
+               on each: decoded bits equal, EVM 1e-4 relative, SNR 1e-4
+               dB; (e)
+               generate_dataset(with_ber=True): the sounding bit-equal to
+               (a)'s; (f) run_mu_snr_sweep, 2 users (a placement the
+               array separates), 8 packets, ls and perfect at 30 dB:
+               perfect CSI decodes every user with BER 0; (g) the CLI's
+               sweep --closed-loop (5i's Nt 8 model as the DNN) and
+               sweep --num-users 2 as subprocesses at Nt 8;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -185,10 +204,16 @@ failure ends the run with a non-zero exit code):
                (128 packets, batch 1024, with a workdir), one epoch of
                each traced (device-busy ms beside its host ms, the idle
                share), one epoch's checkpoint writes, and
-               evaluate_dataset in packets/s at 4 and 32 packets a batch.
+               evaluate_dataset in packets/s at 4 and 32 packets a batch;
+               the closed loop: one chunk of evaluate_closed_loop (32
+               packets x 4 sources) on the host clock beside its traced
+               busy time, idle share, kernels and aten calls, its parts
+               (OMP with the SVD, the channel, the receiver, the Viterbi
+               loop alone) on the same inputs, packets x sources per
+               second, and run_gen_bench's with_ber rate.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f, 5g, 5h and 5i and read just after; estimate_full,
+5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i and 5j and read just after; estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
 (torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
@@ -198,6 +223,7 @@ the repository's sources; exits non-zero without either.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -223,6 +249,17 @@ PIPE_PACKETS = 128                 # phase 5i: the training pipeline's corpus
 PIPE_BS = 1024                     # phase 5i: fit's batch
 PIPE_WINDOW = 32                   # phase 5i: packets a streamed window
 PIPE_SEED = 23
+CL_PACKETS = 32                    # phase 5j: the closed loop's corpora
+CL_SNRS = (0.0, 20.0)              # phase 5j: their sounding SNRs (dB)
+CL_SEED = 31
+MU_PACKETS = 8                     # phase 5j: the multi-user sweep
+# phase 5j's limits: at 20 dB perfect CSI decodes (mean BER) with a
+# beamforming gain (dB), as JAX's tests/test_closed_loop.py at Nt 8; the
+# card against the CPU on the same inputs: the OMP weights (relative, the
+# digital ones up to the SVD's phase per carrier), then on the same
+# weights EVM (relative) and the data-leg SNR (dB), the decoded bits equal
+CL_LIMITS = {"perfect_ber": 1e-2, "perfect_bf_gain_db": 3.0,
+             "weights_rel": 1e-4, "evm_rel": 1e-4, "snr_db": 1e-4}
 # phase 5i's limits: two modes of fit on the same batches (relative, per
 # epoch loss), a resumed run against the uninterrupted one, the card's fit
 # against the CPU's at Nt 8 (a ReLU kink moves a sample's gradient share,
@@ -1000,7 +1037,8 @@ def sounding_phase(cfg, dev, counted, require_launched, pred) -> dict:
     print(f"  run_gen_bench({GEN_PACKETS} packets, chunk {GEN_CHUNK}): "
           + ", ".join(f"{k} {v['packets_per_s']:.1f}" for k, v in
                       modes.items()) + " packets/s")
-    if tuple(modes) != ("ls", "ls_bf16fetch", "lmmse", "device_sounding") \
+    if tuple(modes) != ("ls", "ls_bf16fetch", "lmmse", "with_ber",
+                        "device_sounding") \
             or not all(v["packets_per_s"] > 0 for v in modes.values()):
         raise AssertionError(f"run_gen_bench gave {modes}")
     out["gen_bench_short"] = short
@@ -1490,6 +1528,413 @@ def pipeline_timing(cfg, dev, smi, keep) -> dict:
     print(f"  pipeline timing: {time.perf_counter() - t0:.1f} s")
     return rows
 
+
+
+
+def closed_loop_phase(cfg, dev, counted, require_launched, best_dir,
+                      cli_model, tmp) -> dict:
+    """Phase 5j: the closed loop at the width of cfg on the card: (a) a
+    CL_PACKETS-packet corpus with LMMSE labels at each of CL_SNRS; (b)
+    the DNN CSI of phase 5i's trained checkpoint (``best_dir``) through
+    CSIPredictor.estimate_full, one launch of each of its kernels, held
+    to evaluate_dataset; (c) evaluate_closed_loop over ls, lmmse, dnn and
+    perfect: finite, at 20 dB perfect CSI decodes with a beamforming gain
+    (CL_LIMITS), a table of BER, EVM, NMSE and BF gain; (d) 2 packets
+    sounded on the CPU, their data legs' OMP weights on the card and on
+    the CPU (the digital ones up to the SVD's phase per carrier), then the
+    frame of the CPU's weights through the channel and the receiver on
+    each: the decoded bits equal, EVM and SNR within CL_LIMITS; (e) generate_dataset(with_ber=True):
+    the sounding bit-equal to (a)'s 20 dB corpus, the BER finite; (f)
+    run_mu_snr_sweep at 2 users on MU_PACKETS packets (a placement whose
+    users the array separates), ls and perfect at 30 dB: perfect CSI
+    decodes every user with BER 0; (g) the CLI's sweep --closed-loop
+    (with the Nt 8 model of phase 5i's CLI, ``cli_model``) and sweep
+    --num-users 2 as subprocesses at Nt 8. Returns the numbers and, under
+    "keep", what phase 6 times."""
+    import os
+
+    import torch
+
+    from mamimo_tpu_torch.channel.scattering import (
+        ChannelRealization,
+        Scenario,
+        array_positions,
+        steering_vectors,
+    )
+    from mamimo_tpu_torch.config import default_fft_size
+    from mamimo_tpu_torch.eval.closed_loop import evaluate_closed_loop
+    from mamimo_tpu_torch.eval.snr_sweep import run_mu_snr_sweep
+    from mamimo_tpu_torch.models.predictor import CSIPredictor
+    from mamimo_tpu_torch.pipeline.dataset import (
+        FIELDS,
+        generate_dataset,
+        scenario_generator,
+    )
+    from mamimo_tpu_torch.ops.omp import omp_hyb_weights
+    from mamimo_tpu_torch.pipeline.datatx import (
+        DataTxDraws,
+        _faded,
+        _map_symbols,
+        _receive_and_decode,
+        _transmit,
+        data_tx_from_draws,
+        draw_data_tx,
+        steering_dictionary,
+    )
+    from mamimo_tpu_torch.pipeline.multiuser import make_scenarios
+    from mamimo_tpu_torch.pipeline.sounding import (
+        draw_sounding,
+        sound_from_draws,
+    )
+    from mamimo_tpu_torch.train.ckpt import load_checkpoint
+    from mamimo_tpu_torch.train.loop import evaluate_dataset
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {"limits": CL_LIMITS}
+    srcs = ("ls", "lmmse", "dnn", "perfect")
+
+    # (a) the corpora
+    dss = {snr: generate_dataset(cfg, CL_SEED, CL_PACKETS, snr,
+                                 with_mmse=True, chunk=CL_PACKETS,
+                                 device=dev) for snr in CL_SNRS}
+    print(f"[5j closed loop] {CL_PACKETS} packets at "
+          f"{', '.join(f'{s:g}' for s in CL_SNRS)} dB (LMMSE labels), "
+          f"{cfg.n_rays} rays, {cfg.num_data_symbols} data symbols, "
+          f"{cfg.num_frm_bits} bits a frame")
+
+    # (b) the DNN CSI through the serving call, counted
+    pred = CSIPredictor(best_dir, device=dev)
+    ck = load_checkpoint(os.path.join(best_dir, "best"))
+    dnn, out["served"] = {}, {}
+    for snr, ds in dss.items():
+        (_, h_dnn), cnt = counted(lambda ds=ds: pred.estimate_full(
+            ds.rx_planes()))
+        require_launched(f"estimate_full (the closed loop's DNN, {snr:g} "
+                         f"dB)", cnt, ("ls_planes_v2", "factored_sig_proj",
+                                       "factored_tail"))
+        once = {k: cnt[k] for k in ("ls_planes_v2", "factored_sig_proj",
+                                    "factored_tail")}
+        if set(once.values()) != {1}:
+            raise AssertionError(f"estimate_full launched {once}, want 1 "
+                                 f"each")
+        dnn[snr] = h_dnn.reshape(CL_PACKETS, cfg.num_rx, cfg.num_tx,
+                                 cfg.num_carriers).transpose(0, 3, 2, 1)
+        want, _ = evaluate_dataset(cfg, ck["tcfg"], ck["params"],
+                                   ck["bn_state"], ds, device=dev)
+        out["served"][snr] = {"launches": cnt, "dnn_vs_evaluate": check(
+            f"closed loop's DNN CSI (estimate_full, {snr:g} dB) vs "
+            f"evaluate_dataset", torch.from_numpy(dnn[snr]),
+            torch.from_numpy(want), PIPE_LIMITS["served_dnn_db"])}
+
+    # (c) the closed loop over the four sources
+    out["closed_loop"] = {}
+    print(f"  {'SNR':>5} {'source':>8} {'BER':>10} {'EVM %':>9} "
+          f"{'NMSE dB':>9} {'BF gain dB':>11}")
+    for snr, ds in dss.items():
+        t1 = time.perf_counter()
+        res = evaluate_closed_loop(ds, predictions=dnn[snr], sources=srcs,
+                                   device=dev)
+        wall = time.perf_counter() - t1
+        summ = {s: res[s].summary() for s in srcs}
+        out["closed_loop"][snr] = {"summary": summ, "wall_s": wall}
+        for s in srcs:
+            m = summ[s]
+            print(f"  {snr:>5g} {s:>8} {m['ber']:>10.3e} {m['evm']:>9.3f} "
+                  f"{m['nmse_db']:>9.2f} {m['bf_gain']:>11.3f}")
+        print(f"  evaluate_closed_loop at {snr:g} dB: {CL_PACKETS} packets x "
+              f"{len(srcs)} sources in {wall:.2f} s")
+        bad = [s for s in srcs for k in ("ber", "evm", "bf_gain")
+               if not np.isfinite(getattr(res[s], k)).all()]
+        if bad:
+            raise AssertionError(f"closed loop not finite at {snr}: {bad}")
+    hi = out["closed_loop"][max(CL_SNRS)]["summary"]["perfect"]
+    print(f"  at {max(CL_SNRS):g} dB perfect CSI: mean BER {hi['ber']:.3e} "
+          f"(limit {CL_LIMITS['perfect_ber']}), mean BF gain "
+          f"{hi['bf_gain']:.3f} dB (limit {CL_LIMITS['perfect_bf_gain_db']})")
+    if not (hi["ber"] < CL_LIMITS["perfect_ber"]
+            and hi["bf_gain"] > CL_LIMITS["perfect_bf_gain_db"]):
+        raise AssertionError(f"perfect CSI at {max(CL_SNRS)} dB: {hi}")
+
+    # (d) the card against the CPU on 2 packets sounded on the CPU from
+    # CPU generators (LS and perfect CSI): the OMP weights on each device,
+    # then the frame of the CPU's weights through the channel and the
+    # receiver on each. The SVD's per-carrier phase (LAPACK's on the CPU,
+    # cuSOLVER's on the card) is arbitrary, and it shapes the time-domain
+    # frame, so it moves EVM and SNR at the percent level: the weights
+    # are compared up to it, the rest of the leg on the same weights
+    ns = cfg.num_sts
+    ds = dss[max(CL_SNRS)]
+    scen_c = Scenario(*(t.to(cpu) for t in ds.scenario))
+    gens = [torch.Generator().manual_seed(CL_SEED * 100 + p) for p in (0, 1)]
+    res_c, chan_c = sound_from_draws(cfg, scen_c, draw_sounding(cfg, gens),
+                                     max(CL_SNRS))
+    chan_c = ChannelRealization(*(t[:, None] for t in chan_c))
+    dr_c = DataTxDraws(*(t[:, None] for t in draw_data_tx(
+        cfg, [torch.Generator().manual_seed(CL_SEED + p) for p in (0, 1)])))
+    csi_c = torch.stack([res_c.h_ls, res_c.h_perfect], dim=1)
+    wts = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        at = steering_dictionary(cfg, dr_c.az.to(d), dr_c.el.to(d))
+        wts[where] = [t.cpu() for t in omp_hyb_weights(csi_c.to(d), ns, ns,
+                                                        at)]
+    (fbb_g, frf_g), (fbb_c, frf_c) = wts["card"], wts["cpu"]
+    inner = (fbb_g.conj() * fbb_c).sum(-1, keepdim=True)
+    aligned = fbb_g * inner / inner.abs().clamp(min=1e-30)
+    w_rel = {"frf": float((frf_g - frf_c).norm() / frf_c.norm()),
+             "fbb_up_to_phase": float((aligned - fbb_c).norm()
+                                      / fbb_c.norm())}
+    legs = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        bits = dr_c.bits.to(d)
+        ch = ChannelRealization(*(t.to(d) for t in chan_c))
+        sig = _transmit(cfg, _map_symbols(cfg, bits, ns), fbb_c.to(d),
+                        frf_c.mean(-3).to(d))
+        legs[where] = _receive_and_decode(
+            cfg, dr_c.noise.to(d),
+            _faded(cfg, sig, ch, default_fft_size(cfg, data_leg=True)),
+            gain_db=scen_c.sp_loss_db.to(d),
+            noise_db=res_c.noise_db.to(d)[:, None],
+            chan_delay=ch.chan_delay, n_pre_sym=ns,
+            own=torch.arange(ns, device=d), bits=bits,
+            snr_cs=res_c.snr_cs.to(d)[:, None])
+    # the card's leg on its own weights: their other phases move EVM
+    own = data_tx_from_draws(
+        cfg, Scenario(*(t.to(dev) for t in scen_c)),
+        ChannelRealization(*(t.to(dev) for t in chan_c)), csi_c.to(dev),
+        res_c.noise_db.to(dev)[:, None], res_c.snr_cs.to(dev)[:, None],
+        DataTxDraws(*(t.to(dev) for t in dr_c)))
+    a, b = legs["card"], legs["cpu"]
+    own_evm = float(((own.evm.cpu() - b.evm).abs() / b.evm).max())
+    own_snr = float((own.snr_dt.cpu() - b.snr_dt).abs().max())
+    own_bits = bool(torch.equal(own.decoded.cpu(), b.decoded))
+    bits_eq = bool(torch.equal(a.decoded.cpu(), b.decoded))
+    evm_rel = float(((a.evm.cpu() - b.evm).abs() / b.evm).max())
+    snr_diff = float((a.snr_dt.cpu() - b.snr_dt).abs().max())
+    out["card_vs_cpu"] = {"weights_rel": w_rel, "bits_equal": bits_eq,
+                          "evm_rel": evm_rel, "snr_dt_db": snr_diff,
+                          "ber_card": a.ber.cpu().tolist(),
+                          "ber_cpu": b.ber.tolist(),
+                          "evm_cpu": b.evm.tolist(),
+                          "own_weights": {"evm_rel": own_evm,
+                                          "snr_dt_db": own_snr,
+                                          "bits_equal": own_bits}}
+    print(f"  2 packets sounded on the CPU, x (ls, perfect), card vs CPU: "
+          f"OMP weights frf {w_rel['frf']:.3e}, fbb up to a phase per "
+          f"carrier {w_rel['fbb_up_to_phase']:.3e} relative (limit "
+          f"{CL_LIMITS['weights_rel']}); the data leg on the same weights: "
+          f"decoded bits equal {bits_eq}, EVM {evm_rel:.3e} relative (limit "
+          f"{CL_LIMITS['evm_rel']}), SNR {snr_diff:.3e} dB (limit "
+          f"{CL_LIMITS['snr_db']}); BER {a.ber.cpu().tolist()}, EVM "
+          f"{np.round(b.evm.numpy(), 4).tolist()} %; on the card's own "
+          f"weights (cuSOLVER's phases): EVM {own_evm:.3e} relative, SNR "
+          f"{own_snr:.3e} dB from the CPU's, decoded bits equal {own_bits}")
+    if not (bits_eq and evm_rel <= CL_LIMITS["evm_rel"]
+            and snr_diff <= CL_LIMITS["snr_db"]
+            and max(w_rel.values()) <= CL_LIMITS["weights_rel"]):
+        raise AssertionError(f"card and CPU data legs differ: "
+                             f"{out['card_vs_cpu']}")
+
+    # (e) generate_dataset with the data leg
+    t1 = time.perf_counter()
+    wb = generate_dataset(cfg, CL_SEED, CL_PACKETS, max(CL_SNRS),
+                          with_mmse=True, chunk=CL_PACKETS, with_ber=True,
+                          device=dev)
+    same = {f: bool(np.array_equal(getattr(wb, f), getattr(ds, f)))
+            for f in FIELDS}
+    out["with_ber"] = {"sounding_bit_equal": same,
+                       "mean_ber": float(np.mean(wb.ber)),
+                       "wall_s": time.perf_counter() - t1}
+    print(f"  generate_dataset(with_ber=True), {CL_PACKETS} packets at "
+          f"{max(CL_SNRS):g} dB: {time.perf_counter() - t1:.2f} s, mean LS "
+          f"BER {np.mean(wb.ber):.3e}; sounding bit-equal to the corpus "
+          f"without it: {all(same.values())}")
+    if not (all(same.values()) and np.isfinite(wb.ber).all()):
+        raise AssertionError(f"with_ber: {out['with_ber']}")
+
+    # (f) the multi-user sweep on a placement the array separates: the
+    # first seed whose two users' steering vectors are < 0.3 correlated
+    mu = cfg.replace(num_users=2)
+    pos = array_positions(mu.num_tx, mu.tx_geometry, 0.5, mu.num_sts)
+    for mu_seed in range(100):
+        sc = make_scenarios(mu, scenario_generator(mu_seed, dev))
+        av = steering_vectors(pos, sc.mobile_az[:, None], sc.mobile_el[:, None])
+        corr = float((av[0, :, 0].conj() @ av[1, :, 0]).abs() / mu.num_tx)
+        if corr < 0.3:
+            break
+    t1 = time.perf_counter()
+    mres = run_mu_snr_sweep(mu, [30.0], MU_PACKETS, seed=mu_seed,
+                            sources=("ls", "perfect"), verbose=False,
+                            device=dev)
+    per = mres["sources"]["perfect"]["ber"][0]
+    out["multi_user"] = {"seed": mu_seed, "steering_corr": corr,
+                         "result": mres,
+                         "wall_s": time.perf_counter() - t1}
+    print(f"  run_mu_snr_sweep, 2 users (seed {mu_seed}, steering "
+          f"correlation {corr:.3f}), {MU_PACKETS} packets at 30 dB: "
+          f"{time.perf_counter() - t1:.2f} s; BER per user: perfect {per}, "
+          f"ls {mres['sources']['ls']['ber'][0]}; EVM perfect "
+          f"{np.round(mres['sources']['perfect']['evm'][0], 3).tolist()}")
+    if any(v != 0.0 for v in per):
+        raise AssertionError(f"multi-user perfect CSI at 30 dB: BER {per}")
+
+    # (g) the CLI's sweeps on the card, as subprocesses at Nt 8
+    cl_dir = os.path.join(tmp, "cl_cli")
+    common = ["--num-tx", "8", "--num-rx", "2"]
+    t1 = time.perf_counter()
+    for argv, result in (
+            (["sweep", *common, "--snr", "0", "10", "--packets", "8",
+              "--closed-loop", "--cl-packets", "8", "--modeldir", cli_model,
+              "-o", f"{cl_dir}/su"], f"{cl_dir}/su/sweep.json"),
+            (["sweep", *common, "--num-users", "2", "--snr", "10",
+              "--packets", "4", "-o", f"{cl_dir}/mu"],
+             f"{cl_dir}/mu/mu_sweep.json")):
+        r = subprocess.run([sys.executable, "-m", "mamimo_tpu_torch.cli",
+                            *argv], cwd=str(ROOT), capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"cli {argv[:2]} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        with open(result) as f:
+            out[f"cli_{os.path.basename(result)}"] = json.load(f)
+        print(f"  cli {argv[0]} "
+              f"{'--num-users 2' if '--num-users' in argv else '--closed-loop'}"
+              f": exit 0, "
+              f"{os.path.basename(result)} written")
+    su = out["cli_sweep.json"]
+    print(f"  cli sweeps: {time.perf_counter() - t1:.1f} s; --closed-loop "
+          f"BER {su['ber']}")
+    print(f"  phase 5j: {time.perf_counter() - t0:.1f} s")
+    out["keep"] = {"ds": ds, "dnn": dnn[max(CL_SNRS)]}
+    return out
+
+
+def closed_loop_timing(cfg, dev, smi, keep, gen_line) -> dict:
+    """Phase 6, the closed loop: one chunk of evaluate_closed_loop
+    (CL_PACKETS packets x 4 sources, closed_loop_chunk) on the host clock
+    (median of 3) beside its traced device-busy time, idle share, kernels
+    and aten calls; the host time of its parts on the same inputs: OMP
+    with the SVD (the steering dictionary and omp_hyb_weights), the
+    channel (the frame's precoding and modulation and apply_channel), the
+    receiver with the Viterbi decoder, and the Viterbi loop alone at the
+    chunk's shape (its time does not depend on the LLRs), traced too;
+    packets x sources per second; run_gen_bench's with_ber rate (from
+    ``gen_line``)."""
+    import torch
+
+    from mamimo_tpu_torch.channel.scattering import (
+        ChannelRealization,
+        Scenario,
+    )
+    from mamimo_tpu_torch.config import default_fft_size
+    from mamimo_tpu_torch.eval.closed_loop import (
+        closed_loop_chunk,
+        eval_generator,
+    )
+    from mamimo_tpu_torch.ops.coding import viterbi_decode
+    from mamimo_tpu_torch.ops.omp import omp_hyb_weights
+    from mamimo_tpu_torch.pipeline.datatx import (
+        DataTxDraws,
+        _faded,
+        _map_symbols,
+        _receive_and_decode,
+        _transmit,
+        draw_data_tx,
+        steering_dictionary,
+    )
+    from mamimo_tpu_torch.pipeline.sounding import (
+        channel_from_draws,
+        draw_channel,
+    )
+
+    t0 = time.perf_counter()
+    ds, dnn = keep["ds"], keep["dnn"]
+    csi_np = np.stack([ds.h_ls, ds.h_mmse, dnn, ds.h_perfect], axis=1)
+    n_pairs = csi_np.shape[0] * csi_np.shape[1]
+    pk = range(CL_PACKETS)
+    chunk = lambda: closed_loop_chunk(ds, pk, csi_np, device=dev)  # noqa: E731
+    host = host_ms(chunk, iters=1, batches=3, warmup=1)
+    per, kernels, aten = trace_call(chunk)
+    busy = sum(per.values()) if per else None
+    out = {"chunk": {"host_ms": host, "busy_ms": busy,
+                     "idle_share": (1 - busy / host) if busy else None,
+                     "kernels": kernels, "aten": aten,
+                     "packets_x_sources_per_s": n_pairs / host * 1e3}}
+    print(f"  evaluate_closed_loop, one chunk of {CL_PACKETS} packets x 4 "
+          f"sources: host {host:.2f} ms ({n_pairs / host * 1e3:.1f} packet-"
+          f"sources/s), traced busy "
+          + (f"{busy:.2f} ms, idle {(1 - busy / host) * 100:.1f}%" if busy
+             else "not traced") + f"; {kernels} kernels, {aten} aten calls"
+          f"  [{smi}]")
+
+    # the parts, on the chunk's own inputs
+    scen = Scenario(*(torch.as_tensor(t).to(dev) for t in ds.scenario))
+    sd = draw_channel(cfg, [ds.packet_generator(p) for p in pk])
+    chan = ChannelRealization(*(t[:, None] for t in channel_from_draws(
+        cfg, scen, sd)))
+    dr = DataTxDraws(*(t[:, None] for t in draw_data_tx(
+        cfg, [eval_generator(1234, p, dev) for p in pk])))
+    csi = torch.as_tensor(csi_np, device=dev)
+    ns = cfg.num_sts
+    fft = default_fft_size(cfg, data_leg=True)
+
+    def omp():
+        at = steering_dictionary(cfg, dr.az, dr.el)
+        return omp_hyb_weights(csi, ns, ns, at)
+
+    fbb, frf = omp()
+    grid = _map_symbols(cfg, dr.bits, ns)
+
+    def channel():
+        return _faded(cfg, _transmit(cfg, grid, fbb, frf.mean(-3)), chan,
+                      fft)
+
+    faded = channel()
+
+    def receive():
+        return _receive_and_decode(
+            cfg, dr.noise, faded, gain_db=scen.sp_loss_db,
+            noise_db=torch.as_tensor(ds.noise_db, device=dev)[:, None],
+            chan_delay=chan.chan_delay, n_pre_sym=ns,
+            own=torch.arange(ns, device=dev), bits=dr.bits,
+            snr_cs=torch.as_tensor(ds.snr_cs, device=dev)[:, None])
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    llr = torch.randn((CL_PACKETS, 4, 3 * (cfg.num_frm_bits + 6)),
+                      generator=g, device=dev)
+    parts = {"omp_svd": omp, "channel": channel, "receiver": receive,
+             "viterbi": lambda: viterbi_decode(llr, cfg.num_frm_bits)}
+    out["parts"] = {}
+    for name, fn in parts.items():
+        ms = host_ms(fn, iters=1, batches=3, warmup=1)
+        p2, k2, a2 = trace_call(fn)
+        b2 = sum(p2.values()) if p2 else None
+        out["parts"][name] = {"host_ms": ms, "busy_ms": b2, "kernels": k2,
+                              "aten": a2}
+        print(f"  closed-loop part {name}: host {ms:.2f} ms, traced busy "
+              + (f"{b2:.2f} ms" if b2 else "not traced")
+              + f", {k2} kernels, {a2} aten calls  [{smi}]")
+    rest = host - sum(out["parts"][k]["host_ms"]
+                      for k in ("omp_svd", "channel", "receiver"))
+    vit = out["parts"]["viterbi"]["host_ms"]
+    out["split_ms"] = {"omp_svd": out["parts"]["omp_svd"]["host_ms"],
+                       "channel": out["parts"]["channel"]["host_ms"],
+                       "viterbi": vit,
+                       "receiver_without_viterbi":
+                           out["parts"]["receiver"]["host_ms"] - vit,
+                       "rest": rest}
+    print(f"  closed-loop chunk split (host ms of {host:.2f}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out["split_ms"].items())
+          + f"; the Viterbi loop {vit / host * 100:.1f}% of the chunk  "
+          f"[{smi}]")
+    wb = gen_line["extra"]["modes"]["with_ber"]
+    out["gen_with_ber"] = wb
+    print(f"  run_gen_bench with_ber: {wb['packets_per_s']:.2f} packets/s "
+          f"(512 packets in {wb['wall_s']:.4f} s; ls "
+          f"{gen_line['extra']['modes']['ls']['packets_per_s']:.2f})  "
+          f"[{smi}]")
+    print(f"  closed-loop timing: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2357,6 +2802,12 @@ def main() -> int:
     pipe_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_")
     pipe = pipeline_phase(cfg, dev, counted, require_launched, pipe_dir.name)
 
+    # 5j. the closed loop: DNN CSI served, OMP, Viterbi, sweeps, CLI ------
+    cl = closed_loop_phase(cfg, dev, counted, require_launched,
+                           os.path.join(pipe_dir.name, "in_hbm"),
+                           os.path.join(pipe_dir.name, "cli", "model"),
+                           pipe_dir.name)
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -2745,6 +3196,8 @@ def main() -> int:
     train["rows"] = train_timing(cfg, train.pop("data"), smi)
     sound["timing"] = sounding_timing(cfg, dev, smi, xb32)
     pipe["timing"] = pipeline_timing(cfg, dev, smi, pipe.pop("keep"))
+    cl["timing"] = closed_loop_timing(cfg, dev, smi, cl.pop("keep"),
+                                      sound["timing"]["line"])
     pipe_dir.cleanup()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
@@ -2780,6 +3233,7 @@ def main() -> int:
         "train": train,
         "sounding": sound,
         "pipeline": pipe,
+        "closed_loop": cl,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

@@ -815,9 +815,11 @@ def run_gen_bench(num_packets: int = 512, chunk: int = 64,
     copy of the corpus to host memory (the reference likewise pays the
     .mat write), timed on the host clock after a warm-up call of 2·chunk
     packets: sounding only ('ls'), the same with the bf16 fetch
-    ('ls_bf16fetch'), and with the CG LMMSE labels ('lmmse'). JAX's
-    'with_ber' mode (the data-transmission leg) waits for the closed-loop
-    slice (ROADMAP.md §1.6). 'device_sounding': num_packets // chunk
+    ('ls_bf16fetch'), with the CG LMMSE labels ('lmmse'), and with the
+    data-transmission leg on each packet's LS CSI ('with_ber', the
+    isOnlyCSI=false path, generate_maMIMO_LTF.m:403-640: OMP precoding,
+    the coded frame through the channel, the Viterbi decoder).
+    'device_sounding': num_packets // chunk
     chunks sounded back to back from fresh generators, no corpus copy,
     one float32 scalar fetch closing the window, which separates the
     card's sounding rate from the fetch pipeline's. ``BENCH_NT`` /
@@ -837,7 +839,7 @@ def run_gen_bench(num_packets: int = 512, chunk: int = 64,
                     num_rx=int(os.environ.get("BENCH_NR", "4")))
     per_pkt = cfg.num_tx * cfg.num_rx
     modes = {"ls": {}, "ls_bf16fetch": {"fetch_dtype": "bf16"},
-             "lmmse": {"with_mmse": True}}
+             "lmmse": {"with_mmse": True}, "with_ber": {"with_ber": True}}
     results = {}
 
     def rates(n, dt):

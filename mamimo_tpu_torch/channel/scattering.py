@@ -126,18 +126,18 @@ def steering_vectors(elem_pos_wavelengths, az_deg, el_deg) -> torch.Tensor:
 
     Args:
       elem_pos_wavelengths: (3, n) element positions in wavelengths.
-      az_deg, el_deg: (m,) angles in degrees.
+      az_deg, el_deg: (..., m) angles in degrees.
 
     Returns:
-      (n, m) complex64 steering matrix exp(j·2π·posᵀ·u).
+      (..., n, m) complex64 steering matrix exp(j·2π·posᵀ·u).
     """
     az = torch.deg2rad(_f32(az_deg))
     el = torch.deg2rad(_f32(el_deg))
     u = torch.stack([torch.cos(el) * torch.cos(az),
-                     torch.cos(el) * torch.sin(az), torch.sin(el)])
+                     torch.cos(el) * torch.sin(az), torch.sin(el)], dim=-2)
     pos = _f32(elem_pos_wavelengths, u.device)
     with full_f32_matmul():
-        phase = 2.0 * math.pi * torch.einsum("dn,dm->nm", pos, u)
+        phase = 2.0 * math.pi * torch.einsum("dn,...dm->...nm", pos, u)
     return torch.complex(torch.cos(phase), torch.sin(phase))
 
 

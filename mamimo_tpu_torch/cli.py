@@ -5,12 +5,14 @@
     python3 -m mamimo_tpu_torch.cli gen      — generate a sounding dataset
     python3 -m mamimo_tpu_torch.cli train    — train the CSI denoiser
     python3 -m mamimo_tpu_torch.cli test     — predict + export + NMSE report
+    python3 -m mamimo_tpu_torch.cli sweep    — metrics vs SNR (+ closed loop,
+                                               + multi-user JSDM)
+    python3 -m mamimo_tpu_torch.cli pipeline — gen → train → sweep
     python3 -m mamimo_tpu_torch.cli convert  — reference .mat/.b ↔ native npz
     python3 -m mamimo_tpu_torch.cli bench    — throughput benchmark
 
-``sweep``, ``pipeline`` (they need the SNR sweep of the closed-loop
-slice) and ``train --dp/--tp > 1`` (the sharded-training slice) exit with
-the text of the NotImplementedError that names their slice.
+``train --dp/--tp > 1`` (the sharded-training slice) exits with the text
+of the NotImplementedError that names its slice.
 """
 
 from __future__ import annotations
@@ -20,12 +22,6 @@ import json
 import os
 
 import numpy as np
-
-SWEEP_TODO = (
-    "the SNR sweep (eval/snr_sweep.py, with the closed loop it drives) is "
-    "not ported yet; it comes with the closed-loop slice of ROADMAP.md "
-    "(§1.6)")
-
 
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
@@ -186,13 +182,126 @@ def cmd_test(args) -> None:
         json.dump({k: float(np.mean(v)) for k, v in nm.items()}, f)
 
 
+def _make_predictor(modeldir: str, device):
+    """ds -> the DNN CSI of every packet of ds (``evaluate_dataset``) from
+    the ``best`` checkpoint of modeldir."""
+    from mamimo_tpu_torch.train.ckpt import load_checkpoint
+    from mamimo_tpu_torch.train.loop import evaluate_dataset
+
+    ck = load_checkpoint(os.path.join(modeldir, "best"))
+
+    def predictor(ds):
+        pred, _ = evaluate_dataset(ds.cfg, ck["tcfg"], ck["params"],
+                                   ck["bn_state"], ds, device=device)
+        return pred
+
+    return predictor
+
+
+def _user_models(args, cfg):
+    """The per-user DNN source of a multi-user sweep: one ``best``
+    checkpoint per user under <modeldir>/u0/, u1/, ..., each trained at
+    the sweep's signal dimensions, all with one TrainConfig. Returns
+    ([(params, bn_state)] per user, tcfg); SystemExit naming what is
+    wrong."""
+    from mamimo_tpu_torch.train.ckpt import load_checkpoint
+
+    cks = []
+    for u in range(args.num_users):
+        udir = os.path.join(args.modeldir, f"u{u}", "best")
+        if not os.path.exists(udir + ".json"):
+            raise SystemExit(
+                f"[sweep] --num-users={args.num_users} needs a per-user "
+                f"checkpoint at {udir}.json (cli train on "
+                "generate_dataset(user=u) corpora)")
+        cks.append(load_checkpoint(udir))
+    for u, c in enumerate(cks):
+        mism = [f"{k}={getattr(c['cfg'], k)}!={getattr(cfg, k)}"
+                for k in ("num_tx", "num_rx", "num_carriers")
+                if getattr(c["cfg"], k) != getattr(cfg, k)]
+        if mism:
+            raise SystemExit(f"[sweep] u{u} checkpoint dims do not match "
+                             f"the sweep config: {', '.join(mism)}")
+        if c["tcfg"] != cks[0]["tcfg"]:
+            raise SystemExit(f"[sweep] u{u} TrainConfig differs from u0's: "
+                             "the per-user models must share one tcfg")
+    return [(c["params"], c["bn_state"]) for c in cks], cks[0]["tcfg"]
+
+
 def cmd_sweep(args) -> None:
-    raise NotImplementedError(f"sweep: {SWEEP_TODO}")
+    from mamimo_tpu_torch.eval.snr_sweep import (
+        plot_sweep,
+        run_mu_snr_sweep,
+        run_snr_sweep,
+    )
+
+    cfg = _sim_cfg(args)
+    if args.num_users > 1:
+        # the multi-user closed loop: JSDM precoding, per-user decoding
+        cfg = cfg.replace(num_users=args.num_users)
+        if args.closed_loop:
+            raise SystemExit("[sweep] --closed-loop is not supported with "
+                             "--num-users>1 (the MU sweep IS the closed "
+                             "loop)")
+        models, tcfg, sources = None, None, ("ls", "lmmse", "perfect")
+        if args.modeldir:
+            models, tcfg = _user_models(args, cfg)
+            sources = ("ls", "lmmse", "dnn", "perfect")
+        res = run_mu_snr_sweep(cfg, snr_levels=args.snr,
+                               num_packets=args.packets, seed=args.seed,
+                               sources=sources, chunk=args.chunk or 8,
+                               dnn_models=models, tcfg=tcfg,
+                               device=args.device)
+        os.makedirs(args.out, exist_ok=True)
+        path = os.path.join(args.out, "mu_sweep.json")
+        with open(path, "w") as f:
+            json.dump(res, f, indent=2)
+        print(f"[sweep] wrote {path}")
+        return
+    predictor = (_make_predictor(args.modeldir, args.device)
+                 if args.modeldir else None)
+    res = run_snr_sweep(cfg, snr_levels=args.snr, num_packets=args.packets,
+                        seed=args.seed, predictor=predictor,
+                        closed_loop=args.closed_loop,
+                        max_cl_packets=args.cl_packets,
+                        chunk=args.chunk or 16, device=args.device)
+    os.makedirs(args.out, exist_ok=True)
+    res.save(os.path.join(args.out, "sweep.json"))
+    plots = plot_sweep(res, args.out)
+    print(f"[sweep] wrote {args.out}/sweep.json"
+          + (" + plots" if plots else " (no matplotlib: no plots)"))
 
 
 def cmd_pipeline(args) -> None:
-    raise NotImplementedError(f"pipeline (gen -> train -> sweep): "
-                              f"{SWEEP_TODO}")
+    """The whole pipeline: train-set generation → train → per-SNR test
+    sets → sweep (full_pipeline_maMIMO_DNNEst.sh)."""
+    from mamimo_tpu_torch.eval.snr_sweep import plot_sweep, run_snr_sweep
+    from mamimo_tpu_torch.pipeline.dataset import generate_dataset
+    from mamimo_tpu_torch.train import fit
+
+    cfg = _sim_cfg(args)
+    tcfg = _train_cfg(args)
+    os.makedirs(args.workdir, exist_ok=True)
+    print(f"[pipeline] generating {args.train_packets} train packets "
+          f"(noiseless SNR=120)...")
+    train_ds = generate_dataset(cfg, seed=args.seed,
+                                num_packets=args.train_packets, snr_db=120.0,
+                                chunk=args.chunk, device=args.device)
+    print("[pipeline] training...")
+    fit(cfg, tcfg, train_ds, workdir=args.workdir, device=args.device)
+    # test on the training placement with fresh channel and noise seeds
+    # (the reference's shared-scenario rng(67) contract)
+    sweep = run_snr_sweep(
+        cfg, snr_levels=args.snr, num_packets=args.packets,
+        seed=args.seed + 1,
+        predictor=_make_predictor(args.workdir, args.device),
+        closed_loop=args.closed_loop, max_cl_packets=args.cl_packets,
+        chunk=args.chunk, scenario=train_ds.scenario, device=args.device)
+    outdir = os.path.join(args.workdir, "test_results")
+    os.makedirs(outdir, exist_ok=True)
+    sweep.save(os.path.join(outdir, "sweep.json"))
+    plot_sweep(sweep, outdir)
+    print(f"[pipeline] complete -> {outdir}")
 
 
 def cmd_convert(args) -> None:

@@ -1,6 +1,6 @@
-"""Evaluation: the per-packet metric container, the sounding NMSE
-summary and the diagnostic plots (``plots``, matplotlib at first use).
-The closed loop and the SNR sweep are not ported yet."""
+"""Evaluation: the closed loop of the CSI estimators (``closed_loop``),
+the SNR sweeps (``snr_sweep``) and the diagnostic plots (``plots``,
+matplotlib at first use)."""
 
 from mamimo_tpu_torch.eval.closed_loop import (  # noqa: F401
     ClosedLoopMetrics,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from mamimo_tpu_torch.config import SimConfig
+from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
 # helperMIMOChannelEstimate.m:16-19
 _LTF_LEFT = [1, 1, -1, -1, 1, 1, -1, 1, -1, 1, 1, 1, 1,
@@ -98,12 +99,25 @@ def preamble_scale(cfg: SimConfig, num_sts: int) -> float:
     return cfg.fft_length / math.sqrt(cfg.used_sc) / math.sqrt(num_sts)
 
 
-def gen_preamble(cfg: SimConfig, num_sts: int | None = None) -> np.ndarray:
-    """Static sounding preamble (helperGenPreamble without precoding).
+def gen_preamble(cfg: SimConfig, num_sts: int | None = None, v=None):
+    """The sounding or data preamble (helperGenPreamble).
+
+    Args:
+      num_sts: number of streams to sound (default cfg.num_tx: the
+        generator sets ``prm.numSTS = numTx`` to sound all channels,
+        generate_maMIMO_LTF.m:201).
+      v: optional per-carrier baseband precoding, (..., num_carriers,
+        num_sts, nout) complex tensor: the feedback-weights path
+        (``helperGenPreamble(prm, v)``, generate_maMIMO_LTF.m:505). Each
+        carrier's stream vector is precoded with the Frobenius-normalized
+        ``v`` (unit norm: deliberately without the sqrt(numTx) of the
+        data symbols, generate_maMIMO_LTF.m:487-491, since the receiver
+        divides the equalized data by sqrt(numTx), :590).
 
     Returns:
-      (num_sts*(fft+cp), num_sts) complex64 numpy time signal: column j
-      is what Tx antenna j radiates.
+      without v: (num_sts*(fft+cp), num_sts) complex64 numpy time signal,
+      column j what Tx antenna j radiates; with v: (..., num_sts*(fft+cp),
+      nout) complex64 tensor on v's device.
     """
     if num_sts is None:
         num_sts = cfg.num_tx
@@ -112,8 +126,25 @@ def gen_preamble(cfg: SimConfig, num_sts: int | None = None) -> np.ndarray:
     scale = preamble_scale(cfg, num_sts)
     # grid[k, n, j] = ltf[k] * P[j, n] * scale
     grid = (ltf[:, None, None] * P.T[None, :, :] * scale).astype(np.complex64)
-    t = np.fft.ifft(np.fft.ifftshift(grid, axes=0), axis=0)
-    sym = np.concatenate([t[-cfg.cp_length:], t], axis=0)
-    sym = np.moveaxis(sym, 1, 0)                      # (nsym, F+cp, nsts)
-    return sym.reshape(sym.shape[0] * sym.shape[1], sym.shape[2]).astype(
-        np.complex64)
+    if v is None:
+        t = np.fft.ifft(np.fft.ifftshift(grid, axes=0), axis=0)
+        sym = np.concatenate([t[-cfg.cp_length:], t], axis=0)
+        sym = np.moveaxis(sym, 1, 0)                  # (nsym, F+cp, nsts)
+        return sym.reshape(sym.shape[0] * sym.shape[1],
+                           sym.shape[2]).astype(np.complex64)
+
+    v = torch.as_tensor(v).to(torch.complex64)        # (..., C, nsts, nout)
+    fro = torch.linalg.vector_norm(v, dim=(-2, -1), keepdim=True)
+    norm_v = v / torch.clamp(fro, min=1e-30)
+    full_v = v.new_zeros(v.shape[:-3] + (cfg.fft_length,) + v.shape[-2:])
+    carr = torch.as_tensor(np.asarray(cfg.carrier_locations, np.int64),
+                           device=v.device)
+    full_v[..., carr, :, :] = norm_v
+    with full_f32_matmul():
+        g = torch.einsum("fsj,...fjo->...fso",
+                         torch.as_tensor(grid, device=v.device), full_v)
+    t = torch.fft.ifft(torch.fft.ifftshift(g, dim=-3), dim=-3)
+    sym = torch.cat([t[..., -cfg.cp_length:, :, :], t], dim=-3)
+    sym = sym.movedim(-2, -3)                         # (..., S, F+cp, nout)
+    return sym.reshape(sym.shape[:-3] + (sym.shape[-3] * sym.shape[-2],
+                                         sym.shape[-1]))

@@ -1,5 +1,5 @@
 """Dataset generation on the card and its container (the port's copy of
-``mamimo_tpu/pipeline/dataset.py``, single user).
+``mamimo_tpu/pipeline/dataset.py``).
 
 Replaces the reference's pipeline of files (MATLAB
 ``generate_maMIMO_LTF`` → .mat → ``create_massiveMIMO_CSIest_dnn_dataset.py``
@@ -14,11 +14,11 @@ Randomness: the scenario comes from a ``torch.Generator`` seeded with
 ``seed`` alone, and packet p from its own generator seeded from (seed,
 p) alone (``packet_generator``), so a packet does not depend on the
 chunk size and can be regenerated alone (the prm.seed_p contract,
-generate_maMIMO_LTF.m:33-41). The numbers are not JAX's: the JAX
-package folds p into a PRNG key.
-
-Not ported yet, and refused: ``with_ber`` (the data-transmission leg,
-ROADMAP.md §1.6) and more than one user (§1.7).
+generate_maMIMO_LTF.m:33-41). With num_users > 1 the users' scenarios
+come one after another from that generator and user u's packet p from
+(seed, p, 1000 + u) (``pipeline/multiuser.py``); the data leg of
+``with_ber`` from (seed, p, 7777). The numbers are not JAX's: the JAX
+package folds these integers into PRNG keys.
 """
 
 from __future__ import annotations
@@ -37,17 +37,21 @@ from mamimo_tpu_torch.models.predictor import resolve_device
 from mamimo_tpu_torch.ops.ltf import _hadamard_np, gen_preamble
 from mamimo_tpu_torch.pipeline.sounding import draw_sounding, sound_from_draws
 from mamimo_tpu_torch.utils.numerics import fetch_tree_async
+from mamimo_tpu_torch.utils.seeds import seeded_generator
 
 FIELDS = ("rx", "h_ls", "h_perfect", "h_mmse", "snr_cs", "noise_db", "tau",
           "chan_delay")
 
 
+# the extra seed integer of a packet's data-leg generator (``with_ber``),
+# the 7777 that JAX folds into the packet's key
+DATA_LEG_STREAM = 7777
+
+
 def packet_generator(seed: int, p: int, device) -> torch.Generator:
     """Packet p's generator on ``device``, seeded from (seed, p) alone
     through numpy's SeedSequence (63 bits)."""
-    s = np.random.SeedSequence([seed, p]).generate_state(2, np.uint32)
-    return torch.Generator(device=device).manual_seed(
-        ((int(s[0]) << 32) | int(s[1])) & ((1 << 63) - 1))
+    return seeded_generator(device, seed, p)
 
 
 def scenario_generator(seed: int, device) -> torch.Generator:
@@ -55,12 +59,17 @@ def scenario_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _single_user(cfg: SimConfig, user: int) -> None:
-    if cfg.num_users > 1 or user != 0:
-        raise NotImplementedError(
-            f"num_users {cfg.num_users}, user {user}: multi-user generation "
-            f"(pipeline/multiuser.py) is not ported yet; it comes with the "
-            f"multi-user slice of ROADMAP.md (§1.7)")
+def _packet_generator(cfg: SimConfig, seed: int, p: int, user: int,
+                      device) -> torch.Generator:
+    """The sounding generator of packet p: ``packet_generator``, or user
+    ``user``'s (``multiuser.user_packet_generator``) with num_users > 1."""
+    if cfg.num_users > 1:
+        from mamimo_tpu_torch.pipeline.multiuser import user_packet_generator
+
+        return user_packet_generator(seed, p, user, device)
+    if user != 0:
+        raise ValueError(f"user {user} of a single-user configuration")
+    return packet_generator(seed, p, device)
 
 
 @dataclasses.dataclass
@@ -83,6 +92,7 @@ class CSIDataset:
     user: int = 0
     noise_mode: str = "snr"               # the receiver convention used
     device: str = "cuda"                  # where the packets were drawn
+    ber: Optional[np.ndarray] = None      # (B,) data-leg BER (with_ber)
 
     @property
     def num_packets(self) -> int:
@@ -116,10 +126,9 @@ class CSIDataset:
         ``device``, default the device the dataset was drawn on: the card's
         and the CPU's streams differ). ``draw_sounding(cfg, [gen],
         noise_mode)`` then ``sound_from_draws`` on ``scenario`` regenerate
-        the packet."""
-        _single_user(self.cfg, self.user)
-        return packet_generator(self.seed, p,
-                                self.device if device is None else device)
+        the packet (user ``user``'s packet with num_users > 1)."""
+        return _packet_generator(self.cfg, self.seed, p, self.user,
+                                 self.device if device is None else device)
 
     def extract_packets(self, n: int, reverse: bool = True) -> "CSIDataset":
         """The first (or last) n packets (``extract_pkt.m``; the BER
@@ -127,7 +136,7 @@ class CSIDataset:
         sl = (slice(self.num_packets - n, self.num_packets) if reverse
               else slice(0, n))
         return dataclasses.replace(self, **{
-            f: getattr(self, f)[sl] for f in FIELDS
+            f: getattr(self, f)[sl] for f in FIELDS + ("ber",)
             if getattr(self, f) is not None})
 
     def save(self, path: str) -> None:
@@ -194,46 +203,76 @@ def generate_dataset(cfg: SimConfig, seed: int, num_packets: int,
     queues the next chunk while the card computes.
 
     Args:
+      user: with cfg.num_users > 1, which user's dataset to emit (the
+        converter's --user flag): the user's scenario of the experiment's
+        users and its per-user packets.
+      with_ber: also run the data-transmission leg per packet with the
+        LS CSI and record its BER (the isOnlyCSI=false path,
+        generate_maMIMO_LTF.m:403-640 + usr_data{u,5}), at FFT length
+        2·fft_size (default ``default_fft_size(cfg, data_leg=True)``),
+        from the packet's own data-leg generator: every other field
+        equals a run without it.
       fetch_dtype: 'f32' (exact) or 'bf16': the complex arrays cross to
         the host as bf16 planes (half the bytes, about −50 dB); refused
         at snr_db >= 60 (noiseless labels), ValueError.
-      with_ber, user (other than 0), cfg.num_users > 1: not ported yet,
-        NotImplementedError.
       device: where it runs; None means the card (cuda), and raises
         without one.
       Other options as ``sound_from_draws``.
     """
-    if with_ber:
-        raise NotImplementedError(
-            "with_ber: the data-transmission leg (pipeline/datatx.py, with "
-            "OMP and the Viterbi decoder) is not ported yet; it comes with "
-            "the closed-loop slice of ROADMAP.md (§1.6)")
-    _single_user(cfg, user)
     if fetch_dtype not in ("f32", "bf16"):
         raise ValueError(f"fetch_dtype {fetch_dtype!r}: 'f32' or 'bf16'")
     if fetch_dtype == "bf16" and snr_db >= 60.0:
         raise ValueError("a bf16 fetch would quantize noiseless labels "
                          "(snr_db >= 60); use 'f32'")
     dev = resolve_device("cuda" if device is None else device)
-    if scenario is None:
-        scen = make_scenario(cfg, scenario_generator(seed, dev))
-    else:
+    if scenario is not None:
         scen = Scenario(*(torch.as_tensor(t).to(dev) for t in scenario))
+    elif cfg.num_users > 1:
+        from mamimo_tpu_torch.pipeline.multiuser import (
+            index_user,
+            make_scenarios,
+        )
+
+        scen = index_user(make_scenarios(cfg, scenario_generator(seed, dev)),
+                          user)
+    else:
+        scen = make_scenario(cfg, scenario_generator(seed, dev))
     preamble = torch.as_tensor(gen_preamble(cfg, cfg.num_tx), device=dev)
     fdt = torch.bfloat16 if fetch_dtype == "bf16" else None
+    if with_ber:
+        from mamimo_tpu_torch.config import default_fft_size
+        from mamimo_tpu_torch.pipeline.datatx import (
+            data_tx_from_draws,
+            draw_data_tx,
+        )
+
+        # the data leg carries the preamble and the data frame
+        data_fft = (default_fft_size(cfg, data_leg=True) if fft_size is None
+                    else 2 * fft_size)
 
     outs, pending = [], None
     for start in range(0, num_packets, chunk):
-        gens = [packet_generator(seed, p, dev)
-                for p in range(start, min(start + chunk, num_packets))]
-        res, _ = sound_from_draws(
+        pkts = range(start, min(start + chunk, num_packets))
+        gens = [_packet_generator(cfg, seed, p, user, dev) for p in pkts]
+        res, chan = sound_from_draws(
             cfg, scen, draw_sounding(cfg, gens, noise_mode), snr_db,
             preamble=preamble, with_mmse=with_mmse, noise_mode=noise_mode,
             fft_size=fft_size, interference_dbm=interference_dbm,
             mmse_estimator=mmse_estimator, mmse_n_iter=mmse_n_iter)
+        ber = None
+        if with_ber:
+            draws = draw_data_tx(cfg, [seeded_generator(dev, seed, p,
+                                                         DATA_LEG_STREAM)
+                                       for p in pkts])
+            ber = data_tx_from_draws(
+                cfg, scen, chan, res.h_ls, res.noise_db, res.snr_cs, draws,
+                fft_size=data_fft,
+                # SINR-mode sounding runs at preamp gain 0: the data leg
+                # too (generate_maMIMO_LTF_SINR.m:466,488-491)
+                gain_db=0.0 if noise_mode == "sinr" else None).ber
         if not with_mmse:
             res = res._replace(h_mmse=None)
-        fetched = fetch_tree_async(res, fdt)
+        fetched = fetch_tree_async((res, ber), fdt)
         if pending is not None:
             outs.append(pending())
         pending = fetched
@@ -241,10 +280,11 @@ def generate_dataset(cfg: SimConfig, seed: int, num_packets: int,
         outs.append(pending())
 
     def cat(name):
-        return np.concatenate([getattr(o, name) for o in outs], axis=0)
+        return np.concatenate([getattr(o[0], name) for o in outs], axis=0)
 
     return CSIDataset(
         cfg=cfg, **{f: cat(f) for f in FIELDS if f != "h_mmse"},
         h_mmse=cat("h_mmse") if with_mmse else None,
         snr_target=float(snr_db), seed=seed, scenario=scen, user=user,
-        noise_mode=noise_mode, device=str(dev))
+        noise_mode=noise_mode, device=str(dev),
+        ber=np.concatenate([o[1] for o in outs]) if with_ber else None)

@@ -92,6 +92,22 @@ def _is_cdl(cfg: SimConfig) -> bool:
     return cfg.channel_model not in ("scattering", "fir")
 
 
+def _draw_channel(cfg: SimConfig, gen: torch.Generator):
+    """One packet's channel draws (u, g, phi) from ``gen``, the first it
+    gives: u then g for the one-ring models, phi for CDL."""
+    if _is_cdl(cfg):
+        return (None, None,
+                _uniform(gen, (num_phases(cfg),), 0.0, 2.0 * math.pi))
+    ns = cfg.n_scatterers
+    u = _uniform(gen, (3, ns), -1.0, 1.0)
+    return (u, torch.randn((2, ns), generator=gen, device=gen.device), None)
+
+
+def _stack(per) -> SoundingDraws:
+    return SoundingDraws(*(None if parts[0] is None else torch.stack(parts)
+                           for parts in zip(*per)))
+
+
 def draw_sounding(cfg: SimConfig, gens: Sequence[torch.Generator],
                   noise_mode: str = "snr") -> SoundingDraws:
     """The draws of len(gens) packets, packet i from gens[i] alone (so a
@@ -107,19 +123,21 @@ def draw_sounding(cfg: SimConfig, gens: Sequence[torch.Generator],
     shape = (nsamp, cfg.num_rx)
     per = []
     for gen in gens:
-        if _is_cdl(cfg):
-            chan = (None, None,
-                    _uniform(gen, (num_phases(cfg),), 0.0, 2.0 * math.pi))
-        else:
-            ns = cfg.n_scatterers
-            u = _uniform(gen, (3, ns), -1.0, 1.0)
-            chan = (u, torch.randn((2, ns), generator=gen, device=gen.device),
-                    None)
+        chan = _draw_channel(cfg, gen)
         noise = draw_normal(gen, shape)
         intf = draw_normal(gen, shape) if noise_mode == "sinr" else None
         per.append(chan + (noise, intf, draw_normal(gen, shape)))
-    return SoundingDraws(*(None if parts[0] is None else torch.stack(parts)
-                           for parts in zip(*per)))
+    return _stack(per)
+
+
+def draw_channel(cfg: SimConfig,
+                 gens: Sequence[torch.Generator]) -> SoundingDraws:
+    """The channel draws alone of len(gens) packets (those
+    ``draw_sounding`` begins with; the receivers' draws are None): enough
+    for ``channel_from_draws`` to regenerate the packets' channels."""
+    if not gens:
+        raise ValueError("draw_channel needs at least one generator")
+    return _stack([_draw_channel(cfg, g) + (None, None, None) for g in gens])
 
 
 def pad_signal(cfg: SimConfig, sig) -> torch.Tensor:

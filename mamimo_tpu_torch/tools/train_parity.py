@@ -21,7 +21,13 @@ plane is reported as a miss). Variants:
 
 A suffix ``_seedN`` trains a variant from seed N (the initial weights,
 the batch order and the noise; default 0): ``f32_seed1,f32_seed2`` give
-the spread of the f32 run itself.
+the spread of the f32 run itself. A suffix ``_corpusN`` draws the
+variant's packets from seed N instead of 21 (the same placement, other
+channels and noise): ``f32_corpus22`` gives the spread across corpus
+draws. A suffix ``_epochsN`` trains it for N epochs instead of
+``--epochs``: ``f32_epochs90`` shows where a longer run stops. Every
+f32 run of the recorded recipe's corpus size is compared with the JAX
+package's record in ``vs_jax_runs``.
 
 The user placement is the one JAX's seed 21 draws
 (``JAX_SEED21_PLACEMENT``, its range, azimuth and elevation, held to
@@ -41,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -61,12 +68,22 @@ def log(m: str) -> None:
     print(f"[{time.strftime('%H:%M:%S')}] {m}", flush=True)
 
 
+def variant_suffixes(name: str) -> tuple[str, dict]:
+    """A variant's name without its ``_seedN``, ``_corpusN`` and
+    ``_epochsN`` suffixes, and their values: {"seed", "corpus",
+    "epochs"}, each an int where given."""
+    found = {k: int(v) for k, v in re.findall(r"_(seed|corpus|epochs)(\d+)",
+                                             name)}
+    return re.sub(r"_(seed|corpus|epochs)\d+", "", name), found
+
+
 def variant_config(name: str, epochs: int):
-    """The TrainConfig of a variant (the JAX script's mapping, and
-    ``_seedN`` for the training seed)."""
+    """The TrainConfig of a variant (the JAX script's mapping, ``_seedN``
+    for the training seed and ``_epochsN`` for the epochs)."""
     from mamimo_tpu_torch.config import TrainConfig
 
-    name, _, seed = name.partition("_seed")
+    name, found = variant_suffixes(name)
+    seed, epochs = found.get("seed", 0), found.get("epochs", epochs)
     awgn = "threefry"
     if "_rbgclt" in name:
         awgn = "rbg_clt"
@@ -159,16 +176,26 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=2)
 
-    if todo:
-        t0 = time.perf_counter()
-        ds = generate_dataset(cfg, seed=21, num_packets=args.packets,
-                              snr_db=120.0, chunk=50,
-                              scenario=jax_placement(cfg, dev), device=dev)
-        out["corpus"]["mobile_range_m"] = float(ds.scenario.mobile_range)
-        out["corpus"]["tau_mean_s"] = float(ds.tau.mean())
-        gen_s = time.perf_counter() - t0
-        log(f"corpus: {ds.num_packets} packets in {gen_s:.1f} s")
+    # one corpus at a time in host memory: the variants of a corpus seed
+    # run together
+    todo.sort(key=lambda v: variant_suffixes(v)[1].get("corpus", 21))
+    ds, ds_seed = None, None
     for name in todo:
+        corpus = variant_suffixes(name)[1].get("corpus", 21)
+        if corpus != ds_seed:
+            ds = None
+            t0 = time.perf_counter()
+            ds = generate_dataset(cfg, seed=corpus, num_packets=args.packets,
+                                  snr_db=120.0, chunk=50,
+                                  scenario=jax_placement(cfg, dev),
+                                  device=dev)
+            ds_seed = corpus
+            if corpus == 21:
+                out["corpus"]["mobile_range_m"] = float(
+                    ds.scenario.mobile_range)
+                out["corpus"]["tau_mean_s"] = float(ds.tau.mean())
+            log(f"corpus seed {corpus}: {ds.num_packets} packets in "
+                f"{time.perf_counter() - t0:.1f} s")
         tcfg = variant_config(name, args.epochs)
         wd = os.path.join(args.workdir, recipe, name)
         start = resumed_epoch(wd)
@@ -188,6 +215,7 @@ def main(argv=None) -> int:
             "wall_s": dt, "s_per_epoch": dt / ran,
             "steps_per_epoch": steps,
             "steps_per_s": steps * ran / dt,
+            "corpus_seed": corpus, "corpus_tau_mean_s": float(ds.tau.mean()),
             "tcfg": json.loads(tcfg.to_json()),
             "final_loss": [res.history["loss_real"][-1],
                            res.history["loss_imag"][-1]],
@@ -197,18 +225,22 @@ def main(argv=None) -> int:
         write()
 
     runs = out["runs"]
+    recorded = (args.num_tx, args.num_rx, args.packets) == (32, 4, 1000)
+    jax_f32 = None
+    if JAX_RECORD.exists() and recorded:
+        with open(JAX_RECORD) as f:
+            jax_f32 = np.asarray(json.load(f)["runs"]["f32"]["best_val_mse"])
+        out["vs_jax_runs"] = {
+            k: [float(10 * np.log10(v)) for v in
+                np.asarray(r["best_val_mse"]) / jax_f32]
+            for k, r in runs.items() if variant_suffixes(k)[0] == "f32"}
     if "f32" in runs:
         f32 = np.asarray(runs["f32"]["best_val_mse"])
         out["parity_db"] = {
             k: [float(10 * np.log10(v)) for v in
                 np.asarray(r["best_val_mse"]) / f32]
             for k, r in runs.items() if k != "f32"}
-        if JAX_RECORD.exists() and (
-                args.num_tx, args.num_rx, args.packets, args.epochs) == (
-                    32, 4, 1000, 60):
-            with open(JAX_RECORD) as f:
-                jax_f32 = np.asarray(json.load(f)["runs"]["f32"]
-                                     ["best_val_mse"])
+        if jax_f32 is not None and args.epochs == 60:
             gap = 10 * np.log10(f32 / jax_f32)
             out["vs_jax_f32"] = {
                 "jax_best_val_mse": jax_f32.tolist(),
@@ -219,7 +251,7 @@ def main(argv=None) -> int:
     log(f"parity vs f32 (dB per plane): {out.get('parity_db')}; vs the JAX "
         f"package's f32: {out.get('vs_jax_f32')} -> {args.out}")
     print(json.dumps({k: out.get(k) for k in ("device", "parity_db",
-                                              "vs_jax_f32")}))
+                                              "vs_jax_f32", "vs_jax_runs")}))
     return 0
 
 

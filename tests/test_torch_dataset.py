@@ -154,9 +154,11 @@ def test_bf16_fetch_and_its_refusal(ds):
 @pytest.mark.parametrize("what", ["with_ber", "num_users", "user",
                                   "save_raw"])
 def test_unported_branches_raise(ds, what, tmp_path):
-    """The branches of later slices raise naming ROADMAP.md; save_raw,
-    ported with the native loader, now writes the raw container, which
-    the loader reads back as the dataset's arrays."""
+    """The branches that later slices ported: save_raw writes the raw
+    container, which the loader reads back as the dataset's arrays;
+    with_ber adds the data leg's BER and leaves the sounding as it was;
+    num_users > 1 generates user 0's dataset of a multi-user experiment;
+    a user other than 0 of a single-user configuration raises."""
     if what == "save_raw":
         from mamimo_tpu_torch.data.native_loader import NativeBatchLoader
 
@@ -166,11 +168,23 @@ def test_unported_branches_raise(ds, what, tmp_path):
         np.testing.assert_array_equal(sig[0] + 1j * sig[1], ds.rx)
         np.testing.assert_array_equal(y[0] + 1j * y[1], ds.h_ls)
         return
-    kw = {"with_ber": dict(with_ber=True), "user": dict(user=1)}.get(what, {})
+    if what == "user":
+        with pytest.raises(ValueError, match="single-user"):
+            generate_dataset(CFG, seed=0, num_packets=1, snr_db=5.0,
+                             device="cpu", user=1)
+        return
+    kw = {"with_ber": dict(with_ber=True)}.get(what, {})
     cfg = CFG.replace(num_users=2) if what == "num_users" else CFG
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate_dataset(cfg, seed=0, num_packets=1, snr_db=5.0,
-                         device="cpu", **kw)
+    d = generate_dataset(cfg, seed=3, num_packets=2, snr_db=5.0,
+                         with_mmse=True, chunk=2, device="cpu", **kw)
+    assert d.rx.shape == (2, CFG.len_ltf, CFG.num_rx)
+    if what == "with_ber":
+        assert d.ber.shape == (2,) and np.all(np.isfinite(d.ber))
+        for f in ARRAYS:
+            np.testing.assert_array_equal(getattr(d, f), getattr(ds, f)[:2])
+    else:
+        assert d.ber is None and d.user == 0
+        assert not np.array_equal(d.rx, ds.rx[:2])
 
 
 @pytest.mark.parametrize("cfg_kw,mode", [({}, "nf"), ({}, "sinr"),
@@ -220,7 +234,7 @@ def test_run_gen_bench_line(monkeypatch):
     assert (extra["device"], extra["num_packets"], extra["chunk"],
             extra["config"]) == ("cpu", 4, 2, "BS8")
     assert tuple(extra["modes"]) == ("ls", "ls_bf16fetch", "lmmse",
-                                     "device_sounding")
+                                     "with_ber", "device_sounding")
     for m in extra["modes"].values():
         assert m["packets_per_s"] > 0 and m["wall_s"] > 0
         assert m["estimates_per_s"] == pytest.approx(
