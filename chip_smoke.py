@@ -176,6 +176,20 @@ failure ends the run with a non-zero exit code):
                perfect CSI decodes every user with BER 0; (g) the CLI's
                sweep --closed-loop (5i's Nt 8 model as the DNN) and
                sweep --num-users 2 as subprocesses at Nt 8;
+5k. sharded — the DP+TP training step and the multi-host layer on 4
+    training  virtual ranks of cuda:0 at BS32 (hidden 1024 x 1024): (a) one
+               step on data 2 x model 2 and on data 4 at batch 1024 against
+               the card's single-card step (TRAIN_LIMITS["f32"]; ReLU
+               pre-activations of another sign counted); (b) a 2-epoch
+               fit(mesh=data 2 x model 2) in the in-HBM, host_stream and
+               window modes on 5i's corpus, each against the single card's
+               fit in that mode; (c) dryrun_multichip(4) on the virtual
+               ranks (one DP+TP step, the sharded LS and inference forms,
+               the plain and the kernel halo exchange, the LS kernel in
+               data and seq modes): the LS and halo kernels must launch;
+               (d) a hidden (64, 64) model, its weights padded to 128
+               units, served through predict_complex_pallas (kernel 5)
+               against the kernels' plain version;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -210,10 +224,14 @@ failure ends the run with a non-zero exit code):
                busy time, idle share, kernels and aten calls, its parts
                (OMP with the SVD, the channel, the receiver, the Viterbi
                loop alone) on the same inputs, packets x sources per
-               second, and run_gen_bench's with_ber rate.
+               second, and run_gen_bench's with_ber rate; the sharded
+               training step: one f32 step at batch 1024 on the single
+               card, on data 2 x model 2 and on data 4 (4 virtual ranks),
+               ms/step on the host clock beside the traced device-busy
+               time, idle share, kernels and aten calls per step.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i and 5j and read just after; estimate_full,
+5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j and 5k and read just after; estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
 (torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
@@ -267,6 +285,14 @@ CL_LIMITS = {"perfect_ber": 1e-2, "perfect_bf_gain_db": 3.0,
 # evaluate_dataset and the served LS against the corpus's labels (dB)
 PIPE_LIMITS = {"modes_rel": 1e-5, "resume_rel": 1e-6, "card_cpu_rel": 1e-4,
                "served_dnn_db": -40.0, "served_ls_db": -45.0}
+# phase 5k: the sharded step against the card's single-card step uses
+# TRAIN_LIMITS["f32"] (the split products and sums move a few ReLU
+# pre-activations across 0, as the card's against the CPU's); 2-epoch fits
+# on the mesh against the single card's in each mode (relative, per epoch
+# loss; Adam turns the sums' rounding into steps); a hidden-64 model served
+# through kernel 5 against the kernels' plain version (dB)
+MESH_LIMITS = {"fit_rel": 1e-3, "hidden64_db": -40.0}
+MESH_RANKS = 4                     # phase 5k: virtual ranks of cuda:0
 # phase 5g's limits, card step against the same step on the CPU: loss and
 # BN statistics (relative), gradients and Adam moments (worst leaf, NMSE
 # dB), Δparams (all parameters as one vector, NMSE dB). A ReLU is a kink:
@@ -1937,6 +1963,267 @@ def closed_loop_timing(cfg, dev, smi, keep, gen_line) -> dict:
     return out
 
 
+def split_relu_flips(tcfg, params, xin, n_data: int, n_model: int) -> list:
+    """Per hidden layer, the pre-activations whose sign differs between
+    the single-card forward and one assembled from the data x model
+    split's products (layer 0 per rank's rows and columns, layer 1 as the
+    sum of the model ranks' partial products; BN statistics two-pass as
+    the sharded step takes them); train mode, no dropout."""
+    import torch
+
+    def bn(h, i, two_pass):
+        h = torch.relu(h)
+        mu = h.mean(-2, keepdim=True)
+        var = (((h - mu) ** 2).mean(-2, keepdim=True) if two_pass
+               else h.var(-2, correction=0, keepdim=True))
+        return ((h - mu) * torch.rsqrt(var + tcfg.bn_eps)
+                * params["bn"][i]["scale"].unsqueeze(-2)
+                + params["bn"][i]["bias"].unsqueeze(-2))
+
+    (w0, b0), (w1, b1) = ((l["w"], l["b"].unsqueeze(-2))
+                          for l in params["dense"])
+    rows, cols = xin.shape[1] // n_data, w0.shape[-1] // n_model
+    z0 = xin @ w0 + b0
+    z0s = torch.cat([torch.cat([
+        xin[:, d * rows:(d + 1) * rows] @ w0[..., m * cols:(m + 1) * cols]
+        + b0[..., m * cols:(m + 1) * cols] for m in range(n_model)], -1)
+        for d in range(n_data)], 1)
+    h, hs = bn(z0, 0, False), bn(z0s, 0, True)
+    z1 = h @ w1 + b1
+    z1s = sum(hs[..., m * cols:(m + 1) * cols] @ w1[:, m * cols:(m + 1) * cols]
+              for m in range(n_model)) + b1
+    return [int(((a > 0) != (b > 0)).sum()) for a, b in ((z0, z0s),
+                                                         (z1, z1s))]
+
+
+def sharded_step_check(cfg, axes: dict, batch, dev) -> dict:
+    """One sharded step (method 'default', dropout 0) on ``axes`` of
+    MESH_RANKS virtual ranks of dev against the single-card step on the
+    card, from the same seeded model and batch: loss, new BN statistics,
+    Adam moments (the gradients) and Δparams held to TRAIN_LIMITS["f32"];
+    the ReLU pre-activations of another sign counted (split_relu_flips)."""
+    import torch
+
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.models.mlp import preprocess_input, tree_leaves, \
+        tree_map
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+    from mamimo_tpu_torch.parallel.sharded import (
+        gather_tree,
+        make_sharded_train_step,
+        place_state,
+    )
+    from mamimo_tpu_torch.train.loop import make_batch_update, make_optimizer
+
+    tcfg = TrainConfig(method="default", dropout=0.0,
+                       batch_size=batch[0].shape[1])
+    x2, pilot, y2 = batch
+    opt = make_optimizer(tcfg)
+    params, bn = make_model(cfg, tcfg, seed=40, device=dev)
+    p0 = tree_map(torch.clone, params)
+    update, _ = make_batch_update(cfg, tcfg, 1.0, opt)
+    params, bn, st, loss = update(params, bn, opt.init(params), x2, pilot,
+                                  y2, None, tcfg.lr)
+    mesh = make_mesh(axes, devices=[dev] * MESH_RANKS)
+    hp, hb = make_model(cfg, tcfg, seed=40, device="cpu")
+    state = place_state(mesh, hp, hb, opt.init(hp))
+    _, step = make_sharded_train_step(cfg, tcfg, mesh, avg_sig_pow=1.0)
+    sp, sb, ss, sloss = step(*state, x2, pilot, y2, None, tcfg.lr)
+    gp, gb, gs = (gather_tree(t) for t in (sp, sb, ss))
+    got = {"loss": rel_err(sloss, loss),
+           "bn": max(rel_err(a, b) for a, b in
+                     zip(tree_leaves(gb), tree_leaves(bn))),
+           "moments_db": max(nmse_db(to_np(a), to_np(b)) for a, b in zip(
+               tree_leaves(gs.mu) + tree_leaves(gs.nu),
+               tree_leaves(st.mu) + tree_leaves(st.nu))),
+           "delta_db": nmse_db(
+               torch.cat([(a - c.cpu()).flatten() for a, c in
+                          zip(tree_leaves(gp), tree_leaves(p0))]).numpy(),
+               torch.cat([(b - c).flatten().cpu() for b, c in
+                          zip(tree_leaves(params), tree_leaves(p0))]
+                         ).numpy())}
+    with torch.no_grad():
+        flips = split_relu_flips(
+            tcfg, p0, preprocess_input(cfg, tcfg, x2,
+                                       torch.stack([pilot, pilot])),
+            mesh.shape.get("data", 1), mesh.shape.get("model", 1))
+    lim = TRAIN_LIMITS["f32"]
+    print(f"  sharded step {axes} vs the single card (bs "
+          f"{tcfg.batch_size}): loss {to_np(sloss)} vs {to_np(loss)}, rel "
+          f"{got['loss']:.3e} (limit {lim['loss']}); BN rel {got['bn']:.3e} "
+          f"({lim['bn']}); Adam moments worst leaf {got['moments_db']:.2f} "
+          f"dB ({lim['moments_db']}); Δparams {got['delta_db']:.2f} dB "
+          f"({lim['delta_db']}); ReLU pre-activations of another sign, per "
+          f"hidden layer: {flips} of {2 * tcfg.batch_size * tcfg.hidden[0]}")
+    for k, v in got.items():
+        if not v <= lim[k]:
+            raise AssertionError(f"sharded step {axes} vs the single card: "
+                                 f"{k} {v} > {lim[k]}")
+    return {**{k: finite(v) for k, v in got.items()}, "relu_flips": flips}
+
+
+def sharded_phase(cfg, dev, counted, require_launched, data, ds) -> dict:
+    """Phase 5k: the sharded training step and multi-host layer on
+    MESH_RANKS virtual ranks of dev at the width of cfg: (a) one step on
+    data 2 x model 2 and on data 4 against the single-card step
+    (sharded_step_check), batch TRAIN_BS·4 of phase 5g's dataset; (b) a
+    2-epoch fit(mesh=...) on data 2 x model 2 in the three modes on
+    phase 5i's corpus, each against the single card's fit in that mode
+    (MESH_LIMITS["fit_rel"]); (c) dryrun_multichip(MESH_RANKS) on the
+    virtual ranks, counted: the LS kernel and the halo kernel must
+    launch; (d) a hidden-64 model served through predict_complex_pallas
+    (kernel 5 on weights padded to 128 units) against the kernels' plain
+    version."""
+    import torch
+
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.entry import dryrun_multichip
+    from mamimo_tpu_torch.models.mlp import plane, preprocess_input
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import (
+        _layer1_plain,
+        _tail_plain,
+        predict_complex_pallas,
+        prepare_mlp_infer_weights,
+    )
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+    from mamimo_tpu_torch.train.loop import _gather_batch, fit
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
+
+    t0 = time.perf_counter()
+    out = {"limits": {**MESH_LIMITS, "step": TRAIN_LIMITS["f32"]}}
+    n_samples = data["rx"].shape[0] * cfg.num_tx * cfg.num_rx
+    gi = torch.Generator(device=dev).manual_seed(43)
+    bs = 4 * TRAIN_BS
+    idx = torch.randint(0, n_samples, (bs,), generator=gi, device=dev)
+    batch = _gather_batch(cfg, data, idx)
+    print(f"[5k sharded] {MESH_RANKS} virtual ranks of one card (cuda:0), "
+          f"Nt {cfg.num_tx}, hidden (1024, 1024), batch {bs}")
+    (steps, launches) = counted(lambda: {
+        "data2_model2": sharded_step_check(
+            cfg, {"data": 2, "model": 2}, batch, dev),
+        "data4": sharded_step_check(cfg, {"data": 4}, batch, dev)})
+    print(f"  launches of the port's kernels in the sharded steps (the step "
+          f"reaches no TPU kernel): {launches}")
+    out["step_vs_single"] = steps
+
+    # (b) fit on the mesh in each mode against the single card's
+    tc = TrainConfig(method="default", dropout=0.0, batch_size=PIPE_BS,
+                     epochs=2, early_stop_patience=50)
+    mesh = make_mesh({"data": 2, "model": 2}, devices=[dev] * MESH_RANKS)
+    fits = {}
+    for mode, kw in (("in_hbm", {}), ("host_stream", {"host_stream": True}),
+                     ("window", {"host_stream": True,
+                                 "stream_window_packets": PIPE_WINDOW})):
+        t1 = time.perf_counter()
+        r_mesh = fit(cfg, tc, ds, verbose=False, mesh=mesh, **kw)
+        t_mesh = time.perf_counter() - t1
+        r_one = fit(cfg, tc, ds, verbose=False, device=dev, **kw)
+        rel = hist_rel(r_mesh.history, r_one.history)
+        fits[mode] = {"rel": rel, "seconds": t_mesh,
+                      "loss_real": r_mesh.history["loss_real"]}
+        print(f"  fit(mesh=data 2 x model 2) {mode}, 2 epochs: "
+              f"{t_mesh:.1f} s, loss_real {r_mesh.history['loss_real']}, "
+              f"history vs the single card's rel {rel:.3e} (limit "
+              f"{MESH_LIMITS['fit_rel']})")
+        if not (rel <= MESH_LIMITS["fit_rel"]
+                and np.isfinite(r_mesh.history["loss_real"]).all()):
+            raise AssertionError(f"fit(mesh) {mode}: {fits[mode]}")
+    out["fit_vs_single"] = fits
+
+    # (c) the multi-chip dry run on the virtual ranks, counted
+    dry, cnt = counted(lambda: dryrun_multichip(
+        MESH_RANKS, devices=[dev] * MESH_RANKS))
+    require_launched("dryrun_multichip", cnt,
+                     ("ls_planes_v2", "halo_exchange_pallas"))
+    out["dryrun"] = {"shapes": {k: v for k, v in dry.items()},
+                     "launches": cnt}
+
+    # (d) a hidden-64 model through kernel 5, against its plain version
+    t64 = TrainConfig(hidden=(64, 64))
+    params, bn = make_model(cfg, t64, seed=44, device=dev)
+    with full_f32_matmul():
+        prep = prepare_mlp_infer_weights(t64, params, bn)
+    g = torch.Generator(device=dev).manual_seed(45)
+    sig = torch.complex(*(torch.randn((256, cfg.len_ltf), generator=g,
+                                      device=dev) for _ in range(2)))
+    pil = torch.randint(0, 2, (256, cfg.num_tx), generator=g,
+                        device=dev).float() * 2 - 1
+    got, cnt64 = counted(lambda: predict_complex_pallas(cfg, t64, prep, None,
+                                                        sig, pil))
+    ys = [_tail_plain(plane(prep, d), _layer1_plain(
+        plane(prep, d), preprocess_input(cfg, t64, part.float(), pil)))
+        for d, part in enumerate((sig.real, sig.imag))]
+    out["hidden64"] = check(
+        "predict_complex_pallas, hidden (64, 64) padded to 128, vs the "
+        "kernels' plain version", got, torch.complex(ys[0], ys[1]),
+        MESH_LIMITS["hidden64_db"])
+    require_launched("predict_complex_pallas (hidden 64)", cnt64,
+                     ("mlp_infer_layer1", "mlp_infer_tail"))
+    print(f"  phase 5k: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def sharded_timing(cfg, dev, smi, data) -> dict:
+    """Phase 6, the sharded step: for the single card and for data 2 x
+    model 2 and data 4 on MESH_RANKS virtual ranks, one f32 step at batch
+    1024 (default config, the batch gathered on the ranks from phase 5g's
+    dataset): ms/step on the host clock (median of 5 batches of 5 steps),
+    one step traced (device-busy ms, idle share, kernels and aten calls
+    per step)."""
+    import torch
+
+    from mamimo_tpu_torch.bench import train_variant_config
+    from mamimo_tpu_torch.models.mlp import init_stacked
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+    from mamimo_tpu_torch.parallel.sharded import (
+        make_sharded_train_step,
+        replicate,
+    )
+    from mamimo_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    tc = train_variant_config("f32", 1024, 1)
+    n_samples = data["rx"].shape[0] * cfg.num_tx * cfg.num_rx
+    g = torch.Generator(device=dev).manual_seed(46)
+    idx = torch.randint(0, n_samples, (tc.batch_size,), generator=g,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    rows = {}
+    for name in ("single card", "data 2 x model 2", "data 4"):
+        opt = make_optimizer(tc)
+        if name == "single card":
+            params, bn = init_stacked(torch.Generator().manual_seed(0), cfg,
+                                      tc, device=dev)
+            state = [params, bn, opt.init(params)]
+            step = make_train_step(cfg, tc, data, 1.0, opt)[0]
+
+            def one(step=step, state=state):
+                state[:] = step(*state, idx, gen, tc.lr)[:3]
+        else:
+            axes = ({"data": 2, "model": 2} if "model" in name
+                    else {"data": 4})
+            mesh = make_mesh(axes, devices=[dev] * MESH_RANKS)
+            init_fn, sh = make_sharded_train_step(cfg, tc, mesh,
+                                                  avg_sig_pow=1.0)
+            state = list(init_fn(torch.Generator().manual_seed(0)))
+            rep = replicate(mesh, data)
+
+            def one(sh=sh, state=state, rep=rep):
+                state[:] = sh.gather(*state, rep, idx, gen, tc.lr)[:3]
+        host = host_ms(one, iters=5, batches=5, warmup=2)
+        per, kernels, aten = trace_call(one)
+        busy = sum(per.values()) if per else None
+        rows[name] = {"ms_per_step": host, "busy_ms": busy,
+                      "idle_share": (1 - busy / host) if busy else None,
+                      "kernels_per_step": kernels, "aten_per_step": aten}
+        print(f"  train step {name} (f32, batch 1024, {tc.awgn_rng} AWGN, "
+              f"dropout {tc.dropout}): {host:.4f} ms/step host, traced busy "
+              + (f"{busy:.3f} ms, idle {(1 - busy / host) * 100:.1f}%"
+                 if busy else "not traced")
+              + f", {kernels} kernels, {aten} aten calls a step  [{smi}]")
+        del state
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2808,6 +3095,10 @@ def main() -> int:
                            os.path.join(pipe_dir.name, "cli", "model"),
                            pipe_dir.name)
 
+    # 5k. the sharded training step on virtual ranks, dryrun, hidden 64 --
+    shard = sharded_phase(cfg, dev, counted, require_launched,
+                          train["data"], pipe["keep"]["ds"])
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -3193,6 +3484,7 @@ def main() -> int:
                  "ls_seq_shard_copies_ms": copies_ms,
                  "ls_seq_allreduce_ms": allreduce_ms,
                  "ls_seq_complex_ms": complex_ms}
+    shard["timing"] = sharded_timing(cfg, dev, smi, train["data"])
     train["rows"] = train_timing(cfg, train.pop("data"), smi)
     sound["timing"] = sounding_timing(cfg, dev, smi, xb32)
     pipe["timing"] = pipeline_timing(cfg, dev, smi, pipe.pop("keep"))
@@ -3234,6 +3526,7 @@ def main() -> int:
         "sounding": sound,
         "pipeline": pipe,
         "closed_loop": cl,
+        "sharded_train": shard,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

@@ -25,28 +25,32 @@ first use into ``_build/`` and bound through ``ctypes``.
                           mamimo_tpu_torch.bench``),
                           ``run_train_bench`` (``... --train``) and
                           ``run_gen_bench`` (``... --gen``)
-- ``entry``             : the serving step of ``__graft_entry__.py``
+- ``entry``             : the serving step and the multi-chip dry run
+                          of ``__graft_entry__.py``
 - ``train.ckpt``        : npz checkpoints with the optimizer state,
                           interchangeable with the JAX package's
 - ``train.loop``        : the training step in array form (Adam
                           scaling, the AWGN batch update, the in-gather
                           step and its multi-step form), ``fit`` in its
-                          three single-card modes and
+                          three modes on one card or a mesh, and
                           ``evaluate_dataset``
 - ``data``              : the raw container and its native C++ loader,
                           the reference's MATLAB and pickle formats, the
                           datasource registry
 - ``eval``, ``ops.metrics`` : NMSE/MSE/EVM/BER, ``nmse_vs_snr``, plots
 - ``cli``               : ``python3 -m mamimo_tpu_torch.cli gen|train|
-                          test|convert|bench``
+                          test|sweep|pipeline|convert|bench``
 - ``channel``           : the single-bounce scattering channel, the CDL
                           channel and the receiver noise chains
 - ``pipeline``          : the sounding of a batch of packets
                           (``sounding``) and single-user dataset
                           generation (``dataset``)
-- ``parallel``          : meshes of torch devices, the sequence-parallel
-                          channel convolution with its halo-exchange
-                          kernel, the sharded LS and DNN inference forms
+- ``parallel``          : meshes of torch devices (across processes
+                          after ``multihost.init``), the sums across
+                          ranks, the sequence-parallel channel
+                          convolution with its halo-exchange kernel, the
+                          sharded LS and DNN inference forms and the
+                          DP+TP training step
 - ``utils.numerics``    : ``unit_phasor``, the precision of products,
                           device-to-host copies; ``utils.profiling``:
                           traces and inference timing

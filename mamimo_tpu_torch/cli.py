@@ -11,8 +11,9 @@
     python3 -m mamimo_tpu_torch.cli convert  — reference .mat/.b ↔ native npz
     python3 -m mamimo_tpu_torch.cli bench    — throughput benchmark
 
-``train --dp/--tp > 1`` (the sharded-training slice) exits with the text
-of the NotImplementedError that names its slice.
+``train --dp/--tp`` trains over a ``data`` (× ``model``) mesh of the first
+dp·tp visible cards, or, with ``--device``, of dp·tp ranks on that one
+device (``--device cpu`` in the tests).
 """
 
 from __future__ import annotations
@@ -106,19 +107,43 @@ def cmd_gen(args) -> None:
           f"{args.snr} dB ({ds.num_samples} samples)")
 
 
+def _train_mesh(dp: int, tp: int, device):
+    """The ``data`` (× ``model``) mesh of ``train --dp/--tp``: the first
+    dp·tp visible cards, or dp·tp ranks on ``device``; None for 1 × 1."""
+    from mamimo_tpu_torch.models.predictor import resolve_device
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+
+    if dp <= 1 and tp <= 1:
+        return None
+    axes = {"data": dp}
+    if tp > 1:
+        axes["model"] = tp
+    n = dp * tp
+    if device is None:
+        import torch
+
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n:
+            raise RuntimeError(f"--dp {dp} --tp {tp} needs {n} cards, "
+                               f"{count} visible; pass --device to put the "
+                               f"ranks on one device")
+        devices = [f"cuda:{i}" for i in range(n)]
+    else:
+        devices = [resolve_device(device)] * n
+    return make_mesh(axes, devices=devices)
+
+
 def cmd_train(args) -> None:
     from mamimo_tpu_torch.pipeline.dataset import CSIDataset
     from mamimo_tpu_torch.train import fit
-    from mamimo_tpu_torch.train.loop import SHARDED_TRAINING_TODO
 
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError(f"--dp/--tp > 1: {SHARDED_TRAINING_TODO}")
+    mesh = _train_mesh(args.dp, args.tp, args.device)
     ds = CSIDataset.load(args.dataset)
     tcfg = _train_cfg(args)
     val_ds = CSIDataset.load(args.val) if args.val else None
     res = fit(ds.cfg, tcfg, ds, val_ds=val_ds, workdir=args.workdir,
               resume=args.resume, host_stream=args.host_stream,
-              device=args.device)
+              mesh=mesh, device=args.device)
     print(f"[train] done: {res.epochs_ran} epochs, "
           f"best val = {res.best_val.tolist()} -> {args.workdir}")
 
@@ -370,9 +395,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--host-stream", action="store_true",
                    help="stream batches via the native C++ loader")
     t.add_argument("--dp", type=int, default=1,
-                   help="data-parallel mesh size (devices)")
+                   help="data-parallel mesh size (ranks)")
     t.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel mesh size (devices)")
+                   help="tensor-parallel mesh size (ranks)")
     _add_train_args(t)
     _add_device_arg(t)
     t.set_defaults(fn=cmd_train)

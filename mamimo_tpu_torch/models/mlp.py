@@ -396,6 +396,26 @@ def predict_all_pairs(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
     return y.reshape(b, nrx, cfg.num_tx, cfg.num_carriers).permute(0, 3, 2, 1)
 
 
+def predict_all_pairs_rxmajor(cfg: SimConfig, tcfg: TrainConfig, params,
+                              bn_state, rx: torch.Tensor,
+                              dtype=None) -> torch.Tensor:
+    """``predict_all_pairs`` in the rx-major layout: rx arrives
+    antenna-major (B, num_rx, len_ltf) complex64, so the (B·num_rx,
+    len_ltf) signal matrix of the factored layer-1 product is a free
+    reshape, and the output stays antenna-major.
+
+    Returns:
+      (B, num_rx, num_tx, num_carriers) complex64; permute(0, 3, 2, 1)
+      gives the ``predict_all_pairs`` layout.
+    """
+    b, nrx, L = rx.shape
+    sig = rx.reshape(b * nrx, L)
+    y = predict_all_pairs_planes_flat(cfg, tcfg, params, bn_state,
+                                      torch.stack([sig.real, sig.imag]),
+                                      dtype)
+    return y.reshape(b, nrx, cfg.num_tx, cfg.num_carriers)
+
+
 def predict_complex(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
                     sig: torch.Tensor, pilot: torch.Tensor) -> torch.Tensor:
     """Deployment-style complex prediction (inference.py:24-32): the real

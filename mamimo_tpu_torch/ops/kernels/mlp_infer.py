@@ -54,6 +54,13 @@ def fold_bn_into_dense(tcfg: TrainConfig, params, bn_state):
     return ws, bs, scales, shifts
 
 
+def _padded(t: torch.Tensor, shape) -> torch.Tensor:
+    """t zero-padded at the end of each dimension to ``shape``."""
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
 def _prepare_plane(tcfg: TrainConfig, params, bn_state, dot_dtype):
     if len(params["dense"]) != 2:
         raise ValueError("the fused MLP kernel supports 2 hidden layers, "
@@ -61,10 +68,15 @@ def _prepare_plane(tcfg: TrainConfig, params, bn_state, dot_dtype):
     (w1, w2, w3), (b1, b2, b3), (s1, s2), (t1, t2) = \
         fold_bn_into_dense(tcfg, params, bn_state)
     k, c = w1.shape[0], w3.shape[1]
-    w1p = torch.zeros((_round_up(k, 32), w1.shape[1]), device=w1.device)
-    w1p[:k] = w1
-    w3p = torch.zeros((w3.shape[0], _round_up(c, _OP)), device=w3.device)
-    w3p[:, :c] = w3
+    # both hidden widths zero-padded to one multiple of 128 (the kernels'
+    # tile): a padded unit has weight, bias, scale and shift 0, so it is 0
+    # after the ReLU and its affine and adds nothing downstream
+    hp = _round_up(max(w1.shape[1], w2.shape[1]), 128)
+    w1p = _padded(w1, (_round_up(k, 32), hp))
+    w2 = _padded(w2, (hp, hp))
+    w3p = _padded(w3, (hp, _round_up(c, _OP)))
+    b1, s1, t1, b2, s2, t2 = (_padded(v, (hp,))
+                              for v in (b1, s1, t1, b2, s2, t2))
     f32 = lambda t: t.float().contiguous()                   # noqa: E731
     w1p, w2, w3p = (w.to(dot_dtype) for w in (w1p, w2, w3p))
     return {"w1": w1p, "w1t": w1p.T.contiguous(), "b1": f32(b1),
@@ -78,18 +90,24 @@ def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state):
     """The kernels' weights for both planes of stacked parameters, folded
     once: a dict of stacked (plane-leading) tensors
 
-      w1 (2, Kp, H1) bf16 — rows past in_dim zero, Kp = round_up(in_dim,
-                            32)
-      w1t (2, H1, Kp) bf16 — w1 transposed, the layer-1 kernel's K-major
-                             B operand
-      b1, s1, t1 (2, H1) f32 — bias and post-ReLU affine of layer 1
-      w2 (2, H1, H2) bf16; b2, s2, t2 (2, H2) f32
-      w2t (2, H2, H1) bf16 — w2 transposed, the tail kernel's K-major
-                             layer-2 operand
-      w3 (2, H2, 256) bf16 — carriers zero-padded
-      w3t (2, 256, H2) bf16 — w3 transposed, the tail kernel's K-major
-                              layer-3 operand
+      w1 (2, Kp, H) bf16 — rows past in_dim zero, Kp = round_up(in_dim,
+                           32)
+      w1t (2, H, Kp) bf16 — w1 transposed, the layer-1 kernel's K-major
+                            B operand
+      b1, s1, t1 (2, H) f32 — bias and post-ReLU affine of layer 1
+      w2 (2, H, H) bf16; b2, s2, t2 (2, H) f32
+      w2t (2, H, H) bf16 — w2 transposed, the tail kernel's K-major
+                           layer-2 operand
+      w3 (2, H, 256) bf16 — carriers zero-padded
+      w3t (2, 256, H) bf16 — w3 transposed, the tail kernel's K-major
+                             layer-3 operand
       b3 (2, C) f32
+
+    H is both hidden widths rounded up to one multiple of 128, the
+    kernels' tile (as ``prepare_factored_weights``): the extra units get
+    zero weights, biases and BN affines, so they stay 0 through ReLU and
+    the answer is exact. The tail kernel keeps h1 in shared memory, so
+    H above 1024 is refused there.
 
     Run it under ``full_f32_matmul()`` on the card, as the serving paths
     do. ``plane(prepared, d)`` is one plane's tree for ``mlp_infer_pallas``.

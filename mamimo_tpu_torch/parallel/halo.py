@@ -77,6 +77,10 @@ def seq_chunks(mesh: Mesh, axis: str, n: int, taps: torch.Tensor):
     """(devices along ``axis``, chunk, halo) for an n-sample signal split
     over them; raises unless the split is even and each chunk exceeds
     the channel memory (halo = n_taps − 1)."""
+    if mesh.num_processes > 1:
+        raise NotImplementedError(
+            "the sharded convolutions run every rank in one process; the "
+            f"mesh spans {mesh.num_processes} processes")
     devs = mesh.axis_devices(axis)
     d = len(devs)
     if n % d:

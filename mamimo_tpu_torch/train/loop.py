@@ -36,8 +36,9 @@ comes from ``step_generator(seed, step)`` where JAX folds the step into
 a key, so a run resumed at an epoch boundary draws what the
 uninterrupted run drew. ``evaluate_dataset`` predicts a whole dataset.
 
-Not ported: the sharded step (``constrain``, ``fit(mesh=...)``), which
-comes with the sharded-training slice.
+``make_batch_update``'s ``constrain`` hook takes a mesh's layout
+(``parallel/sharded.py::make_sharded_train_step``), and ``fit(mesh=...)``
+runs the three modes on it.
 """
 
 from __future__ import annotations
@@ -73,12 +74,6 @@ from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
 if TYPE_CHECKING:
     from mamimo_tpu_torch.pipeline.dataset import CSIDataset
-
-SHARDED_TRAINING_TODO = (
-    "fit(mesh=...): the sharded training step (parallel/sharded.py:321-428, "
-    "make_sharded_train_step and param_shardings) and parallel/multihost.py "
-    "are not ported yet; they come with the sharded-training slice of "
-    "ROADMAP.md (§1.5)")
 
 # the Irwin-Hall(4) byte sum: mean 4·127.5, standard deviation
 # sqrt(4·(256² − 1)/12)
@@ -214,9 +209,51 @@ def draw_awgn(tcfg: TrainConfig, n_levels: int, shape, gen: torch.Generator):
     return idx, torch.randn(tuple(shape), generator=gen, device=dev)
 
 
-def make_batch_update(cfg: SimConfig, tcfg: TrainConfig, avg_sig_pow, opt):
+class _OneDevice:
+    """``make_batch_update``'s layout without a mesh: the whole batch on
+    the parameters' device, one rank (0). The mesh's layout is
+    ``parallel/sharded.py::_MeshLayout``; both give ``split`` (the batch
+    as {rank: (x2, pilot, y2, rows)}), ``batch`` (the global batch size of
+    split parts), ``view`` (a rank's tree),
+    ``with_state`` (a rank's new optimizer state put back),
+    ``loss_and_grads`` and ``eval_loss`` on the ranks' model inputs."""
+
+    def __init__(self, tcfg: TrainConfig):
+        self.tcfg = tcfg
+
+    def split(self, x2, pilot, y2):
+        return {0: (x2, pilot, y2, slice(None))}
+
+    def batch(self, parts) -> int:
+        return parts[0][0].shape[1]
+
+    def view(self, tree, r):
+        return tree
+
+    def with_state(self, opt_state, r, state):
+        return state
+
+    def loss_and_grads(self, params, bn_state, inputs, gen):
+        (xin, y2), = inputs.values()
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            pred, new_bn = stacked_apply(self.tcfg, live, bn_state, xin,
+                                         train=True, gen=gen)
+            per_dim = ((pred - y2) ** 2).mean(dim=(1, 2))
+            grads = torch.autograd.grad(per_dim.sum(), tree_leaves(live))
+        return (per_dim.detach(), {0: new_bn},
+                {0: tree_unflatten(params, grads)})
+
+    def eval_loss(self, params, bn_state, inputs):
+        (xin, y2), = inputs.values()
+        pred, _ = stacked_apply(self.tcfg, params, bn_state, xin)
+        return ((pred - y2) ** 2).mean(dim=(1, 2))
+
+
+def make_batch_update(cfg: SimConfig, tcfg: TrainConfig, avg_sig_pow, opt,
+                      constrain=None):
     """The one optimizer step on a materialized (x2, pilot, y2) batch,
-    shared by the array and the in-gather steps.
+    shared by the array, the in-gather and the sharded steps.
 
     Returns (update, eval_core):
       update(params, bn_state, opt_state, x2, pilot, y2, gen, lr)
@@ -224,13 +261,26 @@ def make_batch_update(cfg: SimConfig, tcfg: TrainConfig, avg_sig_pow, opt):
         bn_state and opt_state are updated in place.
       eval_core(params, bn_state, x2, pilot, y2) -> per-plane MSE (2,).
     ``update.loss_and_grads(params, bn_state, x2, pilot, y2, gen)`` is the
-    step's forward and backward on a batch already normalized, noised and
-    cast: (per_plane_loss, new_bn, grads).
+    one-device step's forward and backward on a batch already
+    normalized, noised and cast: (per_plane_loss, new_bn, grads).
+    ``update.parts`` and ``eval_core.parts`` take the batch already split
+    ({rank: (x2, pilot, y2, rows)}, the rows of the global batch each rank
+    holds) in place of (x2, pilot, y2).
+
+    constrain: the mesh's layout (``parallel/sharded.py::
+    make_sharded_train_step``), JAX's hook: the batch is split onto the
+    ranks (JAX places sharding constraints there) and the forward and
+    backward run over them; None: one device. The draws are the same
+    either way: the SNR indices, the AWGN at the global batch's shape and
+    the dropout masks at the global hidden shapes, from ``gen``, each rank
+    then taking its rows (and columns).
 
     x2 (2, bs, len_ltf) and y2 (2, bs, C) float32, pilot (bs, num_tx),
-    all on the parameters' device; ``avg_sig_pow`` a float or a tensor.
+    on the parameters' device (with a mesh: any device);
+    ``avg_sig_pow`` a float or a tensor.
     """
     levels = torch.tensor(tcfg.awgn_snr_levels, dtype=torch.float32)
+    layout = constrain if constrain is not None else _OneDevice(tcfg)
     on_device = {}
 
     def _constants(dev):
@@ -258,50 +308,75 @@ def make_batch_update(cfg: SimConfig, tcfg: TrainConfig, avg_sig_pow, opt):
         return preprocess_input(cfg, tcfg, x2, torch.stack([pilot, pilot]))
 
     def loss_and_grads(params, bn_state, x2, pilot, y2, gen):
-        live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            pred, new_bn = stacked_apply(tcfg, live, bn_state,
-                                         _model_input(x2, pilot), train=True,
-                                         gen=gen)
-            per_dim = ((pred - y2) ** 2).mean(dim=(1, 2))
-            grads = torch.autograd.grad(per_dim.sum(), tree_leaves(live))
-        return per_dim.detach(), new_bn, tree_unflatten(params, grads)
+        per_dim, new_bn, grads = _OneDevice(tcfg).loss_and_grads(
+            params, bn_state, {0: (_model_input(x2, pilot), y2)}, gen)
+        return per_dim, new_bn[0], grads[0]
 
-    def update(params, bn_state, opt_state, x2, pilot, y2, gen, lr):
-        dev_levels, pmask = _constants(x2.device)
+    def _noise(parts, gen):
+        """The step's AWGN at the global batch's shape and its per-plane
+        std, or (None, None)."""
+        if tcfg.method != "default_snr":
+            return None, None
+        x2 = next(iter(parts.values()))[0]
+        shape = (2, layout.batch(parts), x2.shape[-1])
+        dev_levels, _ = _constants(gen.device)
+        # independent per-plane SNR draw (two independent Keras fits)
+        lev_idx, noise = draw_awgn(tcfg, len(levels), shape, gen)
+        lev = dev_levels[lev_idx]
+        npow = avg_sig_pow / (10.0 ** (lev / 10.0))           # (2,)
+        return noise, torch.sqrt(npow) / math.sqrt(2.0)
+
+    def update_parts(params, bn_state, opt_state, parts, gen, lr):
         with full_f32_matmul():
-            x2, y2 = _rms_norm(x2, y2)
-            if tcfg.method == "default_snr":
-                # independent per-plane SNR draw (two independent Keras fits)
-                lev_idx, noise = draw_awgn(tcfg, len(levels), x2.shape, gen)
-                lev = dev_levels[lev_idx]
-                npow = avg_sig_pow / (10.0 ** (lev / 10.0))       # (2,)
-                std = torch.sqrt(npow) / math.sqrt(2.0)
-                x2 = x2 + noise * std[:, None, None]
-            x2, pilot = _store_cast(x2, pilot)
-            per_dim, new_bn, grads = loss_and_grads(params, bn_state, x2,
-                                                    pilot, y2, gen)
+            noise, std = _noise(parts, gen)
+            inputs = {}
+            for r, (x2, pilot, y2, rows) in parts.items():
+                x2, y2 = _rms_norm(x2, y2)
+                if noise is not None:
+                    dev = x2.device
+                    x2 = x2 + noise[:, rows].to(dev) \
+                        * std.to(dev)[:, None, None]
+                x2, pilot = _store_cast(x2, pilot)
+                inputs[r] = (_model_input(x2, pilot), y2)
+            per_dim, new_bn, grads = layout.loss_and_grads(
+                params, bn_state, inputs, gen)
             with torch.no_grad():
-                updates, opt_state = opt.update(grads, opt_state)
-                updates = _mask_updates(tree_map(lambda u: -lr * u, updates),
-                                        pmask)
-                for p, u in zip(tree_leaves(params), tree_leaves(updates)):
-                    p.add_(u)
-                for o, n in zip(tree_leaves(bn_state),
-                                tree_leaves(_mask_bn(new_bn, bn_state,
-                                                     pmask))):
-                    o.copy_(n)
+                for r in inputs:
+                    p_r, bn_r = layout.view(params, r), \
+                        layout.view(bn_state, r)
+                    _, pmask = _constants(inputs[r][1].device)
+                    updates, state = opt.update(
+                        grads[r], layout.view(opt_state, r))
+                    opt_state = layout.with_state(opt_state, r, state)
+                    updates = _mask_updates(
+                        tree_map(lambda u: -lr * u, updates), pmask)
+                    for p, u in zip(tree_leaves(p_r), tree_leaves(updates)):
+                        p.add_(u)
+                    for o, n in zip(tree_leaves(bn_r),
+                                    tree_leaves(_mask_bn(new_bn[r], bn_r,
+                                                         pmask))):
+                        o.copy_(n)
         return params, bn_state, opt_state, per_dim
 
-    def eval_core(params, bn_state, x2, pilot, y2):
+    def update(params, bn_state, opt_state, x2, pilot, y2, gen, lr):
+        return update_parts(params, bn_state, opt_state,
+                            layout.split(x2, pilot, y2), gen, lr)
+
+    def eval_parts(params, bn_state, parts):
         with torch.no_grad(), full_f32_matmul():
-            x2, y2 = _rms_norm(x2, y2)
-            x2, pilot = _store_cast(x2, pilot)
-            pred, _ = stacked_apply(tcfg, params, bn_state,
-                                    _model_input(x2, pilot))
-            return ((pred - y2) ** 2).mean(dim=(1, 2))
+            inputs = {}
+            for r, (x2, pilot, y2, _) in parts.items():
+                x2, y2 = _rms_norm(x2, y2)
+                x2, pilot = _store_cast(x2, pilot)
+                inputs[r] = (_model_input(x2, pilot), y2)
+            return layout.eval_loss(params, bn_state, inputs)
+
+    def eval_core(params, bn_state, x2, pilot, y2):
+        return eval_parts(params, bn_state, layout.split(x2, pilot, y2))
 
     update.loss_and_grads = loss_and_grads
+    update.parts = update_parts
+    eval_core.parts = eval_parts
     return update, eval_core
 
 
@@ -574,6 +649,7 @@ class _Windows:
         self.pos = np.full(max(n_pkts, self.val_base + n_val_pkts), -1,
                            np.int64)
         self.src = None
+        self.on_load = None          # called with ``data`` after each load
         self.sched = {"train": [], "val": []}
         self.steps = sum((min(P, self.n_train_pkts - k) * per) // bs
                          for k in range(0, self.n_train_pkts, P))
@@ -601,10 +677,17 @@ class _Windows:
         self.src = which if self.has_val_ds else "train"
         self.pos[:] = -1
         self.pos[pkts] = np.arange(len(pkts))
+        if self.on_load is not None:
+            self.on_load(self.data)
 
     def local(self, idx_np, which):
         """The window-local sample indices of idx_np on the device, after
         loading the windows of the schedule until they are resident."""
+        return torch.as_tensor(self.local_np(idx_np, which),
+                               device=self.device)
+
+    def local_np(self, idx_np, which):
+        """``local`` as a numpy array."""
         src = which if self.has_val_ds else "train"
         p = idx_np // self.per_pkt
         if not (self.src == src and np.all(self.pos[p] >= 0)):
@@ -619,8 +702,7 @@ class _Windows:
                 self._load(dq.pop(0), which)
                 if np.all(self.pos[p] >= 0):
                     break
-        li = self.pos[p] * self.per_pkt + idx_np % self.per_pkt
-        return torch.as_tensor(li, device=self.device)
+        return self.pos[p] * self.per_pkt + idx_np % self.per_pkt
 
     def perm(self):
         """One epoch's sample order: packets shuffled globally, samples
@@ -636,6 +718,69 @@ class _Windows:
             s = s[self.rng.permutation(len(s))]
             parts.append(s[: (len(s) // bs) * bs])
         return np.concatenate(parts)
+
+
+def _mesh_runtime(cfg, tcfg, mesh, train_ds, val_ds, train_idx, val_idx,
+                  avg_sig_pow, loader, val_loader, window, rng_host,
+                  host_stream):
+    """fit's three modes on a mesh (``make_sharded_train_step``): (run_train,
+    run_val, the window scheduler or None, val_idx)."""
+    from mamimo_tpu_torch.parallel.sharded import (
+        make_sharded_train_step,
+        replicate,
+    )
+
+    dev = mesh.first
+    _, sh_step = make_sharded_train_step(cfg, tcfg, mesh,
+                                         avg_sig_pow=avg_sig_pow)
+    wins = None
+    if window:
+        # each window replicated on the ranks' devices as it is loaded,
+        # the batches gathered from it rank by rank
+        wdata = {"P": torch.as_tensor(train_ds.pilot_matrix(),
+                                      dtype=torch.float32, device=dev)}
+        wins = _Windows(cfg, tcfg, train_ds, val_ds, train_idx, loader,
+                        val_loader, wdata, window, rng_host, dev)
+        rep = {}
+        wins.on_load = lambda data: rep.update(replicate(mesh, data))
+        val_idx = wins.val_idx
+
+        def run_train(params, bn_state, opt_state, idx_np, gen, lr,
+                      idx_next=None):
+            li = wins.local_np(idx_np, "train")
+            return sh_step.gather(params, bn_state, opt_state, rep, li, gen,
+                                  lr)
+
+        def run_val(params, bn_state, idx_np):
+            return sh_step.gather_eval(params, bn_state, rep,
+                                       wins.local_np(idx_np, "val"))
+    elif host_stream:
+        stream = _Stream(cfg, loader, val_loader,
+                         np.ascontiguousarray(train_ds.pilot_matrix().T,
+                                              np.float32), dev)
+
+        def run_train(params, bn_state, opt_state, idx_np, gen, lr,
+                      idx_next=None):
+            x2, pilot, y2 = stream.train_batch(idx_np, idx_next)
+            return sh_step(params, bn_state, opt_state, x2, pilot, y2, gen,
+                           lr)
+
+        def run_val(params, bn_state, idx_np):
+            return sh_step.array_eval(params, bn_state,
+                                      *stream.val_batch(idx_np))
+    else:
+        data = replicate(mesh, _device_data(train_ds, "cpu"))
+        val_data = data if val_ds is None else replicate(
+            mesh, _device_data(val_ds, "cpu"))
+
+        def run_train(params, bn_state, opt_state, idx_np, gen, lr,
+                      idx_next=None):
+            return sh_step.gather(params, bn_state, opt_state, data, idx_np,
+                                  gen, lr)
+
+        def run_val(params, bn_state, idx_np):
+            return sh_step.gather_eval(params, bn_state, val_data, idx_np)
+    return run_train, run_val, wins, val_idx
 
 
 def fit(cfg: SimConfig, tcfg: TrainConfig, train_ds: "CSIDataset",
@@ -669,27 +814,49 @@ def fit(cfg: SimConfig, tcfg: TrainConfig, train_ds: "CSIDataset",
         loader instead of holding the dataset on the device.
       stream_window_packets: with host_stream, window streaming
         (``_Windows``); (window·T·R) % batch_size must be 0.
-      mesh: not ported yet, NotImplementedError.
+      mesh: a ``parallel.mesh.Mesh`` with a 'data' and optionally a
+        'model' axis: the step runs DP+TP over it
+        (``parallel/sharded.py::make_sharded_train_step``) in each of the
+        three modes: in-HBM (the dataset replicated on each rank's
+        device, batches gathered rank by rank), host_stream (the loader's
+        batches split onto the data ranks) and window streaming (each
+        window replicated, then gathered rank by rank); resume re-places
+        the checkpointed arrays with ``param_shardings``. On a mesh that
+        spans processes every process passes the same arguments, and
+        only process 0 writes the checkpoints and history.json (from
+        gathered host copies). ``device`` is then unused.
       device: where it trains; None means the card, and raises without
         one (the tests pass "cpu").
 
     The initial weights come from ``init_stacked`` with a CPU generator
-    seeded with tcfg.seed; the step noise from ``step_generator``.
+    seeded with tcfg.seed; the step noise from ``step_generator`` (on the
+    mesh's first device), the same schedule with a mesh or without.
     """
     if mesh is not None:
-        raise NotImplementedError(SHARDED_TRAINING_TODO)
-    dev = _resolve(device)
+        from mamimo_tpu_torch.parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"fit(mesh=...) takes a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if "data" not in mesh.axis_names:
+            raise ValueError(f"fit(mesh=...) needs a 'data' axis, got "
+                             f"{mesh.axis_names}")
+    dev = mesh.first if mesh is not None else _resolve(device)
     with contextlib.ExitStack() as stack:
         return _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume,
-                    host_stream, stream_window_packets, dev, stack)
+                    host_stream, stream_window_packets, dev, stack, mesh)
 
 
 def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
-         window, dev, stack) -> TrainResult:
+         window, dev, stack, mesh) -> TrainResult:
     from mamimo_tpu_torch.data.native_loader import NativeBatchLoader
+    from mamimo_tpu_torch.parallel.sharded import gather_tree, place_state
 
     windowed = bool(host_stream and window)
     loader = val_loader = None
+    shared = mesh is not None and mesh.num_processes > 1
+    writer = mesh is None or mesh.process_index == 0
+    verbose = verbose and writer
     if host_stream:
         raw_dir = workdir or stack.enter_context(
             tempfile.TemporaryDirectory(prefix="mamimo_raw_"))
@@ -697,7 +864,12 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
 
         def open_raw(name, ds):
             path = os.path.join(raw_dir, name)
-            if not _raw_matches(path, ds):
+            if shared and workdir is not None:
+                # one writer of the container the processes share
+                if writer and not _raw_matches(path, ds):
+                    ds.save_raw(path)
+                torch.distributed.barrier()
+            elif not _raw_matches(path, ds):
                 ds.save_raw(path)
             return stack.enter_context(NativeBatchLoader(path))
 
@@ -725,8 +897,11 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
     else:
         avg_sig_pow = float(np.mean(np.real(train_ds.rx[:train_pkts]) ** 2))
 
+    # the state is made (or read) where one device would hold it, then
+    # placed on the mesh with param_shardings
+    home = torch.device("cpu") if mesh is not None else dev
     params, bn_state = init_stacked(torch.Generator().manual_seed(tcfg.seed),
-                                    cfg, tcfg, device=dev)
+                                    cfg, tcfg, device=home)
     opt = make_optimizer(tcfg)
     opt_state = opt.init(params)
 
@@ -735,9 +910,9 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
             os.path.join(workdir, "last.json")):
         ck = load_checkpoint(os.path.join(workdir, "last"),
                              like_opt_state=opt_state)
-        params, bn_state = _state_on(ck["params"], ck["bn_state"], dev)
+        params, bn_state = _state_on(ck["params"], ck["bn_state"], home)
         if "opt_state" in ck:
-            opt_state = opt_state_from_jax(ck["opt_state"], dev)
+            opt_state = opt_state_from_jax(ck["opt_state"], home)
         extra = ck.get("extra", {})
         start_epoch = int(extra.get("epoch", 0))
         if verbose:
@@ -746,11 +921,22 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
         # last epoch's
         if os.path.exists(os.path.join(workdir, "best.json")):
             bck = load_checkpoint(os.path.join(workdir, "best"))
-            resumed_best = _state_on(bck["params"], bck["bn_state"], dev)
+            resumed_best = _state_on(bck["params"], bck["bn_state"], home)
+
+    def host(tree):
+        """The state as one device holds it (gathered from the mesh)."""
+        return tree if mesh is None else gather_tree(tree)
 
     rng_host = np.random.default_rng(tcfg.seed)
     val_multi = None
-    if windowed:
+    if mesh is not None:
+        params, bn_state, opt_state = place_state(mesh, params, bn_state,
+                                                  opt_state)
+        run_train, run_val, wins, val_idx = _mesh_runtime(
+            cfg, tcfg, mesh, train_ds, val_ds, train_idx, val_idx,
+            avg_sig_pow, loader, val_loader, window if windowed else None,
+            rng_host, host_stream)
+    elif windowed:
         wdata = {"P": torch.as_tensor(train_ds.pilot_matrix(),
                                       dtype=torch.float32, device=dev)}
         wins = _Windows(cfg, tcfg, train_ds, val_ds, train_idx, loader,
@@ -796,6 +982,9 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
 
     bs = tcfg.batch_size
     steps_per_epoch = wins.steps if windowed else max(1, len(train_idx) // bs)
+    if mesh is not None and bs % mesh.shape["data"]:
+        raise ValueError(f"batch {bs} does not divide over "
+                         f"{mesh.shape['data']} data ranks")
     val_steps = max(1, len(val_idx) // bs)
 
     min_lr = tcfg.lr * tcfg.min_lr_factor
@@ -805,8 +994,8 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
     if resumed_best is not None:
         best_params, best_bn = resumed_best
     else:
-        best_params = tree_map(torch.clone, params)
-        best_bn = tree_map(torch.clone, bn_state)
+        best_params = tree_map(torch.clone, host(params))
+        best_bn = tree_map(torch.clone, host(bn_state))
     since_plateau = int(extra.get("since_plateau", 0))
     best_sum = float(extra.get("best_sum", np.inf))
     since_best = np.asarray(extra.get("since_best", [0, 0]))
@@ -830,7 +1019,7 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
         next_perm()
     epochs_ran = 0
     kfuse = max(1, int(tcfg.steps_per_call))
-    use_multi = kfuse > 1 and not host_stream
+    use_multi = kfuse > 1 and not host_stream and mesh is None
 
     for epoch in range(start_epoch, tcfg.epochs):
         t0 = time.time()
@@ -887,15 +1076,17 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
 
         # per-plane best tracking (EarlyStopping restore_best_weights)
         improved = val_loss < best_val
+        if improved.any():
+            host_p, host_b = host(params), host(bn_state)
         for d in range(2):
             if improved[d]:
                 best_val[d] = val_loss[d]
                 since_best[d] = 0
                 best_params = tree_map(
                     lambda bp, p, d=d: _set_plane(bp, p, d), best_params,
-                    params)
+                    host_p)
                 best_bn = tree_map(lambda bb, b, d=d: _set_plane(bb, b, d),
-                                   best_bn, bn_state)
+                                   best_bn, host_b)
             else:
                 since_best[d] += 1
 
@@ -919,14 +1110,18 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
                   f"lr={lr:.1e} {time.time() - t0:.1f}s")
 
         if workdir is not None:
+            # on a mesh every process gathers (the pieces may cross
+            # processes); process 0 writes
+            last = (host(params), host(bn_state), host(opt_state))
+        if workdir is not None and writer:
             save_checkpoint(
-                os.path.join(workdir, "last"), cfg, tcfg, params, bn_state,
+                os.path.join(workdir, "last"), cfg, tcfg, *last[:2],
                 extra={"epoch": epoch + 1, "lr": lr,
                        "best_val": best_val.tolist(),
                        "since_best": since_best.tolist(),
                        "since_plateau": since_plateau,
                        "best_sum": best_sum},
-                opt_state=opt_state, backend=tcfg.ckpt_backend)
+                opt_state=last[2], backend=tcfg.ckpt_backend)
             with open(os.path.join(workdir, "history.json"), "w") as f:
                 json.dump(history, f)
             if improved.any():
@@ -942,7 +1137,7 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
                 print(f"[fit] early stop at epoch {epoch + 1}")
             break
 
-    if workdir is not None:
+    if workdir is not None and writer:
         os.makedirs(workdir, exist_ok=True)
         save_checkpoint(
             os.path.join(workdir, "best"), cfg, tcfg, best_params, best_bn,
@@ -951,6 +1146,10 @@ def _fit(cfg, tcfg, train_ds, val_ds, workdir, verbose, resume, host_stream,
         with open(os.path.join(workdir, "history.json"), "w") as f:
             json.dump(history, f)
         _plot_history(workdir, history)
+    if mesh is not None:
+        # the best weights come back on the mesh's first device
+        best_params, best_bn = (tree_map(lambda t: t.to(dev), t)
+                                for t in (best_params, best_bn))
     return TrainResult(best_params, best_bn, history, best_val, epochs_ran)
 
 

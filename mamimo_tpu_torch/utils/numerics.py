@@ -1,9 +1,8 @@
-"""Numerics shared across the port: ``unit_phasor`` and the device to
-host copies ``fetch_tree``/``fetch_tree_async`` (the port's copies from
-``mamimo_tpu/utils/numerics.py``, whose complex transfer shims
-``put_complex``/``get_complex`` PyTorch does not need), ``fma32``, and
-the precision of products on the card (``full_f32_matmul``,
-``matmul_precision``)."""
+"""Numerics shared across the port: ``unit_phasor``, the host and device
+copies ``put_complex``/``get_complex`` and ``fetch_tree``/
+``fetch_tree_async`` (the port's copies from
+``mamimo_tpu/utils/numerics.py``), ``fma32``, and the precision of
+products on the card (``full_f32_matmul``, ``matmul_precision``)."""
 
 from __future__ import annotations
 
@@ -71,6 +70,30 @@ def unit_phasor(cycles: torch.Tensor) -> torch.Tensor:
     c = cycles - torch.floor(cycles)
     ang = (2.0 * math.pi) * c
     return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def put_complex(x, device=None) -> torch.Tensor:
+    """A host complex array as complex64 on ``device`` (None: the card,
+    raising without one), copied as its two float32 planes and combined
+    there (the JAX package's transfer shim; PyTorch could copy the
+    complex array itself)."""
+    from mamimo_tpu_torch.models.predictor import resolve_device
+
+    dev = resolve_device("cuda" if device is None else device)
+    planes = [torch.from_numpy(np.ascontiguousarray(part, np.float32))
+              .to(dev) for part in (np.real(x), np.imag(x))]
+    return torch.complex(*planes)
+
+
+def get_complex(x: torch.Tensor, fetch_dtype=None) -> np.ndarray:
+    """A complex tensor as host complex64, copied as float planes.
+    ``fetch_dtype=torch.bfloat16`` rounds the planes to bf16 on the device
+    first (half the bytes copied, about -50 dB: never for noiseless
+    labels), widened back to float32 on the host."""
+    dt = fetch_dtype or torch.float32
+    re, im = (_numpy(p.to(dt).cpu()).astype(np.float32)
+              for p in (x.real, x.imag))
+    return (re + 1j * im).astype(np.complex64)
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:

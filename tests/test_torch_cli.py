@@ -70,13 +70,16 @@ def test_cli_pipeline_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("argv,slice_name", [
     pytest.param(["train", "-x", "none.npz", "-d", "x", "--dp", "2"],
-                 "sharded-training slice",
+                 "none.npz",
                  id="argv2-sharded-training slice"),
     pytest.param(["train", "-x", "none.npz", "-d", "x", "--tp", "2"],
-                 "sharded-training slice",
+                 "none.npz",
                  id="argv3-sharded-training slice")])
 def test_cli_unported_commands_name_their_slice(argv, slice_name):
-    with pytest.raises(SystemExit, match=slice_name):
+    """train --dp/--tp is ported now (tests/test_torch_sharded_train.py
+    trains with it): the command builds its mesh of CPU ranks and goes on
+    to read the dataset, which is missing here."""
+    with pytest.raises(FileNotFoundError, match=slice_name):
         main(argv + ["--device", "cpu"])
 
 

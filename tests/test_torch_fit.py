@@ -227,12 +227,19 @@ def test_fit_with_awgn_reduces_loss_and_beats_noise(corpora, tmp_path):
 
 
 def test_fit_refuses_mesh_and_a_missing_card(corpora):
-    """No silent fallback: fit(mesh=...) names the sharded-training slice;
-    the default device is the card, and there is none here."""
+    """No silent fallback: fit(mesh=...) refuses what is not a mesh of the
+    port, or one without a 'data' axis (the sharded modes themselves are
+    in tests/test_torch_sharded_train.py); the default device is the
+    card, and there is none here."""
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+
     tr, _ = corpora["train"]
     tcfg, _ = _tcfgs(epochs=1)
-    with pytest.raises(NotImplementedError, match="sharded-training slice"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         loop.fit(TINY, tcfg, tr, mesh=object(), verbose=False, device="cpu")
+    with pytest.raises(ValueError, match="'data' axis"):
+        loop.fit(TINY, tcfg, tr, verbose=False,
+                 mesh=make_mesh({"model": 2}, devices=["cpu"] * 2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             loop.fit(TINY, tcfg, tr, verbose=False)
