@@ -11,8 +11,9 @@ failure ends the run with a non-zero exit code):
                nvidia-smi (the run uses one card, cuda:0);
 2.  build    — nvcc builds every kernel of mamimo_tpu_torch/csrc (one
                process per source, all at once); prints the ptxas
-               report, and checks with cuobjdump that the layer-1 GEMMs,
-               the MLP tails and the three LS kernels
+               report, and checks with cuobjdump that the layer-1 GEMMs
+               and factored_dense, the MLP tails (factored_rows_tail
+               too) and the three LS kernels
                (ls_planes_v2_kernel, each of its four variants: f32 or
                bf16 store, with or without the sums of h^2;
                ls_planes_v1_kernel, ls_pair_kernel) run wgmma (HGMMA) and
@@ -190,6 +191,25 @@ failure ends the run with a non-zero exit code):
                (d) a hidden (64, 64) model, its weights padded to 128
                units, served through predict_complex_pallas (kernel 5)
                against the kernels' plain version;
+5l. wide     — every model the port trains, served on the card: BS32 at
+    models     hidden (2048, 2048), (4096, 1024), (1536, 640) (the tails
+               stream h above 1024 units), (1024,) and (1024, 1024,
+               1024) (the per-head rows through device memory), and Nt
+               256, Nr 4, hidden (1024, 1024) at 128 packets (kernel 1's
+               tiles of half a sample); each a seeded checkpoint loaded
+               by CSIPredictor, one request through estimate_full and
+               one through all_pairs, launches of kernels 1 and 2
+               counted, the served estimates within PIPE_LIMITS of the
+               float32 path, each kernel of the depth's chain against
+               its plain version (factored_tail at S = 1, 65 and 3 heads
+               when h streams; factored_rows_tail at ragged rows); at Nt
+               256 kernel 1's bf16 store and sums (check_v2_modes, S =
+               512 and 5), S = 1, a seq rank, kernels 3 and 4, and the
+               paths pallas_ls_v2_serving_r3 and ls_pallas counted; at
+               (2048, 2048) kernel 5 through predict_complex_pallas;
+               then each new kernel shape timed (CUDA events, S = 4096
+               at BS32, 512 at Nt 256) beside its plain version, bound
+               and library yardstick, rows of the kernels line;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -231,7 +251,7 @@ failure ends the run with a non-zero exit code):
                time, idle share, kernels and aten calls per step.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j and 5k and read just after; estimate_full,
+5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j, 5k and 5l and read just after; estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
 (torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
@@ -349,11 +369,24 @@ def check(name: str, got, ref, limit_db: float) -> dict:
                              f"{tuple(ref.shape)}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite output")
-    got = to_np(got).astype(np.complex128)
-    ref = to_np(ref).astype(np.complex128)
-    db, err = nmse_db(got, ref), float(np.abs(got - ref).max())
+    if got.is_cuda and ref.is_cuda:
+        # in float64 on the card: the large outputs need no host copy
+        wide = lambda t: (t.to(torch.complex128) if t.is_complex()  # noqa: E731
+                          else t.double())
+        g, r = wide(got), wide(ref)
+        d2, r2 = float((g - r).abs().square().sum()), float(
+            r.abs().square().sum())
+        with np.errstate(divide="ignore"):     # an exact match is -inf
+            db = float(10 * np.log10(d2 / r2))
+        err, top = float((g - r).abs().max()), float(r.abs().max())
+        del g, r
+    else:
+        got = to_np(got).astype(np.complex128)
+        ref = to_np(ref).astype(np.complex128)
+        db, err = nmse_db(got, ref), float(np.abs(got - ref).max())
+        top = float(np.abs(ref).max())
     print(f"  {name}: NMSE {db:.2f} dB (limit {limit_db} dB), "
-          f"max|err| {err:.3e}, max|ref| {np.abs(ref).max():.3e}")
+          f"max|err| {err:.3e}, max|ref| {top:.3e}")
     if not db <= limit_db:
         raise AssertionError(f"{name}: NMSE {db:.2f} dB > {limit_db} dB")
     return {"nmse_db": finite(db), "max_abs_err": err}
@@ -2224,6 +2257,536 @@ def sharded_timing(cfg, dev, smi, data) -> dict:
     return rows
 
 
+def check_v2_modes(cfg, x16, k90, tag, seq=None):
+    """ls_planes_v2's bf16 store and per-tile sums of h^2 (and the
+    f32 store with sums) against the plain version on the same bf16
+    planes: the estimate within -45 dB of the float32 plain version;
+    the sums within 1e-4 relative per tile of the plain version's
+    sums on the kernel's own constants (bf16-valued: against the
+    float32 DFT the estimate differs by about -58 dB, which moves a
+    tile's sums by up to about 3e-3), and equal from a second call.
+    Returns the results by (out_dtype, with_ssq)."""
+    import torch
+
+    from mamimo_tpu_torch.ops.estimate import (
+        ls_estimate_planes,
+        ls_planes_constants,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_v2_plain,
+        _ssq_plain,
+        ls_planes_v2,
+    )
+
+    bf16, dev = torch.bfloat16, x16.device
+    loc = cfg.num_tx if seq is None else cfg.num_tx // seq[1]
+    x32 = x16.float()
+    ref = _ls_v2_plain(cfg, x32, seq)
+    at_r, at_i, pm_ = ls_planes_constants(cfg, bf16, device=dev)
+    if seq is not None:
+        pm_ = pm_[:, seq[0] * loc:(seq[0] + 1) * loc]
+    hk = ls_estimate_planes(cfg, x32, (at_r, at_i, pm_))
+    ssq_ref = _ssq_plain(torch.stack([hk.real, hk.imag]), loc)
+    out = {}
+    for dt, ws in ((bf16, True), (bf16, False), (torch.float32, True)):
+        what = (f"ls_planes_v2 {tag}{'' if seq is None else f' seq {seq}'}"
+                f" {str(dt)[6:]} out{' + ssq' if ws else ''}")
+        got = ls_planes_v2(cfg, x16, k90, seq_shard=seq, out_dtype=dt,
+                           with_ssq=ws)
+        h, q = got if ws else (got, None)
+        if h.dtype != dt:
+            raise AssertionError(f"{what}: {h.dtype}, want {dt}")
+        r = check(f"{what} vs its plain version (f32)", h, ref, -45.0)
+        if ws:
+            if q.shape != ssq_ref.shape or not bool(
+                    torch.isfinite(q).all()):
+                raise AssertionError(f"{what}: sums {tuple(q.shape)}, "
+                                     f"want {tuple(ssq_ref.shape)}")
+            rel = float(((q - ssq_ref).abs()
+                         / ssq_ref.abs().clamp_min(1e-30)).max())
+            again = ls_planes_v2(cfg, x16, k90, seq_shard=seq,
+                                 out_dtype=dt, with_ssq=True)[1]
+            same = bool(torch.equal(q, again))
+            print(f"  {what}: sums {tuple(q.shape)}, max rel err per "
+                  f"tile {rel:.3e} (limit 1e-4) vs the plain version on "
+                  f"the kernel's constants; second call "
+                  f"{'identical' if same else 'DIFFERS'}")
+            if not (rel <= 1e-4 and same):
+                raise AssertionError(f"{what}: sums off by {rel:.3e} or "
+                                     f"not deterministic")
+            r["ssq_max_rel_err"] = rel
+        out[(dt, ws)] = r
+    return out
+
+
+# phase 5l: every depth and width the port trains, and 256 Tx antennas
+WIDE_MODELS = ((2048, 2048), (4096, 1024), (1536, 640), (1024,),
+               (1024, 1024, 1024))
+WIDE_PACKETS = 64                  # phase 5l: BS32 requests (S = 256)
+NT256_PACKETS = 128                # phase 5l: Nt 256 requests (S = 512)
+WIDE_TIME_S = 4096                 # phase 5l: the BS32 rows' timed S
+
+
+def wide_phase(dev, smi, counted, require_launched) -> dict:
+    """Phase 5l: the models of any depth and width that the port trains,
+    served on the card. Each model (seeded weights, written as a
+    checkpoint, loaded by CSIPredictor) answers one request through
+    estimate_full and one through all_pairs, its launches of kernels 1
+    and 2 counted; the served estimates are held to the float32 path
+    (PIPE_LIMITS), and each kernel of the depth's chain to its plain
+    version on the card (the BS32 limits of phase 3); at Nt 256 also
+    kernel 1's bf16 store and sums and kernels 3 and 4; at (2048, 2048)
+    kernel 5 through predict_complex_pallas. Then times each new kernel
+    shape (CUDA events) beside its plain version, its bound and a
+    library yardstick. Returns the served NMSEs, the counts and the
+    kernel rows (for the kernels line)."""
+    import torch
+
+    from mamimo_tpu_torch.config import SimConfig, TrainConfig
+    from mamimo_tpu_torch.models.mlp import (
+        _factored_all_pairs,
+        plane,
+        predict_complex,
+    )
+    from mamimo_tpu_torch.models.predictor import CSIPredictor, full_f32_matmul
+    from mamimo_tpu_torch.ops.estimate import (
+        ls_estimate_matmul,
+        ls_estimate_planes,
+        ls_planes_constants,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        _heads_plain,
+        _hidden_plain,
+        _out_plain,
+        _tail_plain,
+        factored_dense,
+        factored_heads,
+        factored_rows_tail,
+        factored_sig_proj,
+        factored_tail,
+        fused_factored_planes,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_v1_plain,
+        _ls_v2_plain,
+        _ssq_plain,
+        ls_estimate_pallas,
+        ls_pair_kernel,
+        ls_planes_pallas_v2_constants,
+        ls_planes_v1,
+        ls_planes_v2,
+        ls_v2_tiles,
+        pair_planes,
+    )
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import (
+        _tail_plain as _mlp_tail_plain,
+        mlp_infer_tail,
+        predict_complex_pallas,
+        prepare_mlp_infer_weights,
+    )
+    from mamimo_tpu_torch.bench import (
+        _planes_to_time_major,
+        make_estimation_fn_planes,
+        make_estimation_fn_serving_r3,
+    )
+    from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
+    from mamimo_tpu_torch.train.ckpt import save_checkpoint
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    rows, served, counts = [], {}, {}
+    nbytes_of = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+
+    def timed(name, shape, src, kern, plain, lib, nbytes, ops, launches,
+              path, err, replaces="mamimo_tpu/ops/pallas/"
+              "fused_factored.py:169", in_line=True):
+        """Time one kernel shape; a row of the kernels line unless
+        in_line is False (a kernel no path of this phase launches)."""
+        ms = time_ms(kern, iters=10)
+        plain_ms = time_ms(plain, iters=2, warmup=1)
+        lib_ms = time_ms(lib, iters=10) if lib is not None else None
+        bms, by = bound_ms(nbytes, ops)
+        print(f"  {name} [{shape}]: {ms:.5f} ms (bound {bms:.5f} ms by {by},"
+              f" {bms / ms * 100:.1f}% of it); plain {plain_ms:.4f} ms; "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"  [{smi}]")
+        if not in_line:
+            return
+        rows.append({"name": name, "shape": shape, "route": "cuda",
+                     "source": f"mamimo_tpu_torch/csrc/{src}",
+                     "replaces": replaces, "launches": launches,
+                     "launches_in": path,
+                     "max_abs_err": err["max_abs_err"],
+                     "nmse_db": err["nmse_db"], "exact": False, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms, "call_ms": None,
+                     "ms_from": "events", "call_ms_from": "events"})
+
+    def chain_names(hidden):
+        """Kernel 2's kernels for a model: the fused tail for 2 hidden
+        layers of at most 1024 units in the first, else the per-head rows
+        through device memory (fused_factored_planes' routing)."""
+        d = len(hidden)
+        if d == 2 and hidden[0] <= 1024:
+            return ("factored_sig_proj", "factored_tail")
+        return ("factored_sig_proj", "factored_heads") \
+            + (("factored_dense",) if d != 2 else ()) \
+            + (("factored_rows_tail",) if d >= 2 else ())
+
+    def layer_library(p, k, h):
+        """One bf16 matmul and its epilogue: hidden layer k on rows h."""
+        y = torch.relu(torch.bmm(h, p[f"w{k}"]) + p[f"b{k}"])
+        return (y * p[f"a{k}"] + p[f"c{k}"]).to(bf16)
+
+    for hidden in WIDE_MODELS + ("nt256",):
+        t_model = time.perf_counter()
+        big_nt = hidden == "nt256"
+        cfg = SimConfig(num_tx=256, num_rx=4) if big_nt else SimConfig()
+        tcfg = TrainConfig(hidden=(1024, 1024)) if big_nt \
+            else TrainConfig(hidden=hidden)
+        tag = f"Nt {cfg.num_tx}, hidden {tcfg.hidden}"
+        nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+        depth = len(tcfg.hidden)
+        packets = NT256_PACKETS if big_nt else WIDE_PACKETS
+        params, bn = make_model(cfg, tcfg, seed=70 + depth, device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_checkpoint(str(Path(tmp) / "best"), cfg, tcfg, params, bn)
+            pred = CSIPredictor(tmp, device=dev)
+        gr = torch.Generator().manual_seed(71)
+        req = torch.randn((2, packets * nr, L), generator=gr).numpy()
+        names = ("ls_planes_v2",) + chain_names(tcfg.hidden)
+        (h_ls, h_dnn), cnt = counted(lambda: pred.estimate_full(req))
+        require_launched(f"estimate_full, {tag}", cnt, names)
+        rx = req.reshape(2, packets, nr, L)
+        ap, cnt_ap = counted(lambda: pred.all_pairs(rx))
+        require_launched(f"all_pairs, {tag}", cnt_ap,
+                         chain_names(tcfg.hidden))
+        counts[tag] = {"estimate_full": cnt, "all_pairs": cnt_ap}
+        x0 = torch.from_numpy(req).to(dev)
+        ref_ls = ls_estimate_planes(cfg, x0, ls_planes_constants(
+            cfg, device=dev))
+        with full_f32_matmul():
+            ref_d = _factored_all_pairs(cfg, tcfg, params, bn, x0)
+        ref_dnn = torch.complex(ref_d[0], ref_d[1])
+        shape = (packets * nr, nt, C)
+        if h_ls.shape != shape or h_dnn.shape != shape:
+            raise AssertionError(f"{tag}: served {h_ls.shape}, "
+                                 f"{h_dnn.shape}, want {shape}")
+        on = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+        served[tag] = {
+            "h_ls": check(f"[5l] {tag}: estimate_full h_ls ({packets} "
+                          f"packets) vs the f32 LS", on(h_ls), ref_ls,
+                          PIPE_LIMITS["served_ls_db"]),
+            "h_dnn": check(f"[5l] {tag}: estimate_full h_dnn vs the f32 "
+                           f"factored DNN", on(h_dnn), ref_dnn,
+                           PIPE_LIMITS["served_dnn_db"]),
+            "all_pairs": check(f"[5l] {tag}: all_pairs vs the f32 factored "
+                               f"DNN", on(ap), ref_dnn.view(
+                                   packets, nr, nt, C),
+                               PIPE_LIMITS["served_dnn_db"])}
+        del ref_d, ref_dnn, ref_ls
+        # each kernel of the chain against its plain version on the card
+        prep, k90 = pred._kernel_weights()
+        x16 = x0.to(bf16)
+        sp = factored_sig_proj(x16, prep["w1"], prep["w1t"])
+        errs = {"factored_sig_proj": check(
+            f"  factored_sig_proj, {tag}, vs f32 x @ W1", sp,
+            x16.float() @ prep["w1"].float(), -70.0)}
+        g = torch.Generator(device=dev).manual_seed(72)
+        fused = "factored_tail" in chain_names(tcfg.hidden)
+        if fused:
+            errs["factored_tail"] = check(
+                f"  factored_tail, {tag}, vs its plain version",
+                factored_tail(prep, sp, C), _tail_plain(prep, sp, C), -40.0)
+        else:
+            h = factored_heads(prep, sp)
+            errs["factored_heads"] = check(
+                f"  factored_heads, {tag}, vs its plain version", h,
+                _heads_plain(prep, sp).view(2, -1, sp.shape[2]), -40.0)
+            for k in range(2, depth):
+                hk = factored_dense(prep, k, h)
+                errs["factored_dense"] = check(
+                    f"  factored_dense layer {k}, {tag}, vs its plain "
+                    f"version", hk, _hidden_plain(prep, k, h), -40.0)
+                h = hk
+            if depth == 1:
+                errs["factored_dense"] = check(
+                    f"  factored_dense output layer, {tag}, vs its plain "
+                    f"version", factored_dense(prep, 2, h, C),
+                    _out_plain(prep, h, C), -40.0)
+            else:
+                errs["factored_rows_tail"] = check(
+                    f"  factored_rows_tail, {tag}, vs its plain version",
+                    factored_rows_tail(prep, h, C),
+                    _out_plain(prep, _hidden_plain(prep, depth, h), C),
+                    -40.0)
+                # ragged rows (a cluster's last block past them), 1 row;
+                # above 1024 units the rows stream slab by slab
+                m = h.shape[1] - 3
+                for what, he in ((f"{m} rows", h[:, :m]), ("1 row", h[:, :1])):
+                    check(f"  factored_rows_tail {what}, {tag}, vs its plain "
+                          f"version", factored_rows_tail(prep, he, C),
+                          _out_plain(prep, _hidden_plain(prep, depth, he),
+                                     C), -40.0)
+        with full_f32_matmul():
+            check(f"  fused_factored_planes, {tag}, vs f32 "
+                  f"_factored_all_pairs", fused_factored_planes(
+                      cfg, tcfg, prep, x16), _factored_all_pairs(
+                      cfg, tcfg, params, bn, x16.float()), -40.0)
+        del sp, h_ls, h_dnn, ap
+        if big_nt:
+            # kernel 1's modes at Nt 256 (two tiles a sample), its edges,
+            # a seq rank, and kernels 3 and 4 at Nt 256
+            x32 = x16.float()
+            errs["ls_planes_v2"] = check(
+                f"  ls_planes_v2, {tag}, vs its plain version (f32)",
+                ls_planes_v2(cfg, x16, k90), _ls_v2_plain(cfg, x32), -45.0)
+            modes = check_v2_modes(cfg, x16, k90, f"{tag}, S = {x16.shape[1]}")
+            errs["ls_planes_v2 bf16 ssq"] = modes[(bf16, True)]
+            check_v2_modes(cfg, x16[:, :5].contiguous(), k90, f"{tag}, S = 5")
+            check(f"  ls_planes_v2 S = 1, {tag}, vs its plain version",
+                  ls_planes_v2(cfg, x16[:, :1], k90),
+                  _ls_v2_plain(cfg, x32[:, :1]), -45.0)
+            lq = L // 2
+            check(f"  ls_planes_v2 seq rank 1 of 2, {tag}, vs its plain "
+                  f"version", ls_planes_v2(
+                      cfg, x16[:, :, lq:].contiguous(), k90,
+                      seq_shard=(1, 2)),
+                  _ls_v2_plain(cfg, x32[:, :, lq:], (1, 2)), -45.0)
+            ref_raw = torch.stack(_ls_v1_plain(cfg, x16, 8, torch.float32))
+            for dt in (torch.float32, bf16):
+                hr, hi = ls_planes_v1(cfg, x16, k90, out_dtype=dt)
+                check_pads_zero("ls_planes_v1", hr, hi, x16.shape[1], nt, C)
+                errs.setdefault("ls_planes_v1", check(
+                    f"  ls_planes_v1 raw {str(dt)[6:]}, {tag}, vs its plain "
+                    f"version, pads zero", torch.stack([hr, hi]), ref_raw,
+                    -45.0))
+            for s_odd in (3, 1):
+                xo = x16[:, :s_odd]
+                r1 = torch.stack(_ls_v1_plain(cfg, xo, 8, torch.float32))
+                check(f"  ls_planes_v1 S = {s_odd}, {tag}", torch.stack(
+                    ls_planes_v1(cfg, xo, k90)), r1, -45.0)
+            del ref_raw, hr, hi
+            rxp = _planes_to_time_major(x32[:, :8 * nr], nr)   # 8 packets
+            with full_f32_matmul():
+                ref_pp = ls_estimate_matmul(cfg, rxp)
+            errs["ls_pair_kernel"] = check(
+                f"  ls_estimate_pallas (8 packets), {tag}, vs "
+                f"ls_estimate_matmul (f32)",
+                ls_estimate_pallas(cfg, rxp, consts=k90), ref_pp, -45.0)
+            del rxp, ref_pp
+            # the two planes paths whose LS modes these are: the bf16
+            # store and sums (pallas_ls_v2_serving_r3, as entry), and
+            # kernel 3 (the planes path ls_pallas), counted
+            h32 = ls_estimate_planes(cfg, x32, ls_planes_constants(
+                cfg, device=dev))
+            with full_f32_matmul():
+                d32 = _factored_all_pairs(cfg, tcfg, params, bn, x32)
+            fn_r3 = make_estimation_fn_serving_r3(cfg, tcfg, params, bn)
+            (ssq_r3, y2_r3), cnt_r3 = counted(lambda: fn_r3(x16))
+            require_launched(f"pallas_ls_v2_serving_r3, {tag}", cnt_r3,
+                             names)
+            served[tag]["r3_ssq"] = check(
+                f"[5l] {tag}: pallas_ls_v2_serving_r3 sums of h^2 vs the "
+                f"f32 LS's", ssq_r3, _ssq_plain(torch.stack(
+                    [h32.real, h32.imag]), nt), -40.0)
+            served[tag]["r3_y2"] = check(
+                f"[5l] {tag}: pallas_ls_v2_serving_r3 y2 vs f32 "
+                f"_factored_all_pairs", y2_r3, d32, -40.0)
+            fn_v1 = make_estimation_fn_planes(cfg, tcfg, params, bn,
+                                              input_bf16=True, ls_pallas=True)
+            (v1_ls, v1_dnn), cnt_v1 = counted(lambda: fn_v1(x16))
+            require_launched(f"planes path ls_pallas, {tag}", cnt_v1,
+                             ("ls_planes_v1",) + chain_names(tcfg.hidden))
+            served[tag]["ls_pallas_h_ls"] = check(
+                f"[5l] {tag}: planes path ls_pallas h_ls vs the f32 LS",
+                v1_ls, h32, -45.0)
+            counts[tag].update({"pallas_ls_v2_serving_r3": cnt_r3,
+                                "ls_pallas": cnt_v1})
+            del fn_r3, fn_v1, ssq_r3, y2_r3, v1_ls, v1_dnn, h32, d32
+        if hidden == WIDE_MODELS[0]:
+            # kernel 5: h1 of 2048 units streams through its tail
+            with full_f32_matmul():
+                prep_mlp = prepare_mlp_infer_weights(tcfg, params, bn)
+            sig = torch.complex(torch.randn((256, L), generator=g,
+                                            device=dev),
+                                torch.randn((256, L), generator=g,
+                                            device=dev))
+            pil = pilot_p_matrix(nt, device=dev).T[
+                torch.arange(256, device=dev) % nt]
+            got_pc, cnt_pc = counted(lambda: predict_complex_pallas(
+                cfg, tcfg, prep_mlp, None, sig, pil))
+            require_launched(f"predict_complex_pallas, {tag}", cnt_pc,
+                             ("mlp_infer_layer1", "mlp_infer_tail"))
+            counts[tag]["predict_complex_pallas"] = cnt_pc
+            with full_f32_matmul():
+                ref_pc = predict_complex(cfg, tcfg, params, bn, sig, pil)
+            served[tag]["predict_complex_pallas"] = check(
+                f"[5l] {tag}: predict_complex_pallas (256 rows) vs f32 "
+                f"predict_complex", got_pc, ref_pc, -40.0)
+            pm0 = plane(prep_mlp, 0)
+            h1 = torch.relu(torch.randn((131, pm0["w2"].shape[0]),
+                                        generator=g, device=dev)).to(bf16)
+            for what, he in (("131 rows", h1), ("1 row", h1[:1])):
+                errs.setdefault("mlp_infer_tail", check(
+                    f"  mlp_infer_tail {what}, {tag}, vs its plain version",
+                    mlp_infer_tail(pm0, he), _mlp_tail_plain(pm0, he),
+                    -40.0))
+
+        # timing at the main path's shapes: S = 4096 at BS32 (131072
+        # rows), the request's S = 512 at Nt 256 (131072 rows too)
+        S = x16.shape[1] if big_nt else WIDE_TIME_S
+        path = f"estimate_full x1, {tag}"
+        H1 = prep["w1"].shape[2]
+        if big_nt:
+            xb16, xb32 = x16, x16.float()
+            f32c = ls_planes_constants(cfg, device=dev)
+            bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, bf16, dev)
+            cp_ = bv2.shape[1] // 2
+            pmat = f32c[2]
+
+            def ls_library():
+                t = torch.matmul(xb16.view(2, S * nt, cfg.sym_len),
+                                 bv2).float()
+                zr = t[0, :, :C] - t[1, :, cp_:cp_ + C]
+                zi = t[0, :, cp_:cp_ + C] + t[1, :, :C]
+                return torch.matmul(pmat, torch.stack([zr, zi]).view(
+                    2, S, nt, C))
+
+            ls_in = 2 * S * nt * cfg.fft_length * 2 + k90.bt.numel() * 2
+            ls_ops = 2.0 * (S * nt) * (2 * cfg.fft_length) * (2 * C)
+            lsrc = "mamimo_tpu/ops/pallas/fused_ls.py:"
+            timed("ls_planes_v2", f"Nt 256: planes (2, {S}, {L}) bf16 -> "
+                  f"(2, {S}, {nt}, {C}) f32", "ls_v2.cu",
+                  lambda: ls_planes_v2(cfg, xb16, k90),
+                  lambda: ls_estimate_planes(cfg, xb32, f32c), ls_library,
+                  ls_in + 2 * S * nt * C * 4, ls_ops, cnt["ls_planes_v2"],
+                  path, errs["ls_planes_v2"], replaces=lsrc + "424")
+            tiles_b = ls_v2_tiles(S, nt)
+            timed("ls_planes_v2", f"Nt 256: planes (2, {S}, {L}) bf16 -> "
+                  f"(2, {S}, {nt}, {C}) bf16 + sums of h^2 ({tiles_b}, 2, "
+                  f"{C}) f32", "ls_v2.cu",
+                  lambda: ls_planes_v2(cfg, xb16, k90, out_dtype=bf16,
+                                       with_ssq=True),
+                  lambda: _ls_v2_plain(cfg, xb32, None, bf16, True),
+                  lambda: (lambda h: (h.to(bf16), (h * h).view(
+                      2, tiles_b, -1, C).sum(2)))(ls_library()),
+                  ls_in + 2 * S * nt * C * 2 + tiles_b * 2 * C * 4, ls_ops,
+                  cnt_r3["ls_planes_v2"],
+                  f"pallas_ls_v2_serving_r3 x1, {tag}",
+                  errs["ls_planes_v2 bf16 ssq"], replaces=lsrc + "424")
+            rows_out = -(-S // 8) * 8 * nt
+            timed("ls_planes_v1", f"Nt 256: planes (2, {S}, {L}) bf16 -> "
+                  f"raw 2 x ({rows_out}, {cp_}) bf16", "ls_v1.cu",
+                  lambda: ls_planes_v1(cfg, xb16, k90, out_dtype=bf16),
+                  lambda: _ls_v1_plain(cfg, xb16, 8, bf16), ls_library,
+                  ls_in + 2 * rows_out * cp_ * 2, ls_ops,
+                  cnt_v1["ls_planes_v1"], f"planes path ls_pallas x1, {tag}",
+                  errs["ls_planes_v1"], replaces=lsrc + "253")
+            rx_b = _planes_to_time_major(xb32, nr)
+            ppl = pair_planes(rx_b)
+            timed("ls_pair_kernel", f"Nt 256: rx ({S // nr}, {L}, {nr}) c64 "
+                  f"-> ({S // nr}, {C}, {nt}, {nr}) c64", "ls_pair.cu",
+                  lambda: ls_pair_kernel(cfg, ppl, nr, k90),
+                  lambda: ls_estimate_matmul(cfg, rx_b), ls_library,
+                  ls_in + S * nt * C * 8, ls_ops, 0,
+                  "pallas_full is not run at Nt 256 (its materialized "
+                  "rows are S*Nt x (L + Nt))", errs["ls_pair_kernel"],
+                  replaces=lsrc + "110", in_line=False)
+            del xb32, rx_b, ppl
+        else:
+            # the BS32 models all take the per-head rows (none is a fused
+            # tail's: two layers above 1024 units, or another depth)
+            spb = torch.randn((2, S, H1), generator=g, device=dev) * 0.5
+            h = factored_heads(prep, spb)
+            timed("factored_heads", f"hidden {tcfg.hidden}: sig_proj "
+                  f"(2, {S}, {H1}) f32 -> rows (2, {S * nt}, {H1}) bf16",
+                  "fused_factored.cu",
+                  lambda: factored_heads(prep, spb),
+                  lambda: _heads_plain(prep, spb), None,
+                  nbytes_of(spb, prep["hb"], prep["a1"], prep["c1"], h),
+                  0.0, cnt["factored_heads"], path,
+                  errs["factored_heads"])
+            M = S * nt
+            for k in range(2, depth):
+                hk = factored_dense(prep, k, h)
+                kin, kout = h.shape[2], hk.shape[2]
+                timed("factored_dense", f"hidden {tcfg.hidden}, layer "
+                      f"{k}: rows (2, {M}, {kin}) bf16 -> (2, {M}, "
+                      f"{kout}) bf16", "fused_factored.cu",
+                      lambda h=h, k=k: factored_dense(prep, k, h),
+                      lambda h=h, k=k: _hidden_plain(prep, k, h),
+                      lambda h=h, k=k: layer_library(prep, k, h),
+                      nbytes_of(h, prep[f"w{k}t"], prep[f"b{k}"],
+                                prep[f"a{k}"], prep[f"c{k}"], hk),
+                      2.0 * 2 * M * kin * kout, cnt["factored_dense"],
+                      path, errs["factored_dense"])
+                h = hk
+            kin, o = h.shape[2], depth + 1
+            if depth == 1:
+                timed("factored_dense", f"hidden {tcfg.hidden}, output "
+                      f"layer: rows (2, {M}, {kin}) bf16 -> (2, {M}, "
+                      f"{C}) f32", "fused_factored.cu",
+                      lambda: factored_dense(prep, 2, h, C),
+                      lambda: _out_plain(prep, h, C),
+                      lambda: torch.bmm(h, prep["w2"])[..., :C]
+                      + prep["b2"][..., :C],
+                      nbytes_of(h, prep["w2t"], prep["b2"])
+                      + 2 * M * C * 4, 2.0 * 2 * M * kin * C,
+                      cnt["factored_dense"], path,
+                      errs["factored_dense"])
+            else:
+                hd = prep[f"w{depth}"].shape[2]
+                timed("factored_rows_tail", f"hidden {tcfg.hidden}: rows "
+                      f"(2, {M}, {kin}) bf16 -> (2, {M}, {C}) f32",
+                      "fused_factored.cu",
+                      lambda: factored_rows_tail(prep, h, C),
+                      lambda: _out_plain(prep, _hidden_plain(
+                          prep, depth, h), C),
+                      lambda: torch.bmm(layer_library(prep, depth, h),
+                                        prep[f"w{o}"])[..., :C],
+                      nbytes_of(h, prep[f"w{depth}t"], prep[f"b{depth}"],
+                                prep[f"a{depth}"], prep[f"c{depth}"],
+                                prep[f"w{o}t"], prep[f"b{o}"])
+                      + 2 * M * C * 4,
+                      2.0 * 2 * M * (kin * hd + hd * C),
+                      cnt["factored_rows_tail"], path,
+                      errs["factored_rows_tail"])
+            del h
+            if hidden == WIDE_MODELS[0]:
+                M = S * nt
+                h1b = torch.relu(torch.randn((M, H1), generator=g,
+                                             device=dev)).to(bf16)
+                w3c = pm0["w3"][:, :C]
+                timed("mlp_infer_tail", f"hidden {tcfg.hidden}: h1 ({M}, "
+                      f"{H1}) bf16 -> ({M}, {C}) f32", "mlp_infer.cu",
+                      lambda: mlp_infer_tail(pm0, h1b),
+                      lambda: _mlp_tail_plain(pm0, h1b),
+                      lambda: torch.matmul((torch.relu(torch.matmul(
+                          h1b, pm0["w2"]) + pm0["b2"]) * pm0["s2"]
+                          + pm0["t2"]).to(bf16), w3c) + pm0["b3"],
+                      nbytes_of(h1b, pm0["w2"], pm0["b2"], pm0["s2"],
+                                pm0["t2"], w3c, pm0["b3"]) + M * C * 4,
+                      2.0 * M * (H1 * pm0["w2"].shape[1]
+                                 + pm0["w2"].shape[1] * C),
+                      cnt_pc["mlp_infer_tail"],
+                      f"predict_complex_pallas x1, {tag}",
+                      errs["mlp_infer_tail"],
+                      replaces="mamimo_tpu/ops/pallas/mlp_infer.py:144")
+                del h1b, prep_mlp, pm0
+            del spb
+        del pred, prep, params, bn, x0, x16
+        torch.cuda.empty_cache()
+        print(f"  [5l] {tag}: {time.perf_counter() - t_model:.1f} s")
+    secs = time.perf_counter() - t0
+    print(f"[5l wide] {len(WIDE_MODELS) + 1} models served through kernels "
+          f"1 and 2, each kernel held to its plain version; {secs:.1f} s")
+    return {"served_nmse_db": {k: {n: v["nmse_db"] for n, v in d.items()}
+                               for k, d in served.items()},
+            "launches": counts, "rows": rows, "seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -2266,6 +2829,9 @@ def main() -> int:
     from mamimo_tpu_torch.ops.kernels import _build
     from mamimo_tpu_torch.ops.kernels.fused_factored import (
         _tail_plain,
+        factored_dense,
+        factored_heads,
+        factored_rows_tail,
         factored_sig_proj,
         factored_tail,
         fused_factored_planes,
@@ -2362,7 +2928,10 @@ def main() -> int:
     # mma.sync (HMMA; IMMA)
     for src, kerns, want, ban in (
             ("fused_factored", ("factored_sig_proj_kernel",
-                                "factored_tail_kernel"), "HGMMA", "HMMA"),
+                                "factored_tail_kernel",
+                                "factored_dense_kernel",
+                                "factored_rows_tail_kernel"), "HGMMA",
+             "HMMA"),
             ("mlp_infer", ("mlp_layer1_kernel", "mlp_tail_kernel"),
              "HGMMA", "HMMA"),
             ("ls_v2", tuple(V2_VARIANTS.values()), "HGMMA", "HMMA"),
@@ -2381,54 +2950,6 @@ def main() -> int:
     def randint8(g, shape):
         return torch.randint(-127, 128, shape, generator=g, device=dev,
                              dtype=torch.int8)
-
-    def check_v2_modes(cfg, x16, k90, tag, seq=None):
-        """ls_planes_v2's bf16 store and per-tile sums of h^2 (and the
-        f32 store with sums) against the plain version on the same bf16
-        planes: the estimate within -45 dB of the float32 plain version;
-        the sums within 1e-4 relative per tile of the plain version's
-        sums on the kernel's own constants (bf16-valued: against the
-        float32 DFT the estimate differs by about -58 dB, which moves a
-        tile's sums by up to about 3e-3), and equal from a second call.
-        Returns the results by (out_dtype, with_ssq)."""
-        loc = cfg.num_tx if seq is None else cfg.num_tx // seq[1]
-        x32 = x16.float()
-        ref = _ls_v2_plain(cfg, x32, seq)
-        at_r, at_i, pm_ = ls_planes_constants(cfg, bf16, device=dev)
-        if seq is not None:
-            pm_ = pm_[:, seq[0] * loc:(seq[0] + 1) * loc]
-        hk = ls_estimate_planes(cfg, x32, (at_r, at_i, pm_))
-        ssq_ref = _ssq_plain(torch.stack([hk.real, hk.imag]), loc)
-        out = {}
-        for dt, ws in ((bf16, True), (bf16, False), (torch.float32, True)):
-            what = (f"ls_planes_v2 {tag}{'' if seq is None else f' seq {seq}'}"
-                    f" {str(dt)[6:]} out{' + ssq' if ws else ''}")
-            got = ls_planes_v2(cfg, x16, k90, seq_shard=seq, out_dtype=dt,
-                               with_ssq=ws)
-            h, q = got if ws else (got, None)
-            if h.dtype != dt:
-                raise AssertionError(f"{what}: {h.dtype}, want {dt}")
-            r = check(f"{what} vs its plain version (f32)", h, ref, -45.0)
-            if ws:
-                if q.shape != ssq_ref.shape or not bool(
-                        torch.isfinite(q).all()):
-                    raise AssertionError(f"{what}: sums {tuple(q.shape)}, "
-                                         f"want {tuple(ssq_ref.shape)}")
-                rel = float(((q - ssq_ref).abs()
-                             / ssq_ref.abs().clamp_min(1e-30)).max())
-                again = ls_planes_v2(cfg, x16, k90, seq_shard=seq,
-                                     out_dtype=dt, with_ssq=True)[1]
-                same = bool(torch.equal(q, again))
-                print(f"  {what}: sums {tuple(q.shape)}, max rel err per "
-                      f"tile {rel:.3e} (limit 1e-4) vs the plain version on "
-                      f"the kernel's constants; second call "
-                      f"{'identical' if same else 'DIFFERS'}")
-                if not (rel <= 1e-4 and same):
-                    raise AssertionError(f"{what}: sums off by {rel:.3e} or "
-                                         f"not deterministic")
-                r["ssq_max_rel_err"] = rel
-            out[(dt, ws)] = r
-        return out
 
     def check_kernels(cfg, tcfg, s, seed, tag, packets):
         """Each kernel against its plain version on the same inputs and a
@@ -2729,6 +3250,7 @@ def main() -> int:
                              f"> -40 dB")
 
     all_kernels = (ls_planes_v2, factored_sig_proj, factored_tail,
+                   factored_heads, factored_dense, factored_rows_tail,
                    ls_planes_v1, matmul_int8, ls_pair_kernel,
                    mlp_infer_layer1, mlp_infer_tail, halo_exchange_pallas)
 
@@ -3098,6 +3620,9 @@ def main() -> int:
     # 5k. the sharded training step on virtual ranks, dryrun, hidden 64 --
     shard = sharded_phase(cfg, dev, counted, require_launched,
                           train["data"], pipe["keep"]["ds"])
+
+    # 5l. every depth and width the port trains, and Nt 256 --------------
+    wide = wide_phase(dev, smi, counted, require_launched)
 
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
@@ -3493,6 +4018,8 @@ def main() -> int:
     pipe_dir.cleanup()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    # phase 5l's rows last: the lookups by name above read BS32's
+    kernels += wide.pop("rows")
     print(json.dumps({"kernels": kernels, "serving": {
         "S": S, "device_ms": calls,
         "estimates_per_s": {k: n_est / v * 1e3 for k, v in calls.items()},
@@ -3527,6 +4054,7 @@ def main() -> int:
         "pipeline": pipe,
         "closed_loop": cl,
         "sharded_train": shard,
+        "wide": wide,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,21 @@
 //   bias, ReLU and BN affine in registers, and y += h2_chunk @ W3[chunk]
 //   accumulates in registers. h and h2 never reach device memory; y is
 //   written straight into the rx-major (2, S, nt, C) layout. W2 and W3
-//   are read K-major from w2t and w3t (prepare_factored_weights).
+//   are read K-major from w2t and w3t (prepare_factored_weights). It
+//   serves H1 <= 1024, where h fits in shared memory.
+// * Other depths and wider layers (the TPU kernel takes two hidden
+//   layers only; the JAX serving call runs any depth in XLA):
+//   factored_heads_kernel writes the per-head rows h0 = relu(sig_proj +
+//   hb) a1 + c1 (2, S*nt, H1) bf16 to device memory;
+//   factored_dense_kernel, gemm_sm90.cuh's main loop with a
+//   bias/ReLU/BN epilogue, runs each hidden layer after the first but
+//   the last (bf16 rows out), or at depth 1 the output layer (f32 out);
+//   factored_rows_tail_kernel runs the last hidden layer and the output
+//   on tail_sm90.cuh from TMA-loaded rows, as mlp_infer.cu's tail, with
+//   the rows streamed slab by slab above 1024 units. At depth 2 above
+//   1024 units this replaces building h slab by slab inside
+//   factored_tail, which ran at 11% of its bound at H 2048 on an H100
+//   (PERF.md).
 //
 // Bound on an H100 at the serving shape (S = 4096, nt = 32, L = 10240,
 // H = 1024, C = 234): about 848 GFLOP (172 layer 1, 550 layer 2, 126
@@ -60,10 +74,24 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 // ---------------------------------------------------------------------
 // heads, layers 2 and 3
 // ---------------------------------------------------------------------
+// y + b3 (b3 one plane's) -> o[row * C + col], col < C
+__device__ __forceinline__ void store_y(float* o, const float* b3, int C,
+                                       int col, float v0, float v1) {
+  if (col >= C) return;
+  o += col;
+  if ((C & 1) == 0) {
+    *reinterpret_cast<float2*>(o) =
+        make_float2(v0 + b3[col], v1 + b3[col + 1]);
+  } else {
+    o[0] = v0 + b3[col];
+    if (col + 1 < C) o[1] = v1 + b3[col + 1];
+  }
+}
+
 // One block: 64 samples s0.. of head t of plane p (heads t >= nt pad the
 // last cluster: they load their share of the weights and store nothing).
-// It builds h in shared memory and runs tail::layers23; w2t (2, H, H) and
-// w3t (2, 256, H) come through the maps mw2 and mw3.
+// It builds h in shared memory and runs tail::layers23; w2t (2, H2, H1)
+// and w3t (2, 256, H2) come through the maps mw2 and mw3; b3 (2, ldb3).
 __global__ void __launch_bounds__(tail::THREADS, 1)
     factored_tail_kernel(const __grid_constant__ CUtensorMap mw2,
                          const __grid_constant__ CUtensorMap mw3,
@@ -75,26 +103,26 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
                          const float* __restrict__ a2,
                          const float* __restrict__ c2,
                          const float* __restrict__ b3,
-                         float* __restrict__ out, int S, int nt, int H,
-                         int C) {
+                         float* __restrict__ out, int S, int nt, int H1,
+                         int H2, int C, int ldb3) {
   using namespace tail;
   const int t = blockIdx.x, s0 = blockIdx.y * ROWS, p = blockIdx.z;
   const bool head = t < nt;
-  sp += (long long)p * S * H;
-  hb += ((long long)p * nt + (head ? t : 0)) * H;
-  a1 += (long long)p * H;
-  c1 += (long long)p * H;
-  b2 += (long long)p * H;
-  a2 += (long long)p * H;
-  c2 += (long long)p * H;
-  b3 += (long long)p * OPP;
+  sp += (long long)p * S * H1;
+  hb += ((long long)p * nt + (head ? t : 0)) * H1;
+  a1 += (long long)p * H1;
+  c1 += (long long)p * H1;
+  b2 += (long long)p * H2;
+  a2 += (long long)p * H2;
+  c2 += (long long)p * H2;
+  b3 += (long long)p * ldb3;
   float* op = out + (long long)p * S * nt * C;
 
-  tail::layers23<false>(
-      nullptr, 0, &mw2, &mw3, p, H, H, b2, a2, c2,
+  tail::layers23<false, false>(
+      nullptr, 0, &mw2, &mw3, p, H1, H2, b2, a2, c2,
       // h = relu(sig_proj + hb[t]) * a1 + c1, bf16; rows past S zero
       [&](unsigned char* sh, int i) {
-        const int vpr = H / 8;           // 16-byte chunks of an h row
+        const int vpr = H1 / 8;          // 16-byte chunks of an h row
         // ROWS * vpr is a multiple of 4 * 256: four chunks a thread per
         // pass, their sig_proj loads issued together
         for (int idx0 = i; idx0 < ROWS * vpr; idx0 += 4 * 256) {
@@ -105,7 +133,7 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
             const int k = (idx - r * vpr) * 8, s = s0 + r;
             const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
             const float4* src =
-                reinterpret_cast<const float4*>(sp + (long long)s * H + k);
+                reinterpret_cast<const float4*>(sp + (long long)s * H1 + k);
             x[u][0] = (s < S && head) ? __ldg(src) : z;
             x[u][1] = (s < S && head) ? __ldg(src + 1) : z;
           }
@@ -137,15 +165,113 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
       // y + b3 -> out[p][s][t][c], c < C
       [&](int row, int col, float v0, float v1) {
         const int s = s0 + row;
-        if (!head || s >= S || col >= C) return;
-        float* o = op + ((long long)s * nt + t) * C + col;
-        if ((C & 1) == 0) {
-          *reinterpret_cast<float2*>(o) =
-              make_float2(v0 + b3[col], v1 + b3[col + 1]);
+        if (head && s < S)
+          store_y(op + ((long long)s * nt + t) * C, b3, C, col, v0, v1);
+      });
+}
+
+// ---------------------------------------------------------------------
+// depths other than 2, and layers above 1024 units: the per-head rows
+// in device memory
+// ---------------------------------------------------------------------
+// h0[p][s*nt + t] = bf16(relu(sp[p][s] + hb[p][t]) * a1[p] + c1[p]):
+// sp (2, S, H) f32, hb (2, nt, H), a1, c1 (2, H); h0 (2, S*nt, H) bf16.
+// One thread writes 8 columns (16 bytes); rows are written in order, so
+// a warp's stores are whole 512-byte pieces.
+__global__ void factored_heads_kernel(const float* __restrict__ sp,
+                                      const float* __restrict__ hb,
+                                      const float* __restrict__ a1,
+                                      const float* __restrict__ c1,
+                                      bf16* __restrict__ h0, int S, int nt,
+                                      int H) {
+  const int vpr = H / 8;
+  const long long n = 2LL * S * nt * vpr;
+  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * blockDim.x) {
+    const int k = (int)(idx % vpr) * 8;
+    const long long row = idx / vpr;           // (p * S + s) * nt + t
+    const int t = (int)(row % nt);
+    const long long ps = row / nt;             // p * S + s
+    const int p = (int)(ps / S);
+    const float4* x = reinterpret_cast<const float4*>(sp + ps * H + k);
+    const float4* b =
+        reinterpret_cast<const float4*>(hb + ((long long)p * nt + t) * H + k);
+    const float4* a = reinterpret_cast<const float4*>(a1 + (long long)p * H + k);
+    const float4* c = reinterpret_cast<const float4*>(c1 + (long long)p * H + k);
+    uint4 v;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 xx = __ldg(x + h), bb = __ldg(b + h), aa = __ldg(a + h),
+                   cc = __ldg(c + h);
+      o[2 * h] = tail::pack_bf16(fmaxf(xx.x + bb.x, 0.f) * aa.x + cc.x,
+                                 fmaxf(xx.y + bb.y, 0.f) * aa.y + cc.y);
+      o[2 * h + 1] = tail::pack_bf16(fmaxf(xx.z + bb.z, 0.f) * aa.z + cc.z,
+                                     fmaxf(xx.w + bb.w, 0.f) * aa.w + cc.w);
+    }
+    *reinterpret_cast<uint4*>(h0 + row * H + k) = v;
+  }
+}
+
+// One dense layer of both planes on the Hopper main loop: v = h[p] @
+// W[p] (h (2, M, K) bf16 through map mx, wt = W transposed (2, N, K)
+// through map mw). OUT: y[p][m][col] = v + b[p][col] f32 for col < C
+// (the output layer, y (2, M, C)); else bf16(relu(v + b) * a + c), the
+// next hidden rows (2, M, N). b, a, c (2, ldb) f32.
+template <bool OUT>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    factored_dense_kernel(const __grid_constant__ CUtensorMap mx,
+                          const __grid_constant__ CUtensorMap mw,
+                          const float* __restrict__ b,
+                          const float* __restrict__ a,
+                          const float* __restrict__ c, void* __restrict__ y,
+                          int M, int N, int K, int C, int ldb) {
+  sm90::gemm_persistent(
+      &mx, &mw, M, N, 2, K, [&](int p, int row, int col, float v0, float v1) {
+        if (row >= M || col >= N) return;
+        const long long r = (long long)p * M + row;
+        const int j = p * ldb + col;
+        if constexpr (OUT) {
+          store_y(reinterpret_cast<float*>(y) + r * C, b + p * ldb, C, col,
+                  v0, v1);
         } else {
-          o[0] = v0 + b3[col];
-          if (col + 1 < C) o[1] = v1 + b3[col + 1];
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(y) +
+                                             r * N + col) =
+              __floats2bfloat162_rn(
+                  fmaxf(v0 + b[j], 0.f) * a[j] + c[j],
+                  fmaxf(v1 + b[j + 1], 0.f) * a[j + 1] + c[j + 1]);
         }
+      });
+}
+
+// The last hidden layer and the output layer from the rows of the one
+// before (depth >= 3, or depth 2 above 1024 units: the heads' rows): 64
+// rows m0.. of plane p = blockIdx.z of h (2, M, H1) through
+// map mh; w2t (2, H2, H1), w3t (2, 256, H2) through mw2, mw3; b2, a2, c2
+// (2, H2); b3 (2, ldb3); y (2, M, C).
+template <bool STREAM>
+__global__ void __launch_bounds__(tail::THREADS, 1)
+    factored_rows_tail_kernel(const __grid_constant__ CUtensorMap mh,
+                              const __grid_constant__ CUtensorMap mw2,
+                              const __grid_constant__ CUtensorMap mw3,
+                              const float* __restrict__ b2,
+                              const float* __restrict__ a2,
+                              const float* __restrict__ c2,
+                              const float* __restrict__ b3,
+                              float* __restrict__ y, int M, int H1, int H2,
+                              int C, int ldb3) {
+  const int m0 = blockIdx.x * tail::ROWS, p = blockIdx.z;
+  b2 += (long long)p * H2;
+  a2 += (long long)p * H2;
+  c2 += (long long)p * H2;
+  b3 += (long long)p * ldb3;
+  float* yp = y + (long long)p * M * C;
+  tail::layers23<true, STREAM>(
+      &mh, m0, &mw2, &mw3, p, H1, H2, b2, a2, c2,
+      [](unsigned char*, int, int, int) {},
+      [&](int row, int col, float v0, float v1) {
+        const int m = m0 + row;
+        if (m < M) store_y(yp + (long long)m * C, b3, C, col, v0, v1);
       });
 }
 
@@ -166,27 +292,93 @@ int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
                       (cudaStream_t)stream, mx, mw, (float*)out, S, L, H);
 }
 
-// sp (2, S, H) f32; hb (2, nt, H) f32; a1, c1, b2, a2, c2 (2, H) f32;
-// w2t (2, H, H) bf16 (W2 transposed); w3t (2, 256, H) bf16 (padded W3
-// transposed); b3 (2, 256) f32; out (2, S, nt, C) f32. H % 128 == 0,
-// H <= 1024, C <= 256, w2t and w3t 16-byte aligned.
+// sp (2, S, H1) f32; hb (2, nt, H1) f32; a1, c1 (2, H1) f32; w2t (2, H2,
+// H1) bf16 (W2 transposed); b2, a2, c2 (2, H2) f32; w3t (2, 256, H2)
+// bf16 (padded W3 transposed); b3 (2, ldb3) f32; out (2, S, nt, C) f32.
+// H1, H2 % 128 == 0, H1 <= 1024 (h is kept whole), C <= 256, w2t and w3t
+// 16-byte aligned.
 int factored_tail_launch(const void* sp, const void* hb, const void* a1,
                          const void* c1, const void* w2t, const void* b2,
                          const void* a2, const void* c2, const void* w3t,
-                         const void* b3, void* out, int S, int nt, int H,
-                         int C, void* stream) {
+                         const void* b3, void* out, int S, int nt, int H1,
+                         int H2, int C, int ldb3, void* stream) {
+  if (H1 > tail::MAX_RESIDENT) return (int)cudaErrorInvalidValue;
   CUtensorMap mw2, mw3;
-  int rc = sm90::make_map(&mw2, w2t, H, H, 2, tail::SLICE_ROWS, H);
+  int rc = sm90::make_map(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1);
   if (rc == 0)
-    rc = sm90::make_map(&mw3, w3t, H, tail::OPP, 2, tail::SLICE_ROWS, H);
+    rc = sm90::make_map(&mw3, w3t, H2, tail::OPP, 2, tail::SLICE_ROWS, H2);
   if (rc != 0) return rc;
   const dim3 grid((nt + tail::CL - 1) / tail::CL * tail::CL,
                   (S + tail::ROWS - 1) / tail::ROWS, 2);
-  return tail::launch(factored_tail_kernel, grid, tail::smem_bytes(H),
+  return tail::launch(factored_tail_kernel, grid,
+                      tail::smem_bytes(H1, false),
                       (cudaStream_t)stream, mw2, mw3, (const float*)sp,
                       (const float*)hb, (const float*)a1, (const float*)c1,
                       (const float*)b2, (const float*)a2, (const float*)c2,
-                      (const float*)b3, (float*)out, S, nt, H, C);
+                      (const float*)b3, (float*)out, S, nt, H1, H2, C, ldb3);
+}
+
+// sp (2, S, H) f32; hb (2, nt, H) f32; a1, c1 (2, H) f32; h0 (2, S*nt,
+// H) bf16. H % 8 == 0, all 16-byte aligned.
+int factored_heads_launch(const void* sp, const void* hb, const void* a1,
+                          const void* c1, void* h0, int S, int nt, int H,
+                          void* stream) {
+  const long long n = 2LL * S * nt * (H / 8);
+  const int threads = 256;
+  const long long want = (n + threads - 1) / threads;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  factored_heads_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)sp, (const float*)hb, (const float*)a1, (const float*)c1,
+      (bf16*)h0, S, nt, H);
+  return (int)cudaGetLastError();
+}
+
+// h (2, M, K) bf16; wt (2, N, K) bf16 (W transposed); b, a, c (2, ldb)
+// f32 (a, c unused with out_f32); y (2, M, C) f32 when out_f32, else
+// (2, M, N) bf16 (C unused). K % 8 == 0, N % 128 == 0, h and wt 16-byte
+// aligned.
+int factored_dense_launch(const void* h, const void* wt, const void* b,
+                          const void* a, const void* c, void* y, int M,
+                          int N, int K, int C, int ldb, int out_f32,
+                          void* stream) {
+  CUtensorMap mx, mw;
+  int rc = sm90::make_map(&mx, h, K, M, 2, sm90::BM, K);
+  if (rc == 0) rc = sm90::make_map(&mw, wt, K, N, 2, sm90::B_SLICE_ROWS, K);
+  if (rc != 0) return rc;
+  if (out_f32)
+    return sm90::launch(factored_dense_kernel<true>, M, N, 2,
+                        (cudaStream_t)stream, mx, mw, (const float*)b,
+                        (const float*)a, (const float*)c, y, M, N, K, C, ldb);
+  return sm90::launch(factored_dense_kernel<false>, M, N, 2,
+                      (cudaStream_t)stream, mx, mw, (const float*)b,
+                      (const float*)a, (const float*)c, y, M, N, K, C, ldb);
+}
+
+// h (2, M, H1) bf16; w2t (2, H2, H1) bf16; b2, a2, c2 (2, H2) f32; w3t
+// (2, 256, H2) bf16; b3 (2, ldb3) f32; y (2, M, C) f32. H1, H2 % 128 ==
+// 0 (h streams above H1 = 1024), C <= 256, h, w2t and w3t 16-byte
+// aligned.
+int factored_rows_tail_launch(const void* h, const void* w2t, const void* b2,
+                              const void* a2, const void* c2,
+                              const void* w3t, const void* b3, void* y,
+                              int M, int H1, int H2, int C, int ldb3,
+                              void* stream) {
+  CUtensorMap mh, mw2, mw3;
+  int rc = sm90::make_map(&mh, h, H1, M, 2, tail::ROWS, H1);
+  if (rc == 0)
+    rc = sm90::make_map(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1);
+  if (rc == 0)
+    rc = sm90::make_map(&mw3, w3t, H2, tail::OPP, 2, tail::SLICE_ROWS, H2);
+  if (rc != 0) return rc;
+  const int blocks = (M + tail::ROWS - 1) / tail::ROWS;
+  const dim3 grid((blocks + tail::CL - 1) / tail::CL * tail::CL, 1, 2);
+  const bool stream_h = H1 > tail::MAX_RESIDENT;
+  auto kernel = stream_h ? factored_rows_tail_kernel<true>
+                         : factored_rows_tail_kernel<false>;
+  return tail::launch(kernel, grid, tail::smem_bytes(H1, stream_h),
+                      (cudaStream_t)stream, mh, mw2, mw3, (const float*)b2,
+                      (const float*)a2, (const float*)c2, (const float*)b3,
+                      (float*)y, M, H1, H2, C, ldb3);
 }
 
 const char* fused_factored_error_string(int e) {

@@ -39,10 +39,16 @@ struct PairEpi {
   // value 4j + 2h + e of the two sets: carrier c0 + 16*warp + 8h + lane/4
   // at tile row 8j + 2*(lane%4) + e (ls90::row_coords gives its sample
   // and symbol), as one complex; needs no staging
+  // NH: 128-symbol halves a tile (ls90::ls_body)
+  template <int NH>
   __device__ __forceinline__ void store(const float (&acc0)[64],
                                         const float (&acc1)[64], int s0,
-                                        int warp, int lane, float*, int) {
+                                        int sym0, int warp, int lane, float*,
+                                        int) {
     if ((LS_CUT & 4) && S >= 0) return;
+    const int log_tl = NH == 1 ? log_nt : 7;        // symbols of a tile
+    // symbol sym0 (0 with one half a tile)
+    float* const base = NH == 1 ? out : out + 2LL * sym0 * nr;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = c0 + 16 * warp + 8 * h + lane / 4;
@@ -52,25 +58,27 @@ struct PairEpi {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           int smp, sym;
-          ls90::row_coords(8 * j + 2 * (lane & 3) + e, log_nt, smp, sym);
+          ls90::row_coords(8 * j + 2 * (lane & 3) + e, log_tl, smp, sym);
           const int s = s0 + smp;
           if (s >= S) continue;
           const int b = s / nr, r = s - b * nr;
           *reinterpret_cast<float2*>(
-              out + 2 * ((((long long)b * C + c) * nt + sym) * nr + r)) =
+              base + 2 * ((((long long)b * C + c) * nt + sym) * nr + r)) =
               make_float2(acc0[4 * j + 2 * h + e], acc1[4 * j + 2 * h + e]);
         }
     }
   }
 };
 
+// NH: 128-symbol halves a tile (2 at nt = 256, else 1)
+template <int NH>
 __global__ void __launch_bounds__(ls90::THREADS, 1)
     ls_pair_kernel(const __grid_constant__ CUtensorMap ma,
                    const __grid_constant__ CUtensorMap mb,
                    float* __restrict__ out, int S, int nr, int nt,
                    int log_nt, int C, int cp, int fft) {
   PairEpi epi{out, S, nr, nt, log_nt, C, 64 * (int)sm90::cluster_rank()};
-  ls90::ls_body(&ma, &mb, S, log_nt, fft, cp, epi);
+  ls90::ls_body<NH>(&ma, &mb, S, log_nt, fft, cp, epi);
 }
 
 }  // namespace
@@ -80,7 +88,7 @@ extern "C" {
 // planes (2, S, nt*sym_len) bf16 with S = B*nr, 16-byte aligned; bt
 // (2*cpad, 2*fft) bf16, the permuted K-major constants
 // (fused_ls.py::ls_sm90_constants); out (B, C, nt, nr) complex64 as
-// floats. nt a power of 2 <= 128, fft % 64 == 0, fft <= 256, sym_len %
+// floats. nt a power of 2 <= 256, fft % 64 == 0, fft <= 256, sym_len %
 // 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of the launch
 // (or sm90::ERR_TENSOR_MAP).
 int ls_pair_launch(const void* planes, const void* bt, void* out, int S,
@@ -88,10 +96,12 @@ int ls_pair_launch(const void* planes, const void* bt, void* out, int S,
                    int cpad, void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
+  if (log_nt > 8) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   if (ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft, cpad))
     return sm90::ERR_TENSOR_MAP;
-  return ls90::launch(ls_pair_kernel, 2 * cpad / 128, ls90::tiles(S, log_nt),
+  return ls90::launch(log_nt > 7 ? ls_pair_kernel<2> : ls_pair_kernel<1>,
+                      2 * cpad / 128, ls90::tiles(S, log_nt),
                       (cudaStream_t)stream, ma, mb, (float*)out, S, nr, nt,
                       log_nt, C, cp, fft);
 }

@@ -27,7 +27,17 @@
 //   tile of its cluster (CL x 134 MB over the card), where the mma.sync
 //   body these kernels replaced read each input tile once per column
 //   block and B once per tile (1.07 GB).
-// * A tile is SPT = 128/loc samples x loc symbols (128 GEMM rows). One
+// * A tile is SPT = 128/loc samples x loc symbols (128 GEMM rows). At
+//   loc = 256 (NH = 2, a template parameter, so that loc <= 128 runs
+//   the code it always ran) a tile is part a (0 or 1) of a sample's
+//   output rows, a*128 .. a*128 + 127: P_256 is Sylvester, [[P_128, P_128], [P_128, -P_128]],
+//   so h[a*128 + b] = (P_128 (z_lo + (-1)^a z_hi))[b], z_lo / z_hi the
+//   DFT-select of symbols 0..127 / 128..255. The tile's k-steps run over
+//   both symbol halves into one accumulator, the second half's products
+//   with A scaled by (-1)^a (wgmma's imm-scale-a), and the 128-symbol
+//   despread follows: the combine costs no pass and no buffer, and each
+//   output row is written once; the input is read by both halves' tiles
+//   (the second read mostly from L2). One
 //   producer thread loads it in k-steps of 64 (16 KB) into a ring of
 //   STAGES stages, as 16 boxes of 8 rows each multicast to the cluster
 //   (each block loads 16/CL of them) through a 4-d map (sym_len, loc
@@ -103,10 +113,13 @@ __device__ __forceinline__ void tma_load_4d_multicast(
       : "memory");
 }
 
-// d (64 x 128, f32) += A (64 x 16) @ B (128 x 16)^T, both from shared
-// memory; d's fragment layout is that of m64n256k16 over 128 columns.
+// d (64 x 128, f32) += SA * A (64 x 16) @ B (128 x 16)^T, both from
+// shared memory, SA = 1 or -1 (imm-scale-a); d's fragment layout is that
+// of m64n256k16 over 128 columns.
+template <int SA>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
+  static_assert(SA == 1 || SA == -1, "imm-scale-a is 1 or -1");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -116,7 +129,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, %67, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -130,7 +143,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(SA));
+}
+
+// The tiles of S samples of 2^log_loc symbols: 128 rows each.
+__host__ __device__ __forceinline__ int tiles(int S, int log_loc) {
+  if (log_loc > 7) return S << (log_loc - 7);
+  const int spt = 1 << (7 - log_loc);
+  return (S + spt - 1) / spt;
 }
 
 // log2 of the symbols of a box: 1 (2 symbols x 4 samples), 0 for one
@@ -140,9 +160,10 @@ __host__ __device__ __forceinline__ int box_log_symbols(int log_loc) {
   return log_loc == 0 ? 0 : (log_loc <= 5 ? 1 : 3);
 }
 
-// Where tile row n (0 .. 127; box n / 8, row n % 8 of it) lies: symbol
-// `sym` of the tile's sample `smp` (0 .. 128/loc - 1). A consumer
-// thread's value 4j + 2h + e sits at tile row 8j + 2*(lane%4) + e.
+// Where tile row n (0 .. 127; box n / 8, row n % 8 of it) lies, for a
+// tile of 2^log_loc <= 128 symbols a sample: symbol `sym` of the tile's
+// sample `smp` (0 .. 128/loc - 1). A consumer thread's value 4j + 2h + e
+// sits at tile row 8j + 2*(lane%4) + e.
 __device__ __forceinline__ void row_coords(int n, int log_loc, int& smp,
                                            int& sym) {
   const int log_bs = box_log_symbols(log_loc);
@@ -210,20 +231,23 @@ __device__ __forceinline__ void despread(float (&d)[64], int log_loc,
 // The body. ma: 4-d map of the planes (sym_len, loc, S, 2), box KB x bs x
 // 8/bs x 1, SW128; mb: 2-d map (as 3-d, one plane) of the permuted Bt
 // (2*fft, 2*cpad rows), box KB x 128, SW128 (make_maps). loc = 2^log_loc
-// <= 128, fft % 64 == 0, 2*fft <= KMAX. The two consumer warpgroups take
-// the cluster's tiles in turns: warpgroup w the tiles u = w, w + 2, ... of
-// the cluster's sequence, all 128 rows and all 128 columns of each. After
-// a tile's products and despread each of its threads calls
+// <= 128 with NH = 1, or loc = 128 NH with NH symbol halves a tile (see
+// the header), fft % 64 == 0, 2*fft <= KMAX. The two consumer warpgroups
+// take the cluster's tiles in turns: warpgroup w the tiles u = w, w + 2,
+// ... of the cluster's sequence, all 128 rows and all 128 columns of
+// each. After a tile's products and despread each of its threads calls
 //
-//   epi.store(acc0, acc1, s0, warp, lane, stg, bar)
+//   epi.template store<NH>(acc0, acc1, s0, sym0, warp, lane, stg, bar)
 //
 // with acc0 / acc1 the real / imaginary set, s0 the tile's first sample
-// (row_coords gives the rest), the block's carriers starting at 64 *
+// and sym0 its first output symbol (0 with NH = 1, 128 * part with NH =
+// 2; row_coords over min(loc, 128) symbols gives the rest), the block's
+// carriers starting at 64 *
 // cluster rank, and the warpgroup's two staging buffers (stg, 2 x
 // STG_FLOATS) and named barrier (bar, 128 threads) for an epilogue that
 // stages its stores. Launch through launch(); nothing may follow the call in
 // the kernel (the producer and consumer paths never rejoin).
-template <class Epi>
+template <int NH, class Epi>
 __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
                                         const CUtensorMap* mb, int S,
                                         int log_loc, int fft, int cp,
@@ -242,9 +266,14 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
   const uint32_t rank = cluster_rank();
   const int cl = cluster_ctas();
   const int cid = cluster_index(), ncl = cluster_count();
-  const int NK = 2 * fft / KB;                    // k-steps of a tile
-  const int log_spt = 7 - log_loc;                // samples of a tile
-  const int T = (S + (1 << log_spt) - 1) >> log_spt;
+  // a tile: 2^log_tl symbols of 2^log_spt samples, or part t % NH of
+  // sample t / NH; its k-steps run over the NH symbol halves of 128
+  static_assert(NH == 1 || NH == 2, "one or two symbol halves a tile");
+  const int log_tl = NH == 1 ? log_loc : 7;
+  const int NK0 = 2 * fft / KB;                   // k-steps of a half
+  const int NK = NH * NK0;                        // k-steps of a tile
+  const int log_spt = 7 - log_tl;                 // samples of a tile
+  const int T = tiles(S, log_loc);
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -265,29 +294,31 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
       // the block's slab of Bt, once
-      mbar_expect_tx(bfull, NK * KBLOCK_BYTES);
-      for (int kb = 0; kb < NK; ++kb)
+      mbar_expect_tx(bfull, NK0 * KBLOCK_BYTES);
+      for (int kb = 0; kb < NK0; ++kb)
         tma_load_3d(sb + kb * KBLOCK_BYTES, mb, bfull, kb * KB, rank * 128,
                     0);
-      const int log_bs = box_log_symbols(log_loc);
-      const int nsb = log_loc - log_bs;      // log2 of symbol blocks
+      const int log_bs = box_log_symbols(log_tl);
+      const int nsb = log_tl - log_bs;       // log2 of symbol blocks
       const int boxes = 16 / cl;             // boxes a block loads a stage
       const uint16_t all = (uint16_t)((1u << cl) - 1);
       int it = 0;
       for (int t = cid; t < T; t += ncl) {
-        for (int kt = 0; kt < NK; ++kt, ++it) {
+        const int s0 = (t / NH) << log_spt;  // the tile's first sample
+        for (int half = 0; half < NH; ++half)
+        for (int k0 = 0; k0 < NK0; ++k0, ++it) {
           const int s = it % STAGES;
           mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
-          const int plane = kt >= NK / 2;
-          const int col = cp + (kt - plane * (NK / 2)) * KB;
+          const int plane = k0 >= NK0 / 2;
+          const int col = cp + (k0 - plane * (NK0 / 2)) * KB;
           mbar_expect_tx(full + 8 * s, STAGE_BYTES);
           for (int q = 0; q < boxes; ++q) {
             const int g = rank * boxes + q;  // box g: tile rows 8g ..
             const int a = g & ((1 << nsb) - 1), bb = g >> nsb;
             tma_load_4d_multicast(
                 ring + s * STAGE_BYTES + g * 1024, ma, full + 8 * s, col,
-                a << log_bs, (t << log_spt) + (bb << (3 - log_bs)), plane,
-                all);
+                (a << log_bs) + (half << 7), s0 + (bb << (3 - log_bs)),
+                plane, all);
           }
         }
       }
@@ -318,22 +349,37 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
     float acc0[64], acc1[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-    for (int kt = 0; kt < NK; ++kt) {
-      const int it = u * NK + kt;
+    for (int half = 0; half < NH; ++half)
+    for (int k0 = 0; k0 < NK0; ++k0) {
+      const int it = u * NK + half * NK0 + k0;
       const int s = it % STAGES;
       mbar_wait(full + 8 * s, (it / STAGES) & 1);
-      const uint32_t a = sb + kt * KBLOCK_BYTES;
+      const uint32_t a = sb + k0 * KBLOCK_BYTES;
       const uint32_t b = ring + s * STAGE_BYTES;
       fence_acc(acc0);
       fence_acc(acc1);
       wgmma_fence();
       if (!(LS_CUT & 1)) {
+        // symbol half `half` enters output part t % NH with the sign
+        // P_2[t % NH, half] = (-1)^(part & half)
+        if (NH > 1 && ((t % NH) & half)) {
 #pragma unroll
-        for (int kk = 0; kk < KB / 16; ++kk) {
-          wgmma_m64n128k16(acc0, desc_sw128(a + kk * 32),
-                           desc_sw128(b + kk * 32));
-          wgmma_m64n128k16(acc1, desc_sw128(a + KBLOCK_BYTES / 2 + kk * 32),
-                           desc_sw128(b + kk * 32));
+          for (int kk = 0; kk < KB / 16; ++kk) {
+            wgmma_m64n128k16<-1>(acc0, desc_sw128(a + kk * 32),
+                                 desc_sw128(b + kk * 32));
+            wgmma_m64n128k16<-1>(
+                acc1, desc_sw128(a + KBLOCK_BYTES / 2 + kk * 32),
+                desc_sw128(b + kk * 32));
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < KB / 16; ++kk) {
+            wgmma_m64n128k16<1>(acc0, desc_sw128(a + kk * 32),
+                                desc_sw128(b + kk * 32));
+            wgmma_m64n128k16<1>(
+                acc1, desc_sw128(a + KBLOCK_BYTES / 2 + kk * 32),
+                desc_sw128(b + kk * 32));
+          }
         }
       }
       wgmma_commit();
@@ -344,10 +390,11 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
     }
     if (tid == 0) mbar_arrive(done + 8 * w);   // tile u's stages are taken
     if (!(LS_CUT & 2)) {
-      despread(acc0, log_loc, lane);
-      despread(acc1, log_loc, lane);
+      despread(acc0, log_tl, lane);
+      despread(acc1, log_tl, lane);
     }
-    epi.store(acc0, acc1, t << log_spt, warp, lane,
+    epi.template store<NH>(acc0, acc1, (t / NH) << log_spt, (t % NH) << 7,
+                           warp, lane,
               reinterpret_cast<float*>(smem_raw + (stg - raw)) +
                   2 * STG_FLOATS * w,
               1 + w);
@@ -392,12 +439,6 @@ inline int launch(void (*kernel)(Params...), int cl, int tiles,
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// The tiles of S samples of 2^log_loc symbols.
-inline int tiles(int S, int log_loc) {
-  const int spt = 1 << (7 - log_loc);
-  return (S + spt - 1) / spt;
 }
 
 // The two tensor maps of an LS kernel (planes: S samples of loc symbols

@@ -50,12 +50,14 @@ struct V1Epi {
   T* __restrict__ hi;
   int s_out, nt, log_nt, cpad, c0;
 
+  // NH: 128-symbol halves a tile (ls90::ls_body)
+  template <int NH>
   __device__ __forceinline__ void store(const float (&acc0)[64],
                                         const float (&acc1)[64], int s0,
-                                        int warp, int lane, float* stg,
-                                        int bar) {
-    rounds(acc0, hr, s0, warp, lane, stg, bar);
-    rounds(acc1, hi, s0, warp, lane, stg, bar);
+                                        int sym0, int warp, int lane,
+                                        float* stg, int bar) {
+    rounds<NH>(acc0, hr, s0, sym0, warp, lane, stg, bar);
+    rounds<NH>(acc1, hi, s0, sym0, warp, lane, stg, bar);
   }
 
   // Four rounds a set: per 32-row group, the threads put their values
@@ -63,9 +65,13 @@ struct V1Epi {
   // into a staging buffer, then each warp writes whole staged rows, lane
   // l lanes c0 + 2l and c0 + 2l + 1, as row s*nt + sym (ls90::row_coords
   // gives sample and symbol); rows of samples >= s_out are not written.
+  template <int NH>
   __device__ __forceinline__ void rounds(const float (&acc)[64], T* out,
-                                         int s0, int warp, int lane,
-                                         float* stg, int bar) {
+                                         int s0, int sym0, int warp,
+                                         int lane, float* stg, int bar) {
+    const int log_tl = NH == 1 ? log_nt : 7;        // symbols of a tile
+    // row sym0 of sample 0 (sym0 is 0 with one half a tile)
+    if constexpr (NH > 1) out += (long long)sym0 * cpad;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
       // the other buffer was read before the last barrier
@@ -87,7 +93,7 @@ struct V1Epi {
         const float2 v = *reinterpret_cast<const float2*>(
             buf + ls90::stg_index(row, 2 * lane));
         int smp, sym;
-        ls90::row_coords(32 * g + row, log_nt, smp, sym);
+        ls90::row_coords(32 * g + row, log_tl, smp, sym);
         const int s = s0 + smp;
         if (s >= s_out) continue;
         put2(out + ((long long)s * nt + sym) * cpad + c0 + 2 * lane, v.x,
@@ -97,7 +103,8 @@ struct V1Epi {
   }
 };
 
-template <class T>
+// NH: 128-symbol halves a tile (2 at nt = 256, else 1)
+template <class T, int NH>
 __global__ void __launch_bounds__(ls90::THREADS, 1)
     ls_planes_v1_kernel(const __grid_constant__ CUtensorMap ma,
                         const __grid_constant__ CUtensorMap mb,
@@ -106,7 +113,7 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
   V1Epi<T> epi{hr, hi, s_out, nt, log_nt, cpad,
                64 * (int)sm90::cluster_rank()};
   // s_out samples over the map's S: the tiles past S read zeros
-  ls90::ls_body(&ma, &mb, s_out, log_nt, fft, cp, epi);
+  ls90::ls_body<NH>(&ma, &mb, s_out, log_nt, fft, cp, epi);
 }
 
 }  // namespace
@@ -116,7 +123,7 @@ extern "C" {
 // planes (2, S, nt*sym_len) bf16, 16-byte aligned; bt (2*cpad, 2*fft)
 // bf16, the permuted K-major constants (fused_ls.py::ls_sm90_constants);
 // hr, hi (s_out*nt, cpad) each, bf16 when out_bf16 != 0 else f32;
-// s_out >= S >= 1. nt a power of 2 <= 128, fft % 64 == 0, fft <= 256,
+// s_out >= S >= 1. nt a power of 2 <= 256, fft % 64 == 0, fft <= 256,
 // sym_len % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of
 // the launch (or sm90::ERR_TENSOR_MAP).
 int ls_planes_v1_launch(const void* planes, const void* bt, void* hr,
@@ -125,17 +132,22 @@ int ls_planes_v1_launch(const void* planes, const void* bt, void* hr,
                         void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
+  if (log_nt > 8) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   if (ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft, cpad))
     return sm90::ERR_TENSOR_MAP;
   const int cl = 2 * cpad / 128, tiles = ls90::tiles(s_out, log_nt);
+  const bool two = log_nt > 7;
   if (out_bf16)
-    return ls90::launch(ls_planes_v1_kernel<__nv_bfloat16>, cl, tiles,
-                        (cudaStream_t)stream, ma, mb, (__nv_bfloat16*)hr,
-                        (__nv_bfloat16*)hi, s_out, nt, log_nt, cpad, cp, fft);
-  return ls90::launch(ls_planes_v1_kernel<float>, cl, tiles,
-                      (cudaStream_t)stream, ma, mb, (float*)hr, (float*)hi,
-                      s_out, nt, log_nt, cpad, cp, fft);
+    return ls90::launch(two ? ls_planes_v1_kernel<__nv_bfloat16, 2>
+                            : ls_planes_v1_kernel<__nv_bfloat16, 1>,
+                        cl, tiles, (cudaStream_t)stream, ma, mb,
+                        (__nv_bfloat16*)hr, (__nv_bfloat16*)hi, s_out, nt,
+                        log_nt, cpad, cp, fft);
+  return ls90::launch(two ? ls_planes_v1_kernel<float, 2>
+                          : ls_planes_v1_kernel<float, 1>,
+                      cl, tiles, (cudaStream_t)stream, ma, mb, (float*)hr,
+                      (float*)hi, s_out, nt, log_nt, cpad, cp, fft);
 }
 
 const char* ls_planes_v1_error_string(int e) {

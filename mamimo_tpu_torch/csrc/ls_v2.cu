@@ -20,7 +20,9 @@
 //
 // Sums of h^2 (the TPU kernel's with_ssq, its benchmark checksum): ssq
 // (tiles, 2, C) f32, row t the column sums over tile t's stored rows of
-// each plane, taken from the f32 accumulators before any bf16 rounding.
+// each plane (at loc = 256 tile t holds rows (t % 2)*128 .. +127 of
+// sample t / 2), taken from the f32 accumulators before any bf16
+// rounding.
 // Each block writes its own 64 carriers of the row; a warp owns 16
 // carriers, so the sum is each thread's 32 squares in a fixed order, then
 // two xor shuffles over the 4 lanes of a carrier: deterministic, no
@@ -76,18 +78,22 @@ struct V2Epi {
   // put their values (carrier c0 + 16*warp + 8h + lane/4 at tile row
   // 8j + 2*(lane%4) + e) into a staging buffer, then each warp writes
   // whole staged rows, lane l carriers 2l and 2l + 1, as row a*loc + sym
-  // with H_n[a, rank] (ls90::row_coords gives sample and symbol).
+  // with H_n[a, rank] (ls90::row_coords gives sample and symbol). NH:
+  // 128-symbol halves a tile (ls90::ls_body).
+  template <int NH>
   __device__ __forceinline__ void store(const float (&acc0)[64],
                                         const float (&acc1)[64], int s0,
-                                        int warp, int lane, float* stg,
-                                        int bar) {
+                                        int sym0, int warp, int lane,
+                                        float* stg, int bar) {
     if constexpr (SSQ) {
-      const int tile = s0 >> (7 - log_loc);
+      // tiles in order of (sample group, part of a sample)
+      const int tile = NH == 1 ? s0 >> (7 - log_loc)
+                               : (s0 << (log_loc - 7)) + (sym0 >> 7);
       sums(acc0, 0, tile, warp, lane);
       sums(acc1, 1, tile, warp, lane);
     }
-    rounds(acc0, 0, s0, warp, lane, stg, bar);
-    rounds(acc1, 1, s0, warp, lane, stg, bar);
+    rounds<NH>(acc0, 0, s0, sym0, warp, lane, stg, bar);
+    rounds<NH>(acc1, 1, s0, sym0, warp, lane, stg, bar);
   }
 
   // Row `tile` of ssq, this thread's carriers of one set: its 32 values
@@ -122,10 +128,14 @@ struct V2Epi {
     }
   }
 
+  template <int NH>
   __device__ __forceinline__ void rounds(const float (&acc)[64], int plane,
-                                         int s0, int warp, int lane,
-                                         float* stg, int bar) {
+                                         int s0, int sym0, int warp,
+                                         int lane, float* stg, int bar) {
     const int loc = 1 << log_loc, n = nt >> log_loc;
+    const int log_tl = NH == 1 ? log_loc : 7;       // symbols of a tile
+    // row sym0 of sample 0 (sym0 is 0 with one half a tile)
+    T* const base = NH == 1 ? out : out + (long long)sym0 * C;
     const long long step = (long long)loc * C;
     const int c = c0 + 2 * lane;
 #pragma unroll
@@ -149,10 +159,10 @@ struct V2Epi {
         const float2 v = *reinterpret_cast<const float2*>(
             buf + ls90::stg_index(row, 2 * lane));
         int smp, sym;
-        ls90::row_coords(32 * g + row, log_loc, smp, sym);
+        ls90::row_coords(32 * g + row, log_tl, smp, sym);
         const int s = s0 + smp;
         if (s >= S || c >= C) continue;
-        T* o = out + (((long long)plane * S + s) * nt + sym) * C + c;
+        T* o = base + (((long long)plane * S + s) * nt + sym) * C + c;
         for (int a = 0; a < n; ++a) {
           const float sg = (__popc(a & rank) & 1) ? -1.f : 1.f;
           if ((C & 1) == 0) {
@@ -167,7 +177,8 @@ struct V2Epi {
   }
 };
 
-template <class T, bool SSQ>
+// NH: 128-symbol halves a tile (2 at loc = 256, else 1)
+template <class T, bool SSQ, int NH>
 __global__ void __launch_bounds__(ls90::THREADS, 1)
     ls_planes_v2_kernel(const __grid_constant__ CUtensorMap ma,
                         const __grid_constant__ CUtensorMap mb,
@@ -176,14 +187,16 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
                         int fft) {
   V2Epi<T, SSQ> epi{out, ssq, S, nt, log_loc, rank, C,
                     64 * (int)sm90::cluster_rank()};
-  ls90::ls_body(&ma, &mb, S, log_loc, fft, cp, epi);
+  ls90::ls_body<NH>(&ma, &mb, S, log_loc, fft, cp, epi);
 }
 
 template <class T, bool SSQ>
 int launch_v2(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
               void* ssq, int S, int nt, int log_loc, int rank, int C,
               int cp, int fft, int cpad, cudaStream_t stream) {
-  return ls90::launch(ls_planes_v2_kernel<T, SSQ>, 2 * cpad / 128,
+  auto kernel = log_loc > 7 ? ls_planes_v2_kernel<T, SSQ, 2>
+                            : ls_planes_v2_kernel<T, SSQ, 1>;
+  return ls90::launch(kernel, 2 * cpad / 128,
                       ls90::tiles(S, log_loc), stream, ma, mb, (T*)out,
                       (float*)ssq, S, nt, log_loc, rank, C, cp, fft);
 }
@@ -197,7 +210,7 @@ extern "C" {
 // (fused_ls.py::ls_sm90_constants); out (2, S, nt, C), bf16 when mode
 // bit 0 is set, else f32; with mode bit 1, ssq (tiles(S, log2 loc), 2, C)
 // f32, else unused. Full mode: loc = nt, rank = 0. loc a power of 2 <=
-// 128, fft % 64 == 0, fft <= 256, sym_len % 8 == 0, cpad 128, 256 or
+// 256, fft % 64 == 0, fft <= 256, sym_len % 8 == 0, cpad 128, 256 or
 // 512. Returns the CUDA error code of the launch (or
 // sm90::ERR_TENSOR_MAP).
 int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
@@ -206,6 +219,7 @@ int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
                         void* stream) {
   int log_loc = 0;
   while ((1 << log_loc) < loc) ++log_loc;
+  if (log_loc > 8) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   if (ls90::make_maps(&ma, &mb, planes, bt, S, log_loc, sym_len, fft, cpad))
     return sm90::ERR_TENSOR_MAP;

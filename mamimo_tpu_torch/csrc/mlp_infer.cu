@@ -27,7 +27,10 @@
 //   the Hopper tail of tail_sm90.cuh (shared with the factored tail
 //   kernel): W2 and W3 K-major (w2t, w3t of prepare_mlp_infer_weights)
 //   by TMA multicast to a cluster of blocks with neighbouring rows, wgmma,
-//   h2 never in device memory. C <= 256 is masked.
+//   h2 never in device memory. C <= 256 is masked. Above H1 = 1024 h1
+//   no longer fits beside the ring: each block's 64-column slab of h1
+//   then rides by TMA in the stage of the W2 tile it meets
+//   (tail_sm90.cuh, STREAM), read again for each 128-column chunk of W2.
 //
 // Bound on an H100 at the bench shape (S = 4096 pairs, 32 heads: M =
 // 131072 rows, in_dim 10272, H 1024/1024, C = 234), per plane: 2.76
@@ -63,6 +66,7 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 // y = (relu(h1 @ w2 + b2) * s2 + t2) @ w3 + b3 for 64 rows of h1 per
 // block (blocks past M pad the last cluster and store nothing); h1, w2t
 // (H2, H1) and w3t (256, H2) through the maps mh, mw2, mw3; b3 (C).
+template <bool STREAM>
 __global__ void __launch_bounds__(tail::THREADS, 1)
     mlp_tail_kernel(const __grid_constant__ CUtensorMap mh,
                     const __grid_constant__ CUtensorMap mw2,
@@ -73,8 +77,9 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
                     const float* __restrict__ b3, float* __restrict__ y,
                     int M, int H1, int H2, int C) {
   const int m0 = blockIdx.x * tail::ROWS;
-  tail::layers23<true>(
-      &mh, m0, &mw2, &mw3, 0, H1, H2, b2, s2, t2, [](unsigned char*, int) {},
+  tail::layers23<true, STREAM>(
+      &mh, m0, &mw2, &mw3, 0, H1, H2, b2, s2, t2,
+      [](unsigned char*, int, int, int) {},
       [&](int row, int col, float v0, float v1) {
         const int m = m0 + row;
         if (m >= M || col >= C) return;
@@ -111,8 +116,8 @@ int mlp_layer1_launch(const void* x, const void* w1t, const void* b1,
 
 // h1 (M, H1) bf16; w2t (H2, H1) bf16 (W2 transposed); b2, s2, t2 (H2)
 // f32; w3t (256, H2) bf16 (padded W3 transposed); b3 (C) f32; y (M, C)
-// f32. H1, H2 % 128 == 0, H1 <= 1024, C <= 256; h1, w2t, w3t 16-byte
-// aligned.
+// f32. H1, H2 % 128 == 0 (h1 streams above H1 = 1024), C <= 256; h1,
+// w2t, w3t 16-byte aligned.
 int mlp_tail_launch(const void* h1, const void* w2t, const void* b2,
                     const void* s2, const void* t2, const void* w3t,
                     const void* b3, void* y, int M, int H1, int H2, int C,
@@ -126,7 +131,9 @@ int mlp_tail_launch(const void* h1, const void* w2t, const void* b2,
   if (rc != 0) return rc;
   const int blocks = (M + tail::ROWS - 1) / tail::ROWS;
   const dim3 grid((blocks + tail::CL - 1) / tail::CL * tail::CL, 1, 1);
-  return tail::launch(mlp_tail_kernel, grid, tail::smem_bytes(H1),
+  const bool stream_h = H1 > tail::MAX_RESIDENT;
+  auto kernel = stream_h ? mlp_tail_kernel<true> : mlp_tail_kernel<false>;
+  return tail::launch(kernel, grid, tail::smem_bytes(H1, stream_h),
                       (cudaStream_t)stream, mh, mw2, mw3, (const float*)b2,
                       (const float*)s2, (const float*)t2, (const float*)b3,
                       (float*)y, M, H1, H2, C);

@@ -8,10 +8,17 @@ in ``csrc/fused_factored.cu`` (the counterpart of
 
 ``hb[t] = P[:,t] @ W1[L:] + b1`` folds the pilot column and the layer-1
 bias into one row per head; (a_i, c_i) are the eval-mode BatchNorm
-affines. On CUDA tensors each wrapper launches its kernel; on CPU tensors
-it runs the kernel's plain version, which mirrors the TPU kernel's body:
-operands are rounded to the weights' dtype, products and sums are
-float32.
+affines. That is the two-hidden-layer model of up to 1024 units in its
+first layer, whose heads run in one fused kernel (h stays in shared
+memory). Any other model runs the per-head rows through device memory
+as bfloat16: ``factored_heads`` writes h, ``factored_dense`` runs hidden
+layers 2 .. D-1 (or, at D = 1, the output layer), and
+``factored_rows_tail`` the last hidden layer and the output (its rows
+streamed slab by slab above 1024 units). ``fused_factored_planes``
+routes by depth and width. On CUDA tensors each wrapper
+launches its kernel; on CPU tensors it runs the kernel's plain version,
+which mirrors the TPU kernel's body: operands are rounded to the
+weights' dtype, products and sums are float32.
 """
 
 from __future__ import annotations
@@ -32,87 +39,96 @@ from mamimo_tpu_torch.ops.kernels.util import (
 from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
 
 _TAIL_OP = 256      # the tail kernel's padded output width
+_MAX_RESIDENT = 1024    # the widest h the fused tail keeps in shared memory
 
 
 def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
                              bn_state, dot_dtype=torch.bfloat16):
     """Fold BN and the pilot heads into kernel-ready tensors (once per set
-    of weights). Returns a dict of stacked (plane-leading) tensors:
+    of weights), for any number D >= 1 of hidden layers. Returns a dict of
+    stacked (plane-leading) tensors, layer k = 1 .. D the hidden layers
+    and layer D + 1 the output:
 
-      w1   (2, L, H)       dot_dtype — signal half of layer 1
-      w1t  (2, H, L)       dot_dtype — w1 transposed, the layer-1
+      w1   (2, L, H1)      dot_dtype — signal half of layer 1
+      w1t  (2, H1, L)      dot_dtype — w1 transposed, the layer-1
                                        kernel's K-major B operand
-      hb   (2, num_tx, H)  f32       — per-head bias P[:,t]@W1[L:] + b1
-      a1,c1,a2,c2 (2,1,H)  f32       — eval-mode BN affines (identity
-                                       without BN)
-      w2   (2, H, H)       dot_dtype
-      w2t  (2, H, H)       dot_dtype — w2 transposed, the tail kernel's
-                                       K-major layer-2 operand
-      b2   (2, 1, H)       f32
-      w3   (2, H, OP)      dot_dtype — OP = round_up(num_carriers, 128)
-      w3t  (2, OPT, H)     dot_dtype — w3 zero-padded to OPT = max(OP,
+      hb   (2, num_tx, H1) f32       — per-head bias P[:,t]@W1[L:] + b1
+      a1, c1 (2, 1, H1)    f32       — eval-mode BN affine of layer 1
+                                       (identity without BN)
+      for each hidden layer k = 2 .. D:
+      wk   (2, H{k-1}, Hk) dot_dtype
+      wkt  (2, Hk, H{k-1}) dot_dtype — wk transposed, K-major for the
+                                       kernels
+      bk, ak, ck (2, 1, Hk) f32      — bias and BN affine
+      and the output layer k = D + 1:
+      wk   (2, HD, OP)     dot_dtype — OP = round_up(num_carriers, 128)
+      wkt  (2, OPT, HD)    dot_dtype — wk zero-padded to OPT = max(OP,
                                        256) columns and transposed, the
-                                       tail kernel's K-major layer-3
-                                       operand
-      b3   (2, 1, OP)      f32
+                                       kernels' K-major output operand
+      bk   (2, 1, OP)      f32
 
-    H is both hidden widths rounded up to one multiple of 128, the
-    kernels' tile: the extra units get zero weights, biases and BN
-    affines, so they stay 0 through ReLU and add nothing to any output.
+    At D = 2 these are w1, w2, w3 with their transposes, as the fused
+    kernels have always taken them. Hk is hidden width k rounded up to a
+    multiple of 128, the kernels' tile: the extra units get zero
+    weights, biases and BN affines, so they stay 0 through ReLU and add
+    nothing to any output.
     """
-    if len(tcfg.hidden) != 2:
-        raise ValueError("the fused kernels support 2 hidden layers, got "
-                         f"{len(tcfg.hidden)}")
+    depth = len(tcfg.hidden)
+    if depth < 1:
+        raise ValueError("the factored kernels need at least 1 hidden "
+                         "layer, got 0")
     require_full_input(tcfg)
     L, C = cfg.len_ltf, cfg.num_carriers
     op = _round_up(C, 128)
-    w1_full = params["dense"][0]["w"].float()          # (2, L+ntx, H)
+    widths = [_round_up(h, 128) for h in tcfg.hidden]
+    w1_full = params["dense"][0]["w"].float()          # (2, L+ntx, h1)
     dev = w1_full.device
     P = pilot_p_matrix(cfg.num_tx, device=dev)
     hb = torch.einsum("tj,djh->dth", P.T, w1_full[:, L:]) \
         + params["dense"][0]["b"][:, None, :]
-    h1, h2 = tcfg.hidden
-    H = _round_up(max(h1, h2), 128)
-    hb = _pad_to(hb, H)
-    w1_full = _pad_to(w1_full, H)
-    w2 = _pad_to(_pad_to(params["dense"][1]["w"], H), H, dim=-2)
-    w3 = _pad_to(params["out"]["w"], H, dim=-2)
 
-    def bn_affine(i, h_dim):
+    def bn_affine(i, width):
         if params["bn"]:
             a, c = zip(*(_bn_affine(tcfg, plane(params, d),
                                     plane(bn_state, d), i) for d in range(2)))
             a, c = torch.stack(a), torch.stack(c)
         else:
-            a = torch.ones((2, h_dim), device=dev)
-            c = torch.zeros((2, h_dim), device=dev)
-        return (_pad_to(a[:, None, :].float(), H),
-                _pad_to(c[:, None, :].float(), H))
+            a = torch.ones((2, tcfg.hidden[i]), device=dev)
+            c = torch.zeros((2, tcfg.hidden[i]), device=dev)
+        return (_pad_to(a[:, None, :].float(), width).contiguous(),
+                _pad_to(c[:, None, :].float(), width).contiguous())
 
-    a1, c1 = bn_affine(0, h1)
-    a2, c2 = bn_affine(1, h2)
-    w3p = torch.zeros((2, w3.shape[1], op), device=dev)
+    w1 = _pad_to(w1_full[:, :L], widths[0]).to(dot_dtype)
+    out = {"w1": w1.contiguous(), "w1t": w1.transpose(1, 2).contiguous(),
+           "hb": _pad_to(hb, widths[0]).float().contiguous()}
+    out["a1"], out["c1"] = bn_affine(0, widths[0])
+    for i in range(1, depth):
+        k = i + 1
+        w = _pad_to(_pad_to(params["dense"][i]["w"].float(), widths[i]),
+                    widths[i - 1], dim=-2).to(dot_dtype)
+        out[f"w{k}"] = w.contiguous()
+        out[f"w{k}t"] = w.transpose(1, 2).contiguous()
+        out[f"b{k}"] = _pad_to(params["dense"][i]["b"][:, None, :].float(),
+                               widths[i]).contiguous()
+        out[f"a{k}"], out[f"c{k}"] = bn_affine(i, widths[i])
+    k = depth + 1
+    w3 = _pad_to(params["out"]["w"].float(), widths[-1], dim=-2)
+    w3p = torch.zeros((2, widths[-1], op), device=dev)
     w3p[:, :, :C] = w3
     b3p = torch.zeros((2, op), device=dev)
     b3p[:, :C] = params["out"]["b"]
-    w1 = w1_full[:, :L].to(dot_dtype)
-    w2 = w2.to(dot_dtype)
-    w3t = torch.zeros((2, max(op, _TAIL_OP), w3.shape[1]), device=dev,
+    w3t = torch.zeros((2, max(op, _TAIL_OP), widths[-1]), device=dev,
                       dtype=dot_dtype)
     w3t[:, :C] = w3.transpose(1, 2).to(dot_dtype)
-    return {
-        "w1": w1.contiguous(),
-        "w1t": w1.transpose(1, 2).contiguous(),
-        "hb": hb.float().contiguous(),
-        "a1": a1, "c1": c1, "a2": a2, "c2": c2,
-        "w2": w2.contiguous(),
-        "w2t": w2.transpose(1, 2).contiguous(),
-        "b2": _pad_to(params["dense"][1]["b"][:, None, :].float(), H)
-        .contiguous(),
-        "w3": w3p.to(dot_dtype).contiguous(),
-        "w3t": w3t,
-        "b3": b3p[:, None, :].contiguous(),
-    }
+    out[f"w{k}"] = w3p.to(dot_dtype).contiguous()
+    out[f"w{k}t"] = w3t
+    out[f"b{k}"] = b3p[:, None, :].contiguous()
+    return out
+
+
+def factored_depth(prepared) -> int:
+    """The number of hidden layers of prepare_factored_weights' dict."""
+    return sum(1 for k in prepared if k[0] == "a" and k[1:].isdigit())
 
 
 def _pad_to(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
@@ -168,43 +184,74 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
 
 factored_sig_proj.launches = 0
 
-_TAIL_KEYS = ("hb", "a1", "c1", "w2", "b2", "a2", "c2", "w3", "b3")
-# the kernel's operands, in its launch order
-_TAIL_ARGS = ("hb", "a1", "c1", "w2t", "b2", "a2", "c2", "w3t", "b3")
+def _hidden_plain(p, k: int, h: torch.Tensor) -> torch.Tensor:
+    """Hidden layer k of the plain versions: relu(h @ wk + bk)·ak + ck,
+    float32 (h of any leading shape, planes first; one batched product a
+    plane)."""
+    rows = h.reshape(2, -1, h.shape[-1])
+    y = torch.relu(_mm(rows, p[f"w{k}"]) + p[f"b{k}"])
+    y = y * p[f"a{k}"] + p[f"c{k}"]
+    return y.reshape(*h.shape[:-1], y.shape[-1])
+
+
+def _out_plain(p, h: torch.Tensor, C: int) -> torch.Tensor:
+    """The output layer of the plain versions: (h @ w + b)[..., :C]."""
+    k = factored_depth(p) + 1
+    rows = h.reshape(2, -1, h.shape[-1])
+    y = _mm(rows, p[f"w{k}"]) + p[f"b{k}"]
+    return y.reshape(*h.shape[:-1], y.shape[-1])[..., :C]
+
+
+def _heads_plain(p, sig_proj: torch.Tensor) -> torch.Tensor:
+    """h = relu(sig_proj[s] + hb[t])·a1 + c1: (2, S, H1) → (2, S, ntx,
+    H1) float32."""
+    h = torch.relu(sig_proj[:, :, None, :] + p["hb"][:, None, :, :])
+    return h * p["a1"][:, None] + p["c1"][:, None]
 
 
 def _tail_plain(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
-    """Plain version of the tail kernel: (2, S, H) → (2, S, ntx, C)."""
-    p = prepared
-    h = torch.relu(sig_proj[:, :, None, :] + p["hb"][:, None, :, :])
-    h = h * p["a1"][:, None] + p["c1"][:, None]
-    h2 = torch.relu(_mm(h, p["w2"][:, None]) + p["b2"][:, None])
-    h2 = h2 * p["a2"][:, None] + p["c2"][:, None]
-    y = _mm(h2, p["w3"][:, None]) + p["b3"][:, None]
-    return y[..., :C]
+    """Plain version of everything after layer 1 at any depth, the fused
+    tail kernel's at depth 2: (2, S, H1) → (2, S, ntx, C)."""
+    h = _heads_plain(prepared, sig_proj)
+    for k in range(2, factored_depth(prepared) + 1):
+        h = _hidden_plain(prepared, k, h)
+    return _out_plain(prepared, h, C)
+
+
+# the fused tail's operands (depth 2), in its launch order
+_TAIL_ARGS = ("hb", "a1", "c1", "w2t", "b2", "a2", "c2", "w3t", "b3")
 
 
 def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
-    """Heads, layers 2 and 3 of both planes from sig_proj (2, S, H) f32:
-    returns y (2, S, num_tx, C) float32, rx-major. CUDA: the fused tail
-    kernel, which reads W2 and W3 K-major from ``prepared["w2t"]`` and
-    ``prepared["w3t"]`` (required there); h and h2 stay on chip. CPU: the
-    plain version."""
-    if not on_cuda(sig_proj, *(prepared[k] for k in _TAIL_KEYS)):
+    """Heads, layers 2 and 3 of both planes of a two-hidden-layer model
+    from sig_proj (2, S, H1) f32: returns y (2, S, num_tx, C) float32,
+    rx-major. CUDA: the fused tail kernel, which reads W2 and W3 K-major
+    from ``prepared["w2t"]`` and ``prepared["w3t"]`` (required there); h
+    (64 rows × H1 in shared memory, so H1 <= 1024) and h2 stay on chip.
+    CPU: the plain version."""
+    if factored_depth(prepared) != 2:
+        raise ValueError(f"factored_tail is the fused tail of 2 hidden "
+                         f"layers, got {factored_depth(prepared)}: "
+                         f"fused_factored_planes routes other depths")
+    keys = ("hb", "a1", "c1", "w2", "b2", "a2", "c2", "w3", "b3")
+    if not on_cuda(sig_proj, *(prepared[k] for k in keys)):
         return _tail_plain(prepared, sig_proj, C)
-    p = {k: prepared[k].contiguous() for k in _TAIL_KEYS}
+    p = {k: prepared[k].contiguous() for k in keys}
     sig_proj = sig_proj.contiguous()
-    _, s, H = sig_proj.shape
+    _, s, h1 = sig_proj.shape
     nt = p["hb"].shape[1]
-    if p["w2"].dtype != torch.bfloat16 or p["w3"].dtype != torch.bfloat16 \
-            or sig_proj.dtype != torch.float32:
-        raise TypeError("factored_tail takes f32 sig_proj and bf16 w2, w3")
-    # h (64 x H bf16) must fit in shared memory beside the ring
-    if H % 128 or H > 1024 or tuple(p["w3"].shape) != (2, H, _TAIL_OP) \
-            or C > _TAIL_OP or tuple(p["w2"].shape) != (2, H, H):
-        raise ValueError(f"factored_tail needs H % 128 == 0, H <= 1024, "
-                         f"w3 (2, H, {_TAIL_OP}) and C <= {_TAIL_OP}")
-    for key, shape in (("w2t", (2, H, H)), ("w3t", (2, _TAIL_OP, H))):
+    h2 = prepared["w2"].shape[2]
+    if prepared["w2"].dtype != torch.bfloat16 or sig_proj.dtype != \
+            torch.float32:
+        raise TypeError("factored_tail takes f32 sig_proj and bf16 weights")
+    if h1 % 128 or h2 % 128 or h1 > _MAX_RESIDENT or C > _TAIL_OP \
+            or tuple(p["hb"].shape) != (2, nt, h1):
+        raise ValueError(f"factored_tail needs hidden widths % 128 == 0, "
+                         f"H1 <= {_MAX_RESIDENT} and C <= {_TAIL_OP}, got "
+                         f"H1={h1}, H2={h2}, C={C} (fused_factored_planes "
+                         f"serves wider layers through factored_heads and "
+                         f"factored_rows_tail)")
+    for key, shape in (("w2t", (2, h2, h1)), ("w3t", (2, _TAIL_OP, h2))):
         p[key] = kmajor_weight(prepared, key, shape, "factored_tail")
     out = torch.empty((2, s, nt, C), dtype=torch.float32,
                       device=sig_proj.device)
@@ -215,7 +262,7 @@ def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.factored_tail_launch(
             sig_proj.data_ptr(), *(p[k].data_ptr() for k in _TAIL_ARGS),
-            out.data_ptr(), s, nt, H, C, stream)
+            out.data_ptr(), s, nt, h1, h2, C, p["b3"].shape[-1], stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_tail")
     factored_tail.launches += 1
     return out
@@ -224,9 +271,145 @@ def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
 factored_tail.launches = 0
 
 
+def factored_heads(prepared, sig_proj: torch.Tensor) -> torch.Tensor:
+    """The per-head rows of layer 1 for the models the fused tail does not
+    take (a depth other than 2, or H1 above 1024): h =
+    relu(sig_proj[s] + hb[t])·a1 + c1 as (2, S·num_tx, H1) rows (row
+    s·num_tx + t) in the weights' dtype. CUDA: an elementwise kernel
+    writing bf16 rows. CPU: the plain version."""
+    keys = ("hb", "a1", "c1")
+    if not on_cuda(sig_proj, *(prepared[k] for k in keys)):
+        h = _heads_plain(prepared, sig_proj)
+        return h.reshape(2, -1, h.shape[-1]).to(prepared["w1"].dtype)
+    sig_proj = sig_proj.contiguous()
+    _, s, h1 = sig_proj.shape
+    p = {k: prepared[k].contiguous() for k in keys}
+    nt = p["hb"].shape[1]
+    if sig_proj.dtype != torch.float32 or h1 % 8 \
+            or tuple(p["hb"].shape) != (2, nt, h1):
+        raise ValueError(f"factored_heads needs f32 sig_proj (2, S, H1) "
+                         f"and hb (2, nt, H1), H1 % 8 == 0; got "
+                         f"{tuple(sig_proj.shape)} {sig_proj.dtype}, "
+                         f"{tuple(p['hb'].shape)}")
+    out = torch.empty((2, s * nt, h1), dtype=torch.bfloat16,
+                      device=sig_proj.device)
+    if s == 0:
+        return out
+    lib = _ff_lib()
+    with torch.cuda.device(sig_proj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.factored_heads_launch(
+            sig_proj.data_ptr(), *(p[k].data_ptr() for k in keys),
+            out.data_ptr(), s, nt, h1, stream)
+    _build.check(rc, lib, "fused_factored_error_string", "factored_heads")
+    factored_heads.launches += 1
+    return out
+
+
+factored_heads.launches = 0
+
+
+def factored_dense(prepared, k: int, h: torch.Tensor,
+                   C: int | None = None) -> torch.Tensor:
+    """Layer k of both planes on rows h (2, M, H{k-1}): a hidden layer
+    (k <= depth) → bf16(relu(h @ wk + bk)·ak + ck) rows (2, M, Hk) in the
+    weights' dtype; the output layer (k = depth + 1) → (h @ wk + bk)[...,
+    :C] float32 (2, M, C). CUDA: the Hopper GEMM kernel with that
+    epilogue, reading wk K-major from ``prepared["wkt"]``. CPU: the plain
+    version."""
+    out_layer = k == factored_depth(prepared) + 1
+    if out_layer and C is None:
+        raise ValueError("factored_dense needs C for the output layer")
+    keys = (f"w{k}", f"b{k}") + (() if out_layer else (f"a{k}", f"c{k}"))
+    if not on_cuda(h, *(prepared[key] for key in keys)):
+        if out_layer:
+            return _out_plain(prepared, h, C)
+        return _hidden_plain(prepared, k, h).to(prepared[f"w{k}"].dtype)
+    w = prepared[f"w{k}"]
+    _, m, kin = h.shape
+    # the output's K-major weight has at least the tails' 256 rows
+    n = max(w.shape[2], _TAIL_OP) if out_layer else w.shape[2]
+    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError("factored_dense takes bf16 rows and weights")
+    if kin % 8 or w.shape[1] != kin:
+        raise ValueError(f"factored_dense layer {k} needs rows of "
+                         f"{w.shape[1]} (% 8 == 0), got {tuple(h.shape)}")
+    wt = kmajor_weight(prepared, f"w{k}t", (2, n, kin), "factored_dense")
+    b = prepared[f"b{k}"].contiguous()
+    a, c = (b, b) if out_layer else \
+        (prepared[f"a{k}"].contiguous(), prepared[f"c{k}"].contiguous())
+    shape = (2, m, C) if out_layer else (2, m, n)
+    out = torch.empty(shape, device=h.device, dtype=torch.float32
+                      if out_layer else torch.bfloat16)
+    if m == 0:
+        return out
+    h = tma_operand(h)
+    lib = _ff_lib()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.factored_dense_launch(
+            h.data_ptr(), wt.data_ptr(), b.data_ptr(), a.data_ptr(),
+            c.data_ptr(), out.data_ptr(), m, n, kin, C or 0, b.shape[-1],
+            int(out_layer), stream)
+    _build.check(rc, lib, "fused_factored_error_string", "factored_dense")
+    factored_dense.launches += 1
+    return out
+
+
+factored_dense.launches = 0
+
+
+def factored_rows_tail(prepared, h: torch.Tensor, C: int) -> torch.Tensor:
+    """The last hidden layer D and the output layer of both planes of a
+    model of D >= 2 hidden layers, from rows h (2, M, H{D-1}): y (2, M,
+    C) float32. CUDA: the fused tail kernel on TMA-loaded rows (the last
+    hidden layer's activation stays on chip; the rows stream slab by
+    slab above 1024 units), reading W K-major from ``prepared["wDt"]``
+    and the output's. CPU: the plain version."""
+    d = factored_depth(prepared)
+    if d < 2:
+        raise ValueError(f"factored_rows_tail serves 2 or more hidden "
+                         f"layers, got {d}")
+    wk, ok = f"w{d}", f"w{d + 1}"
+    keys = (wk, f"b{d}", f"a{d}", f"c{d}", ok, f"b{d + 1}")
+    if not on_cuda(h, *(prepared[k] for k in keys)):
+        return _out_plain(prepared, _hidden_plain(prepared, d, h), C)
+    _, m, h1 = h.shape
+    h2 = prepared[wk].shape[2]
+    if h.dtype != torch.bfloat16 or prepared[wk].dtype != torch.bfloat16:
+        raise TypeError("factored_rows_tail takes bf16 rows and weights")
+    if h1 % 128 or h2 % 128 or C > _TAIL_OP \
+            or prepared[wk].shape[1] != h1:
+        raise ValueError(f"factored_rows_tail needs rows of "
+                         f"{prepared[wk].shape[1]}, widths % 128 == 0 and "
+                         f"C <= {_TAIL_OP}; got {tuple(h.shape)}, C={C}")
+    w2t = kmajor_weight(prepared, f"{wk}t", (2, h2, h1), "factored_rows_tail")
+    w3t = kmajor_weight(prepared, f"{ok}t", (2, _TAIL_OP, h2),
+                        "factored_rows_tail")
+    vec = [prepared[k].contiguous()
+           for k in (f"b{d}", f"a{d}", f"c{d}", f"b{d + 1}")]
+    out = torch.empty((2, m, C), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return out
+    h = tma_operand(h)
+    lib = _ff_lib()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.factored_rows_tail_launch(
+            h.data_ptr(), w2t.data_ptr(), *(v.data_ptr() for v in vec[:3]),
+            w3t.data_ptr(), vec[3].data_ptr(), out.data_ptr(), m, h1, h2, C,
+            vec[3].shape[-1], stream)
+    _build.check(rc, lib, "fused_factored_error_string", "factored_rows_tail")
+    factored_rows_tail.launches += 1
+    return out
+
+
+factored_rows_tail.launches = 0
+
+
 def fused_factored_planes(cfg: SimConfig, tcfg: TrainConfig, prepared,
                           planes: torch.Tensor) -> torch.Tensor:
-    """The fused factored all-pairs inference on both planes.
+    """The fused factored all-pairs inference on both planes, at any depth.
 
     Args:
       prepared: from prepare_factored_weights (bf16 weights on CUDA).
@@ -238,10 +421,25 @@ def fused_factored_planes(cfg: SimConfig, tcfg: TrainConfig, prepared,
       ``_factored_all_pairs`` (the TPU kernel returned head-major
       (2, num_tx, S, C); this layout needs no transpose before the
       serving call's output).
+
+    Two hidden layers of at most 1024 units in the first:
+    ``factored_sig_proj`` and the fused ``factored_tail``. Otherwise,
+    depth D: ``factored_sig_proj``, ``factored_heads``,
+    ``factored_dense`` for layers 2 .. D-1, then ``factored_rows_tail``
+    (or at D = 1 ``factored_dense`` of the output).
     """
     require_full_input(tcfg)
+    C, d = cfg.num_carriers, factored_depth(prepared)
     sig_proj = factored_sig_proj(planes, prepared["w1"], prepared["w1t"])
-    return factored_tail(prepared, sig_proj, cfg.num_carriers)
+    if d == 2 and sig_proj.shape[2] <= _MAX_RESIDENT:
+        return factored_tail(prepared, sig_proj, C)
+    s = sig_proj.shape[1]
+    h = factored_heads(prepared, sig_proj)
+    for k in range(2, d):
+        h = factored_dense(prepared, k, h)
+    y = factored_dense(prepared, 2, h, C) if d == 1 \
+        else factored_rows_tail(prepared, h, C)
+    return y.reshape(2, s, cfg.num_tx, C)
 
 
 def predict_all_pairs_planes_kernel(cfg: SimConfig, tcfg: TrainConfig,
@@ -260,12 +458,14 @@ def predict_all_pairs_planes_kernel(cfg: SimConfig, tcfg: TrainConfig,
 
 def _ff_lib(defines=()) -> ctypes.CDLL:
     lib = _build.library("fused_factored", defines)
-    f = lib.factored_sig_proj_launch
-    f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    f = lib.factored_tail_launch
-    f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+            ("factored_sig_proj_launch", [ptr] * 3 + [i32] * 3),
+            ("factored_tail_launch", [ptr] * 11 + [i32] * 6),
+            ("factored_heads_launch", [ptr] * 5 + [i32] * 3),
+            ("factored_dense_launch", [ptr] * 6 + [i32] * 6),
+            ("factored_rows_tail_launch", [ptr] * 8 + [i32] * 5)):
+        f = getattr(lib, name)
+        f.restype = ctypes.c_int
+        f.argtypes = args + [ptr]
     return lib

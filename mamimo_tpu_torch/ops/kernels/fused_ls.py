@@ -167,9 +167,10 @@ def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
     if tuple(mat.shape) != want:
         raise ValueError(f"kernel constants must be {want}, got "
                          f"{tuple(mat.shape)}")
-    if nt > 128 or nt & (nt - 1) or cfg.cp_length % 8:
-        raise ValueError("the LS kernel needs num_tx a power of 2 <= 128 "
-                         "and cp_length % 8 == 0")
+    if nt > 256 or nt & (nt - 1) or cfg.cp_length % 8:
+        raise ValueError(f"the LS kernel needs num_tx a power of 2 <= 256 "
+                         f"and cp_length % 8 == 0, got num_tx={nt}, "
+                         f"cp_length={cfg.cp_length}")
     if fft % 64 or fft > 256 or cp_ not in (128, 256, 512):
         raise ValueError("the Hopper LS kernels need fft_length a multiple "
                          "of 64 up to 256 and at most 512 padded carriers")
@@ -187,21 +188,23 @@ def seq_shard_symbols(cfg: SimConfig, seq_shard) -> int:
 
 
 def ls_v2_tiles(s: int, loc: int) -> int:
-    """The v2 kernel's tiles of S samples of loc symbols: 128/loc samples
-    a tile (``ls90::tiles``), the rows of its ``with_ssq`` sums."""
-    spt = 128 // loc
-    return -(-s // spt)
+    """The v2 kernel's tiles of S samples of loc symbols, 128 GEMM rows
+    each (``ls90::tiles``), the rows of its ``with_ssq`` sums: 128/loc
+    samples a tile up to loc = 128, and at loc = 256 two tiles a sample,
+    its output rows 0..127 and 128..255."""
+    return -(-s * loc // 128)
 
 
 def _ssq_plain(h: torch.Tensor, loc: int) -> torch.Tensor:
     """Per-tile sums of h² of the dense (2, S, nt, C) float32 planes:
-    (tiles, 2, C), row t the column sums over the rows of tile t's
-    samples (128/loc samples a tile)."""
+    (tiles, 2, C), row t the column sums over tile t's stored rows, the
+    (sample, row) pairs in order taken 128·nt/loc at a time (128/loc
+    samples a tile; at loc = 256 half a sample)."""
     _, s, nt, c = h.shape
-    spt, n = 128 // loc, ls_v2_tiles(s, loc)
-    hp = torch.zeros((2, n * spt, nt, c), dtype=h.dtype, device=h.device)
-    hp[:, :s] = h
-    return (hp * hp).view(2, n, spt * nt, c).sum(2).transpose(0, 1) \
+    n, rows = ls_v2_tiles(s, loc), 128 * nt // loc
+    hp = torch.zeros((2, n * rows, c), dtype=h.dtype, device=h.device)
+    hp[:, :s * nt] = h.reshape(2, s * nt, c)
+    return (hp * hp).view(2, n, rows, c).sum(2).transpose(0, 1) \
         .contiguous()
 
 
@@ -251,7 +254,8 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
       [1]=imag), dense (no padding), rx-major; with ``with_ssq`` the
       pair (h, ssq), ssq (ls_v2_tiles(S, loc), 2, num_carriers) float32:
       row t holds, per plane, the column sums of h² over the rows of
-      tile t's 128/loc samples (a seq rank's partial counts each of its
+      tile t's 128/loc samples, or at loc = 256 over rows (t % 2)·128 ..
+      + 127 of sample t // 2 (a seq rank's partial counts each of its
       n stored copies). The TPU kernel's (n_blocks, 8, 2·Cp) layout,
       which sums to 8·Σh², is not copied.
     """

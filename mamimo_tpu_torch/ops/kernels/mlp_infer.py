@@ -106,8 +106,8 @@ def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state):
     H is both hidden widths rounded up to one multiple of 128, the
     kernels' tile (as ``prepare_factored_weights``): the extra units get
     zero weights, biases and BN affines, so they stay 0 through ReLU and
-    the answer is exact. The tail kernel keeps h1 in shared memory, so
-    H above 1024 is refused there.
+    the answer is exact. The tail kernel keeps h1 in shared memory up to
+    H = 1024 and streams its slabs beside W2's tiles above that.
 
     Run it under ``full_f32_matmul()`` on the card, as the serving paths
     do. ``plane(prepared, d)`` is one plane's tree for ``mlp_infer_pallas``.
@@ -188,7 +188,8 @@ mlp_infer_layer1.launches = 0
 
 def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
     """Layers 2 and 3 of one plane: h1 (M, H1) bfloat16 → y (M, C)
-    float32. CUDA: the kernel that keeps h2 on chip; it reads W2 and W3
+    float32. CUDA: the kernel that keeps h2 on chip (and h1 up to H1 =
+    1024; above it h1's slabs stream beside W2's tiles); it reads W2 and W3
     K-major from the tree's ``w2t`` and ``w3t``
     (``prepare_mlp_infer_weights``), required there. CPU: the plain
     version."""
@@ -202,12 +203,13 @@ def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
     if h1.dtype != torch.bfloat16 or q["w2"].dtype != torch.bfloat16 \
             or q["w3"].dtype != torch.bfloat16:
         raise TypeError("mlp_infer_tail takes bf16 h1, w2 and w3")
-    # h1 (64 x H1 bf16) must fit in shared memory beside the ring
-    if H1 % 128 or H1 > 1024 or H2 % 128 or c > _OP \
+    if H1 % 128 or H2 % 128 or c > _OP \
             or tuple(q["w2"].shape) != (H1, H2) \
             or tuple(q["w3"].shape) != (H2, _OP):
-        raise ValueError(f"the tail kernel needs H1, H2 % 128 == 0, H1 <= "
-                         f"1024, w3 (H2, {_OP}) and C <= {_OP}")
+        raise ValueError(f"the tail kernel needs H1, H2 % 128 == 0, w3 (H2, "
+                         f"{_OP}) and C <= {_OP}; got H1={H1}, w2 "
+                         f"{tuple(q['w2'].shape)}, w3 "
+                         f"{tuple(q['w3'].shape)}, C={c}")
     q["w2t"] = kmajor_weight(p, "w2t", (H2, H1), "mlp_infer_tail")
     q["w3t"] = kmajor_weight(p, "w3t", (_OP, H2), "mlp_infer_tail")
     out = torch.empty((m, c), dtype=torch.float32, device=h1.device)

@@ -57,7 +57,7 @@ SOURCES = ("ls_v2", "ls_v1", "ls_pair")
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Argument types of the launch function of a built library."""
-    for fn, n_ptr, n_int in (("ls_planes_v2_launch", 3, 9),
+    for fn, n_ptr, n_int in (("ls_planes_v2_launch", 4, 10),
                              ("ls_planes_v1_launch", 4, 8),
                              ("ls_pair_launch", 3, 8)):
         f = getattr(lib, fn, None)
@@ -138,12 +138,14 @@ def main() -> int:
         library takes."""
         v2, l1, pr = libs
         return {
+            # f32 store without sums: mode 0, no ssq buffer
             "ls_planes_v2": (lambda: check(v2.ls_planes_v2_launch(
-                x.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(), S,
-                nt, nt, 0, *geo, stream()), "ls_planes_v2_launch"), out),
+                x.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
+                None, S, nt, nt, 0, *geo, 0, stream()),
+                "ls_planes_v2_launch"), out),
             "ls_planes_v2 seq 1/4": (lambda: check(v2.ls_planes_v2_launch(
-                xq.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(), S,
-                nt, nt // 4, 1, *geo, stream()),
+                xq.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
+                None, S, nt, nt // 4, 1, *geo, 0, stream()),
                 "ls_planes_v2_launch (seq)"), out),
             "ls_planes_v1 raw f32": (v1(l1, consts["ls_v1"], torch.float32),
                                      raw[torch.float32]),

@@ -19,11 +19,16 @@ sampled by ``nvidia-smi`` beside each timed window:
    (blocks sharing each weight tile by TMA multicast; 2 is the kernel's),
    ``factored_tail`` at S = 4096 and ``mlp_infer_tail`` at M = 131072
    rows; each build's answer must equal the default build's;
-4. with ``--old DIR``: each tail against an earlier design whose sources
+4. the streaming mode above 1024 units (``STREAM`` in
+   ``csrc/tail_sm90.cuh``): ``factored_rows_tail`` on both planes'
+   rows at hidden (2048, 2048) and (4096, 1024), 131072 rows a plane,
+   whole and with the phase cuts, and ``mlp_infer_tail`` at H 2048;
+5. with ``--old DIR``: each tail against an earlier design whose sources
    (``fused_factored.cu``, ``mlp_infer.cu`` and their headers, e.g. a
    ``git archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``) lie
-   in DIR and keep the same C launch functions, timed in turns (old,
-   new, new, old) in one process.
+   in DIR and keep the C launch functions of the commit before the
+   streaming mode (``factored_tail_launch`` with one hidden width H),
+   timed in turns (old, new, new, old) in one process at H 1024.
 
 Prints one line per measurement, and a JSON summary as the last line.
 Card only.
@@ -106,10 +111,10 @@ def _old_lib(src_dir: Path, name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def _argtypes(lib, fn, n_ptr):
+def _argtypes(lib, fn, n_ptr, n_int=4):
     f = getattr(lib, fn)
     f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 \
+    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
         + [ctypes.c_void_p]
     return f
 
@@ -130,7 +135,6 @@ def main() -> int:
     from mamimo_tpu_torch.ops.kernels import _build
     from mamimo_tpu_torch.ops.kernels.fused_factored import (
         _TAIL_ARGS,
-        _TAIL_KEYS,
         _ff_lib,
         factored_tail,
         prepare_factored_weights,
@@ -167,7 +171,7 @@ def main() -> int:
     sp = torch.randn((2, s, H), generator=g, device="cuda")
     out = torch.empty((2, s, nt, C), device="cuda")
     ff_args = [sp.data_ptr(), *(prep[k].data_ptr() for k in _TAIL_ARGS),
-               out.data_ptr(), s, nt, H, C]
+               out.data_ptr(), s, nt, H, H, C, prep["b3"].shape[-1]]
     h1 = torch.randn((M, H), generator=g, device="cuda").to(torch.bfloat16)
     y = torch.empty((M, C), device="cuda")
     mk = ("w2t", "b2", "s2", "t2", "w3t", "b3")
@@ -218,17 +222,54 @@ def main() -> int:
         summary[f"CL={cl}"] = {"factored_tail": t_ff[0],
                                "mlp_infer_tail": t_mlp[0]}
 
+    print(f"streaming mode (rows above 1024 units), M = 2 x {M}:")
+    for hidden in ((2048, 2048), (4096, 1024)):
+        tw = TrainConfig(hidden=hidden)
+        pw, bw = init_stacked(torch.Generator().manual_seed(2), cfg, tw,
+                              device="cuda")
+        prw = prepare_factored_weights(cfg, tw, pw, bw)
+        hw = torch.randn((2, M, hidden[0]), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        yw = torch.empty((2, M, C), device="cuda")
+        argw = [hw.data_ptr(), *(prw[k].data_ptr() for k in
+                                 ("w2t", "b2", "a2", "c2", "w3t", "b3")),
+                yw.data_ptr(), M, hidden[0], hidden[1], C,
+                prw["b3"].shape[-1]]
+
+        def rows_run(lib, argv=argw):
+            rc = lib.factored_rows_tail_launch(*argv, stream())
+            if rc:
+                raise RuntimeError(f"factored_rows_tail_launch: CUDA error "
+                                   f"{rc}")
+
+        for n, lib in libs.items():
+            ms, clk, pwr = _time_ms(lambda lib=lib: rows_run(lib), iters=5)
+            print(f"  factored_rows_tail {hidden} {n}: {_fmt(ms, clk, pwr)}"
+                  f"  [{card}]")
+            summary[f"stream {hidden} {n}"] = ms
+        del pw, bw, prw, hw, yw
+    tw = TrainConfig(hidden=(2048, 2048))
+    pw, bw = init_stacked(torch.Generator().manual_seed(3), cfg, tw,
+                          device="cuda")
+    pmw = plane(prepare_mlp_infer_weights(tw, pw, bw), 0)
+    h1w = torch.randn((M, 2048), generator=g, device="cuda").to(torch.bfloat16)
+    argm = [h1w.data_ptr(), *(pmw[k].data_ptr() for k in mk), y.data_ptr(),
+            M, 2048, 2048, C]
+    ms, clk, pwr = _time_ms(lambda: mlp_run(_mlp_lib(), argm), iters=5)
+    print(f"  mlp_infer_tail (2048, 2048): {_fmt(ms, clk, pwr)}  [{card}]")
+    summary["stream mlp_infer_tail (2048, 2048)"] = ms
+    del pw, bw, pmw, h1w
+
     if args.old is not None:
         old_ff = _old_lib(args.old, "fused_factored")
         old_mlp = _old_lib(args.old, "mlp_infer")
         _argtypes(old_ff, "factored_tail_launch", 11)
         _argtypes(old_mlp, "mlp_tail_launch", 8)
-        # the earlier design reads W2, W3 as (H1, H2), (H2, 256)
-        ff_old = [sp.data_ptr(), *(prep[k].data_ptr() for k in _TAIL_KEYS),
+        # the commit before the streaming mode: one hidden width H, b3
+        # of 256 columns a plane
+        ff_old = [sp.data_ptr(), *(prep[k].data_ptr() for k in _TAIL_ARGS),
                   out.data_ptr(), s, nt, H, C]
-        mlp_old = [h1.data_ptr(), *(pm[k].data_ptr() for k in
-                                    ("w2", "b2", "s2", "t2", "w3", "b3")),
-                   y.data_ptr(), M, H, H, C]
+        mlp_old = mlp_args
         new_ff, new_mlp = _ff_lib(), _mlp_lib()
         print(f"A/B in turns (old, new, new, old), S={s} / M={M}:")
         ab = {"factored_tail": [], "mlp_infer_tail": []}

@@ -26,6 +26,7 @@ from mamimo_tpu.ops.pallas.fused_factored import (
 from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models import mlp
 from mamimo_tpu_torch.ops.kernels.fused_factored import (
+    _tail_plain as factored_tail_plain,
     factored_sig_proj,
     factored_tail,
     fused_factored_planes,
@@ -225,11 +226,27 @@ def test_factored_forms_refuse_reduced_input(tcfg):
         prepare_factored_weights(CFG, tcfg, tp, tb)
 
 
-def test_fused_kernels_need_two_hidden_layers():
-    tcfg = TrainConfig(hidden=(64, 64, 64))
-    tp, tb = mlp.init_stacked(torch.Generator().manual_seed(0), CFG, tcfg)
-    with pytest.raises(ValueError, match="2 hidden layers"):
-        prepare_factored_weights(CFG, tcfg, tp, tb)
+def test_fused_kernels_take_three_hidden_layers():
+    """Three hidden layers, once refused: prepare_factored_weights folds
+    every layer (w2, w3 hidden, w4 the output) and the plain tail after
+    layer 1 matches JAX's bf16 factored heads within the bf16 DNN
+    tolerance of the depth-2 tests (−40 dB)."""
+    tcfg, jtcfg, (jp, jb), (tp, tb) = _models(True, seed=12,
+                                              hidden=(64, 64, 64))
+    prep = prepare_factored_weights(CFG, tcfg, tp, tb)
+    assert tuple(prep["w3"].shape) == (2, 128, 128)
+    assert tuple(prep["w4"].shape) == (2, 128, 256)
+    assert tuple(prep["w4t"].shape) == (2, 256, 128)
+    x = _planes(4, seed=13)
+    sp = factored_sig_proj(torch.from_numpy(x).to(torch.bfloat16),
+                           prep["w1"])
+    got = factored_tail_plain(prep, sp, CFG.num_carriers).numpy()
+    ref = np.asarray(jmlp._factored_all_pairs(
+        JCFG, jtcfg, jp, jb, jnp.asarray(x).astype(jnp.bfloat16),
+        dtype=jnp.bfloat16).astype(jnp.float32))
+    assert got.shape == ref.shape
+    nmse = np.sum((got - ref) ** 2) / np.sum(ref ** 2)
+    assert 10 * np.log10(nmse) < -40
 
 
 def test_training_mode_not_ported():

@@ -122,8 +122,9 @@ class _Launch(Exception):
 
 def test_padded_widths_pass_the_kernel_checks(cfgs, monkeypatch):
     """The CUDA branch of both wrappers takes the padded hidden-64 tree
-    (it refused H1 = 64 before the weights were padded) and still refuses
-    a hidden layer wider than 1024, naming the limit."""
+    (it refused H1 = 64 before the weights were padded) and a hidden
+    layer wider than 1024 (whose h1 the tail streams), and refuses rows
+    that do not match the tree's width, naming the shapes."""
     cfg, jcfg = cfgs
     tcfg, _, _, (tp, tb) = _model(jcfg, (64, 64))
     prep = mlp.plane(mi.prepare_mlp_infer_weights(tcfg, tp, tb), 0)
@@ -140,8 +141,10 @@ def test_padded_widths_pass_the_kernel_checks(cfgs, monkeypatch):
         mi.mlp_infer_tail(prep, torch.zeros((5, 128), dtype=torch.bfloat16))
     wide_tcfg, _, _, (wp, wb) = _model(jcfg, (1100, 64))
     wide = mlp.plane(mi.prepare_mlp_infer_weights(wide_tcfg, wp, wb), 0)
-    with pytest.raises(ValueError, match="1024"):
+    with pytest.raises(_Launch):
         mi.mlp_infer_tail(wide, torch.zeros((5, 1152), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=r"H1=1024, w2 \(1152, 1152\)"):
+        mi.mlp_infer_tail(wide, torch.zeros((5, 1024), dtype=torch.bfloat16))
 
 
 # ---- rx-major all pairs and the dtype options ----------------------------
