@@ -16,7 +16,10 @@ failure ends the run with a non-zero exit code):
                too) and the three LS kernels
                (ls_planes_v2_kernel, each of its four variants: f32 or
                bf16 store, with or without the sums of h^2;
-               ls_planes_v1_kernel, ls_pair_kernel) run wgmma (HGMMA) and
+               ls_planes_v1_kernel, ls_pair_kernel), their float32 modes
+               (ls_planes_v2_f32_kernel, ls_planes_v1_f32_kernel,
+               ls_pair_f32_kernel) and the float GEMMs (mm_bf16_kernel,
+               mm_tf32x3_kernel) run wgmma (HGMMA) and
                no mma.sync (HMMA), and the int8
                GEMM (int8_mm_kernel_slab, int8_mm_kernel_ring) int8
                wgmma (IGMMA) and no int8 mma.sync (IMMA);
@@ -210,6 +213,23 @@ failure ends the run with a non-zero exit code):
                then each new kernel shape timed (CUDA events, S = 4096
                at BS32, 512 at Nt 256) beside its plain version, bound
                and library yardstick, rows of the kernels line;
+5m. float32 — float32 planes through kernels 1 (full and seq, f32 and
+               bf16 store, sums of h^2), 3 (raw, complex, as_planes) and
+               4 (complex64 rx) in their float32 mode at BS32 (S = 256
+               and 5), Nt 8 and Nt 256, each within -90 dB of its
+               float32 plain version (TF32 off; the bf16 mode's dB on
+               the same planes printed beside), the bf16 stores exactly
+               the float32 result rounded, as_planes exactly the complex
+               form; sharded_ls_pallas_v2 data and seq on 4 virtual
+               ranks on float32 planes within 1e-4 of the unsharded
+               float32 plain LS (float32 launches counted; phase 5k's
+               dryrun_multichip must launch the float32 mode too);
+               matmul_pallas on bf16 and float32 operands within -90 dB
+               of float64 products, out_dtype=bf16 the float32 result
+               rounded; then times kernels 1 and 3's float32 modes at S
+               = 4096 and kernel 6 at (4096, 10240) @ (10240, 1024) and
+               (131072, 1024) @ (1024, 1024), rows of the kernels line
+               (kernel 4's float32 mode is phase 6's pallas_full row);
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -251,7 +271,9 @@ failure ends the run with a non-zero exit code):
                time, idle share, kernels and aten calls per step.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j, 5k and 5l and read just after; estimate_full,
+5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l and 5m and read just after
+(the wrappers with a float32 mode also count its launches apart, "<name>
+f32"); estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
 (torch.profiler: each kernel's own device time in the call). Prints a JSON line of per-kernel numbers before the
 last line, which is {"ok": true, "device": {...}}. Needs a CUDA GPU and
@@ -925,7 +947,8 @@ def sounding_phase(cfg, dev, counted, require_launched, pred) -> dict:
         "ls_pair_kernel": check(
             "ls_estimate(ofdm_demodulate(rx)) vs ls_estimate_pallas "
             "(kernel 4)", h_fft, ls_estimate_pallas(
-                cfg, rx, consts=ls_sm90_constants(cfg, dev)), -50.0)}
+                cfg, rx, consts=ls_sm90_constants(cfg, dev, torch.float32)),
+            -50.0)}
 
     # (c) every LMMSE form against a float64 solve, unit-scale h on the
     # sounded packets' delays
@@ -2167,7 +2190,8 @@ def sharded_phase(cfg, dev, counted, require_launched, data, ds) -> dict:
     dry, cnt = counted(lambda: dryrun_multichip(
         MESH_RANKS, devices=[dev] * MESH_RANKS))
     require_launched("dryrun_multichip", cnt,
-                     ("ls_planes_v2", "halo_exchange_pallas"))
+                     ("ls_planes_v2", "ls_planes_v2 f32",
+                      "halo_exchange_pallas"))
     out["dryrun"] = {"shapes": {k: v for k, v in dry.items()},
                      "launches": cnt}
 
@@ -2572,9 +2596,9 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
             with full_f32_matmul():
                 ref_pp = ls_estimate_matmul(cfg, rxp)
             errs["ls_pair_kernel"] = check(
-                f"  ls_estimate_pallas (8 packets), {tag}, vs "
+                f"  ls_estimate_pallas (8 packets, float32 mode), {tag}, vs "
                 f"ls_estimate_matmul (f32)",
-                ls_estimate_pallas(cfg, rxp, consts=k90), ref_pp, -45.0)
+                ls_estimate_pallas(cfg, rxp), ref_pp, F32_LIMIT_DB)
             del rxp, ref_pp
             # the two planes paths whose LS modes these are: the bf16
             # store and sums (pallas_ls_v2_serving_r3, as entry), and
@@ -2787,6 +2811,303 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
             "launches": counts, "rows": rows, "seconds": secs}
 
 
+# phase 5m: the float32 modes of kernels 1, 3 and 4, kernel 6's bf16 and
+# float32 modes
+TF32_FLOPS = 495e12                # H100 SXM TF32 dense tensor cores
+# a float32 mode against its float32 plain version (TF32 off), and kernel
+# 6 against float64 products: one TF32 pass would be about -60 dB
+F32_LIMIT_DB = -90.0
+F32_SHARD_REL = 1e-4               # the sharded forms (section 2 of PERF.md)
+MM_SHAPES = ((4096, 10240, 1024), (131072, 1024, 1024))   # (M, K, N) timed
+
+
+def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
+    """Phase 5m: float32 planes through kernels 1 (full and seq mode, f32
+    and bf16 store, sums of h^2), 3 (raw, complex, as_planes) and 4
+    (complex64 rx) in their float32 mode, at BS32 (S = 256 and 5), Nt 8
+    and Nt 256, each within F32_LIMIT_DB of its float32 plain version
+    (the bf16 mode's dB on the same planes printed beside), the bf16
+    stores exactly the float32 result rounded, the sums within 1e-4 per
+    tile and as_planes exactly the complex form; sharded_ls_pallas_v2
+    data and seq on 4 virtual ranks with float32 planes against the
+    unsharded float32 plain LS (F32_SHARD_REL), counted; matmul_pallas
+    on bf16 and float32 operands against float64 products
+    (F32_LIMIT_DB) at ragged and timed shapes, out_dtype=bf16 exactly
+    the float32 result rounded, counted. Then times kernel 1 and 3's
+    float32 modes at the bench shape (S = 4096) and kernel 6 at
+    MM_SHAPES beside their plain versions, bounds (float32 bytes once,
+    products once at the TF32 peak) and library calls. Returns the
+    errors, the counts and the kernel rows (for the kernels line)."""
+    import torch
+
+    from mamimo_tpu_torch.bench import _planes_to_time_major
+    from mamimo_tpu_torch.config import SimConfig
+    from mamimo_tpu_torch.ops.estimate import (
+        ls_estimate_matmul,
+        ls_estimate_planes,
+        ls_planes_constants,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_v1_plain,
+        _ls_v2_plain,
+        _ssq_plain,
+        ls_estimate_pallas,
+        ls_planes_pallas,
+        ls_planes_pallas_v2_constants,
+        ls_planes_v1,
+        ls_planes_v2,
+        ls_raw_to_complex,
+        ls_sm90_constants,
+    )
+    from mamimo_tpu_torch.ops.kernels.int8_mm import (
+        _matmul_float_plain,
+        matmul_float,
+        matmul_pallas,
+    )
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+    from mamimo_tpu_torch.parallel.sharded import sharded_ls_pallas_v2
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(90)
+    errs, counts, rows = {}, {}, []
+    print("[5m float32 modes] float32 input through kernels 1, 3 and 4; "
+          "kernel 6 on bf16 and float32 operands")
+
+    def db_of(got, ref):
+        g64, r64 = got.double(), ref.double()
+        return 10 * float(torch.log10((g64 - r64).square().sum()
+                                      / r64.square().sum()))
+
+    def same(what, got, ref):
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"{what}: not identical")
+        print(f"  {what}: identical")
+
+    def ls_checks(cfg, s, tag, seqs, packets):
+        nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+        k32, k16 = ls_sm90_constants(cfg, dev, f32), ls_sm90_constants(cfg,
+                                                                      dev)
+        x = torch.randn((2, s, L), generator=g, device=dev)
+        ref = _ls_v2_plain(cfg, x)
+        h = ls_planes_v2(cfg, x, k32)
+        r = check(f"ls_planes_v2 float32, {tag}, S = {s}, vs its plain "
+                  f"version (f32)", h, ref, F32_LIMIT_DB)
+        print(f"    (the bf16 mode on the same planes rounded to bf16: "
+              f"{db_of(ls_planes_v2(cfg, x.to(bf16), k16), ref):.2f} dB)")
+        errs.setdefault("ls_planes_v2 f32", r)
+        # the stores and sums: the bf16 store is the float32 result
+        # rounded; the sums those of the float32 plain values
+        same(f"ls_planes_v2 float32, {tag}: bf16 store = the f32 result "
+             f"rounded", ls_planes_v2(cfg, x, k32, out_dtype=bf16),
+             h.to(bf16))
+        for seq in (None,) + tuple((i, n) for n in seqs
+                                   for i in sorted({0, 1, n - 1})):
+            loc = nt if seq is None else nt // seq[1]
+            xq = x if seq is None else x[:, :, seq[0] * loc * cfg.sym_len:
+                                         (seq[0] + 1) * loc
+                                         * cfg.sym_len].contiguous()
+            rq = ref if seq is None else _ls_v2_plain(cfg, xq, seq)
+            what = f"ls_planes_v2 float32, {tag}" + (
+                "" if seq is None else f", seq rank {seq[0]} of {seq[1]}")
+            if seq is not None:
+                check(f"{what} vs its plain version (f32)", ls_planes_v2(
+                    cfg, xq, k32, seq_shard=seq), rq, F32_LIMIT_DB)
+            for dt in (f32, bf16):
+                hq, q = ls_planes_v2(cfg, xq, k32, seq_shard=seq,
+                                     out_dtype=dt, with_ssq=True)
+                check(f"{what}, {str(dt)[6:]} store + sums, vs its plain "
+                      f"version (f32)", hq, rq, F32_LIMIT_DB if dt == f32
+                      else -45.0)
+                sref = _ssq_plain(rq, loc)
+                rel = float(((q - sref).abs() / sref.abs().clamp_min(
+                    1e-30)).max())
+                again = ls_planes_v2(cfg, xq, k32, seq_shard=seq,
+                                     out_dtype=dt, with_ssq=True)[1]
+                print(f"  {what}, {str(dt)[6:]} store: sums {tuple(q.shape)}"
+                      f", max rel err per tile {rel:.3e} (limit 1e-4) vs the "
+                      f"plain version's float32 sums; second call "
+                      f"{'identical' if torch.equal(q, again) else 'DIFFERS'}")
+                if not (rel <= 1e-4 and torch.equal(q, again)):
+                    raise AssertionError(f"{what}: sums off by {rel:.3e} or "
+                                         f"not deterministic")
+        # kernel 3: raw f32 and bf16, complex, as_planes
+        raw8 = _ls_v1_plain(cfg, x, 8, f32)
+        for block in (8, 1):
+            raw_ref = torch.stack(_ls_v1_plain(cfg, x, block, f32))
+            hr, hi = ls_planes_v1(cfg, x, k32, block_samples=block)
+            check_pads_zero("ls_planes_v1 float32", hr, hi, s, nt, C)
+            r = check(f"ls_planes_v1 float32 raw, {tag}, S = {s}, block "
+                      f"{block}, vs its plain version (f32), pads zero",
+                      torch.stack([hr, hi]), raw_ref, F32_LIMIT_DB)
+            errs.setdefault("ls_planes_v1 f32", r)
+            same(f"ls_planes_v1 float32, {tag}, block {block}: bf16 raw = "
+                 f"the f32 raw rounded", torch.stack(ls_planes_v1(
+                     cfg, x, k32, block_samples=block, out_dtype=bf16)),
+                 torch.stack([hr, hi]).to(bf16))
+        cplx = ls_planes_pallas(cfg, x, k32)
+        check(f"ls_planes_pallas float32 complex, {tag}, vs its plain "
+              f"version (f32)", cplx, ls_raw_to_complex(cfg, *raw8, s),
+              F32_LIMIT_DB)
+        for xa, ka, dt in ((x, k32, "float32"), (x.to(bf16), k16, "bf16")):
+            ap = ls_planes_pallas(cfg, xa, ka, as_planes=True)
+            if ap.shape != (2, s, nt, C) or ap.dtype != f32:
+                raise AssertionError(f"as_planes: {tuple(ap.shape)} "
+                                     f"{ap.dtype}")
+            same(f"ls_planes_pallas {dt} as_planes, {tag}: densifies to the "
+                 f"complex form", torch.complex(ap[0], ap[1]),
+                 ls_planes_pallas(cfg, xa, ka))
+        # kernel 4 on complex64 rx of whole packets
+        rx = _planes_to_time_major(x[:, :packets * nr], nr)
+        with full_f32_matmul():
+            ref_pp = ls_estimate_matmul(cfg, rx)
+        r = check(f"ls_estimate_pallas complex64, {tag}, {packets} packets, "
+                  f"vs ls_estimate_matmul (f32)",
+                  ls_estimate_pallas(cfg, rx, consts=k32), ref_pp,
+                  F32_LIMIT_DB)
+        errs.setdefault("ls_pair_kernel f32", r)
+
+    def run_ls_checks():
+        ls_checks(SimConfig(), S_CHECK, "BS32", (2, 4), S_CHECK // 4)
+        ls_checks(SimConfig(), 5, "BS32", (32,), 1)
+        ls_checks(SimConfig(num_tx=8, num_rx=2), 3, "Nt 8", (2, 8), 1)
+        ls_checks(SimConfig(num_tx=256, num_rx=4), 8, "Nt 256", (2,), 2)
+
+    _, counts["ls checks"] = counted(run_ls_checks)
+    require_launched("phase 5m's LS checks", counts["ls checks"],
+                     ("ls_planes_v2 f32", "ls_planes_v1 f32",
+                      "ls_pair_kernel f32"))
+
+    # the sharded forms on float32 planes, counted
+    cfg = SimConfig()
+    nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+    x4 = torch.randn((2, 16, L), generator=g, device=dev)
+    ref = _ls_v2_plain(cfg, x4)
+    ref = torch.complex(ref[0], ref[1])
+    sh_launches = 0
+    for mode in ("data", "seq"):
+        m4 = make_mesh({mode: MESH_RANKS}, devices=[dev] * MESH_RANKS)
+        h, cnt = counted(lambda: sharded_ls_pallas_v2(cfg, m4, x4, mode=mode))
+        rel = rel_err(torch.view_as_real(h), torch.view_as_real(ref))
+        print(f"  sharded_ls_pallas_v2 {mode} {MESH_RANKS}, float32 planes: "
+              f"{rel:.3e} of the unsharded float32 plain LS (limit "
+              f"{F32_SHARD_REL}); launches {cnt}")
+        if not rel <= F32_SHARD_REL or cnt["ls_planes_v2 f32"] != MESH_RANKS:
+            raise AssertionError(f"sharded_ls_pallas_v2 {mode}: {rel:.3e}, "
+                                 f"{cnt}")
+        errs[f"sharded {mode} rel"] = rel
+        counts[f"sharded_ls_pallas_v2 {mode}"] = cnt
+        sh_launches += cnt["ls_planes_v2 f32"]
+
+    # kernel 6: bf16 and float32 operands against float64 products
+    def mm_checks():
+        for dt in (bf16, f32):
+            for m, k, n in ((129, 72, 40), (1, 72, 40)) + MM_SHAPES:
+                a = torch.randn((m, k), generator=g, device=dev).to(dt)
+                b = torch.randn((k, n), generator=g, device=dev).to(dt)
+                got = matmul_pallas(a, b)
+                r = check(f"matmul_pallas {str(dt)[6:]} ({m}, {k}) @ ({k}, "
+                          f"{n}) vs float64", got, a.double() @ b.double(),
+                          F32_LIMIT_DB)
+                errs.setdefault(f"matmul_pallas {str(dt)[6:]} {m}", r)
+                same(f"matmul_pallas {str(dt)[6:]} ({m}, {k}) @ ({k}, {n}): "
+                     f"out_dtype=bf16 = the f32 result rounded",
+                     matmul_pallas(a, b, out_dtype=bf16), got.to(bf16))
+                del a, b, got
+
+    _, counts["matmul"] = counted(mm_checks)
+    require_launched("phase 5m's GEMM checks", counts["matmul"],
+                     ("matmul_float", "matmul_float f32"))
+
+    # timing at the bench shape: kernel 1 and 3's float32 modes
+    S = BENCH_PACKETS * nr
+    xb = torch.randn((2, S, L), generator=g, device=dev)
+    k32 = ls_sm90_constants(cfg, dev, f32)
+    f32c = ls_planes_constants(cfg, device=dev)
+    bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, f32, dev)
+    cp_ = bv2.shape[1] // 2
+
+    def ls_library():
+        # the float32 DFT-select as one matmul a plane, TF32 off, then the
+        # despread
+        t = torch.matmul(xb.view(2, S * nt, cfg.sym_len), bv2)
+        zr = t[0, :, :C] - t[1, :, cp_:cp_ + C]
+        zi = t[0, :, cp_:cp_ + C] + t[1, :, :C]
+        return torch.matmul(f32c[2], torch.stack([zr, zi]).view(2, S, nt, C))
+
+    def timed(name, shape, src, repl, kern, plain, lib, nbytes, ops, peak,
+              launches, path, err, call=None):
+        ms = time_ms(kern, iters=10)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        lib_ms = time_ms(lib, iters=10)
+        call_ms = time_ms(call, iters=10) if call is not None else None
+        bms, by = bound_ms(nbytes, ops, peak)
+        print(f"  {name} [{shape}]: {ms:.5f} ms (bound {bms:.5f} ms by {by},"
+              f" {bms / ms * 100:.1f}% of it); plain {plain_ms:.4f} ms; "
+              f"library {lib_ms:.4f} ms"
+              + (f"; whole wrapper {call_ms:.4f} ms" if call else "")
+              + f"  [{smi}]")
+        rows.append({"name": name, "shape": shape, "route": "cuda",
+                     "source": f"mamimo_tpu_torch/csrc/{src}",
+                     "replaces": repl, "launches": launches,
+                     "launches_in": path, "max_abs_err": err["max_abs_err"],
+                     "nmse_db": err["nmse_db"], "exact": False, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms, "call_ms": call_ms,
+                     "ms_from": "events", "call_ms_from": "events"})
+
+    lsrc = "mamimo_tpu/ops/pallas/fused_ls.py:"
+    ls_in = 2 * S * nt * cfg.fft_length * 4 + k32.bt.numel() * 4
+    ls_ops = 2.0 * (S * nt) * (2 * cfg.fft_length) * (2 * C)
+    timed("ls_planes_v2", f"float32 mode: planes (2, {S}, {L}) f32 -> "
+          f"(2, {S}, {nt}, {C}) f32", "ls_v2.cu", lsrc + "424",
+          lambda: ls_planes_v2(cfg, xb, k32),
+          lambda: ls_estimate_planes(cfg, xb, f32c), ls_library,
+          ls_in + 2 * S * nt * C * 4, ls_ops, TF32_FLOPS, sh_launches,
+          "sharded_ls_pallas_v2 data 4 + seq 4 on float32 planes (as "
+          "dryrun_multichip, phase 5k)", errs["ls_planes_v2 f32"])
+    rows_out = S * nt
+    timed("ls_planes_v1", f"float32 mode: planes (2, {S}, {L}) f32 -> raw "
+          f"2 x ({rows_out}, {cp_}) f32", "ls_v1.cu", lsrc + "253",
+          lambda: ls_planes_v1(cfg, xb, k32),
+          lambda: _ls_v1_plain(cfg, xb, 8, f32), ls_library,
+          ls_in + 2 * rows_out * cp_ * 4, ls_ops, TF32_FLOPS,
+          counts["ls checks"]["ls_planes_v1 f32"],
+          "phase 5m's checks (no serving path passes float32 planes to "
+          "kernel 3)", errs["ls_planes_v1 f32"])
+    del xb
+
+    # kernel 6 at the DNN's layer shapes; launches of each mode's kernel
+    n_f32 = counts["matmul"]["matmul_float f32"]
+    mm_launches = {f32: n_f32, bf16: counts["matmul"]["matmul_float"] - n_f32}
+    for dt, peak in ((bf16, BF16_FLOPS), (f32, TF32_FLOPS)):
+        for m, k, n in MM_SHAPES:
+            a = torch.randn((m, k), generator=g, device=dev).to(dt)
+            b = torch.randn((k, n), generator=g, device=dev).to(dt)
+            bt = b.T.contiguous()
+            esz = a.element_size()
+            timed("matmul_pallas", f"{str(dt)[6:]} mode: ({m}, {k}) @ "
+                  f"({k}, {n}) -> f32", "matmul.cu",
+                  "mamimo_tpu/ops/pallas/int8_mm.py:50",
+                  lambda a=a, bt=bt: matmul_float(a, bt),
+                  lambda a=a, b=b: _matmul_float_plain(a, b),
+                  lambda a=a, b=b: torch.matmul(a, b),
+                  (m * k + k * n) * esz + m * n * 4, 2.0 * m * n * k, peak,
+                  mm_launches[dt],
+                  "phase 5m's checks (no path of the port multiplies bf16 "
+                  "or float32 through kernel 6)",
+                  errs[f"matmul_pallas {str(dt)[6:]} {m}"],
+                  call=lambda a=a, b=b: matmul_pallas(a, b))
+            del a, b, bt
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"[5m float32 modes] {secs:.1f} s")
+    return {"errors": {k: (v if isinstance(v, float) else v["nmse_db"])
+                       for k, v in errs.items()},
+            "launches": counts, "rows": rows, "seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -2862,6 +3183,7 @@ def main() -> int:
     )
     from mamimo_tpu_torch.ops.kernels.int8_mm import (
         _matmul_int8_plain,
+        matmul_float,
         matmul_int8,
     )
     from mamimo_tpu_torch.ops.kernels.mlp_infer import (
@@ -2935,8 +3257,13 @@ def main() -> int:
             ("mlp_infer", ("mlp_layer1_kernel", "mlp_tail_kernel"),
              "HGMMA", "HMMA"),
             ("ls_v2", tuple(V2_VARIANTS.values()), "HGMMA", "HMMA"),
-            ("ls_v1", ("ls_planes_v1_kernel",), "HGMMA", "HMMA"),
-            ("ls_pair", ("ls_pair_kernel",), "HGMMA", "HMMA"),
+            ("ls_v2", ("ls_planes_v2_f32_kernel",), "HGMMA", "HMMA"),
+            ("ls_v1", ("ls_planes_v1_kernel", "ls_planes_v1_f32_kernel"),
+             "HGMMA", "HMMA"),
+            ("ls_pair", ("ls_pair_kernel", "ls_pair_f32_kernel"), "HGMMA",
+             "HMMA"),
+            ("matmul", ("mm_bf16_kernel", "mm_tf32x3_kernel"), "HGMMA",
+             "HMMA"),
             ("int8_mm", ("int8_mm_kernel_slab", "int8_mm_kernel_ring"),
              "IGMMA", "IMMA")):
         for kname, ops in _build.sass_counts(src, kerns).items():
@@ -3003,18 +3330,20 @@ def main() -> int:
         check("ls_planes_pallas complex vs its plain version (f32)",
               ls_planes_pallas(cfg, x16, k90),
               ls_raw_to_complex(cfg, ref_raw[0], ref_raw[1], s), -45.0)
-        # float32 planes: cast once to bf16 by the wrappers
+        # float32 planes: the kernels' float32 mode (float32 constants)
+        k90f = ls_sm90_constants(cfg, dev, torch.float32)
         xf = torch.randn((2, s, cfg.len_ltf), generator=g, device=dev)
         hf = ls_estimate_planes(cfg, xf, ls_planes_constants(cfg, device=dev))
         hf = torch.stack([hf.real, hf.imag])
-        check("ls_planes_v2, float32 planes, vs ls_estimate_planes (f32)",
-              ls_planes_v2(cfg, xf, k90), hf, -45.0)
+        res["ls_planes_v2 f32"] = check(
+            "ls_planes_v2, float32 planes, vs ls_estimate_planes (f32)",
+            ls_planes_v2(cfg, xf, k90f), hf, F32_LIMIT_DB)
         for mode, n in (("seq", 2), ("data", 2 if s % 2 == 0 else 1)):
             check(f"sharded_ls_pallas_v2 {mode} {n}, float32 planes, vs "
                   f"ls_estimate_planes (f32)", sharded_ls_pallas_v2(
                       cfg, make_mesh({mode: n}, devices=[dev] * n), xf,
-                      mode=mode, consts=k90), torch.complex(hf[0], hf[1]),
-                  -45.0)
+                      mode=mode, consts=k90f), torch.complex(hf[0], hf[1]),
+                  F32_LIMIT_DB)
         sp = factored_sig_proj(x16, prep["w1"], prep["w1t"])
         res["factored_sig_proj"] = check(
             "factored_sig_proj vs f32 x @ W1 (same bf16 operands)",
@@ -3056,8 +3385,14 @@ def main() -> int:
         with full_f32_matmul():
             ref_pp = ls_estimate_matmul(cfg, rx)
         res["ls_pair_kernel"] = check(
-            f"ls_estimate_pallas ({packets} packets) vs ls_estimate_matmul "
-            f"(f32)", ls_estimate_pallas(cfg, rx, consts=k90), ref_pp, -45.0)
+            f"ls_estimate_pallas ({packets} packets, float32 mode) vs "
+            f"ls_estimate_matmul (f32)", ls_estimate_pallas(
+                cfg, rx, consts=k90f), ref_pp, F32_LIMIT_DB)
+        # the per-pair kernel's bf16 mode, on bf16 pair planes
+        res["ls_pair_kernel bf16"] = check(
+            f"ls_pair_kernel bf16 pair planes ({packets} packets) vs "
+            f"ls_estimate_matmul (f32)", ls_pair_kernel(
+                cfg, pair_planes(rx), nr, k90), ref_pp, -45.0)
         # fused MLP on materialized rows, M ragged, plane 1's weights
         with full_f32_matmul():
             p1 = plane(prepare_mlp_infer_weights(tcfg, params, bn), 1)
@@ -3151,9 +3486,13 @@ def main() -> int:
         with full_f32_matmul():
             ref = ls_estimate_matmul(cfg, rx)
         rows = packets * nr * nt
-        check(f"ls_estimate_pallas {tag}, {packets} packets ({rows} rows) "
-              f"vs ls_estimate_matmul (f32)",
-              ls_estimate_pallas(cfg, rx, consts=k90), ref, -45.0)
+        check(f"ls_estimate_pallas {tag}, {packets} packets ({rows} rows, "
+              f"float32 mode) vs ls_estimate_matmul (f32)",
+              ls_estimate_pallas(cfg, rx, consts=ls_sm90_constants(
+                  cfg, dev, torch.float32)), ref, F32_LIMIT_DB)
+        check(f"ls_pair_kernel bf16 {tag}, {packets} packets vs "
+              f"ls_estimate_matmul (f32)", ls_pair_kernel(
+                  cfg, pair_planes(rx), nr, k90), ref, -45.0)
         return x16, rx, k90
 
     x1, rx1, k90 = check_ls_edges(cfg, 1, 30, "BS32, S = 1", (2, 4, 32), 1)
@@ -3252,16 +3591,24 @@ def main() -> int:
     all_kernels = (ls_planes_v2, factored_sig_proj, factored_tail,
                    factored_heads, factored_dense, factored_rows_tail,
                    ls_planes_v1, matmul_int8, ls_pair_kernel,
-                   mlp_infer_layer1, mlp_infer_tail, halo_exchange_pallas)
+                   mlp_infer_layer1, mlp_infer_tail, halo_exchange_pallas,
+                   matmul_float)
+    # the wrappers with a float32 mode also count its launches apart
+    f32_kernels = (ls_planes_v2, ls_planes_v1, ls_pair_kernel, matmul_float)
 
     def counted(fn):
         """Run fn with every launch count set to 0 just before; returns
-        fn's result and the counts just after."""
+        fn's result and the counts just after ("<name> f32": the float32
+        mode's share)."""
         for k in all_kernels:
             k.launches = 0
+        for k in f32_kernels:
+            k.launches_f32 = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, {k.__name__: k.launches for k in all_kernels}
+        return out, {**{k.__name__: k.launches for k in all_kernels},
+                     **{f"{k.__name__} f32": k.launches_f32
+                        for k in f32_kernels}}
 
     def require_launched(what, counts, names):
         print(f"  launches in {what}: {counts}")
@@ -3390,8 +3737,9 @@ def main() -> int:
     mat = torch.complex(ys[0], ys[1]).view(MAT_PACKETS, nr, nt, C) \
         .permute(0, 3, 2, 1)
     full_db = {
-        "h_ls": check("pallas_full h_ls vs the f32 branch (ls_estimate_matmul)",
-                      outs_pf[0][0], ref_ls, -45.0),
+        "h_ls": check("pallas_full h_ls (kernel 4's float32 mode) vs the "
+                      "f32 branch (ls_estimate_matmul)", outs_pf[0][0],
+                      ref_ls, F32_LIMIT_DB),
         "h_dnn": check("pallas_full h_dnn vs the f32 branch "
                        "(predict_all_pairs, factored)", outs_pf[0][1], ref_dnn,
                        -40.0),
@@ -3400,6 +3748,7 @@ def main() -> int:
             f"chain on their {n_pair * nt} materialized rows",
             outs_pf[0][1][:MAT_PACKETS], mat, -40.0)}
     require_launched("pallas_full", cnt_pf, ("ls_pair_kernel",
+                                             "ls_pair_kernel f32",
                                              "mlp_infer_layer1",
                                              "mlp_infer_tail"))
     sig =torch.complex(torch.randn((256, L), generator=g, device=dev),
@@ -3624,6 +3973,9 @@ def main() -> int:
     # 5l. every depth and width the port trains, and Nt 256 --------------
     wide = wide_phase(dev, smi, counted, require_launched)
 
+    # 5m. the float32 modes of kernels 1, 3, 4 and kernel 6's modes -------
+    f32m = f32_modes_phase(dev, smi, counted, require_launched)
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -3761,19 +4113,46 @@ def main() -> int:
             peak=INT8_OPS)
 
     # per-pair LS: the kernel alone on the pair planes (the wrapper's
-    # layout pass is timed as call_ms), plain f32, library bf16 matmuls
+    # layout pass apart; the whole wrapper as call_ms), plain f32: first
+    # its bf16 mode (library: bf16 matmuls; no path runs this mode since
+    # ls_estimate_pallas computes in float32, as JAX's), then the float32
+    # mode pallas_full runs (library: float32 matmuls, TF32 off)
     rx_b = _planes_to_time_major(xb32, nr)                  # (B, L, Nr)
     ppl = pair_planes(rx_b)
     lsc = ls_matmul_constants(cfg, device=dev)
-    row("ls_pair_kernel", f"rx ({BENCH_PACKETS}, {L}, {nr}) c64 -> "
+    row("ls_pair_kernel", f"bf16 mode: pair planes (2, {S}, {L}) bf16 -> "
         f"({BENCH_PACKETS}, {C}, {nt}, {nr}) c64",
         "mamimo_tpu_torch/csrc/ls_pair.cu",
         "mamimo_tpu/ops/pallas/fused_ls.py:110",
         lambda: ls_pair_kernel(cfg, ppl, nr, consts90),
         lambda: ls_estimate_matmul(cfg, rx_b, lsc),
-        ls_library, ls_in + S * nt * C * 8, ls_ops,
-        cnt_pf["ls_pair_kernel"], "pallas_full x3",
-        call=lambda: ls_estimate_pallas(cfg, rx_b, consts=consts90))
+        ls_library, ls_in + S * nt * C * 8, ls_ops, 0,
+        "none: ls_estimate_pallas runs the float32 mode",
+        key="ls_pair_kernel bf16")
+    consts90f = ls_sm90_constants(cfg, dev, torch.float32)
+    ppl32 = pair_planes(rx_b, torch.float32)
+    pair_layout_ms = time_ms(lambda: pair_planes(rx_b, torch.float32))
+    print(f"  pair_planes (the float32 layout pass of ls_estimate_pallas): "
+          f"{pair_layout_ms:.4f} ms  [{smi}]")
+    bv2f, _ = ls_planes_pallas_v2_constants(cfg, 1, torch.float32, dev)
+
+    def ls_library_f32():
+        t = torch.matmul(xb32.view(2, S * nt, cfg.sym_len), bv2f)
+        zr = t[0, :, :C] - t[1, :, cp_:cp_ + C]
+        zi = t[0, :, cp_:cp_ + C] + t[1, :, :C]
+        return torch.matmul(pm, torch.stack([zr, zi]).view(2, S, nt, C))
+
+    row("ls_pair_kernel", f"float32 mode: rx ({BENCH_PACKETS}, {L}, {nr}) "
+        f"c64 -> ({BENCH_PACKETS}, {C}, {nt}, {nr}) c64 (kernel on the "
+        f"float32 pair planes; layout pass {pair_layout_ms:.4f} ms apart)",
+        "mamimo_tpu_torch/csrc/ls_pair.cu",
+        "mamimo_tpu/ops/pallas/fused_ls.py:110",
+        lambda: ls_pair_kernel(cfg, ppl32, nr, consts90f),
+        lambda: ls_estimate_matmul(cfg, rx_b, lsc),
+        ls_library_f32, 2 * S * nt * cfg.fft_length * 4
+        + consts90f.bt.numel() * 4 + S * nt * C * 8, ls_ops,
+        cnt_pf["ls_pair_kernel f32"], "pallas_full x3", peak=TF32_FLOPS,
+        call=lambda: ls_estimate_pallas(cfg, rx_b, consts=consts90f))
 
     # fused MLP on the materialized rows of plane 0, per launch form
     M, K = S * nt, L + nt
@@ -3935,7 +4314,7 @@ def main() -> int:
              ("ls_planes_v2_kernel", "factored_sig_proj_kernel",
               "factored_tail_kernel")),
             ("pallas_full", lambda: fn_full(xb32),
-             ("ls_pair_kernel", "mlp_layer1_kernel", "mlp_tail_kernel"))):
+             ("ls_pair", "mlp_layer1_kernel", "mlp_tail_kernel"))):
         per = trace_kernels_ms(fn)
         if not per:
             print(f"  {cname} trace: no device time in the profiler's "
@@ -4018,8 +4397,9 @@ def main() -> int:
     pipe_dir.cleanup()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5l's rows last: the lookups by name above read BS32's
-    kernels += wide.pop("rows")
+    # phase 5l's and 5m's rows last: the lookups by name above read
+    # BS32's
+    kernels += wide.pop("rows") + f32m.pop("rows")
     print(json.dumps({"kernels": kernels, "serving": {
         "S": S, "device_ms": calls,
         "estimates_per_s": {k: n_est / v * 1e3 for k, v in calls.items()},
@@ -4055,6 +4435,7 @@ def main() -> int:
         "closed_loop": cl,
         "sharded_train": shard,
         "wide": wide,
+        "f32_modes": f32m,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

@@ -158,7 +158,8 @@ def make_estimation_fn(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
     on the device of ``params`` (the port's stacked float32 parameters).
     Weights are folded once here, outside the step.
 
-    - ``use_pallas``: the per-pair LS kernel, then the fused MLP kernels
+    - ``use_pallas``: the per-pair LS kernel (in float32, as JAX's
+      ``ls_estimate_pallas``), then the fused MLP kernels
       on the materialized input, one plane at a time: row (b, r, t) is
       [signal of (b, r) ‖ pilot P.T[t]], built directly in bf16 (the
       kernels round x to bf16; one (B·num_rx·num_tx, in_dim) buffer,
@@ -180,7 +181,7 @@ def make_estimation_fn(cfg: SimConfig, tcfg: TrainConfig, params, bn_state,
         if use_pallas:
             prepared = prepare_mlp_infer_weights(tcfg, params, bn_state)
             pil = pilot_p_matrix(nt, device=dev).T.to(torch.bfloat16)
-            kconsts = ls_sm90_constants(cfg, dev) \
+            kconsts = ls_sm90_constants(cfg, dev, torch.float32) \
                 if dev.type == "cuda" else None
         elif use_bf16:
             factored = prepare_factored_weights(cfg, tcfg, params, bn_state)
@@ -260,7 +261,7 @@ def make_estimation_fn_planes(cfg: SimConfig, tcfg: TrainConfig, params,
         the DNN in bfloat16.
       ls_pallas, dnn_int8, serving_planes: the kernel paths (the module
         docstring); they take bf16 planes, so they need ``input_bf16``
-        (float32 planes into the v1 LS kernel are not ported).
+        (as the JAX bench's kernel paths).
 
     Returns:
       fn(planes (2, S, len_ltf)) → (h_ls, h_dnn): each (S, num_tx,
@@ -409,7 +410,9 @@ def bench_paths(cfg: SimConfig, tcfg: TrainConfig, params, bn_state):
     nr = cfg.num_rx
     lsc = ls_matmul_constants(cfg, device=dev)
     lsp = ls_planes_constants(cfg, device=dev)
-    kconsts = ls_sm90_constants(cfg, dev) if dev.type == "cuda" else None
+    # the per-pair kernel runs in float32 on complex64 rx (ls_pallas)
+    kconsts = ls_sm90_constants(cfg, dev, torch.float32) \
+        if dev.type == "cuda" else None
 
     def planes_fn(**opts):
         return make_estimation_fn_planes(cfg, tcfg, params, bn_state, **opts)

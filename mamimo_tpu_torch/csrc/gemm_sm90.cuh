@@ -335,6 +335,103 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ---------------------------------------------------------------------
+// float32 products at float32 accuracy on the tensor cores (3xTF32):
+// each operand is split into a TF32 high part and a TF32 low part,
+// x = hi + lo with |lo| <= 2^-11 |x|, and a.b is taken as hi.hi +
+// hi.lo + lo.hi. The dropped lo.lo and the rounding of lo are about
+// 2^-22 of each product: NMSE near -120 dB, where one TF32 pass is near
+// -60 dB. Serves the LS kernels' float32 mode (ls_sm90.cuh,
+// ls_body_f32) and the float32 GEMM (matmul.cu).
+// ---------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as a
+// float whose low 13 bits are zero.
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// x = hi + lo, both TF32 values; hi - x is exact (Sterbenz), so lo
+// carries the next 11 bits of x.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
+}
+
+// Splits n float4 at p (shared memory, this thread's share: p[i] for i =
+// first, first + step, ...) in place into their high parts, the low
+// parts to q at the same index.
+__device__ __forceinline__ void split_tf32_smem(float4* p, float4* q, int n,
+                                                int first, int step) {
+  for (int i = first; i < n; i += step) {
+    const float4 v = p[i];
+    float4 h, l;
+    split_tf32(v.x, h.x, l.x);
+    split_tf32(v.y, h.y, l.y);
+    split_tf32(v.z, h.z, l.z);
+    split_tf32(v.w, h.w, l.w);
+    p[i] = h;
+    q[i] = l;
+  }
+}
+
+// d (64 x 128, f32) = SA * A (64 x 8) @ B (128 x 8)^T + (keep ? d : 0),
+// TF32, both K-major from shared memory in the SW128 layout of
+// desc_sw128 (a k8 slice of f32 is 32 bytes, as a k16 slice of bf16), SA
+// = 1 or -1 (imm-scale-a); d's fragment layout is that of m64n128k16.
+template <int SA>
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     uint64_t da,
+                                                     uint64_t db,
+                                                     int keep = 1) {
+  static_assert(SA == 1 || SA == -1, "imm-scale-a is 1 or -1");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, %67, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(keep), "n"(SA));
+}
+
+// The three TF32 products of one k8 slice: d = SA (a_hi b_hi + a_hi b_lo
+// + a_lo b_hi) + (keep ? d : 0), the small terms first.
+//
+// The tensor cores add into d with truncation, an error of one sign:
+// over long sums it grows with the number of additions (3xTF32 over K =
+// 10240 in one accumulator read -83 dB against float64 on an H100 80GB
+// HBM3 at 700 W, chip_smoke.py's phase 5m; -128 dB summed per k-step).
+// A long product therefore sums each stretch of K into a fresh d (keep =
+// 0 for its first slice) and adds the stretches in float32 in registers
+// (matmul.cu); the LS kernels' sums (K = 512 a symbol half) stay in one.
+template <int SA>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[64], uint64_t a_hi,
+                                             uint64_t a_lo, uint64_t b_hi,
+                                             uint64_t b_lo, int keep = 1) {
+  wgmma_m64n128k8_tf32<SA>(d, a_lo, b_hi, keep);
+  wgmma_m64n128k8_tf32<SA>(d, a_hi, b_lo);
+  wgmma_m64n128k8_tf32<SA>(d, a_hi, b_hi);
+}
+
 // C(z) = A(z) @ B(z)^T over k in [0, K) for z < Z, A (M x K) and B
 // (N x K) the planes of the 3-d maps ma (box BK x BM) and mb (box BK x
 // B_SLICE_ROWS) (make_map), in 128 x 256 tiles. A persistent grid of
@@ -508,6 +605,27 @@ inline int make_map(CUtensorMap* map, const void* ptr, int inner, int rows,
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
+// make_map's float32 form: the same 3-d map of `planes` planes of `rows`
+// rows of `inner` f32 at a pitch of `pitch` elements (pitch % 4 == 0),
+// box 32 elements (128 bytes) x box_rows x 1, SW128, zero fill.
+inline int make_map_f32(CUtensorMap* map, const void* ptr, int inner,
+                        int rows, int planes, int box_rows, long long pitch) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return ERR_TENSOR_MAP;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 4,
+                                 (cuuint64_t)pitch * 4 * (cuuint64_t)rows};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
          dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

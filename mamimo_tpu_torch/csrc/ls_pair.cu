@@ -26,6 +26,10 @@
 // never read) and 245 MB of complex64 written: about 0.113 ms at
 // 3.35 TB/s. The GEMM is about 69 GFLOP (0.07 ms at the bf16 tensor-core
 // peak), so it is memory-bound, like ls_v2.
+//
+// ls_estimate_pallas passes float32 pair planes (complex64 rx, as the TPU
+// kernel computes in float32): the float32 mode, ls_pair_f32_kernel on
+// ls90::ls_body_f32, the same store; 268 MB of f32 input, bound 0.153 ms.
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
@@ -81,29 +85,50 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
   ls90::ls_body<NH>(&ma, &mb, S, log_nt, fft, cp, epi);
 }
 
+// The float32 mode: float32 pair planes and the split float32
+// constants, the DFT product at float32 accuracy (ls90::ls_body_f32).
+template <int NH>
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_pair_f32_kernel(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb,
+                       float* __restrict__ out, int S, int nr, int nt,
+                       int log_nt, int C, int cp, int fft) {
+  PairEpi epi{out, S, nr, nt, log_nt, C, 64 * (int)sm90::cluster_rank()};
+  ls90::ls_body_f32<NH>(&ma, &mb, S, log_nt, fft, cp, epi);
+}
+
 }  // namespace
 
 extern "C" {
 
-// planes (2, S, nt*sym_len) bf16 with S = B*nr, 16-byte aligned; bt
-// (2*cpad, 2*fft) bf16, the permuted K-major constants
-// (fused_ls.py::ls_sm90_constants); out (B, C, nt, nr) complex64 as
-// floats. nt a power of 2 <= 256, fft % 64 == 0, fft <= 256, sym_len %
-// 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of the launch
-// (or sm90::ERR_TENSOR_MAP).
+// planes (2, S, nt*sym_len) with S = B*nr, 16-byte aligned: bf16 with bt
+// (2*cpad, 2*fft) bf16, the permuted K-major constants, or with in_f32
+// f32 with bt (2, 2*cpad, 2*fft) f32, their split TF32 high and low
+// parts (fused_ls.py::ls_sm90_constants); out (B, C, nt, nr) complex64
+// as floats. nt a power of 2 <= 256, fft % 64 == 0, fft <= 256, sym_len
+// % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of the
+// launch (or sm90::ERR_TENSOR_MAP).
 int ls_pair_launch(const void* planes, const void* bt, void* out, int S,
                    int nr, int nt, int C, int sym_len, int cp, int fft,
-                   int cpad, void* stream) {
+                   int cpad, int in_f32, void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
   if (log_nt > 8) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
-  if (ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft, cpad))
+  if (in_f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_nt, sym_len,
+                                   fft, cpad)
+             : ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft,
+                               cpad))
     return sm90::ERR_TENSOR_MAP;
+  const int cl = 2 * cpad / 128, tiles = ls90::tiles(S, log_nt);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (in_f32)
+    return ls90::launch<ls90::F_SMEM_BYTES>(
+        log_nt > 7 ? ls_pair_f32_kernel<2> : ls_pair_f32_kernel<1>, cl,
+        tiles, st, ma, mb, (float*)out, S, nr, nt, log_nt, C, cp, fft);
   return ls90::launch(log_nt > 7 ? ls_pair_kernel<2> : ls_pair_kernel<1>,
-                      2 * cpad / 128, ls90::tiles(S, log_nt),
-                      (cudaStream_t)stream, ma, mb, (float*)out, S, nr, nt,
-                      log_nt, C, cp, fft);
+                      cl, tiles, st, ma, mb, (float*)out, S, nr, nt, log_nt,
+                      C, cp, fft);
 }
 
 const char* ls_pair_error_string(int e) { return sm90::error_string(e); }

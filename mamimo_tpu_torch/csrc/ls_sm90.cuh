@@ -8,7 +8,8 @@
 //
 // Replaces the LS body of the TPU kernels mamimo_tpu/ops/pallas/
 // fused_ls.py::ls_planes_pallas_v2, ::ls_planes_pallas and
-// ::ls_estimate_pallas. The complex
+// ::ls_estimate_pallas. For bf16 input (ls_body; float32 input runs
+// ls_body_f32, below, at float32 accuracy) the complex
 // DFT-select is one real bf16 GEMM with f32 accumulation over K = [xr |
 // xi], the fft samples of each symbol (the CP is skipped by the load's
 // coordinate), against the constants Bt = [[Ar, -Ai], [Ai, Ar]] (2*cpad,
@@ -401,20 +402,212 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
   }
 }
 
-// Launches a kernel built on ls_body for `tiles` tiles: clusters of cl
-// blocks of THREADS threads with SMEM_BYTES of dynamic shared memory, as
-// many clusters as fit on the device at once
-// (cudaOccupancyMaxActiveClusters, asked once per kernel signature and
-// cluster size: kernels of one signature, such as ls_v2.cu's variants,
-// share the answer, which holds because every kernel on ls_body runs one
-// block an SM) and never more than there are tiles. Returns a
-// cudaError_t code.
-template <class... Params, class... Args>
+// ---------------------------------------------------------------------
+// The float32 mode (float32 planes, float32 constants): the same tiles,
+// clusters, despread and epilogues, with the DFT product at float32
+// accuracy as three TF32 products (gemm_sm90.cuh, wgmma_3xtf32).
+//
+// A float32 slab of Bt, or its high and low parts (2 x 256 KB at fft =
+// 256), does not fit beside the ring, so nothing is resident: a stage
+// holds the input's k-step of 32 f32 (16 KB, multicast to the cluster as
+// in ls_body) and the block's k-step of the constants' two parts (2 x 16
+// KB, each block its own 128 rows, loaded from L2, where the 2 MB of
+// constants stay). The consuming warpgroup splits the input's k-step in
+// place into its TF32 high part and writes the low part to its own 16 KB
+// buffer (fence.proxy.async and a named barrier before the products
+// read them). The constants come split from the host
+// (fused_ls.py::ls_sm90_constants(dtype=float32): planes 0 and 1 of a
+// (2, 2*cpad, 2*fft) tensor). bf16 planes never reach this body.
+//
+// Bound on an H100 at the bench shape (S = 4096, nt = 32): 268 MB of f32
+// input (the fft samples) and 245 MB of f32 output, about 0.153 ms at
+// 3.35 TB/s, against 69 GFLOP counted once at the TF32 peak of 495
+// TFLOP/s (0.139 ms): memory-bound as counted. The three products make
+// 207 GFLOP of tensor-core work (0.42 ms at the TF32 peak), so this
+// design is product-bound.
+// ---------------------------------------------------------------------
+constexpr int KF = 32;                                 // f32 k of a stage
+constexpr int F_STAGES = 3;
+constexpr int F_X_BYTES = TILE * KF * 4;               // 16 KB
+constexpr int F_B_BYTES = 128 * KF * 4;                // 16 KB a part
+constexpr int F_STAGE_BYTES = F_X_BYTES + 2 * F_B_BYTES;
+constexpr int F_SMEM_BYTES = F_STAGES * F_STAGE_BYTES + 2 * F_X_BYTES +
+                             4 * STG_FLOATS * 4 + 8 * (2 * F_STAGES + 2) +
+                             1024;
+static_assert(F_SMEM_BYTES <= 232448, "more shared memory than a block has");
+
+// ls_body for float32 planes: ma a 4-d FLOAT32 map of the planes (box KF
+// x bs x 8/bs x 1, SW128), mb a 3-d FLOAT32 map of the split constants
+// (2*fft, 2*cpad rows, 2 parts; box KF x 128 x 1) (make_maps_f32). The
+// tiles, the ping-pong of the consumer warpgroups and the call of
+// epi.store are those of ls_body; launch with launch<F_SMEM_BYTES>.
+template <int NH, class Epi>
+__device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
+                                            const CUtensorMap* mb, int S,
+                                            int log_loc, int fft, int cp,
+                                            Epi& epi) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = saddr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t xlo = ring + F_STAGES * F_STAGE_BYTES;  // 1 per warpgroup
+  const uint32_t stg = xlo + 2 * F_X_BYTES;              // 2 per warpgroup
+  const uint32_t full = stg + 4 * STG_FLOATS * 4;        // F_STAGES x 8
+  const uint32_t empty = full + 8 * F_STAGES;
+  const uint32_t done = empty + 8 * F_STAGES;            // 2 x 8 bytes
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const uint32_t rank = cluster_rank();
+  const int cl = cluster_ctas();
+  const int cid = cluster_index(), ncl = cluster_count();
+  static_assert(NH == 1 || NH == 2, "one or two symbol halves a tile");
+  const int log_tl = NH == 1 ? log_loc : 7;
+  const int NK0 = 2 * fft / KF;                   // k-steps of a half
+  const int NK = NH * NK0;                        // k-steps of a tile
+  const int log_spt = 7 - log_tl;
+  const int T = tiles(S, log_loc);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, cl);
+    }
+    mbar_init(done, 1);
+    mbar_init(done + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const int log_bs = box_log_symbols(log_tl);
+      const int nsb = log_tl - log_bs;
+      const int boxes = 16 / cl;
+      const uint16_t all = (uint16_t)((1u << cl) - 1);
+      int it = 0;
+      for (int t = cid; t < T; t += ncl) {
+        const int s0 = (t / NH) << log_spt;
+        for (int half = 0; half < NH; ++half)
+        for (int k0 = 0; k0 < NK0; ++k0, ++it) {
+          const int s = it % F_STAGES;
+          const uint32_t st = ring + s * F_STAGE_BYTES;
+          mbar_wait(empty + 8 * s, ((it / F_STAGES) & 1) ^ 1);
+          const int plane = k0 >= NK0 / 2;
+          const int col = cp + (k0 - plane * (NK0 / 2)) * KF;
+          mbar_expect_tx(full + 8 * s, F_STAGE_BYTES);
+          for (int q = 0; q < boxes; ++q) {
+            const int g = rank * boxes + q;
+            const int a = g & ((1 << nsb) - 1), bb = g >> nsb;
+            tma_load_4d_multicast(
+                st + g * 1024, ma, full + 8 * s, col,
+                (a << log_bs) + (half << 7), s0 + (bb << (3 - log_bs)),
+                plane, all);
+          }
+          // the block's 128 rows of the constants' k-step, both parts
+          tma_load_3d(st + F_X_BYTES, mb, full + 8 * s, k0 * KF, rank * 128,
+                      0);
+          tma_load_3d(st + F_X_BYTES + F_B_BYTES, mb, full + 8 * s,
+                      k0 * KF, rank * 128, 1);
+        }
+      }
+      for (int j = 0; j < F_STAGES; ++j, ++it)
+        mbar_wait(empty + 8 * (it % F_STAGES), ((it / F_STAGES) & 1) ^ 1);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int w = wg - 1;
+  const int warp = tid / 32, lane = tid % 32;
+  const uint32_t lo = xlo + w * F_X_BYTES;       // this warpgroup's x_lo
+  float4* const lo_p = reinterpret_cast<float4*>(smem_raw + (lo - raw));
+  auto release = [&](int i) {
+    if (tid == 0)
+      for (int c = 0; c < cl; ++c)
+        mbar_arrive_cluster(empty + 8 * (i % F_STAGES), c);
+  };
+  for (int u = w, t = cid + w * ncl; t < T; u += 2, t += 2 * ncl) {
+    if (u > 0) mbar_wait(done + 8 * (1 - w), ((u - 1) / 2) & 1);
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    for (int half = 0; half < NH; ++half)
+    for (int k0 = 0; k0 < NK0; ++k0) {
+      const int it = u * NK + half * NK0 + k0;
+      const int s = it % F_STAGES;
+      const uint32_t st = ring + s * F_STAGE_BYTES;
+      mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
+      // the input's k-step: high part in place, low part into lo (the
+      // products of the last k-step, which read lo, have completed)
+      split_tf32_smem(reinterpret_cast<float4*>(smem_raw + (st - raw)), lo_p,
+                      F_X_BYTES / 16, tid, 128);
+      fence_proxy_async();
+      bar_sync(1 + w, 128);
+      const uint32_t ah = st + F_X_BYTES, al = ah + F_B_BYTES;
+      fence_acc(acc0);
+      fence_acc(acc1);
+      wgmma_fence();
+      if (!(LS_CUT & 1)) {
+        if (NH > 1 && ((t % NH) & half)) {
+#pragma unroll
+          for (int kk = 0; kk < KF / 8; ++kk) {
+            wgmma_3xtf32<-1>(acc0, desc_sw128(ah + kk * 32),
+                             desc_sw128(al + kk * 32),
+                             desc_sw128(st + kk * 32),
+                             desc_sw128(lo + kk * 32));
+            wgmma_3xtf32<-1>(acc1, desc_sw128(ah + F_B_BYTES / 2 + kk * 32),
+                             desc_sw128(al + F_B_BYTES / 2 + kk * 32),
+                             desc_sw128(st + kk * 32),
+                             desc_sw128(lo + kk * 32));
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < KF / 8; ++kk) {
+            wgmma_3xtf32<1>(acc0, desc_sw128(ah + kk * 32),
+                            desc_sw128(al + kk * 32),
+                            desc_sw128(st + kk * 32),
+                            desc_sw128(lo + kk * 32));
+            wgmma_3xtf32<1>(acc1, desc_sw128(ah + F_B_BYTES / 2 + kk * 32),
+                            desc_sw128(al + F_B_BYTES / 2 + kk * 32),
+                            desc_sw128(st + kk * 32),
+                            desc_sw128(lo + kk * 32));
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc0);
+      fence_acc(acc1);
+      release(it);
+    }
+    if (tid == 0) mbar_arrive(done + 8 * w);
+    if (!(LS_CUT & 2)) {
+      despread(acc0, log_tl, lane);
+      despread(acc1, log_tl, lane);
+    }
+    epi.template store<NH>(acc0, acc1, (t / NH) << log_spt, (t % NH) << 7,
+                           warp, lane,
+                           reinterpret_cast<float*>(smem_raw + (stg - raw)) +
+                               2 * STG_FLOATS * w,
+                           1 + w);
+  }
+}
+
+// Launches a kernel built on ls_body (SMEM = SMEM_BYTES) or ls_body_f32
+// (SMEM = F_SMEM_BYTES) for `tiles` tiles: clusters of cl blocks of
+// THREADS threads with SMEM bytes of dynamic shared memory, as many
+// clusters as fit on the device at once (cudaOccupancyMaxActiveClusters,
+// asked once per kernel signature, SMEM and cluster size: kernels of one
+// signature, such as ls_v2.cu's variants, share the answer, which holds
+// because every kernel on either body runs one block an SM) and never
+// more than there are tiles. Returns a cudaError_t code.
+template <int SMEM = SMEM_BYTES, class... Params, class... Args>
 inline int launch(void (*kernel)(Params...), int cl, int tiles,
                   cudaStream_t stream, Args... args) {
   if (cl < 1 || cl > 8 || tiles < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -424,7 +617,7 @@ inline int launch(void (*kernel)(Params...), int cl, int tiles,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.dynamicSmemBytes = SMEM;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -464,6 +657,32 @@ inline int make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* planes,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP;
   return make_map(mb, bt, 2 * fft, 2 * cpad, 1, 128, 2 * fft);
+}
+
+// make_maps for ls_body_f32: the planes as FLOAT32 (S samples of loc
+// symbols of sym_len f32, two planes, 16-byte aligned), box KF x bs x
+// 8/bs x 1; bt32 the split constants (2, 2*cpad, 2*fft) f32, box KF x
+// 128 x 1. Returns 0 or ERR_TENSOR_MAP.
+inline int make_maps_f32(CUtensorMap* ma, CUtensorMap* mb, const void* planes,
+                         const void* bt32, int S, int log_loc, int sym_len,
+                         int fft, int cpad) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return ERR_TENSOR_MAP;
+  const int bs = 1 << box_log_symbols(log_loc), loc = 1 << log_loc;
+  const cuuint64_t row = (cuuint64_t)sym_len * 4;      // bytes
+  const cuuint64_t dims[4] = {(cuuint64_t)sym_len, (cuuint64_t)loc,
+                              (cuuint64_t)S, 2};
+  const cuuint64_t strides[3] = {row, row * loc, row * loc * S};
+  const cuuint32_t box[4] = {(cuuint32_t)KF, (cuuint32_t)bs,
+                             (cuuint32_t)(8 / bs), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(planes),
+         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP;
+  return make_map_f32(mb, bt32, 2 * fft, 2 * cpad, 2, 128, 2 * fft);
 }
 
 }  // namespace ls90

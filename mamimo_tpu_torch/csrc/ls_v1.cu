@@ -29,6 +29,10 @@
 // 1 (imaginary) into hi. Through the warpgroup's staging buffers, as
 // ls_v2.cu, so that a warp writes a row's 64 lanes as one contiguous
 // piece (256 bytes in f32, 128 in bf16): whole sectors.
+//
+// Float32 planes run the float32 mode (ls_planes_v1_f32_kernel on
+// ls90::ls_body_f32, the same stores): 268 MB of f32 input, bound 0.160
+// ms with the raw f32 store.
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
@@ -116,38 +120,77 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
   ls90::ls_body<NH>(&ma, &mb, s_out, log_nt, fft, cp, epi);
 }
 
+// The float32 mode: float32 planes and the split float32 constants, the
+// DFT product at float32 accuracy (ls90::ls_body_f32); the same stores.
+template <class T, int NH>
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_planes_v1_f32_kernel(const __grid_constant__ CUtensorMap ma,
+                            const __grid_constant__ CUtensorMap mb,
+                            T* __restrict__ hr, T* __restrict__ hi,
+                            int s_out, int nt, int log_nt, int cpad, int cp,
+                            int fft) {
+  V1Epi<T> epi{hr, hi, s_out, nt, log_nt, cpad,
+               64 * (int)sm90::cluster_rank()};
+  ls90::ls_body_f32<NH>(&ma, &mb, s_out, log_nt, fft, cp, epi);
+}
+
+template <class T, bool F32>
+int launch_v1(const CUtensorMap& ma, const CUtensorMap& mb, void* hr,
+              void* hi, int s_out, int nt, int log_nt, int cpad, int cp,
+              int fft, cudaStream_t stream) {
+  const int cl = 2 * cpad / 128, tiles = ls90::tiles(s_out, log_nt);
+  const bool two = log_nt > 7;
+  if constexpr (F32)
+    return ls90::launch<ls90::F_SMEM_BYTES>(
+        two ? ls_planes_v1_f32_kernel<T, 2> : ls_planes_v1_f32_kernel<T, 1>,
+        cl, tiles, stream, ma, mb, (T*)hr, (T*)hi, s_out, nt, log_nt, cpad,
+        cp, fft);
+  else
+    return ls90::launch(two ? ls_planes_v1_kernel<T, 2>
+                            : ls_planes_v1_kernel<T, 1>,
+                        cl, tiles, stream, ma, mb, (T*)hr, (T*)hi, s_out, nt,
+                        log_nt, cpad, cp, fft);
+}
+
 }  // namespace
 
 extern "C" {
 
-// planes (2, S, nt*sym_len) bf16, 16-byte aligned; bt (2*cpad, 2*fft)
-// bf16, the permuted K-major constants (fused_ls.py::ls_sm90_constants);
-// hr, hi (s_out*nt, cpad) each, bf16 when out_bf16 != 0 else f32;
-// s_out >= S >= 1. nt a power of 2 <= 256, fft % 64 == 0, fft <= 256,
-// sym_len % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of
-// the launch (or sm90::ERR_TENSOR_MAP).
+// planes (2, S, nt*sym_len), 16-byte aligned: bf16 with bt (2*cpad,
+// 2*fft) bf16, the permuted K-major constants, or with mode bit 1 f32
+// with bt (2, 2*cpad, 2*fft) f32, their split TF32 high and low parts
+// (fused_ls.py::ls_sm90_constants); hr, hi (s_out*nt, cpad) each, bf16
+// when mode bit 0 is set else f32; s_out >= S >= 1. nt a power of 2 <=
+// 256, fft % 64 == 0, fft <= 256, sym_len % 8 == 0, cpad 128, 256 or 512.
+// Returns the CUDA error code of the launch (or sm90::ERR_TENSOR_MAP).
 int ls_planes_v1_launch(const void* planes, const void* bt, void* hr,
                         void* hi, int S, int s_out, int nt, int sym_len,
-                        int cp, int fft, int cpad, int out_bf16,
-                        void* stream) {
+                        int cp, int fft, int cpad, int mode, void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
-  if (log_nt > 8) return (int)cudaErrorInvalidValue;
+  if (log_nt > 8 || mode < 0 || mode > 3) return (int)cudaErrorInvalidValue;
+  const bool f32 = mode & 2;
   CUtensorMap ma, mb;
-  if (ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft, cpad))
+  if (f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_nt, sym_len,
+                                fft, cpad)
+          : ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft,
+                            cpad))
     return sm90::ERR_TENSOR_MAP;
-  const int cl = 2 * cpad / 128, tiles = ls90::tiles(s_out, log_nt);
-  const bool two = log_nt > 7;
-  if (out_bf16)
-    return ls90::launch(two ? ls_planes_v1_kernel<__nv_bfloat16, 2>
-                            : ls_planes_v1_kernel<__nv_bfloat16, 1>,
-                        cl, tiles, (cudaStream_t)stream, ma, mb,
-                        (__nv_bfloat16*)hr, (__nv_bfloat16*)hi, s_out, nt,
-                        log_nt, cpad, cp, fft);
-  return ls90::launch(two ? ls_planes_v1_kernel<float, 2>
-                          : ls_planes_v1_kernel<float, 1>,
-                      cl, tiles, (cudaStream_t)stream, ma, mb, (float*)hr,
-                      (float*)hi, s_out, nt, log_nt, cpad, cp, fft);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case 0:
+      return launch_v1<float, false>(ma, mb, hr, hi, s_out, nt, log_nt, cpad,
+                                     cp, fft, st);
+    case 1:
+      return launch_v1<__nv_bfloat16, false>(ma, mb, hr, hi, s_out, nt,
+                                             log_nt, cpad, cp, fft, st);
+    case 2:
+      return launch_v1<float, true>(ma, mb, hr, hi, s_out, nt, log_nt, cpad,
+                                    cp, fft, st);
+    default:
+      return launch_v1<__nv_bfloat16, true>(ma, mb, hr, hi, s_out, nt,
+                                            log_nt, cpad, cp, fft, st);
+  }
 }
 
 const char* ls_planes_v1_error_string(int e) {

@@ -47,6 +47,10 @@
 // bytes, and the kernel takes twice as long (PERF.md). The variants are
 // template parameters of one epilogue (V2Epi<T, SSQ>); the float32
 // variant without sums is the store of the earlier single-variant kernel.
+//
+// Float32 planes run the float32 mode (ls_planes_v2_f32_kernel on
+// ls90::ls_body_f32, the same stores): 268 MB of f32 input at the bench
+// shape, bound 0.153 ms with the f32 store.
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
@@ -190,56 +194,95 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
   ls90::ls_body<NH>(&ma, &mb, S, log_loc, fft, cp, epi);
 }
 
-template <class T, bool SSQ>
+// The float32 mode: float32 planes and the split float32 constants, the
+// DFT product at float32 accuracy (ls90::ls_body_f32); the same stores.
+template <class T, bool SSQ, int NH>
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_planes_v2_f32_kernel(const __grid_constant__ CUtensorMap ma,
+                            const __grid_constant__ CUtensorMap mb,
+                            T* __restrict__ out, float* __restrict__ ssq,
+                            int S, int nt, int log_loc, int rank, int C,
+                            int cp, int fft) {
+  V2Epi<T, SSQ> epi{out, ssq, S, nt, log_loc, rank, C,
+                    64 * (int)sm90::cluster_rank()};
+  ls90::ls_body_f32<NH>(&ma, &mb, S, log_loc, fft, cp, epi);
+}
+
+template <class T, bool SSQ, bool F32>
 int launch_v2(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
               void* ssq, int S, int nt, int log_loc, int rank, int C,
               int cp, int fft, int cpad, cudaStream_t stream) {
-  auto kernel = log_loc > 7 ? ls_planes_v2_kernel<T, SSQ, 2>
-                            : ls_planes_v2_kernel<T, SSQ, 1>;
-  return ls90::launch(kernel, 2 * cpad / 128,
-                      ls90::tiles(S, log_loc), stream, ma, mb, (T*)out,
-                      (float*)ssq, S, nt, log_loc, rank, C, cp, fft);
+  const int cl = 2 * cpad / 128, tiles = ls90::tiles(S, log_loc);
+  if constexpr (F32) {
+    auto kernel = log_loc > 7 ? ls_planes_v2_f32_kernel<T, SSQ, 2>
+                              : ls_planes_v2_f32_kernel<T, SSQ, 1>;
+    return ls90::launch<ls90::F_SMEM_BYTES>(kernel, cl, tiles, stream, ma,
+                                            mb, (T*)out, (float*)ssq, S, nt,
+                                            log_loc, rank, C, cp, fft);
+  } else {
+    auto kernel = log_loc > 7 ? ls_planes_v2_kernel<T, SSQ, 2>
+                              : ls_planes_v2_kernel<T, SSQ, 1>;
+    return ls90::launch(kernel, cl, tiles, stream, ma, mb, (T*)out,
+                        (float*)ssq, S, nt, log_loc, rank, C, cp, fft);
+  }
+}
+
+template <bool F32>
+int launch_v2_mode(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
+                   void* ssq, int S, int nt, int log_loc, int rank, int C,
+                   int cp, int fft, int cpad, int store, cudaStream_t st) {
+  switch (store) {
+    case 0:
+      return launch_v2<float, false, F32>(ma, mb, out, ssq, S, nt, log_loc,
+                                          rank, C, cp, fft, cpad, st);
+    case 1:
+      return launch_v2<__nv_bfloat16, false, F32>(ma, mb, out, ssq, S, nt,
+                                                  log_loc, rank, C, cp, fft,
+                                                  cpad, st);
+    case 2:
+      return launch_v2<float, true, F32>(ma, mb, out, ssq, S, nt, log_loc,
+                                         rank, C, cp, fft, cpad, st);
+    case 3:
+      return launch_v2<__nv_bfloat16, true, F32>(ma, mb, out, ssq, S, nt,
+                                                 log_loc, rank, C, cp, fft,
+                                                 cpad, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// planes (2, S, loc*sym_len) bf16, the rank's contiguous symbols, 16-byte
-// aligned; bt (2*cpad, 2*fft) bf16, the permuted K-major constants
-// (fused_ls.py::ls_sm90_constants); out (2, S, nt, C), bf16 when mode
-// bit 0 is set, else f32; with mode bit 1, ssq (tiles(S, log2 loc), 2, C)
-// f32, else unused. Full mode: loc = nt, rank = 0. loc a power of 2 <=
-// 256, fft % 64 == 0, fft <= 256, sym_len % 8 == 0, cpad 128, 256 or
-// 512. Returns the CUDA error code of the launch (or
-// sm90::ERR_TENSOR_MAP).
+// planes (2, S, loc*sym_len), the rank's contiguous symbols, 16-byte
+// aligned: bf16 with bt (2*cpad, 2*fft) bf16, the permuted K-major
+// constants, or with mode bit 2 f32 with bt (2, 2*cpad, 2*fft) f32, their
+// split TF32 high and low parts (fused_ls.py::ls_sm90_constants); out
+// (2, S, nt, C), bf16 when mode bit 0 is set, else f32; with mode bit 1,
+// ssq (tiles(S, log2 loc), 2, C) f32, else unused. Full mode: loc = nt,
+// rank = 0. loc a power of 2 <= 256, fft % 64 == 0, fft <= 256, sym_len
+// % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of the
+// launch (or sm90::ERR_TENSOR_MAP).
 int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
                         void* ssq, int S, int nt, int loc, int rank, int C,
                         int sym_len, int cp, int fft, int cpad, int mode,
                         void* stream) {
   int log_loc = 0;
   while ((1 << log_loc) < loc) ++log_loc;
-  if (log_loc > 8) return (int)cudaErrorInvalidValue;
+  if (log_loc > 8 || mode < 0 || mode > 7) return (int)cudaErrorInvalidValue;
+  const bool f32 = mode & 4;
   CUtensorMap ma, mb;
-  if (ls90::make_maps(&ma, &mb, planes, bt, S, log_loc, sym_len, fft, cpad))
+  if (f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_loc, sym_len,
+                                fft, cpad)
+          : ls90::make_maps(&ma, &mb, planes, bt, S, log_loc, sym_len, fft,
+                            cpad))
     return sm90::ERR_TENSOR_MAP;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (mode) {
-    case 0:
-      return launch_v2<float, false>(ma, mb, out, ssq, S, nt, log_loc, rank,
-                                     C, cp, fft, cpad, st);
-    case 1:
-      return launch_v2<__nv_bfloat16, false>(ma, mb, out, ssq, S, nt,
-                                             log_loc, rank, C, cp, fft, cpad,
-                                             st);
-    case 2:
-      return launch_v2<float, true>(ma, mb, out, ssq, S, nt, log_loc, rank,
-                                    C, cp, fft, cpad, st);
-    case 3:
-      return launch_v2<__nv_bfloat16, true>(ma, mb, out, ssq, S, nt, log_loc,
-                                            rank, C, cp, fft, cpad, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (f32)
+    return launch_v2_mode<true>(ma, mb, out, ssq, S, nt, log_loc, rank, C,
+                                cp, fft, cpad, mode & 3, st);
+  return launch_v2_mode<false>(ma, mb, out, ssq, S, nt, log_loc, rank, C, cp,
+                               fft, cpad, mode & 3, st);
 }
 
 const char* ls_planes_v2_error_string(int e) {

@@ -23,8 +23,10 @@ from mamimo_tpu_torch.ops.kernels.fused_ls import (  # noqa: F401
     ls_sm90_constants,
     ls_sm90_row_order,
     ls_v2_to_complex,
+    tf32_split,
 )
 from mamimo_tpu_torch.ops.kernels.int8_mm import (  # noqa: F401
+    matmul_float,
     matmul_int8,
     matmul_pallas,
 )

@@ -5,6 +5,12 @@ per-pair ``ls_estimate_pallas``). The three compute one GEMM and
 Walsh–Hadamard despread on the Hopper body ``csrc/ls_sm90.cuh`` and
 differ in the output form; all take the K-major constants of
 ``ls_sm90_constants`` (``LsSm90Constants``) and refuse any other kind.
+The input's dtype picks the kernels' mode, as it picks the TPU kernels'
+product type: bfloat16 planes run the bf16 product (bf16 constants),
+float32 planes (complex64 rx for the per-pair kernel) the float32 mode,
+the same product at float32 accuracy from three TF32 products
+(``ls_sm90_constants(cfg, device, torch.float32)``: the constants split
+into TF32 high and low parts). No wrapper casts float32 input to bf16.
 
 On a CUDA tensor ``ls_planes_v2``, ``ls_planes_v1`` and
 ``ls_estimate_pallas`` launch their kernel; on a CPU tensor they run the
@@ -79,17 +85,33 @@ def ls_v2_to_complex(cfg: SimConfig, h: torch.Tensor, s: int) -> torch.Tensor:
     return ls_raw_to_complex(cfg, h[:, :cp_], h[:, cp_:], s)
 
 
-def ls_kernel_constants(cfg: SimConfig, device=None) -> torch.Tensor:
-    """The DFT-select matrix in real form, (2·fft, 2·Cp) bf16:
-    [[Ar, Ai], [-Ai, Ar]], rows over the fft samples only (the kernels
-    skip the CP by coordinate), so that [xr | xi] @ it = [zr | zi]. No
-    kernel takes it: it is the source of ``ls_sm90_constants``, the
-    kernels' layout."""
+def ls_kernel_constants(cfg: SimConfig, device=None,
+                        dtype=torch.bfloat16) -> torch.Tensor:
+    """The DFT-select matrix in real form, (2·fft, 2·Cp) in ``dtype``
+    (bfloat16 or float32): [[Ar, Ai], [-Ai, Ar]], rows over the fft
+    samples only (the kernels skip the CP by coordinate), so that
+    [xr | xi] @ it = [zr | zi]. No kernel takes it: it is the source of
+    ``ls_sm90_constants``, the kernels' layout."""
     b, _ = ls_planes_pallas_v2_constants(cfg, 1)
     cp_ = b.shape[1] // 2
     top = b[cfg.cp_length:]                            # xr rows: [Ar | Ai]
     bot = torch.cat([-top[:, cp_:], top[:, :cp_]], 1)  # xi rows: [-Ai | Ar]
-    return torch.cat([top, bot]).to(device=device, dtype=torch.bfloat16)
+    return torch.cat([top, bot]).to(device=device, dtype=dtype)
+
+
+def tf32_split(t: torch.Tensor) -> torch.Tensor:
+    """float32 t as (hi, lo) stacked on a new first axis, both TF32
+    values (the low 13 bits zero): hi = t rounded to TF32 (to nearest,
+    ties away, as ``cvt.rna.tf32.f32``), lo = t − hi (exact) rounded the
+    same way; hi + lo holds 22 of t's 24 bits. The kernels' float32
+    mode (csrc/gemm_sm90.cuh, ``split_tf32``) takes a·b as hi·hi + hi·lo
+    + lo·hi."""
+    def rna(x):
+        u = x.contiguous().view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(t.float())
+    return torch.stack([hi, rna(t.float() - hi)])
 
 
 def ls_sm90_row_order(cpad: int) -> np.ndarray:
@@ -109,10 +131,12 @@ def ls_sm90_row_order(cpad: int) -> np.ndarray:
 @dataclass(frozen=True)
 class LsSm90Constants:
     """The constants of the Hopper LS kernels (``csrc/ls_sm90.cuh``):
-    ``bt`` (2·Cp, 2·fft) bfloat16, Bᵀ K-major with its rows in
-    ``ls_sm90_row_order``. A type of its own, so that the (2·fft, 2·Cp)
-    matrix of ``ls_kernel_constants`` (the same shape at BS32) never
-    reaches a kernel."""
+    ``bt`` Bᵀ K-major with its rows in ``ls_sm90_row_order``, (2·Cp,
+    2·fft) bfloat16 for bf16 input, or for float32 input (2, 2·Cp,
+    2·fft) float32, its TF32 high and low parts (``tf32_split``). A type
+    of its own, so that the (2·fft, 2·Cp) matrix of
+    ``ls_kernel_constants`` (the same shape at BS32) never reaches a
+    kernel."""
 
     bt: torch.Tensor
 
@@ -120,41 +144,56 @@ class LsSm90Constants:
         return LsSm90Constants(self.bt.to(device))
 
 
-def ls_sm90_constants(cfg: SimConfig, device=None) -> LsSm90Constants:
+def ls_sm90_constants(cfg: SimConfig, device=None,
+                      dtype=torch.bfloat16) -> LsSm90Constants:
     """The constants of the LS kernels (``ls_planes_v2``,
-    ``ls_planes_v1``, ``ls_pair_kernel``) on CUDA:
+    ``ls_planes_v1``, ``ls_pair_kernel``) on CUDA for input of ``dtype``:
     ``ls_kernel_constants(cfg)`` transposed to K-major and its rows
-    permuted by ``ls_sm90_row_order``; made once per caller."""
-    b = ls_kernel_constants(cfg)
+    permuted by ``ls_sm90_row_order``, in bfloat16, or for float32 input
+    the float32 matrix split into its TF32 high and low parts (2, 2·Cp,
+    2·fft); made once per caller."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the LS kernels take bfloat16 or float32 input, "
+                        f"got {dtype}")
+    b = ls_kernel_constants(cfg, dtype=dtype)
     order = torch.from_numpy(ls_sm90_row_order(b.shape[1] // 2))
-    return LsSm90Constants(b.T[order].contiguous().to(device))
+    bt = b.T[order].contiguous()
+    if dtype == torch.float32:
+        bt = tf32_split(bt)
+    return LsSm90Constants(bt.to(device))
 
 
-def _sm90_consts(cfg: SimConfig, consts, device, who: str
+def _sm90_consts(cfg: SimConfig, consts, device, dtype, who: str
                  ) -> LsSm90Constants:
-    """consts, or ``ls_sm90_constants`` built now when it is None; raises
-    TypeError for any other kind of constants."""
+    """consts, or ``ls_sm90_constants`` for input of ``dtype`` built now
+    when it is None; raises TypeError for any other kind of constants."""
     if consts is None:
-        return ls_sm90_constants(cfg, device)
+        return ls_sm90_constants(cfg, device, dtype)
     if not isinstance(consts, LsSm90Constants):
-        raise TypeError(f"{who} takes ls_sm90_constants(cfg, device) (Bᵀ, "
-                        f"K-major, rows permuted), got {type(consts).__name__}"
-                        f"; no kernel reads the (2·fft, 2·Cp) matrix of "
-                        f"ls_kernel_constants")
+        raise TypeError(f"{who} takes ls_sm90_constants(cfg, device, dtype) "
+                        f"(Bᵀ, K-major, rows permuted), got "
+                        f"{type(consts).__name__}; no kernel reads the "
+                        f"(2·fft, 2·Cp) matrix of ls_kernel_constants")
     return consts
 
 
 def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
                          consts: LsSm90Constants,
                          nsym_in: int | None = None) -> None:
-    """Raise unless the LS kernels take these operands: planes of
-    ``nsym_in`` symbols per sample (default num_tx, the whole preamble)
-    and the constants of ``ls_sm90_constants``."""
+    """Raise unless the LS kernels take these operands: bfloat16 or
+    float32 planes of ``nsym_in`` symbols per sample (default num_tx, the
+    whole preamble) and the constants of ``ls_sm90_constants`` for that
+    dtype."""
     nt = cfg.num_tx
     length = (nsym_in or nt) * cfg.sym_len
     mat = consts.bt
-    if planes.dtype != torch.bfloat16 or mat.dtype != torch.bfloat16:
-        raise TypeError("the LS kernel takes bfloat16 planes and constants")
+    if planes.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the LS kernels take bfloat16 or float32 planes, "
+                        f"got {planes.dtype}")
+    if mat.dtype != planes.dtype:
+        raise TypeError(f"{str(planes.dtype)[6:]} planes take "
+                        f"ls_sm90_constants(cfg, device, {planes.dtype}), "
+                        f"got {str(mat.dtype)[6:]} constants")
     if planes.dim() != 3 or planes.shape[0] != 2 \
             or planes.shape[2] != length:
         raise ValueError(f"planes must be (2, S, {length}), "
@@ -164,6 +203,8 @@ def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
                          f"{planes.device}")
     cp_, fft = _round_up(cfg.num_carriers, 128), cfg.fft_length
     want = (2 * cp_, 2 * fft)
+    if mat.dtype == torch.float32:
+        want = (2,) + want                             # TF32 hi and lo
     if tuple(mat.shape) != want:
         raise ValueError(f"kernel constants must be {want}, got "
                          f"{tuple(mat.shape)}")
@@ -234,13 +275,14 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
     """LS estimate of every (sample, tx, carrier) from flat planes.
 
     Args:
-      planes: (2, S, len_ltf), float32 or bfloat16. On CUDA float32
-        planes are cast once to bfloat16, the kernel's input: the kernel
-        computes at the bf16-input precision (about −58 dB NMSE against
-        the float32 LS, PERF.md). With ``seq_shard``, rank i's contiguous
-        symbols (2, S, loc·sym_len), loc = num_tx / n.
-      consts: CUDA only, ``ls_sm90_constants(cfg, device)`` (any other
-        kind raises TypeError); built per call when omitted.
+      planes: (2, S, len_ltf), float32 or bfloat16; the dtype picks the
+        kernel's mode: bfloat16 the bf16 product, float32 the float32
+        mode (float32 accuracy, no cast to bf16). With ``seq_shard``,
+        rank i's contiguous symbols (2, S, loc·sym_len), loc = num_tx /
+        n.
+      consts: CUDA only, ``ls_sm90_constants(cfg, device, planes.dtype)``
+        (any other kind, or another dtype's, raises TypeError); built
+        per call when omitted.
       seq_shard: (i, n) — return rank i of n's PARTIAL despread of its
         symbols (the rectangular K of the TPU kernel's sequence mode);
         the sum of the n partials is the estimate.
@@ -270,9 +312,8 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
                          f"got {tuple(planes.shape)}")
     if not on_cuda(planes):
         return _ls_v2_plain(cfg, planes, seq_shard, out_dtype, with_ssq)
-    consts = _sm90_consts(cfg, consts, planes.device, "ls_planes_v2")
-    if planes.dtype == torch.float32:
-        planes = planes.to(torch.bfloat16)
+    consts = _sm90_consts(cfg, consts, planes.device, planes.dtype,
+                          "ls_planes_v2")
     planes = tma_operand(planes)
     _check_kernel_shapes(cfg, planes, consts, loc)
     s = planes.shape[1]
@@ -285,20 +326,23 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
     if s == 0:
         return result
     lib = _ls_lib()
-    mode = int(out_dtype == torch.bfloat16) | 2 * int(with_ssq)
+    mode = int(out_dtype == torch.bfloat16) | 2 * int(with_ssq) \
+        | 4 * int(planes.dtype == torch.float32)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_planes_v2_launch(
             planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(),
             ssq.data_ptr() if with_ssq else None, s, cfg.num_tx, loc, rank,
             cfg.num_carriers, cfg.sym_len, cfg.cp_length, cfg.fft_length,
-            consts.bt.shape[0] // 2, mode, stream)
+            consts.bt.shape[-2] // 2, mode, stream)
     _build.check(rc, lib, "ls_planes_v2_error_string", "ls_planes_v2")
     ls_planes_v2.launches += 1
+    ls_planes_v2.launches_f32 += planes.dtype == torch.float32
     return result
 
 
-ls_planes_v2.launches = 0
+# launches of the kernel, and of those the float32 mode's
+ls_planes_v2.launches = ls_planes_v2.launches_f32 = 0
 
 
 def _ls_lib() -> ctypes.CDLL:
@@ -335,22 +379,23 @@ def ls_planes_v1(cfg: SimConfig, planes: torch.Tensor,
     row s·num_tx + j, lane c; pad rows and pad lanes are zero.
 
     Args:
-      planes: (2, S, len_ltf) — bfloat16 on CUDA (the kernel's input);
-        float32 or bfloat16 on the CPU.
-      consts: CUDA only, ``ls_sm90_constants(cfg, device)`` (any other
-        kind raises TypeError); built per call when omitted.
+      planes: (2, S, len_ltf), bfloat16 (the bf16 product) or float32
+        (the float32 mode).
+      consts: CUDA only, ``ls_sm90_constants(cfg, device, planes.dtype)``
+        (any other kind raises TypeError); built per call when omitted.
     """
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
     if not on_cuda(planes):
         return _ls_v1_plain(cfg, planes, block_samples, out_dtype)
-    consts = _sm90_consts(cfg, consts, planes.device, "ls_planes_v1")
+    consts = _sm90_consts(cfg, consts, planes.device, planes.dtype,
+                          "ls_planes_v1")
     planes = tma_operand(planes)
     _check_kernel_shapes(cfg, planes, consts)
     s = planes.shape[1]
     s_out = _round_up(s, block_samples)
-    cp_ = consts.bt.shape[0] // 2
+    cp_ = consts.bt.shape[-2] // 2
     hr, hi = (torch.empty((s_out * cfg.num_tx, cp_), dtype=out_dtype,
                           device=planes.device) for _ in range(2))
     if s == 0:
@@ -361,37 +406,47 @@ def ls_planes_v1(cfg: SimConfig, planes: torch.Tensor,
         rc = lib.ls_planes_v1_launch(
             planes.data_ptr(), consts.bt.data_ptr(), hr.data_ptr(),
             hi.data_ptr(), s, s_out, cfg.num_tx, cfg.sym_len, cfg.cp_length,
-            cfg.fft_length, cp_, int(out_dtype == torch.bfloat16), stream)
+            cfg.fft_length, cp_, int(out_dtype == torch.bfloat16)
+            | 2 * int(planes.dtype == torch.float32), stream)
     _build.check(rc, lib, "ls_planes_v1_error_string", "ls_planes_v1")
     ls_planes_v1.launches += 1
+    ls_planes_v1.launches_f32 += planes.dtype == torch.float32
     return hr, hi
 
 
-ls_planes_v1.launches = 0
+ls_planes_v1.launches = ls_planes_v1.launches_f32 = 0
 
 
 def ls_planes_pallas(cfg: SimConfig, planes: torch.Tensor,
                      consts: LsSm90Constants | None = None, *,
                      block_samples: int = 8, raw: bool = False,
-                     out_dtype=None):
+                     as_planes: bool = False, out_dtype=None):
     """LS estimation from flat canonical planes through the v1 kernel
-    (the port of the JAX ``ls_planes_pallas``; its ``as_planes`` form has
-    no caller in the port and is not ported).
+    (the port of the JAX ``ls_planes_pallas``).
 
     Args:
-      planes: (2, S, len_ltf); bfloat16 on CUDA.
-      consts: CUDA only, ``ls_sm90_constants(cfg, device)``.
+      planes: (2, S, len_ltf), bfloat16 (the bf16 product) or float32
+        (the float32 mode).
+      consts: CUDA only, ``ls_sm90_constants(cfg, device, planes.dtype)``.
       raw: return the kernel's padded (hr, hi) untouched — the serving
         form (see ``ls_planes_v1``).
+      as_planes: return the dense (2, S, num_tx, num_carriers) float32
+        planes ([0] real, [1] imaginary) instead of complex (JAX's
+        ``as_planes``).
       out_dtype: float32 (default) or bfloat16 storage of (hr, hi).
 
     Returns:
-      (S, num_tx, num_carriers) complex64 rx-major, or the raw (hr, hi).
+      (S, num_tx, num_carriers) complex64 rx-major, the planes, or the
+      raw (hr, hi).
     """
     hr, hi = ls_planes_v1(cfg, planes, consts, block_samples=block_samples,
                           out_dtype=out_dtype or torch.float32)
     if raw:
         return hr, hi
+    if as_planes:
+        nt, c, s = cfg.num_tx, cfg.num_carriers, planes.shape[1]
+        return torch.stack([h[:s * nt, :c].reshape(s, nt, c).float()
+                            for h in (hr, hi)])
     return ls_raw_to_complex(cfg, hr, hi, planes.shape[1])
 
 
@@ -408,23 +463,27 @@ def _ls_v1_lib() -> ctypes.CDLL:
 # per-pair LS on time-major complex preambles
 # ----------------------------------------------------------------------
 
-def pair_planes(rx: torch.Tensor) -> torch.Tensor:
+def pair_planes(rx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Time-major complex rx (B, len_ltf, num_rx) as the per-pair
-    kernel's bf16 planes (2, B·num_rx, len_ltf), sample b·num_rx + r: one
-    strided read of rx, one write."""
+    kernel's planes (2, B·num_rx, len_ltf) in ``dtype`` (bfloat16 for
+    the bf16 product, float32 for the float32 mode), sample b·num_rx +
+    r: one strided read of rx, one write."""
     b, L, nrx = rx.shape
-    out = torch.empty((2, b, nrx, L), dtype=torch.bfloat16, device=rx.device)
+    out = torch.empty((2, b, nrx, L), dtype=dtype, device=rx.device)
     out.copy_(torch.view_as_real(rx).permute(3, 0, 2, 1))
     return out.view(2, b * nrx, L)
 
 
 def ls_pair_kernel(cfg: SimConfig, planes: torch.Tensor, num_rx: int,
                    consts: LsSm90Constants | None = None) -> torch.Tensor:
-    """Launch the per-pair LS kernel (CUDA only) on bf16 pair planes
-    (2, B·num_rx, len_ltf) from ``pair_planes``, with the constants of
-    ``ls_sm90_constants`` (built per call when omitted; any other kind
-    raises TypeError). Returns (B, C, num_tx, num_rx) complex64."""
-    consts = _sm90_consts(cfg, consts, planes.device, "ls_pair_kernel")
+    """Launch the per-pair LS kernel (CUDA only) on pair planes (2,
+    B·num_rx, len_ltf) from ``pair_planes``, bfloat16 (the bf16 product)
+    or float32 (the float32 mode), with the constants of
+    ``ls_sm90_constants`` for that dtype (built per call when omitted;
+    any other kind raises TypeError). Returns (B, C, num_tx, num_rx)
+    complex64."""
+    consts = _sm90_consts(cfg, consts, planes.device, planes.dtype,
+                          "ls_pair_kernel")
     planes = tma_operand(planes)
     _check_kernel_shapes(cfg, planes, consts)
     s = planes.shape[1]
@@ -440,13 +499,15 @@ def ls_pair_kernel(cfg: SimConfig, planes: torch.Tensor, num_rx: int,
         rc = lib.ls_pair_launch(
             planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(), s,
             num_rx, cfg.num_tx, cfg.num_carriers, cfg.sym_len, cfg.cp_length,
-            cfg.fft_length, consts.bt.shape[0] // 2, stream)
+            cfg.fft_length, consts.bt.shape[-2] // 2,
+            int(planes.dtype == torch.float32), stream)
     _build.check(rc, lib, "ls_pair_error_string", "ls_pair")
     ls_pair_kernel.launches += 1
+    ls_pair_kernel.launches_f32 += planes.dtype == torch.float32
     return out
 
 
-ls_pair_kernel.launches = 0
+ls_pair_kernel.launches = ls_pair_kernel.launches_f32 = 0
 
 
 def ls_estimate_pallas(cfg: SimConfig, rx: torch.Tensor, *,
@@ -460,15 +521,16 @@ def ls_estimate_pallas(cfg: SimConfig, rx: torch.Tensor, *,
       rx: (B, len_ltf, num_rx) complex64.
       pairs_per_block, interpret: accepted for the JAX signature and
         ignored (the CUDA kernel picks its own tiling).
-      consts: CUDA only, ``ls_sm90_constants(cfg, device)``; built per
-        call when omitted.
+      consts: CUDA only, ``ls_sm90_constants(cfg, device,
+        torch.float32)``; built per call when omitted.
 
     Returns:
       (B, num_carriers, num_tx, num_rx) complex64.
 
-    CUDA: one layout pass to bf16 pair planes (``pair_planes``), then the
-    kernel ``csrc/ls_pair.cu`` (the bf16 input costs about −50 dB against
-    float32). CPU: the float32 plain version, ``ls_estimate_matmul``.
+    CUDA: one layout pass to float32 pair planes (``pair_planes``), then
+    the kernel ``csrc/ls_pair.cu`` in its float32 mode, as JAX's kernel
+    computes in float32. CPU: the float32 plain version,
+    ``ls_estimate_matmul``.
     """
     del pairs_per_block, interpret
     if not on_cuda(rx):
@@ -476,13 +538,14 @@ def ls_estimate_pallas(cfg: SimConfig, rx: torch.Tensor, *,
     if rx.dtype != torch.complex64:
         raise TypeError(f"ls_estimate_pallas takes complex64 rx, got "
                         f"{rx.dtype}")
-    return ls_pair_kernel(cfg, pair_planes(rx), rx.shape[2], consts)
+    return ls_pair_kernel(cfg, pair_planes(rx, torch.float32), rx.shape[2],
+                          consts)
 
 
 def _ls_pair_lib() -> ctypes.CDLL:
     lib = _build.library("ls_pair")
     fn = lib.ls_pair_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     return lib

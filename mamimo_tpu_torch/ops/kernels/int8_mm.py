@@ -1,20 +1,29 @@
-"""int8 GEMM with int32 accumulation: wrapper of the hand-written CUDA
-kernel ``csrc/int8_mm.cu`` (the counterpart of
-``mamimo_tpu/ops/pallas/int8_mm.py::matmul_pallas``, int8 mode; TMA and
-s8 wgmma, a resident slab of B for K <= 1024, a ring of both operands
-above).
+"""The GEMM ``matmul_pallas`` (the counterpart of
+``mamimo_tpu/ops/pallas/int8_mm.py::matmul_pallas``) in its three
+modes, on hand-written CUDA kernels:
 
-``matmul_int8(a, bt)`` takes B transposed, (N, K), which is the kernel's
-operand layout (wgmma reads 8-bit operands only K-major); the int8
-serving weights carry that copy
-(``models/quant.py::prepare_int8_serving``). ``matmul_pallas(a, b)``
-keeps the JAX signature, B (K, N), and transposes per call.
+- int8 → int32: ``csrc/int8_mm.cu`` (TMA and s8 wgmma, a resident slab
+  of B for K <= 1024, a ring of both operands above), through
+  ``matmul_int8(a, bt)``, which takes B transposed, (N, K), the
+  kernel's operand layout (wgmma reads 8-bit operands only K-major); the
+  int8 serving weights carry that copy
+  (``models/quant.py::prepare_int8_serving``);
+- bf16 → f32: ``csrc/matmul.cu`` (``gemm_sm90.cuh``'s persistent wgmma
+  walk);
+- f32 → f32: ``csrc/matmul.cu`` at float32 accuracy from three TF32
+  products a k-slice (3xTF32, ``gemm_sm90.cuh::wgmma_3xtf32``).
 
-The plain version multiplies in float64 and converts to int32. That is
-exact: every product is at most 2^14 in magnitude, a sum over K < 2^17
-terms stays inside int32, and float64 holds every integer below 2^53.
-(``torch.matmul`` of two int8 tensors returns int8 on the CPU and wraps
-silently; CUDA has no integer matmul.) It runs on either device.
+``matmul_pallas(a, b)`` keeps the JAX signature, B (K, N), and
+transposes per call; ``out_dtype`` rounds the result as JAX's
+``.astype(o_ref.dtype)`` does.
+
+The plain versions: for int8 a float64 product converted to int32. That
+is exact: every product is at most 2^14 in magnitude, a sum over K <
+2^17 terms stays inside int32, and float64 holds every integer below
+2^53. (``torch.matmul`` of two int8 tensors returns int8 on the CPU and
+wraps silently; CUDA has no integer matmul.) For bf16 and f32 a float32
+product of the float32 operands with TF32 off. Both run on either
+device.
 """
 
 from __future__ import annotations
@@ -24,15 +33,16 @@ import ctypes
 import torch
 
 from mamimo_tpu_torch.ops.kernels import _build
-from mamimo_tpu_torch.ops.kernels.util import on_cuda
+from mamimo_tpu_torch.ops.kernels.util import on_cuda, tma_operand
+from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
 _MAX_K = 1 << 17
 
 
 def _check_int8(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.dtype != torch.int8 or b.dtype != torch.int8:
-        raise TypeError("only the int8 mode is ported: int8 operands, int32 "
-                        f"result; got {a.dtype} and {b.dtype}")
+        raise TypeError("the int8 mode takes int8 operands (int32 result); "
+                        f"got {a.dtype} and {b.dtype}")
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"2-D operands expected, got {tuple(a.shape)} and "
                          f"{tuple(b.shape)}")
@@ -80,13 +90,92 @@ def matmul_int8(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 matmul_int8.launches = 0
 
 
-def matmul_pallas(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B with A (M, K) and B (K, N) int8 → int32 (the JAX
-    ``matmul_pallas`` in int8 mode; its row block is the TPU's tiling
-    and has no counterpart here). Its bf16 and f32 modes are not ported:
-    other dtypes raise TypeError."""
-    _check_int8(a, b)
-    return matmul_int8(a, b.T.contiguous())
+def _matmul_float_plain(a: torch.Tensor, b: torch.Tensor,
+                        out_dtype=None) -> torch.Tensor:
+    """a (M, K) @ b (K, N), bf16 or float32 operands: the float32 product
+    (TF32 off on the card), stored in ``out_dtype`` (default float32)."""
+    with full_f32_matmul():
+        return (a.float() @ b.float()).to(out_dtype or torch.float32)
+
+
+def matmul_float(a: torch.Tensor, bt: torch.Tensor,
+                 out_dtype=None) -> torch.Tensor:
+    """C = A @ Bt.T: a (M, K), bt (N, K), both bfloat16 or both float32,
+    float32 accumulation → (M, N) in ``out_dtype`` (float32 default, or
+    bfloat16: the float32 result rounded to nearest even).
+
+    CUDA: the hand-written kernels of ``csrc/matmul.cu`` (bf16: K % 8 ==
+    0; float32: K % 4 == 0, float32 accuracy); CPU: the plain version."""
+    if a.dtype not in (torch.bfloat16, torch.float32) or bt.dtype != a.dtype:
+        raise TypeError(f"matmul_float takes two bfloat16 or two float32 "
+                        f"operands, got {a.dtype} and {bt.dtype}")
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    if a.dim() != 2 or bt.dim() != 2 or bt.shape[1] != a.shape[1]:
+        raise ValueError(f"a (M, K) and bt (N, K) expected, got "
+                         f"{tuple(a.shape)} and {tuple(bt.shape)}")
+    m, k = a.shape
+    n = bt.shape[0]
+    if not on_cuda(a, bt):
+        return _matmul_float_plain(a, bt.T, out_dtype)
+    f32 = a.dtype == torch.float32
+    if k % (4 if f32 else 8):
+        raise ValueError(f"the {str(a.dtype)[6:]} kernel needs K % "
+                         f"{4 if f32 else 8} == 0 (16-byte rows), got "
+                         f"K = {k}")
+    a, bt = tma_operand(a), tma_operand(bt)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    lib = _float_lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_float_launch(a.data_ptr(), bt.data_ptr(), out.data_ptr(),
+                                 m, n, k, int(out_dtype == torch.bfloat16)
+                                 | 2 * int(f32), stream)
+    _build.check(rc, lib, "mm_float_error_string", "matmul_float")
+    matmul_float.launches += 1
+    matmul_float.launches_f32 += f32
+    return out
+
+
+# launches of the kernels, and of those the float32 kernel's
+matmul_float.launches = matmul_float.launches_f32 = 0
+
+
+def matmul_pallas(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 512,
+                  out_dtype=None, interpret=None) -> torch.Tensor:
+    """C = A @ B with A (M, K) and B (K, N) (the JAX ``matmul_pallas``):
+    int8 operands accumulate in int32 (``matmul_int8``), bf16 or float32
+    operands in float32 (``matmul_float``); the result is stored in
+    ``out_dtype``, by default the accumulator's type.
+
+    Args:
+      block_m, interpret: accepted for the JAX signature and ignored (the
+        TPU's row block and interpret mode have no counterpart here).
+    """
+    del block_m, interpret
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"2-D operands expected, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if a.dtype == torch.int8:
+        _check_int8(a, b)
+        out = matmul_int8(a, b.T.contiguous())
+        return out if out_dtype in (None, torch.int32) else out.to(out_dtype)
+    return matmul_float(a, b.T.contiguous(), out_dtype)
+
+
+def _float_lib() -> ctypes.CDLL:
+    lib = _build.library("matmul")
+    fn = lib.mm_float_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    return lib
 
 
 def _int8_lib() -> ctypes.CDLL:

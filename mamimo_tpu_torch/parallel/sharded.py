@@ -157,8 +157,9 @@ def sharded_ls_pallas_v2(cfg: SimConfig, mesh: Mesh, planes,
 
     Args:
       planes: (2, S, len_ltf) canonical planes (S = B·num_rx), float32
-        or bfloat16; a CUDA rank casts its float32 share once to bfloat16,
-        the kernel's input (``ls_planes_v2``).
+        or bfloat16; each CUDA rank passes its share in that dtype, which
+        picks the kernel's mode (``ls_planes_v2``: float32 planes run at
+        float32 accuracy, as JAX's kernel on float32 planes).
       mode:
         'data' — S splits over ``data_axis``; each rank runs the kernel
           on its samples; no collective;
@@ -166,9 +167,10 @@ def sharded_ls_pallas_v2(cfg: SimConfig, mesh: Mesh, planes,
           rank runs the kernel's partial-despread mode on its symbols
           (``seq_shard=(i, n)``), and the partials are summed onto the
           first rank's device (the JAX package's psum).
-      consts: CUDA ranks only, ``ls_sm90_constants(cfg, device)`` on
-        any device, copied to each rank's card; built per call when
-        omitted (a host build that costs more than the kernels).
+      consts: CUDA ranks only, ``ls_sm90_constants(cfg, device,
+        planes.dtype)`` on any device, copied to each rank's card; built
+        per call when omitted (a host build that costs more than the
+        kernels).
 
     Returns:
       (S, num_tx, num_carriers) complex64 rx-major, on the mesh's first
@@ -183,7 +185,7 @@ def sharded_ls_pallas_v2(cfg: SimConfig, mesh: Mesh, planes,
     cards = {dev for r, dev in zip(ranks, devs)
              if dev.type == "cuda" and mesh.is_local(r)}
     if cards and consts is None:
-        consts = ls_sm90_constants(cfg)
+        consts = ls_sm90_constants(cfg, dtype=planes.dtype)
     per_card = {dev: consts.to(dev) for dev in cards}
     if mode == "data":
         _one_process(mesh, "sharded_ls_pallas_v2 'data'")

@@ -12,7 +12,10 @@ timer):
 
 1. phase cuts: ``ls_planes_v2_kernel`` (full mode, and seq rank 1 of 4),
    ``ls_planes_v1_kernel`` (raw f32 and raw bf16 planes) and
-   ``ls_pair_kernel`` built with ``-DLS_CUT=<bits>`` (1 no products,
+   ``ls_pair_kernel``, and the float32 modes of ``ls_planes_v2`` and
+   ``ls_pair_kernel`` (float32 planes, the constants' TF32 parts; "no
+   products" keeps the split of the input into its TF32 parts), built
+   with ``-DLS_CUT=<bits>`` (1 no products,
    2 no despread, 4 no store; each build hashed apart in ``_build/``).
    The cut builds compute wrong answers by design and are never used
    outside this probe; the differences split each kernel's time by
@@ -21,7 +24,9 @@ timer):
    sources (``ls_v2.cu``, ``ls_v1.cu``, ``ls_pair.cu`` and their
    headers, e.g. a ``git archive`` of an earlier commit's
    ``mamimo_tpu_torch/csrc``) lie in DIR and keep the same C launch
-   functions, timed in turns (old, new, new, old) in one process, after
+   functions (their bf16 modes: an earlier design has no float32 mode;
+   the arguments each library's launch functions take are read from its
+   sources), timed in turns (old, new, new, old) in one process, after
    holding the two designs' answers to each other (NMSE, and whether
    they are bit-identical). An earlier design's kernel takes the
    (2·fft, 2·Cp) constants of ``ls_kernel_constants`` where its source
@@ -36,6 +41,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -55,16 +61,29 @@ PACKETS = 1024
 SOURCES = ("ls_v2", "ls_v1", "ls_pair")
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Argument types of the launch function of a built library."""
-    for fn, n_ptr, n_int in (("ls_planes_v2_launch", 4, 10),
-                             ("ls_planes_v1_launch", 4, 8),
-                             ("ls_pair_launch", 3, 8)):
+def _arity(src_dir: Path, name: str, fn: str) -> int:
+    """The number of parameters of launch function fn in src_dir/<name>.cu
+    (earlier designs' per-pair launch has no float32 flag)."""
+    m = re.search(rf"int {fn}\(([^)]*)\)",
+                  (src_dir / f"{name}.cu").read_text())
+    return len(m.group(1).split(","))
+
+
+def _bind(lib: ctypes.CDLL, src_dir: Path, name: str) -> ctypes.CDLL:
+    """Argument types of the launch function of a library built from
+    src_dir/<name>.cu; ``lib.pair_flag``: whether its per-pair launch
+    takes the float32 flag."""
+    lib.pair_flag = False
+    for fn, n_ptr in (("ls_planes_v2_launch", 4), ("ls_planes_v1_launch", 4),
+                      ("ls_pair_launch", 3)):
         f = getattr(lib, fn, None)
         if f is not None:
+            n = _arity(src_dir, name, fn)
             f.restype = ctypes.c_int
-            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-                + [ctypes.c_void_p]
+            f.argtypes = [ctypes.c_void_p] * n_ptr \
+                + [ctypes.c_int] * (n - n_ptr - 1) + [ctypes.c_void_p]
+            if fn == "ls_pair_launch":
+                lib.pair_flag = n == 13
     return lib
 
 
@@ -107,11 +126,13 @@ def main() -> int:
     S, L = PACKETS * nr, cfg.len_ltf
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((2, S, L), generator=g, device=dev).to(torch.bfloat16)
+    x32 = torch.randn((2, S, L), generator=g, device=dev)
+    x = x32.to(torch.bfloat16)
     lq = L // 4
     xq = x[:, :, lq:2 * lq].contiguous()       # seq rank 1 of 4
     kc_old = ls_kernel_constants(cfg, dev)
     kc_new = ls_sm90_constants(cfg, dev).bt
+    kc_f32 = ls_sm90_constants(cfg, dev, torch.float32).bt
     cpad = kc_old.shape[1] // 2
     out = torch.empty((2, S, nt, C), device=dev)
     out_p = torch.empty((PACKETS, C, nt, nr), dtype=torch.complex64,
@@ -132,12 +153,14 @@ def main() -> int:
             h[1].data_ptr(), S, S, nt, *geo[1:], int(dt == torch.bfloat16),
             stream()), "ls_planes_v1_launch")
 
-    def both(libs, consts):
-        """The five timed launches on built (ls_v2, ls_v1, ls_pair)
-        libraries, each with its output; consts[name]: the constants each
-        library takes."""
+    def both(libs, consts, f32=False):
+        """The five timed launches of the bf16 modes on built (ls_v2,
+        ls_v1, ls_pair) libraries, each with its output; consts[name]: the
+        constants each library takes. With f32 also the float32 modes of
+        ls_planes_v2 and ls_pair_kernel."""
         v2, l1, pr = libs
-        return {
+        flag = (0,) if pr.pair_flag else ()
+        fns = {
             # f32 store without sums: mode 0, no ssq buffer
             "ls_planes_v2": (lambda: check(v2.ls_planes_v2_launch(
                 x.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
@@ -153,11 +176,25 @@ def main() -> int:
                                       raw[torch.bfloat16]),
             "ls_pair_kernel": (lambda: check(pr.ls_pair_launch(
                 x.data_ptr(), consts["ls_pair"].data_ptr(), out_p.data_ptr(),
-                S, nr, nt, *geo, stream()), "ls_pair_launch"),
+                S, nr, nt, *geo, *flag, stream()), "ls_pair_launch"),
                 torch.view_as_real(out_p))}
+        if f32:
+            fns["ls_planes_v2 float32"] = (lambda: check(
+                v2.ls_planes_v2_launch(
+                    x32.data_ptr(), kc_f32.data_ptr(), out.data_ptr(), None,
+                    S, nt, nt, 0, *geo, 4, stream()),
+                "ls_planes_v2_launch (float32)"), out)
+            fns["ls_pair_kernel float32"] = (lambda: check(pr.ls_pair_launch(
+                x32.data_ptr(), kc_f32.data_ptr(), out_p.data_ptr(), S, nr,
+                nt, *geo, 1, stream()), "ls_pair_launch (float32)"),
+                torch.view_as_real(out_p))
+        return fns
+
+    csrc = ROOT / "mamimo_tpu_torch" / "csrc"
 
     def new_libs(defines=()):
-        return tuple(_bind(_build.library(n, defines)) for n in SOURCES)
+        return tuple(_bind(_build.library(n, defines), csrc, n)
+                     for n in SOURCES)
 
     k_new = dict.fromkeys(SOURCES, kc_new)
 
@@ -170,7 +207,7 @@ def main() -> int:
                       variants.values()))
     cut = {}
     for vname, defines in variants.items():
-        fns = both(new_libs(defines), k_new)
+        fns = both(new_libs(defines), k_new, f32=True)
         for kname, (fn, _) in fns.items():
             ms, clk, pwr = _time_ms(fn)
             print(f"  {kname} {vname}: {_fmt(ms, clk, pwr)}  [{card}]")
@@ -186,7 +223,8 @@ def main() -> int:
     summary["cuts"] = cut
 
     if args.old is not None:
-        old = tuple(_bind(_old_lib(args.old, n)) for n in SOURCES)
+        old = tuple(_bind(_old_lib(args.old, n), args.old, n)
+                    for n in SOURCES)
         k_old = {n: kc_new if _hopper(args.old, n) else kc_old
                  for n in SOURCES}
         fns = {"old": both(old, k_old), "new": both(new_libs(), k_new)}

@@ -166,8 +166,8 @@ def _planes(s, seed):
 def test_ls_float32_planes_give_the_bf16_answer(mode):
     """float32 planes through ls_planes_v2 and sharded_ls_pallas_v2 give
     the answer of the same values as bf16. This holds the plain versions'
-    dtype handling; the cast on the kernel branch is held by
-    test_ls_kernel_branch_casts_float32_planes."""
+    dtype handling; on the kernel branch float32 planes keep their dtype
+    (test_ls_kernel_branch_casts_float32_planes)."""
     x32 = _planes(4, seed=9)
     if mode is None:
         f = lambda x: fused_ls.ls_planes_v2(CFG, x)          # noqa: E731
@@ -188,13 +188,18 @@ class _Stop(Exception):
 def test_ls_kernel_branch_casts_float32_planes(monkeypatch, mode):
     """On the kernel branch (the wrapper's device test made to answer
     CUDA, the launch cut off at the operand check) float32 planes reach
-    the kernel as the same planes rounded to bfloat16, the first rank's
-    share where the call is sharded."""
+    the kernel as they are, float32 (its float32 mode; no cast to
+    bfloat16, as JAX's kernel computes float32 planes in float32), with
+    the float32 constants; the first rank's share where the call is
+    sharded."""
     seen = []
+
+    seen_consts = []
 
     def check_then_stop(cfg, planes, bmat, nsym_in=None):
         real_check(cfg, planes, bmat, nsym_in)
         seen.append(planes)
+        seen_consts.append(bmat.bt)
         raise _Stop
 
     real_check = fused_ls._check_kernel_shapes
@@ -202,7 +207,7 @@ def test_ls_kernel_branch_casts_float32_planes(monkeypatch, mode):
     monkeypatch.setattr(fused_ls, "_check_kernel_shapes", check_then_stop)
     x32 = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (2, 4, CFG.len_ltf)).astype(np.float32))
-    want = x32.to(BF16)
+    want = x32
     if mode is None:
         call = lambda: fused_ls.ls_planes_v2(CFG, x32)       # noqa: E731
     else:
@@ -213,5 +218,6 @@ def test_ls_kernel_branch_casts_float32_planes(monkeypatch, mode):
             else want[:, :, :CFG.len_ltf // 2]
     with pytest.raises(_Stop):
         call()
-    assert len(seen) == 1 and seen[0].dtype == BF16
+    assert len(seen) == 1 and seen[0].dtype == torch.float32
     assert torch.equal(seen[0], want)
+    assert seen_consts[0].dtype == torch.float32

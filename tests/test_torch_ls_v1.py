@@ -246,9 +246,9 @@ def test_kernel_branch_builds_sm90_constants(monkeypatch, out_dtype):
     built = []
     real = fused_ls.ls_sm90_constants
 
-    def spy(cfg, device=None):
+    def spy(cfg, device=None, dtype=torch.bfloat16):
         built.append(device)
-        return real(cfg, device)
+        return real(cfg, device, dtype)
 
     monkeypatch.setattr(fused_ls, "ls_sm90_constants", spy)
     x = torch.from_numpy(_planes()).to(torch.bfloat16)

@@ -113,13 +113,15 @@ def test_matmul_no_int8_wrap(sign):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_matmul_other_dtypes_raise(dtype):
-    """Only the int8 mode is ported: bf16 and f32 operands raise on the
-    CPU too."""
+    """The int8 GEMM raises for bf16 and f32 operands, on the CPU too;
+    matmul_pallas takes them (its bf16 and f32 modes, a float32 result;
+    tests/test_torch_f32_modes.py holds them to JAX's kernel)."""
     a, b = torch.ones((4, 32), dtype=dtype), torch.ones((32, 8), dtype=dtype)
     with pytest.raises(TypeError, match="int8"):
-        matmul_pallas(a, b)
-    with pytest.raises(TypeError, match="int8"):
         matmul_int8(a, b.T)
+    got = matmul_pallas(a, b)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.full((4, 8), 32.0))
 
 
 # ----------------------------------------------------------------------
