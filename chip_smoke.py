@@ -18,8 +18,11 @@ failure ends the run with a non-zero exit code):
                bf16 store, with or without the sums of h^2;
                ls_planes_v1_kernel, ls_pair_kernel), their float32 modes
                (ls_planes_v2_f32_kernel, ls_planes_v1_f32_kernel,
-               ls_pair_f32_kernel) and the float GEMMs (mm_bf16_kernel,
-               mm_tf32x3_kernel) run wgmma (HGMMA) and
+               ls_pair_f32_kernel), the float GEMMs (mm_bf16_kernel,
+               mm_tf32x3_kernel) and the DNN kernels' float32 modes
+               (factored_sig_proj_f32_kernel, factored_dense_f32_kernel,
+               factored_rows_tail_f32_kernel, mlp_layer1_f32_kernel,
+               mlp_tail_f32_kernel) run wgmma (HGMMA) and
                no mma.sync (HMMA), and the int8
                GEMM (int8_mm_kernel_slab, int8_mm_kernel_ring) int8
                wgmma (IGMMA) and no int8 mma.sync (IMMA);
@@ -230,6 +233,26 @@ failure ends the run with a non-zero exit code):
                = 4096 and kernel 6 at (4096, 10240) @ (10240, 1024) and
                (131072, 1024) @ (1024, 1024), rows of the kernels line
                (kernel 4's float32 mode is phase 6's pallas_full row);
+5n. f32 DNN  — BS32 models with float32 weights, hidden (1024, 1024),
+               (1024,), (1024, 1024, 1024) and (2048, 2048), served
+               through predict_all_pairs_planes_kernel (16 packets) and
+               the two-layer ones through predict_complex_pallas
+               (dot_dtype=float32, 256 rows), every float32 kernel of
+               the path counted ("<name> f32") and the served estimates
+               within -90 dB of the float32 plain model (TF32 off; the
+               bf16 mode's dB on the same weights printed beside);
+               fused_factored_planes' out_dtype=bfloat16 exactly the
+               float32 result rounded, both modes; each float32 kernel
+               (factored_sig_proj, factored_heads, factored_dense,
+               factored_rows_tail, mlp_infer_layer1, mlp_infer_tail)
+               against its plain version at S = 256, 1, 5, 65 and 3
+               heads (S*32 - 3, 1 and 65 rows for kernel 5), the ReLU
+               flips of its rows counted, and every output kernel's bf16
+               store exactly its float32 result rounded; phase 6 times
+               each float32 kernel at S = 4096 beside its plain version,
+               bound and a float32 torch.matmul / bmm (TF32 off), rows
+               of the kernels line, and the fused tail's bf16 store
+               beside its float32 one;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant); the
@@ -271,7 +294,8 @@ failure ends the run with a non-zero exit code):
                time, idle share, kernels and aten calls per step.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l and 5m and read just after
+5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l, 5m and 5n and read just
+after
 (the wrappers with a float32 mode also count its launches apart, "<name>
 f32"); estimate_full,
 pallas_ls_v2_serving_r3 and pallas_full are also traced
@@ -551,9 +575,10 @@ def int_mm_library(a, bt):
     return lambda: torch._int_mm(a, b)
 
 
-def make_model(cfg, tcfg, seed: int, device):
+def make_model(cfg, tcfg, seed: int, device, bf16_values: bool = True):
     """Glorot weights from a seeded generator, rounded to bf16 values so
-    the float32 references and the bf16 kernels share them, and a
+    the float32 references and the bf16 kernels share them (unless
+    bf16_values is False: float32 weights for the float32 modes), and a
     non-trivial BN state (so the folded affines matter)."""
     import torch
 
@@ -562,7 +587,8 @@ def make_model(cfg, tcfg, seed: int, device):
     g = torch.Generator().manual_seed(seed)
     params, bn = init_stacked(g, cfg, tcfg)
     for lyr in params["dense"] + [params["out"]]:
-        lyr["w"] = lyr["w"].to(torch.bfloat16).float()
+        if bf16_values:
+            lyr["w"] = lyr["w"].to(torch.bfloat16).float()
         lyr["b"] = 0.05 * torch.randn(lyr["b"].shape, generator=g)
     for i, b in enumerate(params["bn"]):
         b["scale"] = 0.5 + torch.rand(b["scale"].shape, generator=g)
@@ -3108,6 +3134,469 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
             "launches": counts, "rows": rows, "seconds": secs}
 
 
+# phase 5n: the float32 modes of kernels 2 and 5 (dot_dtype=float32) and
+# kernel 2's out_dtype
+F32_MODELS = ((1024, 1024), (1024,), (1024, 1024, 1024), (2048, 2048))
+F32_PACKETS = 16                   # phase 5n: BS32 requests (S = 64)
+F32_MLP_ROWS = 256                 # phase 5n: predict_complex_pallas rows
+
+
+def f32_chain_names(depth: int) -> tuple:
+    """Kernel 2's float32 kernels for a model of `depth` hidden layers:
+    the per-head rows at every depth (fused_factored_planes' routing of
+    float32 weights)."""
+    return ("factored_sig_proj f32", "factored_heads f32") \
+        + (("factored_dense f32",) if depth != 2 else ()) \
+        + (("factored_rows_tail f32",) if depth >= 2 else ())
+
+
+def dnn_f32_phase(dev, counted, require_launched) -> dict:
+    """Phase 5n: BS32 models with float32 weights (hidden F32_MODELS)
+    served through predict_all_pairs_planes_kernel, and the two-layer ones
+    through predict_complex_pallas(dot_dtype=float32), each counted
+    (every float32 kernel of the path launched in its float32 mode) and
+    within F32_LIMIT_DB of the float32 plain model (TF32 off), the bf16
+    mode's dB on the same weights printed beside; fused_factored_planes
+    with out_dtype=bfloat16 exactly the float32 result rounded. Each
+    float32 kernel of the chain against its plain version on the same
+    inputs at S = S_CHECK, 1, 5, 65 and with 3 heads (ReLU flips of the
+    rows counted: a ReLU's 0 leaves exactly the BN shift), kernel 5's at
+    S_CHECK·32 − 3, 1 and 65 rows; the bf16 stores of every output
+    kernel, both modes, exactly the float32 result rounded. Returns the
+    errors, the counts and the checked models' weights for the timing."""
+    import torch
+
+    from mamimo_tpu_torch.config import SimConfig, TrainConfig
+    from mamimo_tpu_torch.models.mlp import (
+        _factored_all_pairs,
+        plane,
+        predict_complex,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        _heads_plain,
+        _hidden_plain,
+        _out_plain,
+        _tail_plain,
+        factored_dense,
+        factored_heads,
+        factored_rows_tail,
+        factored_sig_proj,
+        factored_tail,
+        fused_factored_planes,
+        predict_all_pairs_planes_kernel,
+        prepare_factored_weights,
+    )
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import (
+        _layer1_plain,
+        _tail_plain as _mlp_tail_plain,
+        mlp_infer_layer1,
+        mlp_infer_tail,
+        predict_complex_pallas,
+        prepare_mlp_infer_weights,
+    )
+    from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    cfg = SimConfig()
+    nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+    g = torch.Generator(device=dev).manual_seed(95)
+    errs, counts, served, flips = {}, {}, {}, {}
+    print("[5n float32 DNN] float32 weights through kernels 2 and 5; "
+          "kernel 2's bf16 store")
+
+    def db_of(got, ref):
+        g64, r64 = got.double(), ref.double()
+        if g64.is_complex():
+            g64, r64 = torch.view_as_real(g64), torch.view_as_real(r64)
+        return 10 * float(torch.log10((g64 - r64).square().sum()
+                                      / r64.square().sum()))
+
+    def same(what, got, ref):
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"{what}: not identical")
+        print(f"  {what}: identical")
+
+    def relu_zero_flips(got, ref, c):
+        """Rows whose ReLU gave 0 (the value is exactly the BN shift c) in
+        one of two runs and not in the other."""
+        return int(((got == c) != (ref == c)).sum())
+
+    def chain_check(tag, prep, sp, depth):
+        """Kernel 2's float32 chain on sig_proj, each kernel against its
+        plain version on the kernel's own input; the bf16 store exactly
+        the float32 result rounded. Returns {kernel: check result}."""
+        out, fl = {}, []
+        with full_f32_matmul():
+            h = factored_heads(prep, sp)
+            ref = _heads_plain(prep, sp).view(2, -1, sp.shape[2])
+            out["factored_heads"] = check(
+                f"factored_heads f32, {tag}, vs its plain version", h, ref,
+                F32_LIMIT_DB)
+            fl.append(relu_zero_flips(h, ref, prep["c1"]))
+            for k in range(2, depth):
+                hk = factored_dense(prep, k, h)
+                ref = _hidden_plain(prep, k, h)
+                out["factored_dense"] = check(
+                    f"factored_dense f32 layer {k}, {tag}, vs its plain "
+                    f"version", hk, ref, F32_LIMIT_DB)
+                fl.append(relu_zero_flips(hk, ref, prep[f"c{k}"]))
+                h = hk
+            if depth == 1:
+                y = factored_dense(prep, 2, h, C)
+                out["factored_dense out"] = check(
+                    f"factored_dense f32 output layer, {tag}, vs its plain "
+                    f"version", y, _out_plain(prep, h, C), F32_LIMIT_DB)
+                same(f"factored_dense f32 output layer, {tag}: bf16 store "
+                     f"= the f32 result rounded",
+                     factored_dense(prep, 2, h, C, bf16), y.to(bf16))
+            else:
+                y = factored_rows_tail(prep, h, C)
+                out["factored_rows_tail"] = check(
+                    f"factored_rows_tail f32, {tag}, vs its plain version",
+                    y, _out_plain(prep, _hidden_plain(prep, depth, h), C),
+                    F32_LIMIT_DB)
+                same(f"factored_rows_tail f32, {tag}: bf16 store = the f32 "
+                     f"result rounded",
+                     factored_rows_tail(prep, h, C, bf16), y.to(bf16))
+        print(f"    ReLU flips of the rows, kernel vs plain, per layer: "
+              f"{fl}")
+        flips[tag] = fl
+        return out
+
+    for hidden in F32_MODELS:
+        t_model = time.perf_counter()
+        tcfg = TrainConfig(hidden=hidden)
+        depth = len(hidden)
+        tag = f"hidden {hidden}"
+        params, bn = make_model(cfg, tcfg, seed=80 + depth, device=dev,
+                                bf16_values=False)
+        with full_f32_matmul():
+            p32 = prepare_factored_weights(cfg, tcfg, params, bn,
+                                           dot_dtype=f32)
+            p16 = prepare_factored_weights(cfg, tcfg, params, bn)
+        # the served path: rx-major float32 planes of F32_PACKETS packets
+        rx = torch.randn((2, F32_PACKETS, nr, L), generator=g, device=dev)
+        x = rx.reshape(2, -1, L)
+        got, cnt = counted(lambda: predict_all_pairs_planes_kernel(
+            cfg, tcfg, p32, rx))
+        require_launched(f"predict_all_pairs_planes_kernel float32, {tag}",
+                         cnt, f32_chain_names(depth))
+        if any(cnt[n] for n in ("factored_tail",)):
+            raise AssertionError(f"{tag}: a float32 model ran the bf16 fused "
+                                 f"tail: {cnt}")
+        counts[tag] = {"predict_all_pairs_planes_kernel": cnt}
+        with full_f32_matmul():
+            ref_d = _factored_all_pairs(cfg, tcfg, params, bn, x)
+        ref = torch.complex(ref_d[0], ref_d[1]).view(got.shape)
+        served[tag] = {"all_pairs": check(
+            f"[5n] {tag}: predict_all_pairs_planes_kernel float32 "
+            f"({F32_PACKETS} packets) vs the f32 factored DNN", got, ref,
+            F32_LIMIT_DB)}
+        db16 = db_of(predict_all_pairs_planes_kernel(cfg, tcfg, p16, rx), ref)
+        served[tag]["all_pairs bf16 mode db"] = db16
+        print(f"    (the bf16 mode on the same weights and planes: "
+              f"{db16:.2f} dB)")
+        y32 = fused_factored_planes(cfg, tcfg, p32, x, dot_dtype=f32)
+        same(f"fused_factored_planes float32, {tag}: out_dtype=bfloat16 = "
+             f"the f32 result rounded", fused_factored_planes(
+                 cfg, tcfg, p32, x, dot_dtype=f32, out_dtype=bf16),
+             y32.to(bf16))
+        y16 = fused_factored_planes(cfg, tcfg, p16, x.to(bf16))
+        same(f"fused_factored_planes bf16, {tag}: out_dtype=bfloat16 = the "
+             f"f32 result rounded", fused_factored_planes(
+                 cfg, tcfg, p16, x.to(bf16), out_dtype=bf16), y16.to(bf16))
+        del got, ref, ref_d, y32, y16
+        # each float32 kernel against its plain version: S_CHECK, ragged
+        # S, 3 heads
+        xs = torch.randn((2, S_CHECK, L), generator=g, device=dev)
+        with full_f32_matmul():
+            sp = factored_sig_proj(xs, p32["w1"], p32["w1t"])
+            e = {"factored_sig_proj": check(
+                f"factored_sig_proj f32, {tag}, S = {S_CHECK}, vs its plain "
+                f"version", sp, xs @ p32["w1"], F32_LIMIT_DB)}
+            for s_r in (1, 5, 65):
+                check(f"factored_sig_proj f32, {tag}, S = {s_r}, vs its "
+                      f"plain version", factored_sig_proj(
+                          xs[:, :s_r], p32["w1"], p32["w1t"]),
+                      xs[:, :s_r] @ p32["w1"], F32_LIMIT_DB)
+        e.update(chain_check(f"{tag}, S = {S_CHECK}", p32, sp, depth))
+        for s_r in (1, 5, 65):
+            chain_check(f"{tag}, S = {s_r}", p32, sp[:, :s_r].contiguous(),
+                        depth)
+        p3 = {**p32, "hb": p32["hb"][:, :3].contiguous()}
+        chain_check(f"{tag}, 3 heads, S = {S_CHECK}", p3, sp, depth)
+        errs[tag] = e
+        # the bf16 mode's output stores (kernel 2's out_dtype)
+        sp16 = factored_sig_proj(xs.to(bf16), p16["w1"], p16["w1t"])
+        if depth == 2 and hidden[0] <= 1024:
+            y = factored_tail(p16, sp16, C)
+            same(f"factored_tail bf16, {tag}: bf16 store = the f32 result "
+                 f"rounded", factored_tail(p16, sp16, C, bf16), y.to(bf16))
+            errs[tag]["factored_tail"] = check(
+                f"factored_tail bf16, {tag}, vs its plain version", y,
+                _tail_plain(p16, sp16, C), -40.0)
+        h16 = factored_heads(p16, sp16)
+        for k in range(2, depth):
+            h16 = factored_dense(p16, k, h16)
+        if depth == 1:
+            y = factored_dense(p16, 2, h16, C)
+            same(f"factored_dense bf16 output layer, {tag}: bf16 store = "
+                 f"the f32 result rounded",
+                 factored_dense(p16, 2, h16, C, bf16), y.to(bf16))
+        else:
+            y = factored_rows_tail(p16, h16, C)
+            same(f"factored_rows_tail bf16, {tag}: bf16 store = the f32 "
+                 f"result rounded", factored_rows_tail(p16, h16, C, bf16),
+                 y.to(bf16))
+        del sp, sp16, h16, y, xs
+        if depth == 2:
+            # kernel 5: predict_complex_pallas(dot_dtype=float32), counted
+            with full_f32_matmul():
+                m32 = prepare_mlp_infer_weights(tcfg, params, bn,
+                                                dot_dtype=f32)
+                m16 = prepare_mlp_infer_weights(tcfg, params, bn)
+            sig = torch.complex(
+                torch.randn((F32_MLP_ROWS, L), generator=g, device=dev),
+                torch.randn((F32_MLP_ROWS, L), generator=g, device=dev))
+            pil = pilot_p_matrix(nt, device=dev).T[
+                torch.arange(F32_MLP_ROWS, device=dev) % nt]
+            got, cnt = counted(lambda: predict_complex_pallas(
+                cfg, tcfg, m32, None, sig, pil, dot_dtype=f32))
+            require_launched(f"predict_complex_pallas float32, {tag}", cnt,
+                             ("mlp_infer_layer1 f32", "mlp_infer_tail f32"))
+            counts[tag]["predict_complex_pallas"] = cnt
+            with full_f32_matmul():
+                ref = predict_complex(cfg, tcfg, params, bn, sig, pil)
+            served[tag]["predict_complex_pallas"] = check(
+                f"[5n] {tag}: predict_complex_pallas float32 "
+                f"({F32_MLP_ROWS} rows) vs f32 predict_complex", got, ref,
+                F32_LIMIT_DB)
+            db16 = db_of(predict_complex_pallas(cfg, tcfg, m16, None, sig,
+                                                pil), ref)
+            served[tag]["predict_complex_pallas bf16 mode db"] = db16
+            print(f"    (the bf16 mode on the same weights: {db16:.2f} dB)")
+            pm = plane(m32, 1)
+            k = L + nt
+            xm = torch.randn((S_CHECK * nt - 3, k), generator=g, device=dev)
+            with full_f32_matmul():
+                for what, xe in ((f"{xm.shape[0]} rows", xm),
+                                 ("1 row", xm[:1]), ("65 rows", xm[:65])):
+                    h1 = mlp_infer_layer1(pm, xe)
+                    ref1 = _layer1_plain(pm, xe, f32)
+                    r = check(f"mlp_infer_layer1 f32 ({what}, K = {k}), "
+                              f"{tag}, vs its plain version", h1, ref1,
+                              F32_LIMIT_DB)
+                    errs[tag].setdefault("mlp_infer_layer1", r)
+                    fl = relu_zero_flips(h1, ref1, pm["t1"])
+                    print(f"    ReLU flips of h1, kernel vs plain: {fl}")
+                    r = check(f"mlp_infer_tail f32 ({what}), {tag}, vs its "
+                              f"plain version", mlp_infer_tail(pm, h1),
+                              _mlp_tail_plain(pm, h1, f32), F32_LIMIT_DB)
+                    errs[tag].setdefault("mlp_infer_tail", r)
+            del m32, m16, sig, pil, got, ref, xm, h1, ref1
+        del params, bn, p32, p16, rx, x
+        torch.cuda.empty_cache()
+        print(f"  [5n] {tag}: {time.perf_counter() - t_model:.1f} s")
+    secs = time.perf_counter() - t0
+    print(f"[5n float32 DNN] {len(F32_MODELS)} models; {secs:.1f} s")
+    return {"served_nmse_db": {k: {n: (v if isinstance(v, float)
+                                       else v["nmse_db"])
+                                   for n, v in d.items()}
+                               for k, d in served.items()},
+            "errors": errs, "relu_flips": flips, "launches": counts,
+            "seconds": secs}
+
+
+def dnn_f32_timing(dev, smi, res) -> list:
+    """Phase 6's rows of the float32 DNN kernels (phase 5n): each at the
+    bench shape (S = 4096, BS32, hidden (1024, 1024); the depth-3 model's
+    hidden layer and the depth-1 model's output layer for factored_dense;
+    kernel 5 on one plane's 131072 rows) beside its plain version (TF32
+    off), its bound (float32 bytes once, products once at the TF32 peak)
+    and a float32 torch.matmul / bmm yardstick (TF32 off); the bf16 fused
+    tail with its bf16 store beside the float32 one. Returns the rows of
+    the kernels line."""
+    import torch
+
+    from mamimo_tpu_torch.config import SimConfig, TrainConfig
+    from mamimo_tpu_torch.models.mlp import plane
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        _heads_plain,
+        _hidden_plain,
+        _out_plain,
+        factored_dense,
+        factored_heads,
+        factored_rows_tail,
+        factored_sig_proj,
+        factored_tail,
+        prepare_factored_weights,
+    )
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import (
+        _layer1_plain,
+        _tail_plain as _mlp_tail_plain,
+        mlp_infer_layer1,
+        mlp_infer_tail,
+        prepare_mlp_infer_weights,
+    )
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg = SimConfig()
+    nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+    S = BENCH_PACKETS * nr
+    M = S * nt
+    g = torch.Generator(device=dev).manual_seed(96)
+    rows = []
+    nbytes_of = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+    ff_src = "mamimo_tpu/ops/pallas/fused_factored.py:169"
+    mlp_src = "mamimo_tpu/ops/pallas/mlp_infer.py:144"
+
+    def timed(name, shape, src, repl, kern, plain, lib, nbytes, ops,
+              launches, path, err, peak=TF32_FLOPS):
+        ms = time_ms(kern, iters=5, warmup=2)
+        with full_f32_matmul():
+            plain_ms = time_ms(plain, iters=2, warmup=1)
+            lib_ms = time_ms(lib, iters=3, warmup=1) if lib else None
+        bms, by = bound_ms(nbytes, ops, peak)
+        print(f"  {name} [{shape}]: {ms:.5f} ms (bound {bms:.5f} ms by {by},"
+              f" {bms / ms * 100:.1f}% of it); plain {plain_ms:.4f} ms; "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"  [{smi}]")
+        rows.append({"name": name, "shape": shape, "route": "cuda",
+                     "source": f"mamimo_tpu_torch/csrc/{src}",
+                     "replaces": repl, "launches": launches,
+                     "launches_in": path, "max_abs_err": err["max_abs_err"],
+                     "nmse_db": err["nmse_db"], "exact": False, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib_ms, "call_ms": None,
+                     "ms_from": "events", "call_ms_from": "events"})
+
+    def model(hidden, seed):
+        tcfg = TrainConfig(hidden=hidden)
+        params, bn = make_model(cfg, tcfg, seed=seed, device=dev,
+                                bf16_values=False)
+        with full_f32_matmul():
+            return tcfg, params, bn, prepare_factored_weights(
+                cfg, tcfg, params, bn, dot_dtype=f32)
+
+    def relu_affine(p, k, y):
+        return torch.relu(y + p[f"b{k}"]) * p[f"a{k}"] + p[f"c{k}"]
+
+    print(f"  float32 DNN kernels at S = {S} ({M} rows a plane)")
+    by_depth = {len(hd): hd for hd in reversed(F32_MODELS)}
+    tag = f"hidden {by_depth[2]}"
+    cnt = res["launches"][tag]["predict_all_pairs_planes_kernel"]
+    path = f"predict_all_pairs_planes_kernel x1 float32, {tag} (5n)"
+    tcfg, params, bn, p = model(by_depth[2], 82)
+    H = p["w1"].shape[2]
+    x = torch.randn((2, S, L), generator=g, device=dev)
+    e = res["errors"][tag]
+    timed("factored_sig_proj", f"float32 mode: (2, {S}, {L}) @ (2, {L}, {H})"
+          f" f32 -> f32", "fused_factored.cu", ff_src,
+          lambda: factored_sig_proj(x, p["w1"], p["w1t"]),
+          lambda: x @ p["w1"], lambda: torch.bmm(x, p["w1"]),
+          nbytes_of(x, p["w1t"]) + 2 * S * H * 4, 2.0 * 2 * S * L * H,
+          cnt["factored_sig_proj f32"], path, e["factored_sig_proj"])
+    with full_f32_matmul():
+        sp = factored_sig_proj(x, p["w1"], p["w1t"])
+    del x
+    h = factored_heads(p, sp)
+    timed("factored_heads", f"float32 mode: sig_proj (2, {S}, {H}) f32 -> "
+          f"rows (2, {M}, {H}) f32", "fused_factored.cu", ff_src,
+          lambda: factored_heads(p, sp), lambda: _heads_plain(p, sp), None,
+          nbytes_of(sp, p["hb"], p["a1"], p["c1"], h), 0.0,
+          cnt["factored_heads f32"], path, e["factored_heads"])
+    o = 3
+    H2 = p["w2"].shape[2]
+    timed("factored_rows_tail", f"float32 mode, {tag}: rows (2, {M}, {H}) "
+          f"f32 -> (2, {M}, {C}) f32", "fused_factored.cu", ff_src,
+          lambda: factored_rows_tail(p, h, C),
+          lambda: _out_plain(p, _hidden_plain(p, 2, h), C),
+          lambda: torch.bmm(relu_affine(p, 2, torch.bmm(h, p["w2"])),
+                            p["w3"])[..., :C],
+          nbytes_of(h, p["w2t"], p["b2"], p["a2"], p["c2"], p[f"w{o}t"],
+                    p[f"b{o}"]) + 2 * M * C * 4,
+          2.0 * 2 * M * (H * H2 + H2 * C), cnt["factored_rows_tail f32"],
+          path, e["factored_rows_tail"])
+    del sp, h
+    # kernel 2's bf16 store: the fused tail of the bf16 model
+    with full_f32_matmul():
+        p16 = prepare_factored_weights(cfg, tcfg, params, bn)
+    sp16 = torch.randn((2, S, H), generator=g, device=dev) * 0.5
+    ms32 = time_ms(lambda: factored_tail(p16, sp16, C), iters=10)
+    ms16 = time_ms(lambda: factored_tail(p16, sp16, C, bf16), iters=10)
+    print(f"  factored_tail bf16 weights, S = {S}: f32 store {ms32:.5f} ms, "
+          f"bf16 store {ms16:.5f} ms  [{smi}]")
+    del p16, sp16
+    # kernel 5 on one plane's materialized rows
+    with full_f32_matmul():
+        pm = plane(prepare_mlp_infer_weights(tcfg, params, bn,
+                                             dot_dtype=f32), 0)
+    del params, bn, p
+    torch.cuda.empty_cache()
+    cnt5 = res["launches"][tag]["predict_complex_pallas"]
+    path5 = f"predict_complex_pallas x1 float32, {tag} (5n)"
+    K = L + nt
+    xm = torch.randn((M, K), generator=g, device=dev)
+    timed("mlp_infer_layer1", f"float32 mode: ({M}, {K}) @ ({K}, {H}) f32 "
+          f"-> f32, one plane", "mlp_infer.cu", mlp_src,
+          lambda: mlp_infer_layer1(pm, xm),
+          lambda: _layer1_plain(pm, xm, f32),
+          lambda: torch.matmul(xm, pm["w1"][:K]),
+          nbytes_of(xm, pm["w1t"]) + M * H * 4, 2.0 * M * K * H,
+          cnt5["mlp_infer_layer1 f32"], path5, e["mlp_infer_layer1"])
+    with full_f32_matmul():
+        h1 = mlp_infer_layer1(pm, xm)
+    del xm
+    torch.cuda.empty_cache()
+    w3c = pm["w3"][:, :C]
+    timed("mlp_infer_tail", f"float32 mode: h1 ({M}, {H}) f32 -> ({M}, {C})"
+          f" f32", "mlp_infer.cu", mlp_src,
+          lambda: mlp_infer_tail(pm, h1),
+          lambda: _mlp_tail_plain(pm, h1, f32),
+          lambda: torch.matmul(torch.relu(torch.matmul(h1, pm["w2"])
+                                          + pm["b2"]) * pm["s2"] + pm["t2"],
+                               w3c) + pm["b3"],
+          nbytes_of(h1, pm["w2t"], pm["b2"], pm["s2"], pm["t2"], w3c,
+                    pm["b3"]) + M * C * 4,
+          2.0 * M * (H * pm["w2"].shape[1] + pm["w2"].shape[1] * C),
+          cnt5["mlp_infer_tail f32"], path5, e["mlp_infer_tail"])
+    del h1, pm
+    torch.cuda.empty_cache()
+    # factored_dense: the depth-3 model's hidden layer, the depth-1
+    # model's output layer
+    for hidden, seed, k in ((by_depth[3], 83, 2), (by_depth[1], 81, 2)):
+        tg = f"hidden {hidden}"
+        cnt_d = res["launches"][tg]["predict_all_pairs_planes_kernel"]
+        tcfg, params, bn, p = model(hidden, seed)
+        h = torch.relu(torch.randn((2, M, H), generator=g, device=dev))
+        out_layer = len(hidden) == 1
+        kout = C if out_layer else p[f"w{k}"].shape[2]
+        name = "output layer" if out_layer else f"layer {k}"
+        err = res["errors"][tg]["factored_dense out" if out_layer
+                                else "factored_dense"]
+        timed("factored_dense", f"float32 mode, {tg}, {name}: rows (2, {M}, "
+              f"{H}) f32 -> (2, {M}, {kout}) f32", "fused_factored.cu",
+              ff_src,
+              (lambda: factored_dense(p, k, h, C)) if out_layer
+              else (lambda: factored_dense(p, k, h)),
+              (lambda: _out_plain(p, h, C)) if out_layer
+              else (lambda: _hidden_plain(p, k, h)),
+              (lambda: torch.bmm(h, p["w2"])[..., :C] + p["b2"][..., :C])
+              if out_layer else
+              (lambda: relu_affine(p, k, torch.bmm(h, p[f"w{k}"]))),
+              nbytes_of(h, p[f"w{k}t"], p[f"b{k}"]) + 2 * M * kout * 4
+              + (0 if out_layer else nbytes_of(p[f"a{k}"], p[f"c{k}"])),
+              2.0 * 2 * M * H * kout, cnt_d["factored_dense f32"],
+              f"predict_all_pairs_planes_kernel x1 float32, {tg} (5n)", err)
+        del params, bn, p, h
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3264,6 +3753,12 @@ def main() -> int:
              "HMMA"),
             ("matmul", ("mm_bf16_kernel", "mm_tf32x3_kernel"), "HGMMA",
              "HMMA"),
+            ("fused_factored", ("factored_sig_proj_f32_kernel",
+                                "factored_dense_f32_kernel",
+                                "factored_rows_tail_f32_kernel"), "HGMMA",
+             "HMMA"),
+            ("mlp_infer", ("mlp_layer1_f32_kernel", "mlp_tail_f32_kernel"),
+             "HGMMA", "HMMA"),
             ("int8_mm", ("int8_mm_kernel_slab", "int8_mm_kernel_ring"),
              "IGMMA", "IMMA")):
         for kname, ops in _build.sass_counts(src, kerns).items():
@@ -3594,7 +4089,9 @@ def main() -> int:
                    mlp_infer_layer1, mlp_infer_tail, halo_exchange_pallas,
                    matmul_float)
     # the wrappers with a float32 mode also count its launches apart
-    f32_kernels = (ls_planes_v2, ls_planes_v1, ls_pair_kernel, matmul_float)
+    f32_kernels = (ls_planes_v2, ls_planes_v1, ls_pair_kernel, matmul_float,
+                   factored_sig_proj, factored_heads, factored_dense,
+                   factored_rows_tail, mlp_infer_layer1, mlp_infer_tail)
 
     def counted(fn):
         """Run fn with every launch count set to 0 just before; returns
@@ -3975,6 +4472,9 @@ def main() -> int:
 
     # 5m. the float32 modes of kernels 1, 3, 4 and kernel 6's modes -------
     f32m = f32_modes_phase(dev, smi, counted, require_launched)
+
+    # 5n. the float32 modes of kernels 2 and 5, kernel 2's out_dtype -----
+    dnn32 = dnn_f32_phase(dev, counted, require_launched)
 
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
@@ -4395,11 +4895,12 @@ def main() -> int:
     cl["timing"] = closed_loop_timing(cfg, dev, smi, cl.pop("keep"),
                                       sound["timing"]["line"])
     pipe_dir.cleanup()
+    dnn32_rows = dnn_f32_timing(dev, smi, dnn32)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5l's and 5m's rows last: the lookups by name above read
+    # phase 5l's, 5m's and 5n's rows last: the lookups by name above read
     # BS32's
-    kernels += wide.pop("rows") + f32m.pop("rows")
+    kernels += wide.pop("rows") + f32m.pop("rows") + dnn32_rows
     print(json.dumps({"kernels": kernels, "serving": {
         "S": S, "device_ms": calls,
         "estimates_per_s": {k: n_est / v * 1e3 for k, v in calls.items()},
@@ -4436,6 +4937,7 @@ def main() -> int:
         "sharded_train": shard,
         "wide": wide,
         "f32_modes": f32m,
+        "dnn_f32": dnn32,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

@@ -342,7 +342,8 @@ def make_estimation_fn_pallas_factored(cfg: SimConfig, tcfg: TrainConfig,
 
     Returns:
       fn(planes (2, S, len_ltf) float32) → (h_ls, h_dnn), each (S,
-      num_tx, num_carriers) complex64.
+      num_tx, num_carriers) complex64; h_dnn holds bf16-rounded values
+      (the fused kernels' bf16 store, JAX's default ``out_dtype``).
     """
     del block_s, block_k
     dev = params["out"]["w"].device
@@ -354,9 +355,12 @@ def make_estimation_fn_pallas_factored(cfg: SimConfig, tcfg: TrainConfig,
         _check_planes(planes, torch.float32, dev)
         with full_f32_matmul():
             h_ls = ls_estimate_planes(cfg, planes, pconsts)
-        # the kernels read bf16 planes (the TPU kernel cast them inside)
+        # the kernels read bf16 planes (the TPU kernel cast them inside);
+        # the DNN estimate is stored rounded to bf16, as JAX's kernel's
+        # default out_dtype stores it
         x = planes.to(prepared["w1"].dtype) if planes.is_cuda else planes
-        y = fused_factored_planes(cfg, tcfg, prepared, x)
+        y = fused_factored_planes(cfg, tcfg, prepared, x,
+                                  out_dtype=torch.bfloat16).float()
         return h_ls, torch.complex(y[0], y[1])
 
     return estimate

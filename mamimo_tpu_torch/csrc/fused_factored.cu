@@ -45,6 +45,20 @@
 //   factored_tail, which ran at 11% of its bound at H 2048 on an H100
 //   (PERF.md).
 //
+// The float32 mode (float32 weights from prepare_factored_weights(...,
+// dot_dtype=float32): JAX's dot_dtype=float32, the TPU kernel's products
+// on float32 operands) runs every layer at float32 accuracy as 3xTF32 on
+// wgmma (gemm_sm90.cuh, wgmma_3xtf32), always through the per-head rows,
+// which stay float32 as JAX keeps h in float32: factored_sig_proj_f32_
+// kernel and factored_dense_f32_kernel on gemm_sm90.cuh's float32 body
+// gemm_tf32x3 (plain, hidden-layer and output epilogues),
+// factored_heads_f32_kernel (elementwise), factored_rows_tail_f32_kernel
+// on tail_sm90.cuh's layers23_f32. The output stores of the tails and of
+// factored_dense's output layer also come rounded to bf16 (out_dtype
+// bfloat16, as the TPU kernel's default), to nearest even: the float32
+// result rounded. The launch functions take a mode: bit 0 the bf16
+// store, bit 1 float32 operands.
+//
 // Bound on an H100 at the serving shape (S = 4096, nt = 32, L = 10240,
 // H = 1024, C = 234): about 848 GFLOP (172 layer 1, 550 layer 2, 126
 // layer 3), 0.86 ms at the 989 TFLOP/s bf16 tensor-core peak; it is
@@ -71,27 +85,47 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
       });
 }
 
+// The float32 mode: x (2, S, L) f32 through map mx, w1t (2, H, L) f32
+// through map mw (make_map_f32, box 32 x 128), plane blockIdx.z; out
+// (2, S, H) f32.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    factored_sig_proj_f32_kernel(const __grid_constant__ CUtensorMap mx,
+                                 const __grid_constant__ CUtensorMap mw,
+                                 float* __restrict__ out, int S, int L,
+                                 int H) {
+  const int p = blockIdx.z;
+  sm90::gemm_tf32x3(&mx, p, &mw, p, L,
+                    [&](int row, int col, float v0, float v1) {
+                      if (row < S && col < H)
+                        sm90::put2(out + ((long long)p * S + row) * H + col,
+                                   v0, v1);
+                    });
+}
+
 // ---------------------------------------------------------------------
 // heads, layers 2 and 3
 // ---------------------------------------------------------------------
-// y + b3 (b3 one plane's) -> o[row * C + col], col < C
-__device__ __forceinline__ void store_y(float* o, const float* b3, int C,
+// y + b3 (b3 one plane's) -> o[row * C + col], col < C, as T (f32, or
+// bf16 rounded to nearest even)
+template <class T>
+__device__ __forceinline__ void store_y(T* o, const float* b3, int C,
                                        int col, float v0, float v1) {
   if (col >= C) return;
   o += col;
   if ((C & 1) == 0) {
-    *reinterpret_cast<float2*>(o) =
-        make_float2(v0 + b3[col], v1 + b3[col + 1]);
+    sm90::put2(o, v0 + b3[col], v1 + b3[col + 1]);
   } else {
-    o[0] = v0 + b3[col];
-    if (col + 1 < C) o[1] = v1 + b3[col + 1];
+    sm90::put1(o, v0 + b3[col]);
+    if (col + 1 < C) sm90::put1(o + 1, v1 + b3[col + 1]);
   }
 }
 
 // One block: 64 samples s0.. of head t of plane p (heads t >= nt pad the
 // last cluster: they load their share of the weights and store nothing).
 // It builds h in shared memory and runs tail::layers23; w2t (2, H2, H1)
-// and w3t (2, 256, H2) come through the maps mw2 and mw3; b3 (2, ldb3).
+// and w3t (2, 256, H2) come through the maps mw2 and mw3; b3 (2, ldb3);
+// out (2, S, nt, C) as T.
+template <class T>
 __global__ void __launch_bounds__(tail::THREADS, 1)
     factored_tail_kernel(const __grid_constant__ CUtensorMap mw2,
                          const __grid_constant__ CUtensorMap mw3,
@@ -103,7 +137,7 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
                          const float* __restrict__ a2,
                          const float* __restrict__ c2,
                          const float* __restrict__ b3,
-                         float* __restrict__ out, int S, int nt, int H1,
+                         T* __restrict__ out, int S, int nt, int H1,
                          int H2, int C, int ldb3) {
   using namespace tail;
   const int t = blockIdx.x, s0 = blockIdx.y * ROWS, p = blockIdx.z;
@@ -116,7 +150,7 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
   a2 += (long long)p * H2;
   c2 += (long long)p * H2;
   b3 += (long long)p * ldb3;
-  float* op = out + (long long)p * S * nt * C;
+  T* op = out + (long long)p * S * nt * C;
 
   tail::layers23<false, false>(
       nullptr, 0, &mw2, &mw3, p, H1, H2, b2, a2, c2,
@@ -213,12 +247,45 @@ __global__ void factored_heads_kernel(const float* __restrict__ sp,
   }
 }
 
+// The float32 mode: h0[p][s*nt + t] = relu(sp[p][s] + hb[p][t]) * a1[p]
+// + c1[p] as f32 rows (2, S*nt, H). One thread writes 4 columns (16
+// bytes), rows in order.
+__global__ void factored_heads_f32_kernel(const float* __restrict__ sp,
+                                          const float* __restrict__ hb,
+                                          const float* __restrict__ a1,
+                                          const float* __restrict__ c1,
+                                          float* __restrict__ h0, int S,
+                                          int nt, int H) {
+  const int vpr = H / 4;
+  const long long n = 2LL * S * nt * vpr;
+  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * blockDim.x) {
+    const int k = (int)(idx % vpr) * 4;
+    const long long row = idx / vpr;           // (p * S + s) * nt + t
+    const int t = (int)(row % nt);
+    const long long ps = row / nt;             // p * S + s
+    const int p = (int)(ps / S);
+    const float4 x = __ldg(reinterpret_cast<const float4*>(sp + ps * H + k));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(
+        hb + ((long long)p * nt + t) * H + k));
+    const float4 a =
+        __ldg(reinterpret_cast<const float4*>(a1 + (long long)p * H + k));
+    const float4 c =
+        __ldg(reinterpret_cast<const float4*>(c1 + (long long)p * H + k));
+    *reinterpret_cast<float4*>(h0 + row * H + k) =
+        make_float4(fmaxf(x.x + b.x, 0.f) * a.x + c.x,
+                    fmaxf(x.y + b.y, 0.f) * a.y + c.y,
+                    fmaxf(x.z + b.z, 0.f) * a.z + c.z,
+                    fmaxf(x.w + b.w, 0.f) * a.w + c.w);
+  }
+}
+
 // One dense layer of both planes on the Hopper main loop: v = h[p] @
 // W[p] (h (2, M, K) bf16 through map mx, wt = W transposed (2, N, K)
-// through map mw). OUT: y[p][m][col] = v + b[p][col] f32 for col < C
+// through map mw). OUT: y[p][m][col] = v + b[p][col] as T for col < C
 // (the output layer, y (2, M, C)); else bf16(relu(v + b) * a + c), the
 // next hidden rows (2, M, N). b, a, c (2, ldb) f32.
-template <bool OUT>
+template <bool OUT, class T = float>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
     factored_dense_kernel(const __grid_constant__ CUtensorMap mx,
                           const __grid_constant__ CUtensorMap mw,
@@ -232,7 +299,7 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
         const long long r = (long long)p * M + row;
         const int j = p * ldb + col;
         if constexpr (OUT) {
-          store_y(reinterpret_cast<float*>(y) + r * C, b + p * ldb, C, col,
+          store_y(reinterpret_cast<T*>(y) + r * C, b + p * ldb, C, col,
                   v0, v1);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(y) +
@@ -244,12 +311,42 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
       });
 }
 
+// The float32 mode of factored_dense_kernel: h (2, M, K) f32 through map
+// mx, wt (2, N, K) f32 through map mw (make_map_f32, box 32 x 128), plane
+// blockIdx.z. OUT: y = v + b as T for col < C (y (2, M, C)); else f32
+// rows relu(v + b) * a + c (2, M, N).
+template <bool OUT, class T>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    factored_dense_f32_kernel(const __grid_constant__ CUtensorMap mx,
+                              const __grid_constant__ CUtensorMap mw,
+                              const float* __restrict__ b,
+                              const float* __restrict__ a,
+                              const float* __restrict__ c,
+                              void* __restrict__ y, int M, int N, int K,
+                              int C, int ldb) {
+  const int p = blockIdx.z;
+  sm90::gemm_tf32x3(
+      &mx, p, &mw, p, K, [&](int row, int col, float v0, float v1) {
+        if (row >= M || col >= N) return;
+        const long long r = (long long)p * M + row;
+        const int j = p * ldb + col;
+        if constexpr (OUT) {
+          store_y(reinterpret_cast<T*>(y) + r * C, b + p * ldb, C, col,
+                  v0, v1);
+        } else {
+          sm90::put2(reinterpret_cast<float*>(y) + r * N + col,
+                     fmaxf(v0 + b[j], 0.f) * a[j] + c[j],
+                     fmaxf(v1 + b[j + 1], 0.f) * a[j + 1] + c[j + 1]);
+        }
+      });
+}
+
 // The last hidden layer and the output layer from the rows of the one
 // before (depth >= 3, or depth 2 above 1024 units: the heads' rows): 64
 // rows m0.. of plane p = blockIdx.z of h (2, M, H1) through
 // map mh; w2t (2, H2, H1), w3t (2, 256, H2) through mw2, mw3; b2, a2, c2
-// (2, H2); b3 (2, ldb3); y (2, M, C).
-template <bool STREAM>
+// (2, H2); b3 (2, ldb3); y (2, M, C) as T.
+template <bool STREAM, class T = float>
 __global__ void __launch_bounds__(tail::THREADS, 1)
     factored_rows_tail_kernel(const __grid_constant__ CUtensorMap mh,
                               const __grid_constant__ CUtensorMap mw2,
@@ -258,14 +355,14 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
                               const float* __restrict__ a2,
                               const float* __restrict__ c2,
                               const float* __restrict__ b3,
-                              float* __restrict__ y, int M, int H1, int H2,
+                              T* __restrict__ y, int M, int H1, int H2,
                               int C, int ldb3) {
   const int m0 = blockIdx.x * tail::ROWS, p = blockIdx.z;
   b2 += (long long)p * H2;
   a2 += (long long)p * H2;
   c2 += (long long)p * H2;
   b3 += (long long)p * ldb3;
-  float* yp = y + (long long)p * M * C;
+  T* yp = y + (long long)p * M * C;
   tail::layers23<true, STREAM>(
       &mh, m0, &mw2, &mw3, p, H1, H2, b2, a2, c2,
       [](unsigned char*, int, int, int) {},
@@ -275,15 +372,58 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
       });
 }
 
+// The float32 mode: h (2, M, H1) f32 through map mh (box 32 x 64), w2t
+// (2, H2, H1) and w3t (2, 256, H2) f32 through mw2, mw3 (box 32 x
+// SLICE_ROWS); tail::layers23_f32 on 64 rows m0.. of plane blockIdx.z.
+template <class T>
+__global__ void __launch_bounds__(tail::THREADS, 1)
+    factored_rows_tail_f32_kernel(const __grid_constant__ CUtensorMap mh,
+                                  const __grid_constant__ CUtensorMap mw2,
+                                  const __grid_constant__ CUtensorMap mw3,
+                                  const float* __restrict__ b2,
+                                  const float* __restrict__ a2,
+                                  const float* __restrict__ c2,
+                                  const float* __restrict__ b3,
+                                  T* __restrict__ y, int M, int H1, int H2,
+                                  int C, int ldb3) {
+  const int m0 = blockIdx.x * tail::ROWS, p = blockIdx.z;
+  b2 += (long long)p * H2;
+  a2 += (long long)p * H2;
+  c2 += (long long)p * H2;
+  b3 += (long long)p * ldb3;
+  T* yp = y + (long long)p * M * C;
+  tail::layers23_f32(&mh, m0, p, &mw2, &mw3, p, H1, H2, b2, a2, c2,
+                     [&](int row, int col, float v0, float v1) {
+                       const int m = m0 + row;
+                       if (m < M)
+                         store_y(yp + (long long)m * C, b3, C, col, v0, v1);
+                     });
+}
+
 }  // namespace
+
+// The launch functions' mode: bit 0 stores the output rounded to bf16,
+// bit 1 takes float32 operands (the float32 mode). Each returns a CUDA
+// error code (or sm90::ERR_TENSOR_MAP).
+constexpr int MODE_BF16_OUT = 1, MODE_F32 = 2;
 
 extern "C" {
 
-// x (2, S, L) bf16; w1t (2, H, L) bf16 (W1[:L] transposed); out (2, S, H)
-// f32. L % 8 == 0, H % 128 == 0, x and w1t 16-byte aligned.
+// x (2, S, L), w1t (2, H, L) (W1[:L] transposed): bf16 (L % 8 == 0), or
+// f32 with MODE_F32 (L % 4 == 0); out (2, S, H) f32. H % 128 == 0, x and
+// w1t 16-byte aligned.
 int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
-                             int S, int L, int H, void* stream) {
+                             int S, int L, int H, int mode, void* stream) {
   CUtensorMap mx, mw;
+  if (mode == MODE_F32) {
+    if (sm90::make_map_f32(&mx, x, L, S, 2, 128, L) ||
+        sm90::make_map_f32(&mw, w1t, L, H, 2, 128, L))
+      return sm90::ERR_TENSOR_MAP;
+    return sm90::launch_tf32x3(factored_sig_proj_f32_kernel, S, H, 2,
+                               (cudaStream_t)stream, mx, mw, (float*)out, S,
+                               L, H);
+  }
+  if (mode != 0) return (int)cudaErrorInvalidValue;
   int rc = sm90::make_map(&mx, x, L, S, 2, sm90::BM, L);
   if (rc == 0)
     rc = sm90::make_map(&mw, w1t, L, H, 2, sm90::B_SLICE_ROWS, L);
@@ -294,15 +434,16 @@ int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
 
 // sp (2, S, H1) f32; hb (2, nt, H1) f32; a1, c1 (2, H1) f32; w2t (2, H2,
 // H1) bf16 (W2 transposed); b2, a2, c2 (2, H2) f32; w3t (2, 256, H2)
-// bf16 (padded W3 transposed); b3 (2, ldb3) f32; out (2, S, nt, C) f32.
-// H1, H2 % 128 == 0, H1 <= 1024 (h is kept whole), C <= 256, w2t and w3t
-// 16-byte aligned.
+// bf16 (padded W3 transposed); b3 (2, ldb3) f32; out (2, S, nt, C) f32,
+// or bf16 with MODE_BF16_OUT. H1, H2 % 128 == 0, H1 <= 1024 (h is kept
+// whole), C <= 256, w2t and w3t 16-byte aligned. bf16 weights only.
 int factored_tail_launch(const void* sp, const void* hb, const void* a1,
                          const void* c1, const void* w2t, const void* b2,
                          const void* a2, const void* c2, const void* w3t,
                          const void* b3, void* out, int S, int nt, int H1,
-                         int H2, int C, int ldb3, void* stream) {
-  if (H1 > tail::MAX_RESIDENT) return (int)cudaErrorInvalidValue;
+                         int H2, int C, int ldb3, int mode, void* stream) {
+  if (H1 > tail::MAX_RESIDENT || (mode & ~MODE_BF16_OUT))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap mw2, mw3;
   int rc = sm90::make_map(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1);
   if (rc == 0)
@@ -310,75 +451,137 @@ int factored_tail_launch(const void* sp, const void* hb, const void* a1,
   if (rc != 0) return rc;
   const dim3 grid((nt + tail::CL - 1) / tail::CL * tail::CL,
                   (S + tail::ROWS - 1) / tail::ROWS, 2);
-  return tail::launch(factored_tail_kernel, grid,
-                      tail::smem_bytes(H1, false),
-                      (cudaStream_t)stream, mw2, mw3, (const float*)sp,
-                      (const float*)hb, (const float*)a1, (const float*)c1,
-                      (const float*)b2, (const float*)a2, (const float*)c2,
-                      (const float*)b3, (float*)out, S, nt, H1, H2, C, ldb3);
+  const int smem = tail::smem_bytes(H1, false);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode & MODE_BF16_OUT)
+    return tail::launch(factored_tail_kernel<bf16>, grid, smem, st, mw2, mw3,
+                        (const float*)sp, (const float*)hb,
+                        (const float*)a1, (const float*)c1,
+                        (const float*)b2, (const float*)a2,
+                        (const float*)c2, (const float*)b3, (bf16*)out, S,
+                        nt, H1, H2, C, ldb3);
+  return tail::launch(factored_tail_kernel<float>, grid, smem, st, mw2, mw3,
+                      (const float*)sp, (const float*)hb, (const float*)a1,
+                      (const float*)c1, (const float*)b2, (const float*)a2,
+                      (const float*)c2, (const float*)b3, (float*)out, S, nt,
+                      H1, H2, C, ldb3);
 }
 
 // sp (2, S, H) f32; hb (2, nt, H) f32; a1, c1 (2, H) f32; h0 (2, S*nt,
-// H) bf16. H % 8 == 0, all 16-byte aligned.
+// H) bf16 (H % 8 == 0), or f32 with MODE_F32 (H % 4 == 0); all 16-byte
+// aligned.
 int factored_heads_launch(const void* sp, const void* hb, const void* a1,
                           const void* c1, void* h0, int S, int nt, int H,
-                          void* stream) {
-  const long long n = 2LL * S * nt * (H / 8);
+                          int mode, void* stream) {
+  if (mode != 0 && mode != MODE_F32) return (int)cudaErrorInvalidValue;
+  const int per = mode == MODE_F32 ? 4 : 8;    // columns a thread
+  const long long n = 2LL * S * nt * (H / per);
   const int threads = 256;
   const long long want = (n + threads - 1) / threads;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  factored_heads_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)sp, (const float*)hb, (const float*)a1, (const float*)c1,
-      (bf16*)h0, S, nt, H);
+  if (mode == MODE_F32)
+    factored_heads_f32_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)sp, (const float*)hb, (const float*)a1,
+        (const float*)c1, (float*)h0, S, nt, H);
+  else
+    factored_heads_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)sp, (const float*)hb, (const float*)a1,
+        (const float*)c1, (bf16*)h0, S, nt, H);
   return (int)cudaGetLastError();
 }
 
-// h (2, M, K) bf16; wt (2, N, K) bf16 (W transposed); b, a, c (2, ldb)
-// f32 (a, c unused with out_f32); y (2, M, C) f32 when out_f32, else
-// (2, M, N) bf16 (C unused). K % 8 == 0, N % 128 == 0, h and wt 16-byte
-// aligned.
+// h (2, M, K), wt (2, N, K) (W transposed): bf16 (K % 8 == 0), or f32
+// with MODE_F32 (K % 4 == 0); b, a, c (2, ldb) f32 (a, c unused for the
+// output layer). out_layer: y (2, M, C) f32, or bf16 with MODE_BF16_OUT;
+// else y the next hidden rows (2, M, N) in the operands' type (C
+// unused). N % 128 == 0, h and wt 16-byte aligned.
 int factored_dense_launch(const void* h, const void* wt, const void* b,
                           const void* a, const void* c, void* y, int M,
-                          int N, int K, int C, int ldb, int out_f32,
-                          void* stream) {
+                          int N, int K, int C, int ldb, int out_layer,
+                          int mode, void* stream) {
+  if (mode < 0 || mode > 3 || (!out_layer && (mode & MODE_BF16_OUT)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float *fb = (const float*)b, *fa = (const float*)a,
+              *fc = (const float*)c;
   CUtensorMap mx, mw;
+  if (mode & MODE_F32) {
+    if (sm90::make_map_f32(&mx, h, K, M, 2, 128, K) ||
+        sm90::make_map_f32(&mw, wt, K, N, 2, 128, K))
+      return sm90::ERR_TENSOR_MAP;
+    if (!out_layer)
+      return sm90::launch_tf32x3(factored_dense_f32_kernel<false, float>, M,
+                                 N, 2, st, mx, mw, fb, fa, fc, y, M, N, K, C,
+                                 ldb);
+    if (mode & MODE_BF16_OUT)
+      return sm90::launch_tf32x3(factored_dense_f32_kernel<true, bf16>, M, N,
+                                 2, st, mx, mw, fb, fa, fc, y, M, N, K, C,
+                                 ldb);
+    return sm90::launch_tf32x3(factored_dense_f32_kernel<true, float>, M, N,
+                               2, st, mx, mw, fb, fa, fc, y, M, N, K, C, ldb);
+  }
   int rc = sm90::make_map(&mx, h, K, M, 2, sm90::BM, K);
   if (rc == 0) rc = sm90::make_map(&mw, wt, K, N, 2, sm90::B_SLICE_ROWS, K);
   if (rc != 0) return rc;
-  if (out_f32)
-    return sm90::launch(factored_dense_kernel<true>, M, N, 2,
-                        (cudaStream_t)stream, mx, mw, (const float*)b,
-                        (const float*)a, (const float*)c, y, M, N, K, C, ldb);
-  return sm90::launch(factored_dense_kernel<false>, M, N, 2,
-                      (cudaStream_t)stream, mx, mw, (const float*)b,
-                      (const float*)a, (const float*)c, y, M, N, K, C, ldb);
+  if (!out_layer)
+    return sm90::launch(factored_dense_kernel<false>, M, N, 2, st, mx, mw, fb,
+                        fa, fc, y, M, N, K, C, ldb);
+  if (mode & MODE_BF16_OUT)
+    return sm90::launch(factored_dense_kernel<true, bf16>, M, N, 2, st, mx,
+                        mw, fb, fa, fc, y, M, N, K, C, ldb);
+  return sm90::launch(factored_dense_kernel<true>, M, N, 2, st, mx, mw, fb,
+                      fa, fc, y, M, N, K, C, ldb);
 }
 
-// h (2, M, H1) bf16; w2t (2, H2, H1) bf16; b2, a2, c2 (2, H2) f32; w3t
-// (2, 256, H2) bf16; b3 (2, ldb3) f32; y (2, M, C) f32. H1, H2 % 128 ==
-// 0 (h streams above H1 = 1024), C <= 256, h, w2t and w3t 16-byte
+// h (2, M, H1), w2t (2, H2, H1), w3t (2, 256, H2): bf16, or f32 with
+// MODE_F32; b2, a2, c2 (2, H2) f32; b3 (2, ldb3) f32; y (2, M, C) f32,
+// or bf16 with MODE_BF16_OUT. H1, H2 % 128 == 0 (bf16 h streams above H1
+// = 1024; f32 h always streams), C <= 256, h, w2t and w3t 16-byte
 // aligned.
 int factored_rows_tail_launch(const void* h, const void* w2t, const void* b2,
                               const void* a2, const void* c2,
                               const void* w3t, const void* b3, void* y,
                               int M, int H1, int H2, int C, int ldb3,
-                              void* stream) {
+                              int mode, void* stream) {
+  if (mode < 0 || mode > 3) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float *fb2 = (const float*)b2, *fa2 = (const float*)a2,
+              *fc2 = (const float*)c2, *fb3 = (const float*)b3;
+  const int blocks = (M + tail::ROWS - 1) / tail::ROWS;
+  const dim3 grid((blocks + tail::CL - 1) / tail::CL * tail::CL, 1, 2);
   CUtensorMap mh, mw2, mw3;
+  if (mode & MODE_F32) {
+    if (sm90::make_map_f32(&mh, h, H1, M, 2, tail::ROWS, H1) ||
+        sm90::make_map_f32(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1) ||
+        sm90::make_map_f32(&mw3, w3t, H2, tail::OPP, 2, tail::SLICE_ROWS,
+                           H2))
+      return sm90::ERR_TENSOR_MAP;
+    if (mode & MODE_BF16_OUT)
+      return tail::launch(factored_rows_tail_f32_kernel<bf16>, grid,
+                          tail::F_SMEM, st, mh, mw2, mw3, fb2, fa2, fc2, fb3,
+                          (bf16*)y, M, H1, H2, C, ldb3);
+    return tail::launch(factored_rows_tail_f32_kernel<float>, grid,
+                        tail::F_SMEM, st, mh, mw2, mw3, fb2, fa2, fc2, fb3,
+                        (float*)y, M, H1, H2, C, ldb3);
+  }
   int rc = sm90::make_map(&mh, h, H1, M, 2, tail::ROWS, H1);
   if (rc == 0)
     rc = sm90::make_map(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1);
   if (rc == 0)
     rc = sm90::make_map(&mw3, w3t, H2, tail::OPP, 2, tail::SLICE_ROWS, H2);
   if (rc != 0) return rc;
-  const int blocks = (M + tail::ROWS - 1) / tail::ROWS;
-  const dim3 grid((blocks + tail::CL - 1) / tail::CL * tail::CL, 1, 2);
   const bool stream_h = H1 > tail::MAX_RESIDENT;
+  const int smem = tail::smem_bytes(H1, stream_h);
+  if (mode & MODE_BF16_OUT) {
+    auto kernel = stream_h ? factored_rows_tail_kernel<true, bf16>
+                           : factored_rows_tail_kernel<false, bf16>;
+    return tail::launch(kernel, grid, smem, st, mh, mw2, mw3, fb2, fa2, fc2,
+                        fb3, (bf16*)y, M, H1, H2, C, ldb3);
+  }
   auto kernel = stream_h ? factored_rows_tail_kernel<true>
                          : factored_rows_tail_kernel<false>;
-  return tail::launch(kernel, grid, tail::smem_bytes(H1, stream_h),
-                      (cudaStream_t)stream, mh, mw2, mw3, (const float*)b2,
-                      (const float*)a2, (const float*)c2, (const float*)b3,
-                      (float*)y, M, H1, H2, C, ldb3);
+  return tail::launch(kernel, grid, smem, st, mh, mw2, mw3, fb2, fa2, fc2,
+                      fb3, (float*)y, M, H1, H2, C, ldb3);
 }
 
 const char* fused_factored_error_string(int e) {

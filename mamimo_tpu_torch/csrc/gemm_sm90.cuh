@@ -342,7 +342,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 // hi.lo + lo.hi. The dropped lo.lo and the rounding of lo are about
 // 2^-22 of each product: NMSE near -120 dB, where one TF32 pass is near
 // -60 dB. Serves the LS kernels' float32 mode (ls_sm90.cuh,
-// ls_body_f32) and the float32 GEMM (matmul.cu).
+// ls_body_f32), the float32 GEMM body gemm_tf32x3 below (matmul.cu,
+// fused_factored.cu, mlp_infer.cu) and the float32 tail (tail_sm90.cuh,
+// layers23_f32).
 // ---------------------------------------------------------------------
 
 // x rounded to TF32 (10 mantissa bits, to nearest, ties away), as a
@@ -430,6 +432,174 @@ __device__ __forceinline__ void wgmma_3xtf32(float (&d)[64], uint64_t a_hi,
   wgmma_m64n128k8_tf32<SA>(d, a_lo, b_hi, keep);
   wgmma_m64n128k8_tf32<SA>(d, a_hi, b_lo);
   wgmma_m64n128k8_tf32<SA>(d, a_hi, b_hi);
+}
+
+// The m64n64k8 form (d 64 x 64, f32; the fragment layout of m64n256k16
+// over 64 columns), for the float32 tail's layer 2.
+template <int SA>
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    uint64_t da, uint64_t db,
+                                                    int keep = 1) {
+  static_assert(SA == 1 || SA == -1, "imm-scale-a is 1 or -1");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, %35, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(keep), "n"(SA));
+}
+
+template <int SA>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[32], uint64_t a_hi,
+                                             uint64_t a_lo, uint64_t b_hi,
+                                             uint64_t b_lo, int keep = 1) {
+  wgmma_m64n64k8_tf32<SA>(d, a_lo, b_hi, keep);
+  wgmma_m64n64k8_tf32<SA>(d, a_hi, b_lo);
+  wgmma_m64n64k8_tf32<SA>(d, a_hi, b_hi);
+}
+
+// Stores of one or two adjacent f32 values as f32, or rounded to bf16 to
+// nearest even (as torch's float32 -> bfloat16 cast); p two-element
+// aligned for put2.
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void put2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void put1(float* p, float a) { *p = a; }
+
+__device__ __forceinline__ void put1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
+
+// ---------------------------------------------------------------------
+// The float32 GEMM body (3xTF32): one 128 x 128 tile of C = A @ B^T a
+// block, no cluster, both operands float32 and K-major. A simple body,
+// at about 16% of the TF32 peak on an H100 (PERF.md): one producer
+// thread loads A's and Bt's k-step of 32 f32 (2 x 16 KB) by TMA into a
+// 3-stage ring; each stage also holds the two operands' low parts (2 x
+// 16 KB). The two consumer warpgroups (rows 0-63 and 64-127 of the
+// tile) split their half of A's and of Bt's k-step in place into TF32
+// high parts and write the low parts beside them (fence.proxy.async,
+// then a named barrier over both warpgroups), then run the three
+// m64n128k8 products of each k-step into a fresh accumulator, added to
+// the running sum in float32 in registers (the tensor cores' additions
+// truncate: wgmma_3xtf32). Ragged M, N and K come from TMA's zero fill
+// (K % 4 == 0 for the 16-byte row pitch).
+// ---------------------------------------------------------------------
+constexpr int TF_STAGES = 3;
+constexpr int TF_K = 32;                   // f32 k of a stage: 128 bytes
+constexpr int TF_TILE = 128 * TF_K * 4;    // 128 rows of a k-step: 16 KB
+constexpr int TF_HALF4 = TF_TILE / 32;     // float4 in 64 rows of it
+// a stage: A, Bt, then their low parts
+constexpr int TF_STAGE = 4 * TF_TILE;
+constexpr int TF_SMEM = TF_STAGES * TF_STAGE + 8 * 2 * TF_STAGES + 1024;
+static_assert(TF_SMEM <= 232448, "more shared memory than a block has");
+
+// Block (x, y, z): the tile of C at rows 128y, columns 128x, A from
+// plane za of the map ma and Bt from plane zb of mb (make_map_f32, box
+// 32 x 128 both), k over [0, K). Every consumer thread then calls
+// epi(row, col, v0, v1) for each of its pairs of adjacent accumulators
+// (columns col, col + 1; col even; row and col may lie past the data).
+// Launch through launch_tf32x3(); nothing may follow the call in the
+// kernel (the producer returns early).
+template <class Epi>
+__device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma, int za,
+                                            const CUtensorMap* mb, int zb,
+                                            int K, Epi&& epi) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = saddr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full = ring + TF_STAGES * TF_STAGE;
+  const uint32_t empty = full + 8 * TF_STAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * 128;
+  const int KT = (K + TF_K - 1) / TF_K;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < TF_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);       // the producer's expect_tx
+      mbar_init(empty + 8 * s, 2);      // both consumer warpgroups
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % TF_STAGES;
+        const uint32_t st = ring + s * TF_STAGE;
+        mbar_wait(empty + 8 * s, ((kt / TF_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * TF_TILE);
+        tma_load_3d(st, ma, full + 8 * s, kt * TF_K, m0, za);
+        tma_load_3d(st + TF_TILE, mb, full + 8 * s, kt * TF_K, n0, zb);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int w = wg - 1;
+  const int warp = tid / 32, lane = tid % 32;
+  // acc: the sum so far, in float32 in registers; part: one k-step's
+  // products, summed by the tensor cores (wgmma_3xtf32)
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % TF_STAGES;
+    const uint32_t st = ring + s * TF_STAGE;
+    mbar_wait(full + 8 * s, (kt / TF_STAGES) & 1);
+    // this warpgroup's 64 rows of A and of Bt: high parts in place, low
+    // parts 2 tiles further (the products that last read this stage's
+    // low parts released it before the producer loaded it again)
+    float4* const p = reinterpret_cast<float4*>(smem_raw + (st - raw));
+    split_tf32_smem(p + w * TF_HALF4, p + 2 * (TF_TILE / 16) + w * TF_HALF4,
+                    TF_HALF4, tid, 128);
+    split_tf32_smem(p + TF_TILE / 16 + w * TF_HALF4,
+                    p + 3 * (TF_TILE / 16) + w * TF_HALF4, TF_HALF4, tid, 128);
+    fence_proxy_async();
+    bar_sync(1, 256);                   // both halves of Bt are split
+    const uint32_t a = st + w * (TF_TILE / 2), b = st + TF_TILE;
+    fence_acc(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TF_K / 8; ++kk)
+      wgmma_3xtf32<1>(part, desc_sw128(a + kk * 32),
+                      desc_sw128(a + 2 * TF_TILE + kk * 32),
+                      desc_sw128(b + kk * 32),
+                      desc_sw128(b + 2 * TF_TILE + kk * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(part);
+    if (tid == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+  // d[4j + e]: row 16 * warp + lane / 4 + 8 * (e / 2) of the warpgroup's
+  // 64, column 8j + 2 * (lane % 4) + e % 2
+  const int r = m0 + 64 * w + 16 * warp + lane / 4;
+  const int q = n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    epi(r, q + 8 * j, acc[4 * j], acc[4 * j + 1]);
+    epi(r + 8, q + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+  }
 }
 
 // C(z) = A(z) @ B(z)^T over k in [0, K) for z < Z, A (M x K) and B
@@ -666,6 +836,27 @@ inline int launch(void (*kernel)(Params...), int M, int N, int Z,
                            ((N + BN - 1) / BN) * Z;
   cfg.gridDim = dim3(CLUSTER * (int)(groups < resident ? groups : resident),
                      1, 1);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Launches a kernel built on gemm_tf32x3 for an M x N output over Z
+// planes: a grid of 128 x 128 tiles by Z, THREADS threads, TF_SMEM of
+// dynamic shared memory. Returns a cudaError_t code.
+template <class... Params, class... Args>
+inline int launch_tf32x3(void (*kernel)(Params...), int M, int N, int Z,
+                         cudaStream_t stream, Args... args) {
+  const int gy = (M + 127) / 128, gx = (N + 127) / 128;
+  if (gy > 65535 || Z > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(gx, gy, Z);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = TF_SMEM;
+  cfg.stream = stream;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -62,8 +62,9 @@
 
 // Phase cuts for tools/probe_tail.py, which times the tails built with
 // -DTAIL_CUT=<bits> (their answers are then wrong): 1 skips building h
-// (factored tail), 2 the layer-2 products, 4 the layer-3 products. The
-// default, 0, is the kernel.
+// (factored tail; in the float32 body the TF32 splits of h and W), 2 the
+// layer-2 products, 4 the layer-3 products. The default, 0, is the
+// kernel.
 #ifndef TAIL_CUT
 #define TAIL_CUT 0
 #endif
@@ -340,6 +341,243 @@ __device__ __forceinline__ void layers23(
       store(row, NC + 8 * j + q, y1[4 * j], y1[4 * j + 1]);
       store(row + 8, NC + 8 * j + q, y1[4 * j + 2], y1[4 * j + 3]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The float32 mode (3xTF32): layers 2 and 3 at float32 accuracy on
+// float32 rows h, for both tails that load h (factored_rows_tail, the
+// materialized MLP's tail):
+//
+//   h2 = relu(h @ W2 + b2) * a2 + c2              (64 x H2, float32)
+//   y  = h2 @ W3                                  (64 x 256, registers)
+//
+// Nothing of h stays resident (64 rows x 1024 f32 and its low part are
+// 512 KB): each stage holds one 32-wide k-step of the block's 64-row h
+// slab (8 KB, TMA) and of a 128-row W2 tile (16 KB, TMA multicast to
+// the cluster as in layers23), and room for both low parts: 48 KB, 3
+// stages. The consumers split the stage in place into TF32 high parts
+// and write the low parts 24 KB further (fence.proxy.async, a named
+// barrier), then run the three products (gemm_sm90.cuh, wgmma_3xtf32);
+// each k-step's products go into a fresh accumulator, added in float32
+// in registers (the tensor cores' additions truncate). wgmma reads TF32
+// operands only from shared memory, K-major, so h2 does not stay in
+// registers as it does in layers23: each 128-column chunk of h2 (bias,
+// ReLU, affine in registers) is split into its high and low parts and
+// staged in shared memory (2 x 32 KB, SW128 slabs of 32 k), and layer 3
+// reads it there. Warpgroup w computes columns w*64.. of each W2 chunk
+// (m64n64k8) and then y's columns w*128.. (m64n128k8) over the whole
+// chunk, so y needs no sum across the warpgroups. The W3 tiles of a
+// chunk (w3t rows n half * 128.., k-step of 32) come in the order n half
+// 0, 1 of k-step 0, then of k-step 1, ...; a warpgroup splits and uses
+// those of its own half and only waits for and releases the others.
+// ---------------------------------------------------------------------
+constexpr int KF = 32;                      // f32 k of a stage: 128 bytes
+constexpr int F_SLAB = ROWS * KF * 4;       // 8 KB: 64 rows x 32 k of h
+constexpr int F_W = NC * KF * 4;            // 16 KB: 128 rows x 32 k of W
+constexpr int F_SLICE = F_W / CL;           // a block's share of a W tile
+constexpr int F_HALF = F_SLAB + F_W;        // 24 KB: the h slab, the W tile
+constexpr int F_STAGE = 2 * F_HALF;         // 48 KB: then their low parts
+constexpr int F_STAGES = 3;
+constexpr int F_H2 = ROWS * NC * 4;         // 32 KB: an h2 chunk, one part
+constexpr int F_W3_TILES = (OPP / NC) * (NC / KF);   // W3 tiles a chunk
+// the ring, the staged h2 chunk (both parts), 2 x F_STAGES mbarriers,
+// and room to align the ring to 1024 bytes
+constexpr int F_SMEM =
+    F_STAGES * F_STAGE + 2 * F_H2 + 8 * 2 * F_STAGES + 1024;
+static_assert(F_SMEM <= 232448, "more shared memory than a block has");
+static_assert(OPP / NC == 2, "warpgroup w stores y's columns w*128..");
+
+// Layers 2 and 3 in float32 for the block's 64 rows: h is the boxes at
+// rows h_row0.. of plane zh of the f32 map mh (box KF x ROWS); W2 and W3
+// come through the f32 maps mw2 (w2t (H2, H1), box KF x SLICE_ROWS) and
+// mw3 (w3t (256, H2), same box) at plane zw; b2, a2, c2 (H2) f32.
+// store(row, col, v0, v1) receives y (no bias) for rows < 64 and even
+// columns col < 256, two columns at a time. H1 % 32 == 0, H2 % 128 ==
+// 0. Launch through launch() with F_SMEM bytes; nothing may follow the
+// call in the kernel.
+template <class Store>
+__device__ __forceinline__ void layers23_f32(
+    const CUtensorMap* mh, int h_row0, int zh, const CUtensorMap* mw2,
+    const CUtensorMap* mw3, int zw, int H1, int H2,
+    const float* __restrict__ b2, const float* __restrict__ a2,
+    const float* __restrict__ c2, Store&& store) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = saddr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t h2s = ring + F_STAGES * F_STAGE;   // high part, then low
+  const uint32_t full = h2s + 2 * F_H2;
+  const uint32_t empty = full + 8 * F_STAGES;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const uint32_t rank = cluster_rank();
+  const int KT = H1 / KF;                 // layer-2 stages of a chunk
+  const int SPC = KT + F_W3_TILES;        // stages of a chunk
+  const int NIT = (H2 / NC) * SPC;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      // both consumer warpgroups of every block of the cluster
+      mbar_init(empty + 8 * s, 2 * CL);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const uint16_t all = (uint16_t)((1u << CL) - 1);
+      for (int it = 0; it < NIT; ++it) {
+        const int s = it % F_STAGES;
+        mbar_wait(empty + 8 * s, ((it / F_STAGES) & 1) ^ 1);
+        const int c = it / SPC, r = it - c * SPC;
+        const uint32_t st = ring + s * F_STAGE;
+        const uint32_t wdst = st + F_SLAB + rank * F_SLICE;
+        if (r < KT) {  // W2[r*32 .., c*128 + ..] as w2t rows, h's slab r
+          mbar_expect_tx(full + 8 * s, F_W + F_SLAB);
+          tma_load_3d_multicast(wdst, mw2, full + 8 * s, r * KF,
+                                c * NC + rank * SLICE_ROWS, zw, all);
+          tma_load_3d(st, mh, full + 8 * s, r * KF, h_row0, zh);
+        } else {       // W3 tile j: n half j % 2, k-step j / 2 of chunk c
+          const int j = r - KT;
+          mbar_expect_tx(full + 8 * s, F_W);
+          tma_load_3d_multicast(wdst, mw3, full + 8 * s,
+                                c * NC + (j >> 1) * KF,
+                                (j & 1) * NC + rank * SLICE_ROWS, zw, all);
+        }
+      }
+      // stay until every block of the cluster has released each stage's
+      // last use
+      for (int i = NIT > F_STAGES ? NIT - F_STAGES : 0; i < NIT; ++i)
+        mbar_wait(empty + 8 * (i % F_STAGES), (i / F_STAGES) & 1);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int w = wg - 1;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row = warp * 16 + lane / 4, q = (lane % 4) * 2;
+  unsigned char* const h2p = smem_raw + (h2s - raw);
+  auto release = [&](int i) {
+    if (tid == 0)
+#pragma unroll
+      for (int c = 0; c < CL; ++c)
+        mbar_arrive_cluster(empty + 8 * (i % F_STAGES), c);
+  };
+  // y: this warpgroup's 128 output columns; acc: a layer-2 chunk; part,
+  // part3: one k-step's (one chunk's) products, summed by the tensor
+  // cores
+  float y[64], part3[64], acc[32], part[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) y[i] = part3[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) part[i] = 0.f;
+  int it = 0;
+  for (int c = 0; c < H2 / NC; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    // layer 2: acc = h @ W2[:, c*128 + w*64 .. +64]
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int s = it % F_STAGES;
+      const uint32_t st = ring + s * F_STAGE;
+      mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
+      // the h slab and the W2 tile: high parts in place, low parts F_HALF
+      // further, split by both warpgroups
+      if (!(TAIL_CUT & 1)) {
+        float4* const p = reinterpret_cast<float4*>(smem_raw + (st - raw));
+        split_tf32_smem(p, p + F_HALF / 16, F_HALF / 16, threadIdx.x - 128,
+                        256);
+      }
+      fence_proxy_async();
+      bar_sync(1, 256);
+      const uint32_t b = st + F_SLAB + w * (F_W / 2);
+      fence_acc(part);
+      wgmma_fence();
+      if (!(TAIL_CUT & 2)) {
+#pragma unroll
+        for (int kk = 0; kk < KF / 8; ++kk)
+          wgmma_3xtf32<1>(part, desc_sw128(st + kk * 32),
+                          desc_sw128(st + F_HALF + kk * 32),
+                          desc_sw128(b + kk * 32),
+                          desc_sw128(b + F_HALF + kk * 32), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(part);
+      release(it);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    }
+    // h2's chunk columns w*64 .. +64 (bias, ReLU, affine), split and
+    // staged as slabs 2w, 2w + 1 of h2s (the swizzled layout of a TMA
+    // box); the other warpgroup finished reading the last chunk's before
+    // it passed this chunk's layer-2 barriers
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = w * 64 + 8 * j + q;          // column in the chunk
+      const int col = c * NC + k;
+      const float bb0 = b2[col], bb1 = b2[col + 1];
+      const float aa0 = a2[col], aa1 = a2[col + 1];
+      const float cc0 = c2[col], cc1 = c2[col + 1];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {             // rows row, row + 8
+        const int rr = row + 8 * e;
+        float h0, l0, h1, l1;
+        split_tf32(fmaxf(acc[4 * j + 2 * e] + bb0, 0.f) * aa0 + cc0, h0, l0);
+        split_tf32(fmaxf(acc[4 * j + 2 * e + 1] + bb1, 0.f) * aa1 + cc1, h1,
+                   l1);
+        const uint32_t off = (k >> 5) * F_SLAB + rr * 128 +
+                             ((((k & 31) >> 2) ^ (rr & 7)) << 4) +
+                             (k & 3) * 4;
+        *reinterpret_cast<float2*>(h2p + off) = make_float2(h0, h1);
+        *reinterpret_cast<float2*>(h2p + F_H2 + off) = make_float2(l0, l1);
+      }
+    }
+    fence_proxy_async();
+    bar_sync(1, 256);
+    // layer 3: part3 = h2 chunk @ W3[chunk, w*128 .. +128]
+    for (int j = 0; j < F_W3_TILES; ++j, ++it) {
+      const int s = it % F_STAGES;
+      const uint32_t st = ring + s * F_STAGE;
+      mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
+      if ((j & 1) == w) {
+        const int k3 = j >> 1;
+        if (!(TAIL_CUT & 1)) {
+          float4* const p =
+              reinterpret_cast<float4*>(smem_raw + (st + F_SLAB - raw));
+          split_tf32_smem(p, p + F_HALF / 16, F_W / 16, tid, 128);
+        }
+        fence_proxy_async();
+        bar_sync(2 + w, 128);
+        const uint32_t a = h2s + k3 * F_SLAB, b = st + F_SLAB;
+        fence_acc(part3);
+        wgmma_fence();
+        if (!(TAIL_CUT & 4)) {
+#pragma unroll
+          for (int kk = 0; kk < KF / 8; ++kk)
+            wgmma_3xtf32<1>(part3, desc_sw128(a + kk * 32),
+                            desc_sw128(a + F_H2 + kk * 32),
+                            desc_sw128(b + kk * 32),
+                            desc_sw128(b + F_HALF + kk * 32),
+                            k3 > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(part3);
+      }
+      release(it);
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) y[i] += part3[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    store(row, w * NC + 8 * j + q, y[4 * j], y[4 * j + 1]);
+    store(row + 8, w * NC + 8 * j + q, y[4 * j + 2], y[4 * j + 3]);
   }
 }
 

@@ -11,14 +11,23 @@ bias into one row per head; (a_i, c_i) are the eval-mode BatchNorm
 affines. That is the two-hidden-layer model of up to 1024 units in its
 first layer, whose heads run in one fused kernel (h stays in shared
 memory). Any other model runs the per-head rows through device memory
-as bfloat16: ``factored_heads`` writes h, ``factored_dense`` runs hidden
-layers 2 .. D-1 (or, at D = 1, the output layer), and
+in the weights' dtype: ``factored_heads`` writes h, ``factored_dense``
+runs hidden layers 2 .. D-1 (or, at D = 1, the output layer), and
 ``factored_rows_tail`` the last hidden layer and the output (its rows
 streamed slab by slab above 1024 units). ``fused_factored_planes``
-routes by depth and width. On CUDA tensors each wrapper
-launches its kernel; on CPU tensors it runs the kernel's plain version,
-which mirrors the TPU kernel's body: operands are rounded to the
-weights' dtype, products and sums are float32.
+routes by depth and width.
+
+The weights' dtype picks the mode (``prepare_factored_weights``'
+``dot_dtype``): bfloat16 weights run the bf16 kernels, float32 weights
+the float32 mode, every product at float32 accuracy (3xTF32 on the
+tensor cores) on float32 rows, always through the per-head rows (the
+fused tail keeps bf16 h only). The output layer's store takes
+``out_dtype`` float32 or bfloat16 (the float32 result rounded to
+nearest even). On CUDA tensors each wrapper launches its kernel (or
+raises: a float32 request never runs the plain version or a bf16
+kernel); on CPU tensors it runs the kernel's plain version, which
+mirrors the TPU kernel's body: operands are rounded to the weights'
+dtype, products and sums are float32.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from mamimo_tpu_torch.models.mlp import _bn_affine, plane, require_full_input
 from mamimo_tpu_torch.ops.kernels import _build
 from mamimo_tpu_torch.ops.kernels.util import (
     _round_up,
+    count_launch,
     kmajor_weight,
     on_cuda,
     tma_operand,
@@ -40,6 +50,23 @@ from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
 
 _TAIL_OP = 256      # the tail kernel's padded output width
 _MAX_RESIDENT = 1024    # the widest h the fused tail keeps in shared memory
+_F32, _BF16 = torch.float32, torch.bfloat16
+_MODE_BF16_OUT, _MODE_F32 = 1, 2    # the launch functions' mode bits
+
+
+def _mode_of(dtype, who: str) -> int:
+    """The float32-operands bit of a launch's mode for weights of dtype;
+    raises TypeError for a dtype no kernel takes."""
+    if dtype not in (_BF16, _F32):
+        raise TypeError(f"{who} takes bfloat16 or float32 weights, got "
+                        f"{dtype}")
+    return _MODE_F32 * (dtype == _F32)
+
+
+def _check_out_dtype(out_dtype) -> None:
+    if out_dtype not in (_F32, _BF16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
 
 
 def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
@@ -149,25 +176,31 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
                       w1t: torch.Tensor | None = None) -> torch.Tensor:
     """Layer 1 of both planes: x (2, S, L) @ w1 (2, L, H) → (2, S, H)
-    float32. CUDA: bfloat16 x and w1, the hand-written GEMM kernel, which
-    reads W1 K-major from ``w1t`` (2, H, L), ``prepared["w1t"]``; it is
+    float32. CUDA: x and w1 of one dtype, bfloat16 (the bf16 GEMM kernel)
+    or float32 (its float32 mode, 3xTF32), the kernel reading W1 K-major
+    from ``w1t`` (2, H, L), ``prepared["w1t"]`` of that dtype; it is
     required there. CPU: the plain version (w1t unused)."""
     if not on_cuda(x, w1):
         return _mm(x, w1)
-    if x.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16:
-        raise TypeError("factored_sig_proj takes bfloat16 x and w1 on CUDA")
+    mode = _mode_of(w1.dtype, "factored_sig_proj")
+    if x.dtype != w1.dtype:
+        raise TypeError(f"factored_sig_proj takes x of the weights' dtype "
+                        f"on CUDA ({w1.dtype}), got {x.dtype}")
     _, s, L = x.shape
     H = w1.shape[2]
-    if tuple(w1.shape) != (2, L, H) or x.shape[0] != 2 or L % 8 or H % 128:
+    pitch = 4 if mode else 8
+    if tuple(w1.shape) != (2, L, H) or x.shape[0] != 2 or L % pitch \
+            or H % 128:
         raise ValueError(f"factored_sig_proj needs x (2,S,L), w1 (2,L,H) "
-                         f"with L % 8 == 0 and H % 128 == 0, got "
+                         f"with L % {pitch} == 0 and H % 128 == 0, got "
                          f"{tuple(x.shape)}, {tuple(w1.shape)}")
     if w1t is None:
         raise ValueError("factored_sig_proj needs w1t, prepared['w1t'], on "
                          "CUDA")
-    if tuple(w1t.shape) != (2, H, L) or w1t.dtype != torch.bfloat16:
-        raise ValueError(f"factored_sig_proj needs w1t (2, {H}, {L}) bf16, "
-                         f"got {tuple(w1t.shape)} {w1t.dtype}")
+    if tuple(w1t.shape) != (2, H, L) or w1t.dtype != w1.dtype:
+        raise ValueError(f"factored_sig_proj needs w1t (2, {H}, {L}) "
+                         f"{str(w1.dtype)[6:]}, got {tuple(w1t.shape)} "
+                         f"{w1t.dtype}")
     out = torch.empty((2, s, H), dtype=torch.float32, device=x.device)
     if s == 0:
         return out
@@ -176,13 +209,16 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.factored_sig_proj_launch(x.data_ptr(), w1t.data_ptr(),
-                                          out.data_ptr(), s, L, H, stream)
+                                          out.data_ptr(), s, L, H, mode,
+                                          stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_sig_proj")
-    factored_sig_proj.launches += 1
+    count_launch(factored_sig_proj, mode & _MODE_F32)
     return out
 
 
-factored_sig_proj.launches = 0
+# launches of the kernel, and of those its float32 mode's
+factored_sig_proj.launches = factored_sig_proj.launches_f32 = 0
+
 
 def _hidden_plain(p, k: int, h: torch.Tensor) -> torch.Tensor:
     """Hidden layer k of the plain versions: relu(h @ wk + bk)·ak + ck,
@@ -194,12 +230,14 @@ def _hidden_plain(p, k: int, h: torch.Tensor) -> torch.Tensor:
     return y.reshape(*h.shape[:-1], y.shape[-1])
 
 
-def _out_plain(p, h: torch.Tensor, C: int) -> torch.Tensor:
-    """The output layer of the plain versions: (h @ w + b)[..., :C]."""
+def _out_plain(p, h: torch.Tensor, C: int,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """The output layer of the plain versions: (h @ w + b)[..., :C],
+    float32 rounded to out_dtype."""
     k = factored_depth(p) + 1
     rows = h.reshape(2, -1, h.shape[-1])
     y = _mm(rows, p[f"w{k}"]) + p[f"b{k}"]
-    return y.reshape(*h.shape[:-1], y.shape[-1])[..., :C]
+    return y.reshape(*h.shape[:-1], y.shape[-1])[..., :C].to(out_dtype)
 
 
 def _heads_plain(p, sig_proj: torch.Tensor) -> torch.Tensor:
@@ -209,33 +247,38 @@ def _heads_plain(p, sig_proj: torch.Tensor) -> torch.Tensor:
     return h * p["a1"][:, None] + p["c1"][:, None]
 
 
-def _tail_plain(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
+def _tail_plain(prepared, sig_proj: torch.Tensor, C: int,
+                out_dtype=torch.float32) -> torch.Tensor:
     """Plain version of everything after layer 1 at any depth, the fused
-    tail kernel's at depth 2: (2, S, H1) → (2, S, ntx, C)."""
+    tail kernel's at depth 2: (2, S, H1) → (2, S, ntx, C) out_dtype."""
     h = _heads_plain(prepared, sig_proj)
     for k in range(2, factored_depth(prepared) + 1):
         h = _hidden_plain(prepared, k, h)
-    return _out_plain(prepared, h, C)
+    return _out_plain(prepared, h, C, out_dtype)
 
 
 # the fused tail's operands (depth 2), in its launch order
 _TAIL_ARGS = ("hb", "a1", "c1", "w2t", "b2", "a2", "c2", "w3t", "b3")
 
 
-def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
+def factored_tail(prepared, sig_proj: torch.Tensor, C: int,
+                  out_dtype=torch.float32) -> torch.Tensor:
     """Heads, layers 2 and 3 of both planes of a two-hidden-layer model
-    from sig_proj (2, S, H1) f32: returns y (2, S, num_tx, C) float32,
-    rx-major. CUDA: the fused tail kernel, which reads W2 and W3 K-major
-    from ``prepared["w2t"]`` and ``prepared["w3t"]`` (required there); h
-    (64 rows × H1 in shared memory, so H1 <= 1024) and h2 stay on chip.
-    CPU: the plain version."""
+    from sig_proj (2, S, H1) f32: returns y (2, S, num_tx, C) in
+    out_dtype (float32, or bfloat16: the float32 result rounded),
+    rx-major. CUDA: the fused tail kernel on bf16 weights (a float32
+    model takes the per-head rows: fused_factored_planes routes it),
+    which reads W2 and W3 K-major from ``prepared["w2t"]`` and
+    ``prepared["w3t"]`` (required there); h (64 rows × H1 in shared
+    memory, so H1 <= 1024) and h2 stay on chip. CPU: the plain version."""
     if factored_depth(prepared) != 2:
         raise ValueError(f"factored_tail is the fused tail of 2 hidden "
                          f"layers, got {factored_depth(prepared)}: "
                          f"fused_factored_planes routes other depths")
+    _check_out_dtype(out_dtype)
     keys = ("hb", "a1", "c1", "w2", "b2", "a2", "c2", "w3", "b3")
     if not on_cuda(sig_proj, *(prepared[k] for k in keys)):
-        return _tail_plain(prepared, sig_proj, C)
+        return _tail_plain(prepared, sig_proj, C, out_dtype)
     p = {k: prepared[k].contiguous() for k in keys}
     sig_proj = sig_proj.contiguous()
     _, s, h1 = sig_proj.shape
@@ -243,7 +286,9 @@ def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
     h2 = prepared["w2"].shape[2]
     if prepared["w2"].dtype != torch.bfloat16 or sig_proj.dtype != \
             torch.float32:
-        raise TypeError("factored_tail takes f32 sig_proj and bf16 weights")
+        raise TypeError("factored_tail takes f32 sig_proj and bf16 weights "
+                        "(float32 weights run through factored_heads and "
+                        "factored_rows_tail)")
     if h1 % 128 or h2 % 128 or h1 > _MAX_RESIDENT or C > _TAIL_OP \
             or tuple(p["hb"].shape) != (2, nt, h1):
         raise ValueError(f"factored_tail needs hidden widths % 128 == 0, "
@@ -253,16 +298,18 @@ def factored_tail(prepared, sig_proj: torch.Tensor, C: int) -> torch.Tensor:
                          f"factored_rows_tail)")
     for key, shape in (("w2t", (2, h2, h1)), ("w3t", (2, _TAIL_OP, h2))):
         p[key] = kmajor_weight(prepared, key, shape, "factored_tail")
-    out = torch.empty((2, s, nt, C), dtype=torch.float32,
+    out = torch.empty((2, s, nt, C), dtype=out_dtype,
                       device=sig_proj.device)
     if s == 0:
         return out
+    mode = _MODE_BF16_OUT * (out_dtype == _BF16)
     lib = _ff_lib()
     with torch.cuda.device(sig_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.factored_tail_launch(
             sig_proj.data_ptr(), *(p[k].data_ptr() for k in _TAIL_ARGS),
-            out.data_ptr(), s, nt, h1, h2, C, p["b3"].shape[-1], stream)
+            out.data_ptr(), s, nt, h1, h2, C, p["b3"].shape[-1], mode,
+            stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_tail")
     factored_tail.launches += 1
     return out
@@ -273,14 +320,16 @@ factored_tail.launches = 0
 
 def factored_heads(prepared, sig_proj: torch.Tensor) -> torch.Tensor:
     """The per-head rows of layer 1 for the models the fused tail does not
-    take (a depth other than 2, or H1 above 1024): h =
+    take (a depth other than 2, H1 above 1024, or float32 weights): h =
     relu(sig_proj[s] + hb[t])·a1 + c1 as (2, S·num_tx, H1) rows (row
     s·num_tx + t) in the weights' dtype. CUDA: an elementwise kernel
-    writing bf16 rows. CPU: the plain version."""
+    writing bf16 rows, or float32 rows for float32 weights. CPU: the
+    plain version."""
     keys = ("hb", "a1", "c1")
     if not on_cuda(sig_proj, *(prepared[k] for k in keys)):
         h = _heads_plain(prepared, sig_proj)
         return h.reshape(2, -1, h.shape[-1]).to(prepared["w1"].dtype)
+    mode = _mode_of(prepared["w1"].dtype, "factored_heads")
     sig_proj = sig_proj.contiguous()
     _, s, h1 = sig_proj.shape
     p = {k: prepared[k].contiguous() for k in keys}
@@ -291,7 +340,7 @@ def factored_heads(prepared, sig_proj: torch.Tensor) -> torch.Tensor:
                          f"and hb (2, nt, H1), H1 % 8 == 0; got "
                          f"{tuple(sig_proj.shape)} {sig_proj.dtype}, "
                          f"{tuple(p['hb'].shape)}")
-    out = torch.empty((2, s * nt, h1), dtype=torch.bfloat16,
+    out = torch.empty((2, s * nt, h1), dtype=prepared["w1"].dtype,
                       device=sig_proj.device)
     if s == 0:
         return out
@@ -300,49 +349,59 @@ def factored_heads(prepared, sig_proj: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.factored_heads_launch(
             sig_proj.data_ptr(), *(p[k].data_ptr() for k in keys),
-            out.data_ptr(), s, nt, h1, stream)
+            out.data_ptr(), s, nt, h1, mode, stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_heads")
-    factored_heads.launches += 1
+    count_launch(factored_heads, mode & _MODE_F32)
     return out
 
 
-factored_heads.launches = 0
+factored_heads.launches = factored_heads.launches_f32 = 0
 
 
-def factored_dense(prepared, k: int, h: torch.Tensor,
-                   C: int | None = None) -> torch.Tensor:
+def factored_dense(prepared, k: int, h: torch.Tensor, C: int | None = None,
+                   out_dtype=torch.float32) -> torch.Tensor:
     """Layer k of both planes on rows h (2, M, H{k-1}): a hidden layer
-    (k <= depth) → bf16(relu(h @ wk + bk)·ak + ck) rows (2, M, Hk) in the
+    (k <= depth) → relu(h @ wk + bk)·ak + ck rows (2, M, Hk) in the
     weights' dtype; the output layer (k = depth + 1) → (h @ wk + bk)[...,
-    :C] float32 (2, M, C). CUDA: the Hopper GEMM kernel with that
-    epilogue, reading wk K-major from ``prepared["wkt"]``. CPU: the plain
+    :C] (2, M, C) in out_dtype (float32, or bfloat16: the float32 result
+    rounded). CUDA: the Hopper GEMM kernel with that epilogue (bf16 rows
+    and weights, or float32 rows and weights in the float32 mode),
+    reading wk K-major from ``prepared["wkt"]``. CPU: the plain
     version."""
     out_layer = k == factored_depth(prepared) + 1
     if out_layer and C is None:
         raise ValueError("factored_dense needs C for the output layer")
+    _check_out_dtype(out_dtype)
     keys = (f"w{k}", f"b{k}") + (() if out_layer else (f"a{k}", f"c{k}"))
     if not on_cuda(h, *(prepared[key] for key in keys)):
         if out_layer:
-            return _out_plain(prepared, h, C)
+            return _out_plain(prepared, h, C, out_dtype)
         return _hidden_plain(prepared, k, h).to(prepared[f"w{k}"].dtype)
     w = prepared[f"w{k}"]
+    mode = _mode_of(w.dtype, "factored_dense")
     _, m, kin = h.shape
     # the output's K-major weight has at least the tails' 256 rows
     n = max(w.shape[2], _TAIL_OP) if out_layer else w.shape[2]
-    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError("factored_dense takes bf16 rows and weights")
-    if kin % 8 or w.shape[1] != kin:
+    if h.dtype != w.dtype:
+        raise TypeError(f"factored_dense takes rows of the weights' dtype "
+                        f"({w.dtype}), got {h.dtype}")
+    pitch = 4 if mode else 8
+    if kin % pitch or w.shape[1] != kin:
         raise ValueError(f"factored_dense layer {k} needs rows of "
-                         f"{w.shape[1]} (% 8 == 0), got {tuple(h.shape)}")
-    wt = kmajor_weight(prepared, f"w{k}t", (2, n, kin), "factored_dense")
+                         f"{w.shape[1]} (% {pitch} == 0), got "
+                         f"{tuple(h.shape)}")
+    wt = kmajor_weight(prepared, f"w{k}t", (2, n, kin), "factored_dense",
+                       w.dtype)
     b = prepared[f"b{k}"].contiguous()
     a, c = (b, b) if out_layer else \
         (prepared[f"a{k}"].contiguous(), prepared[f"c{k}"].contiguous())
     shape = (2, m, C) if out_layer else (2, m, n)
-    out = torch.empty(shape, device=h.device, dtype=torch.float32
-                      if out_layer else torch.bfloat16)
+    out = torch.empty(shape, device=h.device,
+                      dtype=out_dtype if out_layer else w.dtype)
     if m == 0:
         return out
+    if out_layer and out_dtype == _BF16:
+        mode |= _MODE_BF16_OUT
     h = tma_operand(h)
     lib = _ff_lib()
     with torch.cuda.device(h.device):
@@ -350,47 +409,58 @@ def factored_dense(prepared, k: int, h: torch.Tensor,
         rc = lib.factored_dense_launch(
             h.data_ptr(), wt.data_ptr(), b.data_ptr(), a.data_ptr(),
             c.data_ptr(), out.data_ptr(), m, n, kin, C or 0, b.shape[-1],
-            int(out_layer), stream)
+            int(out_layer), mode, stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_dense")
-    factored_dense.launches += 1
+    count_launch(factored_dense, mode & _MODE_F32)
     return out
 
 
-factored_dense.launches = 0
+factored_dense.launches = factored_dense.launches_f32 = 0
 
 
-def factored_rows_tail(prepared, h: torch.Tensor, C: int) -> torch.Tensor:
+def factored_rows_tail(prepared, h: torch.Tensor, C: int,
+                       out_dtype=torch.float32) -> torch.Tensor:
     """The last hidden layer D and the output layer of both planes of a
     model of D >= 2 hidden layers, from rows h (2, M, H{D-1}): y (2, M,
-    C) float32. CUDA: the fused tail kernel on TMA-loaded rows (the last
-    hidden layer's activation stays on chip; the rows stream slab by
-    slab above 1024 units), reading W K-major from ``prepared["wDt"]``
-    and the output's. CPU: the plain version."""
+    C) in out_dtype (float32, or bfloat16: the float32 result rounded).
+    CUDA: the fused tail kernel on TMA-loaded rows (the last hidden
+    layer's activation stays on chip; bf16 rows stream slab by slab above
+    1024 units; float32 rows, the float32 mode, always stream), reading W
+    K-major from ``prepared["wDt"]`` and the output's. CPU: the plain
+    version."""
     d = factored_depth(prepared)
     if d < 2:
         raise ValueError(f"factored_rows_tail serves 2 or more hidden "
                          f"layers, got {d}")
+    _check_out_dtype(out_dtype)
     wk, ok = f"w{d}", f"w{d + 1}"
     keys = (wk, f"b{d}", f"a{d}", f"c{d}", ok, f"b{d + 1}")
     if not on_cuda(h, *(prepared[k] for k in keys)):
-        return _out_plain(prepared, _hidden_plain(prepared, d, h), C)
+        return _out_plain(prepared, _hidden_plain(prepared, d, h), C,
+                          out_dtype)
+    dt = prepared[wk].dtype
+    mode = _mode_of(dt, "factored_rows_tail")
     _, m, h1 = h.shape
     h2 = prepared[wk].shape[2]
-    if h.dtype != torch.bfloat16 or prepared[wk].dtype != torch.bfloat16:
-        raise TypeError("factored_rows_tail takes bf16 rows and weights")
+    if h.dtype != dt or prepared[ok].dtype != dt:
+        raise TypeError(f"factored_rows_tail takes rows and weights of one "
+                        f"dtype, got rows {h.dtype}, weights {dt} and "
+                        f"{prepared[ok].dtype}")
     if h1 % 128 or h2 % 128 or C > _TAIL_OP \
             or prepared[wk].shape[1] != h1:
         raise ValueError(f"factored_rows_tail needs rows of "
                          f"{prepared[wk].shape[1]}, widths % 128 == 0 and "
                          f"C <= {_TAIL_OP}; got {tuple(h.shape)}, C={C}")
-    w2t = kmajor_weight(prepared, f"{wk}t", (2, h2, h1), "factored_rows_tail")
+    w2t = kmajor_weight(prepared, f"{wk}t", (2, h2, h1), "factored_rows_tail",
+                        dt)
     w3t = kmajor_weight(prepared, f"{ok}t", (2, _TAIL_OP, h2),
-                        "factored_rows_tail")
+                        "factored_rows_tail", dt)
     vec = [prepared[k].contiguous()
            for k in (f"b{d}", f"a{d}", f"c{d}", f"b{d + 1}")]
-    out = torch.empty((2, m, C), dtype=torch.float32, device=h.device)
+    out = torch.empty((2, m, C), dtype=out_dtype, device=h.device)
     if m == 0:
         return out
+    mode |= _MODE_BF16_OUT * (out_dtype == _BF16)
     h = tma_operand(h)
     lib = _ff_lib()
     with torch.cuda.device(h.device):
@@ -398,60 +468,81 @@ def factored_rows_tail(prepared, h: torch.Tensor, C: int) -> torch.Tensor:
         rc = lib.factored_rows_tail_launch(
             h.data_ptr(), w2t.data_ptr(), *(v.data_ptr() for v in vec[:3]),
             w3t.data_ptr(), vec[3].data_ptr(), out.data_ptr(), m, h1, h2, C,
-            vec[3].shape[-1], stream)
+            vec[3].shape[-1], mode, stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_rows_tail")
-    factored_rows_tail.launches += 1
+    count_launch(factored_rows_tail, mode & _MODE_F32)
     return out
 
 
-factored_rows_tail.launches = 0
+factored_rows_tail.launches = factored_rows_tail.launches_f32 = 0
 
 
 def fused_factored_planes(cfg: SimConfig, tcfg: TrainConfig, prepared,
-                          planes: torch.Tensor) -> torch.Tensor:
+                          planes: torch.Tensor, *, block_s: int = 128,
+                          block_k: int = 1024, dot_dtype=None,
+                          out_dtype=torch.float32,
+                          interpret=None) -> torch.Tensor:
     """The fused factored all-pairs inference on both planes, at any depth.
 
     Args:
-      prepared: from prepare_factored_weights (bf16 weights on CUDA).
-      planes: (2, S, len_ltf), S = batch·num_rx rx-major; bfloat16 on
-        CUDA.
+      prepared: from prepare_factored_weights; its dtype is the products'
+        (bf16, or float32: the float32 mode).
+      planes: (2, S, len_ltf), S = batch·num_rx rx-major; on CUDA in the
+        weights' dtype.
+      dot_dtype: JAX's keyword; it must equal the prepared weights'
+        dtype (None: the prepared weights' dtype), else ValueError.
+      out_dtype: float32 (the default: the port's callers take float32)
+        or bfloat16 (JAX's default: the float32 result rounded to
+        nearest even).
+      block_s, block_k, interpret: accepted for the JAX signature and
+        ignored (the CUDA kernels pick their own tiling).
 
     Returns:
-      (2, S, num_tx, num_carriers) float32 — rx-major, the layout of
-      ``_factored_all_pairs`` (the TPU kernel returned head-major
-      (2, num_tx, S, C); this layout needs no transpose before the
-      serving call's output).
+      (2, S, num_tx, num_carriers) out_dtype — rx-major, the layout of
+      ``_factored_all_pairs``. The TPU kernel returns head-major (2,
+      num_tx, S, C); this layout needs no transpose before the serving
+      call's output.
 
-    Two hidden layers of at most 1024 units in the first:
-    ``factored_sig_proj`` and the fused ``factored_tail``. Otherwise,
-    depth D: ``factored_sig_proj``, ``factored_heads``,
-    ``factored_dense`` for layers 2 .. D-1, then ``factored_rows_tail``
-    (or at D = 1 ``factored_dense`` of the output).
+    bf16 weights of two hidden layers of at most 1024 units in the first:
+    ``factored_sig_proj`` and the fused ``factored_tail``. Any other
+    model, and every float32 model, depth D: ``factored_sig_proj``,
+    ``factored_heads``, ``factored_dense`` for layers 2 .. D-1, then
+    ``factored_rows_tail`` (or at D = 1 ``factored_dense`` of the
+    output).
     """
+    del block_s, block_k, interpret
     require_full_input(tcfg)
+    w_dtype = prepared["w1"].dtype
+    if dot_dtype is not None and dot_dtype != w_dtype:
+        raise ValueError(f"dot_dtype {dot_dtype} differs from the prepared "
+                         f"weights' {w_dtype} (prepare_factored_weights' "
+                         f"dot_dtype)")
+    _check_out_dtype(out_dtype)
     C, d = cfg.num_carriers, factored_depth(prepared)
     sig_proj = factored_sig_proj(planes, prepared["w1"], prepared["w1t"])
-    if d == 2 and sig_proj.shape[2] <= _MAX_RESIDENT:
-        return factored_tail(prepared, sig_proj, C)
+    if d == 2 and sig_proj.shape[2] <= _MAX_RESIDENT and w_dtype == _BF16:
+        return factored_tail(prepared, sig_proj, C, out_dtype)
     s = sig_proj.shape[1]
     h = factored_heads(prepared, sig_proj)
     for k in range(2, d):
         h = factored_dense(prepared, k, h)
-    y = factored_dense(prepared, 2, h, C) if d == 1 \
-        else factored_rows_tail(prepared, h, C)
+    y = factored_dense(prepared, 2, h, C, out_dtype) if d == 1 \
+        else factored_rows_tail(prepared, h, C, out_dtype)
     return y.reshape(2, s, cfg.num_tx, C)
 
 
 def predict_all_pairs_planes_kernel(cfg: SimConfig, tcfg: TrainConfig,
-                                    prepared, rx_planes: torch.Tensor):
+                                    prepared, rx_planes: torch.Tensor, **kw):
     """All-pairs DNN CSI from rx-major planes (2, B, num_rx, len_ltf)
-    through the fused kernels. Returns (B, num_rx, num_tx, num_carriers)
-    complex64."""
+    through the fused kernels (``kw``: fused_factored_planes' keywords).
+    Returns (B, num_rx, num_tx, num_carriers) complex64. On CUDA the
+    planes are taken in the weights' dtype (float32 planes stay as they
+    are for float32 weights)."""
     _, b, nrx, L = rx_planes.shape
     x = rx_planes.reshape(2, b * nrx, L)
     if x.is_cuda:
         x = x.to(prepared["w1"].dtype)
-    y = fused_factored_planes(cfg, tcfg, prepared, x)
+    y = fused_factored_planes(cfg, tcfg, prepared, x, **kw).float()
     return torch.complex(y[0], y[1]).reshape(b, nrx, cfg.num_tx,
                                              cfg.num_carriers)
 
@@ -460,11 +551,11 @@ def _ff_lib(defines=()) -> ctypes.CDLL:
     lib = _build.library("fused_factored", defines)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-            ("factored_sig_proj_launch", [ptr] * 3 + [i32] * 3),
-            ("factored_tail_launch", [ptr] * 11 + [i32] * 6),
-            ("factored_heads_launch", [ptr] * 5 + [i32] * 3),
-            ("factored_dense_launch", [ptr] * 6 + [i32] * 6),
-            ("factored_rows_tail_launch", [ptr] * 8 + [i32] * 5)):
+            ("factored_sig_proj_launch", [ptr] * 3 + [i32] * 4),
+            ("factored_tail_launch", [ptr] * 11 + [i32] * 7),
+            ("factored_heads_launch", [ptr] * 5 + [i32] * 4),
+            ("factored_dense_launch", [ptr] * 6 + [i32] * 7),
+            ("factored_rows_tail_launch", [ptr] * 8 + [i32] * 6)):
         f = getattr(lib, name)
         f.restype = ctypes.c_int
         f.argtypes = args + [ptr]

@@ -39,7 +39,12 @@ from mamimo_tpu_torch.ops.estimate import (
     ls_planes_constants,
 )
 from mamimo_tpu_torch.ops.kernels import _build
-from mamimo_tpu_torch.ops.kernels.util import _round_up, on_cuda, tma_operand
+from mamimo_tpu_torch.ops.kernels.util import (  # noqa: F401
+    _round_up,
+    on_cuda,
+    tf32_split,
+    tma_operand,
+)
 from mamimo_tpu_torch.ops.ltf import _hadamard_np
 
 def ls_planes_pallas_constants(cfg: SimConfig, block_samples: int = 8,
@@ -97,21 +102,6 @@ def ls_kernel_constants(cfg: SimConfig, device=None,
     top = b[cfg.cp_length:]                            # xr rows: [Ar | Ai]
     bot = torch.cat([-top[:, cp_:], top[:, :cp_]], 1)  # xi rows: [-Ai | Ar]
     return torch.cat([top, bot]).to(device=device, dtype=dtype)
-
-
-def tf32_split(t: torch.Tensor) -> torch.Tensor:
-    """float32 t as (hi, lo) stacked on a new first axis, both TF32
-    values (the low 13 bits zero): hi = t rounded to TF32 (to nearest,
-    ties away, as ``cvt.rna.tf32.f32``), lo = t − hi (exact) rounded the
-    same way; hi + lo holds 22 of t's 24 bits. The kernels' float32
-    mode (csrc/gemm_sm90.cuh, ``split_tf32``) takes a·b as hi·hi + hi·lo
-    + lo·hi."""
-    def rna(x):
-        u = x.contiguous().view(torch.int32)
-        return ((u + 0x1000) & -0x2000).view(torch.float32)
-
-    hi = rna(t.float())
-    return torch.stack([hi, rna(t.float() - hi)])
 
 
 def ls_sm90_row_order(cpad: int) -> np.ndarray:

@@ -2,14 +2,18 @@
 hand-written CUDA kernels in ``csrc/mlp_infer.cu`` (the counterpart of
 ``mamimo_tpu/ops/pallas/mlp_infer.py``).
 
-    h1 = bf16(relu(x @ W1 + b1) · s1 + t1)        mlp_infer_layer1
-    h2 = bf16(relu(h1 @ W2 + b2) · s2 + t2)       mlp_infer_tail
+    h1 = rd(relu(x @ W1 + b1) · s1 + t1)          mlp_infer_layer1
+    h2 = rd(relu(h1 @ W2 + b2) · s2 + t2)         mlp_infer_tail
     y  = h2 @ W3 + b3                             mlp_infer_tail
 
 (s, t) are the eval-mode BatchNorm affines folded after each ReLU
-(``fold_bn_into_dense``). The products take bf16 operands and sum in
-float32. On CUDA tensors each wrapper launches its kernel; on CPU tensors
-it runs the kernel's plain version, which rounds the same operands.
+(``fold_bn_into_dense``). The products take operands rounded (rd) to the
+weights' dtype, the tree's ``dot_dtype``, and sum in float32: bf16 (the
+kernels' bf16 mode) or float32 (their float32 mode, 3xTF32 on the
+tensor cores, float32 accuracy; h1 stays float32). On CUDA tensors each
+wrapper launches its kernel, in the mode of the tree's dtype; on CPU
+tensors it runs the kernel's plain version, which rounds the same
+operands.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from mamimo_tpu_torch.models.mlp import _bn_affine, plane, preprocess_input
 from mamimo_tpu_torch.ops.kernels import _build
 from mamimo_tpu_torch.ops.kernels.util import (
     _round_up,
+    count_launch,
     kmajor_weight,
     on_cuda,
     tma_operand,
@@ -86,34 +91,39 @@ def _prepare_plane(tcfg: TrainConfig, params, bn_state, dot_dtype):
             "b3": f32(b3)}
 
 
-def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state):
+def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state,
+                              dot_dtype=torch.bfloat16):
     """The kernels' weights for both planes of stacked parameters, folded
-    once: a dict of stacked (plane-leading) tensors
+    once: a dict of stacked (plane-leading) tensors, the weights in
+    ``dot_dtype`` (bfloat16, or float32 for the kernels' float32 mode)
 
-      w1 (2, Kp, H) bf16 — rows past in_dim zero, Kp = round_up(in_dim,
-                           32)
-      w1t (2, H, Kp) bf16 — w1 transposed, the layer-1 kernel's K-major
-                            B operand
+      w1 (2, Kp, H) — rows past in_dim zero, Kp = round_up(in_dim, 32)
+      w1t (2, H, Kp) — w1 transposed, the layer-1 kernel's K-major B
+                       operand
       b1, s1, t1 (2, H) f32 — bias and post-ReLU affine of layer 1
-      w2 (2, H, H) bf16; b2, s2, t2 (2, H) f32
-      w2t (2, H, H) bf16 — w2 transposed, the tail kernel's K-major
-                           layer-2 operand
-      w3 (2, H, 256) bf16 — carriers zero-padded
-      w3t (2, 256, H) bf16 — w3 transposed, the tail kernel's K-major
-                             layer-3 operand
+      w2 (2, H, H); b2, s2, t2 (2, H) f32
+      w2t (2, H, H) — w2 transposed, the tail kernel's K-major layer-2
+                      operand
+      w3 (2, H, 256) — carriers zero-padded
+      w3t (2, 256, H) — w3 transposed, the tail kernel's K-major layer-3
+                        operand
       b3 (2, C) f32
 
     H is both hidden widths rounded up to one multiple of 128, the
     kernels' tile (as ``prepare_factored_weights``): the extra units get
     zero weights, biases and BN affines, so they stay 0 through ReLU and
-    the answer is exact. The tail kernel keeps h1 in shared memory up to
-    H = 1024 and streams its slabs beside W2's tiles above that.
+    the answer is exact. The bf16 tail kernel keeps h1 in shared memory up
+    to H = 1024 and streams its slabs beside W2's tiles above that; the
+    float32 one always streams them.
 
     Run it under ``full_f32_matmul()`` on the card, as the serving paths
     do. ``plane(prepared, d)`` is one plane's tree for ``mlp_infer_pallas``.
     """
+    if dot_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dot_dtype must be bfloat16 or float32, got "
+                        f"{dot_dtype}")
     planes = [_prepare_plane(tcfg, plane(params, d), plane(bn_state, d),
-                             torch.bfloat16) for d in range(2)]
+                             dot_dtype) for d in range(2)]
     return {k: torch.stack([p[k] for p in planes]) for k in _KEYS}
 
 
@@ -145,29 +155,47 @@ def _tail_plain(p, h1: torch.Tensor, dot_dtype=torch.bfloat16):
     return _mm(h2, p["w3"][:, :c], dot_dtype) + p["b3"]
 
 
+def _tree_mode(p, who: str) -> int:
+    """The launch mode of a tree's weights: 0 bf16, 2 float32 (the float32
+    mode); a tree whose weights mix dtypes raises TypeError."""
+    dts = {p[k].dtype for k in ("w1", "w1t", "w2", "w2t", "w3", "w3t")
+           if k in p}
+    if len(dts) != 1 or not dts <= {torch.bfloat16, torch.float32}:
+        raise TypeError(f"{who} takes a tree of bf16 or of float32 weights "
+                        f"(prepare_mlp_infer_weights' dot_dtype), got "
+                        f"{sorted(map(str, dts))}")
+    return 2 * (dts == {torch.float32})
+
+
 def mlp_infer_layer1(p, x: torch.Tensor) -> torch.Tensor:
-    """Layer 1 of one plane: x (M, in_dim) → h1 (M, H1) bfloat16.
+    """Layer 1 of one plane: x (M, in_dim) → h1 (M, H1) in the tree's
+    dtype.
 
     CUDA: the K-streamed GEMM kernel with the bias, ReLU, affine and
-    bf16 rounding in its epilogue (x float32 is cast to bf16 first); it
-    reads W1 K-major, the tree's ``w1t`` (``prepare_mlp_infer_weights``).
-    CPU: the plain version."""
+    rounding in its epilogue; it reads W1 K-major, the tree's ``w1t``
+    (``prepare_mlp_infer_weights``). A bf16 tree takes x float32 (cast to
+    bf16 first) or bf16; a float32 tree runs the float32 mode on float32
+    x as it is (bf16 x raises). CPU: the plain version."""
     if not on_cuda(x, *(p[k] for k in ("w1", "b1", "s1", "t1"))):
-        return _layer1_plain(p, x)
+        return _layer1_plain(p, x, p["w1"].dtype)
     w1 = p["w1"]
+    mode = _tree_mode(p, "mlp_infer_layer1")
     m, k = x.shape
     kp, h1 = w1.shape
     w1t = p["w1t"]
-    if w1.dtype != torch.bfloat16 or w1t.dtype != torch.bfloat16:
-        raise TypeError(f"mlp_infer_layer1 takes bf16 w1, got {w1.dtype}")
-    if k % 8 or kp != _round_up(k, 32) or h1 % 128 \
+    if mode and x.dtype != torch.float32:
+        raise TypeError(f"the float32 mode of mlp_infer_layer1 takes "
+                        f"float32 x, got {x.dtype}")
+    pitch = 4 if mode else 8
+    if k % pitch or kp != _round_up(k, 32) or h1 % 128 \
             or tuple(w1t.shape) != (h1, kp):
-        raise ValueError(f"the layer-1 kernel needs in_dim % 8 == 0, w1 of "
-                         f"round_up(in_dim, 32) rows, w1t its transpose and "
-                         f"H1 % 128 == 0; got x {tuple(x.shape)}, w1 "
-                         f"{tuple(w1.shape)}, w1t {tuple(w1t.shape)}")
-    x = tma_operand(x.to(torch.bfloat16))
-    out = torch.empty((m, h1), dtype=torch.bfloat16, device=x.device)
+        raise ValueError(f"the layer-1 kernel needs in_dim % {pitch} == 0, "
+                         f"w1 of round_up(in_dim, 32) rows, w1t its "
+                         f"transpose and H1 % 128 == 0; got x "
+                         f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w1t "
+                         f"{tuple(w1t.shape)}")
+    x = tma_operand(x.to(w1.dtype))
+    out = torch.empty((m, h1), dtype=w1.dtype, device=x.device)
     if m == 0:
         return out
     w1t = tma_operand(w1t)
@@ -177,32 +205,36 @@ def mlp_infer_layer1(p, x: torch.Tensor) -> torch.Tensor:
         rc = lib.mlp_layer1_launch(
             x.data_ptr(), w1t.data_ptr(),
             *(p[n].contiguous().data_ptr() for n in ("b1", "s1", "t1")),
-            out.data_ptr(), m, k, kp, h1, stream)
+            out.data_ptr(), m, k, kp, h1, mode, stream)
     _build.check(rc, lib, "mlp_infer_error_string", "mlp_infer_layer1")
-    mlp_infer_layer1.launches += 1
+    count_launch(mlp_infer_layer1, mode)
     return out
 
 
-mlp_infer_layer1.launches = 0
+# launches of the kernel, and of those its float32 mode's
+mlp_infer_layer1.launches = mlp_infer_layer1.launches_f32 = 0
 
 
 def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
-    """Layers 2 and 3 of one plane: h1 (M, H1) bfloat16 → y (M, C)
-    float32. CUDA: the kernel that keeps h2 on chip (and h1 up to H1 =
-    1024; above it h1's slabs stream beside W2's tiles); it reads W2 and W3
-    K-major from the tree's ``w2t`` and ``w3t``
-    (``prepare_mlp_infer_weights``), required there. CPU: the plain
-    version."""
+    """Layers 2 and 3 of one plane: h1 (M, H1) in the tree's dtype → y
+    (M, C) float32. CUDA: the kernel that keeps h2 on chip (bf16: h1 too
+    up to H1 = 1024, above it h1's slabs stream beside W2's tiles;
+    float32, the float32 mode: h1's slabs always stream, h2 is staged in
+    shared memory); it reads W2 and W3 K-major from the tree's ``w2t``
+    and ``w3t`` (``prepare_mlp_infer_weights``), required there. CPU: the
+    plain version."""
     keys = ("w2", "b2", "s2", "t2", "w3", "b3")
     if not on_cuda(h1, *(p[k] for k in keys)):
-        return _tail_plain(p, h1)
+        return _tail_plain(p, h1, p["w2"].dtype)
     q = {k: p[k].contiguous() for k in keys}
     m, H1 = h1.shape
     H2 = q["w2"].shape[1]
     c = q["b3"].shape[-1]
-    if h1.dtype != torch.bfloat16 or q["w2"].dtype != torch.bfloat16 \
-            or q["w3"].dtype != torch.bfloat16:
-        raise TypeError("mlp_infer_tail takes bf16 h1, w2 and w3")
+    mode = _tree_mode({k: p[k] for k in ("w2", "w3")}, "mlp_infer_tail")
+    dt = q["w2"].dtype
+    if h1.dtype != dt:
+        raise TypeError(f"mlp_infer_tail takes h1 of the weights' dtype "
+                        f"({dt}), got {h1.dtype}")
     if H1 % 128 or H2 % 128 or c > _OP \
             or tuple(q["w2"].shape) != (H1, H2) \
             or tuple(q["w3"].shape) != (H2, _OP):
@@ -210,8 +242,8 @@ def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
                          f"{_OP}) and C <= {_OP}; got H1={H1}, w2 "
                          f"{tuple(q['w2'].shape)}, w3 "
                          f"{tuple(q['w3'].shape)}, C={c}")
-    q["w2t"] = kmajor_weight(p, "w2t", (H2, H1), "mlp_infer_tail")
-    q["w3t"] = kmajor_weight(p, "w3t", (_OP, H2), "mlp_infer_tail")
+    q["w2t"] = kmajor_weight(p, "w2t", (H2, H1), "mlp_infer_tail", dt)
+    q["w3t"] = kmajor_weight(p, "w3t", (_OP, H2), "mlp_infer_tail", dt)
     out = torch.empty((m, c), dtype=torch.float32, device=h1.device)
     if m == 0:
         return out
@@ -222,13 +254,13 @@ def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
         rc = lib.mlp_tail_launch(
             h1.data_ptr(), *(q[k].data_ptr() for k in
                              ("w2t", "b2", "s2", "t2", "w3t", "b3")),
-            out.data_ptr(), m, H1, H2, c, stream)
+            out.data_ptr(), m, H1, H2, c, mode, stream)
     _build.check(rc, lib, "mlp_infer_error_string", "mlp_infer_tail")
-    mlp_infer_tail.launches += 1
+    count_launch(mlp_infer_tail, mode)
     return out
 
 
-mlp_infer_tail.launches = 0
+mlp_infer_tail.launches = mlp_infer_tail.launches_f32 = 0
 
 
 def mlp_infer_pallas(tcfg: TrainConfig, params, bn_state, x: torch.Tensor,
@@ -241,26 +273,28 @@ def mlp_infer_pallas(tcfg: TrainConfig, params, bn_state, x: torch.Tensor,
         plane of ``prepare_mlp_infer_weights`` (bn_state then unused). Two
         hidden layers (the paper's 1024/1024).
       x: (B, in_dim) float32 or bfloat16.
-      dot_dtype: the products' operand type: bfloat16 (the kernels') or,
-        on the CPU only, float32.
+      dot_dtype: the products' operand type, bfloat16 or float32 (the
+        kernels' float32 mode; x is then taken as float32). Raw
+        parameters are folded in it; a prepared tree must be of it.
       block_b, block_k, interpret: accepted for the JAX signature and
         ignored (the CUDA kernels pick their own tiling).
 
     Returns:
       (B, out_dim) float32. CUDA: ``mlp_infer_layer1`` then
-      ``mlp_infer_tail``, h1 in device memory as bf16. CPU: the plain
-      version, every operand rounded to dot_dtype.
+      ``mlp_infer_tail``, h1 in device memory in dot_dtype. CPU: the
+      plain version, every operand rounded to dot_dtype.
     """
     del block_b, block_k, interpret
     if dot_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"dot_dtype must be bfloat16 or float32, got "
                         f"{dot_dtype}")
-    if on_cuda(x) and dot_dtype != torch.bfloat16:
-        raise TypeError("the CUDA MLP kernels take bfloat16 operands only; "
-                        "dot_dtype=float32 is not ported")
     p = _prepared(tcfg, params, bn_state, dot_dtype)
     if not on_cuda(x):
         return _tail_plain(p, _layer1_plain(p, x, dot_dtype), dot_dtype)
+    if p["w1"].dtype != dot_dtype:
+        raise TypeError(f"dot_dtype {dot_dtype} differs from the prepared "
+                        f"tree's {p['w1'].dtype} (prepare_mlp_infer_weights'"
+                        f" dot_dtype)")
     return mlp_infer_tail(p, mlp_infer_layer1(p, x))
 
 
@@ -286,10 +320,10 @@ def _mlp_lib() -> ctypes.CDLL:
     lib = _build.library("mlp_infer")
     f = lib.mlp_layer1_launch
     f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     f = lib.mlp_tail_launch
     f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     return lib

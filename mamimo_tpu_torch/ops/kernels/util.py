@@ -30,13 +30,38 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def kmajor_weight(prepared, key: str, shape: tuple, who: str) -> torch.Tensor:
-    """prepared[key], a K-major bf16 weight a tail kernel reads by TMA:
-    raises ValueError naming the key when it is missing or ill-shaped."""
+def count_launch(fn, f32: bool) -> None:
+    """One launch of wrapper fn's kernel: its ``launches`` count, and
+    ``launches_f32`` for a launch of the float32 mode."""
+    fn.launches += 1
+    fn.launches_f32 += bool(f32)
+
+
+def kmajor_weight(prepared, key: str, shape: tuple, who: str,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """prepared[key], a K-major weight of the given dtype (bfloat16, or
+    float32 for the float32 mode) that a kernel reads by TMA: raises
+    ValueError naming the key and the dtype when it is missing,
+    ill-shaped or of another dtype."""
     t = prepared.get(key)
-    if t is None or tuple(t.shape) != shape or t.dtype != torch.bfloat16:
+    if t is None or tuple(t.shape) != shape or t.dtype != dtype:
         got = "missing" if t is None else f"{tuple(t.shape)} {t.dtype}"
-        raise ValueError(f"{who} needs prepared['{key}'] {shape} bf16 on "
-                         f"CUDA (from the weight-preparing function), got "
-                         f"{got}")
+        raise ValueError(f"{who} needs prepared['{key}'] {shape} "
+                         f"{str(dtype)[6:]} on CUDA (from the "
+                         f"weight-preparing function), got {got}")
     return tma_operand(t)
+
+
+def tf32_split(t: torch.Tensor) -> torch.Tensor:
+    """float32 t as (hi, lo) stacked on a new first axis, both TF32
+    values (the low 13 bits zero): hi = t rounded to TF32 (to nearest,
+    ties away, as ``cvt.rna.tf32.f32``), lo = t − hi (exact) rounded the
+    same way; hi + lo holds 22 of t's 24 bits. The kernels' float32
+    mode (csrc/gemm_sm90.cuh, ``split_tf32``) takes a·b as hi·hi + hi·lo
+    + lo·hi."""
+    def rna(x):
+        u = x.contiguous().view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(t.float())
+    return torch.stack([hi, rna(t.float() - hi)])

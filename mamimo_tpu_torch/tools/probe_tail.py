@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the two MLP tail kernels spend their time, on the card.
 
-    python3 mamimo_tpu_torch/tools/probe_tail.py [--old DIR]
+    python3 mamimo_tpu_torch/tools/probe_tail.py [--old DIR] [--f32]
 
 At the full BS32 width (H = 1024, num_tx = 32, 234 carriers), random
 seeded weights, CUDA events, with the card's SM clock and power draw
@@ -23,12 +23,20 @@ sampled by ``nvidia-smi`` beside each timed window:
    ``csrc/tail_sm90.cuh``): ``factored_rows_tail`` on both planes'
    rows at hidden (2048, 2048) and (4096, 1024), 131072 rows a plane,
    whole and with the phase cuts, and ``mlp_infer_tail`` at H 2048;
-5. with ``--old DIR``: each tail against an earlier design whose sources
+5. with ``--f32``: the float32 mode's tail (``layers23_f32``):
+   ``factored_rows_tail`` on both planes' float32 rows and
+   ``mlp_infer_tail`` on one plane's, 131072 rows a plane, hidden (1024,
+   1024), whole and with the phase cuts (bit 1 then cuts the TF32
+   splits of h and W);
+6. with ``--old DIR``: the bf16 tails (``factored_tail``,
+   ``mlp_infer_tail``, ``factored_rows_tail`` at (1024, 1024) on the
+   per-head rows) against an earlier design whose sources
    (``fused_factored.cu``, ``mlp_infer.cu`` and their headers, e.g. a
-   ``git archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``) lie
-   in DIR and keep the C launch functions of the commit before the
-   streaming mode (``factored_tail_launch`` with one hidden width H),
-   timed in turns (old, new, new, old) in one process at H 1024.
+   ``git archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``, PR
+   17 or later: two hidden widths) lie in DIR: each launch function is
+   bound from its declaration in its own source (an earlier design's
+   has no mode argument), the answers compared bit for bit, then timed
+   in turns (old, new, new, old) in one process at H 1024.
 
 Prints one line per measurement, and a JSON summary as the last line.
 Card only.
@@ -40,12 +48,15 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+
+CSRC = ROOT / "mamimo_tpu_torch" / "csrc"
 
 CUTS = {                 # TAIL_CUT bits of csrc/tail_sm90.cuh
     "no h build": 1,
@@ -111,12 +122,27 @@ def _old_lib(src_dir: Path, name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def _argtypes(lib, fn, n_ptr, n_int=4):
+def _launch_fn(lib, src_dir: Path, name: str, fn: str):
+    """Launch function fn of lib, bound from its declaration in
+    src_dir/<name>.cu: a callable of the arguments before the stream,
+    trailing ints it is not given passed as 0 (the mode, bf16 with a
+    float32 store, where the source has one). Raises on a launch error."""
+    import torch
+
+    m = re.search(rf"int {fn}\(([^)]*)\)", (src_dir / f"{name}.cu").read_text())
+    params = m.group(1).split(",")
     f = getattr(lib, fn)
     f.restype = ctypes.c_int
-    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-        + [ctypes.c_void_p]
-    return f
+    f.argtypes = [ctypes.c_void_p if "*" in q else ctypes.c_int
+                  for q in params]
+
+    def call(*argv):
+        args = list(argv) + [0] * (len(params) - 1 - len(argv))
+        rc = f(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{fn}: CUDA error {rc}")
+
+    return call
 
 
 def main() -> int:
@@ -125,6 +151,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, default=None,
                     help="directory of an earlier design's csrc sources")
+    ap.add_argument("--f32", action="store_true",
+                    help="also time the float32 mode's tail")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_tail: no CUDA device", file=sys.stderr)
@@ -135,12 +163,11 @@ def main() -> int:
     from mamimo_tpu_torch.ops.kernels import _build
     from mamimo_tpu_torch.ops.kernels.fused_factored import (
         _TAIL_ARGS,
-        _ff_lib,
+        factored_heads,
         factored_tail,
         prepare_factored_weights,
     )
     from mamimo_tpu_torch.ops.kernels.mlp_infer import (
-        _mlp_lib,
         prepare_mlp_infer_weights,
     )
 
@@ -157,7 +184,9 @@ def main() -> int:
     pm = plane(prepare_mlp_infer_weights(tcfg, params, bn), 0)
     g = torch.Generator(device="cuda").manual_seed(1)
     summary = {"card": card}
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def rows_run(lib, argv):
+        lib["factored_rows_tail"](*argv)
 
     print("blocks in flight (factored_tail):")
     for s in (64, 128, 256, 4096):
@@ -178,34 +207,42 @@ def main() -> int:
     mlp_args = [h1.data_ptr(), *(pm[k].data_ptr() for k in mk),
                 y.data_ptr(), M, H, H, C]
 
-    def ff_run(lib, argv=ff_args):
-        rc = lib.factored_tail_launch(*argv, stream())
-        if rc:
-            raise RuntimeError(f"factored_tail_launch: CUDA error {rc}")
+    def ff_lib(defines=(), src=CSRC):
+        """The fused_factored library built with defines (src: the
+        package's sources), its launch functions bound."""
+        lib = _build.library("fused_factored", defines) if src == CSRC \
+            else _old_lib(src, "fused_factored")
+        return {fn: _launch_fn(lib, src, "fused_factored", f"{fn}_launch")
+                for fn in ("factored_tail", "factored_rows_tail")}
 
-    def mlp_run(lib, argv=mlp_args):
-        rc = lib.mlp_tail_launch(*argv, stream())
-        if rc:
-            raise RuntimeError(f"mlp_tail_launch: CUDA error {rc}")
+    def mlp_lib(defines=(), src=CSRC):
+        lib = _build.library("mlp_infer", defines) if src == CSRC \
+            else _old_lib(src, "mlp_infer")
+        return _launch_fn(lib, src, "mlp_infer", "mlp_tail_launch")
+
+    def ff_run(lib, argv=ff_args):
+        lib["factored_tail"](*argv)
+
+    def mlp_run(run, argv=mlp_args):
+        run(*argv)
 
     print(f"phase cuts (factored_tail, S={s}):")
-    libs = {"kernel": _ff_lib()}
-    libs.update({n: _ff_lib((f"TAIL_CUT={b}",)) for n, b in CUTS.items()})
+    libs = {"kernel": ff_lib()}
+    libs.update({n: ff_lib((f"TAIL_CUT={b}",)) for n, b in CUTS.items()})
     for n, lib in libs.items():
         ms, clk, pwr = _time_ms(lambda lib=lib: ff_run(lib))
         print(f"  {n}: {_fmt(ms, clk, pwr)}  [{card}]")
         summary[f"cut {n}"] = ms
 
     print(f"cluster size (factored_tail S={s}, mlp_infer_tail M={M}):")
-    ff_run(_ff_lib())
-    mlp_run(_mlp_lib())
+    ff_run(ff_lib())
+    mlp_run(mlp_lib())
     torch.cuda.synchronize()
     ref_ff, ref_mlp = out.clone(), y.clone()
     for cl in (1, 2, 4):
         d = (f"TAIL_CLUSTER={cl}",)
-        lf = _ff_lib(d)
-        lm = _build.library("mlp_infer", d)
-        _argtypes(lm, "mlp_tail_launch", 8)
+        lf = ff_lib(d)
+        lm = mlp_lib(d)
         out.zero_()
         y.zero_()
         ff_run(lf)
@@ -236,14 +273,9 @@ def main() -> int:
                 yw.data_ptr(), M, hidden[0], hidden[1], C,
                 prw["b3"].shape[-1]]
 
-        def rows_run(lib, argv=argw):
-            rc = lib.factored_rows_tail_launch(*argv, stream())
-            if rc:
-                raise RuntimeError(f"factored_rows_tail_launch: CUDA error "
-                                   f"{rc}")
-
         for n, lib in libs.items():
-            ms, clk, pwr = _time_ms(lambda lib=lib: rows_run(lib), iters=5)
+            ms, clk, pwr = _time_ms(lambda lib=lib: rows_run(lib, argw),
+                                    iters=5)
             print(f"  factored_rows_tail {hidden} {n}: {_fmt(ms, clk, pwr)}"
                   f"  [{card}]")
             summary[f"stream {hidden} {n}"] = ms
@@ -255,33 +287,78 @@ def main() -> int:
     h1w = torch.randn((M, 2048), generator=g, device="cuda").to(torch.bfloat16)
     argm = [h1w.data_ptr(), *(pmw[k].data_ptr() for k in mk), y.data_ptr(),
             M, 2048, 2048, C]
-    ms, clk, pwr = _time_ms(lambda: mlp_run(_mlp_lib(), argm), iters=5)
+    ms, clk, pwr = _time_ms(lambda: mlp_run(mlp_lib(), argm), iters=5)
     print(f"  mlp_infer_tail (2048, 2048): {_fmt(ms, clk, pwr)}  [{card}]")
     summary["stream mlp_infer_tail (2048, 2048)"] = ms
     del pw, bw, pmw, h1w
 
+    # the per-head rows of the (1024, 1024) model: factored_rows_tail's
+    # argv (bf16), for the A/B below
+    hr = factored_heads(prep, sp)
+    yr = torch.empty((2, M, C), device="cuda")
+    rows_args = [hr.data_ptr(), *(prep[k].data_ptr() for k in
+                                  ("w2t", "b2", "a2", "c2", "w3t", "b3")),
+                 yr.data_ptr(), M, H, H, C, prep["b3"].shape[-1]]
+
+    if args.f32:
+        f32 = torch.float32
+        p32 = prepare_factored_weights(cfg, tcfg, params, bn, dot_dtype=f32)
+        pm32 = plane(prepare_mlp_infer_weights(tcfg, params, bn,
+                                               dot_dtype=f32), 0)
+        h32 = torch.relu(torch.randn((2, M, H), generator=g, device="cuda"))
+        y32 = torch.empty((2, M, C), device="cuda")
+        arg32 = [h32.data_ptr(), *(p32[k].data_ptr() for k in
+                                   ("w2t", "b2", "a2", "c2", "w3t", "b3")),
+                 y32.data_ptr(), M, H, H, C, p32["b3"].shape[-1], 2]
+        m32 = [h32[0].data_ptr(), *(pm32[k].data_ptr() for k in mk),
+               y.data_ptr(), M, H, H, C, 2]
+        print(f"float32 mode (layers23_f32), M = 2 x {M} (factored) / {M} "
+              f"(mlp), hidden ({H}, {H}); bit 1 cuts the TF32 splits:")
+        cut_bits = {"kernel": 0, **CUTS}
+        for n, b in cut_bits.items():
+            d = (f"TAIL_CUT={b}",) if b else ()
+            t_rows = _time_ms(lambda lib=ff_lib(d): rows_run(lib, arg32),
+                              iters=5)
+            t_mlp = _time_ms(lambda run=mlp_lib(d): mlp_run(run, m32),
+                             iters=5)
+            print(f"  {n}: factored_rows_tail {_fmt(*t_rows)}; "
+                  f"mlp_infer_tail {_fmt(*t_mlp)}  [{card}]")
+            summary[f"f32 {n}"] = {"factored_rows_tail": t_rows[0],
+                                   "mlp_infer_tail": t_mlp[0]}
+        del p32, pm32, h32, y32
+
     if args.old is not None:
-        old_ff = _old_lib(args.old, "fused_factored")
-        old_mlp = _old_lib(args.old, "mlp_infer")
-        _argtypes(old_ff, "factored_tail_launch", 11)
-        _argtypes(old_mlp, "mlp_tail_launch", 8)
-        # the commit before the streaming mode: one hidden width H, b3
-        # of 256 columns a plane
-        ff_old = [sp.data_ptr(), *(prep[k].data_ptr() for k in _TAIL_ARGS),
-                  out.data_ptr(), s, nt, H, C]
-        mlp_old = mlp_args
-        new_ff, new_mlp = _ff_lib(), _mlp_lib()
+        old_ff, old_mlp = ff_lib(src=args.old), mlp_lib(src=args.old)
+        new_ff, new_mlp = ff_lib(), mlp_lib()
+        # the two designs' answers, bit for bit
+        outs = []
+        for lf, lm in ((old_ff, old_mlp), (new_ff, new_mlp)):
+            for t in (out, y, yr):
+                t.zero_()
+            ff_run(lf)
+            mlp_run(lm)
+            rows_run(lf, rows_args)
+            torch.cuda.synchronize()
+            outs.append((out.clone(), y.clone(), yr.clone()))
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        print(f"old and new designs' answers: "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("the bf16 tails' answers changed")
         print(f"A/B in turns (old, new, new, old), S={s} / M={M}:")
-        ab = {"factored_tail": [], "mlp_infer_tail": []}
-        for tag, kind in (("old", 0), ("new", 1), ("new", 1), ("old", 0)):
-            t_ff = _time_ms(lambda: ff_run(old_ff, ff_old) if kind == 0
-                            else ff_run(new_ff))
-            t_mlp = _time_ms(lambda: mlp_run(old_mlp, mlp_old) if kind == 0
-                             else mlp_run(new_mlp))
+        ab = {"factored_tail": [], "mlp_infer_tail": [],
+              "factored_rows_tail": []}
+        for tag, lf, lm in (("old", old_ff, old_mlp), ("new", new_ff, new_mlp),
+                            ("new", new_ff, new_mlp), ("old", old_ff, old_mlp)):
+            t_ff = _time_ms(lambda: ff_run(lf))
+            t_mlp = _time_ms(lambda: mlp_run(lm))
+            t_rows = _time_ms(lambda: rows_run(lf, rows_args))
             print(f"  {tag}: factored_tail {_fmt(*t_ff)}; mlp_infer_tail "
-                  f"{_fmt(*t_mlp)}  [{card}]")
+                  f"{_fmt(*t_mlp)}; factored_rows_tail {_fmt(*t_rows)}  "
+                  f"[{card}]")
             ab["factored_tail"].append((tag, *t_ff))
             ab["mlp_infer_tail"].append((tag, *t_mlp))
+            ab["factored_rows_tail"].append((tag, *t_rows))
         summary["ab"] = ab
 
     print(json.dumps(summary))

@@ -147,16 +147,38 @@ def test_predict_all_pairs_matches_jax(model, small_cfg):
     assert _rel(got.numpy(), ref) < 2e-4
 
 
-def test_float32_dots_refused_on_the_kernel(model, monkeypatch):
-    """dot_dtype=float32 routed to the CUDA kernels raises TypeError
-    (shown without a card: the wrapper's device test is made to answer
-    CUDA, and the dtype check comes before any launch)."""
+def test_float32_dots_reach_the_float32_kernel(model, monkeypatch):
+    """dot_dtype=float32 routed to the CUDA kernels launches their float32
+    mode (shown without a card: the wrapper's device test is made to
+    answer CUDA and the library records each launch): layer 1 gets the
+    float32 x itself (no bf16 copy) and the float32 w1t, the tail the
+    float32 h1 layer 1 wrote, both with mode 2, each counted."""
+    import contextlib
+    import types
+
     ptcfg, _, _, (tp, tb) = model
+    calls = []
+
+    class _Lib:
+        def __getattr__(self, fn):
+            return lambda *args: calls.append((fn, args)) or 0
+
     monkeypatch.setattr(mi, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(mi, "_mlp_lib", _Lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
     x = torch.from_numpy(_x(4, 7))
-    with pytest.raises(TypeError, match="bfloat16"):
-        mi.mlp_infer_pallas(ptcfg, mlp.plane(tp, 0), mlp.plane(tb, 0), x,
+    before = (mi.mlp_infer_layer1.launches_f32, mi.mlp_infer_tail.launches_f32)
+    y = mi.mlp_infer_pallas(ptcfg, mlp.plane(tp, 0), mlp.plane(tb, 0), x,
                             dot_dtype=torch.float32)
+    (f1, a1), (f2, a2) = calls
+    assert (f1, f2) == ("mlp_layer1_launch", "mlp_tail_launch")
+    assert a1[0] == x.data_ptr() and a1[-2] == 2 and a2[-2] == 2
+    assert y.dtype == torch.float32 and tuple(y.shape) == (4, CFG.num_carriers)
+    assert (mi.mlp_infer_layer1.launches_f32,
+            mi.mlp_infer_tail.launches_f32) == (before[0] + 1, before[1] + 1)
 
 
 def test_three_hidden_layers_refused():
