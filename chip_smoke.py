@@ -3194,6 +3194,10 @@ def dnn_f32_phase(dev, counted, require_launched) -> dict:
         predict_complex_pallas,
         prepare_mlp_infer_weights,
     )
+    from mamimo_tpu_torch.ops.kernels.util import (
+        _tf32_split_plain,
+        tf32_split,
+    )
     from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
     from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
@@ -3205,6 +3209,21 @@ def dnn_f32_phase(dev, counted, require_launched) -> dict:
     errs, counts, served, flips = {}, {}, {}, {}
     print("[5n float32 DNN] float32 weights through kernels 2 and 5; "
           "kernel 2's bf16 store")
+    # the split kernel on signs, zeros, subnormals, ties and binade edges,
+    # and at a size that fills no block, bit for bit
+    e = 2.0 ** -11
+    sv = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -3e-39, 1 + e,
+                       -(1 + e), 1 + 3 * e, -(1 + 3 * e), 2 - 2 ** -23,
+                       3.0e38, -1.1754942e-38, 1 + e + 2 ** -23], device=dev)
+    for what, t in (("signs, zeros, subnormals and ties", sv),
+                    ("(7, 333) randn, dim 1", torch.randn(
+                        (7, 333), generator=g, device=dev))):
+        dim = t.dim() - 1
+        got = tf32_split(t, dim).view(torch.int32)
+        if not torch.equal(got, _tf32_split_plain(t, dim).view(torch.int32)):
+            raise AssertionError(f"tf32_split of {what}: not its plain "
+                                 f"version's bits")
+        print(f"  tf32_split of {what}: bit for bit its plain version")
 
     def db_of(got, ref):
         g64, r64 = got.double(), ref.double()
@@ -3217,6 +3236,21 @@ def dnn_f32_phase(dev, counted, require_launched) -> dict:
         if got.dtype != ref.dtype or not torch.equal(got, ref):
             raise AssertionError(f"{what}: not identical")
         print(f"  {what}: identical")
+
+    def split_check(tag, tree):
+        """Each K-major weight's parts in the float32 tree: the split
+        kernel's output bit for bit its plain version's on the same
+        weight."""
+        i32 = torch.int32
+        for k in sorted(k for k in tree if k.endswith("_tf32")):
+            # the weight K-major, zero-padded to the parts' rows as the
+            # tree's K-major weights are
+            w = tree[k[:-6]].transpose(-1, -2)
+            kt = w.new_zeros((w.shape[0], tree[k].shape[2], w.shape[2]))
+            kt[:, :w.shape[1]] = w
+            same(f"tf32_split of {k[:-5]}, {tag}: the kernel's parts = its "
+                 f"plain version's, bit for bit", tree[k].view(i32),
+                 _tf32_split_plain(kt, 1).view(i32))
 
     def relu_zero_flips(got, ref, c):
         """Rows whose ReLU gave 0 (the value is exactly the BN shift c) in
@@ -3273,9 +3307,14 @@ def dnn_f32_phase(dev, counted, require_launched) -> dict:
         params, bn = make_model(cfg, tcfg, seed=80 + depth, device=dev,
                                 bf16_values=False)
         with full_f32_matmul():
-            p32 = prepare_factored_weights(cfg, tcfg, params, bn,
-                                           dot_dtype=f32)
+            # the float32 weights' K-major parts: the split kernel, once
+            p32, cnt = counted(lambda: prepare_factored_weights(
+                cfg, tcfg, params, bn, dot_dtype=f32))
             p16 = prepare_factored_weights(cfg, tcfg, params, bn)
+        require_launched(f"prepare_factored_weights float32, {tag}", cnt,
+                         ("tf32_split",))
+        prep_counts = {"prepare_factored_weights": cnt}
+        split_check(tag, p32)
         # the served path: rx-major float32 planes of F32_PACKETS packets
         rx = torch.randn((2, F32_PACKETS, nr, L), generator=g, device=dev)
         x = rx.reshape(2, -1, L)
@@ -3286,7 +3325,8 @@ def dnn_f32_phase(dev, counted, require_launched) -> dict:
         if any(cnt[n] for n in ("factored_tail",)):
             raise AssertionError(f"{tag}: a float32 model ran the bf16 fused "
                                  f"tail: {cnt}")
-        counts[tag] = {"predict_all_pairs_planes_kernel": cnt}
+        counts[tag] = {**prep_counts,
+                       "predict_all_pairs_planes_kernel": cnt}
         with full_f32_matmul():
             ref_d = _factored_all_pairs(cfg, tcfg, params, bn, x)
         ref = torch.complex(ref_d[0], ref_d[1]).view(got.shape)
@@ -3312,14 +3352,14 @@ def dnn_f32_phase(dev, counted, require_launched) -> dict:
         # S, 3 heads
         xs = torch.randn((2, S_CHECK, L), generator=g, device=dev)
         with full_f32_matmul():
-            sp = factored_sig_proj(xs, p32["w1"], p32["w1t"])
+            sp = factored_sig_proj(xs, p32["w1"], p32["w1t_tf32"])
             e = {"factored_sig_proj": check(
                 f"factored_sig_proj f32, {tag}, S = {S_CHECK}, vs its plain "
                 f"version", sp, xs @ p32["w1"], F32_LIMIT_DB)}
             for s_r in (1, 5, 65):
                 check(f"factored_sig_proj f32, {tag}, S = {s_r}, vs its "
                       f"plain version", factored_sig_proj(
-                          xs[:, :s_r], p32["w1"], p32["w1t"]),
+                          xs[:, :s_r], p32["w1"], p32["w1t_tf32"]),
                       xs[:, :s_r] @ p32["w1"], F32_LIMIT_DB)
         e.update(chain_check(f"{tag}, S = {S_CHECK}", p32, sp, depth))
         for s_r in (1, 5, 65):
@@ -3354,9 +3394,13 @@ def dnn_f32_phase(dev, counted, require_launched) -> dict:
         if depth == 2:
             # kernel 5: predict_complex_pallas(dot_dtype=float32), counted
             with full_f32_matmul():
-                m32 = prepare_mlp_infer_weights(tcfg, params, bn,
-                                                dot_dtype=f32)
+                m32, cnt = counted(lambda: prepare_mlp_infer_weights(
+                    tcfg, params, bn, dot_dtype=f32))
                 m16 = prepare_mlp_infer_weights(tcfg, params, bn)
+            require_launched(f"prepare_mlp_infer_weights float32, {tag}",
+                             cnt, ("tf32_split",))
+            counts[tag]["prepare_mlp_infer_weights"] = cnt
+            split_check(f"{tag}, kernel 5's tree", m32)
             sig = torch.complex(
                 torch.randn((F32_MLP_ROWS, L), generator=g, device=dev),
                 torch.randn((F32_MLP_ROWS, L), generator=g, device=dev))
@@ -3426,6 +3470,7 @@ def dnn_f32_timing(dev, smi, res) -> list:
         _heads_plain,
         _hidden_plain,
         _out_plain,
+        _tail_plain,
         factored_dense,
         factored_heads,
         factored_rows_tail,
@@ -3439,6 +3484,10 @@ def dnn_f32_timing(dev, smi, res) -> list:
         mlp_infer_layer1,
         mlp_infer_tail,
         prepare_mlp_infer_weights,
+    )
+    from mamimo_tpu_torch.ops.kernels.util import (
+        _tf32_split_plain,
+        tf32_split,
     )
     from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
@@ -3496,12 +3545,12 @@ def dnn_f32_timing(dev, smi, res) -> list:
     e = res["errors"][tag]
     timed("factored_sig_proj", f"float32 mode: (2, {S}, {L}) @ (2, {L}, {H})"
           f" f32 -> f32", "fused_factored.cu", ff_src,
-          lambda: factored_sig_proj(x, p["w1"], p["w1t"]),
+          lambda: factored_sig_proj(x, p["w1"], p["w1t_tf32"]),
           lambda: x @ p["w1"], lambda: torch.bmm(x, p["w1"]),
-          nbytes_of(x, p["w1t"]) + 2 * S * H * 4, 2.0 * 2 * S * L * H,
+          nbytes_of(x, p["w1"]) + 2 * S * H * 4, 2.0 * 2 * S * L * H,
           cnt["factored_sig_proj f32"], path, e["factored_sig_proj"])
     with full_f32_matmul():
-        sp = factored_sig_proj(x, p["w1"], p["w1t"])
+        sp = factored_sig_proj(x, p["w1"], p["w1t_tf32"])
     del x
     h = factored_heads(p, sp)
     timed("factored_heads", f"float32 mode: sig_proj (2, {S}, {H}) f32 -> "
@@ -3517,7 +3566,7 @@ def dnn_f32_timing(dev, smi, res) -> list:
           lambda: _out_plain(p, _hidden_plain(p, 2, h), C),
           lambda: torch.bmm(relu_affine(p, 2, torch.bmm(h, p["w2"])),
                             p["w3"])[..., :C],
-          nbytes_of(h, p["w2t"], p["b2"], p["a2"], p["c2"], p[f"w{o}t"],
+          nbytes_of(h, p["w2"], p["b2"], p["a2"], p["c2"], p[f"w{o}"],
                     p[f"b{o}"]) + 2 * M * C * 4,
           2.0 * 2 * M * (H * H2 + H2 * C), cnt["factored_rows_tail f32"],
           path, e["factored_rows_tail"])
@@ -3528,13 +3577,39 @@ def dnn_f32_timing(dev, smi, res) -> list:
     sp16 = torch.randn((2, S, H), generator=g, device=dev) * 0.5
     ms32 = time_ms(lambda: factored_tail(p16, sp16, C), iters=10)
     ms16 = time_ms(lambda: factored_tail(p16, sp16, C, bf16), iters=10)
+
+    def tail_lib16():
+        """The fused tail's function in PyTorch calls (bmm in bf16), bf16
+        out."""
+        h = _heads_plain(p16, sp16).reshape(2, -1, H).to(bf16)
+        h2 = (torch.relu(torch.bmm(h, p16["w2"]).float() + p16["b2"])
+              * p16["a2"] + p16["c2"]).to(bf16)
+        return (torch.bmm(h2, p16["w3"]).float() + p16["b3"])[..., :C].to(
+            bf16)
+
+    plain16 = time_ms(lambda: _tail_plain(p16, sp16, C, bf16), iters=2,
+                      warmup=1)
+    lib16 = time_ms(tail_lib16, iters=3, warmup=1)
     print(f"  factored_tail bf16 weights, S = {S}: f32 store {ms32:.5f} ms, "
-          f"bf16 store {ms16:.5f} ms  [{smi}]")
-    del p16, sp16
+          f"bf16 store {ms16:.5f} ms; the bf16 store's plain version "
+          f"{plain16:.4f} ms, library (bmm chain, bf16 out) {lib16:.4f} ms"
+          f"  [{smi}]")
+    # the bf16 layer-1 GEMM and rows tail at the same shapes, in the same
+    # window as the float32 rows
+    x16 = torch.randn((2, S, L), generator=g, device=dev).to(bf16)
+    h16 = torch.relu(torch.randn((2, M, H), generator=g, device=dev)).to(
+        bf16)
+    t_sp = time_ms(lambda: factored_sig_proj(x16, p16["w1"], p16["w1t"]),
+                   iters=10)
+    t_rt = time_ms(lambda: factored_rows_tail(p16, h16, C), iters=5)
+    print(f"  beside them, bf16: factored_sig_proj {t_sp:.5f} ms, "
+          f"factored_rows_tail {t_rt:.5f} ms  [{smi}]")
+    del p16, sp16, x16, h16
     # kernel 5 on one plane's materialized rows
     with full_f32_matmul():
         pm = plane(prepare_mlp_infer_weights(tcfg, params, bn,
                                              dot_dtype=f32), 0)
+        pm16 = plane(prepare_mlp_infer_weights(tcfg, params, bn), 0)
     del params, bn, p
     torch.cuda.empty_cache()
     cnt5 = res["launches"][tag]["predict_complex_pallas"]
@@ -3546,7 +3621,7 @@ def dnn_f32_timing(dev, smi, res) -> list:
           lambda: mlp_infer_layer1(pm, xm),
           lambda: _layer1_plain(pm, xm, f32),
           lambda: torch.matmul(xm, pm["w1"][:K]),
-          nbytes_of(xm, pm["w1t"]) + M * H * 4, 2.0 * M * K * H,
+          nbytes_of(xm, pm["w1"]) + M * H * 4, 2.0 * M * K * H,
           cnt5["mlp_infer_layer1 f32"], path5, e["mlp_infer_layer1"])
     with full_f32_matmul():
         h1 = mlp_infer_layer1(pm, xm)
@@ -3560,11 +3635,33 @@ def dnn_f32_timing(dev, smi, res) -> list:
           lambda: torch.matmul(torch.relu(torch.matmul(h1, pm["w2"])
                                           + pm["b2"]) * pm["s2"] + pm["t2"],
                                w3c) + pm["b3"],
-          nbytes_of(h1, pm["w2t"], pm["b2"], pm["s2"], pm["t2"], w3c,
+          nbytes_of(h1, pm["w2"], pm["b2"], pm["s2"], pm["t2"], w3c,
                     pm["b3"]) + M * C * 4,
           2.0 * M * (H * pm["w2"].shape[1] + pm["w2"].shape[1] * C),
           cnt5["mlp_infer_tail f32"], path5, e["mlp_infer_tail"])
-    del h1, pm
+    # the split kernel on kernel 5's widest weight, W1 K-major
+    w1t = pm["w1"].T.contiguous()
+    cnt_split = res["launches"][tag]["prepare_factored_weights"]
+    timed("tf32_split", f"w1t ({w1t.shape[0]}, {w1t.shape[1]}) f32 -> its "
+          f"TF32 parts (2, {w1t.shape[0]}, {w1t.shape[1]}) f32",
+          "tf32_split.cu", None, lambda: tf32_split(w1t),
+          lambda: _tf32_split_plain(w1t), None, 3 * nbytes_of(w1t), 0.0,
+          cnt_split["tf32_split"],
+          f"prepare_factored_weights(dot_dtype=float32) x1, {tag} (5n)",
+          {"max_abs_err": 0.0, "nmse_db": None})
+    rows[-1]["exact"] = True
+    rows[-1]["note"] = ("splits the float32 weights of kernels 2, 5 and 6 "
+                        "(their float32 modes) once; no TPU kernel of its "
+                        "own")
+    # the bf16 layer-1 GEMM and tail of kernel 5 beside the float32 ones
+    xm16 = torch.randn((M, K), generator=g, device=dev).to(bf16)
+    t_l1 = time_ms(lambda: mlp_infer_layer1(pm16, xm16), iters=5)
+    h116 = mlp_infer_layer1(pm16, xm16)
+    del xm16
+    t_tl = time_ms(lambda: mlp_infer_tail(pm16, h116), iters=10)
+    print(f"  beside them, bf16: mlp_infer_layer1 {t_l1:.5f} ms, "
+          f"mlp_infer_tail {t_tl:.5f} ms  [{smi}]")
+    del h1, pm, pm16, h116
     torch.cuda.empty_cache()
     # factored_dense: the depth-3 model's hidden layer, the depth-1
     # model's output layer
@@ -3588,7 +3685,7 @@ def dnn_f32_timing(dev, smi, res) -> list:
               (lambda: torch.bmm(h, p["w2"])[..., :C] + p["b2"][..., :C])
               if out_layer else
               (lambda: relu_affine(p, k, torch.bmm(h, p[f"w{k}"]))),
-              nbytes_of(h, p[f"w{k}t"], p[f"b{k}"]) + 2 * M * kout * 4
+              nbytes_of(h, p[f"w{k}"], p[f"b{k}"]) + 2 * M * kout * 4
               + (0 if out_layer else nbytes_of(p[f"a{k}"], p[f"c{k}"])),
               2.0 * 2 * M * H * kout, cnt_d["factored_dense f32"],
               f"predict_all_pairs_planes_kernel x1 float32, {tg} (5n)", err)
@@ -3684,6 +3781,7 @@ def main() -> int:
         predict_complex_pallas,
         prepare_mlp_infer_weights,
     )
+    from mamimo_tpu_torch.ops.kernels.util import tf32_split
     from mamimo_tpu_torch.ops.ltf import (
         gen_preamble,
         pilot_p_matrix,
@@ -4087,7 +4185,7 @@ def main() -> int:
                    factored_heads, factored_dense, factored_rows_tail,
                    ls_planes_v1, matmul_int8, ls_pair_kernel,
                    mlp_infer_layer1, mlp_infer_tail, halo_exchange_pallas,
-                   matmul_float)
+                   matmul_float, tf32_split)
     # the wrappers with a float32 mode also count its launches apart
     f32_kernels = (ls_planes_v2, ls_planes_v1, ls_pair_kernel, matmul_float,
                    factored_sig_proj, factored_heads, factored_dense,

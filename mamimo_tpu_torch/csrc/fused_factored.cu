@@ -48,16 +48,18 @@
 // The float32 mode (float32 weights from prepare_factored_weights(...,
 // dot_dtype=float32): JAX's dot_dtype=float32, the TPU kernel's products
 // on float32 operands) runs every layer at float32 accuracy as 3xTF32 on
-// wgmma (gemm_sm90.cuh, wgmma_3xtf32), always through the per-head rows,
+// wgmma (gemm_sm90.cuh, wgmma_3xtf32_rs), always through the per-head rows,
 // which stay float32 as JAX keeps h in float32: factored_sig_proj_f32_
 // kernel and factored_dense_f32_kernel on gemm_sm90.cuh's float32 body
 // gemm_tf32x3 (plain, hidden-layer and output epilogues),
 // factored_heads_f32_kernel (elementwise), factored_rows_tail_f32_kernel
-// on tail_sm90.cuh's layers23_f32. The output stores of the tails and of
-// factored_dense's output layer also come rounded to bf16 (out_dtype
-// bfloat16, as the TPU kernel's default), to nearest even: the float32
-// result rounded. The launch functions take a mode: bit 0 the bf16
-// store, bit 1 float32 operands.
+// on tail_sm90.cuh's layers23_f32. Their K-major weights come as TF32
+// high and low parts, split once by prepare_factored_weights
+// (tf32_split.cu); the rows are split in registers. The output stores
+// of the tails and of factored_dense's output layer also come rounded to
+// bf16 (out_dtype bfloat16, as the TPU kernel's default), to nearest
+// even: the float32 result rounded. The launch functions take a mode:
+// bit 0 the bf16 store, bit 1 float32 operands.
 //
 // Bound on an H100 at the serving shape (S = 4096, nt = 32, L = 10240,
 // H = 1024, C = 234): about 848 GFLOP (172 layer 1, 550 layer 2, 126
@@ -85,21 +87,19 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
       });
 }
 
-// The float32 mode: x (2, S, L) f32 through map mx, w1t (2, H, L) f32
-// through map mw (make_map_f32, box 32 x 128), plane blockIdx.z; out
-// (2, S, H) f32.
+// The float32 mode: x (2, S, L) f32 through map mx (make_map_f32, box
+// 32 x 128), w1t's TF32 parts (2, 2, H, L) f32 through map mw (box 32 x
+// TF_SLICE_ROWS, plane 2p + part); out (2, S, H) f32.
 __global__ void __launch_bounds__(sm90::THREADS, 1)
     factored_sig_proj_f32_kernel(const __grid_constant__ CUtensorMap mx,
                                  const __grid_constant__ CUtensorMap mw,
                                  float* __restrict__ out, int S, int L,
                                  int H) {
-  const int p = blockIdx.z;
-  sm90::gemm_tf32x3(&mx, p, &mw, p, L,
-                    [&](int row, int col, float v0, float v1) {
-                      if (row < S && col < H)
-                        sm90::put2(out + ((long long)p * S + row) * H + col,
-                                   v0, v1);
-                    });
+  sm90::gemm_tf32x3(
+      &mx, &mw, S, H, 2, L, [&](int p, int row, int col, float v0, float v1) {
+        if (row < S && col < H)
+          sm90::put2(out + ((long long)p * S + row) * H + col, v0, v1);
+      });
 }
 
 // ---------------------------------------------------------------------
@@ -312,9 +312,10 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 }
 
 // The float32 mode of factored_dense_kernel: h (2, M, K) f32 through map
-// mx, wt (2, N, K) f32 through map mw (make_map_f32, box 32 x 128), plane
-// blockIdx.z. OUT: y = v + b as T for col < C (y (2, M, C)); else f32
-// rows relu(v + b) * a + c (2, M, N).
+// mx (make_map_f32, box 32 x 128), wt's TF32 parts (2, 2, N, K) f32
+// through map mw (box 32 x TF_SLICE_ROWS, plane 2p + part). OUT: y = v +
+// b as T for col < C (y (2, M, C)); else f32 rows relu(v + b) * a + c
+// (2, M, N).
 template <bool OUT, class T>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
     factored_dense_f32_kernel(const __grid_constant__ CUtensorMap mx,
@@ -324,9 +325,8 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
                               const float* __restrict__ c,
                               void* __restrict__ y, int M, int N, int K,
                               int C, int ldb) {
-  const int p = blockIdx.z;
   sm90::gemm_tf32x3(
-      &mx, p, &mw, p, K, [&](int row, int col, float v0, float v1) {
+      &mx, &mw, M, N, 2, K, [&](int p, int row, int col, float v0, float v1) {
         if (row >= M || col >= N) return;
         const long long r = (long long)p * M + row;
         const int j = p * ldb + col;
@@ -372,9 +372,10 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
       });
 }
 
-// The float32 mode: h (2, M, H1) f32 through map mh (box 32 x 64), w2t
-// (2, H2, H1) and w3t (2, 256, H2) f32 through mw2, mw3 (box 32 x
-// SLICE_ROWS); tail::layers23_f32 on 64 rows m0.. of plane blockIdx.z.
+// The float32 mode: h (2, M, H1) f32 through map mh (box 32 x 64), the
+// TF32 parts of w2t (2, 2, H2, H1) and of w3t (2, 2, 256, H2) f32
+// through mw2, mw3 (box 32 x SLICE_ROWS, plane 2p + part);
+// tail::layers23_f32 on 64 rows m0.. of plane blockIdx.z.
 template <class T>
 __global__ void __launch_bounds__(tail::THREADS, 1)
     factored_rows_tail_f32_kernel(const __grid_constant__ CUtensorMap mh,
@@ -409,15 +410,16 @@ constexpr int MODE_BF16_OUT = 1, MODE_F32 = 2;
 
 extern "C" {
 
-// x (2, S, L), w1t (2, H, L) (W1[:L] transposed): bf16 (L % 8 == 0), or
-// f32 with MODE_F32 (L % 4 == 0); out (2, S, H) f32. H % 128 == 0, x and
-// w1t 16-byte aligned.
+// x (2, S, L), w1t (2, H, L) (W1[:L] transposed): bf16 (L % 8 == 0); or
+// with MODE_F32 x f32 (L % 4 == 0) and w1t the TF32 parts of W1[:L]
+// transposed, (2, 2, H, L) f32 (tf32_split); out (2, S, H) f32. H % 128
+// == 0, x and w1t 16-byte aligned.
 int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
                              int S, int L, int H, int mode, void* stream) {
   CUtensorMap mx, mw;
   if (mode == MODE_F32) {
     if (sm90::make_map_f32(&mx, x, L, S, 2, 128, L) ||
-        sm90::make_map_f32(&mw, w1t, L, H, 2, 128, L))
+        sm90::make_map_f32(&mw, w1t, L, H, 4, sm90::TF_SLICE_ROWS, L))
       return sm90::ERR_TENSOR_MAP;
     return sm90::launch_tf32x3(factored_sig_proj_f32_kernel, S, H, 2,
                                (cudaStream_t)stream, mx, mw, (float*)out, S,
@@ -490,8 +492,9 @@ int factored_heads_launch(const void* sp, const void* hb, const void* a1,
   return (int)cudaGetLastError();
 }
 
-// h (2, M, K), wt (2, N, K) (W transposed): bf16 (K % 8 == 0), or f32
-// with MODE_F32 (K % 4 == 0); b, a, c (2, ldb) f32 (a, c unused for the
+// h (2, M, K), wt (2, N, K) (W transposed): bf16 (K % 8 == 0); or with
+// MODE_F32 h f32 (K % 4 == 0) and wt the TF32 parts of W transposed, (2,
+// 2, N, K) f32 (tf32_split); b, a, c (2, ldb) f32 (a, c unused for the
 // output layer). out_layer: y (2, M, C) f32, or bf16 with MODE_BF16_OUT;
 // else y the next hidden rows (2, M, N) in the operands' type (C
 // unused). N % 128 == 0, h and wt 16-byte aligned.
@@ -507,7 +510,7 @@ int factored_dense_launch(const void* h, const void* wt, const void* b,
   CUtensorMap mx, mw;
   if (mode & MODE_F32) {
     if (sm90::make_map_f32(&mx, h, K, M, 2, 128, K) ||
-        sm90::make_map_f32(&mw, wt, K, N, 2, 128, K))
+        sm90::make_map_f32(&mw, wt, K, N, 4, sm90::TF_SLICE_ROWS, K))
       return sm90::ERR_TENSOR_MAP;
     if (!out_layer)
       return sm90::launch_tf32x3(factored_dense_f32_kernel<false, float>, M,
@@ -533,11 +536,12 @@ int factored_dense_launch(const void* h, const void* wt, const void* b,
                       fa, fc, y, M, N, K, C, ldb);
 }
 
-// h (2, M, H1), w2t (2, H2, H1), w3t (2, 256, H2): bf16, or f32 with
-// MODE_F32; b2, a2, c2 (2, H2) f32; b3 (2, ldb3) f32; y (2, M, C) f32,
-// or bf16 with MODE_BF16_OUT. H1, H2 % 128 == 0 (bf16 h streams above H1
-// = 1024; f32 h always streams), C <= 256, h, w2t and w3t 16-byte
-// aligned.
+// h (2, M, H1), w2t (2, H2, H1), w3t (2, 256, H2): bf16; or with
+// MODE_F32 h f32 and w2t, w3t the TF32 parts (2, 2, H2, H1) and (2, 2,
+// 256, H2) f32 (tf32_split); b2, a2, c2 (2, H2) f32; b3 (2, ldb3) f32;
+// y (2, M, C) f32, or bf16 with MODE_BF16_OUT. H1, H2 % 128 == 0 (bf16 h
+// streams above H1 = 1024; f32 h always streams), C <= 256, h, w2t and
+// w3t 16-byte aligned.
 int factored_rows_tail_launch(const void* h, const void* w2t, const void* b2,
                               const void* a2, const void* c2,
                               const void* w3t, const void* b3, void* y,
@@ -552,8 +556,8 @@ int factored_rows_tail_launch(const void* h, const void* w2t, const void* b2,
   CUtensorMap mh, mw2, mw3;
   if (mode & MODE_F32) {
     if (sm90::make_map_f32(&mh, h, H1, M, 2, tail::ROWS, H1) ||
-        sm90::make_map_f32(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1) ||
-        sm90::make_map_f32(&mw3, w3t, H2, tail::OPP, 2, tail::SLICE_ROWS,
+        sm90::make_map_f32(&mw2, w2t, H1, H2, 4, tail::SLICE_ROWS, H1) ||
+        sm90::make_map_f32(&mw3, w3t, H2, tail::OPP, 4, tail::SLICE_ROWS,
                            H2))
       return sm90::ERR_TENSOR_MAP;
     if (mode & MODE_BF16_OUT)

@@ -121,6 +121,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Whether the barrier's phase of this parity has completed, without
+// waiting.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Arrives on the mbarrier at shared offset `bar` of CTA `cta` of the
 // cluster (this CTA's own included).
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
@@ -342,9 +356,14 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 // hi.lo + lo.hi. The dropped lo.lo and the rounding of lo are about
 // 2^-22 of each product: NMSE near -120 dB, where one TF32 pass is near
 // -60 dB. Serves the LS kernels' float32 mode (ls_sm90.cuh,
-// ls_body_f32), the float32 GEMM body gemm_tf32x3 below (matmul.cu,
-// fused_factored.cu, mlp_infer.cu) and the float32 tail (tail_sm90.cuh,
-// layers23_f32).
+// ls_body_f32, both operands from shared memory), the float32 GEMM body
+// gemm_tf32x3 below (matmul.cu, fused_factored.cu, mlp_infer.cu) and the
+// float32 tail (tail_sm90.cuh, layers23_f32). Those two take the
+// constant operand's parts split once (tf32_split.cu) and split the
+// other operand in registers: wgmma takes a TF32 A from registers (the
+// RS forms below; CUTLASS's cute/arch/mma_sm90_gmma.hpp has them as
+// MMA_64xNx8_F32TF32TF32_RS_TN) and a TF32 B only from shared memory,
+// K-major.
 // ---------------------------------------------------------------------
 
 // x rounded to TF32 (10 mantissa bits, to nearest, ties away), as a
@@ -424,7 +443,8 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
 // HBM3 at 700 W, chip_smoke.py's phase 5m; -128 dB summed per k-step).
 // A long product therefore sums each stretch of K into a fresh d (keep =
 // 0 for its first slice) and adds the stretches in float32 in registers
-// (matmul.cu); the LS kernels' sums (K = 512 a symbol half) stay in one.
+// (gemm_tf32x3, layers23_f32); the LS kernels' sums (K = 512 a symbol
+// half) stay in one.
 template <int SA>
 __device__ __forceinline__ void wgmma_3xtf32(float (&d)[64], uint64_t a_hi,
                                              uint64_t a_lo, uint64_t b_hi,
@@ -434,20 +454,62 @@ __device__ __forceinline__ void wgmma_3xtf32(float (&d)[64], uint64_t a_hi,
   wgmma_m64n128k8_tf32<SA>(d, a_hi, b_hi);
 }
 
-// The m64n64k8 form (d 64 x 64, f32; the fragment layout of m64n256k16
-// over 64 columns), for the float32 tail's layer 2.
+// The register-A forms of the TF32 products: d (64 x N, f32) = SA * A
+// (64 x 8, TF32 from registers) @ B (N x 8)^T + (keep ? d : 0), B
+// K-major from shared memory (desc_sw128). a[] is the thread's A
+// fragment as lds_split_tf32 loads it. PTX has these forms for .tf32
+// (CUTLASS's cute/arch/mma_sm90_gmma.hpp names them
+// MMA_64xNx8_F32TF32TF32_RS_TN); their registers must stay untouched
+// until the product's wgmma group has completed (fence_u32 after the
+// wait that retires it).
 template <int SA>
-__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
-                                                    uint64_t da, uint64_t db,
-                                                    int keep = 1) {
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t db,
+                                                        int keep = 1) {
   static_assert(SA == 1 || SA == -1, "imm-scale-a is 1 or -1");
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, %70, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep),
+        "n"(SA));
+}
+
+// The m64n64k8 register-A form (d 64 x 64, f32; the fragment layout of
+// m64n256k16 over 64 columns), for the float32 tail's layer 2.
+template <int SA>
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db,
+                                                       int keep = 1) {
+  static_assert(SA == 1 || SA == -1, "imm-scale-a is 1 or -1");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, %35, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, %38, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -455,16 +517,190 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(keep), "n"(SA));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep),
+        "n"(SA));
+}
+
+// The three TF32 products of one k8 slice with A's parts in registers:
+// d = SA (a_lo b_hi + a_hi b_lo + a_hi b_hi) + (keep ? d : 0).
+template <int SA>
+__device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[64],
+                                                const uint32_t (&ah)[4],
+                                                const uint32_t (&al)[4],
+                                                uint64_t b_hi, uint64_t b_lo,
+                                                int keep = 1) {
+  wgmma_m64n128k8_tf32_rs<SA>(d, al, b_hi, keep);
+  wgmma_m64n128k8_tf32_rs<SA>(d, ah, b_lo);
+  wgmma_m64n128k8_tf32_rs<SA>(d, ah, b_hi);
 }
 
 template <int SA>
-__device__ __forceinline__ void wgmma_3xtf32(float (&d)[32], uint64_t a_hi,
-                                             uint64_t a_lo, uint64_t b_hi,
-                                             uint64_t b_lo, int keep = 1) {
-  wgmma_m64n64k8_tf32<SA>(d, a_lo, b_hi, keep);
-  wgmma_m64n64k8_tf32<SA>(d, a_hi, b_lo);
-  wgmma_m64n64k8_tf32<SA>(d, a_hi, b_hi);
+__device__ __forceinline__ void wgmma_3xtf32_rs(float (&d)[32],
+                                                const uint32_t (&ah)[4],
+                                                const uint32_t (&al)[4],
+                                                uint64_t b_hi, uint64_t b_lo,
+                                                int keep = 1) {
+  wgmma_m64n64k8_tf32_rs<SA>(d, al, b_hi, keep);
+  wgmma_m64n64k8_tf32_rs<SA>(d, ah, b_lo);
+  wgmma_m64n64k8_tf32_rs<SA>(d, ah, b_hi);
+}
+
+// Keeps the compiler from reusing registers of an A fragment that an
+// asynchronous product may still read.
+template <int N>
+__device__ __forceinline__ void fence_u32(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// The thread's register-A fragment of k8 slice kk of a 64-row f32 tile
+// at p in shared memory (K-major, 128-byte rows in the SW128 layout TMA
+// writes, 1024-byte aligned), split into its TF32 parts (SPLIT; else hi
+// the values as they are and lo zero). The fragment of an m64nNk8 .tf32
+// product: a[0] row r0 = 16 * warp + lane / 4, column 8 kk + lane % 4
+// (t); a[1] row r0 + 8 (1024 bytes on); a[2], a[3] as a[0], a[1] four
+// columns right (the next 16-byte chunk). The XOR of each chunk with
+// r0 & 7 spreads a warp's 32 loads over the 32 banks.
+template <bool SPLIT = true>
+__device__ __forceinline__ void lds_split_tf32(const unsigned char* p, int r0,
+                                               int t, int kk,
+                                               uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4]) {
+  const unsigned char* row = p + r0 * 128 + 4 * t;
+  const int x = r0 & 7;
+  const uint32_t c0 = ((2 * kk) ^ x) << 4, c1 = ((2 * kk + 1) ^ x) << 4;
+  const float v[4] = {*reinterpret_cast<const float*>(row + c0),
+                      *reinterpret_cast<const float*>(row + 1024 + c0),
+                      *reinterpret_cast<const float*>(row + c1),
+                      *reinterpret_cast<const float*>(row + 1024 + c1)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (SPLIT) {
+      float h, l;
+      split_tf32(v[i], h, l);
+      hi[i] = __float_as_uint(h);
+      lo[i] = __float_as_uint(l);
+    } else {
+      hi[i] = __float_as_uint(v[i]);
+      lo[i] = 0u;
+    }
+  }
+}
+
+// Stretches of K: a float32 body sums each stretch of k-steps of 32 into
+// a fresh accumulator (keep = 0 for its first product) and adds it to
+// the running sum in float32 in registers, since the tensor cores'
+// additions truncate (wgmma_3xtf32). TF_STRETCH is gemm_tf32x3's (the
+// float32 tail has its own, tail_sm90.cuh's F_STRETCH), each chosen on
+// an H100 by time against error (tools/probe_gemm.py and probe_tail.py
+// --f32 build copies of these sources with other lengths; PERF.md):
+// against 8, stretches of 4 cost the longest-K GEMM 5% and of 2 13-30%.
+constexpr int TF_STRETCH = 8;
+// Phase cuts of gemm_tf32x3 for tools/probe_gemm.py, which times the
+// float32 GEMMs built with -DGEMM_CUT=<bits> (their answers are then
+// wrong): 1 skips A's TF32 split in registers, 2 the products. The
+// default, 0, is the kernel.
+#ifndef GEMM_CUT
+#define GEMM_CUT 0
+#endif
+
+// Whether k-step kt (of KT) of consumer warpgroup w ends a stretch of
+// STRETCH k-steps. The second warpgroup's stretches are offset by half a
+// stretch, so the two never drain their products at the same k-step.
+template <int STRETCH = TF_STRETCH>
+__device__ __forceinline__ bool tf_stretch_end(int kt, int KT, int w) {
+  static_assert(STRETCH >= 2 && STRETCH % 2 == 0,
+                "a stretch is an even number of k-steps");
+  return kt == KT - 1 || (kt + 1 + w * (STRETCH / 2)) % STRETCH == 0;
+}
+
+// The A registers of a register-A 3xTF32 k-step: two buffers (one per
+// commit group) of two k8 slices, high and low parts.
+struct TfA {
+  uint32_t h[2][2][4], l[2][2][4];
+};
+
+// One commit group of kstep_3xtf32_rs: k8 slices 2 BUF and 2 BUF + 1 of
+// the k-step into A's buffer BUF, their products issued and committed;
+// then wgmma_wait<1> retires the group before it and frees the other
+// buffer's registers.
+template <int BUF, bool SPLIT, bool MMA, int N>
+__device__ __forceinline__ void group_3xtf32_rs(float (&d)[N], TfA& A,
+                                                const unsigned char* a,
+                                                int r0, int t, uint32_t bh,
+                                                uint32_t bl, int keep) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    lds_split_tf32<SPLIT>(a, r0, t, 2 * BUF + j, A.h[BUF][j], A.l[BUF][j]);
+  fence_acc(d);
+  wgmma_fence();
+  if constexpr (MMA) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wgmma_3xtf32_rs<1>(d, A.h[BUF][j], A.l[BUF][j],
+                         desc_sw128(bh + (2 * BUF + j) * 32),
+                         desc_sw128(bl + (2 * BUF + j) * 32),
+                         j == 0 ? keep : 1);
+  }
+  wgmma_commit();
+  fence_acc(d);
+  wgmma_wait<1>();
+  fence_acc(d);
+  fence_u32(A.h[1 - BUF]);
+  fence_u32(A.l[1 - BUF]);
+}
+
+// One k-step of 32 of d += A @ B^T in 3xTF32, A's 64 rows from the f32
+// tile at a in shared memory (this warpgroup's, split in registers by
+// lds_split_tf32), B's high and low parts K-major at bh and bl (SW128,
+// N rows). Two commit groups, k8 slices 0-1 and 2-3 (group_3xtf32_rs),
+// each loading into its own buffer of A while the group before it runs.
+// So the previous k-step's products are done when `retired` runs (after
+// group 0's issue), and this k-step's group 1 is the only one left in
+// flight on return (drain_3xtf32 retires it). keep = 0 starts d afresh.
+// MMA = false skips the products (a phase cut for the probes). One
+// group a k-step (both buffers alternating between k-steps, a whole
+// k-step in flight) measured 8% slower in the GEMM on an H100 (PERF.md).
+template <bool SPLIT = true, bool MMA = true, int N, class F>
+__device__ __forceinline__ void kstep_3xtf32_rs(float (&d)[N], TfA& A,
+                                                const unsigned char* a,
+                                                int r0, int t, uint32_t bh,
+                                                uint32_t bl, int keep,
+                                                F&& retired) {
+  group_3xtf32_rs<0, SPLIT, MMA>(d, A, a, r0, t, bh, bl, keep);
+  retired();
+  group_3xtf32_rs<1, SPLIT, MMA>(d, A, a, r0, t, bh, bl, 1);
+}
+
+// Retires every product in flight (kstep_3xtf32_rs's last group).
+template <int N>
+__device__ __forceinline__ void drain_3xtf32(float (&d)[N], TfA& A) {
+  wgmma_wait<0>();
+  fence_acc(d);
+  fence_u32(A.h[0]);
+  fence_u32(A.l[0]);
+  fence_u32(A.h[1]);
+  fence_u32(A.l[1]);
+}
+
+// Before waiting for a k-step's stage (full barrier `bar`, phase
+// parity): when the previous k-step's stage is still held (its last
+// group may run) and this one has not arrived, retire the products and
+// run `release` for the held stage, so that the producer can refill it
+// while this warpgroup waits (the ring would otherwise keep a stage
+// whose products are done). Returns whether the stage is still held.
+template <int N, class F>
+__device__ __forceinline__ bool early_release(float (&d)[N], TfA& A,
+                                              bool held, uint32_t bar,
+                                              uint32_t parity, F&& release) {
+  if (held && !mbar_test(bar, parity)) {
+    drain_3xtf32(d, A);
+    release();
+    return false;
+  }
+  return held;
 }
 
 // Stores of one or two adjacent f32 values as f32, or rounded to bf16 to
@@ -485,70 +721,120 @@ __device__ __forceinline__ void put1(__nv_bfloat16* p, float a) {
 }
 
 // ---------------------------------------------------------------------
-// The float32 GEMM body (3xTF32): one 128 x 128 tile of C = A @ B^T a
-// block, no cluster, both operands float32 and K-major. A simple body,
-// at about 16% of the TF32 peak on an H100 (PERF.md): one producer
-// thread loads A's and Bt's k-step of 32 f32 (2 x 16 KB) by TMA into a
-// 3-stage ring; each stage also holds the two operands' low parts (2 x
-// 16 KB). The two consumer warpgroups (rows 0-63 and 64-127 of the
-// tile) split their half of A's and of Bt's k-step in place into TF32
-// high parts and write the low parts beside them (fence.proxy.async,
-// then a named barrier over both warpgroups), then run the three
-// m64n128k8 products of each k-step into a fresh accumulator, added to
-// the running sum in float32 in registers (the tensor cores' additions
-// truncate: wgmma_3xtf32). Ragged M, N and K come from TMA's zero fill
-// (K % 4 == 0 for the 16-byte row pitch).
+// The float32 GEMM body (3xTF32), C(z) = A(z) @ B(z)^T, both operands
+// float32 and K-major, B's TF32 parts split once beforehand (the
+// weight-preparing functions; matmul_float per call) by tf32_split.cu:
+//
+// * Block tile 128 x 128, k-step 32 (128 bytes of f32), 384 threads:
+//   warpgroup 0 the producer, warpgroups 1 and 2 the consumers, each
+//   owning 64 rows of the tile. A stage holds A's 128 rows (16 KB) and
+//   both parts of Bt's 128 rows (2 x 16 KB); 4 stages.
+// * A is split in registers: each consumer loads its A fragment from the
+//   stage and splits it (lds_split_tf32, cvt.rna as before), and wgmma
+//   takes A from registers (the RS form of m64n128k8 .tf32) and Bt's
+//   parts from shared memory. No thread writes shared memory in the
+//   loop and the two consumers share no barrier: each releases a stage
+//   once its own products on it are done (kstep_3xtf32_rs keeps one
+//   commit group in flight across k-steps), and before it waits for a
+//   stage that has not arrived it retires its products and releases the
+//   stage it holds (early_release), so the ring refills while it waits.
+// * Each stretch of TF_STRETCH k-steps sums into a fresh accumulator,
+//   added in float32 in registers (the tensor cores' additions
+//   truncate); the consumers' stretches are offset by half a stretch.
+// * A persistent grid of clusters of TF_CLUSTER = 2 blocks walks groups
+//   of two M-tiles of one N-tile, as gemm_persistent: each block loads
+//   half of each part of the Bt tile and multicasts it to both; the ring
+//   runs on across tiles, so one tile's epilogue overlaps the next one's
+//   loads.
+// Ragged M, N and K come from TMA's zero fill (K % 4 == 0 for the
+// 16-byte row pitch); the epilogue masks its stores. The bound on an
+// H100 is the tensor cores: three TF32 products a multiply-add, so at
+// most a third of the 495 TFLOP/s TF32 peak counting each once; the
+// loads (A and both parts of Bt, 48 KB a k-step) come close to what an
+// SM takes in from L2 in the products' time. Measured on an H100
+// (tools/probe_gemm.py, PERF.md): without early_release the body is 20%
+// slower, with 1 or 4 blocks a cluster 40-70%, with the two consumers
+// issuing their groups in turns (ping-pong) 23%.
 // ---------------------------------------------------------------------
-constexpr int TF_STAGES = 3;
+constexpr int TF_CLUSTER = 2;     // blocks of a cluster sharing each Bt tile
+constexpr int TF_STAGES = 4;
 constexpr int TF_K = 32;                   // f32 k of a stage: 128 bytes
 constexpr int TF_TILE = 128 * TF_K * 4;    // 128 rows of a k-step: 16 KB
-constexpr int TF_HALF4 = TF_TILE / 32;     // float4 in 64 rows of it
-// a stage: A, Bt, then their low parts
-constexpr int TF_STAGE = 4 * TF_TILE;
+constexpr int TF_SLICE_ROWS = 128 / TF_CLUSTER;  // a block's rows of a part
+constexpr int TF_SLICE = TF_TILE / TF_CLUSTER;
+// a stage: A, Bt's high part, Bt's low part
+constexpr int TF_STAGE = 3 * TF_TILE;
 constexpr int TF_SMEM = TF_STAGES * TF_STAGE + 8 * 2 * TF_STAGES + 1024;
 static_assert(TF_SMEM <= 232448, "more shared memory than a block has");
 
-// Block (x, y, z): the tile of C at rows 128y, columns 128x, A from
-// plane za of the map ma and Bt from plane zb of mb (make_map_f32, box
-// 32 x 128 both), k over [0, K). Every consumer thread then calls
-// epi(row, col, v0, v1) for each of its pairs of adjacent accumulators
-// (columns col, col + 1; col even; row and col may lie past the data).
-// Launch through launch_tf32x3(); nothing may follow the call in the
-// kernel (the producer returns early).
+// C(z) = A(z) @ B(z)^T over k in [0, K) for z < Z: A (M x K) plane z of
+// the f32 map ma (box 32 x 128), B's TF32 high part plane 2z and low part
+// plane 2z + 1 of the f32 map mb (box 32 x TF_SLICE_ROWS; tf32_split's
+// (..., 2, N, K) layout), in 128 x 128 tiles walked as gemm_persistent
+// walks its own. After each tile every consumer thread calls epi(z, row,
+// col, v0, v1) for each of its pairs of adjacent accumulators (columns
+// col, col + 1; col even; row and col may lie past M and N). Launch
+// through launch_tf32x3(); nothing may follow the call in the kernel.
 template <class Epi>
-__device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma, int za,
-                                            const CUtensorMap* mb, int zb,
-                                            int K, Epi&& epi) {
+__device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
+                                            const CUtensorMap* mb, int M,
+                                            int N, int Z, int K, Epi&& epi) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   const uint32_t full = ring + TF_STAGES * TF_STAGE;
   const uint32_t empty = full + 8 * TF_STAGES;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * 128;
+  const uint32_t rank = cluster_rank();
+  const int cid = cluster_index(), ncl = cluster_count();
   const int KT = (K + TF_K - 1) / TF_K;
+  const int ntn = (N + 127) / 128;
+  const int ntg = ((M + 127) / 128 + TF_CLUSTER - 1) / TF_CLUSTER;
+  const int T = ntn * ntg * Z;
+  auto coords = [&](int t, int& m0, int& n0, int& z) {
+    n0 = (t % ntn) * 128;
+    t /= ntn;
+    m0 = ((t % ntg) * TF_CLUSTER + rank) * 128;
+    z = t / ntg;
+  };
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < TF_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);       // the producer's expect_tx
-      mbar_init(empty + 8 * s, 2);      // both consumer warpgroups
+      // both consumer warpgroups of every block of the cluster
+      mbar_init(empty + 8 * s, 2 * TF_CLUSTER);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();
 
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      for (int kt = 0; kt < KT; ++kt) {
-        const int s = kt % TF_STAGES;
-        const uint32_t st = ring + s * TF_STAGE;
-        mbar_wait(empty + 8 * s, ((kt / TF_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, 2 * TF_TILE);
-        tma_load_3d(st, ma, full + 8 * s, kt * TF_K, m0, za);
-        tma_load_3d(st + TF_TILE, mb, full + 8 * s, kt * TF_K, n0, zb);
+      const uint16_t all = (uint16_t)((1u << TF_CLUSTER) - 1);
+      int it = 0;
+      for (int t = cid; t < T; t += ncl) {
+        int m0, n0, z;
+        coords(t, m0, n0, z);
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % TF_STAGES;
+          const uint32_t st = ring + s * TF_STAGE;
+          mbar_wait(empty + 8 * s, ((it / TF_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, TF_STAGE);
+          tma_load_3d(st, ma, full + 8 * s, kt * TF_K, m0, z);
+          // this block's slice of each part of Bt, into both blocks
+          const int nb = n0 + rank * TF_SLICE_ROWS;
+          tma_load_3d_multicast(st + TF_TILE + rank * TF_SLICE, mb,
+                                full + 8 * s, kt * TF_K, nb, 2 * z, all);
+          tma_load_3d_multicast(st + 2 * TF_TILE + rank * TF_SLICE, mb,
+                                full + 8 * s, kt * TF_K, nb, 2 * z + 1, all);
+        }
       }
+      // stay until every block of the cluster has released each stage's
+      // last use
+      for (int j = 0; j < TF_STAGES; ++j, ++it)
+        mbar_wait(empty + 8 * (it % TF_STAGES), ((it / TF_STAGES) & 1) ^ 1);
     }
     return;
   }
@@ -556,49 +842,55 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma, int za,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int w = wg - 1;
   const int warp = tid / 32, lane = tid % 32;
-  // acc: the sum so far, in float32 in registers; part: one k-step's
-  // products, summed by the tensor cores (wgmma_3xtf32)
-  float acc[64], part[64];
+  const int r0 = 16 * warp + lane / 4, tq = lane % 4;
+  // the stage of k-step i is free here and in the other block
+  auto release = [&](int i) {
+    if (tid == 0)
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt % TF_STAGES;
-    const uint32_t st = ring + s * TF_STAGE;
-    mbar_wait(full + 8 * s, (kt / TF_STAGES) & 1);
-    // this warpgroup's 64 rows of A and of Bt: high parts in place, low
-    // parts 2 tiles further (the products that last read this stage's
-    // low parts released it before the producer loaded it again)
-    float4* const p = reinterpret_cast<float4*>(smem_raw + (st - raw));
-    split_tf32_smem(p + w * TF_HALF4, p + 2 * (TF_TILE / 16) + w * TF_HALF4,
-                    TF_HALF4, tid, 128);
-    split_tf32_smem(p + TF_TILE / 16 + w * TF_HALF4,
-                    p + 3 * (TF_TILE / 16) + w * TF_HALF4, TF_HALF4, tid, 128);
-    fence_proxy_async();
-    bar_sync(1, 256);                   // both halves of Bt are split
-    const uint32_t a = st + w * (TF_TILE / 2), b = st + TF_TILE;
-    fence_acc(part);
-    wgmma_fence();
+      for (int c = 0; c < TF_CLUSTER; ++c)
+        mbar_arrive_cluster(empty + 8 * (i % TF_STAGES), c);
+  };
+  TfA A = {};
+  int it = 0;
+  for (int t = cid; t < T; t += ncl) {
+    int m0, n0, z;
+    coords(t, m0, n0, z);
+    // acc: the sum so far, in float32 in registers; part: this stretch's
+    // products, summed by the tensor cores
+    float acc[64], part[64];
 #pragma unroll
-    for (int kk = 0; kk < TF_K / 8; ++kk)
-      wgmma_3xtf32<1>(part, desc_sw128(a + kk * 32),
-                      desc_sw128(a + 2 * TF_TILE + kk * 32),
-                      desc_sw128(b + kk * 32),
-                      desc_sw128(b + 2 * TF_TILE + kk * 32), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(part);
-    if (tid == 0) mbar_arrive(empty + 8 * s);
+    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+    bool fresh = true;           // the next k-step starts a stretch
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int s = it % TF_STAGES;
+      const uint32_t st = ring + s * TF_STAGE;
+      // the previous k-step's stage, unless its stretch end released it
+      const bool held = early_release(part, A, !fresh, full + 8 * s,
+                                      (it / TF_STAGES) & 1,
+                                      [&] { release(it - 1); });
+      mbar_wait(full + 8 * s, (it / TF_STAGES) & 1);
+      kstep_3xtf32_rs<!(GEMM_CUT & 1), !(GEMM_CUT & 2)>(
+          part, A, smem_raw + (st - raw) + w * (TF_TILE / 2), r0, tq,
+          st + TF_TILE, st + 2 * TF_TILE, !fresh, [&] {
+            if (held) release(it - 1);
+          });
+      fresh = tf_stretch_end(kt, KT, w);
+      if (fresh) {
+        drain_3xtf32(part, A);
+        release(it);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
-  }
-  // d[4j + e]: row 16 * warp + lane / 4 + 8 * (e / 2) of the warpgroup's
-  // 64, column 8j + 2 * (lane % 4) + e % 2
-  const int r = m0 + 64 * w + 16 * warp + lane / 4;
-  const int q = n0 + 2 * (lane % 4);
+        for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      }
+    }
+    // d[4j + e]: row 16 * warp + lane / 4 + 8 * (e / 2) of the
+    // warpgroup's 64, column 8j + 2 * (lane % 4) + e % 2
+    const int r = m0 + 64 * w + r0;
+    const int q = n0 + 2 * tq;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    epi(r, q + 8 * j, acc[4 * j], acc[4 * j + 1]);
-    epi(r + 8, q + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+    for (int j = 0; j < 16; ++j) {
+      epi(z, r, q + 8 * j, acc[4 * j], acc[4 * j + 1]);
+      epi(z, r + 8, q + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
@@ -842,21 +1134,38 @@ inline int launch(void (*kernel)(Params...), int M, int N, int Z,
 }
 
 // Launches a kernel built on gemm_tf32x3 for an M x N output over Z
-// planes: a grid of 128 x 128 tiles by Z, THREADS threads, TF_SMEM of
-// dynamic shared memory. Returns a cudaError_t code.
+// planes: as launch(), with 128 x 128 tiles and TF_SMEM of dynamic
+// shared memory (its own count of resident clusters). Returns a
+// cudaError_t code.
 template <class... Params, class... Args>
 inline int launch_tf32x3(void (*kernel)(Params...), int M, int N, int Z,
                          cudaStream_t stream, Args... args) {
-  const int gy = (M + 127) / 128, gx = (N + 127) / 128;
-  if (gy > 65535 || Z > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
   if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = TF_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(gx, gy, Z);
+  cfg.gridDim = dim3(TF_CLUSTER, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = TF_SMEM;
   cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int resident = 0;  // clusters that fit on the device at once
+  if (resident == 0) {
+    e = cudaOccupancyMaxActiveClusters(&resident, (void*)kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long long groups =
+      (long long)(((M + 127) / 128 + TF_CLUSTER - 1) / TF_CLUSTER) *
+      ((N + 127) / 128) * Z;
+  cfg.gridDim = dim3(TF_CLUSTER * (int)(groups < resident ? groups : resident),
+                     1, 1);
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -5,7 +5,8 @@
 // Replaces the TPU kernel mamimo_tpu/ops/pallas/int8_mm.py::matmul_pallas
 // (body _mm_kernel) in its bf16 and f32 modes; its int8 mode is
 // int8_mm.cu. As there, B is taken transposed, Bt (N, K), so that both
-// operands are K-major (the only layout wgmma reads TF32 operands in).
+// operands are K-major (the only layout wgmma reads a TF32 B operand
+// in).
 //
 // * bf16 (mm_bf16_kernel): gemm_sm90.cuh's persistent walk as it is (128
 //   x 256 tiles, k-step 64, a 4-stage TMA ring, B multicast to 2-block
@@ -15,14 +16,15 @@
 //   output (0.034 ms): operation-bound; at (131072, 1024) @ (1024, 1024):
 //   0.28 ms of products against 805 MB (0.24 ms) in f32 out.
 // * f32 (mm_tf32x3_kernel): float32 accuracy from three TF32 products
-//   (gemm_sm90.cuh, wgmma_3xtf32: -90 dB or better against the float32
-//   product, where one TF32 pass is about -60 dB), on gemm_sm90.cuh's
-//   simple body gemm_tf32x3 (one 128 x 128 tile a block, no cluster,
-//   both operands split into TF32 parts in shared memory, each k-step's
-//   products summed in a fresh accumulator and added in registers), the
-//   stores from registers. The TF32 peak is 495 TFLOP/s; counted
-//   once, the shapes above are 0.17 ms and 0.56 ms of products, and the
-//   three products triple that. Speed is later work.
+//   (gemm_sm90.cuh, wgmma_3xtf32_rs: -90 dB or better against the
+//   float32 product, where one TF32 pass is about -60 dB), on
+//   gemm_sm90.cuh's float32 body gemm_tf32x3 (persistent 128 x 128 tiles,
+//   Bt's TF32 parts multicast to 2-block clusters, A split in
+//   registers, stretches of K summed in fresh accumulators and added in
+//   registers), the stores from registers. Bt's parts come from
+//   tf32_split.cu, launched per call by the wrapper (matmul_float). The
+//   TF32 peak is 495 TFLOP/s; counted once, the shapes above are 0.17 ms
+//   and 0.56 ms of products, and the three products triple that.
 //
 // Ragged M, N and K come from TMA's zero fill (K needs only the 16-byte
 // row pitch: K % 8 == 0 in bf16, K % 4 == 0 in f32); the stores are
@@ -61,14 +63,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                   });
 }
 
-// Block (x, y): the tile of C at rows 128y, columns 128x.
+// A through map ma, Bt's TF32 parts (2, N, K) through map mb (plane =
+// part).
 template <class T>
 __global__ void __launch_bounds__(THREADS, 1)
     mm_tf32x3_kernel(const __grid_constant__ CUtensorMap ma,
                      const __grid_constant__ CUtensorMap mb,
                      T* __restrict__ C, int M, int N, int K) {
-  gemm_tf32x3(&ma, 0, &mb, 0, K,
-              [&](int row, int col, float v0, float v1) {
+  gemm_tf32x3(&ma, &mb, M, N, 1, K,
+              [&](int, int row, int col, float v0, float v1) {
                 store_pair(C, M, N, row, col, v0, v1);
               });
 }
@@ -77,10 +80,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 extern "C" {
 
-// a (M, K), bt (N, K), row-major and 16-byte aligned: bf16 (K % 8 == 0),
-// or f32 (K % 4 == 0) with mode bit 1; c (M, N), bf16 with mode bit 0,
-// else f32. M, N, K >= 1. Returns the CUDA error code of the launch (or
-// ERR_TENSOR_MAP).
+// a (M, K), bt (N, K), row-major and 16-byte aligned: bf16 (K % 8 == 0);
+// or with mode bit 1 a f32 (K % 4 == 0) and bt Bt's TF32 parts (2, N, K)
+// f32 (tf32_split); c (M, N), bf16 with mode bit 0, else f32. M, N, K
+// >= 1. Returns the CUDA error code of the launch (or ERR_TENSOR_MAP).
 int mm_float_launch(const void* a, const void* bt, void* c, int M, int N,
                     int K, int mode, void* stream) {
   if (M < 1 || N < 1 || K < 1 || mode < 0 || mode > 3)
@@ -89,7 +92,7 @@ int mm_float_launch(const void* a, const void* bt, void* c, int M, int N,
   CUtensorMap ma, mb;
   if (mode & 2) {
     if (make_map_f32(&ma, a, K, M, 1, 128, K) ||
-        make_map_f32(&mb, bt, K, N, 1, 128, K))
+        make_map_f32(&mb, bt, K, N, 2, TF_SLICE_ROWS, K))
       return ERR_TENSOR_MAP;
     if (mode & 1)
       return launch_tf32x3(mm_tf32x3_kernel<__nv_bfloat16>, M, N, 1, st, ma,

@@ -70,8 +70,9 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
       });
 }
 
-// The float32 mode: h1 = relu(x @ w1 + b1) * s1 + t1 f32; x (M, K) and
-// w1t (H1, Kp) f32 through maps mx, mw (make_map_f32, box 32 x 128).
+// The float32 mode: h1 = relu(x @ w1 + b1) * s1 + t1 f32; x (M, K) f32
+// through map mx (make_map_f32, box 32 x 128), w1t's TF32 parts (2, H1,
+// Kp) f32 through map mw (box 32 x TF_SLICE_ROWS, plane = part).
 __global__ void __launch_bounds__(sm90::THREADS, 1)
     mlp_layer1_f32_kernel(const __grid_constant__ CUtensorMap mx,
                           const __grid_constant__ CUtensorMap mw,
@@ -80,7 +81,7 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
                           const float* __restrict__ t1,
                           float* __restrict__ h1, int M, int K, int H1) {
   sm90::gemm_tf32x3(
-      &mx, 0, &mw, 0, K, [&](int row, int col, float v0, float v1) {
+      &mx, &mw, M, H1, 1, K, [&](int, int row, int col, float v0, float v1) {
         if (row >= M || col >= H1) return;
         sm90::put2(h1 + (long long)row * H1 + col,
                    fmaxf(v0 + b1[col], 0.f) * s1[col] + t1[col],
@@ -127,7 +128,8 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
 }
 
 // The float32 mode of mlp_tail_kernel: h1 (M, H1) f32 through map mh (box
-// 32 x 64), w2t and w3t f32 through mw2, mw3; tail::layers23_f32.
+// 32 x 64), the TF32 parts of w2t and w3t (2, H2, H1), (2, 256, H2) f32
+// through mw2, mw3 (plane = part); tail::layers23_f32.
 __global__ void __launch_bounds__(tail::THREADS, 1)
     mlp_tail_f32_kernel(const __grid_constant__ CUtensorMap mh,
                         const __grid_constant__ CUtensorMap mw2,
@@ -150,7 +152,8 @@ extern "C" {
 
 // x (M, K), w1t (H1, Kp) (W1 transposed, columns past K zero): bf16 (K %
 // 8 == 0, Kp % 8 == 0), h1 (M, H1) bf16; or with mode 2 (the float32
-// mode) f32 (K % 4 == 0, Kp % 4 == 0), h1 f32. b1, s1, t1 (H1) f32. Kp
+// mode) x f32 (K % 4 == 0, Kp % 4 == 0), w1t the TF32 parts of W1
+// transposed, (2, H1, Kp) f32 (tf32_split), h1 f32. b1, s1, t1 (H1) f32. Kp
 // >= K, H1 % 128 == 0, x and w1t 16-byte aligned.
 int mlp_layer1_launch(const void* x, const void* w1t, const void* b1,
                       const void* s1, const void* t1, void* h1, int M, int K,
@@ -158,7 +161,7 @@ int mlp_layer1_launch(const void* x, const void* w1t, const void* b1,
   CUtensorMap mx, mw;
   if (mode == 2) {
     if (sm90::make_map_f32(&mx, x, K, M, 1, 128, K) ||
-        sm90::make_map_f32(&mw, w1t, K, H1, 1, 128, Kp))
+        sm90::make_map_f32(&mw, w1t, K, H1, 2, sm90::TF_SLICE_ROWS, Kp))
       return sm90::ERR_TENSOR_MAP;
     return sm90::launch_tf32x3(mlp_layer1_f32_kernel, M, H1, 1,
                                (cudaStream_t)stream, mx, mw,
@@ -176,7 +179,8 @@ int mlp_layer1_launch(const void* x, const void* w1t, const void* b1,
 }
 
 // h1 (M, H1), w2t (H2, H1) (W2 transposed), w3t (256, H2) (padded W3
-// transposed): bf16, or f32 with mode 2 (the float32 mode); b2, s2, t2
+// transposed): bf16; or with mode 2 (the float32 mode) h1 f32 and w2t,
+// w3t their TF32 parts (2, H2, H1), (2, 256, H2) f32 (tf32_split); b2, s2, t2
 // (H2) f32; b3 (C) f32; y (M, C) f32. H1, H2 % 128 == 0 (bf16 h1
 // streams above H1 = 1024; f32 h1 always streams), C <= 256; h1, w2t,
 // w3t 16-byte aligned.
@@ -189,8 +193,8 @@ int mlp_tail_launch(const void* h1, const void* w2t, const void* b2,
   const dim3 grid((blocks + tail::CL - 1) / tail::CL * tail::CL, 1, 1);
   if (mode == 2) {
     if (sm90::make_map_f32(&mh, h1, H1, M, 1, tail::ROWS, H1) ||
-        sm90::make_map_f32(&mw2, w2t, H1, H2, 1, tail::SLICE_ROWS, H1) ||
-        sm90::make_map_f32(&mw3, w3t, H2, tail::OPP, 1, tail::SLICE_ROWS,
+        sm90::make_map_f32(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1) ||
+        sm90::make_map_f32(&mw3, w3t, H2, tail::OPP, 2, tail::SLICE_ROWS,
                            H2))
       return sm90::ERR_TENSOR_MAP;
     return tail::launch(mlp_tail_f32_kernel, grid, tail::F_SMEM,

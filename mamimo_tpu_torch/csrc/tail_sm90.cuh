@@ -62,9 +62,9 @@
 
 // Phase cuts for tools/probe_tail.py, which times the tails built with
 // -DTAIL_CUT=<bits> (their answers are then wrong): 1 skips building h
-// (factored tail; in the float32 body the TF32 splits of h and W), 2 the
-// layer-2 products, 4 the layer-3 products. The default, 0, is the
-// kernel.
+// (factored tail; in the float32 body the TF32 split of h in
+// registers), 2 the layer-2 products, 4 the layer-3 products. The
+// default, 0, is the kernel.
 #ifndef TAIL_CUT
 #define TAIL_CUT 0
 #endif
@@ -119,14 +119,6 @@ __device__ __forceinline__ uint32_t h_offset(int r, int kc) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_u32(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // Layers 2 and 3 for the block's 64 rows. W2 and W3 come through the
@@ -352,33 +344,42 @@ __device__ __forceinline__ void layers23(
 //   h2 = relu(h @ W2 + b2) * a2 + c2              (64 x H2, float32)
 //   y  = h2 @ W3                                  (64 x 256, registers)
 //
-// Nothing of h stays resident (64 rows x 1024 f32 and its low part are
-// 512 KB): each stage holds one 32-wide k-step of the block's 64-row h
-// slab (8 KB, TMA) and of a 128-row W2 tile (16 KB, TMA multicast to
-// the cluster as in layers23), and room for both low parts: 48 KB, 3
-// stages. The consumers split the stage in place into TF32 high parts
-// and write the low parts 24 KB further (fence.proxy.async, a named
-// barrier), then run the three products (gemm_sm90.cuh, wgmma_3xtf32);
-// each k-step's products go into a fresh accumulator, added in float32
-// in registers (the tensor cores' additions truncate). wgmma reads TF32
-// operands only from shared memory, K-major, so h2 does not stay in
-// registers as it does in layers23: each 128-column chunk of h2 (bias,
-// ReLU, affine in registers) is split into its high and low parts and
-// staged in shared memory (2 x 32 KB, SW128 slabs of 32 k), and layer 3
-// reads it there. Warpgroup w computes columns w*64.. of each W2 chunk
-// (m64n64k8) and then y's columns w*128.. (m64n128k8) over the whole
-// chunk, so y needs no sum across the warpgroups. The W3 tiles of a
-// chunk (w3t rows n half * 128.., k-step of 32) come in the order n half
-// 0, 1 of k-step 0, then of k-step 1, ...; a warpgroup splits and uses
-// those of its own half and only waits for and releases the others.
+// W2's and W3's TF32 parts are split once, when the weights are
+// prepared (tf32_split.cu): a stage holds one 32-wide k-step of the
+// block's 64-row h slab (8 KB, TMA) and both parts of a 128-row W tile
+// (2 x 16 KB, TMA multicast to the cluster as in layers23): 40 KB, 4
+// stages. No thread splits or writes a weight. Layer 2 takes h from
+// registers: each consumer loads its A fragment of the slab and splits
+// it there (lds_split_tf32; wgmma's RS form of m64n64k8 .tf32), so the
+// two warpgroups share no barrier in layer 2, and each releases a stage
+// once its own products on it are done (kstep_3xtf32_rs keeps one group
+// in flight; early_release frees a held stage before waiting for one
+// that has not arrived). Its sums run in stretches of F_STRETCH k-steps
+// into a fresh accumulator, added in float32 in registers (the tensor
+// cores' additions truncate). Warpgroup w computes columns w*64.. of
+// each W2 chunk and then y's columns w*128.. (m64n128k8) over the whole
+// chunk, so y needs no sum across the warpgroups; the chunk of h2 (bias,
+// ReLU, affine in registers) that layer 3 needs is both warpgroups'
+// columns, so it is split into its parts and staged in shared memory (2
+// x 32 KB, SW128 slabs of 32 k) between two named barriers, and layer 3
+// reads it there as A (a register-A layer 3 would need all 128 columns
+// of h2 in each warpgroup's registers). The W3 tiles of a chunk (w3t
+// rows n half * 128.., k-step of 32) come in the order n half 0, 1 of
+// k-step 0, then of k-step 1, ...; a warpgroup uses those of its own
+// half and only waits for and releases the others. 64 rows a block: 128 (two
+// warpgroups on one W tile) would need y's 64 x 256 in each
+// warpgroup's registers beside its stretch accumulator. Measured on an
+// H100 (tools/probe_tail.py --f32, PERF.md): without early_release 25%
+// slower; 1-block clusters within 3%, 4-block ones 11% slower; stretches
+// of 2 k-steps 2% faster than the GEMMs' 8 and 5 dB more accurate.
 // ---------------------------------------------------------------------
 constexpr int KF = 32;                      // f32 k of a stage: 128 bytes
 constexpr int F_SLAB = ROWS * KF * 4;       // 8 KB: 64 rows x 32 k of h
-constexpr int F_W = NC * KF * 4;            // 16 KB: 128 rows x 32 k of W
-constexpr int F_SLICE = F_W / CL;           // a block's share of a W tile
-constexpr int F_HALF = F_SLAB + F_W;        // 24 KB: the h slab, the W tile
-constexpr int F_STAGE = 2 * F_HALF;         // 48 KB: then their low parts
-constexpr int F_STAGES = 3;
+constexpr int F_W = NC * KF * 4;            // 16 KB: one part of a W tile
+constexpr int F_SLICE = F_W / CL;           // a block's share of a part
+constexpr int F_STAGE = F_SLAB + 2 * F_W;   // 40 KB: h slab, W hi, W lo
+constexpr int F_STAGES = 4;
+constexpr int F_STRETCH = 2;                // layer 2's k-steps a stretch
 constexpr int F_H2 = ROWS * NC * 4;         // 32 KB: an h2 chunk, one part
 constexpr int F_W3_TILES = (OPP / NC) * (NC / KF);   // W3 tiles a chunk
 // the ring, the staged h2 chunk (both parts), 2 x F_STAGES mbarriers,
@@ -389,9 +390,10 @@ static_assert(F_SMEM <= 232448, "more shared memory than a block has");
 static_assert(OPP / NC == 2, "warpgroup w stores y's columns w*128..");
 
 // Layers 2 and 3 in float32 for the block's 64 rows: h is the boxes at
-// rows h_row0.. of plane zh of the f32 map mh (box KF x ROWS); W2 and W3
-// come through the f32 maps mw2 (w2t (H2, H1), box KF x SLICE_ROWS) and
-// mw3 (w3t (256, H2), same box) at plane zw; b2, a2, c2 (H2) f32.
+// rows h_row0.. of plane zh of the f32 map mh (box KF x ROWS); W2's and
+// W3's TF32 high and low parts are planes 2 zw and 2 zw + 1 of the f32
+// maps mw2 (w2t's parts (.., 2, H2, H1), box KF x SLICE_ROWS) and mw3
+// (w3t's parts (.., 2, 256, H2), same box); b2, a2, c2 (H2) f32.
 // store(row, col, v0, v1) receives y (no bias) for rows < 64 and even
 // columns col < 256, two columns at a time. H1 % 32 == 0, H2 % 128 ==
 // 0. Launch through launch() with F_SMEM bytes; nothing may follow the
@@ -436,18 +438,25 @@ __device__ __forceinline__ void layers23_f32(
         const int c = it / SPC, r = it - c * SPC;
         const uint32_t st = ring + s * F_STAGE;
         const uint32_t wdst = st + F_SLAB + rank * F_SLICE;
+        int k, n;                     // the W tile's k and row of w2t/w3t
+        const CUtensorMap* mw;
         if (r < KT) {  // W2[r*32 .., c*128 + ..] as w2t rows, h's slab r
-          mbar_expect_tx(full + 8 * s, F_W + F_SLAB);
-          tma_load_3d_multicast(wdst, mw2, full + 8 * s, r * KF,
-                                c * NC + rank * SLICE_ROWS, zw, all);
+          mbar_expect_tx(full + 8 * s, F_SLAB + 2 * F_W);
           tma_load_3d(st, mh, full + 8 * s, r * KF, h_row0, zh);
+          mw = mw2;
+          k = r * KF;
+          n = c * NC;
         } else {       // W3 tile j: n half j % 2, k-step j / 2 of chunk c
           const int j = r - KT;
-          mbar_expect_tx(full + 8 * s, F_W);
-          tma_load_3d_multicast(wdst, mw3, full + 8 * s,
-                                c * NC + (j >> 1) * KF,
-                                (j & 1) * NC + rank * SLICE_ROWS, zw, all);
+          mbar_expect_tx(full + 8 * s, 2 * F_W);
+          mw = mw3;
+          k = c * NC + (j >> 1) * KF;
+          n = (j & 1) * NC;
         }
+        n += rank * SLICE_ROWS;
+        tma_load_3d_multicast(wdst, mw, full + 8 * s, k, n, 2 * zw, all);
+        tma_load_3d_multicast(wdst + F_W, mw, full + 8 * s, k, n,
+                              2 * zw + 1, all);
       }
       // stay until every block of the cluster has released each stage's
       // last use
@@ -460,7 +469,7 @@ __device__ __forceinline__ void layers23_f32(
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int w = wg - 1;
   const int warp = tid / 32, lane = tid % 32;
-  const int row = warp * 16 + lane / 4, q = (lane % 4) * 2;
+  const int row = warp * 16 + lane / 4, tq = lane % 4, q = 2 * tq;
   unsigned char* const h2p = smem_raw + (h2s - raw);
   auto release = [&](int i) {
     if (tid == 0)
@@ -468,54 +477,45 @@ __device__ __forceinline__ void layers23_f32(
       for (int c = 0; c < CL; ++c)
         mbar_arrive_cluster(empty + 8 * (i % F_STAGES), c);
   };
-  // y: this warpgroup's 128 output columns; acc: a layer-2 chunk; part,
-  // part3: one k-step's (one chunk's) products, summed by the tensor
-  // cores
-  float y[64], part3[64], acc[32], part[32];
+  // y: this warpgroup's 128 output columns
+  float y[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) y[i] = part3[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) part[i] = 0.f;
+  for (int i = 0; i < 64; ++i) y[i] = 0.f;
+  TfA A = {};
   int it = 0;
   for (int c = 0; c < H2 / NC; ++c) {
+    // layer 2: acc = h @ W2[:, c*128 + w*64 .. +64]; part: a stretch's
+    // products, summed by the tensor cores
+    float acc[32], part[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    // layer 2: acc = h @ W2[:, c*128 + w*64 .. +64]
+    for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+    bool fresh = true;
     for (int kt = 0; kt < KT; ++kt, ++it) {
       const int s = it % F_STAGES;
       const uint32_t st = ring + s * F_STAGE;
+      const bool held = early_release(part, A, !fresh, full + 8 * s,
+                                      (it / F_STAGES) & 1,
+                                      [&] { release(it - 1); });
       mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
-      // the h slab and the W2 tile: high parts in place, low parts F_HALF
-      // further, split by both warpgroups
-      if (!(TAIL_CUT & 1)) {
-        float4* const p = reinterpret_cast<float4*>(smem_raw + (st - raw));
-        split_tf32_smem(p, p + F_HALF / 16, F_HALF / 16, threadIdx.x - 128,
-                        256);
-      }
-      fence_proxy_async();
-      bar_sync(1, 256);
       const uint32_t b = st + F_SLAB + w * (F_W / 2);
-      fence_acc(part);
-      wgmma_fence();
-      if (!(TAIL_CUT & 2)) {
+      kstep_3xtf32_rs<!(TAIL_CUT & 1), !(TAIL_CUT & 2)>(
+          part, A, smem_raw + (st - raw), row, tq, b, b + F_W, !fresh,
+          [&] {
+            if (held) release(it - 1);
+          });
+      fresh = tf_stretch_end<F_STRETCH>(kt, KT, w);
+      if (fresh) {
+        drain_3xtf32(part, A);
+        release(it);
 #pragma unroll
-        for (int kk = 0; kk < KF / 8; ++kk)
-          wgmma_3xtf32<1>(part, desc_sw128(st + kk * 32),
-                          desc_sw128(st + F_HALF + kk * 32),
-                          desc_sw128(b + kk * 32),
-                          desc_sw128(b + F_HALF + kk * 32), kk > 0);
+        for (int i = 0; i < 32; ++i) acc[i] += part[i];
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(part);
-      release(it);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] += part[i];
     }
     // h2's chunk columns w*64 .. +64 (bias, ReLU, affine), split and
     // staged as slabs 2w, 2w + 1 of h2s (the swizzled layout of a TMA
-    // box); the other warpgroup finished reading the last chunk's before
-    // it passed this chunk's layer-2 barriers
+    // box), once both warpgroups' layer-3 products on the last chunk's
+    // h2 are done
+    bar_sync(1, 256);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int k = w * 64 + 8 * j + q;          // column in the chunk
@@ -539,38 +539,49 @@ __device__ __forceinline__ void layers23_f32(
     }
     fence_proxy_async();
     bar_sync(1, 256);
-    // layer 3: part3 = h2 chunk @ W3[chunk, w*128 .. +128]
+    // layer 3: part3 = h2 chunk @ W3[chunk, w*128 .. +128], one commit
+    // group a W3 tile, the one before it retired as the next is issued
+    float part3[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part3[i] = 0.f;
+    int mine = -1;                // this warpgroup's tile in flight
     for (int j = 0; j < F_W3_TILES; ++j, ++it) {
       const int s = it % F_STAGES;
       const uint32_t st = ring + s * F_STAGE;
-      mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
-      if ((j & 1) == w) {
-        const int k3 = j >> 1;
-        if (!(TAIL_CUT & 1)) {
-          float4* const p =
-              reinterpret_cast<float4*>(smem_raw + (st + F_SLAB - raw));
-          split_tf32_smem(p, p + F_HALF / 16, F_W / 16, tid, 128);
-        }
-        fence_proxy_async();
-        bar_sync(2 + w, 128);
-        const uint32_t a = h2s + k3 * F_SLAB, b = st + F_SLAB;
-        fence_acc(part3);
-        wgmma_fence();
-        if (!(TAIL_CUT & 4)) {
-#pragma unroll
-          for (int kk = 0; kk < KF / 8; ++kk)
-            wgmma_3xtf32<1>(part3, desc_sw128(a + kk * 32),
-                            desc_sw128(a + F_H2 + kk * 32),
-                            desc_sw128(b + kk * 32),
-                            desc_sw128(b + F_HALF + kk * 32),
-                            k3 > 0 || kk > 0);
-        }
-        wgmma_commit();
+      // as early_release: free the tile in flight before a wait
+      if (mine >= 0 && !mbar_test(full + 8 * s, (it / F_STAGES) & 1)) {
         wgmma_wait<0>();
         fence_acc(part3);
+        release(mine);
+        mine = -1;
       }
-      release(it);
+      mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
+      if ((j & 1) != w) {
+        release(it);
+        continue;
+      }
+      const int k3 = j >> 1;
+      const uint32_t a = h2s + k3 * F_SLAB, b = st + F_SLAB;
+      fence_acc(part3);
+      wgmma_fence();
+      if (!(TAIL_CUT & 4)) {
+#pragma unroll
+        for (int kk = 0; kk < KF / 8; ++kk)
+          wgmma_3xtf32<1>(part3, desc_sw128(a + kk * 32),
+                          desc_sw128(a + F_H2 + kk * 32),
+                          desc_sw128(b + kk * 32),
+                          desc_sw128(b + F_W + kk * 32), k3 > 0 || kk > 0);
+      }
+      wgmma_commit();
+      fence_acc(part3);
+      wgmma_wait<1>();
+      fence_acc(part3);
+      if (mine >= 0) release(mine);
+      mine = it;
     }
+    wgmma_wait<0>();
+    fence_acc(part3);
+    if (mine >= 0) release(mine);
 #pragma unroll
     for (int i = 0; i < 64; ++i) y[i] += part3[i];
   }

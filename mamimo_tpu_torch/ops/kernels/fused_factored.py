@@ -21,13 +21,15 @@ The weights' dtype picks the mode (``prepare_factored_weights``'
 ``dot_dtype``): bfloat16 weights run the bf16 kernels, float32 weights
 the float32 mode, every product at float32 accuracy (3xTF32 on the
 tensor cores) on float32 rows, always through the per-head rows (the
-fused tail keeps bf16 h only). The output layer's store takes
-``out_dtype`` float32 or bfloat16 (the float32 result rounded to
-nearest even). On CUDA tensors each wrapper launches its kernel (or
-raises: a float32 request never runs the plain version or a bf16
-kernel); on CPU tensors it runs the kernel's plain version, which
-mirrors the TPU kernel's body: operands are rounded to the weights'
-dtype, products and sums are float32.
+fused tail keeps bf16 h only); the kernels read each K-major weight as
+its TF32 high and low parts, split once by ``prepare_factored_weights``
+(the ``<key>_tf32`` entries), and split the rows in registers. The
+output layer's store takes ``out_dtype`` float32 or bfloat16 (the
+float32 result rounded to nearest even). On CUDA tensors each wrapper
+launches its kernel (or raises: a float32 request never runs the plain
+version or a bf16 kernel); on CPU tensors it runs the kernel's plain
+version, which mirrors the TPU kernel's body: operands are rounded to
+the weights' dtype, products and sums are float32.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from mamimo_tpu_torch.ops.kernels.util import (
     count_launch,
     kmajor_weight,
     on_cuda,
+    tf32_split,
     tma_operand,
 )
 from mamimo_tpu_torch.ops.ltf import pilot_p_matrix
@@ -99,6 +102,12 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
     multiple of 128, the kernels' tile: the extra units get zero
     weights, biases and BN affines, so they stay 0 through ReLU and add
     nothing to any output.
+
+    With dot_dtype float32 each K-major weight ``wkt`` (w1t, the hidden
+    ones and the output's) comes instead as ``wkt_tf32`` (2, 2, N, K):
+    its TF32 high and low parts (``tf32_split`` at dim 1; on CUDA the
+    split kernel), the operand the float32 kernels load. The plain
+    versions use the unsplit ``wk``.
     """
     depth = len(tcfg.hidden)
     if depth < 1:
@@ -150,6 +159,9 @@ def prepare_factored_weights(cfg: SimConfig, tcfg: TrainConfig, params,
     out[f"w{k}"] = w3p.to(dot_dtype).contiguous()
     out[f"w{k}t"] = w3t
     out[f"b{k}"] = b3p[:, None, :].contiguous()
+    if dot_dtype == _F32:
+        for j in range(1, depth + 2):
+            out[f"w{j}t_tf32"] = tf32_split(out.pop(f"w{j}t"), 1)
     return out
 
 
@@ -176,9 +188,10 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
                       w1t: torch.Tensor | None = None) -> torch.Tensor:
     """Layer 1 of both planes: x (2, S, L) @ w1 (2, L, H) → (2, S, H)
-    float32. CUDA: x and w1 of one dtype, bfloat16 (the bf16 GEMM kernel)
-    or float32 (its float32 mode, 3xTF32), the kernel reading W1 K-major
-    from ``w1t`` (2, H, L), ``prepared["w1t"]`` of that dtype; it is
+    float32. CUDA: x and w1 of one dtype, bfloat16 (the bf16 GEMM kernel,
+    reading W1 K-major from ``w1t`` (2, H, L), ``prepared["w1t"]``) or
+    float32 (its float32 mode, 3xTF32, reading W1's TF32 parts: ``w1t``
+    is then ``prepared["w1t_tf32"]``, (2, 2, H, L) float32); w1t is
     required there. CPU: the plain version (w1t unused)."""
     if not on_cuda(x, w1):
         return _mm(x, w1)
@@ -194,13 +207,12 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"factored_sig_proj needs x (2,S,L), w1 (2,L,H) "
                          f"with L % {pitch} == 0 and H % 128 == 0, got "
                          f"{tuple(x.shape)}, {tuple(w1.shape)}")
-    if w1t is None:
-        raise ValueError("factored_sig_proj needs w1t, prepared['w1t'], on "
-                         "CUDA")
-    if tuple(w1t.shape) != (2, H, L) or w1t.dtype != w1.dtype:
-        raise ValueError(f"factored_sig_proj needs w1t (2, {H}, {L}) "
-                         f"{str(w1.dtype)[6:]}, got {tuple(w1t.shape)} "
-                         f"{w1t.dtype}")
+    key, shape = ("w1t_tf32", (2, 2, H, L)) if mode else ("w1t", (2, H, L))
+    if w1t is None or tuple(w1t.shape) != shape or w1t.dtype != w1.dtype:
+        got = "none" if w1t is None else f"{tuple(w1t.shape)} {w1t.dtype}"
+        raise ValueError(f"factored_sig_proj needs w1t {shape} "
+                         f"{str(w1.dtype)[6:]} (prepared['{key}']) on "
+                         f"CUDA, got {got}")
     out = torch.empty((2, s, H), dtype=torch.float32, device=x.device)
     if s == 0:
         return out
@@ -366,7 +378,8 @@ def factored_dense(prepared, k: int, h: torch.Tensor, C: int | None = None,
     :C] (2, M, C) in out_dtype (float32, or bfloat16: the float32 result
     rounded). CUDA: the Hopper GEMM kernel with that epilogue (bf16 rows
     and weights, or float32 rows and weights in the float32 mode),
-    reading wk K-major from ``prepared["wkt"]``. CPU: the plain
+    reading wk K-major from ``prepared["wkt"]`` (float32:
+    ``prepared["wkt_tf32"]``, its TF32 parts). CPU: the plain
     version."""
     out_layer = k == factored_depth(prepared) + 1
     if out_layer and C is None:
@@ -390,8 +403,9 @@ def factored_dense(prepared, k: int, h: torch.Tensor, C: int | None = None,
         raise ValueError(f"factored_dense layer {k} needs rows of "
                          f"{w.shape[1]} (% {pitch} == 0), got "
                          f"{tuple(h.shape)}")
-    wt = kmajor_weight(prepared, f"w{k}t", (2, n, kin), "factored_dense",
-                       w.dtype)
+    wt = kmajor_weight(prepared, f"w{k}t_tf32", (2, 2, n, kin),
+                       "factored_dense", _F32) if mode else \
+        kmajor_weight(prepared, f"w{k}t", (2, n, kin), "factored_dense")
     b = prepared[f"b{k}"].contiguous()
     a, c = (b, b) if out_layer else \
         (prepared[f"a{k}"].contiguous(), prepared[f"c{k}"].contiguous())
@@ -426,7 +440,8 @@ def factored_rows_tail(prepared, h: torch.Tensor, C: int,
     CUDA: the fused tail kernel on TMA-loaded rows (the last hidden
     layer's activation stays on chip; bf16 rows stream slab by slab above
     1024 units; float32 rows, the float32 mode, always stream), reading W
-    K-major from ``prepared["wDt"]`` and the output's. CPU: the plain
+    K-major from ``prepared["wDt"]`` and the output's (float32: their TF32
+    parts, ``prepared["wDt_tf32"]`` and the output's). CPU: the plain
     version."""
     d = factored_depth(prepared)
     if d < 2:
@@ -451,9 +466,10 @@ def factored_rows_tail(prepared, h: torch.Tensor, C: int,
         raise ValueError(f"factored_rows_tail needs rows of "
                          f"{prepared[wk].shape[1]}, widths % 128 == 0 and "
                          f"C <= {_TAIL_OP}; got {tuple(h.shape)}, C={C}")
-    w2t = kmajor_weight(prepared, f"{wk}t", (2, h2, h1), "factored_rows_tail",
-                        dt)
-    w3t = kmajor_weight(prepared, f"{ok}t", (2, _TAIL_OP, h2),
+    sfx, parts = ("t_tf32", (2,)) if mode else ("t", ())
+    w2t = kmajor_weight(prepared, f"{wk}{sfx}", (2, *parts, h2, h1),
+                        "factored_rows_tail", dt)
+    w3t = kmajor_weight(prepared, f"{ok}{sfx}", (2, *parts, _TAIL_OP, h2),
                         "factored_rows_tail", dt)
     vec = [prepared[k].contiguous()
            for k in (f"b{d}", f"a{d}", f"c{d}", f"b{d + 1}")]
@@ -519,7 +535,9 @@ def fused_factored_planes(cfg: SimConfig, tcfg: TrainConfig, prepared,
                          f"dot_dtype)")
     _check_out_dtype(out_dtype)
     C, d = cfg.num_carriers, factored_depth(prepared)
-    sig_proj = factored_sig_proj(planes, prepared["w1"], prepared["w1t"])
+    sig_proj = factored_sig_proj(
+        planes, prepared["w1"],
+        prepared.get("w1t_tf32" if w_dtype == _F32 else "w1t"))
     if d == 2 and sig_proj.shape[2] <= _MAX_RESIDENT and w_dtype == _BF16:
         return factored_tail(prepared, sig_proj, C, out_dtype)
     s = sig_proj.shape[1]

@@ -11,7 +11,8 @@ modes, on hand-written CUDA kernels:
 - bf16 → f32: ``csrc/matmul.cu`` (``gemm_sm90.cuh``'s persistent wgmma
   walk);
 - f32 → f32: ``csrc/matmul.cu`` at float32 accuracy from three TF32
-  products a k-slice (3xTF32, ``gemm_sm90.cuh::wgmma_3xtf32``).
+  products a k-slice (3xTF32, ``gemm_sm90.cuh::gemm_tf32x3``), B's TF32
+  parts split per call (``tf32_split``).
 
 ``matmul_pallas(a, b)`` keeps the JAX signature, B (K, N), and
 transposes per call; ``out_dtype`` rounds the result as JAX's
@@ -33,7 +34,11 @@ import ctypes
 import torch
 
 from mamimo_tpu_torch.ops.kernels import _build
-from mamimo_tpu_torch.ops.kernels.util import on_cuda, tma_operand
+from mamimo_tpu_torch.ops.kernels.util import (
+    on_cuda,
+    tf32_split,
+    tma_operand,
+)
 from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
 _MAX_K = 1 << 17
@@ -105,7 +110,9 @@ def matmul_float(a: torch.Tensor, bt: torch.Tensor,
     bfloat16: the float32 result rounded to nearest even).
 
     CUDA: the hand-written kernels of ``csrc/matmul.cu`` (bf16: K % 8 ==
-    0; float32: K % 4 == 0, float32 accuracy); CPU: the plain version."""
+    0; float32: K % 4 == 0, float32 accuracy, bt split into its TF32
+    parts first by the split kernel, ``tf32_split``, within the call);
+    CPU: the plain version."""
     if a.dtype not in (torch.bfloat16, torch.float32) or bt.dtype != a.dtype:
         raise TypeError(f"matmul_float takes two bfloat16 or two float32 "
                         f"operands, got {a.dtype} and {bt.dtype}")
@@ -131,6 +138,8 @@ def matmul_float(a: torch.Tensor, bt: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
+    if f32:
+        bt = tf32_split(bt)
     lib = _float_lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

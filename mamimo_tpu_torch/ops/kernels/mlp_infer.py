@@ -30,12 +30,11 @@ from mamimo_tpu_torch.ops.kernels.util import (
     count_launch,
     kmajor_weight,
     on_cuda,
+    tf32_split,
     tma_operand,
 )
 
 _OP = 256           # the tail kernel's padded output width
-_KEYS = ("w1", "w1t", "b1", "s1", "t1", "w2", "w2t", "b2", "s2", "t2",
-         "w3", "w3t", "b3")
 
 
 def fold_bn_into_dense(tcfg: TrainConfig, params, bn_state):
@@ -84,11 +83,15 @@ def _prepare_plane(tcfg: TrainConfig, params, bn_state, dot_dtype):
                               for v in (b1, s1, t1, b2, s2, t2))
     f32 = lambda t: t.float().contiguous()                   # noqa: E731
     w1p, w2, w3p = (w.to(dot_dtype) for w in (w1p, w2, w3p))
-    return {"w1": w1p, "w1t": w1p.T.contiguous(), "b1": f32(b1),
-            "s1": f32(s1), "t1": f32(t1), "w2": w2.contiguous(),
-            "w2t": w2.T.contiguous(), "b2": f32(b2), "s2": f32(s2),
-            "t2": f32(t2), "w3": w3p, "w3t": w3p.T.contiguous(),
-            "b3": f32(b3)}
+    out = {"w1": w1p, "w1t": w1p.T.contiguous(), "b1": f32(b1),
+           "s1": f32(s1), "t1": f32(t1), "w2": w2.contiguous(),
+           "w2t": w2.T.contiguous(), "b2": f32(b2), "s2": f32(s2),
+           "t2": f32(t2), "w3": w3p, "w3t": w3p.T.contiguous(),
+           "b3": f32(b3)}
+    if dot_dtype == torch.float32:
+        for k in ("w1t", "w2t", "w3t"):
+            out[f"{k}_tf32"] = tf32_split(out.pop(k))
+    return out
 
 
 def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state,
@@ -109,6 +112,14 @@ def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state,
                         operand
       b3 (2, C) f32
 
+    where with dot_dtype float32 the K-major weights come split instead:
+
+      w1t_tf32 (2, 2, H, Kp), w2t_tf32 (2, 2, H, H), w3t_tf32 (2, 2,
+        256, H) — the TF32 high and low parts of w1t, w2t, w3t
+        (``tf32_split``; on CUDA the split kernel), the operands the
+        float32 kernels load, in place of w1t, w2t, w3t; the plain
+        versions use w1, w2, w3
+
     H is both hidden widths rounded up to one multiple of 128, the
     kernels' tile (as ``prepare_factored_weights``): the extra units get
     zero weights, biases and BN affines, so they stay 0 through ReLU and
@@ -124,12 +135,13 @@ def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state,
                         f"{dot_dtype}")
     planes = [_prepare_plane(tcfg, plane(params, d), plane(bn_state, d),
                              dot_dtype) for d in range(2)]
-    return {k: torch.stack([p[k] for p in planes]) for k in _KEYS}
+    return {k: torch.stack([p[k] for p in planes]) for k in planes[0]}
 
 
 def _prepared(tcfg, params, bn_state, dot_dtype):
     """One plane's kernel tree: ``params`` as it is when it is one
-    already, else folded from the JAX-style (params, bn_state)."""
+    already, else folded from the JAX-style (params, bn_state) (with
+    dot_dtype float32 its K-major weights split per call)."""
     if "w1" in params:
         return params
     return _prepare_plane(tcfg, params, bn_state, dot_dtype)
@@ -173,32 +185,31 @@ def mlp_infer_layer1(p, x: torch.Tensor) -> torch.Tensor:
 
     CUDA: the K-streamed GEMM kernel with the bias, ReLU, affine and
     rounding in its epilogue; it reads W1 K-major, the tree's ``w1t``
-    (``prepare_mlp_infer_weights``). A bf16 tree takes x float32 (cast to
-    bf16 first) or bf16; a float32 tree runs the float32 mode on float32
-    x as it is (bf16 x raises). CPU: the plain version."""
+    (``prepare_mlp_infer_weights``; a float32 tree's ``w1t_tf32``, its
+    TF32 parts). A bf16 tree takes x float32 (cast to bf16 first) or
+    bf16; a float32 tree runs the float32 mode on float32 x as it is
+    (bf16 x raises). CPU: the plain version."""
     if not on_cuda(x, *(p[k] for k in ("w1", "b1", "s1", "t1"))):
         return _layer1_plain(p, x, p["w1"].dtype)
     w1 = p["w1"]
     mode = _tree_mode(p, "mlp_infer_layer1")
     m, k = x.shape
     kp, h1 = w1.shape
-    w1t = p["w1t"]
     if mode and x.dtype != torch.float32:
         raise TypeError(f"the float32 mode of mlp_infer_layer1 takes "
                         f"float32 x, got {x.dtype}")
     pitch = 4 if mode else 8
-    if k % pitch or kp != _round_up(k, 32) or h1 % 128 \
-            or tuple(w1t.shape) != (h1, kp):
+    if k % pitch or kp != _round_up(k, 32) or h1 % 128:
         raise ValueError(f"the layer-1 kernel needs in_dim % {pitch} == 0, "
-                         f"w1 of round_up(in_dim, 32) rows, w1t its "
-                         f"transpose and H1 % 128 == 0; got x "
-                         f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w1t "
-                         f"{tuple(w1t.shape)}")
+                         f"w1 of round_up(in_dim, 32) rows and H1 % 128 == "
+                         f"0; got x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+    w1t = kmajor_weight(p, "w1t_tf32", (2, h1, kp), "mlp_infer_layer1",
+                        torch.float32) if mode else \
+        kmajor_weight(p, "w1t", (h1, kp), "mlp_infer_layer1")
     x = tma_operand(x.to(w1.dtype))
     out = torch.empty((m, h1), dtype=w1.dtype, device=x.device)
     if m == 0:
         return out
-    w1t = tma_operand(w1t)
     lib = _mlp_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -221,8 +232,9 @@ def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
     up to H1 = 1024, above it h1's slabs stream beside W2's tiles;
     float32, the float32 mode: h1's slabs always stream, h2 is staged in
     shared memory); it reads W2 and W3 K-major from the tree's ``w2t``
-    and ``w3t`` (``prepare_mlp_infer_weights``), required there. CPU: the
-    plain version."""
+    and ``w3t`` (``prepare_mlp_infer_weights``; a float32 tree's
+    ``w2t_tf32`` and ``w3t_tf32``, their TF32 parts), required there.
+    CPU: the plain version."""
     keys = ("w2", "b2", "s2", "t2", "w3", "b3")
     if not on_cuda(h1, *(p[k] for k in keys)):
         return _tail_plain(p, h1, p["w2"].dtype)
@@ -242,8 +254,11 @@ def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
                          f"{_OP}) and C <= {_OP}; got H1={H1}, w2 "
                          f"{tuple(q['w2'].shape)}, w3 "
                          f"{tuple(q['w3'].shape)}, C={c}")
-    q["w2t"] = kmajor_weight(p, "w2t", (H2, H1), "mlp_infer_tail", dt)
-    q["w3t"] = kmajor_weight(p, "w3t", (_OP, H2), "mlp_infer_tail", dt)
+    sfx, parts = ("t_tf32", (2,)) if mode else ("t", ())
+    q["w2t"] = kmajor_weight(p, f"w2{sfx}", (*parts, H2, H1),
+                             "mlp_infer_tail", dt)
+    q["w3t"] = kmajor_weight(p, f"w3{sfx}", (*parts, _OP, H2),
+                             "mlp_infer_tail", dt)
     out = torch.empty((m, c), dtype=torch.float32, device=h1.device)
     if m == 0:
         return out

@@ -14,10 +14,26 @@ limit. The matmul writes bf16 and has no epilogue: it is a yardstick,
 not the same function. The card's clocks sag over a run, so compare
 only within one line.
 
-``--f32``: the same kernels' float32 mode (float32 operands, 3xTF32 on
-gemm_sm90.cuh's gemm_tf32x3, float32 h1) at M = 8192 and 131072 rows
-(K = 10272) and S = 4096, beside a float32 ``torch.matmul`` with TF32
-off, TFLOP/s counting each product once.
+``--f32``: the float32 body (gemm_sm90.cuh's gemm_tf32x3, 3xTF32 with
+the weights' TF32 parts split beforehand) through its four callers:
+``mlp_infer_layer1`` at M = 8192 and 131072 rows (K = 10272),
+``factored_sig_proj`` at S = 4096, ``factored_dense``'s hidden layer on
+(2, 131072, 1024) rows and ``matmul_pallas`` at (4096, 10240) @ (10240,
+1024) and (131072, 1024) @ (1024, 1024) (the wrapper's per-call split
+of B timed apart), each beside a float32 ``torch.matmul`` with TF32 off
+and one with TF32 on (a single TF32 pass, cuBLAS: a third of the work,
+the yardstick of the tensor cores' TF32 rate), TFLOP/s counting each
+product once; then the body built with -DGEMM_CUT=1, 2, 3 (no split of
+A in registers, no products, neither), ``mlp_infer_layer1`` at (131072,
+10272) timed in each beside its error against float64 on 8192 rows.
+Then the float32 kernels built with other stretches (copies of the
+sources with ``gemm_sm90.cuh``'s ``TF_STRETCH``, the k-steps a fresh
+accumulator sums, set to 2, 4 or 8: ``probe_tail.stretch_sources``) and,
+with ``--old``, the earlier design's (its weights unsplit, split in
+shared memory) beside the package's own: ``mlp_infer_layer1``,
+``factored_sig_proj``, ``factored_dense``'s hidden layer and the output
+layer of a one-hidden-layer model, ``matmul_pallas`` at both shapes,
+each against float64, timed in turns (old, each stretch, then back).
 
 ``--old DIR``: the bf16 kernels against an earlier design whose sources
 (``fused_factored.cu``, ``mlp_infer.cu`` and their headers, e.g. a
@@ -33,6 +49,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -146,30 +163,7 @@ def main() -> int:
               f"({tf / mm:.0f} TFLOP/s)  [{smi}]", flush=True)
 
     if args.f32:
-        print("float32 mode (3xTF32; TFLOP/s counting each product once; "
-              "matmul float32, TF32 off):")
-        for m, k in ((8192, 10272), (131072, 10272)):
-            x = torch.randn((m, k), generator=g, device=dev)
-            p = layer1_tree(k, f32)
-            iters = max(2, 10 * 8192 // m)
-            ms, mm = _turns(lambda: mlp_infer_layer1(p, x),
-                            lambda: torch.matmul(x, p["w1"][:k]), iters)
-            tf = 2.0 * m * k * H / 1e9
-            print(f"  mlp_infer_layer1 f32 ({m}, {k}) @ ({k}, {H}): "
-                  f"{ms:.4f} ms ({tf / ms:.0f} TFLOP/s); matmul {mm:.4f} ms "
-                  f"({tf / mm:.0f} TFLOP/s)  [{smi}]", flush=True)
-            del x, p
-        s, L = 4096, 10240
-        x = torch.randn((2, s, L), generator=g, device=dev)
-        w = 0.02 * torch.randn((2, L, H), generator=g, device=dev)
-        wt = w.transpose(1, 2).contiguous()
-        ms, mm = _turns(lambda: factored_sig_proj(x, w, wt),
-                        lambda: torch.matmul(x, w), 5)
-        tf = 2.0 * 2 * s * L * H / 1e9
-        print(f"  factored_sig_proj f32 (2, {s}, {L}) @ (2, {L}, {H}): "
-              f"{ms:.4f} ms ({tf / ms:.0f} TFLOP/s); matmul {mm:.4f} ms "
-              f"({tf / mm:.0f} TFLOP/s)  [{smi}]", flush=True)
-        del x, w, wt
+        _f32_section(args, dev, g, smi, layer1_tree)
 
     if args.old is not None:
         m, k, s, L = 131072, 10272, 4096, 10240
@@ -225,6 +219,213 @@ def main() -> int:
                   f"factored_sig_proj {t_s:.4f} ms  [{smi}]", flush=True)
     return 0
 
+
+def _db(got, ref) -> float:
+    import torch
+
+    g64, r64 = got.double(), ref.double()
+    return 10 * float(torch.log10((g64 - r64).square().sum()
+                                  / r64.square().sum()))
+
+
+def _f32_section(args, dev, g, smi, layer1_tree) -> None:
+    """The float32 body: its callers' times beside torch.matmul with TF32
+    off and on, the phase cuts, and the A/B of the other stretches (and
+    with args.old the earlier design) against the package's own."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        factored_dense,
+        factored_sig_proj,
+    )
+    from mamimo_tpu_torch.ops.kernels.int8_mm import matmul_float
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import mlp_infer_layer1
+    from mamimo_tpu_torch.ops.kernels.util import tf32_split
+    from mamimo_tpu_torch.tools.probe_tail import (
+        _launch_fn,
+        _old_lib,
+        stretch_sources,
+    )
+
+    f32 = torch.float32
+
+    def tf32_matmul(fn):
+        def run():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                fn()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return run
+
+    def line(name, tf, ms, mm, m1):
+        print(f"  {name}: {ms:.4f} ms ({tf / ms:.0f} TFLOP/s); matmul f32 "
+              f"{mm:.4f} ms ({tf / mm:.0f}); matmul TF32 one pass "
+              f"{m1:.4f} ms ({tf / m1:.0f})  [{smi}]", flush=True)
+
+    print("float32 mode (3xTF32; TFLOP/s counting each product once; "
+          "matmul float32 with TF32 off, and with TF32 on):")
+    for m, k in ((8192, 10272), (131072, 10272)):
+        x = torch.randn((m, k), generator=g, device=dev)
+        p = layer1_tree(k, f32)
+        p["w1t_tf32"] = tf32_split(p["w1t"])
+        iters = max(2, 10 * 8192 // m)
+        ms, mm = _turns(lambda: mlp_infer_layer1(p, x),
+                        lambda: torch.matmul(x, p["w1"][:k]), iters)
+        m1 = _time_ms(tf32_matmul(lambda: torch.matmul(x, p["w1"][:k])),
+                      iters)
+        line(f"mlp_infer_layer1 f32 ({m}, {k}) @ ({k}, {H})",
+             2.0 * m * k * H / 1e9, ms, mm, m1)
+        del x, p
+    s, L = 4096, 10240
+    x = torch.randn((2, s, L), generator=g, device=dev)
+    w = 0.02 * torch.randn((2, L, H), generator=g, device=dev)
+    wp = tf32_split(w.transpose(1, 2).contiguous(), 1)
+    ms, mm = _turns(lambda: factored_sig_proj(x, w, wp),
+                    lambda: torch.matmul(x, w), 5)
+    m1 = _time_ms(tf32_matmul(lambda: torch.matmul(x, w)), 5)
+    line(f"factored_sig_proj f32 (2, {s}, {L}) @ (2, {L}, {H})",
+         2.0 * 2 * s * L * H / 1e9, ms, mm, m1)
+    del x, w, wp
+    M = 131072
+    h = torch.relu(torch.randn((2, M, H), generator=g, device=dev))
+    w2 = 0.03 * torch.randn((2, H, H), generator=g, device=dev)
+    z = torch.zeros((2, 1, H), device=dev)
+    pd = {"w2": w2, "w2t_tf32": tf32_split(w2.transpose(1, 2).contiguous(),
+                                            1),
+          "b2": z, "a2": z + 1, "c2": z, "w1": w2, "a1": z, "w3": w2}
+    ms, mm = _turns(lambda: factored_dense(pd, 2, h),
+                    lambda: torch.matmul(h, w2), 3)
+    m1 = _time_ms(tf32_matmul(lambda: torch.matmul(h, w2)), 3)
+    line(f"factored_dense f32 hidden layer (2, {M}, {H}) @ (2, {H}, {H})",
+         2.0 * 2 * M * H * H / 1e9, ms, mm, m1)
+    del h, w2, pd
+    for m, k, n in ((4096, 10240, 1024), (131072, 1024, 1024)):
+        a = torch.randn((m, k), generator=g, device=dev)
+        bt = torch.randn((n, k), generator=g, device=dev)
+        ms, mm = _turns(lambda: matmul_float(a, bt),
+                        lambda: torch.matmul(a, bt.T), 5)
+        m1 = _time_ms(tf32_matmul(lambda: torch.matmul(a, bt.T)), 5)
+        sp = _time_ms(lambda: tf32_split(bt), 20)
+        line(f"matmul_pallas f32 ({m}, {k}) @ ({k}, {n}), B's split "
+             f"{sp:.4f} ms of it", 2.0 * m * n * k / 1e9, ms, mm, m1)
+        del a, bt
+
+    # the phase cuts, on mlp_infer_layer1
+    m, k = 131072, 10272
+    x = torch.randn((m, k), generator=g, device=dev)
+    p = layer1_tree(k, f32)
+    wt = tf32_split(p["w1t"])
+    kp = p["w1"].shape[0]
+    h1 = torch.empty((m, H), device=dev)
+    ref = torch.relu(x[:8192].double() @ p["w1"][:k].double())
+    argv = [x.data_ptr(), wt.data_ptr(), *(p[n].data_ptr() for n in
+                                           ("b1", "s1", "t1")),
+            h1.data_ptr(), m, k, kp, H, 2]
+    argc = list(argv)
+    argc[6] = 8192
+    print(f"phase cuts: mlp_infer_layer1 f32 ({m}, {k}) @ ({k}, {H}); error "
+          f"on {argc[6]} rows against float64:")
+    variants = [(), ("GEMM_CUT=1",), ("GEMM_CUT=2",), ("GEMM_CUT=3",)]
+    with ThreadPoolExecutor(len(variants)) as pool:     # nvcc in parallel
+        list(pool.map(lambda d: _build.build_all(("mlp_infer",), d),
+                      variants))
+    for d in variants:
+        run = _launch_fn(_build.library("mlp_infer", d), CSRC, "mlp_infer",
+                         "mlp_layer1_launch")
+        run(*argc)
+        torch.cuda.synchronize()
+        err = _db(h1[:8192], ref)
+        t = _time_ms(lambda run=run: run(*argv), 3)
+        print(f"  {d[0] if d else 'kernel'}: {t:.4f} ms, {err:.2f} dB  "
+              f"[{smi}]", flush=True)
+
+    # the designs: the earlier one (weights unsplit), the other stretches,
+    # the package's own; at the PERF.md shapes, each error on the first
+    # 8192 rows
+    own, dirs = stretch_sources("gemm")
+    designs = {f"stretch {n}": d for n, d in dirs.items()}
+    designs[f"stretch {own} (the package's)"] = CSRC
+    if args.old is not None:
+        designs = {"old": args.old, **designs}
+    libs = ("mlp_infer", "fused_factored", "matmul")
+    with ThreadPoolExecutor(len(designs) * len(libs)) as pool:
+        list(pool.map(lambda a: _old_lib(*a), [
+            (d, n) for d in designs.values() if d != CSRC for n in libs]))
+    runs, outs = {}, {}
+    ref_l = torch.relu(x[:8192].double() @ p["w1"][:k].double())
+    # (name, library, function, old weight, new weight, args (None: the
+    # weight), output rows to check, reference, iterations a timing)
+    cases = [("mlp_infer_layer1", "mlp_infer", "mlp_layer1_launch",
+              p["w1t"], wt, argv, lambda: h1[:8192], ref_l, 3)]
+    sx = torch.randn((2, 4096, 10240), generator=g, device=dev)
+    sw = 0.02 * torch.randn((2, H, 10240), generator=g, device=dev)
+    sp = torch.empty((2, 4096, H), device=dev)
+    cases.append(("factored_sig_proj", "fused_factored",
+                  "factored_sig_proj_launch", sw, tf32_split(sw, 1),
+                  [sx.data_ptr(), None, sp.data_ptr(), 4096, 10240, H, 2],
+                  lambda: sp[:, :4096], sx.double()
+                  @ sw.double().transpose(1, 2), 10))
+    Md = 131072
+    hd = torch.relu(torch.randn((2, Md, H), generator=g, device=dev))
+    wd = 0.03 * torch.randn((2, H, H), generator=g, device=dev)
+    zd, od = torch.zeros((2, H), device=dev), torch.ones((2, H), device=dev)
+    yd = torch.empty((2, Md, H), device=dev)
+    cases.append(("factored_dense", "fused_factored", "factored_dense_launch",
+                  wd, tf32_split(wd, 1),
+                  [hd.data_ptr(), None, zd.data_ptr(), od.data_ptr(),
+                   zd.data_ptr(), yd.data_ptr(), Md, H, H, 0, H, 0, 2],
+                  lambda: yd[:, :4096], torch.relu(
+                      hd[:, :4096].double() @ wd.double().transpose(1, 2)),
+                  3))
+    # the output layer of a one-hidden-layer model: 256 K-major rows (the
+    # 234 carriers, zero-padded), bias, 234 columns stored
+    C, NO = 234, 256
+    wo = torch.zeros((2, NO, H), device=dev)
+    wo[:, :C] = 0.03 * torch.randn((2, C, H), generator=g, device=dev)
+    bo = 0.1 * torch.randn((2, NO), generator=g, device=dev)
+    yo = torch.empty((2, Md, C), device=dev)
+    cases.append(("factored_dense output layer", "fused_factored",
+                  "factored_dense_launch", wo, tf32_split(wo, 1),
+                  [hd.data_ptr(), None, bo.data_ptr(), bo.data_ptr(),
+                   bo.data_ptr(), yo.data_ptr(), Md, NO, H, C, NO, 1, 2],
+                  lambda: yo[:, :4096],
+                  hd[:, :4096].double() @ wo[:, :C].double().transpose(1, 2)
+                  + bo[:, None, :C].double(), 3))
+    keep = []                  # the operands the launches point at
+    for mm, kk, nn in ((4096, 10240, 1024), (131072, 1024, 1024)):
+        am = torch.randn((mm, kk), generator=g, device=dev)
+        bm = torch.randn((nn, kk), generator=g, device=dev)
+        cm = torch.empty((mm, nn), device=dev)
+        keep.append(am)
+        cases.append((f"matmul_pallas ({mm}, {kk}) @ ({kk}, {nn})", "matmul",
+                      "mm_float_launch", bm, tf32_split(bm),
+                      [am.data_ptr(), None, cm.data_ptr(), mm, nn, kk, 2],
+                      lambda cm=cm: cm[:8192], am[:8192].double()
+                      @ bm.double().T, 5))
+    for name, lib, fn, w_old, w_new, argv_, got, ref, it in cases:
+        for tag, d in designs.items():
+            run = _launch_fn(_build.library(lib) if d == CSRC
+                             else _old_lib(d, lib), d, lib, fn)
+            av = list(argv_)
+            av[1] = (w_old if tag == "old" else w_new).data_ptr()
+            runs[(name, tag)] = (lambda run=run, av=av: run(*av), it)
+            run(*av)
+            torch.cuda.synchronize()
+            outs[(name, tag)] = _db(got(), ref)
+        print(f"{name} f32 against float64: " + ", ".join(
+            f"{tag} {outs[(name, tag)]:.2f} dB" for tag in designs),
+            flush=True)
+    order = [*designs, *reversed(designs)]
+    print(f"float32 A/B in turns ({', '.join(order)}), each kernel's launch "
+          f"alone (the weights split beforehand):")
+    for name, *_ in cases:
+        ts = [_time_ms(runs[(name, tag)][0], runs[(name, tag)][1])
+              for tag in order]
+        print(f"  {name}: " + ", ".join(f"{tag} {t:.4f}" for tag, t in
+                                        zip(order, ts))
+              + f" ms  [{smi}]", flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

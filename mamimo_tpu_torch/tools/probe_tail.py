@@ -26,8 +26,14 @@ sampled by ``nvidia-smi`` beside each timed window:
 5. with ``--f32``: the float32 mode's tail (``layers23_f32``):
    ``factored_rows_tail`` on both planes' float32 rows and
    ``mlp_infer_tail`` on one plane's, 131072 rows a plane, hidden (1024,
-   1024), whole and with the phase cuts (bit 1 then cuts the TF32
-   splits of h and W);
+   1024), whole and with the phase cuts (bit 1 then cuts the TF32 split
+   of h in registers; "no mma" leaves the loads of h and of both parts
+   of each W tile); then the tail built with other stretches (copies of
+   the sources with ``tail_sm90.cuh``'s ``F_STRETCH`` set to 2, 4 or 8,
+   ``stretch_sources``) and, with ``--old DIR``, the earlier design's
+   float32 tails (their weights unsplit) beside the package's own, each
+   held to its plain version in dB, timed in turns (old, each stretch,
+   then back);
 6. with ``--old DIR``: the bf16 tails (``factored_tail``,
    ``mlp_infer_tail``, ``factored_rows_tail`` at (1024, 1024) on the
    per-head rows) against an earlier design whose sources
@@ -49,9 +55,11 @@ import ctypes
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -143,6 +151,104 @@ def _launch_fn(lib, src_dir: Path, name: str, fn: str):
             raise RuntimeError(f"{fn}: CUDA error {rc}")
 
     return call
+
+
+STRETCH = {"gemm": ("gemm_sm90.cuh", "TF_STRETCH"),    # gemm_tf32x3's
+           "tail": ("tail_sm90.cuh", "F_STRETCH")}     # layers23_f32's
+
+
+def stretch_sources(body: str, stretches=(2, 4, 8)) -> tuple[int, dict]:
+    """The package's own stretch of a float32 body ("gemm" or "tail":
+    the k-steps of 32 it sums into a fresh accumulator, a constant in
+    its header) and, for each other stretch n, a copy of the package's
+    csrc under _build/ with that constant set to n: {n: directory}, for
+    _old_lib and _launch_fn."""
+    from mamimo_tpu_torch.ops.kernels import _build
+
+    header, name = STRETCH[body]
+    pat = rf"constexpr int {name} = (\d+);"
+    text = (CSRC / header).read_text()
+    own = int(re.search(pat, text).group(1))
+    dirs = {}
+    for n in stretches:
+        if n == own:
+            continue
+        d = _build.BUILD_DIR / f"stretch-{body}-{n}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(CSRC, d)
+        (d / header).write_text(re.sub(pat, f"constexpr int {name} = {n};",
+                                       text))
+        dirs[n] = d
+    return own, dirs
+
+
+def _f32_ab(old, ff_lib, mlp_lib, rows_run, mlp_run, p32, pm32, h32, y32,
+            y, arg32, m32, M, H, C, card, summary) -> None:
+    """The float32 tails built with each stretch (stretch_sources) and, with
+    old, the earlier design's (W2 and W3 unsplit, split in shared memory)
+    beside the package's own, each against its plain version on the same
+    rows, timed in turns (old, the stretches up, then back down)."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        _hidden_plain,
+        _out_plain,
+    )
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import _tail_plain
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
+
+    def db(got, ref):
+        g64, r64 = got.double(), ref.double()
+        return 10 * float(torch.log10((g64 - r64).square().sum()
+                                      / r64.square().sum()))
+
+    rows = 8192                 # rows of each plane held to the plain version
+    with full_f32_matmul():
+        ref_rows = _out_plain(p32, _hidden_plain(p32, 2, h32[:, :rows]), C)
+        ref_mlp = _tail_plain(pm32, h32[0, :rows], torch.float32)
+    own, dirs = stretch_sources("tail")
+    designs = {f"stretch {n}": (d, arg32, m32) for n, d in dirs.items()}
+    designs[f"stretch {own} (the package's)"] = (CSRC, arg32, m32)
+    if old is not None:
+        # the earlier design reads the unsplit K-major weights
+        kt = lambda w: w.transpose(-1, -2).contiguous()  # noqa: E731
+        unsplit = [kt(p32["w2"]), kt(p32["w3"]), kt(pm32["w2"]),
+                   kt(pm32["w3"])]
+        old_arg32, old_m32 = list(arg32), list(m32)
+        old_arg32[1], old_arg32[5] = (t.data_ptr() for t in unsplit[:2])
+        old_m32[1], old_m32[5] = (t.data_ptr() for t in unsplit[2:])
+        designs = {"old": (old, old_arg32, old_m32), **designs}
+    with ThreadPoolExecutor(2 * len(designs)) as pool:   # nvcc in parallel
+        list(pool.map(lambda a: _old_lib(*a), [
+            (d, n) for d, *_ in designs.values() if d != CSRC
+            for n in ("fused_factored", "mlp_infer")]))
+    libs = {tag: (ff_lib(src=d), mlp_lib(src=d), a_rows, a_mlp)
+            for tag, (d, a_rows, a_mlp) in designs.items()}
+    for tag, (lf, lm, a_rows, a_mlp) in libs.items():
+        y32.zero_()
+        y.zero_()
+        rows_run(lf, a_rows)
+        mlp_run(lm, a_mlp)
+        torch.cuda.synchronize()
+        e_rows = db(y32.view(2, M, C)[:, :rows], ref_rows)
+        e_mlp = db(y[:rows], ref_mlp)
+        print(f"{tag}: float32 tails against their plain versions "
+              f"({rows} rows a plane): factored_rows_tail {e_rows:.2f} dB, "
+              f"mlp_infer_tail {e_mlp:.2f} dB")
+        summary[f"f32 {tag} db"] = {"factored_rows_tail": e_rows,
+                                    "mlp_infer_tail": e_mlp}
+    order = [*libs, *reversed(libs)]
+    print(f"float32 A/B in turns ({', '.join(order)}), M = 2 x {M} / {M}:")
+    ab = {"factored_rows_tail": [], "mlp_infer_tail": []}
+    for tag in order:
+        lf, lm, a_rows, a_mlp = libs[tag]
+        t_rows = _time_ms(lambda: rows_run(lf, a_rows), iters=5)
+        t_mlp = _time_ms(lambda: mlp_run(lm, a_mlp), iters=5)
+        print(f"  {tag}: factored_rows_tail {_fmt(*t_rows)}; mlp_infer_tail "
+              f"{_fmt(*t_mlp)}  [{card}]", flush=True)
+        ab["factored_rows_tail"].append((tag, *t_rows))
+        ab["mlp_infer_tail"].append((tag, *t_mlp))
+    summary["f32 ab"] = ab
 
 
 def main() -> int:
@@ -307,14 +413,21 @@ def main() -> int:
                                                dot_dtype=f32), 0)
         h32 = torch.relu(torch.randn((2, M, H), generator=g, device="cuda"))
         y32 = torch.empty((2, M, C), device="cuda")
-        arg32 = [h32.data_ptr(), *(p32[k].data_ptr() for k in
-                                   ("w2t", "b2", "a2", "c2", "w3t", "b3")),
+        fk = ("w2t_tf32", "b2", "a2", "c2", "w3t_tf32", "b3")
+        arg32 = [h32.data_ptr(), *(p32[k].data_ptr() for k in fk),
                  y32.data_ptr(), M, H, H, C, p32["b3"].shape[-1], 2]
-        m32 = [h32[0].data_ptr(), *(pm32[k].data_ptr() for k in mk),
+        mk32 = ("w2t_tf32", "b2", "s2", "t2", "w3t_tf32", "b3")
+        m32 = [h32[0].data_ptr(), *(pm32[k].data_ptr() for k in mk32),
                y.data_ptr(), M, H, H, C, 2]
         print(f"float32 mode (layers23_f32), M = 2 x {M} (factored) / {M} "
-              f"(mlp), hidden ({H}, {H}); bit 1 cuts the TF32 splits:")
+              f"(mlp), hidden ({H}, {H}); bit 1 cuts the split of h in "
+              f"registers, 'no mma' leaves the loads (both parts of each W "
+              f"tile) and h2's staging:")
         cut_bits = {"kernel": 0, **CUTS}
+        builds = [(f"TAIL_CUT={b}",) for b in cut_bits.values() if b]
+        with ThreadPoolExecutor(len(builds)) as pool:   # nvcc in parallel
+            list(pool.map(lambda d: _build.build_all(
+                ("fused_factored", "mlp_infer"), d), builds))
         for n, b in cut_bits.items():
             d = (f"TAIL_CUT={b}",) if b else ()
             t_rows = _time_ms(lambda lib=ff_lib(d): rows_run(lib, arg32),
@@ -325,6 +438,8 @@ def main() -> int:
                   f"mlp_infer_tail {_fmt(*t_mlp)}  [{card}]")
             summary[f"f32 {n}"] = {"factored_rows_tail": t_rows[0],
                                    "mlp_infer_tail": t_mlp[0]}
+        _f32_ab(args.old, ff_lib, mlp_lib, rows_run, mlp_run, p32, pm32,
+                h32, y32, y, arg32, m32, M, H, C, card, summary)
         del p32, pm32, h32, y32
 
     if args.old is not None:

@@ -130,7 +130,8 @@ def _jtree(t):
 def test_prepare_mlp_infer_weights_float32_matches_jax_fold(model):
     """dot_dtype=float32 keeps every weight float32: the folded weights,
     biases and affines of each plane equal JAX's fold_bn_into_dense, the
-    K-major copies their transposes."""
+    K-major copies the TF32 parts of their transposes (w{k}t_tf32, in
+    place of w{k}t)."""
     tcfg, jtcfg, (jp, jb), (tp, tb) = model
     prep = mi.prepare_mlp_infer_weights(tcfg, tp, tb, dot_dtype=F32)
     for d in range(2):
@@ -142,7 +143,8 @@ def test_prepare_mlp_infer_weights_float32_matches_jax_fold(model):
             got = one[f"w{k}"]
             assert got.dtype == F32
             _close(got[:w.shape[0], :w.shape[1]].numpy(), w, 1e-6)
-            assert torch.equal(one[f"w{k}t"], got.T)
+            assert f"w{k}t" not in one
+            assert torch.equal(one[f"w{k}t_tf32"], tf32_split(got.T))
         _close(one["b1"].numpy(), bs[0], 1e-6)
         _close(one["b2"].numpy(), bs[1], 1e-6)
         _close(one["b3"].numpy(), bs[2], 1e-6)
@@ -266,7 +268,7 @@ def test_float32_rows_route_matches_the_plain_model(hidden):
     tp, tb = mlp.init_stacked(torch.Generator().manual_seed(4), CFG, tcfg)
     prep = ff.prepare_factored_weights(CFG, tcfg, tp, tb, dot_dtype=F32)
     x = torch.from_numpy(_planes(5, 9))
-    sp = ff.factored_sig_proj(x, prep["w1"], prep["w1t"])
+    sp = ff.factored_sig_proj(x, prep["w1"], prep["w1t_tf32"])
     h = ff.factored_heads(prep, sp)
     assert h.dtype == F32 and tuple(h.shape) == (2, 5 * CFG.num_tx, 128)
     d = len(hidden)
@@ -354,29 +356,33 @@ def _prep(dtype, hidden):
 def _ff_calls(prep, dtype, out):
     """Each factored wrapper's call on rows of dtype: (call, launch
     function, index of the rows' pointer or None, index of the weight's
-    pointer, the weight's key, index of the mode)."""
+    pointer, the weight's key, index of the mode). Float32 launches take
+    the K-major weights' TF32 parts (the ``_tf32`` keys)."""
     h1 = prep["w1"].shape[2]
+    sfx = "_tf32" if dtype == F32 else ""
     x = torch.zeros((2, 3, CFG.len_ltf), dtype=dtype)
     sp = torch.zeros((2, 3, h1))
     rows = torch.zeros((2, 3 * CFG.num_tx, h1), dtype=dtype)
     d = ff.factored_depth(prep)
     calls = {
         "sig_proj": (lambda: ff.factored_sig_proj(x, prep["w1"],
-                                                  prep["w1t"]),
-                     "factored_sig_proj_launch", 0, 1, "w1t", 6, x),
+                                                  prep["w1t" + sfx]),
+                     "factored_sig_proj_launch", 0, 1, "w1t" + sfx, 6, x),
         "heads": (lambda: ff.factored_heads(prep, sp),
                   "factored_heads_launch", None, None, None, 8, None),
     }
     if d == 1:
         calls["dense out"] = (lambda: ff.factored_dense(prep, 2, rows, C,
                                                         out),
-                              "factored_dense_launch", 0, 1, "w2t", 12, rows)
+                              "factored_dense_launch", 0, 1, "w2t" + sfx, 12,
+                              rows)
     else:
         calls["dense"] = (lambda: ff.factored_dense(prep, 2, rows),
-                          "factored_dense_launch", 0, 1, "w2t", 12, rows)
+                          "factored_dense_launch", 0, 1, "w2t" + sfx, 12,
+                          rows)
         calls["rows_tail"] = (lambda: ff.factored_rows_tail(
             prep, rows[:, :, :prep[f"w{d}"].shape[1]], C, out),
-            "factored_rows_tail_launch", 0, 1, f"w{d}t", 13, None)
+            "factored_rows_tail_launch", 0, 1, f"w{d}t" + sfx, 13, None)
     return calls
 
 
@@ -386,8 +392,9 @@ def _ff_calls(prep, dtype, out):
 def test_cuda_branch_factored_mode_follows_the_weights(launches, hidden,
                                                         dtype, out):
     """Float32 weights reach each launch with mode bit 1 (float32
-    operands) and the rows and K-major weights themselves (the same
-    data_ptr: no copy, no bf16 cast); bf16 weights the bf16 launch; the
+    operands), the rows themselves and the K-major weights' TF32 parts
+    as prepared (the same data_ptr: no copy, no bf16 cast, no split in
+    the call); bf16 weights the bf16 launch; the
     output layer's out_dtype=bfloat16 sets bit 0; every launch counted,
     the float32 ones apart."""
     _, prep = _prep(dtype, hidden)
@@ -447,7 +454,7 @@ def test_cuda_branch_refuses_mixed_trees(launches):
     x = torch.zeros((2, 3, CFG.len_ltf))
     rows16 = torch.zeros((2, 24, 128), dtype=BF16)
     with pytest.raises(TypeError, match="dtype"):
-        ff.factored_sig_proj(x.to(BF16), p32["w1"], p32["w1t"])
+        ff.factored_sig_proj(x.to(BF16), p32["w1"], p32["w1t_tf32"])
     with pytest.raises(TypeError, match="dtype"):
         ff.factored_sig_proj(x, p16["w1"], p16["w1t"])
     with pytest.raises(TypeError, match="one dtype"):
@@ -458,8 +465,8 @@ def test_cuda_branch_refuses_mixed_trees(launches):
         ff.factored_dense(p32, 2, rows16)
     with pytest.raises(TypeError, match="bf16 weights"):
         ff.factored_tail(p32, torch.zeros((2, 3, 128)), C)
-    with pytest.raises(ValueError, match=r"prepared\['w2t'\].*float32"):
-        ff.factored_rows_tail({**p32, "w2t": p16["w2t"]},
+    with pytest.raises(ValueError, match=r"prepared\['w2t_tf32'\].*float32"):
+        ff.factored_rows_tail({**p32, "w2t_tf32": p16["w2t"]},
                               rows16.float(), C)
     mtcfg = TrainConfig(hidden=(128, 128))
     tp, tb = mlp.init_stacked(torch.Generator().manual_seed(2), CFG, mtcfg)
@@ -480,8 +487,9 @@ def test_cuda_branch_refuses_mixed_trees(launches):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_cuda_branch_mlp_mode_follows_the_tree(launches, dtype):
     """mlp_infer_layer1 and mlp_infer_tail launch mode 2 on a float32
-    tree, the float32 x and the tree's w1t, w2t, w3t as they are; mode 0
-    on a bf16 tree; each counted, the float32 ones apart."""
+    tree, the float32 x and the TF32 parts of the tree's w1t, w2t, w3t
+    as prepared (w1t_tf32, w2t_tf32, w3t_tf32); mode 0 on a bf16 tree
+    with its w1t, w2t, w3t; each counted, the float32 ones apart."""
     tcfg = TrainConfig(hidden=(128, 128))
     tp, tb = mlp.init_stacked(torch.Generator().manual_seed(2), CFG, tcfg)
     p = mlp.plane(mi.prepare_mlp_infer_weights(tcfg, tp, tb, dtype), 0)
@@ -491,9 +499,10 @@ def test_cuda_branch_mlp_mode_follows_the_tree(launches, dtype):
     mi.mlp_infer_tail(p, h1)
     (_, f1, a1), (_, f2, a2) = launches
     assert (f1, f2) == ("mlp_layer1_launch", "mlp_tail_launch")
-    assert h1.dtype == dtype and a1[1] == p["w1t"].data_ptr()
-    assert a2[0] == h1.data_ptr() and a2[1] == p["w2t"].data_ptr()
-    assert a2[5] == p["w3t"].data_ptr()
+    sfx = "_tf32" if dtype == F32 else ""
+    assert h1.dtype == dtype and a1[1] == p["w1t" + sfx].data_ptr()
+    assert a2[0] == h1.data_ptr() and a2[1] == p["w2t" + sfx].data_ptr()
+    assert a2[5] == p["w3t" + sfx].data_ptr()
     assert (a1[0] == x.data_ptr()) == (dtype == F32)
     assert a1[-2] == a2[-2] == 2 * (dtype == F32)
     n = int(dtype == F32)

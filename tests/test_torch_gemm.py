@@ -28,6 +28,7 @@ from mamimo_tpu_torch.models import mlp
 from mamimo_tpu_torch.ops.kernels import fused_factored as ff
 from mamimo_tpu_torch.ops.kernels import fused_ls
 from mamimo_tpu_torch.ops.kernels import mlp_infer as mi
+from mamimo_tpu_torch.ops.kernels.util import tf32_split
 from mamimo_tpu_torch.parallel import sharded
 from mamimo_tpu_torch.parallel.mesh import make_mesh
 
@@ -53,15 +54,21 @@ def _bf16_np(a) -> np.ndarray:
 
 @pytest.mark.parametrize("dot_dtype", [torch.float32, torch.bfloat16])
 def test_factored_w1t_is_the_transpose_of_jax_layer1(model, dot_dtype):
+    """The layer-1 kernel's K-major W1: w1t in a bf16 tree; in a float32
+    tree its TF32 parts, w1t_tf32, in its place."""
     tcfg, _, (jp, _), (tp, tb) = model
     prep = ff.prepare_factored_weights(CFG, tcfg, tp, tb, dot_dtype=dot_dtype)
     L = CFG.len_ltf
-    assert prep["w1t"].dtype == dot_dtype and prep["w1t"].is_contiguous()
+    f32 = dot_dtype == torch.float32
+    key = "w1t_tf32" if f32 else "w1t"
+    kmajor = tf32_split if f32 else (lambda t: t)
+    assert f32 != ("w1t" in prep)
+    assert prep[key].dtype == dot_dtype and prep[key].is_contiguous()
     for d in range(2):
         want = torch.from_numpy(np.ascontiguousarray(
             jp["dense"][0]["w"][d][:L].T)).to(dot_dtype)
-        assert torch.equal(prep["w1t"][d], want)
-        assert torch.equal(prep["w1t"][d], prep["w1"][d].T)
+        assert torch.equal(prep[key][d], kmajor(want))
+        assert torch.equal(prep[key][d], kmajor(prep["w1"][d].T))
 
 
 def test_mlp_w1t_is_the_transpose_of_jax_layer1(model):

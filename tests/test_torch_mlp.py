@@ -177,9 +177,10 @@ def test_prepared_weights_pad_hidden_widths_to_the_kernel_tile(use_bn,
     tcfg, jtcfg, (jp, jb), (tp, tb) = _models(use_bn, seed=11, hidden=hidden)
     prep = prepare_factored_weights(CFG, tcfg, tp, tb, dot_dtype=torch.float32)
     h1, h2 = hidden
-    assert tuple(prep["w1t"].shape) == (2, 128, CFG.len_ltf)
-    assert tuple(prep["w2t"].shape) == (2, 128, 128)
-    assert tuple(prep["w3t"].shape) == (2, 256, 128)
+    # the float32 tree's K-major weights: their TF32 parts (at dim 1)
+    assert tuple(prep["w1t_tf32"].shape) == (2, 2, 128, CFG.len_ltf)
+    assert tuple(prep["w2t_tf32"].shape) == (2, 2, 128, 128)
+    assert tuple(prep["w3t_tf32"].shape) == (2, 2, 256, 128)
     for k in ("w1", "hb", "a1", "c1"):
         assert prep[k].shape[-1] == 128 and not bool(prep[k][..., h1:].any())
     for k in ("b2", "a2", "c2"):

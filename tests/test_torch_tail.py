@@ -29,6 +29,7 @@ from mamimo_tpu_torch.config import SimConfig, TrainConfig
 from mamimo_tpu_torch.models import mlp
 from mamimo_tpu_torch.ops.kernels import fused_factored as ff
 from mamimo_tpu_torch.ops.kernels import mlp_infer as mi
+from mamimo_tpu_torch.ops.kernels.util import tf32_split
 
 CFG = SimConfig(num_tx=8, num_rx=2)
 JCFG = JSimConfig(num_tx=8, num_rx=2)
@@ -71,21 +72,29 @@ def test_factored_w2t_w3t_are_the_transposes_of_jax_layers23(model,
                                                             dot_dtype):
     tcfg, _, (jp, _), (tp, tb) = model
     prep = ff.prepare_factored_weights(CFG, tcfg, tp, tb, dot_dtype=dot_dtype)
-    assert tuple(prep["w2t"].shape) == (2, 128, 128)
-    assert tuple(prep["w3t"].shape) == (2, 256, 128)
-    for k in ("w2t", "w3t"):
-        assert prep[k].dtype == dot_dtype and prep[k].is_contiguous()
+    # a float32 tree carries the K-major weights as their TF32 parts
+    # (w2t_tf32, w3t_tf32: parts at dim 1) in place of w2t and w3t
+    f32 = dot_dtype == torch.float32
+    sfx, parts = ("_tf32", (2,)) if f32 else ("", ())
+    w2t, w3t = prep["w2t" + sfx], prep["w3t" + sfx]
+    kmajor = tf32_split if f32 else (lambda t: t)
+    assert f32 != ("w2t" in prep) and f32 != ("w3t" in prep)
+    assert tuple(w2t.shape) == (2, *parts, 128, 128)
+    assert tuple(w3t.shape) == (2, *parts, 256, 128)
+    for t in (w2t, w3t):
+        assert t.dtype == dot_dtype and t.is_contiguous()
     for d in range(2):
         w2 = _as(jp["dense"][1]["w"][d], dot_dtype)
         w3 = _as(jp["out"]["w"][d], dot_dtype)
-        assert torch.equal(prep["w2t"][d], w2.T)
-        assert torch.equal(prep["w3t"][d, :C], w3.T)
-        assert not bool(prep["w3t"][d, C:].any())
+        w3k = torch.zeros((256, 128), dtype=dot_dtype)
+        w3k[:C] = w3.T
+        assert torch.equal(w2t[d], kmajor(w2.T))
+        assert torch.equal(w3t[d], kmajor(w3k))
         # the older keys are unchanged: W2 and the padded W3 as they were
         assert torch.equal(prep["w2"][d], w2)
         assert torch.equal(prep["w3"][d, :, :C], w3)
         assert not bool(prep["w3"][d, :, C:].any())
-        assert torch.equal(prep["w3t"][d], prep["w3"][d].T)
+        assert torch.equal(w3t[d], kmajor(prep["w3"][d].T))
 
 
 def test_mlp_w2t_w3t_are_the_transposes_of_jax_layers23(model):
