@@ -223,14 +223,17 @@ failure ends the run with a non-zero exit code):
                float32 plain version (TF32 off; the bf16 mode's dB on
                the same planes printed beside), the bf16 stores exactly
                the float32 result rounded, as_planes exactly the complex
-               form; sharded_ls_pallas_v2 data and seq on 4 virtual
+               form; NaN and +-Inf samples non-finite where the plain
+               version's values are, the rest within -90 dB;
+               sharded_ls_pallas_v2 data and seq on 4 virtual
                ranks on float32 planes within 1e-4 of the unsharded
                float32 plain LS (float32 launches counted; phase 5k's
                dryrun_multichip must launch the float32 mode too);
                matmul_pallas on bf16 and float32 operands within -90 dB
                of float64 products, out_dtype=bf16 the float32 result
-               rounded; then times kernels 1 and 3's float32 modes at S
-               = 4096 and kernel 6 at (4096, 10240) @ (10240, 1024) and
+               rounded; then holds kernels 1 and 3's float32 modes at S
+               = 4096 within -90 dB of their plain versions and times
+               them there, and kernel 6 at (4096, 10240) @ (10240, 1024) and
                (131072, 1024) @ (1024, 1024), rows of the kernels line
                (kernel 4's float32 mode is phase 6's pallas_full row);
 5n. f32 DNN  — BS32 models with float32 weights, hidden (1024, 1024),
@@ -255,7 +258,9 @@ failure ends the run with a non-zero exit code):
                beside its float32 one;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
-               LS kernel also in its bf16-store-and-sums variant); the
+               LS kernel also in its bf16-store-and-sums variant;
+               kernel 4's float32 mode first held within -90 dB of
+               ls_estimate_matmul on float32 planes there); the
                device time of estimate_full, all_pairs(int8=True), the
                four planes paths, pallas_ls_v2_serving_r3 and
                pallas_full, and pallas_full's peak
@@ -264,9 +269,11 @@ failure ends the run with a non-zero exit code):
                from a profiler trace; the host time per call of
                halo_exchange_pallas, sharded_apply_channel_rdma, the
                plain-exchange sharded_apply_channel and
-               sharded_ls_pallas_v2 (seq, 4 ranks) beside each call's
-               traced device-busy time; the training step: the line of
-               run_train_bench (f32, bf16, f32_rbg at batch 256 and
+               sharded_ls_pallas_v2 (seq, 4 ranks; on float32 planes
+               also data, 4 ranks: kernel 1's float32 mode, first held
+               within 1e-4 of the float32 plain LS) beside each
+               call's traced device-busy time; the training step: the
+               line of run_train_bench (f32, bf16, f32_rbg at batch 256 and
                1024: ms/step, steps/s, samples/s, achieved TFLOP/s)
                beside each step's bound, and one 16-step .multi call per
                row traced (device-busy ms) beside its host time, the
@@ -2854,13 +2861,15 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
     and Nt 256, each within F32_LIMIT_DB of its float32 plain version
     (the bf16 mode's dB on the same planes printed beside), the bf16
     stores exactly the float32 result rounded, the sums within 1e-4 per
-    tile and as_planes exactly the complex form; sharded_ls_pallas_v2
+    tile and as_planes exactly the complex form, NaN and +-Inf samples
+    propagated as by the plain versions; sharded_ls_pallas_v2
     data and seq on 4 virtual ranks with float32 planes against the
     unsharded float32 plain LS (F32_SHARD_REL), counted; matmul_pallas
     on bf16 and float32 operands against float64 products
     (F32_LIMIT_DB) at ragged and timed shapes, out_dtype=bf16 exactly
-    the float32 result rounded, counted. Then times kernel 1 and 3's
-    float32 modes at the bench shape (S = 4096) and kernel 6 at
+    the float32 result rounded, counted. Then holds kernel 1 and 3's
+    float32 modes to their plain versions at the bench shape (S = 4096,
+    F32_LIMIT_DB), times them there, and kernel 6 at
     MM_SHAPES beside their plain versions, bounds (float32 bytes once,
     products once at the TF32 peak) and library calls. Returns the
     errors, the counts and the kernel rows (for the kernels line)."""
@@ -2994,11 +3003,52 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
                   F32_LIMIT_DB)
         errs.setdefault("ls_pair_kernel f32", r)
 
+    def nonfinite_checks(cfg, s, packets):
+        # NaN and +-Inf samples in symbols' fft parts (the CP is never
+        # read): each float32 mode gives non-finite values exactly where
+        # its plain version does, the rest within F32_LIMIT_DB of it
+        nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+        k32 = ls_sm90_constants(cfg, dev, f32)
+        x = torch.randn((2, s, L), generator=g, device=dev)
+        at = lambda sym, k: sym * cfg.sym_len + cfg.cp_length + k  # noqa: E731
+        x[0, 1, at(0, 7)] = float("nan")
+        x[1, 5, at(3, 100)] = float("inf")
+        x[0, s - 2, at(nt - 1, cfg.fft_length - 1)] = -float("inf")
+        # NaNs whose payload a carry of the TF32 rounding takes into the sign
+        x.view(torch.int32)[0, 3, at(2, 9)] = 0x7fffffff
+        x.view(torch.int32)[1, 7, at(5, 3)] = -1           # 0xffffffff
+        rx = _planes_to_time_major(x[:, :packets * nr], nr)
+        with full_f32_matmul():
+            ref_pp = ls_estimate_matmul(cfg, rx)
+        # kernel 3's pad lanes are zero by the constants' zero columns, so
+        # a non-finite sample makes them NaN there: its carriers only
+        raw = torch.stack(ls_planes_v1(cfg, x, k32))[:, :s * nt, :C]
+        raw_ref = torch.stack(_ls_v1_plain(cfg, x, 8, f32))[:, :s * nt, :C]
+        for what, got, ref in (
+                ("ls_planes_v2 float32", ls_planes_v2(cfg, x, k32),
+                 _ls_v2_plain(cfg, x)),
+                ("ls_planes_v1 float32 raw, carriers", raw, raw_ref),
+                (f"ls_estimate_pallas complex64, {packets} packets",
+                 torch.view_as_real(ls_estimate_pallas(cfg, rx, consts=k32)),
+                 torch.view_as_real(ref_pp))):
+            bad, bad_ref = ~torch.isfinite(got), ~torch.isfinite(ref)
+            n, n_ref = int(bad.sum()), int(bad_ref.sum())
+            print(f"  {what}, S = {s}, NaN and +-Inf samples: {n} non-finite "
+                  f"values, its plain version {n_ref}, "
+                  + ("at the same places" if torch.equal(bad, bad_ref)
+                     else "at OTHER places"))
+            if not n_ref or not torch.equal(bad, bad_ref):
+                raise AssertionError(f"{what}: non-finite samples not "
+                                     f"propagated as by its plain version")
+            check(f"{what}, NaN and +-Inf samples: the finite values vs its "
+                  f"plain version (f32)", got[~bad], ref[~bad], F32_LIMIT_DB)
+
     def run_ls_checks():
         ls_checks(SimConfig(), S_CHECK, "BS32", (2, 4), S_CHECK // 4)
         ls_checks(SimConfig(), 5, "BS32", (32,), 1)
         ls_checks(SimConfig(num_tx=8, num_rx=2), 3, "Nt 8", (2, 8), 1)
         ls_checks(SimConfig(num_tx=256, num_rx=4), 8, "Nt 256", (2,), 2)
+        nonfinite_checks(SimConfig(), 16, 4)
 
     _, counts["ls checks"] = counted(run_ls_checks)
     require_launched("phase 5m's LS checks", counts["ls checks"],
@@ -3046,10 +3096,21 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
     require_launched("phase 5m's GEMM checks", counts["matmul"],
                      ("matmul_float", "matmul_float f32"))
 
-    # timing at the bench shape: kernel 1 and 3's float32 modes
+    # the bench shape (S = 4096, many tiles a consumer warpgroup) on
+    # genuine float32 planes (nonzero low TF32 parts): kernel 1 and 3's
+    # float32 modes held to their plain versions, then timed
     S = BENCH_PACKETS * nr
     xb = torch.randn((2, S, L), generator=g, device=dev)
     k32 = ls_sm90_constants(cfg, dev, f32)
+    errs["ls_planes_v2 f32 bench"] = check(
+        f"ls_planes_v2 float32, BS32, bench shape S = {S}, vs its plain "
+        f"version (f32)", ls_planes_v2(cfg, xb, k32), _ls_v2_plain(cfg, xb),
+        F32_LIMIT_DB)
+    errs["ls_planes_v1 f32 bench"] = check(
+        f"ls_planes_v1 float32 raw, BS32, bench shape S = {S}, vs its plain "
+        f"version (f32)", torch.stack(ls_planes_v1(cfg, xb, k32)),
+        torch.stack(_ls_v1_plain(cfg, xb, 8, f32)), F32_LIMIT_DB)
+    torch.cuda.empty_cache()
     f32c = ls_planes_constants(cfg, device=dev)
     bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, f32, dev)
     cp_ = bv2.shape[1] // 2
@@ -3092,7 +3153,7 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
           lambda: ls_estimate_planes(cfg, xb, f32c), ls_library,
           ls_in + 2 * S * nt * C * 4, ls_ops, TF32_FLOPS, sh_launches,
           "sharded_ls_pallas_v2 data 4 + seq 4 on float32 planes (as "
-          "dryrun_multichip, phase 5k)", errs["ls_planes_v2 f32"])
+          "dryrun_multichip, phase 5k)", errs["ls_planes_v2 f32 bench"])
     rows_out = S * nt
     timed("ls_planes_v1", f"float32 mode: planes (2, {S}, {L}) f32 -> raw "
           f"2 x ({rows_out}, {cp_}) f32", "ls_v1.cu", lsrc + "253",
@@ -3101,7 +3162,7 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
           ls_in + 2 * rows_out * cp_ * 4, ls_ops, TF32_FLOPS,
           counts["ls checks"]["ls_planes_v1 f32"],
           "phase 5m's checks (no serving path passes float32 planes to "
-          "kernel 3)", errs["ls_planes_v1 f32"])
+          "kernel 3)", errs["ls_planes_v1 f32 bench"])
     del xb
 
     # kernel 6 at the DNN's layer shapes; launches of each mode's kernel
@@ -4728,14 +4789,25 @@ def main() -> int:
         "none: ls_estimate_pallas runs the float32 mode",
         key="ls_pair_kernel bf16")
     consts90f = ls_sm90_constants(cfg, dev, torch.float32)
-    ppl32 = pair_planes(rx_b, torch.float32)
-    pair_layout_ms = time_ms(lambda: pair_planes(rx_b, torch.float32))
+    # the float32 mode on genuine float32 planes (nonzero low TF32 parts,
+    # many tiles a consumer warpgroup), held to ls_estimate_matmul here
+    xg32 = torch.randn((2, S, L), generator=g, device=dev)
+    rx_g = _planes_to_time_major(xg32, nr)
+    with full_f32_matmul():
+        ref_g = ls_estimate_matmul(cfg, rx_g, lsc)
+    res["ls_pair_kernel f32 bench"] = check(
+        f"ls_estimate_pallas float32 mode, bench shape ({BENCH_PACKETS} "
+        f"packets), float32 planes, vs ls_estimate_matmul (f32)",
+        ls_estimate_pallas(cfg, rx_g, consts=consts90f), ref_g, F32_LIMIT_DB)
+    del ref_g
+    ppl32 = pair_planes(rx_g, torch.float32)
+    pair_layout_ms = time_ms(lambda: pair_planes(rx_g, torch.float32))
     print(f"  pair_planes (the float32 layout pass of ls_estimate_pallas): "
           f"{pair_layout_ms:.4f} ms  [{smi}]")
     bv2f, _ = ls_planes_pallas_v2_constants(cfg, 1, torch.float32, dev)
 
     def ls_library_f32():
-        t = torch.matmul(xb32.view(2, S * nt, cfg.sym_len), bv2f)
+        t = torch.matmul(xg32.view(2, S * nt, cfg.sym_len), bv2f)
         zr = t[0, :, :C] - t[1, :, cp_:cp_ + C]
         zi = t[0, :, cp_:cp_ + C] + t[1, :, :C]
         return torch.matmul(pm, torch.stack([zr, zi]).view(2, S, nt, C))
@@ -4746,11 +4818,12 @@ def main() -> int:
         "mamimo_tpu_torch/csrc/ls_pair.cu",
         "mamimo_tpu/ops/pallas/fused_ls.py:110",
         lambda: ls_pair_kernel(cfg, ppl32, nr, consts90f),
-        lambda: ls_estimate_matmul(cfg, rx_b, lsc),
+        lambda: ls_estimate_matmul(cfg, rx_g, lsc),
         ls_library_f32, 2 * S * nt * cfg.fft_length * 4
         + consts90f.bt.numel() * 4 + S * nt * C * 8, ls_ops,
         cnt_pf["ls_pair_kernel f32"], "pallas_full x3", peak=TF32_FLOPS,
-        call=lambda: ls_estimate_pallas(cfg, rx_b, consts=consts90f))
+        call=lambda: ls_estimate_pallas(cfg, rx_g, consts=consts90f),
+        key="ls_pair_kernel f32 bench")
 
     # fused MLP on the materialized rows of plane 0, per launch form
     M, K = S * nt, L + nt
@@ -4938,6 +5011,22 @@ def main() -> int:
     k_halo = next(k for k in kernels if k["name"] == "halo_exchange_pallas")
     k_seq = next(k for k in kernels if k["shape"].startswith("seq rank"))
     m_seq4 = make_mesh({"seq": 4}, devices=[dev] * 4)
+    m_data4 = make_mesh({"data": 4}, devices=[dev] * 4)
+    # the sharded float32 forms on the genuine float32 planes, held to the
+    # unsharded float32 plain LS before they are timed
+    h_g = torch.view_as_real(ls_estimate_planes(cfg, xg32, f32_consts))
+    for mode, m4 in (("seq", m_seq4), ("data", m_data4)):
+        d = torch.view_as_real(sharded_ls_pallas_v2(
+            cfg, m4, xg32, mode=mode, consts=consts90f)) - h_g
+        rel = float(d.abs().max() / h_g.abs().max())      # as rel_err
+        del d
+        print(f"  sharded_ls_pallas_v2 {mode} 4, float32 planes, S = {S}: "
+              f"{rel:.3e} of the unsharded float32 plain LS (limit "
+              f"{F32_SHARD_REL})")
+        if not rel <= F32_SHARD_REL:
+            raise AssertionError(f"sharded_ls_pallas_v2 {mode} 4 at S = {S}: "
+                                 f"{rel:.3e}")
+    del h_g
     par_fns = {
         "halo_exchange_pallas (seq 4)":
             lambda: halo_exchange_pallas(mesh, planes_r, halo),
@@ -4947,19 +5036,31 @@ def main() -> int:
             lambda: sharded_apply_channel(cfg, mesh, sig, taps),
         "sharded_ls_pallas_v2 (seq 4)":
             lambda: sharded_ls_pallas_v2(cfg, m_seq4, xb16, mode="seq",
-                                         consts=consts90)}
-    par_host, par_busy, par_halo = {}, {}, {}
+                                         consts=consts90),
+        # float32 planes: kernel 1's float32 mode on each rank
+        "sharded_ls_pallas_v2 float32 (seq 4)":
+            lambda: sharded_ls_pallas_v2(cfg, m_seq4, xg32, mode="seq",
+                                         consts=consts90f),
+        "sharded_ls_pallas_v2 float32 (data 4)":
+            lambda: sharded_ls_pallas_v2(cfg, m_data4, xg32, mode="data",
+                                         consts=consts90f)}
+    par_host, par_busy, par_halo, par_ls32 = {}, {}, {}, {}
     for cname, fn in par_fns.items():
         par_host[cname] = host_ms(fn)
         per = trace_kernels_ms(fn, calls=5)
         par_busy[cname] = sum(per.values()) if per else None
         par_halo[cname] = sum(v for n, v in per.items()
                               if "halo_card_kernel" in n)
+        # the float32 LS kernels' own traced time in the call
+        par_ls32[cname] = sum(v for n, v in per.items()
+                              if "ls_planes_v2_f32_kernel" in n)
         share = par_busy[cname] / par_host[cname] * 100 if per else 0.0
         busy = (f"{par_busy[cname]:.4f} ms ({share:.1f}% of the host time)"
                 if per else "not traced")
+        ls32 = (f", of it the float32 LS kernels {par_ls32[cname]:.4f} ms"
+                if par_ls32[cname] else "")
         print(f"  {cname}: host {par_host[cname]:.4f} ms per call; traced "
-              f"device busy {busy}  [{smi}]")
+              f"device busy {busy}{ls32}  [{smi}]")
     shard_copies = lambda: [xb16[:, :, i * lq:(i + 1) * lq].contiguous()  # noqa: E731
                             for i in range(4)]
     copies_ms = time_ms(shard_copies, iters=5)
@@ -5021,6 +5122,7 @@ def main() -> int:
             "ranks": "virtual, all on cuda:0", "chunk": chunk, "halo": halo,
             "host_ms": par_host, "device_busy_ms": par_busy,
             "halo_kernel_traced_ms": par_halo, "split_ms": par_split,
+            "ls_f32_kernel_traced_ms": par_ls32,
             "launches": {"halo_exchange_pallas": cnt_halo[
                 "halo_exchange_pallas"], "sharded_apply_channel_rdma":
                 cnt_conv["halo_exchange_pallas"],

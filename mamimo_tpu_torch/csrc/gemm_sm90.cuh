@@ -381,23 +381,6 @@ __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
   lo = tf32_round(x - hi);
 }
 
-// Splits n float4 at p (shared memory, this thread's share: p[i] for i =
-// first, first + step, ...) in place into their high parts, the low
-// parts to q at the same index.
-__device__ __forceinline__ void split_tf32_smem(float4* p, float4* q, int n,
-                                                int first, int step) {
-  for (int i = first; i < n; i += step) {
-    const float4 v = p[i];
-    float4 h, l;
-    split_tf32(v.x, h.x, l.x);
-    split_tf32(v.y, h.y, l.y);
-    split_tf32(v.z, h.z, l.z);
-    split_tf32(v.w, h.w, l.w);
-    p[i] = h;
-    q[i] = l;
-  }
-}
-
 // d (64 x 128, f32) = SA * A (64 x 8) @ B (128 x 8)^T + (keep ? d : 0),
 // TF32, both K-major from shared memory in the SW128 layout of
 // desc_sw128 (a k8 slice of f32 is 32 bytes, as a k16 slice of bf16), SA

@@ -66,7 +66,9 @@
 
 // Phase cuts for tools/probe_ls.py, which times the kernels built with
 // -DLS_CUT=<bits> (their answers are then wrong): 1 skips the products,
-// 2 the despread, 4 the global stores. The default, 0, is the kernel.
+// 2 the despread, 4 the global stores, 8 the float32 mode's TF32 split of
+// the input, 32 all of the float32 mode's loads (each stage is marked
+// full as it is freed). The default, 0, is the kernel.
 #ifndef LS_CUT
 #define LS_CUT 0
 #endif
@@ -410,31 +412,87 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
 // A float32 slab of Bt, or its high and low parts (2 x 256 KB at fft =
 // 256), does not fit beside the ring, so nothing is resident: a stage
 // holds the input's k-step of 32 f32 (16 KB, multicast to the cluster as
-// in ls_body) and the block's k-step of the constants' two parts (2 x 16
-// KB, each block its own 128 rows, loaded from L2, where the 2 MB of
-// constants stay). The consuming warpgroup splits the input's k-step in
-// place into its TF32 high part and writes the low part to its own 16 KB
-// buffer (fence.proxy.async and a named barrier before the products
-// read them). The constants come split from the host
-// (fused_ls.py::ls_sm90_constants(dtype=float32): planes 0 and 1 of a
-// (2, 2*cpad, 2*fft) tensor). bf16 planes never reach this body.
+// in ls_body), room for its TF32 low part (16 KB) and the block's k-step
+// of the constants' two parts (2 x 16 KB, each block its own 128 rows,
+// loaded from L2, where the 2 MB of constants stay); F_STAGES stages.
+// The constants come split from the host (fused_ls.py::
+// ls_sm90_constants(dtype=float32): planes 0 and 1 of a (2, 2*cpad,
+// 2*fft) tensor). bf16 planes never reach this body.
+//
+// The input's split runs on its own warps, beside the products: warps 1-3
+// of the producer warpgroup (F_SPLITTERS threads, at its 40 registers)
+// split each stage as it lands, the high part in place and the low part
+// into the stage (TF32 rounding in integer operations), then
+// fence.proxy.async and arrive on the stage's `split` mbarrier, which is
+// what the consumers wait on. A consumer only issues wgmma and releases
+// each stage once its products on it are done; its last k-step of a tile
+// hands the products over to the other consumer as soon as that stage is
+// taken. Who splits does not change the products or their order: the
+// answers are those of a split in the consumer, bit for bit.
 //
 // Bound on an H100 at the bench shape (S = 4096, nt = 32): 268 MB of f32
 // input (the fft samples) and 245 MB of f32 output, about 0.153 ms at
 // 3.35 TB/s, against 69 GFLOP counted once at the TF32 peak of 495
 // TFLOP/s (0.139 ms): memory-bound as counted. The three products make
 // 207 GFLOP of tensor-core work (0.42 ms at the TF32 peak), so this
-// design is product-bound.
+// design is product-bound at best. Measured for kernel 1 on an H100 80GB
+// HBM3 at 700 W (tools/probe_ls.py, PERF.md): the products alone (no
+// loads, split, despread or stores) 0.64 ms, the loads and the split
+// alone 0.34 ms, the kernel 0.76 ms, where the earlier body, which ran
+// the split between the loads and the products, took 1.08 ms.
 // ---------------------------------------------------------------------
 constexpr int KF = 32;                                 // f32 k of a stage
 constexpr int F_STAGES = 3;
 constexpr int F_X_BYTES = TILE * KF * 4;               // 16 KB
 constexpr int F_B_BYTES = 128 * KF * 4;                // 16 KB a part
-constexpr int F_STAGE_BYTES = F_X_BYTES + 2 * F_B_BYTES;
-constexpr int F_SMEM_BYTES = F_STAGES * F_STAGE_BYTES + 2 * F_X_BYTES +
-                             4 * STG_FLOATS * 4 + 8 * (2 * F_STAGES + 2) +
-                             1024;
+// a stage: the input's k-step (its high part once split), its low part,
+// the constants' high and low parts; TMA writes all but the low part
+constexpr int F_STAGE_BYTES = 2 * F_X_BYTES + 2 * F_B_BYTES;
+constexpr int F_LOAD_BYTES = F_X_BYTES + 2 * F_B_BYTES;
+constexpr int F_SPLITTERS = 96;            // warps 1-3 of the producer wg
+constexpr int F_SMEM_BYTES = F_STAGES * F_STAGE_BYTES + 4 * STG_FLOATS * 4 +
+                             8 * (3 * F_STAGES + 2) + 1024;
 static_assert(F_SMEM_BYTES <= 232448, "more shared memory than a block has");
+
+// x rounded to TF32, to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 for every finite x: half a TF32 step added to the
+// magnitude's bits, the low 13 bits cleared (the split kernel's plain
+// version, ops/kernels/util.py, is held to cvt.rna bit for bit on the
+// card; in the splitters 13% faster than cvt.rna on an H100, PERF.md).
+// Finite x only: the carry can take a NaN's payload into the sign.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// The low part of v: d = v - tf32_rna(v) rounded the same way. d is
+// finite, or, where v is not finite, the canonical NaN 0x7fffffff,
+// which the carry would turn into -0: the signed min keeps it a NaN and
+// leaves every finite d as it is. So a non-finite sample reaches the
+// estimate as NaN (its high part may be +-0), as through cvt.rna.
+__device__ __forceinline__ float tf32_rna_lo(float d) {
+  const int m = min((int)__float_as_uint(d), 0x7fffefff);
+  return __uint_as_float(((uint32_t)m + 0x1000u) & 0xffffe000u);
+}
+
+// A splitter's share of a stage's input x (F_X_BYTES / 16 float4):
+// float4 j, j + F_SPLITTERS, ... into their TF32 high parts in place and
+// their low parts to lo at the same index.
+__device__ __forceinline__ void split_stage(float4* x, float4* lo, int j) {
+  for (int i = j; i < F_X_BYTES / 16; i += F_SPLITTERS) {
+    const float4 v = x[i];
+    float4 h, l;
+    h.x = tf32_rna(v.x);
+    h.y = tf32_rna(v.y);
+    h.z = tf32_rna(v.z);
+    h.w = tf32_rna(v.w);
+    l.x = tf32_rna_lo(v.x - h.x);
+    l.y = tf32_rna_lo(v.y - h.y);
+    l.z = tf32_rna_lo(v.z - h.z);
+    l.w = tf32_rna_lo(v.w - h.w);
+    x[i] = h;
+    lo[i] = l;
+  }
+}
 
 // ls_body for float32 planes: ma a 4-d FLOAT32 map of the planes (box KF
 // x bs x 8/bs x 1, SW128), mb a 3-d FLOAT32 map of the split constants
@@ -449,10 +507,10 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
-  const uint32_t xlo = ring + F_STAGES * F_STAGE_BYTES;  // 1 per warpgroup
-  const uint32_t stg = xlo + 2 * F_X_BYTES;              // 2 per warpgroup
+  const uint32_t stg = ring + F_STAGES * F_STAGE_BYTES;  // 2 per warpgroup
   const uint32_t full = stg + 4 * STG_FLOATS * 4;        // F_STAGES x 8
-  const uint32_t empty = full + 8 * F_STAGES;
+  const uint32_t split = full + 8 * F_STAGES;            // F_STAGES x 8
+  const uint32_t empty = split + 8 * F_STAGES;
   const uint32_t done = empty + 8 * F_STAGES;            // 2 x 8 bytes
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -470,6 +528,7 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
 #pragma unroll
     for (int s = 0; s < F_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
+      mbar_init(split + 8 * s, F_SPLITTERS);
       mbar_init(empty + 8 * s, cl);
     }
     mbar_init(done, 1);
@@ -493,9 +552,13 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
           const int s = it % F_STAGES;
           const uint32_t st = ring + s * F_STAGE_BYTES;
           mbar_wait(empty + 8 * s, ((it / F_STAGES) & 1) ^ 1);
+          if (LS_CUT & 32) {
+            mbar_arrive(full + 8 * s);
+            continue;
+          }
           const int plane = k0 >= NK0 / 2;
           const int col = cp + (k0 - plane * (NK0 / 2)) * KF;
-          mbar_expect_tx(full + 8 * s, F_STAGE_BYTES);
+          mbar_expect_tx(full + 8 * s, F_LOAD_BYTES);
           for (int q = 0; q < boxes; ++q) {
             const int g = rank * boxes + q;
             const int a = g & ((1 << nsb) - 1), bb = g >> nsb;
@@ -505,14 +568,31 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
                 plane, all);
           }
           // the block's 128 rows of the constants' k-step, both parts
-          tma_load_3d(st + F_X_BYTES, mb, full + 8 * s, k0 * KF, rank * 128,
-                      0);
-          tma_load_3d(st + F_X_BYTES + F_B_BYTES, mb, full + 8 * s,
-                      k0 * KF, rank * 128, 1);
+          const uint32_t c = st + 2 * F_X_BYTES;
+          tma_load_3d(c, mb, full + 8 * s, k0 * KF, rank * 128, 0);
+          tma_load_3d(c + F_B_BYTES, mb, full + 8 * s, k0 * KF, rank * 128,
+                      1);
         }
       }
       for (int j = 0; j < F_STAGES; ++j, ++it)
         mbar_wait(empty + 8 * (it % F_STAGES), ((it / F_STAGES) & 1) ^ 1);
+    } else if (tid >= 32) {
+      // the splitters: every k-step of the cluster's tiles, in the ring's
+      // order; a stage cannot land again before its split has been
+      // consumed, so the parity waits cannot mistake an earlier pass
+      const int n = (T - cid + ncl - 1) / ncl * NK;
+      for (int it = 0; it < n; ++it) {
+        const int s = it % F_STAGES;
+        const uint32_t st = ring + s * F_STAGE_BYTES;
+        mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
+        if (!(LS_CUT & 8))
+          split_stage(reinterpret_cast<float4*>(smem_raw + (st - raw)),
+                      reinterpret_cast<float4*>(smem_raw +
+                                                (st + F_X_BYTES - raw)),
+                      tid - 32);
+        fence_proxy_async();
+        mbar_arrive(split + 8 * s);
+      }
     }
     return;
   }
@@ -520,14 +600,16 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int w = wg - 1;
   const int warp = tid / 32, lane = tid % 32;
-  const uint32_t lo = xlo + w * F_X_BYTES;       // this warpgroup's x_lo
-  float4* const lo_p = reinterpret_cast<float4*>(smem_raw + (lo - raw));
   auto release = [&](int i) {
     if (tid == 0)
       for (int c = 0; c < cl; ++c)
         mbar_arrive_cluster(empty + 8 * (i % F_STAGES), c);
   };
   for (int u = w, t = cid + w * ncl; t < T; u += 2, t += 2 * ncl) {
+    // Wait until the other warpgroup has taken every stage of tile u - 1
+    // (waited for its split): then each stage's earlier passes have
+    // completed, and the parity waits below cannot mistake a pass two
+    // back for the one awaited.
     if (u > 0) mbar_wait(done + 8 * (1 - w), ((u - 1) / 2) & 1);
     float acc0[64], acc1[64];
 #pragma unroll
@@ -537,18 +619,18 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
       const int it = u * NK + half * NK0 + k0;
       const int s = it % F_STAGES;
       const uint32_t st = ring + s * F_STAGE_BYTES;
-      mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
-      // the input's k-step: high part in place, low part into lo (the
-      // products of the last k-step, which read lo, have completed)
-      split_tf32_smem(reinterpret_cast<float4*>(smem_raw + (st - raw)), lo_p,
-                      F_X_BYTES / 16, tid, 128);
-      fence_proxy_async();
-      bar_sync(1 + w, 128);
-      const uint32_t ah = st + F_X_BYTES, al = ah + F_B_BYTES;
+      mbar_wait(split + 8 * s, (it / F_STAGES) & 1);
+      // tile u's last stage is taken: the other warpgroup may start
+      if (half == NH - 1 && k0 == NK0 - 1 && tid == 0)
+        mbar_arrive(done + 8 * w);
+      const uint32_t lo = st + F_X_BYTES;
+      const uint32_t ah = st + 2 * F_X_BYTES, al = ah + F_B_BYTES;
       fence_acc(acc0);
       fence_acc(acc1);
       wgmma_fence();
       if (!(LS_CUT & 1)) {
+        // symbol half `half` enters output part t % NH with the sign
+        // P_2[t % NH, half] = (-1)^(part & half)
         if (NH > 1 && ((t % NH) & half)) {
 #pragma unroll
           for (int kk = 0; kk < KF / 8; ++kk) {
@@ -581,7 +663,6 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
       fence_acc(acc1);
       release(it);
     }
-    if (tid == 0) mbar_arrive(done + 8 * w);
     if (!(LS_CUT & 2)) {
       despread(acc0, log_tl, lane);
       despread(acc1, log_tl, lane);

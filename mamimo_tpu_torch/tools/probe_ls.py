@@ -3,34 +3,53 @@
 card.
 
     python3 mamimo_tpu_torch/tools/probe_ls.py [--old DIR]
+        [--const NAME=VALUE ...] [--no-cuts]
 
 At the bench shape (BS32: num_tx = 32, 234 carriers, S = 4096 rows of
-10240 samples, 1024 packets of 4 rx), seeded random bf16 planes, CUDA
-events, with the card's SM clock and power draw sampled by
-``nvidia-smi`` beside each timed window (``tools/probe_tail.py``'s
-timer):
+10240 samples, 1024 packets of 4 rx), seeded random float32 planes and
+their bf16 rounding, CUDA events, with the card's SM clock and power
+draw sampled by ``nvidia-smi`` beside each timed window
+(``tools/probe_tail.py``'s timer):
 
 1. phase cuts: ``ls_planes_v2_kernel`` (full mode, and seq rank 1 of 4),
    ``ls_planes_v1_kernel`` (raw f32 and raw bf16 planes) and
-   ``ls_pair_kernel``, and the float32 modes of ``ls_planes_v2`` and
-   ``ls_pair_kernel`` (float32 planes, the constants' TF32 parts; "no
-   products" keeps the split of the input into its TF32 parts), built
-   with ``-DLS_CUT=<bits>`` (1 no products,
-   2 no despread, 4 no store; each build hashed apart in ``_build/``).
-   The cut builds compute wrong answers by design and are never used
-   outside this probe; the differences split each kernel's time by
-   phase, and the build with every cut is what the loads alone take;
+   ``ls_pair_kernel``, and the float32 modes of ``ls_planes_v2`` (full
+   mode, and seq rank 1 of 4), ``ls_planes_v1`` (raw f32) and
+   ``ls_pair_kernel`` (float32 planes, the constants' TF32 parts), built
+   with ``-DLS_CUT=<bits>`` (each build hashed apart in ``_build/``): 1
+   no products, 2 no despread, 4 no store, 8 no split (the float32
+   mode's TF32 split of the input: its products then read the input as
+   it landed, and a stale low part), 32 no loads (the float32 mode's
+   stages are marked full without a load); bits 8 and 32 cut nothing of
+   the bf16 mode. "loads only" (1, 2 and 4) keeps the split, "bare
+   loads" (1, 2, 4 and 8) is the ring alone, "products only" (2, 4, 8
+   and 32) the float32 products and their waits alone. The cut builds compute wrong
+   answers by design and are never used outside this probe; the
+   differences split each kernel's time by phase (skipped with
+   ``--no-cuts``);
 2. with ``--old DIR``: each kernel against an earlier design whose
    sources (``ls_v2.cu``, ``ls_v1.cu``, ``ls_pair.cu`` and their
    headers, e.g. a ``git archive`` of an earlier commit's
    ``mamimo_tpu_torch/csrc``) lie in DIR and keep the same C launch
-   functions (their bf16 modes: an earlier design has no float32 mode;
-   the arguments each library's launch functions take are read from its
-   sources), timed in turns (old, new, new, old) in one process, after
-   holding the two designs' answers to each other (NMSE, and whether
-   they are bit-identical). An earlier design's kernel takes the
+   functions, timed in turns (old, new, new, old) in one process, after
+   holding the two designs' answers to each other (NMSE within -45 dB
+   for the bf16 modes and -90 dB for the float32 modes, and whether
+   they are bit-identical). The float32 modes take part whenever the
+   earlier sources have ``ls_body_f32``; designs without it have no
+   float32 mode. The arguments each library's launch functions
+   take are read from its sources. An earlier design's kernel takes the
    (2·fft, 2·Cp) constants of ``ls_kernel_constants`` where its source
    does not include ``ls_sm90.cuh`` (the mma.sync bodies before them).
+   Also says whether the bf16 LS kernels' SASS is the same in both, and
+   that of every kernel of the sources on the headers the LS body shares
+   (``fused_factored``, ``mlp_infer``, ``matmul``, ``int8_mm``,
+   ``tf32_split``);
+3. with ``--const NAME=VALUE`` (repeatable): a copy of the package's
+   sources with ``constexpr int NAME`` of ``ls_sm90.cuh`` set to VALUE
+   (a settled choice of the float32 body, such as ``F_STAGES``), held to
+   the package's own as an earlier design is and its float32 modes
+   timed in turns with it and with the earlier design (the copies, new,
+   new, the copies backwards).
 
 Prints one line per measurement, and a JSON summary as the last line.
 Card only.
@@ -53,12 +72,23 @@ CUTS = {                  # LS_CUT bits of the LS kernels' sources
     "no products": 1,
     "no despread": 2,
     "no store": 4,
+    "no split": 8,
+    "no loads": 32,
     "loads only": 1 | 2 | 4,
+    "bare loads": 1 | 2 | 4 | 8,
+    "products only": 2 | 4 | 8 | 32,
 }
+F32_AGREE_DB = -90.0      # two designs' float32 modes against each other
+BF16_AGREE_DB = -45.0
 PACKETS = 1024
 
 
 SOURCES = ("ls_v2", "ls_v1", "ls_pair")
+BF16_KERNELS = ("ls_planes_v2_kernel", "ls_planes_v1_kernel",
+                "ls_pair_kernel")            # one a source, as SOURCES
+# the other sources on the headers the LS body shares (gemm_sm90.cuh,
+# tail_sm90.cuh): the GEMM, tail, split and int8 kernels
+SHARED = ("fused_factored", "mlp_infer", "matmul", "int8_mm", "tf32_split")
 
 
 def _arity(src_dir: Path, name: str, fn: str) -> int:
@@ -87,6 +117,11 @@ def _bind(lib: ctypes.CDLL, src_dir: Path, name: str) -> ctypes.CDLL:
     return lib
 
 
+def _has_f32(src_dir: Path) -> bool:
+    """Whether the LS sources in src_dir have the float32 mode."""
+    return "ls_body_f32" in (src_dir / "ls_sm90.cuh").read_text()
+
+
 def _hopper(src_dir: Path, name: str) -> bool:
     """Whether csrc/<name>.cu in src_dir runs on ls_sm90.cuh (and so takes
     the permuted constants of ls_sm90_constants)."""
@@ -97,8 +132,14 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--const", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="also a copy of the sources with constexpr int "
+                         "NAME of ls_sm90.cuh set to VALUE (repeatable)")
     ap.add_argument("--old", type=Path, default=None,
                     help="directory of an earlier design's csrc sources")
+    ap.add_argument("--no-cuts", action="store_true",
+                    help="skip the phase cuts (the A/B alone)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_ls: no CUDA device", file=sys.stderr)
@@ -110,7 +151,13 @@ def main() -> int:
         ls_kernel_constants,
         ls_sm90_constants,
     )
-    from mamimo_tpu_torch.tools.probe_tail import _fmt, _old_lib, _time_ms
+    from mamimo_tpu_torch.tools.probe_gemm import _sass
+    from mamimo_tpu_torch.tools.probe_tail import (
+        _fmt,
+        _old_lib,
+        _time_ms,
+        const_copy,
+    )
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -130,6 +177,7 @@ def main() -> int:
     x = x32.to(torch.bfloat16)
     lq = L // 4
     xq = x[:, :, lq:2 * lq].contiguous()       # seq rank 1 of 4
+    x32q = x32[:, :, lq:2 * lq].contiguous()
     kc_old = ls_kernel_constants(cfg, dev)
     kc_new = ls_sm90_constants(cfg, dev).bt
     kc_f32 = ls_sm90_constants(cfg, dev, torch.float32).bt
@@ -146,18 +194,20 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"{what}: CUDA error {rc}")
 
-    def v1(lib, consts, dt):
+    def v1(lib, consts, dt, f32=False):
         h = raw[dt]
         return lambda: check(lib.ls_planes_v1_launch(
-            x.data_ptr(), consts.data_ptr(), h[0].data_ptr(),
-            h[1].data_ptr(), S, S, nt, *geo[1:], int(dt == torch.bfloat16),
-            stream()), "ls_planes_v1_launch")
+            (x32 if f32 else x).data_ptr(), consts.data_ptr(),
+            h[0].data_ptr(), h[1].data_ptr(), S, S, nt, *geo[1:],
+            int(dt == torch.bfloat16) + 2 * f32, stream()),
+            "ls_planes_v1_launch")
 
     def both(libs, consts, f32=False):
         """The five timed launches of the bf16 modes on built (ls_v2,
         ls_v1, ls_pair) libraries, each with its output; consts[name]: the
         constants each library takes. With f32 also the float32 modes of
-        ls_planes_v2 and ls_pair_kernel."""
+        ls_planes_v2 (full, seq rank 1 of 4), ls_planes_v1 (raw f32) and
+        ls_pair_kernel."""
         v2, l1, pr = libs
         flag = (0,) if pr.pair_flag else ()
         fns = {
@@ -184,6 +234,13 @@ def main() -> int:
                     x32.data_ptr(), kc_f32.data_ptr(), out.data_ptr(), None,
                     S, nt, nt, 0, *geo, 4, stream()),
                 "ls_planes_v2_launch (float32)"), out)
+            fns["ls_planes_v2 float32 seq 1/4"] = (lambda: check(
+                v2.ls_planes_v2_launch(
+                    x32q.data_ptr(), kc_f32.data_ptr(), out.data_ptr(), None,
+                    S, nt, nt // 4, 1, *geo, 4, stream()),
+                "ls_planes_v2_launch (float32, seq)"), out)
+            fns["ls_planes_v1 float32"] = (
+                v1(l1, kc_f32, torch.float32, f32=True), raw[torch.float32])
             fns["ls_pair_kernel float32"] = (lambda: check(pr.ls_pair_launch(
                 x32.data_ptr(), kc_f32.data_ptr(), out_p.data_ptr(), S, nr,
                 nt, *geo, 1, stream()), "ls_pair_launch (float32)"),
@@ -199,60 +256,104 @@ def main() -> int:
     k_new = dict.fromkeys(SOURCES, kc_new)
 
     summary = {"card": card, "S": S}
-    print(f"phase cuts, S = {S}:")
-    variants = {"kernel": ()}
-    variants.update({n: (f"LS_CUT={b}",) for n, b in CUTS.items()})
-    with ThreadPoolExecutor(len(variants)) as pool:   # one nvcc each
-        list(pool.map(lambda d: _build.build_all(SOURCES, d),
-                      variants.values()))
-    cut = {}
-    for vname, defines in variants.items():
-        fns = both(new_libs(defines), k_new, f32=True)
-        for kname, (fn, _) in fns.items():
-            ms, clk, pwr = _time_ms(fn)
-            print(f"  {kname} {vname}: {_fmt(ms, clk, pwr)}  [{card}]")
-            cut.setdefault(kname, {})[vname] = ms
-    for kname, t in cut.items():
-        k = t["kernel"]
-        split = {"products": k - t["no products"],
-                 "despread": k - t["no despread"],
-                 "store": k - t["no store"], "loads only": t["loads only"]}
-        print(f"  {kname} split: " + ", ".join(
-            f"{n} {v:.4f} ms" for n, v in split.items()) + f" of {k:.4f}")
-        cut[kname]["split"] = split
-    summary["cuts"] = cut
+    if not args.no_cuts:
+        print(f"phase cuts, S = {S}:")
+        variants = {"kernel": ()}
+        variants.update({n: (f"LS_CUT={b}",) for n, b in CUTS.items()})
+        with ThreadPoolExecutor(len(variants)) as pool:   # one nvcc each
+            list(pool.map(lambda d: _build.build_all(SOURCES, d),
+                          variants.values()))
+        cut = {}
+        for vname, defines in variants.items():
+            fns = both(new_libs(defines), k_new, f32=True)
+            for kname, (fn, _) in fns.items():
+                ms, clk, pwr = _time_ms(fn)
+                print(f"  {kname} {vname}: {_fmt(ms, clk, pwr)}  [{card}]")
+                cut.setdefault(kname, {})[vname] = ms
+        for kname, t in cut.items():
+            k = t["kernel"]
+            split = {"products": k - t["no products"],
+                     "despread": k - t["no despread"],
+                     "store": k - t["no store"], "split": k - t["no split"],
+                     "loads": k - t["no loads"],
+                     "products only": t["products only"],
+                     "loads only": t["loads only"],
+                     "bare loads": t["bare loads"]}
+            print(f"  {kname} split: " + ", ".join(
+                f"{n} {v:.4f} ms" for n, v in split.items()) + f" of {k:.4f}")
+            cut[kname]["split"] = split
+        summary["cuts"] = cut
 
+    # the designs held to the package's own and timed in turns with it
+    designs = {}
     if args.old is not None:
-        old = tuple(_bind(_old_lib(args.old, n), args.old, n)
-                    for n in SOURCES)
-        k_old = {n: kc_new if _hopper(args.old, n) else kc_old
-                 for n in SOURCES}
-        fns = {"old": both(old, k_old), "new": both(new_libs(), k_new)}
-        same = {}
-        for kname in fns["new"]:
-            got = {}
-            for tag in ("old", "new"):
-                fn, res = fns[tag][kname]
-                fn()
-                torch.cuda.synchronize()
-                got[tag] = res.float().clone()
-            err = float(torch.sum((got["new"] - got["old"]) ** 2)
-                        / torch.sum(got["old"] ** 2))
-            db = 10 * torch.log10(torch.tensor(max(err, 1e-30))).item()
-            same[kname] = bool(torch.equal(got["new"], got["old"]))
-            print(f"  {kname}: new vs old NMSE {db:.2f} dB, "
-                  f"{'bit-identical' if same[kname] else 'not identical'}")
-            if not db <= -45.0:
-                raise AssertionError(f"{kname}: the designs disagree "
-                                     f"({db:.2f} dB)")
-        summary["identical_to_old"] = same
-        print(f"A/B in turns (old, new, new, old), S = {S}:")
-        ab = {k: [] for k in fns["new"]}
-        for tag in ("old", "new", "new", "old"):
+        designs["old"] = args.old
+    for spec in args.const:
+        name, value = spec.split("=")
+        designs[spec] = const_copy("ls_sm90.cuh", name, int(value))
+    if designs:
+        with ThreadPoolExecutor(len(SOURCES) * len(designs)) as pool:
+            libs = dict(zip(designs, [tuple(pool.map(
+                lambda n, d=d: _bind(_old_lib(d, n), d, n), SOURCES))
+                for d in designs.values()]))
+        f32 = all(_has_f32(d) for d in designs.values())
+        fns = {"new": both(new_libs(), k_new, f32)}
+        for tag, d in designs.items():
+            fns[tag] = both(libs[tag], {n: kc_new if _hopper(d, n) else kc_old
+                                        for n in SOURCES}, f32)
+        same, sass = {}, {}
+        for tag in designs:
+            for kname in fns["new"]:
+                got = {}
+                for t in (tag, "new"):
+                    fn, res = fns[t][kname]
+                    fn()
+                    torch.cuda.synchronize()
+                    got[t] = res.float().clone()
+                err = float(torch.sum((got["new"] - got[tag]) ** 2)
+                            / torch.sum(got[tag] ** 2))
+                db = 10 * torch.log10(torch.tensor(max(err, 1e-30))).item()
+                same[f"{tag}: {kname}"] = bool(torch.equal(got["new"],
+                                                           got[tag]))
+                print(f"  {kname}: new vs {tag} NMSE {db:.2f} dB, "
+                      + ("bit-identical" if same[f"{tag}: {kname}"]
+                         else "not identical"))
+                limit = F32_AGREE_DB if "float32" in kname else BF16_AGREE_DB
+                if not db <= limit:
+                    raise AssertionError(f"{kname}: new and {tag} disagree "
+                                         f"({db:.2f} dB)")
+            # the bf16 kernels' machine code, design against design
+            for kern, lo, ln in zip(BF16_KERNELS, libs[tag], new_libs()):
+                ok = _sass(lo._name, kern) == _sass(ln._name, kern)
+                sass[f"{tag}: {kern}"] = ok
+                print(f"  SASS of {kern}: "
+                      f"{'identical' if ok else 'DIFFERS'} in new and {tag}")
+        if args.old is not None:
+            # every kernel of the sources that share the LS body's headers
+            _build.build_all(SHARED)
+            with ThreadPoolExecutor(len(SHARED)) as pool:
+                olds = list(pool.map(lambda n: _old_lib(args.old, n),
+                                     SHARED))
+            for n, lo in zip(SHARED, olds):
+                ok = _sass(lo._name, "") == _sass(_build.library(n)._name,
+                                                  "")
+                sass[f"old: {n}.cu"] = ok
+                print(f"  SASS of every kernel of {n}.cu: "
+                      f"{'identical' if ok else 'DIFFERS'} in new and old")
+        summary["identical"] = same
+        summary["sass_identical"] = sass
+        # in turns: the others, new, new, the others backwards (old, new,
+        # new, old with --old alone); with --const only the float32 modes
+        order = [*designs, "new", "new", *reversed(designs)]
+        print(f"A/B in turns ({', '.join(order)}), S = {S}:")
+        ab = {}
+        for tag in order:
             for kname, (fn, _) in fns[tag].items():
+                if args.old is None and "float32" not in kname:
+                    continue
                 ms, clk, pwr = _time_ms(fn)
                 print(f"  {tag} {kname}: {_fmt(ms, clk, pwr)}  [{card}]")
-                ab[kname].append((tag, ms, clk, pwr))
+                ab.setdefault(kname, []).append((tag, ms, clk, pwr))
         summary["ab"] = ab
 
     print(json.dumps(summary))

@@ -157,29 +157,34 @@ STRETCH = {"gemm": ("gemm_sm90.cuh", "TF_STRETCH"),    # gemm_tf32x3's
            "tail": ("tail_sm90.cuh", "F_STRETCH")}     # layers23_f32's
 
 
+def const_copy(header: str, name: str, value: int) -> Path:
+    """A copy of the package's csrc under _build/ with ``constexpr int
+    NAME = ...;`` of header set to value, for _old_lib and _launch_fn."""
+    from mamimo_tpu_torch.ops.kernels import _build
+
+    pat = rf"constexpr int {name} = [^;]+;"
+    text = (CSRC / header).read_text()
+    if not re.search(pat, text):
+        raise ValueError(f"{header} has no constexpr int {name}")
+    d = _build.BUILD_DIR / f"const-{Path(header).stem}-{name}-{value}"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(CSRC, d)
+    (d / header).write_text(re.sub(pat, f"constexpr int {name} = {value};",
+                                   text))
+    return d
+
+
 def stretch_sources(body: str, stretches=(2, 4, 8)) -> tuple[int, dict]:
     """The package's own stretch of a float32 body ("gemm" or "tail":
     the k-steps of 32 it sums into a fresh accumulator, a constant in
     its header) and, for each other stretch n, a copy of the package's
-    csrc under _build/ with that constant set to n: {n: directory}, for
+    csrc with that constant set to n (const_copy): {n: directory}, for
     _old_lib and _launch_fn."""
-    from mamimo_tpu_torch.ops.kernels import _build
-
     header, name = STRETCH[body]
-    pat = rf"constexpr int {name} = (\d+);"
-    text = (CSRC / header).read_text()
-    own = int(re.search(pat, text).group(1))
-    dirs = {}
-    for n in stretches:
-        if n == own:
-            continue
-        d = _build.BUILD_DIR / f"stretch-{body}-{n}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(CSRC, d)
-        (d / header).write_text(re.sub(pat, f"constexpr int {name} = {n};",
-                                       text))
-        dirs[n] = d
-    return own, dirs
+    own = int(re.search(rf"constexpr int {name} = (\d+);",
+                        (CSRC / header).read_text()).group(1))
+    return own, {n: const_copy(header, name, n) for n in stretches
+                 if n != own}
 
 
 def _f32_ab(old, ff_lib, mlp_lib, rows_run, mlp_run, p32, pm32, h32, y32,

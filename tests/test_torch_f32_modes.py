@@ -17,6 +17,9 @@ to these plain versions at −90 dB). Here:
 - the float32 mode's arithmetic, rebuilt in float64 from the split
   constants of ``ls_sm90_constants(cfg, dtype=float32)`` (three TF32
   products of high and low parts), against the plain version: −110 dB;
+  at 256 Tx antennas as the kernel sums its two symbol halves a tile
+  (the second half's products negated for the second output part):
+  −100 dB;
 - the wrappers' CUDA branches (the device test made to answer CUDA, the
   library replaced by one that records each launch): float32 input
   reaches the float32 launch mode as it is, without a cast to bf16, and
@@ -236,24 +239,34 @@ def test_float32_constants(cfg):
         ls_sm90_constants(cfg, dtype=torch.float16)
 
 
-def _mode_product(x, loc, seq, terms):
+def _mode_product(x, loc, seq, terms, cfg=CFG):
     """The float32 mode's LS rebuilt in float64: [x_r | x_i] (the fft
     samples) split into TF32 parts, times the split permuted constants,
     summed over ``terms`` ((input part, constants part) pairs, 0 high, 1
     low), the columns un-permuted and despread with P (a seq rank's
-    columns of it): (2, S, num_tx, num_carriers)."""
-    s, c = x.shape[1], CFG.num_carriers
-    rows = x.view(2, -1, CFG.sym_len)[:, :, CFG.cp_length:]
+    columns of it): (2, S, num_tx, num_carriers). Above 128 symbols a
+    sample (num_tx = 256) as the kernel's two halves a tile (NH = 2):
+    output part a of a sample sums both 128-symbol halves' products, the
+    second half's negated for part 1, then despreads with P_128."""
+    s, c = x.shape[1], cfg.num_carriers
+    rows = x.view(2, -1, cfg.sym_len)[:, :, cfg.cp_length:]
     xs = tf32_split(torch.cat([rows[0], rows[1]], 1)).double()
-    bt = ls_sm90_constants(CFG, dtype=F32).bt.double()
+    bt = ls_sm90_constants(cfg, dtype=F32).bt.double()
     cp_ = bt.shape[1] // 2
     z = torch.empty((xs.shape[1], 2 * cp_), dtype=torch.float64)
     z[:, torch.from_numpy(ls_sm90_row_order(cp_))] = sum(
         xs[i] @ bt[j].T for i, j in terms)
-    p = torch.from_numpy(j_hadamard(CFG.num_tx)).double()
-    if seq is not None:
-        p = p[:, seq[0] * loc:(seq[0] + 1) * loc]
-    h = torch.einsum("jn,snc->sjc", p, z.view(s, loc, 2 * cp_))
+    z = z.view(s, loc, 2 * cp_)
+    if loc > 128:
+        p = torch.from_numpy(j_hadamard(128)).double()
+        h = torch.cat([torch.einsum("jn,snc->sjc", p, z[:, :128]
+                                    + (-1.0) ** a * z[:, 128:])
+                       for a in (0, 1)], 1)
+    else:
+        p = torch.from_numpy(j_hadamard(cfg.num_tx)).double()
+        if seq is not None:
+            p = p[:, seq[0] * loc:(seq[0] + 1) * loc]
+        h = torch.einsum("jn,snc->sjc", p, z)
     return torch.stack([h[..., :c], h[..., cp_:cp_ + c]])
 
 
@@ -267,6 +280,21 @@ def test_float32_mode_arithmetic(seq):
     three = _mode_product(x, loc, seq, ((0, 0), (0, 1), (1, 0)))
     assert _nmse_db(three, ref) < -110.0
     assert _nmse_db(_mode_product(x, loc, seq, ((0, 0),)), ref) > -80.0
+
+
+def test_float32_mode_arithmetic_nt256():
+    """At 256 Tx antennas (NH = 2), one packet: the three TF32 products
+    summed over both symbol halves of a tile, the second half's negated
+    for output part 1, then the 128-symbol despread, are within −100 dB
+    of the float32 plain version; one TF32 pass is not within −80."""
+    cfg = SimConfig(num_tx=256, num_rx=4)
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (2, cfg.num_rx, cfg.len_ltf)).astype(np.float32))
+    ref = _ls_v2_plain(cfg, x).double()
+    assert ref.shape == (2, cfg.num_rx, 256, cfg.num_carriers)
+    three = _mode_product(x, 256, None, ((0, 0), (0, 1), (1, 0)), cfg)
+    assert _nmse_db(three, ref) < -100.0
+    assert _nmse_db(_mode_product(x, 256, None, ((0, 0),), cfg), ref) > -80.0
 
 
 # ----------------------------------------------------------------------
