@@ -256,6 +256,28 @@ failure ends the run with a non-zero exit code):
                bound and a float32 torch.matmul / bmm (TF32 off), rows
                of the kernels line, and the fused tail's bf16 store
                beside its float32 one;
+5o. LS shapes— kernels 1, 3 and 4 at every num_tx and cp_length a JAX
+               configuration takes (the general body, ls_body<0>): Nt
+               512 (128 packets, four 128-symbol parts a sample), Nt
+               1024 (32 packets, eight), BS32 at cp 18 (NR's normal
+               prefix at FFT 256) and cp 9 (map rows of 4 and 8
+               symbols, each box shifted into place), in both modes:
+               kernel 1 bf16 (f32 store; bf16 store and sums) and
+               float32 (its bf16 store exactly the float32 result
+               rounded, its sums), at S = 5 and 1, seq ranks of 2 and 4
+               whose partials sum to the estimate; kernel 3 raw, complex
+               and as_planes; kernel 4 on bf16 pair planes and complex64
+               rx; each within -45 dB (bf16) or -90 dB (float32) of its
+               plain version, counted; sharded_ls_pallas_v2 at Nt 1024
+               (seq 2, seq 4, data 4 on 4 virtual ranks);
+               estimate_full with a (1024, 1024) model at Nt 512 and at
+               cp 18 within PIPE_LIMITS of the float32 path; kernel 2 at
+               Nt 1024 (fused tail and per-head rows bf16, the float32
+               rows route); one Nt 1024 call at 1024 packets (2.68e9
+               input elements) whose last 8 samples are held to the
+               plain version on them alone; phase 6 times each kernel at
+               Nt 512, Nt 1024 and BS32 cp 18 (S = 4096) in both modes,
+               rows of the kernels line;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant;
@@ -301,7 +323,7 @@ failure ends the run with a non-zero exit code):
                time, idle share, kernels and aten calls per step.
 
 Launch counts are set to 0 just before each main-path call of phases 5,
-5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l, 5m and 5n and read just
+5b, 5c, 5d, 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l, 5m, 5n and 5o and read just
 after
 (the wrappers with a float32 mode also count its launches apart, "<name>
 f32"); estimate_full,
@@ -3755,6 +3777,495 @@ def dnn_f32_timing(dev, smi, res) -> list:
     return rows
 
 
+# phase 5o: kernels 1, 3 and 4 at every num_tx and cp_length a JAX
+# configuration takes (tag: num_tx, num_rx, cp_length, packets checked)
+SHAPE_CFGS = {"Nt 512": (512, 4, 64, 128),          # S = 512
+              "Nt 1024": (1024, 4, 64, 32),         # S = 128
+              "BS32 cp 18": (32, 4, 18, 64),        # NR's normal CP at FFT 256
+              "BS32 cp 9": (32, 4, 9, 64)}
+SHAPE_BIG_PACKETS = 1024           # one Nt 1024 call, S = 4096 (2.68e9 input)
+SHAPE_SHARDED_PACKETS = 16         # the sharded LS at Nt 1024 (S = 64)
+SHAPE_MODEL = (1024, 1024)         # the model served at the new shapes
+SHAPE_TIMED = {"Nt 512": 512, "Nt 1024": 128, "BS32 cp 18": 4096}  # S
+
+
+def shape_cfg(tag):
+    from mamimo_tpu_torch.config import SimConfig
+
+    nt, nr, cp, _ = SHAPE_CFGS[tag]
+    return SimConfig(num_tx=nt, num_rx=nr, cp_length=cp)
+
+
+def ls_shapes_phase(dev, counted, require_launched) -> dict:
+    """Phase 5o: kernels 1, 3 and 4 at the shapes of SHAPE_CFGS (four and
+    eight 128-symbol parts a sample, map rows of four and eight symbols),
+    each against its plain version on the same planes: kernel 1 bf16
+    (f32 store; bf16 store and sums of h^2, check_v2_modes) and float32
+    (its bf16 store exactly the float32 result rounded, its sums), at S
+    odd too, seq ranks of 2 and 4 whose bf16 partials sum to the
+    estimate; kernel 3 raw (f32 and bf16 out), complex and as_planes in
+    both modes; kernel 4 on bf16 pair planes and complex64 rx. Limits:
+    bf16 -45 dB, float32 F32_LIMIT_DB. Then sharded_ls_pallas_v2 at Nt
+    1024 (seq 2, seq 4, data 4 on 4 virtual ranks), estimate_full with a
+    SHAPE_MODEL model at Nt 512 and at BS32 cp 18 against the float32 path
+    (PIPE_LIMITS), kernel 2 at Nt 1024 (fused tail and per-head rows in
+    bf16, the float32 rows route), and one Nt 1024 call at
+    SHAPE_BIG_PACKETS packets whose last 8 samples are held to the plain
+    version run on them alone. Every group counted. Returns the errors,
+    the counts and the timing's inputs."""
+    import torch
+
+    from mamimo_tpu_torch.bench import _planes_to_time_major
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.models.mlp import _factored_all_pairs
+    from mamimo_tpu_torch.models.predictor import CSIPredictor
+    from mamimo_tpu_torch.ops.estimate import (
+        ls_estimate_matmul,
+        ls_estimate_planes,
+        ls_planes_constants,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        _heads_plain,
+        _hidden_plain,
+        _out_plain,
+        factored_heads,
+        factored_rows_tail,
+        factored_sig_proj,
+        fused_factored_planes,
+        prepare_factored_weights,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_v1_plain,
+        _ls_v2_plain,
+        _ssq_plain,
+        ls_estimate_pallas,
+        ls_pair_kernel,
+        ls_planes_pallas,
+        ls_planes_v1,
+        ls_planes_v2,
+        ls_raw_to_complex,
+        ls_sm90_constants,
+        pair_planes,
+    )
+    from mamimo_tpu_torch.parallel.mesh import make_mesh
+    from mamimo_tpu_torch.parallel.sharded import sharded_ls_pallas_v2
+    from mamimo_tpu_torch.train.ckpt import save_checkpoint
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(97)
+    errs, counts, served = {}, {}, {}
+    print("[5o LS shapes] kernels 1, 3 and 4 at Nt 512 and 1024 and at "
+          "cyclic prefixes of 18 and 9 samples")
+
+    def same(what, got, ref):
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"{what}: not identical")
+        print(f"  {what}: identical")
+
+    def sums_ok(what, q, ref, loc):
+        sref = _ssq_plain(ref, loc)
+        rel = float(((q - sref).abs() / sref.abs().clamp_min(1e-30)).max())
+        print(f"  {what}: sums {tuple(q.shape)}, max rel err per tile "
+              f"{rel:.3e} (limit 1e-4)")
+        if q.shape != sref.shape or not rel <= 1e-4:
+            raise AssertionError(f"{what}: sums off by {rel:.3e}")
+
+    def ls_checks(tag):
+        cfg = shape_cfg(tag)
+        nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+        packets = SHAPE_CFGS[tag][3]
+        s = packets * nr
+        k16, k32 = ls_sm90_constants(cfg, dev), ls_sm90_constants(cfg, dev,
+                                                                 f32)
+        x32 = torch.randn((2, s, L), generator=g, device=dev)
+        x16 = x32.to(bf16)
+        r16, r32 = _ls_v2_plain(cfg, x16.float()), _ls_v2_plain(cfg, x32)
+        e = errs[tag] = {}
+        e["ls_planes_v2"] = check(
+            f"ls_planes_v2 bf16, {tag}, S = {s}, vs its plain version (f32)",
+            ls_planes_v2(cfg, x16, k16), r16, -45.0)
+        e["ls_planes_v2 bf16 ssq"] = check_v2_modes(
+            cfg, x16, k16, f"{tag}, S = {s}")[(bf16, True)]
+        h = ls_planes_v2(cfg, x32, k32)
+        e["ls_planes_v2 f32"] = check(
+            f"ls_planes_v2 float32, {tag}, S = {s}, vs its plain version "
+            f"(f32)", h, r32, F32_LIMIT_DB)
+        same(f"ls_planes_v2 float32, {tag}: bf16 store = the f32 result "
+             f"rounded", ls_planes_v2(cfg, x32, k32, out_dtype=bf16),
+             h.to(bf16))
+        sums_ok(f"ls_planes_v2 float32 + sums, {tag}", ls_planes_v2(
+            cfg, x32, k32, with_ssq=True)[1], r32, nt)
+        for so in (5, 1):
+            check(f"ls_planes_v2 bf16, {tag}, S = {so}", ls_planes_v2(
+                cfg, x16[:, :so], k16), r16[:, :so], -45.0)
+            check(f"ls_planes_v2 float32, {tag}, S = {so}", ls_planes_v2(
+                cfg, x32[:, :so], k32), r32[:, :so], F32_LIMIT_DB)
+        for n in (2, 4):
+            w = nt // n * cfg.sym_len
+            parts = []
+            for i in range(n):
+                xq16 = x16[:, :, i * w:(i + 1) * w].contiguous()
+                parts.append(ls_planes_v2(cfg, xq16, k16, seq_shard=(i, n)))
+                if i in (1, n - 1):
+                    check(f"ls_planes_v2 bf16, {tag}, seq rank {i} of {n}",
+                          parts[-1], _ls_v2_plain(cfg, xq16.float(), (i, n)),
+                          -45.0)
+                    xq32 = x32[:, :, i * w:(i + 1) * w].contiguous()
+                    rq = _ls_v2_plain(cfg, xq32, (i, n))
+                    hq, q = ls_planes_v2(cfg, xq32, k32, seq_shard=(i, n),
+                                         with_ssq=True)
+                    check(f"ls_planes_v2 float32, {tag}, seq rank {i} of {n}",
+                          hq, rq, F32_LIMIT_DB)
+                    sums_ok(f"ls_planes_v2 float32 + sums, {tag}, seq rank "
+                            f"{i} of {n}", q, rq, nt // n)
+            check(f"ls_planes_v2 bf16, {tag}: the {n} seq partials summed vs "
+                  f"the plain estimate", sum(parts), r16, -45.0)
+            if n == 2:
+                check_v2_modes(cfg, x16[:, :, w:].contiguous(), k16,
+                               f"{tag}, S = {s}", (1, 2))
+            del parts
+        # kernel 3: raw, complex, as_planes
+        raw16 = torch.stack(_ls_v1_plain(cfg, x16, 8, f32))
+        for dt in (f32, bf16):
+            hr, hi = ls_planes_v1(cfg, x16, k16, out_dtype=dt)
+            check_pads_zero("ls_planes_v1", hr, hi, s, nt, C)
+            e.setdefault("ls_planes_v1", check(
+                f"ls_planes_v1 bf16 planes, raw {str(dt)[6:]}, {tag}, vs its "
+                f"plain version (f32), pads zero", torch.stack([hr, hi]),
+                raw16, -45.0))
+        check(f"ls_planes_v1 bf16 planes, {tag}, S = 3", torch.stack(
+            ls_planes_v1(cfg, x16[:, :3], k16)), torch.stack(_ls_v1_plain(
+                cfg, x16[:, :3], 8, f32)), -45.0)
+        raw32 = torch.stack(_ls_v1_plain(cfg, x32, 8, f32))
+        hr, hi = ls_planes_v1(cfg, x32, k32)
+        check_pads_zero("ls_planes_v1 float32", hr, hi, s, nt, C)
+        e["ls_planes_v1 f32"] = check(
+            f"ls_planes_v1 float32 raw, {tag}, vs its plain version (f32), "
+            f"pads zero", torch.stack([hr, hi]), raw32, F32_LIMIT_DB)
+        check(f"ls_planes_v1 float32, {tag}, S = 3", torch.stack(
+            ls_planes_v1(cfg, x32[:, :3], k32)), torch.stack(_ls_v1_plain(
+                cfg, x32[:, :3], 8, f32)), F32_LIMIT_DB)
+        check(f"ls_planes_pallas float32 complex, {tag}", ls_planes_pallas(
+            cfg, x32, k32), ls_raw_to_complex(cfg, raw32[0], raw32[1], s),
+            F32_LIMIT_DB)
+        for xa, ka, dt in ((x32, k32, "float32"), (x16, k16, "bf16")):
+            ap = ls_planes_pallas(cfg, xa, ka, as_planes=True)
+            same(f"ls_planes_pallas {dt} as_planes, {tag}: the complex form",
+                 torch.complex(ap[0], ap[1]), ls_planes_pallas(cfg, xa, ka))
+        del raw16, raw32, hr, hi
+        # kernel 4: bf16 pair planes and complex64 rx (the float32 mode)
+        pk = min(packets, 32)
+        for xa, tg in ((x16.float(), "bf16"), (x32, "f32")):
+            rx = _planes_to_time_major(xa[:, :pk * nr], nr)
+            with full_f32_matmul():
+                ref = ls_estimate_matmul(cfg, rx)
+            if tg == "bf16":
+                e["ls_pair_kernel"] = check(
+                    f"ls_pair_kernel bf16 pair planes, {tag}, {pk} packets, "
+                    f"vs ls_estimate_matmul (f32)", ls_pair_kernel(
+                        cfg, pair_planes(rx), nr, k16), ref, -45.0)
+            else:
+                e["ls_pair_kernel f32"] = check(
+                    f"ls_estimate_pallas complex64, {tag}, {pk} packets, vs "
+                    f"ls_estimate_matmul (f32)", ls_estimate_pallas(
+                        cfg, rx, consts=k32), ref, F32_LIMIT_DB)
+                check(f"ls_estimate_pallas complex64, {tag}, 1 packet",
+                      ls_estimate_pallas(cfg, rx[:1], consts=k32), ref[:1],
+                      F32_LIMIT_DB)
+        del x16, x32, r16, r32
+        torch.cuda.empty_cache()
+
+    names = ("ls_planes_v2", "ls_planes_v2 f32", "ls_planes_v1",
+             "ls_planes_v1 f32", "ls_pair_kernel", "ls_pair_kernel f32")
+    for tag in SHAPE_CFGS:
+        t1 = time.perf_counter()
+        _, counts[tag] = counted(lambda: ls_checks(tag))
+        require_launched(f"phase 5o's checks, {tag}", counts[tag], names)
+        print(f"  [5o] {tag}: {time.perf_counter() - t1:.1f} s")
+
+    # the sharded LS at Nt 1024 on 4 virtual ranks of this card
+    cfg = shape_cfg("Nt 1024")
+    k16 = ls_sm90_constants(cfg, dev)
+    s = SHAPE_SHARDED_PACKETS * cfg.num_rx
+    x16 = torch.randn((2, s, cfg.len_ltf), generator=g, device=dev).to(bf16)
+    ref = _ls_v2_plain(cfg, x16.float())
+    ref = torch.complex(ref[0], ref[1])
+    for mode, n in (("seq", 2), ("seq", 4), ("data", 4)):
+        m = make_mesh({mode: n}, devices=[dev] * n)
+        h, cnt = counted(lambda: sharded_ls_pallas_v2(cfg, m, x16, mode=mode,
+                                                     consts=k16))
+        errs[f"sharded {mode} {n}"] = check(
+            f"sharded_ls_pallas_v2 {mode} {n}, Nt 1024, S = {s}, vs the "
+            f"unsharded plain LS", h, ref, -45.0)
+        if cnt["ls_planes_v2"] != n:
+            raise AssertionError(f"sharded_ls_pallas_v2 {mode} {n}: {cnt}")
+        counts[f"sharded_ls_pallas_v2 {mode} {n}"] = cnt
+    del x16, ref
+
+    # the serving call at Nt 512 and BS32 cp 18, counted, against the
+    # float32 path (the CPU's functions, in full float32 on the card)
+    tcfg = TrainConfig(hidden=SHAPE_MODEL)
+    for tag in ("Nt 512", "BS32 cp 18"):
+        cfg = shape_cfg(tag)
+        packets = SHAPE_CFGS[tag][3]
+        params, bn = make_model(cfg, tcfg, seed=98, device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_checkpoint(str(Path(tmp) / "best"), cfg, tcfg, params, bn)
+            pred = CSIPredictor(tmp, device=dev)
+        req = torch.randn((2, packets * cfg.num_rx, cfg.len_ltf),
+                          generator=torch.Generator().manual_seed(99)).numpy()
+        (h_ls, h_dnn), cnt = counted(lambda: pred.estimate_full(req))
+        require_launched(f"estimate_full, {tag}", cnt, (
+            "ls_planes_v2", "factored_sig_proj", "factored_tail"))
+        counts[f"estimate_full {tag}"] = cnt
+        x0 = torch.from_numpy(req).to(dev)
+        ref_ls = ls_estimate_planes(cfg, x0, ls_planes_constants(
+            cfg, device=dev))
+        with full_f32_matmul():
+            d = _factored_all_pairs(cfg, tcfg, params, bn, x0)
+        on = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+        served[tag] = {
+            "h_ls": check(f"[5o] {tag}: estimate_full h_ls ({packets} "
+                          f"packets) vs the f32 LS", on(h_ls), ref_ls,
+                          PIPE_LIMITS["served_ls_db"]),
+            "h_dnn": check(f"[5o] {tag}: estimate_full h_dnn vs the f32 "
+                           f"factored DNN", on(h_dnn), torch.complex(
+                               d[0], d[1]), PIPE_LIMITS["served_dnn_db"])}
+        del pred, params, bn, x0, ref_ls, d, h_ls, h_dnn
+        torch.cuda.empty_cache()
+
+    # kernel 2 at Nt 1024: the fused tail and the per-head rows route in
+    # bf16, the float32 rows route, counted
+    cfg = shape_cfg("Nt 1024")
+    C = cfg.num_carriers
+    params, bn = make_model(cfg, tcfg, seed=100, device=dev)
+    x32 = torch.randn((2, SHAPE_CFGS["Nt 1024"][3] * cfg.num_rx,
+                       cfg.len_ltf), generator=g, device=dev)
+    x16 = x32.to(bf16)
+    with full_f32_matmul():
+        prep = prepare_factored_weights(cfg, tcfg, params, bn)
+        prep32 = prepare_factored_weights(cfg, tcfg, params, bn,
+                                          dot_dtype=f32)
+        ref16 = _factored_all_pairs(cfg, tcfg, params, bn, x16.float())
+        ref32 = _factored_all_pairs(cfg, tcfg, params, bn, x32)
+    y, cnt = counted(lambda: fused_factored_planes(cfg, tcfg, prep, x16))
+    require_launched("fused_factored_planes bf16, Nt 1024", cnt,
+                     ("factored_sig_proj", "factored_tail"))
+    errs["fused_factored_planes Nt 1024"] = check(
+        "fused_factored_planes bf16 (fused tail), Nt 1024, vs f32 "
+        "_factored_all_pairs", y, ref16, -40.0)
+    counts["fused_factored_planes Nt 1024"] = cnt
+
+    def rows_route():
+        sp = factored_sig_proj(x16, prep["w1"], prep["w1t"])
+        hrows = factored_heads(prep, sp)
+        check("factored_heads, Nt 1024, vs its plain version", hrows,
+              _heads_plain(prep, sp).view(2, -1, sp.shape[2]), -40.0)
+        return hrows, factored_rows_tail(prep, hrows, C)
+
+    (hrows, y), cnt = counted(rows_route)
+    require_launched("the per-head rows route bf16, Nt 1024", cnt,
+                     ("factored_heads", "factored_rows_tail"))
+    errs["factored_rows_tail Nt 1024"] = check(
+        "factored_rows_tail, Nt 1024, vs its plain version", y,
+        _out_plain(prep, _hidden_plain(prep, 2, hrows), C), -40.0)
+    del hrows
+    # layer 1 at K = L = 327680 and M = S = 128 rows a plane: few tiles
+    # for 132 SMs; its time recorded beside its bound, left as it is
+    sp_ms = time_ms(lambda: factored_sig_proj(x16, prep["w1"], prep["w1t"]),
+                    iters=10)
+    sp_plain = time_ms(lambda: x16.float() @ prep["w1"].float(), iters=2,
+                       warmup=1)
+    sp_lib = time_ms(lambda: torch.bmm(x16, prep["w1"]), iters=10)
+    s1, L1, H1 = x16.shape[1], cfg.len_ltf, prep["w1"].shape[2]
+    sp_bound, sp_by = bound_ms(
+        x16.numel() * 2 + prep["w1t"].numel() * 2 + 2 * s1 * H1 * 4,
+        2.0 * 2 * s1 * L1 * H1)
+    # the bf16 DNN's limit: phase 5l's -70 dB is for K = 10240; one
+    # accumulator's truncating additions over K = 327680 read about 30
+    # dB worse (-98.97 dB at K = 10240, PERF.md row 2a)
+    sp_err = check("factored_sig_proj, Nt 1024, vs f32 x @ W1",
+                   factored_sig_proj(x16, prep["w1"], prep["w1t"]),
+                   x16.float() @ prep["w1"].float(), -40.0)
+    print(f"  factored_sig_proj [Nt 1024: (2, {s1}, {L1}) @ (2, {L1}, {H1}) "
+          f"bf16 -> f32]: {sp_ms:.5f} ms (bound {sp_bound:.5f} ms by "
+          f"{sp_by}, {sp_bound / sp_ms * 100:.1f}% of it); plain "
+          f"{sp_plain:.4f} ms; library {sp_lib:.4f} ms")
+    sig_proj_row = {
+        "name": "factored_sig_proj",
+        "shape": f"Nt 1024: (2, {s1}, {L1}) @ (2, {L1}, {H1}) bf16 -> f32",
+        "route": "cuda", "source": "mamimo_tpu_torch/csrc/fused_factored.cu",
+        "replaces": "mamimo_tpu/ops/pallas/fused_factored.py:169",
+        "launches": counts["fused_factored_planes Nt 1024"][
+            "factored_sig_proj"],
+        "launches_in": "fused_factored_planes x1, Nt 1024 (phase 5o)",
+        "max_abs_err": sp_err["max_abs_err"], "nmse_db": sp_err["nmse_db"],
+        "exact": False, "ms": sp_ms, "plain_ms": sp_plain,
+        "bound_ms": sp_bound, "bound_by": sp_by, "library_ms": sp_lib,
+        "call_ms": None, "ms_from": "events", "call_ms_from": "events"}
+    y, cnt = counted(lambda: fused_factored_planes(
+        cfg, tcfg, prep32, x32, dot_dtype=f32))
+    require_launched("fused_factored_planes float32, Nt 1024", cnt, (
+        "factored_sig_proj f32", "factored_heads f32",
+        "factored_rows_tail f32"))
+    errs["fused_factored_planes f32 Nt 1024"] = check(
+        "fused_factored_planes float32 (rows route), Nt 1024, vs f32 "
+        "_factored_all_pairs", y, ref32, F32_LIMIT_DB)
+    counts["fused_factored_planes f32 Nt 1024"] = cnt
+    del params, bn, prep, prep32, x16, x32, ref16, ref32, y
+    torch.cuda.empty_cache()
+
+    # one Nt 1024 call at SHAPE_BIG_PACKETS packets: more than 2^31 input
+    # elements, so every offset must be 64-bit; its last 8 samples
+    # against the plain version run on those samples alone
+    k16 = ls_sm90_constants(cfg, dev)
+    s = SHAPE_BIG_PACKETS * cfg.num_rx
+    xb = torch.randn((2, s, cfg.len_ltf), generator=g, device=dev,
+                     dtype=bf16)
+    hb, cnt = counted(lambda: ls_planes_v2(cfg, xb, k16))
+    require_launched(f"ls_planes_v2, Nt 1024, S = {s}", cnt,
+                     ("ls_planes_v2",))
+    counts["ls_planes_v2 Nt 1024 big"] = cnt
+    if not bool(torch.isfinite(hb).all()):
+        raise AssertionError("ls_planes_v2 at Nt 1024, S = 4096: "
+                             "non-finite output")
+    errs["ls_planes_v2 Nt 1024 big"] = check(
+        f"ls_planes_v2 bf16, Nt 1024, S = {s} ({xb.numel()} input "
+        f"elements, all finite): its last 8 samples vs the plain version "
+        f"on them alone", hb[:, -8:], _ls_v2_plain(
+            cfg, xb[:, -8:].float()), -45.0)
+    big_ms = time_ms(lambda: ls_planes_v2(cfg, xb, k16), iters=2,
+                     warmup=0)
+    print(f"  ls_planes_v2 bf16, Nt 1024, S = {s}: {big_ms:.4f} ms a call")
+    del xb, hb
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"[5o LS shapes] {secs:.1f} s")
+    return {"errors": {k: ({n: r["nmse_db"] for n, r in v.items()}
+                           if "nmse_db" not in v else v["nmse_db"])
+                       for k, v in errs.items()},
+            "served_nmse_db": {k: {n: v["nmse_db"] for n, v in d.items()}
+                               for k, d in served.items()},
+            "launches": counts, "big_ms": big_ms, "seconds": secs,
+            "_errs": errs, "_rows": [sig_proj_row]}
+
+
+def ls_shapes_timing(dev, smi, res) -> list:
+    """Phase 6's rows of the LS kernels at the new shapes (SHAPE_TIMED:
+    Nt 512 at S = 512, Nt 1024 at S = 128, BS32 cp 18 at the bench shape
+    S = 4096): kernels 1 (f32 store), 3 (raw; bf16 out for bf16 planes)
+    and 4 in the bf16 mode and the float32 mode, each timed (CUDA events)
+    beside its plain version, its bound (inputs read once, outputs written
+    once; the DFT-select's products counted once at the bf16 or TF32
+    peak) and one library call (the DFT-select as one matmul a plane,
+    then the despread as one). Launches: those of the main path where
+    one runs the shape, else of phase 5o's checks. Phase 5o's row of
+    kernel 2's layer 1 at Nt 1024 comes first."""
+    import torch
+
+    from mamimo_tpu_torch.bench import _planes_to_time_major
+    from mamimo_tpu_torch.ops.estimate import (
+        ls_estimate_matmul,
+        ls_estimate_planes,
+        ls_planes_constants,
+    )
+    from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_v1_plain,
+        ls_estimate_pallas,
+        ls_pair_kernel,
+        ls_planes_pallas_v2_constants,
+        ls_planes_v1,
+        ls_planes_v2,
+        ls_sm90_constants,
+        pair_planes,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(101)
+    errs, counts, rows = res["_errs"], res["launches"], list(res["_rows"])
+    lsrc = "mamimo_tpu/ops/pallas/fused_ls.py:"
+    for tag, S in SHAPE_TIMED.items():
+        cfg = shape_cfg(tag)
+        nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
+        fft = cfg.fft_length
+        x32 = torch.randn((2, S, L), generator=g, device=dev)
+        x16 = x32.to(bf16)
+        f32c = ls_planes_constants(cfg, device=dev)
+        n_main = counts.get(f"estimate_full {tag}", {}).get("ls_planes_v2")
+        if tag == "Nt 1024":
+            n_main = counts["ls_planes_v2 Nt 1024 big"]["ls_planes_v2"]
+        checks = f"phase 5o's checks, {tag}"
+        for dt, k, x, peak in ((bf16, ls_sm90_constants(cfg, dev), x16,
+                                BF16_FLOPS),
+                               (f32, ls_sm90_constants(cfg, dev, f32), x32,
+                                TF32_FLOPS)):
+            mode = "bf16" if dt == bf16 else "float32"
+            esz = x.element_size()
+            bv2, _ = ls_planes_pallas_v2_constants(cfg, 1, dt, dev)
+            cp_ = bv2.shape[1] // 2
+
+            def library(x=x, bv2=bv2, cp_=cp_):
+                t = torch.matmul(x.view(2, S * nt, cfg.sym_len), bv2).float()
+                zr = t[0, :, :C] - t[1, :, cp_:cp_ + C]
+                zi = t[0, :, cp_:cp_ + C] + t[1, :, :C]
+                return torch.matmul(f32c[2], torch.stack([zr, zi]).view(
+                    2, S, nt, C))
+
+            ls_in = 2 * S * nt * fft * esz + k.bt.numel() * esz
+            ops = 2.0 * (S * nt) * (2 * fft) * (2 * C)
+            rx = _planes_to_time_major(x.float(), nr)
+            ppl = pair_planes(rx, dt)
+            rows_out = -(-S // 8) * 8 * nt
+            e = errs[tag]
+            key = "" if dt == bf16 else " f32"
+            for name, src, repl, kern, plain, nbytes, launches, path in (
+                    ("ls_planes_v2", "ls_v2.cu", lsrc + "424",
+                     lambda: ls_planes_v2(cfg, x, k),
+                     lambda: ls_estimate_planes(cfg, x.float(), f32c),
+                     ls_in + 2 * S * nt * C * 4,
+                     n_main if dt == bf16 and n_main else
+                     counts[tag]["ls_planes_v2" + key],
+                     (("estimate_full x1" if tag != "Nt 1024" else
+                       "the S = 4096 call of phase 5o") + f", {tag}")
+                     if dt == bf16 and n_main else checks),
+                    ("ls_planes_v1", "ls_v1.cu", lsrc + "253",
+                     lambda: ls_planes_v1(cfg, x, k, out_dtype=dt),
+                     lambda: _ls_v1_plain(cfg, x, 8, dt),
+                     ls_in + 2 * rows_out * 2 * cp_ * esz // 2,
+                     counts[tag]["ls_planes_v1" + key], checks),
+                    ("ls_pair_kernel", "ls_pair.cu", lsrc + "110",
+                     lambda: ls_pair_kernel(cfg, ppl, nr, k),
+                     lambda: ls_estimate_matmul(cfg, rx),
+                     ls_in + S * nt * C * 8,
+                     counts[tag]["ls_pair_kernel" + key], checks)):
+                ms = time_ms(kern, iters=10)
+                plain_ms = time_ms(plain, iters=2, warmup=1)
+                lib_ms = time_ms(library, iters=5, warmup=1)
+                bms, by = bound_ms(nbytes, ops, peak)
+                shape = (f"{tag}, {mode} mode: planes (2, {S}, {L}) "
+                         f"{str(dt)[6:]}")
+                print(f"  {name} [{shape}]: {ms:.5f} ms (bound {bms:.5f} ms "
+                      f"by {by}, {bms / ms * 100:.1f}% of it); plain "
+                      f"{plain_ms:.4f} ms; library {lib_ms:.4f} ms  [{smi}]")
+                err = e[name + key]
+                rows.append({"name": name, "shape": shape, "route": "cuda",
+                             "source": f"mamimo_tpu_torch/csrc/{src}",
+                             "replaces": repl, "launches": launches,
+                             "launches_in": path,
+                             "max_abs_err": err["max_abs_err"],
+                             "nmse_db": err["nmse_db"], "exact": False,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                             "bound_by": by, "library_ms": lib_ms,
+                             "call_ms": None, "ms_from": "events",
+                             "call_ms_from": "events"})
+            del rx, ppl
+        del x16, x32
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3910,6 +4421,13 @@ def main() -> int:
              "HGMMA", "HMMA"),
             ("ls_pair", ("ls_pair_kernel", "ls_pair_f32_kernel"), "HGMMA",
              "HMMA"),
+            # the general body (num_tx above 256, unaligned symbols)
+            ("ls_v2", ("ls_planes_v2_any_kernel",
+                       "ls_planes_v2_any_f32_kernel"), "HGMMA", "HMMA"),
+            ("ls_v1", ("ls_planes_v1_any_kernel",
+                       "ls_planes_v1_any_f32_kernel"), "HGMMA", "HMMA"),
+            ("ls_pair", ("ls_pair_any_kernel", "ls_pair_any_f32_kernel"),
+             "HGMMA", "HMMA"),
             ("matmul", ("mm_bf16_kernel", "mm_tf32x3_kernel"), "HGMMA",
              "HMMA"),
             ("fused_factored", ("factored_sig_proj_f32_kernel",
@@ -4635,6 +5153,9 @@ def main() -> int:
     # 5n. the float32 modes of kernels 2 and 5, kernel 2's out_dtype -----
     dnn32 = dnn_f32_phase(dev, counted, require_launched)
 
+    # 5o. kernels 1, 3 and 4 at every num_tx and cp_length ---------------
+    shapes = ls_shapes_phase(dev, counted, require_launched)
+
     # 6. timing at the bench shape --------------------------------------
     S = BENCH_PACKETS * nr
     H1, H2 = tcfg.hidden
@@ -5095,11 +5616,15 @@ def main() -> int:
                                       sound["timing"]["line"])
     pipe_dir.cleanup()
     dnn32_rows = dnn_f32_timing(dev, smi, dnn32)
+    shapes_rows = ls_shapes_timing(dev, smi, shapes)
+    shapes.pop("_errs")
+    shapes.pop("_rows")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # phase 5l's, 5m's and 5n's rows last: the lookups by name above read
-    # BS32's
-    kernels += wide.pop("rows") + f32m.pop("rows") + dnn32_rows
+    # phase 5l's, 5m's, 5n's and 5o's rows last: the lookups by name above
+    # read BS32's
+    kernels += wide.pop("rows") + f32m.pop("rows") + dnn32_rows \
+        + shapes_rows
     print(json.dumps({"kernels": kernels, "serving": {
         "S": S, "device_ms": calls,
         "estimates_per_s": {k: n_est / v * 1e3 for k, v in calls.items()},
@@ -5138,6 +5663,7 @@ def main() -> int:
         "wide": wide,
         "f32_modes": f32m,
         "dnn_f32": dnn32,
+        "ls_shapes": shapes,
         "card": smi}))
     # the run uses one card, cuda:0, whatever the number of visible cards
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,8 @@
 // ls_estimate_pallas passes float32 pair planes (complex64 rx, as the TPU
 // kernel computes in float32): the float32 mode, ls_pair_f32_kernel on
 // ls90::ls_body_f32, the same store; 268 MB of f32 input, bound 0.153 ms.
+// Any nt up to 1024 and symbols of any length: ls_pair_any_kernel
+// (ls90::ls_body<0>), the same store.
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
@@ -43,16 +45,16 @@ struct PairEpi {
   // value 4j + 2h + e of the two sets: carrier c0 + 16*warp + 8h + lane/4
   // at tile row 8j + 2*(lane%4) + e (ls90::row_coords gives its sample
   // and symbol), as one complex; needs no staging
-  // NH: 128-symbol halves a tile (ls90::ls_body)
+  // NH: 128-symbol halves a tile (ls90::ls_body; 0: rows.at)
   template <int NH>
   __device__ __forceinline__ void store(const float (&acc0)[64],
                                         const float (&acc1)[64], int s0,
                                         int sym0, int warp, int lane, float*,
-                                        int) {
+                                        int, const ls90::Rows& rows) {
     if ((LS_CUT & 4) && S >= 0) return;
     const int log_tl = NH == 1 ? log_nt : 7;        // symbols of a tile
-    // symbol sym0 (0 with one half a tile)
-    float* const base = NH == 1 ? out : out + 2LL * sym0 * nr;
+    // symbol sym0 (0 with one half a tile; rows.at counts it with NH = 0)
+    float* const base = NH == 2 ? out + 2LL * sym0 * nr : out;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = c0 + 16 * warp + 8 * h + lane / 4;
@@ -62,7 +64,10 @@ struct PairEpi {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           int smp, sym;
-          ls90::row_coords(8 * j + 2 * (lane & 3) + e, log_tl, smp, sym);
+          if constexpr (NH == 0)
+            rows.at(8 * j + 2 * (lane & 3) + e, smp, sym);
+          else
+            ls90::row_coords(8 * j + 2 * (lane & 3) + e, log_tl, smp, sym);
           const int s = s0 + smp;
           if (s >= S) continue;
           const int b = s / nr, r = s - b * nr;
@@ -97,6 +102,30 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
   ls90::ls_body_f32<NH>(&ma, &mb, S, log_nt, fft, cp, epi);
 }
 
+// Any nt <= 1024 and symbols of any length (ls90::ls_body<0>), both modes.
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_pair_any_kernel(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb,
+                       const __grid_constant__ CUtensorMap ms,
+                       float* __restrict__ out, int S, int nr, int nt,
+                       int log_nt, int C, int cp, int fft, int sym_len,
+                       int log_g) {
+  PairEpi epi{out, S, nr, nt, log_nt, C, 64 * (int)sm90::cluster_rank()};
+  ls90::ls_body<0>(&ma, &mb, S, log_nt, fft, cp, epi, sym_len, log_g, &ms);
+}
+
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_pair_any_f32_kernel(const __grid_constant__ CUtensorMap ma,
+                           const __grid_constant__ CUtensorMap mb,
+                           const __grid_constant__ CUtensorMap ms,
+                           float* __restrict__ out, int S, int nr, int nt,
+                           int log_nt, int C, int cp, int fft, int sym_len,
+                           int log_g) {
+  PairEpi epi{out, S, nr, nt, log_nt, C, 64 * (int)sm90::cluster_rank()};
+  ls90::ls_body_f32<0>(&ma, &mb, S, log_nt, fft, cp, epi, sym_len, log_g,
+                       &ms);
+}
+
 }  // namespace
 
 extern "C" {
@@ -105,23 +134,35 @@ extern "C" {
 // (2*cpad, 2*fft) bf16, the permuted K-major constants, or with in_f32
 // f32 with bt (2, 2*cpad, 2*fft) f32, their split TF32 high and low
 // parts (fused_ls.py::ls_sm90_constants); out (B, C, nt, nr) complex64
-// as floats. nt a power of 2 <= 256, fft % 64 == 0, fft <= 256, sym_len
-// % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of the
-// launch (or sm90::ERR_TENSOR_MAP).
+// as floats. nt a power of 2 <= 1024 and at least the 2^group_log(
+// sym_len, esize) symbols of a map row (any sym_len at nt >= 8), fft % 64
+// == 0, fft <= 256, cpad 128, 256 or 512. Returns the CUDA error code of
+// the launch (or sm90::ERR_TENSOR_MAP).
 int ls_pair_launch(const void* planes, const void* bt, void* out, int S,
                    int nr, int nt, int C, int sym_len, int cp, int fft,
                    int cpad, int in_f32, void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
-  if (log_nt > 8) return (int)cudaErrorInvalidValue;
-  CUtensorMap ma, mb;
+  int log_g;
+  bool general;
+  if (!ls90::layout(log_nt, sym_len, in_f32 ? 4 : 2, log_g, general))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb, ms = {};
   if (in_f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_nt, sym_len,
-                                   fft, cpad)
+                                   fft, cpad, log_g, &ms)
              : ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft,
-                               cpad))
+                               cpad, log_g, &ms))
     return sm90::ERR_TENSOR_MAP;
   const int cl = 2 * cpad / 128, tiles = ls90::tiles(S, log_nt);
   cudaStream_t st = (cudaStream_t)stream;
+  if (general && in_f32)
+    return ls90::launch<ls90::F_SMEM_BYTES>(
+        ls_pair_any_f32_kernel, cl, tiles, st, ma, mb, ms, (float*)out, S,
+        nr, nt, log_nt, C, cp, fft, sym_len, log_g);
+  if (general)
+    return ls90::launch(ls_pair_any_kernel, cl, tiles, st, ma, mb, ms,
+                        (float*)out, S, nr, nt, log_nt, C, cp, fft, sym_len,
+                        log_g);
   if (in_f32)
     return ls90::launch<ls90::F_SMEM_BYTES>(
         log_nt > 7 ? ls_pair_f32_kernel<2> : ls_pair_f32_kernel<1>, cl,

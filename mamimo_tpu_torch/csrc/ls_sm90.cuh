@@ -44,6 +44,32 @@
 //   (each block loads 16/CL of them) through a 4-d map (sym_len, loc
 //   symbols, S samples, 2 planes) whose box is bs symbols x 8/bs samples,
 //   bs = 2 (1 for loc = 1, 8 for loc >= 64), symbols fastest.
+// * Any num_tx up to 1024, and symbols whose rows TMA cannot stride
+//   (NH = 0, the general instantiation; NH = 1 and 2 keep the code they
+//   ran before it): a tile is part p of nh = loc/128 parts of a sample
+//   (or, at loc <= 128, whole samples as above) and its k-steps run over
+//   all nh symbol parts v, each entering with the sign H_nh[p, v] =
+//   (-1)^popcount(p & v): P_{128 nh} = H_nh (x) H_128. So the products
+//   and the input's reads grow nh-fold (the reads after the first from
+//   L2); the output is still written once. A map row must start on 16
+//   bytes, and a symbol of sym_len samples does not when sym_len * esize
+//   % 16 != 0 (a cyclic prefix that is not a multiple of 8, e.g. NR's 18
+//   at a 256-point FFT): then one row of the map spans g = 2^log_g
+//   symbols (group_log) and a box's rows step g symbols. Within a tile
+//   the rows then hold the symbols in a rotated order, v = q + m *
+//   2^(log_tl - log_g) for symbol m + g q; the Walsh-Hadamard transform
+//   commutes with a permutation of the index bits, so the despread runs
+//   unchanged on the rotated order and the epilogue maps each row back
+//   (Rows::at). A box must also start on 16 bytes (a TMA load whose inner
+//   start is off that grid faults: tools' probe on an H100, PERF.md), so
+//   symbol m's fft samples are loaded unswizzled from their start rounded
+//   down, with the next 16 bytes as a second box beside the stage, and
+//   warps 1-3 of the producer warpgroup shift each row by the offset and
+//   write it back in place in the SW128 layout of a TMA load (shifted),
+//   fenced for the async proxy; the consumers wait on a `ready` barrier
+//   (the float32 body's splitters shift and split in one pass). The
+//   second boxes take the ring's last stage, so that ring is one stage
+//   shorter.
 // * The product is transposed: wgmma m64n128k16 with A = the slab (M =
 //   the block's 128 columns, as two 64-row sets: set 0 real, set 1
 //   imaginary) and B = the tile (N = its 128 rows). In the accumulator,
@@ -67,8 +93,9 @@
 // Phase cuts for tools/probe_ls.py, which times the kernels built with
 // -DLS_CUT=<bits> (their answers are then wrong): 1 skips the products,
 // 2 the despread, 4 the global stores, 8 the float32 mode's TF32 split of
-// the input, 32 all of the float32 mode's loads (each stage is marked
-// full as it is freed). The default, 0, is the kernel.
+// the input and, in the shifted layout, the shift of both modes, 32 all of
+// the float32 mode's loads (each stage is marked full as it is freed). The
+// default, 0, is the kernel.
 #ifndef LS_CUT
 #define LS_CUT 0
 #endif
@@ -94,6 +121,10 @@ constexpr int STG_FLOATS = STG_ROWS * 64;
 constexpr int SMEM_BYTES = B_BYTES + STAGES * STAGE_BYTES +
                            4 * STG_FLOATS * 4 + 8 * (2 * STAGES + 3) + 1024;
 static_assert(SMEM_BYTES <= 232448, "more shared memory than a block has");
+// the 16 bytes after each row of a stage's 16 boxes (the shifted layout),
+// and the threads that shift a stage (warps 1-3 of the producer wg)
+constexpr int SIDE_BYTES = 16 * 8 * 16;
+constexpr int SHIFTERS = 96;
 
 __device__ __forceinline__ int cluster_ctas() {
   uint32_t r;
@@ -177,6 +208,42 @@ __device__ __forceinline__ void row_coords(int n, int log_loc, int& smp,
   smp = (bb << (3 - log_bs)) + (rib >> log_bs);
 }
 
+// log2 of the symbols that one row of the input's tensor map spans: the
+// least g with g * sym_len * esize a multiple of 16 bytes, TMA's rule for
+// a stride (0 for an aligned symbol; at most 3 for bf16, 2 for f32)
+__host__ __device__ __forceinline__ int group_log(int sym_len, int esize) {
+  int lg = 0;
+  while (((sym_len * esize) << lg) % 16) ++lg;
+  return lg;
+}
+
+// log2 of the symbols a box of the general body holds (NH = 0): that of
+// box_log_symbols for a tile of 2^log_tl symbols a sample, but no more
+// than the 2^(log_tl - log_g) symbols of one map row a tile holds
+__host__ __device__ __forceinline__ int box_log(int log_tl, int log_g) {
+  const int b = box_log_symbols(log_tl);
+  return b < log_tl - log_g ? b : log_tl - log_g;
+}
+
+// Where tile row n lies in the general body: the tile's sample smp and
+// the symbol sym of that sample (0 .. loc - 1). Boxes hold 2^log_bs
+// consecutive rotated symbols v of a tile's 2^log_tl (as row_coords), and
+// v of the tile of symbols sym0 .. sym0 + 2^log_tl - 1 is symbol sym0 +
+// (v >> tq) + ((v & (2^tq - 1)) << log_g), tq = log_tl - log_g.
+struct Rows {
+  int log_tl, log_bs, log_g, sym0;
+
+  __device__ __forceinline__ void at(int n, int& smp, int& sym) const {
+    const int rib = n & 7, j = n >> 3;
+    const int nsb = log_tl - log_bs;         // log2 of symbol blocks
+    const int a = j & ((1 << nsb) - 1), bb = j >> nsb;
+    const int v = (a << log_bs) + (rib & ((1 << log_bs) - 1));
+    const int tq = log_tl - log_g;
+    smp = (bb << (3 - log_bs)) + (rib >> log_bs);
+    sym = sym0 + (v >> tq) + ((v & ((1 << tq) - 1)) << log_g);
+  }
+};
+
 // Element (row, col) of a staging buffer (STG_ROWS x 64 f32): the column's
 // 8-float blocks XOR-swizzled by row bits 1-2, so that a warp writing one
 // accumulator value (8 carriers x 4 rows 2 apart) and a warp reading a
@@ -190,11 +257,13 @@ __device__ __forceinline__ int stg_index(int row, int col) {
 // becomes lo + hi, the one whose bit k is 1 lo - hi): symbol bit 0 is e;
 // with boxes of 2 symbols, bits 1 .. log_loc - 1 are bits 0 .. of j; with
 // boxes of 8, bits 1 and 2 are lane bits 0 and 1 and bits 3 .. are bits
-// 0 .. of j.
-__device__ __forceinline__ void despread(float (&d)[64], int log_loc,
-                                         int lane) {
-  const int log_bs = box_log_symbols(log_loc);
-  if (log_loc >= 1) {
+// 0 .. of j (despread). despread_boxes takes the boxes' layout: pair
+// (symbol bit 0 is e), quad (bits 1 and 2 are lane bits 0 and 1), then
+// jbits bits of j; with boxes of one symbol every symbol bit is in j.
+__device__ __forceinline__ void despread_boxes(float (&d)[64], bool pair,
+                                               bool quad, int jbits,
+                                               int lane) {
+  if (pair) {
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const float a = d[i], b = d[i + 1];
@@ -202,7 +271,7 @@ __device__ __forceinline__ void despread(float (&d)[64], int log_loc,
       d[i + 1] = a - b;
     }
   }
-  if (log_bs == 3) {
+  if (quad) {
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const bool hi = (lane >> b) & 1;
@@ -213,7 +282,6 @@ __device__ __forceinline__ void despread(float (&d)[64], int log_loc,
       }
     }
   }
-  const int jbits = log_loc - log_bs;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (k < jbits) {
@@ -231,20 +299,69 @@ __device__ __forceinline__ void despread(float (&d)[64], int log_loc,
   }
 }
 
+__device__ __forceinline__ void despread(float (&d)[64], int log_loc,
+                                         int lane) {
+  const int log_bs = box_log_symbols(log_loc);
+  despread_boxes(d, log_loc >= 1, log_bs == 3, log_loc - log_bs, lane);
+}
+
+// The 16 bytes at byte offset db (0 .. 15) of the 32 bytes a, b.
+__device__ __forceinline__ uint4 shift16(uint4 a, uint4 b, int db) {
+  uint32_t w0 = a.x, w1 = a.y, w2 = a.z, w3 = a.w, w4 = b.x, w5 = b.y,
+           w6 = b.z, w7 = b.w;
+  if (db & 8) {
+    w0 = w2; w1 = w3; w2 = w4; w3 = w5; w4 = w6; w5 = w7;
+  }
+  if (db & 4) {
+    w0 = w1; w1 = w2; w2 = w3; w3 = w4; w4 = w5;
+  }
+  const int sh = (db & 3) * 8;
+  return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                    __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+}
+
+// The shifted layout: a shifter's share (t = 0 .. 95, warps 1-3 of the
+// producer warpgroup) of a stage whose 128 rows were loaded unswizzled
+// from an aligned start (st + 128 row, the next 16 bytes at sd + 16 row):
+// 16-byte chunk c of row `row` is the row shifted by off(box) bytes,
+// handed to put(row, slot, chunk) with slot = c ^ (row & 7), its place in
+// the SW128 layout. A warp takes 4 rows at a time, 8 lanes a row; every
+// lane of the warp reads before any writes.
+template <class Off, class Put>
+__device__ __forceinline__ void shift_stage(const unsigned char* st,
+                                            const unsigned char* sd, int t,
+                                            Off off, Put put) {
+  const int lane = t & 31, c = lane & 7;
+  for (int r4 = t >> 5; r4 < TILE / 4; r4 += SHIFTERS / 32) {
+    const int row = 4 * r4 + (lane >> 3);
+    const uint4 a = *reinterpret_cast<const uint4*>(st + 128 * row + 16 * c);
+    const uint4 b = c < 7 ? *reinterpret_cast<const uint4*>(
+                                st + 128 * row + 16 * (c + 1))
+                          : *reinterpret_cast<const uint4*>(sd + 16 * row);
+    const uint4 v = shift16(a, b, off(row >> 3));
+    __syncwarp();
+    put(row, c ^ (row & 7), v);
+  }
+}
+
 // The body. ma: 4-d map of the planes (sym_len, loc, S, 2), box KB x bs x
 // 8/bs x 1, SW128; mb: 2-d map (as 3-d, one plane) of the permuted Bt
 // (2*fft, 2*cpad rows), box KB x 128, SW128 (make_maps). loc = 2^log_loc
 // <= 128 with NH = 1, or loc = 128 NH with NH symbol halves a tile (see
-// the header), fft % 64 == 0, 2*fft <= KMAX. The two consumer warpgroups
+// the header); or, with NH = 0, any loc <= 1024 and the map (sym_len g,
+// loc / g, S, 2) of make_maps(..., log_g), g = 2^log_g <= min(loc, 128),
+// whose box holds 2^box_log(log_tl, log_g) of a row's symbols. fft % 64
+// == 0, 2*fft <= KMAX. The two consumer warpgroups
 // take the cluster's tiles in turns: warpgroup w the tiles u = w, w + 2,
 // ... of the cluster's sequence, all 128 rows and all 128 columns of
 // each. After a tile's products and despread each of its threads calls
 //
-//   epi.template store<NH>(acc0, acc1, s0, sym0, warp, lane, stg, bar)
+//   epi.template store<NH>(acc0, acc1, s0, sym0, warp, lane, stg, bar, rows)
 //
 // with acc0 / acc1 the real / imaginary set, s0 the tile's first sample
 // and sym0 its first output symbol (0 with NH = 1, 128 * part with NH =
-// 2; row_coords over min(loc, 128) symbols gives the rest), the block's
+// 2; row_coords over min(loc, 128) symbols gives the rest; with NH = 0,
+// 128 * part or 0, and rows.at gives sample and symbol), the block's
 // carriers starting at 64 *
 // cluster rank, and the warpgroup's two staging buffers (stg, 2 x
 // STG_FLOATS) and named barrier (bar, 128 threads) for an epilogue that
@@ -254,7 +371,9 @@ template <int NH, class Epi>
 __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
                                         const CUtensorMap* mb, int S,
                                         int log_loc, int fft, int cp,
-                                        Epi& epi) {
+                                        Epi& epi, int sym_len = 0,
+                                        int log_g = 0,
+                                        const CUtensorMap* ms = nullptr) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t sb = (raw + 1023u) & ~1023u;    // the resident Bt slab
@@ -264,19 +383,38 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
   const uint32_t empty = full + 8 * STAGES;
   const uint32_t bfull = empty + 8 * STAGES;
   const uint32_t done = bfull + 8;                    // 2 x 8 bytes
+  // the shifted layout (NH = 0, map rows of several symbols): a ring of
+  // nst = STAGES - 1 stages, the last stage's room holding their second
+  // boxes (SIDE_BYTES each) and `ready` barriers (the consumers' wait)
+  const bool shift = NH == 0 && log_g > 0;
+  const int nst = shift ? STAGES - 1 : STAGES;
+  const uint32_t side = ring + (STAGES - 1) * STAGE_BYTES;
+  const uint32_t ready = side + (STAGES - 1) * SIDE_BYTES;
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const uint32_t rank = cluster_rank();
   const int cl = cluster_ctas();
   const int cid = cluster_index(), ncl = cluster_count();
-  // a tile: 2^log_tl symbols of 2^log_spt samples, or part t % NH of
-  // sample t / NH; its k-steps run over the NH symbol halves of 128
-  static_assert(NH == 1 || NH == 2, "one or two symbol halves a tile");
-  const int log_tl = NH == 1 ? log_loc : 7;
+  // a tile: 2^log_tl symbols of 2^log_spt samples, or part t % nh of
+  // sample t / nh; its k-steps run over the nh symbol parts of 128
+  static_assert(NH >= 0 && NH <= 2, "one or two symbol halves a tile, or "
+                                    "0: any at run time");
+  const int log_nh = log_loc > 7 ? log_loc - 7 : 0;  // NH = 0 only
+  const int nh = NH ? NH : 1 << log_nh;
+  const int log_tl = NH == 1 ? log_loc : (NH == 2 || log_nh ? 7 : log_loc);
+  const int log_bs = box_log(log_tl, log_g);      // NH = 0 only
   const int NK0 = 2 * fft / KB;                   // k-steps of a half
-  const int NK = NH * NK0;                        // k-steps of a tile
+  const int NK = nh * NK0;                        // k-steps of a tile
   const int log_spt = 7 - log_tl;                 // samples of a tile
   const int T = tiles(S, log_loc);
+  auto sample = [&](int t) {                      // the tile's sample
+    if constexpr (NH == 0) return t >> log_nh;
+    else return t / NH;
+  };
+  auto part = [&](int t) {                        // its part of it
+    if constexpr (NH == 0) return t & ((1 << log_nh) - 1);
+    else return t % NH;
+  };
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -286,6 +424,8 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
       // multicast by all of them
       mbar_init(empty + 8 * s, cl);
     }
+    if (shift)
+      for (int s = 0; s < nst; ++s) mbar_init(ready + 8 * s, SHIFTERS);
     mbar_init(bfull, 1);
     mbar_init(done, 1);
     mbar_init(done + 8, 1);
@@ -301,35 +441,78 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
       for (int kb = 0; kb < NK0; ++kb)
         tma_load_3d(sb + kb * KBLOCK_BYTES, mb, bfull, kb * KB, rank * 128,
                     0);
-      const int log_bs = box_log_symbols(log_tl);
-      const int nsb = log_tl - log_bs;       // log2 of symbol blocks
+      const int lbs = NH ? box_log_symbols(log_tl) : log_bs;
+      const int nsb = log_tl - lbs;          // log2 of symbol blocks
       const int boxes = 16 / cl;             // boxes a block loads a stage
       const uint16_t all = (uint16_t)((1u << cl) - 1);
       int it = 0;
       for (int t = cid; t < T; t += ncl) {
-        const int s0 = (t / NH) << log_spt;  // the tile's first sample
-        for (int half = 0; half < NH; ++half)
+        const int s0 = sample(t) << log_spt;  // the tile's first sample
+        for (int half = 0; half < nh; ++half)
         for (int k0 = 0; k0 < NK0; ++k0, ++it) {
-          const int s = it % STAGES;
-          mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          const int s = it % nst;
+          mbar_wait(empty + 8 * s, ((it / nst) & 1) ^ 1);
           const int plane = k0 >= NK0 / 2;
           const int col = cp + (k0 - plane * (NK0 / 2)) * KB;
-          mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+          mbar_expect_tx(full + 8 * s,
+                         STAGE_BYTES + (shift ? SIDE_BYTES : 0));
           for (int q = 0; q < boxes; ++q) {
             const int g = rank * boxes + q;  // box g: tile rows 8g ..
             const int a = g & ((1 << nsb) - 1), bb = g >> nsb;
-            tma_load_4d_multicast(
-                ring + s * STAGE_BYTES + g * 1024, ma, full + 8 * s, col,
-                (a << log_bs) + (half << 7), s0 + (bb << (3 - log_bs)),
-                plane, all);
+            if constexpr (NH == 0) {
+              // rotated symbols v .. of part `half`: symbol m + 2^log_g q
+              // of the part, map row q of it, at m's offset o in the row
+              // (shifted: from o rounded down to 8, and 8 more beside)
+              const int v = a << lbs, tq = log_tl - log_g;
+              const int o = (v >> tq) * sym_len + col;
+              const int c1 = (half << (7 - log_g)) + (v & ((1 << tq) - 1));
+              const int c2 = s0 + (bb << (3 - lbs));
+              tma_load_4d_multicast(ring + s * STAGE_BYTES + g * 1024, ma,
+                                    full + 8 * s, shift ? o & ~7 : o, c1, c2,
+                                    plane, all);
+              if (shift)
+                tma_load_4d_multicast(side + s * SIDE_BYTES + g * 128, ms,
+                                      full + 8 * s, (o & ~7) + KB, c1, c2,
+                                      plane, all);
+            } else {
+              tma_load_4d_multicast(
+                  ring + s * STAGE_BYTES + g * 1024, ma, full + 8 * s, col,
+                  (a << lbs) + (half << 7), s0 + (bb << (3 - lbs)),
+                  plane, all);
+            }
           }
         }
       }
       // stay until every block of the cluster has released each stage's
       // last use: no block may exit while another still arrives on its
       // barriers or multicasts into it
-      for (int j = 0; j < STAGES; ++j, ++it)
-        mbar_wait(empty + 8 * (it % STAGES), ((it / STAGES) & 1) ^ 1);
+      for (int j = 0; j < nst; ++j, ++it)
+        mbar_wait(empty + 8 * (it % nst), ((it / nst) & 1) ^ 1);
+    } else if (shift && tid >= 32) {
+      // the shifters: every k-step of the cluster's tiles, in the ring's
+      // order; a stage cannot land again before the consumers, who wait
+      // for its `ready`, release it
+      const int n = (T - cid + ncl - 1) / ncl * NK;
+      const int tq = log_tl - log_g;
+      for (int it = 0; it < n; ++it) {
+        const int s = it % nst, k0 = it % NK0;
+        const int col = cp + (k0 % (NK0 / 2)) * KB;
+        mbar_wait(full + 8 * s, (it / nst) & 1);
+        unsigned char* st = smem_raw + (ring + s * STAGE_BYTES - raw);
+        if (!(LS_CUT & 8))
+          shift_stage(
+              st, smem_raw + (side + s * SIDE_BYTES - raw), tid - 32,
+              [&](int g) {
+                const int v = (g & ((1 << (log_tl - log_bs)) - 1))
+                              << log_bs;
+                return (((v >> tq) * sym_len + col) & 7) * 2;
+              },
+              [&](int row, int slot, uint4 x) {
+                *reinterpret_cast<uint4*>(st + 128 * row + 16 * slot) = x;
+              });
+        fence_proxy_async();
+        mbar_arrive(ready + 8 * s);
+      }
     }
     return;
   }
@@ -341,7 +524,7 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
   auto release = [&](int i) {
     if (tid == 0)
       for (int c = 0; c < cl; ++c)
-        mbar_arrive_cluster(empty + 8 * (i % STAGES), c);
+        mbar_arrive_cluster(empty + 8 * (i % nst), c);
   };
   mbar_wait(bfull, 0);
   for (int u = w, t = cid + w * ncl; t < T; u += 2, t += 2 * ncl) {
@@ -352,20 +535,21 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
     float acc0[64], acc1[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-    for (int half = 0; half < NH; ++half)
+    for (int half = 0; half < nh; ++half)
     for (int k0 = 0; k0 < NK0; ++k0) {
       const int it = u * NK + half * NK0 + k0;
-      const int s = it % STAGES;
-      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      const int s = it % nst;
+      mbar_wait((shift ? ready : full) + 8 * s, (it / nst) & 1);
       const uint32_t a = sb + k0 * KBLOCK_BYTES;
       const uint32_t b = ring + s * STAGE_BYTES;
       fence_acc(acc0);
       fence_acc(acc1);
       wgmma_fence();
       if (!(LS_CUT & 1)) {
-        // symbol half `half` enters output part t % NH with the sign
-        // P_2[t % NH, half] = (-1)^(part & half)
-        if (NH > 1 && ((t % NH) & half)) {
+        // symbol part `half` enters output part p = part(t) with the sign
+        // H_nh[p, half] = (-1)^popcount(p & half)
+        if (NH == 0 ? __popc(part(t) & half) & 1
+                    : NH > 1 && (part(t) & half)) {
 #pragma unroll
           for (int kk = 0; kk < KB / 16; ++kk) {
             wgmma_m64n128k16<-1>(acc0, desc_sw128(a + kk * 32),
@@ -393,14 +577,21 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
     }
     if (tid == 0) mbar_arrive(done + 8 * w);   // tile u's stages are taken
     if (!(LS_CUT & 2)) {
-      despread(acc0, log_tl, lane);
-      despread(acc1, log_tl, lane);
+      if constexpr (NH == 0) {
+        despread_boxes(acc0, log_bs >= 1, log_bs == 3, log_tl - log_bs,
+                       lane);
+        despread_boxes(acc1, log_bs >= 1, log_bs == 3, log_tl - log_bs,
+                       lane);
+      } else {
+        despread(acc0, log_tl, lane);
+        despread(acc1, log_tl, lane);
+      }
     }
-    epi.template store<NH>(acc0, acc1, (t / NH) << log_spt, (t % NH) << 7,
+    epi.template store<NH>(acc0, acc1, sample(t) << log_spt, part(t) << 7,
                            warp, lane,
               reinterpret_cast<float*>(smem_raw + (stg - raw)) +
                   2 * STG_FLOATS * w,
-              1 + w);
+              1 + w, Rows{log_tl, log_bs, log_g, part(t) << 7});
   }
 }
 
@@ -503,7 +694,9 @@ template <int NH, class Epi>
 __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
                                             const CUtensorMap* mb, int S,
                                             int log_loc, int fft, int cp,
-                                            Epi& epi) {
+                                            Epi& epi, int sym_len = 0,
+                                            int log_g = 0,
+                                            const CUtensorMap* ms = nullptr) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -512,17 +705,35 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
   const uint32_t split = full + 8 * F_STAGES;            // F_STAGES x 8
   const uint32_t empty = split + 8 * F_STAGES;
   const uint32_t done = empty + 8 * F_STAGES;            // 2 x 8 bytes
+  // the shifted layout (ls_body): a ring of F_STAGES - 1 stages, the
+  // last stage's room holding their second boxes; the splitters shift
+  // and split in one pass
+  const bool shift = NH == 0 && log_g > 0;
+  const int nst = shift ? F_STAGES - 1 : F_STAGES;
+  const uint32_t side = ring + (F_STAGES - 1) * F_STAGE_BYTES;
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const uint32_t rank = cluster_rank();
   const int cl = cluster_ctas();
   const int cid = cluster_index(), ncl = cluster_count();
-  static_assert(NH == 1 || NH == 2, "one or two symbol halves a tile");
-  const int log_tl = NH == 1 ? log_loc : 7;
+  static_assert(NH >= 0 && NH <= 2, "one or two symbol halves a tile, or "
+                                    "0: any at run time");
+  const int log_nh = log_loc > 7 ? log_loc - 7 : 0;  // NH = 0 only
+  const int nh = NH ? NH : 1 << log_nh;
+  const int log_tl = NH == 1 ? log_loc : (NH == 2 || log_nh ? 7 : log_loc);
+  const int log_bs = box_log(log_tl, log_g);      // NH = 0 only
   const int NK0 = 2 * fft / KF;                   // k-steps of a half
-  const int NK = NH * NK0;                        // k-steps of a tile
+  const int NK = nh * NK0;                        // k-steps of a tile
   const int log_spt = 7 - log_tl;
   const int T = tiles(S, log_loc);
+  auto sample = [&](int t) {
+    if constexpr (NH == 0) return t >> log_nh;
+    else return t / NH;
+  };
+  auto part = [&](int t) {
+    if constexpr (NH == 0) return t & ((1 << log_nh) - 1);
+    else return t % NH;
+  };
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -540,32 +751,46 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      const int log_bs = box_log_symbols(log_tl);
-      const int nsb = log_tl - log_bs;
+      const int lbs = NH ? box_log_symbols(log_tl) : log_bs;
+      const int nsb = log_tl - lbs;
       const int boxes = 16 / cl;
       const uint16_t all = (uint16_t)((1u << cl) - 1);
       int it = 0;
       for (int t = cid; t < T; t += ncl) {
-        const int s0 = (t / NH) << log_spt;
-        for (int half = 0; half < NH; ++half)
+        const int s0 = sample(t) << log_spt;
+        for (int half = 0; half < nh; ++half)
         for (int k0 = 0; k0 < NK0; ++k0, ++it) {
-          const int s = it % F_STAGES;
+          const int s = it % nst;
           const uint32_t st = ring + s * F_STAGE_BYTES;
-          mbar_wait(empty + 8 * s, ((it / F_STAGES) & 1) ^ 1);
+          mbar_wait(empty + 8 * s, ((it / nst) & 1) ^ 1);
           if (LS_CUT & 32) {
             mbar_arrive(full + 8 * s);
             continue;
           }
           const int plane = k0 >= NK0 / 2;
           const int col = cp + (k0 - plane * (NK0 / 2)) * KF;
-          mbar_expect_tx(full + 8 * s, F_LOAD_BYTES);
+          mbar_expect_tx(full + 8 * s,
+                         F_LOAD_BYTES + (shift ? SIDE_BYTES : 0));
           for (int q = 0; q < boxes; ++q) {
             const int g = rank * boxes + q;
             const int a = g & ((1 << nsb) - 1), bb = g >> nsb;
-            tma_load_4d_multicast(
-                st + g * 1024, ma, full + 8 * s, col,
-                (a << log_bs) + (half << 7), s0 + (bb << (3 - log_bs)),
-                plane, all);
+            if constexpr (NH == 0) {
+              const int v = a << lbs, tq = log_tl - log_g;
+              const int o = (v >> tq) * sym_len + col;
+              const int c1 = (half << (7 - log_g)) + (v & ((1 << tq) - 1));
+              const int c2 = s0 + (bb << (3 - lbs));
+              tma_load_4d_multicast(st + g * 1024, ma, full + 8 * s,
+                                    shift ? o & ~3 : o, c1, c2, plane, all);
+              if (shift)
+                tma_load_4d_multicast(side + s * SIDE_BYTES + g * 128, ms,
+                                      full + 8 * s, (o & ~3) + KF, c1, c2,
+                                      plane, all);
+            } else {
+              tma_load_4d_multicast(
+                  st + g * 1024, ma, full + 8 * s, col,
+                  (a << lbs) + (half << 7), s0 + (bb << (3 - lbs)),
+                  plane, all);
+            }
           }
           // the block's 128 rows of the constants' k-step, both parts
           const uint32_t c = st + 2 * F_X_BYTES;
@@ -574,22 +799,50 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
                       1);
         }
       }
-      for (int j = 0; j < F_STAGES; ++j, ++it)
-        mbar_wait(empty + 8 * (it % F_STAGES), ((it / F_STAGES) & 1) ^ 1);
+      for (int j = 0; j < nst; ++j, ++it)
+        mbar_wait(empty + 8 * (it % nst), ((it / nst) & 1) ^ 1);
     } else if (tid >= 32) {
       // the splitters: every k-step of the cluster's tiles, in the ring's
       // order; a stage cannot land again before its split has been
       // consumed, so the parity waits cannot mistake an earlier pass
       const int n = (T - cid + ncl - 1) / ncl * NK;
       for (int it = 0; it < n; ++it) {
-        const int s = it % F_STAGES;
+        const int s = it % nst;
         const uint32_t st = ring + s * F_STAGE_BYTES;
-        mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
-        if (!(LS_CUT & 8))
+        mbar_wait(full + 8 * s, (it / nst) & 1);
+        if (shift && !(LS_CUT & 8)) {
+          // shift and split: the high part in place, the low part beside
+          const int k0 = it % NK0, tq = log_tl - log_g;
+          const int col = cp + (k0 % (NK0 / 2)) * KF;
+          unsigned char* x = smem_raw + (st - raw);
+          shift_stage(
+              x, smem_raw + (side + s * SIDE_BYTES - raw), tid - 32,
+              [&](int g) {
+                const int v = (g & ((1 << (log_tl - log_bs)) - 1))
+                              << log_bs;
+                return (((v >> tq) * sym_len + col) & 3) * 4;
+              },
+              [&](int row, int slot, uint4 w) {
+                const float4 f = *reinterpret_cast<const float4*>(&w);
+                float4 h, l;
+                h.x = tf32_rna(f.x);
+                h.y = tf32_rna(f.y);
+                h.z = tf32_rna(f.z);
+                h.w = tf32_rna(f.w);
+                l.x = tf32_rna_lo(f.x - h.x);
+                l.y = tf32_rna_lo(f.y - h.y);
+                l.z = tf32_rna_lo(f.z - h.z);
+                l.w = tf32_rna_lo(f.w - h.w);
+                const int at = 128 * row + 16 * slot;
+                *reinterpret_cast<float4*>(x + at) = h;
+                *reinterpret_cast<float4*>(x + F_X_BYTES + at) = l;
+              });
+        } else if (!shift && !(LS_CUT & 8)) {
           split_stage(reinterpret_cast<float4*>(smem_raw + (st - raw)),
                       reinterpret_cast<float4*>(smem_raw +
                                                 (st + F_X_BYTES - raw)),
                       tid - 32);
+        }
         fence_proxy_async();
         mbar_arrive(split + 8 * s);
       }
@@ -603,7 +856,7 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
   auto release = [&](int i) {
     if (tid == 0)
       for (int c = 0; c < cl; ++c)
-        mbar_arrive_cluster(empty + 8 * (i % F_STAGES), c);
+        mbar_arrive_cluster(empty + 8 * (i % nst), c);
   };
   for (int u = w, t = cid + w * ncl; t < T; u += 2, t += 2 * ncl) {
     // Wait until the other warpgroup has taken every stage of tile u - 1
@@ -614,14 +867,14 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
     float acc0[64], acc1[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-    for (int half = 0; half < NH; ++half)
+    for (int half = 0; half < nh; ++half)
     for (int k0 = 0; k0 < NK0; ++k0) {
       const int it = u * NK + half * NK0 + k0;
-      const int s = it % F_STAGES;
+      const int s = it % nst;
       const uint32_t st = ring + s * F_STAGE_BYTES;
-      mbar_wait(split + 8 * s, (it / F_STAGES) & 1);
+      mbar_wait(split + 8 * s, (it / nst) & 1);
       // tile u's last stage is taken: the other warpgroup may start
-      if (half == NH - 1 && k0 == NK0 - 1 && tid == 0)
+      if (half == nh - 1 && k0 == NK0 - 1 && tid == 0)
         mbar_arrive(done + 8 * w);
       const uint32_t lo = st + F_X_BYTES;
       const uint32_t ah = st + 2 * F_X_BYTES, al = ah + F_B_BYTES;
@@ -629,9 +882,10 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
       fence_acc(acc1);
       wgmma_fence();
       if (!(LS_CUT & 1)) {
-        // symbol half `half` enters output part t % NH with the sign
-        // P_2[t % NH, half] = (-1)^(part & half)
-        if (NH > 1 && ((t % NH) & half)) {
+        // symbol part `half` enters output part p = part(t) with the sign
+        // H_nh[p, half] = (-1)^popcount(p & half)
+        if (NH == 0 ? __popc(part(t) & half) & 1
+                    : NH > 1 && (part(t) & half)) {
 #pragma unroll
           for (int kk = 0; kk < KF / 8; ++kk) {
             wgmma_3xtf32<-1>(acc0, desc_sw128(ah + kk * 32),
@@ -664,14 +918,21 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
       release(it);
     }
     if (!(LS_CUT & 2)) {
-      despread(acc0, log_tl, lane);
-      despread(acc1, log_tl, lane);
+      if constexpr (NH == 0) {
+        despread_boxes(acc0, log_bs >= 1, log_bs == 3, log_tl - log_bs,
+                       lane);
+        despread_boxes(acc1, log_bs >= 1, log_bs == 3, log_tl - log_bs,
+                       lane);
+      } else {
+        despread(acc0, log_tl, lane);
+        despread(acc1, log_tl, lane);
+      }
     }
-    epi.template store<NH>(acc0, acc1, (t / NH) << log_spt, (t % NH) << 7,
+    epi.template store<NH>(acc0, acc1, sample(t) << log_spt, part(t) << 7,
                            warp, lane,
                            reinterpret_cast<float*>(smem_raw + (stg - raw)) +
                                2 * STG_FLOATS * w,
-                           1 + w);
+                           1 + w, Rows{log_tl, log_bs, log_g, part(t) << 7});
   }
 }
 
@@ -715,55 +976,91 @@ inline int launch(void (*kernel)(Params...), int cl, int tiles,
   return (int)cudaGetLastError();
 }
 
-// The two tensor maps of an LS kernel (planes: S samples of loc symbols
-// of sym_len bf16, two planes, 16-byte aligned; bt: the permuted
-// constants); returns 0 or ERR_TENSOR_MAP.
-inline int make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* planes,
-                     const void* bt, int S, int log_loc, int sym_len,
-                     int fft, int cpad) {
+// The input's map of an LS kernel: S samples of loc = 2^log_loc symbols
+// of sym_len elements of esize bytes, two planes, 16-byte aligned; a row
+// of the map spans 2^log_g symbols (group_log; 0 for the NH = 1 and 2
+// bodies), box `box0` elements x bs rows x 8/bs samples x 1, bs =
+// 2^box_log(min(log_loc, 7), log_g) (that of box_log_symbols at log_g =
+// 0); returns 0 or ERR_TENSOR_MAP.
+inline int make_input_map(CUtensorMap* ma, CUtensorMapDataType type,
+                          int esize, int box0, const void* planes, int S,
+                          int log_loc, int sym_len, int log_g,
+                          CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ERR_TENSOR_MAP;
-  const int bs = 1 << box_log_symbols(log_loc), loc = 1 << log_loc;
-  const cuuint64_t row = (cuuint64_t)sym_len * 2;      // bytes
-  const cuuint64_t dims[4] = {(cuuint64_t)sym_len, (cuuint64_t)loc,
+  const int bs = 1 << box_log(log_loc < 7 ? log_loc : 7, log_g);
+  const cuuint64_t loc = 1ull << log_loc;
+  const cuuint64_t row = (cuuint64_t)sym_len * esize;  // bytes
+  const cuuint64_t dims[4] = {(cuuint64_t)sym_len << log_g, loc >> log_g,
                               (cuuint64_t)S, 2};
-  const cuuint64_t strides[3] = {row, row * loc, row * loc * S};
-  const cuuint32_t box[4] = {(cuuint32_t)KB, (cuuint32_t)bs,
+  const cuuint64_t strides[3] = {row << log_g, row * loc, row * loc * S};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)bs,
                              (cuuint32_t)(8 / bs), 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r =
-      fn(ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(planes),
-         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      fn(ma, type, 4, const_cast<void*>(planes), dims, strides, box, estr,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP;
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
+// The maps of the planes: ma, box `box0` elements, SW128, or with log_g
+// > 0 (the shifted layout) unswizzled, and ms the second boxes beside it
+// (16 bytes); returns 0 or ERR_TENSOR_MAP.
+inline int make_planes_maps(CUtensorMap* ma, CUtensorMap* ms,
+                            CUtensorMapDataType type, int esize, int box0,
+                            const void* planes, int S, int log_loc,
+                            int sym_len, int log_g) {
+  if (log_g == 0)
+    return make_input_map(ma, type, esize, box0, planes, S, log_loc, sym_len,
+                          0, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (ms == nullptr ||
+      make_input_map(ms, type, esize, 16 / esize, planes, S, log_loc,
+                     sym_len, log_g, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return ERR_TENSOR_MAP;
+  return make_input_map(ma, type, esize, box0, planes, S, log_loc, sym_len,
+                        log_g, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The tensor maps of an LS kernel (planes: S samples of loc symbols of
+// sym_len bf16, two planes, 16-byte aligned, rows of 2^log_g symbols, ms
+// their second boxes where log_g > 0; bt: the permuted constants);
+// returns 0 or ERR_TENSOR_MAP.
+inline int make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* planes,
+                     const void* bt, int S, int log_loc, int sym_len,
+                     int fft, int cpad, int log_g = 0,
+                     CUtensorMap* ms = nullptr) {
+  if (make_planes_maps(ma, ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, KB,
+                       planes, S, log_loc, sym_len, log_g))
+    return ERR_TENSOR_MAP;
   return make_map(mb, bt, 2 * fft, 2 * cpad, 1, 128, 2 * fft);
 }
 
+
 // make_maps for ls_body_f32: the planes as FLOAT32 (S samples of loc
-// symbols of sym_len f32, two planes, 16-byte aligned), box KF x bs x
-// 8/bs x 1; bt32 the split constants (2, 2*cpad, 2*fft) f32, box KF x
-// 128 x 1. Returns 0 or ERR_TENSOR_MAP.
+// symbols of sym_len f32, two planes, 16-byte aligned, rows of 2^log_g
+// symbols), box KF x bs x 8/bs x 1; bt32 the split constants (2, 2*cpad,
+// 2*fft) f32, box KF x 128 x 1. Returns 0 or ERR_TENSOR_MAP.
 inline int make_maps_f32(CUtensorMap* ma, CUtensorMap* mb, const void* planes,
                          const void* bt32, int S, int log_loc, int sym_len,
-                         int fft, int cpad) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return ERR_TENSOR_MAP;
-  const int bs = 1 << box_log_symbols(log_loc), loc = 1 << log_loc;
-  const cuuint64_t row = (cuuint64_t)sym_len * 4;      // bytes
-  const cuuint64_t dims[4] = {(cuuint64_t)sym_len, (cuuint64_t)loc,
-                              (cuuint64_t)S, 2};
-  const cuuint64_t strides[3] = {row, row * loc, row * loc * S};
-  const cuuint32_t box[4] = {(cuuint32_t)KF, (cuuint32_t)bs,
-                             (cuuint32_t)(8 / bs), 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r =
-      fn(ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(planes),
-         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP;
+                         int fft, int cpad, int log_g = 0,
+                         CUtensorMap* ms = nullptr) {
+  if (make_planes_maps(ma, ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, KF,
+                       planes, S, log_loc, sym_len, log_g))
+    return ERR_TENSOR_MAP;
   return make_map_f32(mb, bt32, 2 * fft, 2 * cpad, 2, 128, 2 * fft);
+}
+
+// The symbol layout an LS launch needs: log_g (group_log of sym_len at
+// esize bytes) and whether the NH = 0 body runs it (loc > 256, or a
+// group). Returns false for shapes no body takes: loc above 1024, or a
+// group of more symbols than a tile holds of a sample.
+inline bool layout(int log_loc, int sym_len, int esize, int& log_g,
+                   bool& general) {
+  log_g = group_log(sym_len, esize);
+  general = log_loc > 8 || log_g > 0;
+  return log_loc <= 10 && log_g <= (log_loc < 7 ? log_loc : 7);
 }
 
 }  // namespace ls90

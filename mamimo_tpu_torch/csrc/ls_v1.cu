@@ -32,7 +32,8 @@
 //
 // Float32 planes run the float32 mode (ls_planes_v1_f32_kernel on
 // ls90::ls_body_f32, the same stores): 268 MB of f32 input, bound 0.160
-// ms with the raw f32 store.
+// ms with the raw f32 store. Any nt up to 1024 and symbols of any length:
+// ls_planes_v1_any_kernel (ls90::ls_body<0>), the same stores.
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
@@ -54,14 +55,15 @@ struct V1Epi {
   T* __restrict__ hi;
   int s_out, nt, log_nt, cpad, c0;
 
-  // NH: 128-symbol halves a tile (ls90::ls_body)
+  // NH: 128-symbol halves a tile (ls90::ls_body; 0: rows.at)
   template <int NH>
   __device__ __forceinline__ void store(const float (&acc0)[64],
                                         const float (&acc1)[64], int s0,
                                         int sym0, int warp, int lane,
-                                        float* stg, int bar) {
-    rounds<NH>(acc0, hr, s0, sym0, warp, lane, stg, bar);
-    rounds<NH>(acc1, hi, s0, sym0, warp, lane, stg, bar);
+                                        float* stg, int bar,
+                                        const ls90::Rows& rows) {
+    rounds<NH>(acc0, hr, s0, sym0, warp, lane, stg, bar, rows);
+    rounds<NH>(acc1, hi, s0, sym0, warp, lane, stg, bar, rows);
   }
 
   // Four rounds a set: per 32-row group, the threads put their values
@@ -72,7 +74,8 @@ struct V1Epi {
   template <int NH>
   __device__ __forceinline__ void rounds(const float (&acc)[64], T* out,
                                          int s0, int sym0, int warp,
-                                         int lane, float* stg, int bar) {
+                                         int lane, float* stg, int bar,
+                                         const ls90::Rows& rows) {
     const int log_tl = NH == 1 ? log_nt : 7;        // symbols of a tile
     // row sym0 of sample 0 (sym0 is 0 with one half a tile)
     if constexpr (NH > 1) out += (long long)sym0 * cpad;
@@ -97,7 +100,10 @@ struct V1Epi {
         const float2 v = *reinterpret_cast<const float2*>(
             buf + ls90::stg_index(row, 2 * lane));
         int smp, sym;
-        ls90::row_coords(32 * g + row, log_tl, smp, sym);
+        if constexpr (NH == 0)
+          rows.at(32 * g + row, smp, sym);
+        else
+          ls90::row_coords(32 * g + row, log_tl, smp, sym);
         const int s = s0 + smp;
         if (s >= s_out) continue;
         put2(out + ((long long)s * nt + sym) * cpad + c0 + 2 * lane, v.x,
@@ -134,12 +140,52 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
   ls90::ls_body_f32<NH>(&ma, &mb, s_out, log_nt, fft, cp, epi);
 }
 
+// Any nt <= 1024 and symbols of any length (ls90::ls_body<0>), both modes.
+template <class T>
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_planes_v1_any_kernel(const __grid_constant__ CUtensorMap ma,
+                            const __grid_constant__ CUtensorMap mb,
+                            const __grid_constant__ CUtensorMap ms,
+                            T* __restrict__ hr, T* __restrict__ hi,
+                            int s_out, int nt, int log_nt, int cpad, int cp,
+                            int fft, int sym_len, int log_g) {
+  V1Epi<T> epi{hr, hi, s_out, nt, log_nt, cpad,
+               64 * (int)sm90::cluster_rank()};
+  ls90::ls_body<0>(&ma, &mb, s_out, log_nt, fft, cp, epi, sym_len, log_g,
+                   &ms);
+}
+
+template <class T>
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_planes_v1_any_f32_kernel(const __grid_constant__ CUtensorMap ma,
+                                const __grid_constant__ CUtensorMap mb,
+                                const __grid_constant__ CUtensorMap ms,
+                                T* __restrict__ hr, T* __restrict__ hi,
+                                int s_out, int nt, int log_nt, int cpad,
+                                int cp, int fft, int sym_len, int log_g) {
+  V1Epi<T> epi{hr, hi, s_out, nt, log_nt, cpad,
+               64 * (int)sm90::cluster_rank()};
+  ls90::ls_body_f32<0>(&ma, &mb, s_out, log_nt, fft, cp, epi, sym_len,
+                       log_g, &ms);
+}
+
 template <class T, bool F32>
-int launch_v1(const CUtensorMap& ma, const CUtensorMap& mb, void* hr,
-              void* hi, int s_out, int nt, int log_nt, int cpad, int cp,
-              int fft, cudaStream_t stream) {
+int launch_v1(const CUtensorMap& ma, const CUtensorMap& mb,
+              const CUtensorMap& ms, void* hr, void* hi, int s_out, int nt,
+              int log_nt, int cpad, int cp, int fft, int sym_len, int log_g,
+              bool general, cudaStream_t stream) {
   const int cl = 2 * cpad / 128, tiles = ls90::tiles(s_out, log_nt);
   const bool two = log_nt > 7;
+  if (general) {
+    if constexpr (F32)
+      return ls90::launch<ls90::F_SMEM_BYTES>(
+          ls_planes_v1_any_f32_kernel<T>, cl, tiles, stream, ma, mb, ms,
+          (T*)hr, (T*)hi, s_out, nt, log_nt, cpad, cp, fft, sym_len, log_g);
+    else
+      return ls90::launch(ls_planes_v1_any_kernel<T>, cl, tiles, stream, ma,
+                          mb, ms, (T*)hr, (T*)hi, s_out, nt, log_nt, cpad,
+                          cp, fft, sym_len, log_g);
+  }
   if constexpr (F32)
     return ls90::launch<ls90::F_SMEM_BYTES>(
         two ? ls_planes_v1_f32_kernel<T, 2> : ls_planes_v1_f32_kernel<T, 1>,
@@ -161,35 +207,45 @@ extern "C" {
 // with bt (2, 2*cpad, 2*fft) f32, their split TF32 high and low parts
 // (fused_ls.py::ls_sm90_constants); hr, hi (s_out*nt, cpad) each, bf16
 // when mode bit 0 is set else f32; s_out >= S >= 1. nt a power of 2 <=
-// 256, fft % 64 == 0, fft <= 256, sym_len % 8 == 0, cpad 128, 256 or 512.
-// Returns the CUDA error code of the launch (or sm90::ERR_TENSOR_MAP).
+// 1024 and at least the 2^group_log(sym_len, esize) symbols of a map row
+// (any sym_len at nt >= 8), fft % 64 == 0, fft <= 256, cpad 128, 256 or
+// 512. Returns the CUDA error code of the launch (or
+// sm90::ERR_TENSOR_MAP).
 int ls_planes_v1_launch(const void* planes, const void* bt, void* hr,
                         void* hi, int S, int s_out, int nt, int sym_len,
                         int cp, int fft, int cpad, int mode, void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
-  if (log_nt > 8 || mode < 0 || mode > 3) return (int)cudaErrorInvalidValue;
   const bool f32 = mode & 2;
-  CUtensorMap ma, mb;
+  int log_g;
+  bool general;
+  if (!ls90::layout(log_nt, sym_len, f32 ? 4 : 2, log_g, general) ||
+      mode < 0 || mode > 3)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb, ms = {};
   if (f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_nt, sym_len,
-                                fft, cpad)
+                                fft, cpad, log_g, &ms)
           : ls90::make_maps(&ma, &mb, planes, bt, S, log_nt, sym_len, fft,
-                            cpad))
+                            cpad, log_g, &ms))
     return sm90::ERR_TENSOR_MAP;
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case 0:
-      return launch_v1<float, false>(ma, mb, hr, hi, s_out, nt, log_nt, cpad,
-                                     cp, fft, st);
+      return launch_v1<float, false>(ma, mb, ms, hr, hi, s_out, nt, log_nt,
+                                     cpad, cp, fft, sym_len, log_g, general,
+                                     st);
     case 1:
-      return launch_v1<__nv_bfloat16, false>(ma, mb, hr, hi, s_out, nt,
-                                             log_nt, cpad, cp, fft, st);
+      return launch_v1<__nv_bfloat16, false>(ma, mb, ms, hr, hi, s_out, nt,
+                                             log_nt, cpad, cp, fft, sym_len,
+                                             log_g, general, st);
     case 2:
-      return launch_v1<float, true>(ma, mb, hr, hi, s_out, nt, log_nt, cpad,
-                                    cp, fft, st);
+      return launch_v1<float, true>(ma, mb, ms, hr, hi, s_out, nt, log_nt,
+                                    cpad, cp, fft, sym_len, log_g, general,
+                                    st);
     default:
-      return launch_v1<__nv_bfloat16, true>(ma, mb, hr, hi, s_out, nt,
-                                            log_nt, cpad, cp, fft, st);
+      return launch_v1<__nv_bfloat16, true>(ma, mb, ms, hr, hi, s_out, nt,
+                                            log_nt, cpad, cp, fft, sym_len,
+                                            log_g, general, st);
   }
 }
 

@@ -20,9 +20,10 @@
 //
 // Sums of h^2 (the TPU kernel's with_ssq, its benchmark checksum): ssq
 // (tiles, 2, C) f32, row t the column sums over tile t's stored rows of
-// each plane (at loc = 256 tile t holds rows (t % 2)*128 .. +127 of
-// sample t / 2), taken from the f32 accumulators before any bf16
-// rounding.
+// each plane (at loc = 128 nh, nh = 2 .. 8, tile t holds rows p*128 ..
+// +127, p = t % nh, of sample t / nh, and of a seq rank the n copies
+// a*loc + p*128 .. +127 of them), taken from the f32 accumulators before
+// any bf16 rounding.
 // Each block writes its own 64 carriers of the row; a warp owns 16
 // carriers, so the sum is each thread's 32 squares in a fixed order, then
 // two xor shuffles over the 4 lanes of a carrier: deterministic, no
@@ -47,6 +48,12 @@
 // bytes, and the kernel takes twice as long (PERF.md). The variants are
 // template parameters of one epilogue (V2Epi<T, SSQ>); the float32
 // variant without sums is the store of the earlier single-variant kernel.
+//
+// Any loc up to 1024 and a symbol of any length (ls_planes_v2_any_kernel,
+// ls90::ls_body<0>, launched where the NH = 1 and 2 kernels do not
+// apply): the same stores, each row's symbol from ls90::Rows. At Nt 512,
+// S = 512 the bytes bound it at about 0.17 ms; its products, nh = 4 times
+// those of the DFT-select (137 GFLOP once), at about 0.55 ms.
 //
 // Float32 planes run the float32 mode (ls_planes_v2_f32_kernel on
 // ls90::ls_body_f32, the same stores): 268 MB of f32 input at the bench
@@ -82,22 +89,24 @@ struct V2Epi {
   // put their values (carrier c0 + 16*warp + 8h + lane/4 at tile row
   // 8j + 2*(lane%4) + e) into a staging buffer, then each warp writes
   // whole staged rows, lane l carriers 2l and 2l + 1, as row a*loc + sym
-  // with H_n[a, rank] (ls90::row_coords gives sample and symbol). NH:
-  // 128-symbol halves a tile (ls90::ls_body).
+  // with H_n[a, rank] (ls90::row_coords gives sample and symbol, or
+  // rows.at with NH = 0). NH: 128-symbol halves a tile (ls90::ls_body).
   template <int NH>
   __device__ __forceinline__ void store(const float (&acc0)[64],
                                         const float (&acc1)[64], int s0,
                                         int sym0, int warp, int lane,
-                                        float* stg, int bar) {
+                                        float* stg, int bar,
+                                        const ls90::Rows& rows) {
     if constexpr (SSQ) {
       // tiles in order of (sample group, part of a sample)
-      const int tile = NH == 1 ? s0 >> (7 - log_loc)
-                               : (s0 << (log_loc - 7)) + (sym0 >> 7);
+      const int tile = NH == 1 || (NH == 0 && log_loc <= 7)
+                           ? s0 >> (7 - log_loc)
+                           : (s0 << (log_loc - 7)) + (sym0 >> 7);
       sums(acc0, 0, tile, warp, lane);
       sums(acc1, 1, tile, warp, lane);
     }
-    rounds<NH>(acc0, 0, s0, sym0, warp, lane, stg, bar);
-    rounds<NH>(acc1, 1, s0, sym0, warp, lane, stg, bar);
+    rounds<NH>(acc0, 0, s0, sym0, warp, lane, stg, bar, rows);
+    rounds<NH>(acc1, 1, s0, sym0, warp, lane, stg, bar, rows);
   }
 
   // Row `tile` of ssq, this thread's carriers of one set: its 32 values
@@ -135,11 +144,13 @@ struct V2Epi {
   template <int NH>
   __device__ __forceinline__ void rounds(const float (&acc)[64], int plane,
                                          int s0, int sym0, int warp,
-                                         int lane, float* stg, int bar) {
+                                         int lane, float* stg, int bar,
+                                         const ls90::Rows& rows) {
     const int loc = 1 << log_loc, n = nt >> log_loc;
     const int log_tl = NH == 1 ? log_loc : 7;       // symbols of a tile
-    // row sym0 of sample 0 (sym0 is 0 with one half a tile)
-    T* const base = NH == 1 ? out : out + (long long)sym0 * C;
+    // row sym0 of sample 0 (sym0 is 0 with one half a tile; rows.at
+    // counts it with NH = 0)
+    T* const base = NH == 2 ? out + (long long)sym0 * C : out;
     const long long step = (long long)loc * C;
     const int c = c0 + 2 * lane;
 #pragma unroll
@@ -163,7 +174,10 @@ struct V2Epi {
         const float2 v = *reinterpret_cast<const float2*>(
             buf + ls90::stg_index(row, 2 * lane));
         int smp, sym;
-        ls90::row_coords(32 * g + row, log_tl, smp, sym);
+        if constexpr (NH == 0)
+          rows.at(32 * g + row, smp, sym);
+        else
+          ls90::row_coords(32 * g + row, log_tl, smp, sym);
         const int s = s0 + smp;
         if (s >= S || c >= C) continue;
         T* o = base + (((long long)plane * S + s) * nt + sym) * C + c;
@@ -208,11 +222,52 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
   ls90::ls_body_f32<NH>(&ma, &mb, S, log_loc, fft, cp, epi);
 }
 
+// Any loc <= 1024 and symbols of any length (ls90::ls_body<0>: 128-symbol
+// parts and map rows of 2^log_g symbols at run time), in both modes.
+template <class T, bool SSQ>
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_planes_v2_any_kernel(const __grid_constant__ CUtensorMap ma,
+                            const __grid_constant__ CUtensorMap mb,
+                            const __grid_constant__ CUtensorMap ms,
+                            T* __restrict__ out, float* __restrict__ ssq,
+                            int S, int nt, int log_loc, int rank, int C,
+                            int cp, int fft, int sym_len, int log_g) {
+  V2Epi<T, SSQ> epi{out, ssq, S, nt, log_loc, rank, C,
+                    64 * (int)sm90::cluster_rank()};
+  ls90::ls_body<0>(&ma, &mb, S, log_loc, fft, cp, epi, sym_len, log_g, &ms);
+}
+
+template <class T, bool SSQ>
+__global__ void __launch_bounds__(ls90::THREADS, 1)
+    ls_planes_v2_any_f32_kernel(const __grid_constant__ CUtensorMap ma,
+                                const __grid_constant__ CUtensorMap mb,
+                                const __grid_constant__ CUtensorMap ms,
+                                T* __restrict__ out, float* __restrict__ ssq,
+                                int S, int nt, int log_loc, int rank, int C,
+                                int cp, int fft, int sym_len, int log_g) {
+  V2Epi<T, SSQ> epi{out, ssq, S, nt, log_loc, rank, C,
+                    64 * (int)sm90::cluster_rank()};
+  ls90::ls_body_f32<0>(&ma, &mb, S, log_loc, fft, cp, epi, sym_len, log_g,
+                       &ms);
+}
+
 template <class T, bool SSQ, bool F32>
-int launch_v2(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
-              void* ssq, int S, int nt, int log_loc, int rank, int C,
-              int cp, int fft, int cpad, cudaStream_t stream) {
+int launch_v2(const CUtensorMap& ma, const CUtensorMap& mb,
+              const CUtensorMap& ms, void* out, void* ssq, int S, int nt,
+              int log_loc, int rank, int C, int cp, int fft, int cpad,
+              int sym_len, int log_g, bool general, cudaStream_t stream) {
   const int cl = 2 * cpad / 128, tiles = ls90::tiles(S, log_loc);
+  if (general) {
+    if constexpr (F32)
+      return ls90::launch<ls90::F_SMEM_BYTES>(
+          ls_planes_v2_any_f32_kernel<T, SSQ>, cl, tiles, stream, ma, mb,
+          ms, (T*)out, (float*)ssq, S, nt, log_loc, rank, C, cp, fft,
+          sym_len, log_g);
+    else
+      return ls90::launch(ls_planes_v2_any_kernel<T, SSQ>, cl, tiles,
+                          stream, ma, mb, ms, (T*)out, (float*)ssq, S, nt,
+                          log_loc, rank, C, cp, fft, sym_len, log_g);
+  }
   if constexpr (F32) {
     auto kernel = log_loc > 7 ? ls_planes_v2_f32_kernel<T, SSQ, 2>
                               : ls_planes_v2_f32_kernel<T, SSQ, 1>;
@@ -227,25 +282,17 @@ int launch_v2(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
   }
 }
 
-template <bool F32>
-int launch_v2_mode(const CUtensorMap& ma, const CUtensorMap& mb, void* out,
-                   void* ssq, int S, int nt, int log_loc, int rank, int C,
-                   int cp, int fft, int cpad, int store, cudaStream_t st) {
+template <bool F32, class... A>
+int launch_v2_mode(int store, A... a) {
   switch (store) {
     case 0:
-      return launch_v2<float, false, F32>(ma, mb, out, ssq, S, nt, log_loc,
-                                          rank, C, cp, fft, cpad, st);
+      return launch_v2<float, false, F32>(a...);
     case 1:
-      return launch_v2<__nv_bfloat16, false, F32>(ma, mb, out, ssq, S, nt,
-                                                  log_loc, rank, C, cp, fft,
-                                                  cpad, st);
+      return launch_v2<__nv_bfloat16, false, F32>(a...);
     case 2:
-      return launch_v2<float, true, F32>(ma, mb, out, ssq, S, nt, log_loc,
-                                         rank, C, cp, fft, cpad, st);
+      return launch_v2<float, true, F32>(a...);
     case 3:
-      return launch_v2<__nv_bfloat16, true, F32>(ma, mb, out, ssq, S, nt,
-                                                 log_loc, rank, C, cp, fft,
-                                                 cpad, st);
+      return launch_v2<__nv_bfloat16, true, F32>(a...);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -260,8 +307,9 @@ extern "C" {
 // split TF32 high and low parts (fused_ls.py::ls_sm90_constants); out
 // (2, S, nt, C), bf16 when mode bit 0 is set, else f32; with mode bit 1,
 // ssq (tiles(S, log2 loc), 2, C) f32, else unused. Full mode: loc = nt,
-// rank = 0. loc a power of 2 <= 256, fft % 64 == 0, fft <= 256, sym_len
-// % 8 == 0, cpad 128, 256 or 512. Returns the CUDA error code of the
+// rank = 0. loc a power of 2 <= 1024 and at least the 2^group_log(sym_len,
+// esize) symbols of a map row (any sym_len at loc >= 8), fft % 64 == 0,
+// fft <= 256, cpad 128, 256 or 512. Returns the CUDA error code of the
 // launch (or sm90::ERR_TENSOR_MAP).
 int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
                         void* ssq, int S, int nt, int loc, int rank, int C,
@@ -269,20 +317,26 @@ int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
                         void* stream) {
   int log_loc = 0;
   while ((1 << log_loc) < loc) ++log_loc;
-  if (log_loc > 8 || mode < 0 || mode > 7) return (int)cudaErrorInvalidValue;
   const bool f32 = mode & 4;
-  CUtensorMap ma, mb;
+  int log_g;
+  bool general;
+  if (!ls90::layout(log_loc, sym_len, f32 ? 4 : 2, log_g, general) ||
+      mode < 0 || mode > 7)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb, ms = {};
   if (f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_loc, sym_len,
-                                fft, cpad)
+                                fft, cpad, log_g, &ms)
           : ls90::make_maps(&ma, &mb, planes, bt, S, log_loc, sym_len, fft,
-                            cpad))
+                            cpad, log_g, &ms))
     return sm90::ERR_TENSOR_MAP;
   cudaStream_t st = (cudaStream_t)stream;
   if (f32)
-    return launch_v2_mode<true>(ma, mb, out, ssq, S, nt, log_loc, rank, C,
-                                cp, fft, cpad, mode & 3, st);
-  return launch_v2_mode<false>(ma, mb, out, ssq, S, nt, log_loc, rank, C, cp,
-                               fft, cpad, mode & 3, st);
+    return launch_v2_mode<true>(mode & 3, ma, mb, ms, out, ssq, S, nt,
+                                log_loc, rank, C, cp, fft, cpad, sym_len,
+                                log_g, general, st);
+  return launch_v2_mode<false>(mode & 3, ma, mb, ms, out, ssq, S, nt,
+                               log_loc, rank, C, cp, fft, cpad, sym_len,
+                               log_g, general, st);
 }
 
 const char* ls_planes_v2_error_string(int e) {

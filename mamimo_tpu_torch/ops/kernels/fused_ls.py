@@ -167,13 +167,33 @@ def _sm90_consts(cfg: SimConfig, consts, device, dtype, who: str
     return consts
 
 
+# the most Tx antennas the LS kernels take: 8 parts of 128 symbols a
+# sample (csrc/ls_sm90.cuh, the general body)
+MAX_KERNEL_TX = 1024
+
+
+def symbol_group(sym_len: int, esize: int) -> int:
+    """The symbols one row of the LS kernels' input map spans
+    (``ls90::group_log``): the least power of 2, g, with g·sym_len·esize a
+    multiple of 16 bytes, TMA's rule for a stride. 1 where a symbol is
+    aligned by itself (bf16 at a cyclic prefix that is a multiple of 8);
+    at most 8 for bf16 and 4 for float32 (NR's 18-sample prefix at a
+    256-point FFT: 4 and 2)."""
+    g = 1
+    while (g * sym_len * esize) % 16:
+        g *= 2
+    return g
+
+
 def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
                          consts: LsSm90Constants,
                          nsym_in: int | None = None) -> None:
     """Raise unless the LS kernels take these operands: bfloat16 or
     float32 planes of ``nsym_in`` symbols per sample (default num_tx, the
     whole preamble) and the constants of ``ls_sm90_constants`` for that
-    dtype."""
+    dtype. num_tx a power of 2 up to MAX_KERNEL_TX; any cp_length where
+    the planes hold at least ``symbol_group`` symbols a sample (always at
+    8 or more: a row of 8 symbols is 16-byte aligned)."""
     nt = cfg.num_tx
     length = (nsym_in or nt) * cfg.sym_len
     mat = consts.bt
@@ -198,10 +218,17 @@ def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
     if tuple(mat.shape) != want:
         raise ValueError(f"kernel constants must be {want}, got "
                          f"{tuple(mat.shape)}")
-    if nt > 256 or nt & (nt - 1) or cfg.cp_length % 8:
-        raise ValueError(f"the LS kernel needs num_tx a power of 2 <= 256 "
-                         f"and cp_length % 8 == 0, got num_tx={nt}, "
-                         f"cp_length={cfg.cp_length}")
+    if nt > MAX_KERNEL_TX or nt & (nt - 1):
+        raise ValueError(f"the LS kernels need num_tx a power of 2 <= "
+                         f"{MAX_KERNEL_TX}, got num_tx={nt}")
+    loc = nsym_in or nt
+    g = symbol_group(cfg.sym_len, planes.element_size())
+    if loc < g:
+        raise ValueError(
+            f"the LS kernels read {g} symbols of {cfg.sym_len} "
+            f"{str(planes.dtype)[6:]} samples as one 16-byte aligned row "
+            f"(cp_length={cfg.cp_length}), so they need at least {g} "
+            f"symbols a sample, got {loc}")
     if fft % 64 or fft > 256 or cp_ not in (128, 256, 512):
         raise ValueError("the Hopper LS kernels need fft_length a multiple "
                          "of 64 up to 256 and at most 512 padded carriers")
@@ -210,7 +237,9 @@ def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
 def seq_shard_symbols(cfg: SimConfig, seq_shard) -> int:
     """loc = num_tx / n, the symbols per sample of rank i of n in a
     sequence-sharded preamble; raises unless 0 <= i < n, n a power of 2
-    dividing num_tx."""
+    dividing num_tx. On the card the LS kernels also need loc >=
+    ``symbol_group`` of the planes (``_check_kernel_shapes``); above 128
+    symbols a rank's tiles are loc/128 parts of a sample."""
     i, n = seq_shard
     if n < 1 or n & (n - 1) or cfg.num_tx % n or not 0 <= i < n:
         raise ValueError(f"seq_shard {seq_shard}: need rank 0 <= i < n, n "
@@ -221,17 +250,23 @@ def seq_shard_symbols(cfg: SimConfig, seq_shard) -> int:
 def ls_v2_tiles(s: int, loc: int) -> int:
     """The v2 kernel's tiles of S samples of loc symbols, 128 GEMM rows
     each (``ls90::tiles``), the rows of its ``with_ssq`` sums: 128/loc
-    samples a tile up to loc = 128, and at loc = 256 two tiles a sample,
-    its output rows 0..127 and 128..255."""
+    samples a tile up to loc = 128, and above it loc/128 tiles a sample,
+    tile p its symbols p·128 .. p·128 + 127."""
     return -(-s * loc // 128)
 
 
 def _ssq_plain(h: torch.Tensor, loc: int) -> torch.Tensor:
     """Per-tile sums of h² of the dense (2, S, nt, C) float32 planes:
-    (tiles, 2, C), row t the column sums over tile t's stored rows, the
-    (sample, row) pairs in order taken 128·nt/loc at a time (128/loc
-    samples a tile; at loc = 256 half a sample)."""
+    (tiles, 2, C), row t the column sums over tile t's stored rows. Up to
+    loc = 128 the (sample, row) pairs in order, taken 128·nt/loc at a time
+    (128/loc samples a tile); above it, tile s·nh + p (nh = loc/128) sums
+    rows a·loc + p·128 .. + 127 of sample s over the nt/loc copies a of a
+    seq rank's partial."""
     _, s, nt, c = h.shape
+    if loc > 128:
+        nh = loc // 128
+        q = (h * h).view(2, s, nt // loc, nh, 128, c).sum((2, 4))
+        return q.reshape(2, s * nh, c).transpose(0, 1).contiguous()
     n, rows = ls_v2_tiles(s, loc), 128 * nt // loc
     hp = torch.zeros((2, n * rows, c), dtype=h.dtype, device=h.device)
     hp[:, :s * nt] = h.reshape(2, s * nt, c)
@@ -286,10 +321,11 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
       [1]=imag), dense (no padding), rx-major; with ``with_ssq`` the
       pair (h, ssq), ssq (ls_v2_tiles(S, loc), 2, num_carriers) float32:
       row t holds, per plane, the column sums of h² over the rows of
-      tile t's 128/loc samples, or at loc = 256 over rows (t % 2)·128 ..
-      + 127 of sample t // 2 (a seq rank's partial counts each of its
-      n stored copies). The TPU kernel's (n_blocks, 8, 2·Cp) layout,
-      which sums to 8·Σh², is not copied.
+      tile t's 128/loc samples, or at loc = 128·nh (nh = 2 … 8) over
+      rows p·128 .. + 127, p = t % nh, of sample t // nh (a seq rank's
+      partial counts each of its n stored copies, ``_ssq_plain``). The
+      TPU kernel's (n_blocks, 8, 2·Cp) layout, which sums to 8·Σh², is
+      not copied.
     """
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "

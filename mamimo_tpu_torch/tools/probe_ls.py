@@ -3,10 +3,15 @@
 card.
 
     python3 mamimo_tpu_torch/tools/probe_ls.py [--old DIR]
-        [--const NAME=VALUE ...] [--no-cuts]
+        [--const NAME=VALUE ...] [--no-cuts] [--nt N] [--cp N]
+        [--packets N]
 
 At the bench shape (BS32: num_tx = 32, 234 carriers, S = 4096 rows of
-10240 samples, 1024 packets of 4 rx), seeded random float32 planes and
+10240 samples, 1024 packets of 4 rx), or at another num_tx, cp_length
+and number of packets (``--nt``, ``--cp``, ``--packets``: e.g. ``--nt
+512 --packets 128``, four 128-symbol parts a sample, or ``--cp 18``,
+symbols off TMA's 16-byte grid, both on the general body
+``ls_body<0>``), seeded random float32 planes and
 their bf16 rounding, CUDA events, with the card's SM clock and power
 draw sampled by ``nvidia-smi`` beside each timed window
 (``tools/probe_tail.py``'s timer):
@@ -19,11 +24,13 @@ draw sampled by ``nvidia-smi`` beside each timed window
    with ``-DLS_CUT=<bits>`` (each build hashed apart in ``_build/``): 1
    no products, 2 no despread, 4 no store, 8 no split (the float32
    mode's TF32 split of the input: its products then read the input as
-   it landed, and a stale low part), 32 no loads (the float32 mode's
-   stages are marked full without a load); bits 8 and 32 cut nothing of
-   the bf16 mode. "loads only" (1, 2 and 4) keeps the split, "bare
-   loads" (1, 2, 4 and 8) is the ring alone, "products only" (2, 4, 8
-   and 32) the float32 products and their waits alone. The cut builds compute wrong
+   it landed, and a stale low part; where symbols are off the 16-byte
+   grid, as at ``--cp 18``, also the shift of both modes), 32 no loads
+   (the float32 mode's stages are marked full without a load); at
+   aligned shapes bits 8 and 32 cut nothing of the bf16 mode. "loads
+   only" (1, 2 and 4) keeps the split, "bare loads" (1, 2, 4 and 8) is
+   the ring alone, "products only" (2, 4, 8 and 32) the float32
+   products and their waits alone. The cut builds compute wrong
    answers by design and are never used outside this probe; the
    differences split each kernel's time by phase (skipped with
    ``--no-cuts``);
@@ -43,7 +50,10 @@ draw sampled by ``nvidia-smi`` beside each timed window
    Also says whether the bf16 LS kernels' SASS is the same in both, and
    that of every kernel of the sources on the headers the LS body shares
    (``fused_factored``, ``mlp_infer``, ``matmul``, ``int8_mm``,
-   ``tf32_split``);
+   ``tf32_split``), kernel by kernel: each kernel of the earlier design
+   against the kernel of the same mangled name (kernels only the new
+   sources have, such as the general body's, are listed apart). The
+   earlier design must take the probe's shape;
 3. with ``--const NAME=VALUE`` (repeatable): a copy of the package's
    sources with ``constexpr int NAME`` of ``ls_sm90.cuh`` set to VALUE
    (a settled choice of the float32 body, such as ``F_STAGES``), held to
@@ -117,6 +127,35 @@ def _bind(lib: ctypes.CDLL, src_dir: Path, name: str) -> ctypes.CDLL:
     return lib
 
 
+def _sass_kernels(path: str) -> dict:
+    """The SASS of each kernel of the library at path (cuobjdump), by
+    mangled name with its anonymous namespace's id (a hash of the
+    source's path) taken out, each line's whitespace collapsed."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                         "(anonymous)", line.split("Function :")[1].strip())
+            out[cur] = []
+        elif cur is not None:
+            out[cur].append(" ".join(line.split()))
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def _same_sass(old_path: str, new_path: str, kernel: str = "") -> tuple:
+    """(every kernel of the earlier library whose name holds `kernel` has
+    the same SASS in the new one, the new library's kernels the earlier
+    one lacks)."""
+    old, new = _sass_kernels(old_path), _sass_kernels(new_path)
+    same = all(new.get(k) == v for k, v in old.items() if kernel in k)
+    return same, sorted(k for k in new if k not in old and kernel in k)
+
+
 def _has_f32(src_dir: Path) -> bool:
     """Whether the LS sources in src_dir have the float32 mode."""
     return "ls_body_f32" in (src_dir / "ls_sm90.cuh").read_text()
@@ -140,6 +179,10 @@ def main() -> int:
                     help="directory of an earlier design's csrc sources")
     ap.add_argument("--no-cuts", action="store_true",
                     help="skip the phase cuts (the A/B alone)")
+    ap.add_argument("--nt", type=int, default=32, help="num_tx")
+    ap.add_argument("--cp", type=int, default=64, help="cp_length")
+    ap.add_argument("--packets", type=int, default=PACKETS,
+                    help="packets of 4 rx (S = 4 packets)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_ls: no CUDA device", file=sys.stderr)
@@ -151,7 +194,6 @@ def main() -> int:
         ls_kernel_constants,
         ls_sm90_constants,
     )
-    from mamimo_tpu_torch.tools.probe_gemm import _sass
     from mamimo_tpu_torch.tools.probe_tail import (
         _fmt,
         _old_lib,
@@ -168,9 +210,9 @@ def main() -> int:
         for line in _build.ptxas_report(name).splitlines():
             print(f"  {name}: {line}")
 
-    cfg = SimConfig()
+    cfg = SimConfig(num_tx=args.nt, cp_length=args.cp)
     nt, nr, C = cfg.num_tx, cfg.num_rx, cfg.num_carriers
-    S, L = PACKETS * nr, cfg.len_ltf
+    S, L = args.packets * nr, cfg.len_ltf
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     x32 = torch.randn((2, S, L), generator=g, device=dev)
@@ -255,7 +297,7 @@ def main() -> int:
 
     k_new = dict.fromkeys(SOURCES, kc_new)
 
-    summary = {"card": card, "S": S}
+    summary = {"card": card, "S": S, "num_tx": nt, "cp_length": cfg.cp_length}
     if not args.no_cuts:
         print(f"phase cuts, S = {S}:")
         variants = {"kernel": ()}
@@ -298,9 +340,16 @@ def main() -> int:
                 for d in designs.values()]))
         f32 = all(_has_f32(d) for d in designs.values())
         fns = {"new": both(new_libs(), k_new, f32)}
-        for tag, d in designs.items():
+        for tag, d in list(designs.items()):
             fns[tag] = both(libs[tag], {n: kc_new if _hopper(d, n) else kc_old
                                         for n in SOURCES}, f32)
+            try:            # an earlier design may refuse the probe's shape
+                next(iter(fns[tag].values()))[0]()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                print(f"  {tag}: refuses num_tx {nt}, cp_length "
+                      f"{cfg.cp_length} ({e}); not compared")
+                del designs[tag], fns[tag]
         same, sass = {}, {}
         for tag in designs:
             for kname in fns["new"]:
@@ -324,10 +373,12 @@ def main() -> int:
                                          f"({db:.2f} dB)")
             # the bf16 kernels' machine code, design against design
             for kern, lo, ln in zip(BF16_KERNELS, libs[tag], new_libs()):
-                ok = _sass(lo._name, kern) == _sass(ln._name, kern)
+                ok, extra = _same_sass(lo._name, ln._name, kern)
                 sass[f"{tag}: {kern}"] = ok
                 print(f"  SASS of {kern}: "
-                      f"{'identical' if ok else 'DIFFERS'} in new and {tag}")
+                      f"{'identical' if ok else 'DIFFERS'} in new and {tag}"
+                      + (f" (new only: {len(extra)} kernels)" if extra
+                         else ""))
         if args.old is not None:
             # every kernel of the sources that share the LS body's headers
             _build.build_all(SHARED)
@@ -335,8 +386,7 @@ def main() -> int:
                 olds = list(pool.map(lambda n: _old_lib(args.old, n),
                                      SHARED))
             for n, lo in zip(SHARED, olds):
-                ok = _sass(lo._name, "") == _sass(_build.library(n)._name,
-                                                  "")
+                ok = _same_sass(lo._name, _build.library(n)._name)[0]
                 sass[f"old: {n}.cu"] = ok
                 print(f"  SASS of every kernel of {n}.cu: "
                       f"{'identical' if ok else 'DIFFERS'} in new and old")

@@ -322,7 +322,7 @@ def test_kernel1_plain_at_nt256_matches_jax(nt256_ls):
 
 def test_kernel1_cuda_branch_takes_nt256(monkeypatch):
     """The LS kernels' shape checks take num_tx = 256 (full mode and a seq
-    rank of 2) and refuse 512, naming the limit."""
+    rank of 2) and 512, and refuse 2048, naming the limit (1024)."""
     monkeypatch.setattr(fused_ls, "on_cuda", lambda *t: True)
     monkeypatch.setattr(fused_ls, "_ls_lib", _stub)
     monkeypatch.setattr(fused_ls, "_ls_v1_lib", _stub)
@@ -338,7 +338,12 @@ def test_kernel1_cuda_branch_takes_nt256(monkeypatch):
         with pytest.raises(_Launch):
             call()
     cfg512 = SimConfig(num_tx=512, num_rx=1)
-    with pytest.raises(ValueError, match="power of 2 <= 256"):
+    with pytest.raises(_Launch):
         ls_planes_v2(cfg512, torch.zeros((2, 1, cfg512.len_ltf),
                                          dtype=BF16),
                      ls_sm90_constants(cfg512))
+    cfg2048 = SimConfig(num_tx=2048, num_rx=1)
+    with pytest.raises(ValueError, match="power of 2 <= 1024"):
+        ls_planes_v2(cfg2048, torch.zeros((2, 1, cfg2048.len_ltf),
+                                          dtype=BF16),
+                     ls_sm90_constants(cfg2048))
