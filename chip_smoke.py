@@ -277,7 +277,19 @@ failure ends the run with a non-zero exit code):
                input elements) whose last 8 samples are held to the
                plain version on them alone; phase 6 times each kernel at
                Nt 512, Nt 1024 and BS32 cp 18 (S = 4096) in both modes,
-               rows of the kernels line;
+               rows of the kernels line. At 512 symbols a sample and
+               more the LS kernels first launch the part transform
+               (ls_parts, counted): held bit for bit to its plain
+               version at Nt 512 and 1024, both modes and a seq rank;
+               there kernels 1, 3 and 4 are held to -52 dB (bf16; -50
+               for kernel 3's bf16 store) and -100 dB (float32); estimate_full also at Nt 1024 and at
+               Nt 2048 (2 packets, hidden (128, 128)); kernel 2's layer
+               1 split across the card (counted "factored_sig_proj
+               split") at Nt 1024 (S = 128) and Nt 512 (S = 512) within
+               -85 dB of float32 x @ W1, two launches bit-identical, its
+               ranges printed, and BS32's layer 1 in one range; phase 6
+               rows of the transform, the split layer 1 and the float32
+               layer 1 at Nt 1024;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant;
@@ -2336,6 +2348,24 @@ def sharded_timing(cfg, dev, smi, data) -> dict:
     return rows
 
 
+def planes_of_parts(cfg, z, loc):
+    """The float32 planes (2, S, loc·sym_len) whose part transform
+    (fused_ls.py::ls_parts) is z (2, S, loc·fft), up to float32 rounding:
+    Y_v = Σ_p H_nl[v, p] Z_p / nl (H_nl H_nl = nl I) in float64, zeros in
+    the cyclic prefix, which the LS never reads."""
+    import torch
+
+    from mamimo_tpu_torch.ops.ltf import _hadamard_np
+
+    nl, fft, s = loc // 128, cfg.fft_length, z.shape[1]
+    h = torch.from_numpy(_hadamard_np(nl).astype(np.float64)).to(z.device)
+    y = torch.einsum("vp,aspmf->asvmf", h,
+                     z.double().view(2, s, nl, 128, fft)) / nl
+    x = torch.zeros((2, s, nl, 128, cfg.sym_len), device=z.device)
+    x[..., cfg.cp_length:cfg.cp_length + fft] = y.float()
+    return x.view(2, s, loc * cfg.sym_len)
+
+
 def check_v2_modes(cfg, x16, k90, tag, seq=None):
     """ls_planes_v2's bf16 store and per-tile sums of h^2 (and the
     f32 store with sums) against the plain version on the same bf16
@@ -2343,8 +2373,10 @@ def check_v2_modes(cfg, x16, k90, tag, seq=None):
     the sums within 1e-4 relative per tile of the plain version's
     sums on the kernel's own constants (bf16-valued: against the
     float32 DFT the estimate differs by about -58 dB, which moves a
-    tile's sums by up to about 3e-3), and equal from a second call.
-    Returns the results by (out_dtype, with_ssq)."""
+    tile's sums by up to about 3e-3) and, at 512 symbols a sample and
+    more, on the kernel's own input, the part transform's bf16 output
+    (planes_of_parts), and equal from a second call. Returns the
+    results by (out_dtype, with_ssq)."""
     import torch
 
     from mamimo_tpu_torch.ops.estimate import (
@@ -2352,6 +2384,8 @@ def check_v2_modes(cfg, x16, k90, tag, seq=None):
         ls_planes_constants,
     )
     from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        PARTS_MIN_LOC,
+        _ls_parts_plain,
         _ls_v2_plain,
         _ssq_plain,
         ls_planes_v2,
@@ -2364,7 +2398,12 @@ def check_v2_modes(cfg, x16, k90, tag, seq=None):
     at_r, at_i, pm_ = ls_planes_constants(cfg, bf16, device=dev)
     if seq is not None:
         pm_ = pm_[:, seq[0] * loc:(seq[0] + 1) * loc]
-    hk = ls_estimate_planes(cfg, x32, (at_r, at_i, pm_))
+    # at PARTS_MIN_LOC symbols a sample and more the kernel reads the
+    # part transform's bf16 output: the sums' reference is the LS of the
+    # planes whose transform is exactly that output
+    xs = planes_of_parts(cfg, _ls_parts_plain(cfg, x16, loc), loc) \
+        if loc >= PARTS_MIN_LOC else x32
+    hk = ls_estimate_planes(cfg, xs, (at_r, at_i, pm_))
     ssq_ref = _ssq_plain(torch.stack([hk.real, hk.imag]), loc)
     out = {}
     for dt, ws in ((bf16, True), (bf16, False), (torch.float32, True)):
@@ -3787,6 +3826,23 @@ SHAPE_BIG_PACKETS = 1024           # one Nt 1024 call, S = 4096 (2.68e9 input)
 SHAPE_SHARDED_PACKETS = 16         # the sharded LS at Nt 1024 (S = 64)
 SHAPE_MODEL = (1024, 1024)         # the model served at the new shapes
 SHAPE_TIMED = {"Nt 512": 512, "Nt 1024": 128, "BS32 cp 18": 4096}  # S
+# the widths whose LS kernels read the part transform (4 and 8 parts a
+# sample): kernels 1, 3 and 4 within (bf16, bf16 stored in bf16,
+# float32) dB of their float32 plain versions (one more bf16 rounding,
+# that of the transform's output, than the -57.75 dB of the aligned
+# bodies, about -53.5 dB; a bf16 store adds its own, about -51.4 dB;
+# one K = 512 sum a tile in float32)
+PARTS_LIMITS_DB = {"Nt 512": (-52.0, -50.0, -100.0),
+                   "Nt 1024": (-52.0, -50.0, -100.0)}
+# Nt 2048 (16 parts) served at 2 packets by a (128, 128) model: its layer
+# 1 has K = 655360, a 0.67 GB float32 W1
+SHAPE_2048 = (2048, 4, 64, 2)
+SHAPE_2048_MODEL = (128, 128)
+# layer 1 split across the card: (S, num_tx) of each check and timed row,
+# and its limit against float32 x @ W1 (each range one accumulator over
+# K / splits: -98.97 dB at K = 10240, 6 dB a doubling)
+SPLIT_SHAPES = {"Nt 1024": (128, 1024), "Nt 512": (512, 512)}
+SPLIT_LIMIT_DB = -85.0
 
 
 def shape_cfg(tag):
@@ -3805,18 +3861,22 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
     odd too, seq ranks of 2 and 4 whose bf16 partials sum to the
     estimate; kernel 3 raw (f32 and bf16 out), complex and as_planes in
     both modes; kernel 4 on bf16 pair planes and complex64 rx. Limits:
-    bf16 -45 dB, float32 F32_LIMIT_DB. Then sharded_ls_pallas_v2 at Nt
-    1024 (seq 2, seq 4, data 4 on 4 virtual ranks), estimate_full with a
-    SHAPE_MODEL model at Nt 512 and at BS32 cp 18 against the float32 path
-    (PIPE_LIMITS), kernel 2 at Nt 1024 (fused tail and per-head rows in
-    bf16, the float32 rows route), and one Nt 1024 call at
+    bf16 -45 dB, float32 F32_LIMIT_DB (at the widths of PARTS_LIMITS_DB
+    its tighter limits, after the part transform held bit for bit to its
+    plain version). Then sharded_ls_pallas_v2 at Nt 1024 (seq 2, seq 4,
+    data 4 on 4 virtual ranks), estimate_full with a SHAPE_MODEL model at
+    Nt 512, Nt 1024 and BS32 cp 18 and a SHAPE_2048_MODEL one at Nt 2048
+    against the float32 path (PIPE_LIMITS), kernel 2 at Nt 1024 (fused
+    tail and per-head rows in bf16, the float32 rows route; the float32
+    layer 1 timed), layer 1 split across the card at SPLIT_SHAPES and
+    unsplit at BS32's bench shape, and one Nt 1024 call at
     SHAPE_BIG_PACKETS packets whose last 8 samples are held to the plain
     version run on them alone. Every group counted. Returns the errors,
     the counts and the timing's inputs."""
     import torch
 
     from mamimo_tpu_torch.bench import _planes_to_time_major
-    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.config import SimConfig, TrainConfig
     from mamimo_tpu_torch.models.mlp import _factored_all_pairs
     from mamimo_tpu_torch.models.predictor import CSIPredictor
     from mamimo_tpu_torch.ops.estimate import (
@@ -3833,13 +3893,16 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         factored_sig_proj,
         fused_factored_planes,
         prepare_factored_weights,
+        sig_proj_splits,
     )
     from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_parts_plain,
         _ls_v1_plain,
         _ls_v2_plain,
         _ssq_plain,
         ls_estimate_pallas,
         ls_pair_kernel,
+        ls_parts,
         ls_planes_pallas,
         ls_planes_v1,
         ls_planes_v2,
@@ -3877,21 +3940,36 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         nt, nr, L, C = cfg.num_tx, cfg.num_rx, cfg.len_ltf, cfg.num_carriers
         packets = SHAPE_CFGS[tag][3]
         s = packets * nr
+        # the limits: tighter where the part transform runs
+        lim16, lim16_store, lim32 = PARTS_LIMITS_DB.get(
+            tag, (-45.0, -45.0, F32_LIMIT_DB))
         k16, k32 = ls_sm90_constants(cfg, dev), ls_sm90_constants(cfg, dev,
                                                                  f32)
         x32 = torch.randn((2, s, L), generator=g, device=dev)
         x16 = x32.to(bf16)
         r16, r32 = _ls_v2_plain(cfg, x16.float()), _ls_v2_plain(cfg, x32)
         e = errs[tag] = {}
+        if tag in PARTS_LIMITS_DB:
+            # the part transform bit for bit, full mode and a seq rank of
+            # 2 (at Nt 1024: 512 symbols, four parts)
+            for xa in (x16, x32):
+                same(f"ls_parts {str(xa.dtype)[6:]}, {tag}, S = {s}: the "
+                     f"plain version", ls_parts(cfg, xa),
+                     _ls_parts_plain(cfg, xa, nt))
+                if nt // 2 >= 512:
+                    xq = xa[:, :, L // 2:].contiguous()
+                    same(f"ls_parts {str(xa.dtype)[6:]}, {tag}, seq rank 1 "
+                         f"of 2", ls_parts(cfg, xq, nt // 2),
+                         _ls_parts_plain(cfg, xq, nt // 2))
         e["ls_planes_v2"] = check(
             f"ls_planes_v2 bf16, {tag}, S = {s}, vs its plain version (f32)",
-            ls_planes_v2(cfg, x16, k16), r16, -45.0)
+            ls_planes_v2(cfg, x16, k16), r16, lim16)
         e["ls_planes_v2 bf16 ssq"] = check_v2_modes(
             cfg, x16, k16, f"{tag}, S = {s}")[(bf16, True)]
         h = ls_planes_v2(cfg, x32, k32)
         e["ls_planes_v2 f32"] = check(
             f"ls_planes_v2 float32, {tag}, S = {s}, vs its plain version "
-            f"(f32)", h, r32, F32_LIMIT_DB)
+            f"(f32)", h, r32, lim32)
         same(f"ls_planes_v2 float32, {tag}: bf16 store = the f32 result "
              f"rounded", ls_planes_v2(cfg, x32, k32, out_dtype=bf16),
              h.to(bf16))
@@ -3899,9 +3977,9 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
             cfg, x32, k32, with_ssq=True)[1], r32, nt)
         for so in (5, 1):
             check(f"ls_planes_v2 bf16, {tag}, S = {so}", ls_planes_v2(
-                cfg, x16[:, :so], k16), r16[:, :so], -45.0)
+                cfg, x16[:, :so], k16), r16[:, :so], lim16)
             check(f"ls_planes_v2 float32, {tag}, S = {so}", ls_planes_v2(
-                cfg, x32[:, :so], k32), r32[:, :so], F32_LIMIT_DB)
+                cfg, x32[:, :so], k32), r32[:, :so], lim32)
         for n in (2, 4):
             w = nt // n * cfg.sym_len
             parts = []
@@ -3911,17 +3989,17 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
                 if i in (1, n - 1):
                     check(f"ls_planes_v2 bf16, {tag}, seq rank {i} of {n}",
                           parts[-1], _ls_v2_plain(cfg, xq16.float(), (i, n)),
-                          -45.0)
+                          lim16)
                     xq32 = x32[:, :, i * w:(i + 1) * w].contiguous()
                     rq = _ls_v2_plain(cfg, xq32, (i, n))
                     hq, q = ls_planes_v2(cfg, xq32, k32, seq_shard=(i, n),
                                          with_ssq=True)
                     check(f"ls_planes_v2 float32, {tag}, seq rank {i} of {n}",
-                          hq, rq, F32_LIMIT_DB)
+                          hq, rq, lim32)
                     sums_ok(f"ls_planes_v2 float32 + sums, {tag}, seq rank "
                             f"{i} of {n}", q, rq, nt // n)
             check(f"ls_planes_v2 bf16, {tag}: the {n} seq partials summed vs "
-                  f"the plain estimate", sum(parts), r16, -45.0)
+                  f"the plain estimate", sum(parts), r16, lim16)
             if n == 2:
                 check_v2_modes(cfg, x16[:, :, w:].contiguous(), k16,
                                f"{tag}, S = {s}", (1, 2))
@@ -3934,22 +4012,22 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
             e.setdefault("ls_planes_v1", check(
                 f"ls_planes_v1 bf16 planes, raw {str(dt)[6:]}, {tag}, vs its "
                 f"plain version (f32), pads zero", torch.stack([hr, hi]),
-                raw16, -45.0))
+                raw16, lim16 if dt == f32 else lim16_store))
         check(f"ls_planes_v1 bf16 planes, {tag}, S = 3", torch.stack(
             ls_planes_v1(cfg, x16[:, :3], k16)), torch.stack(_ls_v1_plain(
-                cfg, x16[:, :3], 8, f32)), -45.0)
+                cfg, x16[:, :3], 8, f32)), lim16)
         raw32 = torch.stack(_ls_v1_plain(cfg, x32, 8, f32))
         hr, hi = ls_planes_v1(cfg, x32, k32)
         check_pads_zero("ls_planes_v1 float32", hr, hi, s, nt, C)
         e["ls_planes_v1 f32"] = check(
             f"ls_planes_v1 float32 raw, {tag}, vs its plain version (f32), "
-            f"pads zero", torch.stack([hr, hi]), raw32, F32_LIMIT_DB)
+            f"pads zero", torch.stack([hr, hi]), raw32, lim32)
         check(f"ls_planes_v1 float32, {tag}, S = 3", torch.stack(
             ls_planes_v1(cfg, x32[:, :3], k32)), torch.stack(_ls_v1_plain(
-                cfg, x32[:, :3], 8, f32)), F32_LIMIT_DB)
+                cfg, x32[:, :3], 8, f32)), lim32)
         check(f"ls_planes_pallas float32 complex, {tag}", ls_planes_pallas(
             cfg, x32, k32), ls_raw_to_complex(cfg, raw32[0], raw32[1], s),
-            F32_LIMIT_DB)
+            lim32)
         for xa, ka, dt in ((x32, k32, "float32"), (x16, k16, "bf16")):
             ap = ls_planes_pallas(cfg, xa, ka, as_planes=True)
             same(f"ls_planes_pallas {dt} as_planes, {tag}: the complex form",
@@ -3965,15 +4043,15 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
                 e["ls_pair_kernel"] = check(
                     f"ls_pair_kernel bf16 pair planes, {tag}, {pk} packets, "
                     f"vs ls_estimate_matmul (f32)", ls_pair_kernel(
-                        cfg, pair_planes(rx), nr, k16), ref, -45.0)
+                        cfg, pair_planes(rx), nr, k16), ref, lim16)
             else:
                 e["ls_pair_kernel f32"] = check(
                     f"ls_estimate_pallas complex64, {tag}, {pk} packets, vs "
                     f"ls_estimate_matmul (f32)", ls_estimate_pallas(
-                        cfg, rx, consts=k32), ref, F32_LIMIT_DB)
+                        cfg, rx, consts=k32), ref, lim32)
                 check(f"ls_estimate_pallas complex64, {tag}, 1 packet",
                       ls_estimate_pallas(cfg, rx[:1], consts=k32), ref[:1],
-                      F32_LIMIT_DB)
+                      lim32)
         del x16, x32, r16, r32
         torch.cuda.empty_cache()
 
@@ -3982,7 +4060,8 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
     for tag in SHAPE_CFGS:
         t1 = time.perf_counter()
         _, counts[tag] = counted(lambda: ls_checks(tag))
-        require_launched(f"phase 5o's checks, {tag}", counts[tag], names)
+        require_launched(f"phase 5o's checks, {tag}", counts[tag], names
+                         + (("ls_parts",) if tag in PARTS_LIMITS_DB else ()))
         print(f"  [5o] {tag}: {time.perf_counter() - t1:.1f} s")
 
     # the sharded LS at Nt 1024 on 4 virtual ranks of this card
@@ -4004,12 +4083,17 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         counts[f"sharded_ls_pallas_v2 {mode} {n}"] = cnt
     del x16, ref
 
-    # the serving call at Nt 512 and BS32 cp 18, counted, against the
-    # float32 path (the CPU's functions, in full float32 on the card)
-    tcfg = TrainConfig(hidden=SHAPE_MODEL)
-    for tag in ("Nt 512", "BS32 cp 18"):
-        cfg = shape_cfg(tag)
-        packets = SHAPE_CFGS[tag][3]
+    # the serving call at Nt 512, 1024 and 2048 and BS32 cp 18, counted,
+    # against the float32 path (the CPU's functions, in full float32 on
+    # the card)
+    for tag in ("Nt 512", "Nt 1024", "Nt 2048", "BS32 cp 18"):
+        if tag == "Nt 2048":
+            nt_, nr_, cp_, packets = SHAPE_2048
+            cfg = SimConfig(num_tx=nt_, num_rx=nr_, cp_length=cp_)
+            tcfg = TrainConfig(hidden=SHAPE_2048_MODEL)
+        else:
+            cfg, packets = shape_cfg(tag), SHAPE_CFGS[tag][3]
+            tcfg = TrainConfig(hidden=SHAPE_MODEL)
         params, bn = make_model(cfg, tcfg, seed=98, device=dev)
         with tempfile.TemporaryDirectory() as tmp:
             save_checkpoint(str(Path(tmp) / "best"), cfg, tcfg, params, bn)
@@ -4018,7 +4102,9 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
                           generator=torch.Generator().manual_seed(99)).numpy()
         (h_ls, h_dnn), cnt = counted(lambda: pred.estimate_full(req))
         require_launched(f"estimate_full, {tag}", cnt, (
-            "ls_planes_v2", "factored_sig_proj", "factored_tail"))
+            "ls_planes_v2", "factored_sig_proj", "factored_tail")
+            + (("ls_parts", "factored_sig_proj split")
+               if cfg.num_tx >= 512 else ()))
         counts[f"estimate_full {tag}"] = cnt
         x0 = torch.from_numpy(req).to(dev)
         ref_ls = ls_estimate_planes(cfg, x0, ls_planes_constants(
@@ -4038,6 +4124,7 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
 
     # kernel 2 at Nt 1024: the fused tail and the per-head rows route in
     # bf16, the float32 rows route, counted
+    tcfg = TrainConfig(hidden=SHAPE_MODEL)
     cfg = shape_cfg("Nt 1024")
     C = cfg.num_carriers
     params, bn = make_model(cfg, tcfg, seed=100, device=dev)
@@ -4072,39 +4159,6 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         "factored_rows_tail, Nt 1024, vs its plain version", y,
         _out_plain(prep, _hidden_plain(prep, 2, hrows), C), -40.0)
     del hrows
-    # layer 1 at K = L = 327680 and M = S = 128 rows a plane: few tiles
-    # for 132 SMs; its time recorded beside its bound, left as it is
-    sp_ms = time_ms(lambda: factored_sig_proj(x16, prep["w1"], prep["w1t"]),
-                    iters=10)
-    sp_plain = time_ms(lambda: x16.float() @ prep["w1"].float(), iters=2,
-                       warmup=1)
-    sp_lib = time_ms(lambda: torch.bmm(x16, prep["w1"]), iters=10)
-    s1, L1, H1 = x16.shape[1], cfg.len_ltf, prep["w1"].shape[2]
-    sp_bound, sp_by = bound_ms(
-        x16.numel() * 2 + prep["w1t"].numel() * 2 + 2 * s1 * H1 * 4,
-        2.0 * 2 * s1 * L1 * H1)
-    # the bf16 DNN's limit: phase 5l's -70 dB is for K = 10240; one
-    # accumulator's truncating additions over K = 327680 read about 30
-    # dB worse (-98.97 dB at K = 10240, PERF.md row 2a)
-    sp_err = check("factored_sig_proj, Nt 1024, vs f32 x @ W1",
-                   factored_sig_proj(x16, prep["w1"], prep["w1t"]),
-                   x16.float() @ prep["w1"].float(), -40.0)
-    print(f"  factored_sig_proj [Nt 1024: (2, {s1}, {L1}) @ (2, {L1}, {H1}) "
-          f"bf16 -> f32]: {sp_ms:.5f} ms (bound {sp_bound:.5f} ms by "
-          f"{sp_by}, {sp_bound / sp_ms * 100:.1f}% of it); plain "
-          f"{sp_plain:.4f} ms; library {sp_lib:.4f} ms")
-    sig_proj_row = {
-        "name": "factored_sig_proj",
-        "shape": f"Nt 1024: (2, {s1}, {L1}) @ (2, {L1}, {H1}) bf16 -> f32",
-        "route": "cuda", "source": "mamimo_tpu_torch/csrc/fused_factored.cu",
-        "replaces": "mamimo_tpu/ops/pallas/fused_factored.py:169",
-        "launches": counts["fused_factored_planes Nt 1024"][
-            "factored_sig_proj"],
-        "launches_in": "fused_factored_planes x1, Nt 1024 (phase 5o)",
-        "max_abs_err": sp_err["max_abs_err"], "nmse_db": sp_err["nmse_db"],
-        "exact": False, "ms": sp_ms, "plain_ms": sp_plain,
-        "bound_ms": sp_bound, "bound_by": sp_by, "library_ms": sp_lib,
-        "call_ms": None, "ms_from": "events", "call_ms_from": "events"}
     y, cnt = counted(lambda: fused_factored_planes(
         cfg, tcfg, prep32, x32, dot_dtype=f32))
     require_launched("fused_factored_planes float32, Nt 1024", cnt, (
@@ -4114,7 +4168,105 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         "fused_factored_planes float32 (rows route), Nt 1024, vs f32 "
         "_factored_all_pairs", y, ref32, F32_LIMIT_DB)
     counts["fused_factored_planes f32 Nt 1024"] = cnt
+    # the float32 layer 1 at Nt 1024 (3xTF32, one range: its epilogues
+    # need the whole sum), measured beside its bound and library
+    s1, L1, H1 = x32.shape[1], cfg.len_ltf, prep32["w1"].shape[2]
+    sp_ms = time_ms(lambda: factored_sig_proj(
+        x32, prep32["w1"], prep32["w1t_tf32"]), iters=5)
+    sp_plain = time_ms(lambda: x32 @ prep32["w1"], iters=2, warmup=1)
+    sp_bound, sp_by = bound_ms(
+        x32.numel() * 4 + prep32["w1"].numel() * 4 + 2 * s1 * H1 * 4,
+        2.0 * 2 * s1 * L1 * H1, TF32_FLOPS)
+    sp_err = check("factored_sig_proj float32, Nt 1024, vs f32 x @ W1",
+                   factored_sig_proj(x32, prep32["w1"], prep32["w1t_tf32"]),
+                   x32 @ prep32["w1"], F32_LIMIT_DB)
+    print(f"  factored_sig_proj float32 [Nt 1024: (2, {s1}, {L1}) @ (2, "
+          f"{L1}, {H1}) f32 -> f32]: {sp_ms:.5f} ms (bound {sp_bound:.5f} "
+          f"ms by {sp_by}, {sp_bound / sp_ms * 100:.1f}% of it); plain "
+          f"{sp_plain:.4f} ms = the library call (torch.bmm f32, TF32 off)")
+    layer1_rows = [{
+        "name": "factored_sig_proj",
+        "shape": f"Nt 1024, float32 mode: (2, {s1}, {L1}) @ (2, {L1}, {H1})"
+                 f" f32 -> f32",
+        "route": "cuda", "source": "mamimo_tpu_torch/csrc/fused_factored.cu",
+        "replaces": "mamimo_tpu/ops/pallas/fused_factored.py:169",
+        "launches": cnt["factored_sig_proj f32"],
+        "launches_in": "fused_factored_planes(dot_dtype=float32) x1, Nt "
+                       "1024 (phase 5o)",
+        "max_abs_err": sp_err["max_abs_err"], "nmse_db": sp_err["nmse_db"],
+        "exact": False, "ms": sp_ms, "plain_ms": sp_plain,
+        "bound_ms": sp_bound, "bound_by": sp_by, "library_ms": sp_plain,
+        "call_ms": None, "ms_from": "events", "call_ms_from": "events"}]
     del params, bn, prep, prep32, x16, x32, ref16, ref32, y
+    torch.cuda.empty_cache()
+
+    # layer 1 split across the card (K cut into ranges where the tiles
+    # cannot fill it) at SPLIT_SHAPES: within SPLIT_LIMIT_DB of float32 x
+    # @ W1, two launches bit-identical, timed; then BS32's bench shape in
+    # one range (the launch that ran before the split walk)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tag, (s1, nt1) in SPLIT_SHAPES.items():
+        L1, H1 = nt1 * 320, SHAPE_MODEL[0]
+        xs = torch.randn((2, s1, L1), generator=g, device=dev).to(bf16)
+        ws = (torch.randn((2, L1, H1), generator=g, device=dev)
+              / L1 ** 0.5).to(bf16)
+        wst = ws.transpose(1, 2).contiguous()
+        a, cnt = counted(lambda: factored_sig_proj(xs, ws, wst))
+        require_launched(f"factored_sig_proj, {tag}", cnt,
+                         ("factored_sig_proj", "factored_sig_proj split"))
+        splits = sig_proj_splits(s1, H1, L1, sms)
+        same(f"factored_sig_proj, {tag}: two launches ({splits} ranges)",
+             factored_sig_proj(xs, ws, wst), a)
+        ref = torch.bmm(xs.float(), ws.float())
+        sp_err = check(f"factored_sig_proj, {tag}, {splits} ranges of K, vs "
+                       f"f32 x @ W1", a, ref, SPLIT_LIMIT_DB)
+        sp_ms = time_ms(lambda: factored_sig_proj(xs, ws, wst), iters=10)
+        sp_plain = time_ms(lambda: xs.float() @ ws.float(), iters=2,
+                           warmup=1)
+        sp_lib = time_ms(lambda: torch.bmm(xs, ws), iters=10)
+        sp_bound, sp_by = bound_ms(
+            xs.numel() * 2 + wst.numel() * 2 + 2 * s1 * H1 * 4,
+            2.0 * 2 * s1 * L1 * H1)
+        print(f"  factored_sig_proj [{tag}: (2, {s1}, {L1}) @ (2, {L1}, "
+              f"{H1}) bf16 -> f32, {splits} ranges of K]: {sp_ms:.5f} ms "
+              f"(bound {sp_bound:.5f} ms by {sp_by}, "
+              f"{sp_bound / sp_ms * 100:.1f}% of it); plain {sp_plain:.4f} "
+              f"ms; library {sp_lib:.4f} ms")
+        main_key, main_in = {
+            "Nt 1024": ("fused_factored_planes Nt 1024",
+                        "fused_factored_planes x1, Nt 1024 (phase 5o)"),
+            "Nt 512": ("estimate_full Nt 512",
+                       "estimate_full x1, Nt 512 (phase 5o)")}[tag]
+        layer1_rows.append({
+            "name": "factored_sig_proj",
+            "shape": f"{tag}: (2, {s1}, {L1}) @ (2, {L1}, {H1}) bf16 -> "
+                     f"f32, {splits} ranges of K",
+            "route": "cuda",
+            "source": "mamimo_tpu_torch/csrc/fused_factored.cu",
+            "replaces": "mamimo_tpu/ops/pallas/fused_factored.py:169",
+            "launches": counts[main_key]["factored_sig_proj split"],
+            "launches_in": main_in, "splits": splits,
+            "max_abs_err": sp_err["max_abs_err"],
+            "nmse_db": sp_err["nmse_db"], "exact": False, "ms": sp_ms,
+            "plain_ms": sp_plain, "bound_ms": sp_bound, "bound_by": sp_by,
+            "library_ms": sp_lib, "call_ms": None, "ms_from": "events",
+            "call_ms_from": "events"})
+        errs[f"factored_sig_proj split {tag}"] = sp_err
+        del xs, ws, wst, a, ref
+        torch.cuda.empty_cache()
+    xs = torch.randn((2, BENCH_PACKETS * 4, 10240), generator=g,
+                     device=dev).to(bf16)
+    ws = (0.01 * torch.randn((2, 10240, SHAPE_MODEL[0]), generator=g,
+                             device=dev)).to(bf16)
+    _, cnt = counted(lambda: factored_sig_proj(
+        xs, ws, ws.transpose(1, 2).contiguous()))
+    splits = sig_proj_splits(xs.shape[1], ws.shape[2], 10240, sms)
+    print(f"  factored_sig_proj at BS32's bench shape (2, {xs.shape[1]}, "
+          f"10240) @ (2, 10240, {ws.shape[2]}): {splits} range of K, split "
+          f"launches {cnt['factored_sig_proj split']}")
+    if splits != 1 or cnt["factored_sig_proj split"]:
+        raise AssertionError("BS32's layer 1 at S = 4096 was split")
+    del xs, ws
     torch.cuda.empty_cache()
 
     # one Nt 1024 call at SHAPE_BIG_PACKETS packets: more than 2^31 input
@@ -4149,7 +4301,7 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
             "served_nmse_db": {k: {n: v["nmse_db"] for n, v in d.items()}
                                for k, d in served.items()},
             "launches": counts, "big_ms": big_ms, "seconds": secs,
-            "_errs": errs, "_rows": [sig_proj_row]}
+            "_errs": errs, "_rows": layer1_rows}
 
 
 def ls_shapes_timing(dev, smi, res) -> list:
@@ -4160,9 +4312,12 @@ def ls_shapes_timing(dev, smi, res) -> list:
     beside its plain version, its bound (inputs read once, outputs written
     once; the DFT-select's products counted once at the bf16 or TF32
     peak) and one library call (the DFT-select as one matmul a plane,
-    then the despread as one). Launches: those of the main path where
-    one runs the shape, else of phase 5o's checks. Phase 5o's row of
-    kernel 2's layer 1 at Nt 1024 comes first."""
+    then the despread as one). At Nt 512 and 1024 a kernel's time holds
+    its part transform's launch, as the wrapper makes it, and the
+    transform has rows of its own (both modes). Launches: those of the
+    main path where one runs the shape, else of phase 5o's checks. Phase
+    5o's rows of kernel 2's layer 1 (split across the card at Nt 1024 and
+    512, and the float32 mode at Nt 1024) come first."""
     import torch
 
     from mamimo_tpu_torch.bench import _planes_to_time_major
@@ -4172,9 +4327,11 @@ def ls_shapes_timing(dev, smi, res) -> list:
         ls_planes_constants,
     )
     from mamimo_tpu_torch.ops.kernels.fused_ls import (
+        _ls_parts_plain,
         _ls_v1_plain,
         ls_estimate_pallas,
         ls_pair_kernel,
+        ls_parts,
         ls_planes_pallas_v2_constants,
         ls_planes_v1,
         ls_planes_v2,
@@ -4193,10 +4350,38 @@ def ls_shapes_timing(dev, smi, res) -> list:
         x32 = torch.randn((2, S, L), generator=g, device=dev)
         x16 = x32.to(bf16)
         f32c = ls_planes_constants(cfg, device=dev)
-        n_main = counts.get(f"estimate_full {tag}", {}).get("ls_planes_v2")
-        if tag == "Nt 1024":
-            n_main = counts["ls_planes_v2 Nt 1024 big"]["ls_planes_v2"]
+        n_main = counts[f"estimate_full {tag}"]["ls_planes_v2"]
         checks = f"phase 5o's checks, {tag}"
+        if tag in PARTS_LIMITS_DB:
+            # the part transform alone: the planes' fft samples read once,
+            # the transform written once; no one PyTorch call computes it
+            for x in (x16, x32):
+                mode = "bf16" if x.dtype == bf16 else "float32"
+                ms = time_ms(lambda x=x: ls_parts(cfg, x), iters=10)
+                plain_ms = time_ms(lambda x=x: _ls_parts_plain(cfg, x, nt),
+                                   iters=2, warmup=1)
+                bms, by = bound_ms(2 * 2 * S * nt * fft * x.element_size(),
+                                   0.0)
+                shape = (f"{tag}, {mode} planes (2, {S}, {L}) -> (2, {S}, "
+                         f"{nt * fft})")
+                print(f"  ls_parts [{shape}]: {ms:.5f} ms (bound {bms:.5f} "
+                      f"ms by {by}, {bms / ms * 100:.1f}% of it); plain "
+                      f"{plain_ms:.4f} ms  [{smi}]")
+                rows.append({
+                    "name": "ls_parts", "shape": shape, "route": "cuda",
+                    "source": "mamimo_tpu_torch/csrc/ls_parts.cu",
+                    "replaces": lsrc + "424",
+                    "note": "the first pass of kernels 1, 3 and 4 at 512 "
+                            "symbols a sample and more (a part of their "
+                            "TPU kernels' despread)",
+                    "launches": counts[f"estimate_full {tag}"]["ls_parts"]
+                    if mode == "bf16" else counts[tag]["ls_parts"],
+                    "launches_in": f"estimate_full x1, {tag}"
+                    if mode == "bf16" else checks,
+                    "max_abs_err": 0.0, "nmse_db": None, "exact": True,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                    "bound_by": by, "library_ms": None, "call_ms": None,
+                    "ms_from": "events", "call_ms_from": "events"})
         for dt, k, x, peak in ((bf16, ls_sm90_constants(cfg, dev), x16,
                                 BF16_FLOPS),
                                (f32, ls_sm90_constants(cfg, dev, f32), x32,
@@ -4227,8 +4412,7 @@ def ls_shapes_timing(dev, smi, res) -> list:
                      ls_in + 2 * S * nt * C * 4,
                      n_main if dt == bf16 and n_main else
                      counts[tag]["ls_planes_v2" + key],
-                     (("estimate_full x1" if tag != "Nt 1024" else
-                       "the S = 4096 call of phase 5o") + f", {tag}")
+                     f"estimate_full x1, {tag}"
                      if dt == bf16 and n_main else checks),
                     ("ls_planes_v1", "ls_v1.cu", lsrc + "253",
                      lambda: ls_planes_v1(cfg, x, k, out_dtype=dt),
@@ -4334,6 +4518,7 @@ def main() -> int:
         ls_planes_pallas_v2_constants,
         ls_planes_v1,
         ls_planes_v2,
+        ls_parts,
         ls_raw_to_complex,
         ls_sm90_constants,
         ls_v2_tiles,
@@ -4409,6 +4594,7 @@ def main() -> int:
     # mma.sync (HMMA; IMMA)
     for src, kerns, want, ban in (
             ("fused_factored", ("factored_sig_proj_kernel",
+                                "factored_sig_proj_split_kernel",
                                 "factored_tail_kernel",
                                 "factored_dense_kernel",
                                 "factored_rows_tail_kernel"), "HGMMA",
@@ -4764,7 +4950,7 @@ def main() -> int:
                    factored_heads, factored_dense, factored_rows_tail,
                    ls_planes_v1, matmul_int8, ls_pair_kernel,
                    mlp_infer_layer1, mlp_infer_tail, halo_exchange_pallas,
-                   matmul_float, tf32_split)
+                   matmul_float, tf32_split, ls_parts)
     # the wrappers with a float32 mode also count its launches apart
     f32_kernels = (ls_planes_v2, ls_planes_v1, ls_pair_kernel, matmul_float,
                    factored_sig_proj, factored_heads, factored_dense,
@@ -4773,16 +4959,20 @@ def main() -> int:
     def counted(fn):
         """Run fn with every launch count set to 0 just before; returns
         fn's result and the counts just after ("<name> f32": the float32
-        mode's share)."""
+        mode's share; "factored_sig_proj split": the launches of layer 1
+        whose K was split across the card)."""
         for k in all_kernels:
             k.launches = 0
         for k in f32_kernels:
             k.launches_f32 = 0
+        factored_sig_proj.launches_split = 0
         out = fn()
         torch.cuda.synchronize()
         return out, {**{k.__name__: k.launches for k in all_kernels},
                      **{f"{k.__name__} f32": k.launches_f32
-                        for k in f32_kernels}}
+                        for k in f32_kernels},
+                     "factored_sig_proj split":
+                         factored_sig_proj.launches_split}
 
     def require_launched(what, counts, names):
         print(f"  launches in {what}: {counts}")

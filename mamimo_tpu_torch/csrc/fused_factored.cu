@@ -19,6 +19,8 @@
 //   prepare_factored_weights, so both operands are K-major. Its f32
 //   output is S x H per plane, small next to the (S*nt) x H activations
 //   that follow; the epilogue stores it straight from the accumulators.
+//   Where its tile groups cannot fill the card (few rows, long K: Nt >=
+//   512), factored_sig_proj_split_kernel splits K instead (below).
 // * factored_tail_kernel: one block owns 64 samples of one head t; the
 //   blocks of a cluster take neighbouring heads of the same samples (they
 //   read the same sig_proj rows and share every W2/W3 tile by TMA
@@ -85,6 +87,56 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
           *reinterpret_cast<float2*>(out + ((long long)p * S + row) * H +
                                      col) = make_float2(v0, v1);
       });
+}
+
+// Layer 1 where its 128 x 256 tile groups are too few to fill the card
+// (the issue at Nt >= 512, where K = L = 320 Nt is long and M = S rows a
+// plane is small: at Nt 1024, S = 128, 8 tile groups of two M-tiles, one
+// of them past M, for 132 SMs, each streaming a whole N-tile of W1 over
+// K): gemm_persistent's split walk, K cut into `splits` ranges (the
+// wrapper's plan, fused_factored.py::sig_proj_splits), one cluster a
+// unit (M-tile group, N-tile, plane, range): CL = 1 block at one M-tile
+// (no block on the zero rows past M), else a pair of M-tiles sharing the
+// B tile (at Nt 512, S = 512, one block a unit read 3.9 GB from L2 and
+// took 0.71 ms on an H100). Each writes its float32 partial to ws
+// (splits, 2, S, H). split_sum_kernel then sums the partials in range
+// order into out: deterministic, no atomics, and each range's truncating
+// tensor-core additions run over K / splits only. Bound: W1's bytes
+// (1.34 GB at Nt 1024, 0.40 ms at 3.35 TB/s), which the units read once
+// between them; the partials add 2 x splits x S x H x 4 bytes (16.8 MB
+// at that shape, written once and read once).
+template <int CL>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    factored_sig_proj_split_kernel(const __grid_constant__ CUtensorMap mx,
+                                   const __grid_constant__ CUtensorMap mw,
+                                   float* __restrict__ ws, int S, int L,
+                                   int H, int splits) {
+  sm90::gemm_persistent<CL, true>(
+      &mx, &mw, S, H, 2, L,
+      [&](int p, int row, int col, float v0, float v1) {
+        if (row < S && col < H)
+          *reinterpret_cast<float2*>(ws + ((long long)p * S + row) * H +
+                                     col) = make_float2(v0, v1);
+      },
+      splits);
+}
+
+// out[i] = ws[i] + ws[n + i] + ... + ws[(splits - 1) n + i], added in
+// that order in float32, four floats a thread (n = 4 n4 floats).
+__global__ void __launch_bounds__(256)
+    split_sum_kernel(const float4* __restrict__ ws, float4* __restrict__ out,
+                     long long n4, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 a = ws[i];
+  for (int j = 1; j < splits; ++j) {
+    const float4 b = ws[j * n4 + i];
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  out[i] = a;
 }
 
 // The float32 mode: x (2, S, L) f32 through map mx (make_map_f32, box
@@ -413,11 +465,16 @@ extern "C" {
 // x (2, S, L), w1t (2, H, L) (W1[:L] transposed): bf16 (L % 8 == 0); or
 // with MODE_F32 x f32 (L % 4 == 0) and w1t the TF32 parts of W1[:L]
 // transposed, (2, 2, H, L) f32 (tf32_split); out (2, S, H) f32. H % 128
-// == 0, x and w1t 16-byte aligned.
+// == 0, x and w1t 16-byte aligned. splits > 1 (bf16 only): the split walk
+// into ws (splits, 2, S, H) f32, 16-byte aligned, then the sum into out;
+// every range of ceil(ceil(L / 64) / splits) k-steps must hold one.
+// splits 0 or 1: one range, ws unused.
 int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
-                             int S, int L, int H, int mode, void* stream) {
+                             int S, int L, int H, int mode, void* ws,
+                             int splits, void* stream) {
   CUtensorMap mx, mw;
   if (mode == MODE_F32) {
+    if (splits > 1) return (int)cudaErrorInvalidValue;
     if (sm90::make_map_f32(&mx, x, L, S, 2, 128, L) ||
         sm90::make_map_f32(&mw, w1t, L, H, 4, sm90::TF_SLICE_ROWS, L))
       return sm90::ERR_TENSOR_MAP;
@@ -430,8 +487,25 @@ int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
   if (rc == 0)
     rc = sm90::make_map(&mw, w1t, L, H, 2, sm90::B_SLICE_ROWS, L);
   if (rc != 0) return rc;
-  return sm90::launch(factored_sig_proj_kernel, S, H, 2,
-                      (cudaStream_t)stream, mx, mw, (float*)out, S, L, H);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (splits <= 1)
+    return sm90::launch(factored_sig_proj_kernel, S, H, 2, st, mx, mw,
+                        (float*)out, S, L, H);
+  const int KT = (L + sm90::BK - 1) / sm90::BK;
+  if ((splits - 1) * ((KT + splits - 1) / splits) >= KT)
+    return (int)cudaErrorInvalidValue;                 // an empty range
+  rc = S <= sm90::BM
+           ? sm90::launch_split<1>(factored_sig_proj_split_kernel<1>, S, H,
+                                   2, splits, st, mx, mw, (float*)ws, S, L,
+                                   H, splits)
+           : sm90::launch_split<sm90::CLUSTER>(
+                 factored_sig_proj_split_kernel<sm90::CLUSTER>, S, H, 2,
+                 splits, st, mx, mw, (float*)ws, S, L, H, splits);
+  if (rc != 0) return rc;
+  const long long n4 = 2LL * S * H / 4;
+  split_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
+      (const float4*)ws, (float4*)out, n4, splits);
+  return (int)cudaGetLastError();
 }
 
 // sp (2, S, H1) f32; hb (2, nt, H1) f32; a1, c1 (2, H1) f32; w2t (2, H2,

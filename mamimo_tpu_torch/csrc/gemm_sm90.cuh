@@ -889,11 +889,23 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
 // (columns col, col + 1; col even; row and col may lie past M and N).
 // Launch through launch(); nothing may follow the call in the kernel (the
 // producer and consumer paths never rejoin).
-template <class Epi>
+//
+// The split walk (SPLIT, launch_split): where the tile groups are too few
+// to fill the card (layer 1 at small M and long K), K's KT k-steps are
+// cut into `splits` ranges of ks = ceil(KT / splits) (every range
+// non-empty: the caller's duty), and the units (N-tile, M-tile group,
+// plane z, range j) each sum their range in fresh accumulators and hand
+// epi the plane j * Z + z: the caller's workspace of per-range partials,
+// which it sums afterwards in a fixed order. With one M-tile (M <= 128)
+// the units take clusters of CL = 1 block, which load their whole B tile
+// themselves (nothing to share), so no block loads the zero rows past M
+// of an M-tile pair; with more, pairs of M-tiles share B as above.
+template <int CL = CLUSTER, bool SPLIT = false, class Epi>
 __device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
                                                 const CUtensorMap* mb, int M,
                                                 int N, int Z, int K,
-                                                Epi&& epi) {
+                                                Epi&& epi, int splits = 1) {
+  static_assert(CL == CLUSTER || CL == 1, "pairs of M-tiles, or none");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (saddr(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = ring + STAGES * STAGE_BYTES;  // STAGES x 8 bytes
@@ -903,13 +915,23 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
   const int cid = cluster_index(), ncl = cluster_count();
   const int KT = (K + BK - 1) / BK;
   const int ntn = (N + BN - 1) / BN;
-  const int ntg = ((M + BM - 1) / BM + CLUSTER - 1) / CLUSTER;
-  const int T = ntn * ntg * Z;
-  auto coords = [&](int t, int& m0, int& n0, int& z) {
+  const int ntg = ((M + BM - 1) / BM + CL - 1) / CL;
+  const int ks = SPLIT ? (KT + splits - 1) / splits : KT;
+  const int T = ntn * ntg * Z * (SPLIT ? splits : 1);
+  // tile t: its corner, its plane z, the plane zo of epi, its k-steps
+  auto coords = [&](int t, int& m0, int& n0, int& z, int& zo, int& kb,
+                    int& ke) {
     n0 = (t % ntn) * BN;
     t /= ntn;
-    m0 = ((t % ntg) * CLUSTER + rank) * BM;
-    z = t / ntg;
+    m0 = ((t % ntg) * CL + rank) * BM;
+    z = zo = t / ntg;
+    kb = 0;
+    ke = KT;
+    if constexpr (SPLIT) {
+      z = zo % Z;
+      kb = zo / Z * ks;
+      ke = kb + ks < KT ? kb + ks : KT;
+    }
   };
 
   if (threadIdx.x == 0) {
@@ -918,7 +940,7 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
       mbar_init(full + 8 * s, 1);  // the producer's expect_tx
       // one arrival per consumer warpgroup of every CTA of the cluster:
       // each stage holds B slices written by all of them
-      mbar_init(empty + 8 * s, 2 * CLUSTER);
+      mbar_init(empty + 8 * s, 2 * CL);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -933,20 +955,27 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
     if (tid == 0) {
       int it = 0;
       for (int t = cid; t < T; t += ncl) {
-        int m0, n0, z;
-        coords(t, m0, n0, z);
-        for (int kt = 0; kt < KT; ++kt, ++it) {
+        int m0, n0, z, zo, kb, ke;
+        coords(t, m0, n0, z, zo, kb, ke);
+        for (int kt = kb; kt < ke; ++kt, ++it) {
           const int s = it % STAGES;
           // the first pass over the ring finds every stage free
           mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
           const uint32_t a = ring + s * STAGE_BYTES;
           mbar_expect_tx(full + 8 * s, STAGE_BYTES);
           tma_load_3d(a, ma, full + 8 * s, kt * BK, m0, z);
-          // this CTA's slice of B, into every CTA of the cluster
-          tma_load_3d_multicast(a + A_BYTES + rank * B_SLICE, mb,
-                                full + 8 * s, kt * BK,
-                                n0 + rank * B_SLICE_ROWS, z,
-                                (uint16_t)((1u << CLUSTER) - 1));
+          if constexpr (CL == 1) {
+            // the whole B tile, both slices
+            for (int h = 0; h < CLUSTER; ++h)
+              tma_load_3d(a + A_BYTES + h * B_SLICE, mb, full + 8 * s,
+                          kt * BK, n0 + h * B_SLICE_ROWS, z);
+          } else {
+            // this CTA's slice of B, into every CTA of the cluster
+            tma_load_3d_multicast(a + A_BYTES + rank * B_SLICE, mb,
+                                  full + 8 * s, kt * BK,
+                                  n0 + rank * B_SLICE_ROWS, z,
+                                  (uint16_t)((1u << CLUSTER) - 1));
+          }
         }
       }
       // stay until every stage's last use is released by every CTA of
@@ -965,17 +994,17 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
     auto release = [&](int i) {
       if (tid == 0)
 #pragma unroll
-        for (int c = 0; c < CLUSTER; ++c)
+        for (int c = 0; c < CL; ++c)
           mbar_arrive_cluster(empty + 8 * (i % STAGES), c);
     };
     int it = 0;
     for (int t = cid; t < T; t += ncl) {
-      int m0, n0, z;
-      coords(t, m0, n0, z);
+      int m0, n0, z, zo, kb, ke;
+      coords(t, m0, n0, z, zo, kb, ke);
       float acc[ACC];
 #pragma unroll
       for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-      for (int kt = 0; kt < KT; ++kt, ++it) {
+      for (int kt = kb; kt < ke; ++kt, ++it) {
         const int s = it % STAGES;
         mbar_wait(full + 8 * s, (it / STAGES) & 1);
         const uint32_t a = ring + s * STAGE_BYTES + cw * (64 * BK * 2);
@@ -991,15 +1020,15 @@ __device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
         // the previous k-step's group is done: release its stage
         wgmma_wait<1>();
         fence_acc(acc);
-        if (kt > 0) release(it - 1);
+        if (kt > kb) release(it - 1);
       }
       wgmma_wait<0>();
       fence_acc(acc);
       release(it - 1);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        epi(z, m0 + r, n0 + 8 * j + q, acc[4 * j], acc[4 * j + 1]);
-        epi(z, m0 + r + 8, n0 + 8 * j + q, acc[4 * j + 2], acc[4 * j + 3]);
+        epi(zo, m0 + r, n0 + 8 * j + q, acc[4 * j], acc[4 * j + 1]);
+        epi(zo, m0 + r + 8, n0 + 8 * j + q, acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
   }
@@ -1077,26 +1106,27 @@ inline int make_map_f32(CUtensorMap* map, const void* ptr, int inner,
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
 }
 
-// Launches a kernel built on gemm_persistent for an M x N output over Z
-// planes: clusters of CLUSTER blocks of THREADS threads with SMEM_BYTES of
-// dynamic shared memory, as many clusters as fit on the device at once
-// (cudaOccupancyMaxActiveClusters, asked once per kernel) and never more
-// than there are tile groups. Returns a cudaError_t code.
-template <class... Params, class... Args>
-inline int launch(void (*kernel)(Params...), int M, int N, int Z,
-                  cudaStream_t stream, Args... args) {
+// Launches `units` units of a kernel on gemm_persistent or gemm_tf32x3:
+// clusters of CL blocks of THREADS threads with SMEM bytes of dynamic
+// shared memory, as many clusters as fit on the device at once
+// (cudaOccupancyMaxActiveClusters, asked once per kernel signature, CL
+// and SMEM; every kernel on these bodies runs one block an SM) and never
+// more than there are units. Returns a cudaError_t code.
+template <int CL, int SMEM, class... Params, class... Args>
+inline int launch_units(void (*kernel)(Params...), long long units,
+                        cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.x = CL;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, 1, 1);
+  cfg.gridDim = dim3(CL, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.dynamicSmemBytes = SMEM;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -1106,52 +1136,46 @@ inline int launch(void (*kernel)(Params...), int M, int N, int Z,
     if (e != cudaSuccess) return (int)e;
     if (resident < 1) return (int)cudaErrorInvalidConfiguration;
   }
-  const long long groups = (long long)(((M + BM - 1) / BM + CLUSTER - 1) /
-                                       CLUSTER) *
-                           ((N + BN - 1) / BN) * Z;
-  cfg.gridDim = dim3(CLUSTER * (int)(groups < resident ? groups : resident),
-                     1, 1);
+  cfg.gridDim = dim3(CL * (int)(units < resident ? units : resident), 1, 1);
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// Launches a kernel built on gemm_persistent for an M x N output over Z
+// planes: its tile groups (CLUSTER M-tiles of one N-tile of a plane), one
+// a cluster of CLUSTER blocks. Returns a cudaError_t code.
+template <class... Params, class... Args>
+inline int launch(void (*kernel)(Params...), int M, int N, int Z,
+                  cudaStream_t stream, Args... args) {
+  const long long groups = (long long)(((M + BM - 1) / BM + CLUSTER - 1) /
+                                       CLUSTER) *
+                           ((N + BN - 1) / BN) * Z;
+  return launch_units<CLUSTER, SMEM_BYTES>(kernel, groups, stream, args...);
+}
+
+// Launches a kernel built on gemm_persistent<CL, true> (the split walk)
+// for an M x N output over Z planes and `splits` ranges of K: its units
+// (group of CL M-tiles, N-tile, plane, range), one a cluster of CL
+// blocks. Returns a cudaError_t code.
+template <int CL, class... Params, class... Args>
+inline int launch_split(void (*kernel)(Params...), int M, int N, int Z,
+                        int splits, cudaStream_t stream, Args... args) {
+  const long long units = (long long)(((M + BM - 1) / BM + CL - 1) / CL) *
+                          ((N + BN - 1) / BN) * Z * splits;
+  return launch_units<CL, SMEM_BYTES>(kernel, units, stream, args...);
+}
+
 // Launches a kernel built on gemm_tf32x3 for an M x N output over Z
 // planes: as launch(), with 128 x 128 tiles and TF_SMEM of dynamic
-// shared memory (its own count of resident clusters). Returns a
-// cudaError_t code.
+// shared memory. Returns a cudaError_t code.
 template <class... Params, class... Args>
 inline int launch_tf32x3(void (*kernel)(Params...), int M, int N, int Z,
                          cudaStream_t stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = TF_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(TF_CLUSTER, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = TF_SMEM;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  static int resident = 0;  // clusters that fit on the device at once
-  if (resident == 0) {
-    e = cudaOccupancyMaxActiveClusters(&resident, (void*)kernel, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (resident < 1) return (int)cudaErrorInvalidConfiguration;
-  }
   const long long groups =
       (long long)(((M + 127) / 128 + TF_CLUSTER - 1) / TF_CLUSTER) *
       ((N + 127) / 128) * Z;
-  cfg.gridDim = dim3(TF_CLUSTER * (int)(groups < resident ? groups : resident),
-                     1, 1);
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_units<TF_CLUSTER, TF_SMEM>(kernel, groups, stream, args...);
 }
 
 // Error text of a launch function's return code.

@@ -30,8 +30,10 @@
 // ls_estimate_pallas passes float32 pair planes (complex64 rx, as the TPU
 // kernel computes in float32): the float32 mode, ls_pair_f32_kernel on
 // ls90::ls_body_f32, the same store; 268 MB of f32 input, bound 0.153 ms.
-// Any nt up to 1024 and symbols of any length: ls_pair_any_kernel
-// (ls90::ls_body<0>), the same store.
+// Any nt up to 2048 and symbols of any length: ls_pair_any_kernel
+// (ls90::ls_body<0>), the same store; at nt >= 512 on the part
+// transform's Z (ls_parts.cu), one part a tile (the store's symbol offset
+// part << 7 from ls90::Rows).
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
@@ -109,9 +111,10 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
                        const __grid_constant__ CUtensorMap ms,
                        float* __restrict__ out, int S, int nr, int nt,
                        int log_nt, int C, int cp, int fft, int sym_len,
-                       int log_g) {
+                       int log_g, int parts) {
   PairEpi epi{out, S, nr, nt, log_nt, C, 64 * (int)sm90::cluster_rank()};
-  ls90::ls_body<0>(&ma, &mb, S, log_nt, fft, cp, epi, sym_len, log_g, &ms);
+  ls90::ls_body<0>(&ma, &mb, S, log_nt, fft, cp, epi, sym_len, log_g, &ms,
+                   parts);
 }
 
 __global__ void __launch_bounds__(ls90::THREADS, 1)
@@ -120,10 +123,10 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
                            const __grid_constant__ CUtensorMap ms,
                            float* __restrict__ out, int S, int nr, int nt,
                            int log_nt, int C, int cp, int fft, int sym_len,
-                           int log_g) {
+                           int log_g, int parts) {
   PairEpi epi{out, S, nr, nt, log_nt, C, 64 * (int)sm90::cluster_rank()};
   ls90::ls_body_f32<0>(&ma, &mb, S, log_nt, fft, cp, epi, sym_len, log_g,
-                       &ms);
+                       &ms, parts);
 }
 
 }  // namespace
@@ -134,18 +137,22 @@ extern "C" {
 // (2*cpad, 2*fft) bf16, the permuted K-major constants, or with in_f32
 // f32 with bt (2, 2*cpad, 2*fft) f32, their split TF32 high and low
 // parts (fused_ls.py::ls_sm90_constants); out (B, C, nt, nr) complex64
-// as floats. nt a power of 2 <= 1024 and at least the 2^group_log(
-// sym_len, esize) symbols of a map row (any sym_len at nt >= 8), fft % 64
-// == 0, fft <= 256, cpad 128, 256 or 512. Returns the CUDA error code of
-// the launch (or sm90::ERR_TENSOR_MAP).
+// as floats. mode bit 0: f32 planes. nt a power of 2 <= 256 and at least
+// the 2^group_log(sym_len, esize) symbols of a map row (any sym_len at nt
+// >= 8); or with mode bit 1 (`parts`) nt 512 .. 2048 and planes the part
+// transform's Z (ls_parts.cu), sym_len = fft, cp = 0. fft % 64 == 0, fft
+// <= 256, cpad 128, 256 or 512. Returns the CUDA error code of the launch
+// (or sm90::ERR_TENSOR_MAP).
 int ls_pair_launch(const void* planes, const void* bt, void* out, int S,
                    int nr, int nt, int C, int sym_len, int cp, int fft,
-                   int cpad, int in_f32, void* stream) {
+                   int cpad, int mode, void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
+  const int in_f32 = mode & 1, parts = (mode >> 1) & 1;
   int log_g;
   bool general;
-  if (!ls90::layout(log_nt, sym_len, in_f32 ? 4 : 2, log_g, general))
+  if (mode < 0 || mode > 3 ||
+      !ls90::layout(log_nt, sym_len, in_f32 ? 4 : 2, parts, log_g, general))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb, ms = {};
   if (in_f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_nt, sym_len,
@@ -158,11 +165,11 @@ int ls_pair_launch(const void* planes, const void* bt, void* out, int S,
   if (general && in_f32)
     return ls90::launch<ls90::F_SMEM_BYTES>(
         ls_pair_any_f32_kernel, cl, tiles, st, ma, mb, ms, (float*)out, S,
-        nr, nt, log_nt, C, cp, fft, sym_len, log_g);
+        nr, nt, log_nt, C, cp, fft, sym_len, log_g, parts);
   if (general)
     return ls90::launch(ls_pair_any_kernel, cl, tiles, st, ma, mb, ms,
                         (float*)out, S, nr, nt, log_nt, C, cp, fft, sym_len,
-                        log_g);
+                        log_g, parts);
   if (in_f32)
     return ls90::launch<ls90::F_SMEM_BYTES>(
         log_nt > 7 ? ls_pair_f32_kernel<2> : ls_pair_f32_kernel<1>, cl,

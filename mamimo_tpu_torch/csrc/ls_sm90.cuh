@@ -44,23 +44,39 @@
 //   (each block loads 16/CL of them) through a 4-d map (sym_len, loc
 //   symbols, S samples, 2 planes) whose box is bs symbols x 8/bs samples,
 //   bs = 2 (1 for loc = 1, 8 for loc >= 64), symbols fastest.
-// * Any num_tx up to 1024, and symbols whose rows TMA cannot stride
+// * Any num_tx up to 2048, and symbols whose rows TMA cannot stride
 //   (NH = 0, the general instantiation; NH = 1 and 2 keep the code they
 //   ran before it): a tile is part p of nh = loc/128 parts of a sample
-//   (or, at loc <= 128, whole samples as above) and its k-steps run over
-//   all nh symbol parts v, each entering with the sign H_nh[p, v] =
-//   (-1)^popcount(p & v): P_{128 nh} = H_nh (x) H_128. So the products
-//   and the input's reads grow nh-fold (the reads after the first from
-//   L2); the output is still written once. A map row must start on 16
-//   bytes, and a symbol of sym_len samples does not when sym_len * esize
-//   % 16 != 0 (a cyclic prefix that is not a multiple of 8, e.g. NR's 18
-//   at a 256-point FFT): then one row of the map spans g = 2^log_g
-//   symbols (group_log) and a box's rows step g symbols. Within a tile
-//   the rows then hold the symbols in a rotated order, v = q + m *
-//   2^(log_tl - log_g) for symbol m + g q; the Walsh-Hadamard transform
-//   commutes with a permutation of the index bits, so the despread runs
-//   unchanged on the rotated order and the epilogue maps each row back
-//   (Rows::at). A box must also start on 16 bytes (a TMA load whose inner
+//   (or, at loc <= 128, whole samples as above). P_{128 nh} = H_nh (x)
+//   H_128, so part p's rows are the 128-symbol despread of Z_p = sum_v
+//   H_nh[p, v] Y_v, H_nh[p, v] = (-1)^popcount(p & v), Y_v the DFT-select
+//   input of part v. At loc >= 512 (`parts`) the input is Z itself,
+//   written by the part transform (ls_parts.cu) with each symbol fft
+//   samples on an aligned row, and a tile's k-steps run over Z_p alone:
+//   the products and reads of one part a tile, as at NH = 1. Below that
+//   (loc 256 with a symbol off the 16-byte grid) the tile's k-steps run
+//   over both parts v, each with its sign (wgmma's imm-scale-a), into
+//   one accumulator. A seq rank's partial needs no other sign: part
+//   p_hi*nl + p_lo of the whole estimate is H_n[p_hi, rank] times part
+//   p_lo of the rank's own, which the epilogues already store n times
+//   with those signs. The output is written once. Why `parts` runs on
+//   the general body and not on the NH = 1 body over S nl samples of 128
+//   symbols: that would put each tile's rows in the right place for
+//   kernels 1 and 3 in full mode only, while a seq rank's copies and the
+//   pair layout need the part's offset, which the general body's
+//   epilogues already take (Rows, sym0 = part << 7); one flag in the
+//   general body serves all three kernels and both modes. A map row
+//   must start on 16 bytes, and a symbol of sym_len samples does not
+//   when sym_len * esize % 16 != 0 (a cyclic prefix that is not a
+//   multiple of 8, e.g. NR's 18 at a 256-point FFT; at loc <= 256, as
+//   the part transform's output is aligned): then one row of the map
+//   spans g = 2^log_g symbols (group_log) and a box's rows step g
+//   symbols. Within a tile the rows then hold the symbols in a rotated
+//   order, v = q + m * 2^(log_tl - log_g) for symbol m + g q; the
+//   Walsh-Hadamard transform commutes with a permutation of the index
+//   bits, so the despread runs unchanged on the rotated order and the
+//   epilogue maps each row back (Rows::at). A box must also start on 16
+//   bytes (a TMA load whose inner
 //   start is off that grid faults: tools' probe on an H100, PERF.md), so
 //   symbol m's fft samples are loaded unswizzled from their start rounded
 //   down, with the next 16 bytes as a second box beside the stage, and
@@ -348,9 +364,11 @@ __device__ __forceinline__ void shift_stage(const unsigned char* st,
 // 8/bs x 1, SW128; mb: 2-d map (as 3-d, one plane) of the permuted Bt
 // (2*fft, 2*cpad rows), box KB x 128, SW128 (make_maps). loc = 2^log_loc
 // <= 128 with NH = 1, or loc = 128 NH with NH symbol halves a tile (see
-// the header); or, with NH = 0, any loc <= 1024 and the map (sym_len g,
+// the header); or, with NH = 0, any loc <= 256 and the map (sym_len g,
 // loc / g, S, 2) of make_maps(..., log_g), g = 2^log_g <= min(loc, 128),
-// whose box holds 2^box_log(log_tl, log_g) of a row's symbols. fft % 64
+// whose box holds 2^box_log(log_tl, log_g) of a row's symbols; or, with
+// NH = 0 and `parts`, loc = 512 .. 2048 and the map of the part
+// transform's Z (ls_parts.cu: sym_len = fft, cp = 0, log_g = 0). fft % 64
 // == 0, 2*fft <= KMAX. The two consumer warpgroups
 // take the cluster's tiles in turns: warpgroup w the tiles u = w, w + 2,
 // ... of the cluster's sequence, all 128 rows and all 128 columns of
@@ -373,7 +391,8 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
                                         int log_loc, int fft, int cp,
                                         Epi& epi, int sym_len = 0,
                                         int log_g = 0,
-                                        const CUtensorMap* ms = nullptr) {
+                                        const CUtensorMap* ms = nullptr,
+                                        bool parts = false) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t sb = (raw + 1023u) & ~1023u;    // the resident Bt slab
@@ -404,7 +423,9 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
   const int log_tl = NH == 1 ? log_loc : (NH == 2 || log_nh ? 7 : log_loc);
   const int log_bs = box_log(log_tl, log_g);      // NH = 0 only
   const int NK0 = 2 * fft / KB;                   // k-steps of a half
-  const int NK = nh * NK0;                        // k-steps of a tile
+  // symbol parts a tile's k-steps run over: one of Z with `parts`
+  const int nrun = parts ? 1 : nh;
+  const int NK = nrun * NK0;                      // k-steps of a tile
   const int log_spt = 7 - log_tl;                 // samples of a tile
   const int T = tiles(S, log_loc);
   auto sample = [&](int t) {                      // the tile's sample
@@ -448,8 +469,9 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
       int it = 0;
       for (int t = cid; t < T; t += ncl) {
         const int s0 = sample(t) << log_spt;  // the tile's first sample
-        for (int half = 0; half < nh; ++half)
+        for (int i = 0; i < nrun; ++i)
         for (int k0 = 0; k0 < NK0; ++k0, ++it) {
+          const int half = parts ? part(t) : i;
           const int s = it % nst;
           mbar_wait(empty + 8 * s, ((it / nst) & 1) ^ 1);
           const int plane = k0 >= NK0 / 2;
@@ -535,9 +557,9 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
     float acc0[64], acc1[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-    for (int half = 0; half < nh; ++half)
+    for (int i = 0; i < nrun; ++i)
     for (int k0 = 0; k0 < NK0; ++k0) {
-      const int it = u * NK + half * NK0 + k0;
+      const int it = u * NK + i * NK0 + k0;
       const int s = it % nst;
       mbar_wait((shift ? ready : full) + 8 * s, (it / nst) & 1);
       const uint32_t a = sb + k0 * KBLOCK_BYTES;
@@ -546,10 +568,10 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
       fence_acc(acc1);
       wgmma_fence();
       if (!(LS_CUT & 1)) {
-        // symbol part `half` enters output part p = part(t) with the sign
-        // H_nh[p, half] = (-1)^popcount(p & half)
-        if (NH == 0 ? __popc(part(t) & half) & 1
-                    : NH > 1 && (part(t) & half)) {
+        // symbol part i enters output part p = part(t) with the sign
+        // H_nh[p, i] = (-1)^popcount(p & i); Z_p with +1
+        if (NH == 0 ? !parts && __popc(part(t) & i) & 1
+                    : NH > 1 && (part(t) & i)) {
 #pragma unroll
           for (int kk = 0; kk < KB / 16; ++kk) {
             wgmma_m64n128k16<-1>(acc0, desc_sw128(a + kk * 32),
@@ -696,7 +718,8 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
                                             int log_loc, int fft, int cp,
                                             Epi& epi, int sym_len = 0,
                                             int log_g = 0,
-                                            const CUtensorMap* ms = nullptr) {
+                                            const CUtensorMap* ms = nullptr,
+                                            bool parts = false) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -723,7 +746,9 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
   const int log_tl = NH == 1 ? log_loc : (NH == 2 || log_nh ? 7 : log_loc);
   const int log_bs = box_log(log_tl, log_g);      // NH = 0 only
   const int NK0 = 2 * fft / KF;                   // k-steps of a half
-  const int NK = nh * NK0;                        // k-steps of a tile
+  // symbol parts a tile's k-steps run over: one of Z with `parts`
+  const int nrun = parts ? 1 : nh;
+  const int NK = nrun * NK0;                      // k-steps of a tile
   const int log_spt = 7 - log_tl;
   const int T = tiles(S, log_loc);
   auto sample = [&](int t) {
@@ -758,8 +783,9 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
       int it = 0;
       for (int t = cid; t < T; t += ncl) {
         const int s0 = sample(t) << log_spt;
-        for (int half = 0; half < nh; ++half)
+        for (int i = 0; i < nrun; ++i)
         for (int k0 = 0; k0 < NK0; ++k0, ++it) {
+          const int half = parts ? part(t) : i;
           const int s = it % nst;
           const uint32_t st = ring + s * F_STAGE_BYTES;
           mbar_wait(empty + 8 * s, ((it / nst) & 1) ^ 1);
@@ -867,14 +893,14 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
     float acc0[64], acc1[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-    for (int half = 0; half < nh; ++half)
+    for (int i = 0; i < nrun; ++i)
     for (int k0 = 0; k0 < NK0; ++k0) {
-      const int it = u * NK + half * NK0 + k0;
+      const int it = u * NK + i * NK0 + k0;
       const int s = it % nst;
       const uint32_t st = ring + s * F_STAGE_BYTES;
       mbar_wait(split + 8 * s, (it / nst) & 1);
       // tile u's last stage is taken: the other warpgroup may start
-      if (half == nh - 1 && k0 == NK0 - 1 && tid == 0)
+      if (i == nrun - 1 && k0 == NK0 - 1 && tid == 0)
         mbar_arrive(done + 8 * w);
       const uint32_t lo = st + F_X_BYTES;
       const uint32_t ah = st + 2 * F_X_BYTES, al = ah + F_B_BYTES;
@@ -882,10 +908,10 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
       fence_acc(acc1);
       wgmma_fence();
       if (!(LS_CUT & 1)) {
-        // symbol part `half` enters output part p = part(t) with the sign
-        // H_nh[p, half] = (-1)^popcount(p & half)
-        if (NH == 0 ? __popc(part(t) & half) & 1
-                    : NH > 1 && (part(t) & half)) {
+        // symbol part i enters output part p = part(t) with the sign
+        // H_nh[p, i] = (-1)^popcount(p & i); Z_p with +1
+        if (NH == 0 ? !parts && __popc(part(t) & i) & 1
+                    : NH > 1 && (part(t) & i)) {
 #pragma unroll
           for (int kk = 0; kk < KF / 8; ++kk) {
             wgmma_3xtf32<-1>(acc0, desc_sw128(ah + kk * 32),
@@ -1053,14 +1079,16 @@ inline int make_maps_f32(CUtensorMap* ma, CUtensorMap* mb, const void* planes,
 }
 
 // The symbol layout an LS launch needs: log_g (group_log of sym_len at
-// esize bytes) and whether the NH = 0 body runs it (loc > 256, or a
-// group). Returns false for shapes no body takes: loc above 1024, or a
-// group of more symbols than a tile holds of a sample.
-inline bool layout(int log_loc, int sym_len, int esize, int& log_g,
-                   bool& general) {
+// esize bytes) and whether the NH = 0 body runs it (a group, or `parts`).
+// Returns false for shapes no body takes: loc above 256 without the part
+// transform's input (`parts`, loc 512 .. 2048, aligned rows), `parts`
+// below 512, or a group of more symbols than a tile holds of a sample.
+inline bool layout(int log_loc, int sym_len, int esize, bool parts,
+                   int& log_g, bool& general) {
   log_g = group_log(sym_len, esize);
-  general = log_loc > 8 || log_g > 0;
-  return log_loc <= 10 && log_g <= (log_loc < 7 ? log_loc : 7);
+  general = parts || log_g > 0;
+  if (parts) return log_loc >= 9 && log_loc <= 11 && log_g == 0;
+  return log_loc <= 8 && log_g <= (log_loc < 7 ? log_loc : 7);
 }
 
 }  // namespace ls90

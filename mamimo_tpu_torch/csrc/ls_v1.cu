@@ -32,8 +32,10 @@
 //
 // Float32 planes run the float32 mode (ls_planes_v1_f32_kernel on
 // ls90::ls_body_f32, the same stores): 268 MB of f32 input, bound 0.160
-// ms with the raw f32 store. Any nt up to 1024 and symbols of any length:
-// ls_planes_v1_any_kernel (ls90::ls_body<0>), the same stores.
+// ms with the raw f32 store. Any nt up to 2048 and symbols of any length:
+// ls_planes_v1_any_kernel (ls90::ls_body<0>), the same stores; at nt >=
+// 512 on the part transform's Z (ls_parts.cu, mode bit 2), one part a
+// tile.
 #include "ls_sm90.cuh"
 
 using namespace mamimo;
@@ -148,11 +150,11 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
                             const __grid_constant__ CUtensorMap ms,
                             T* __restrict__ hr, T* __restrict__ hi,
                             int s_out, int nt, int log_nt, int cpad, int cp,
-                            int fft, int sym_len, int log_g) {
+                            int fft, int sym_len, int log_g, int parts) {
   V1Epi<T> epi{hr, hi, s_out, nt, log_nt, cpad,
                64 * (int)sm90::cluster_rank()};
   ls90::ls_body<0>(&ma, &mb, s_out, log_nt, fft, cp, epi, sym_len, log_g,
-                   &ms);
+                   &ms, parts);
 }
 
 template <class T>
@@ -162,29 +164,31 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
                                 const __grid_constant__ CUtensorMap ms,
                                 T* __restrict__ hr, T* __restrict__ hi,
                                 int s_out, int nt, int log_nt, int cpad,
-                                int cp, int fft, int sym_len, int log_g) {
+                                int cp, int fft, int sym_len, int log_g,
+                                int parts) {
   V1Epi<T> epi{hr, hi, s_out, nt, log_nt, cpad,
                64 * (int)sm90::cluster_rank()};
   ls90::ls_body_f32<0>(&ma, &mb, s_out, log_nt, fft, cp, epi, sym_len,
-                       log_g, &ms);
+                       log_g, &ms, parts);
 }
 
 template <class T, bool F32>
 int launch_v1(const CUtensorMap& ma, const CUtensorMap& mb,
               const CUtensorMap& ms, void* hr, void* hi, int s_out, int nt,
               int log_nt, int cpad, int cp, int fft, int sym_len, int log_g,
-              bool general, cudaStream_t stream) {
+              bool general, int parts, cudaStream_t stream) {
   const int cl = 2 * cpad / 128, tiles = ls90::tiles(s_out, log_nt);
   const bool two = log_nt > 7;
   if (general) {
     if constexpr (F32)
       return ls90::launch<ls90::F_SMEM_BYTES>(
           ls_planes_v1_any_f32_kernel<T>, cl, tiles, stream, ma, mb, ms,
-          (T*)hr, (T*)hi, s_out, nt, log_nt, cpad, cp, fft, sym_len, log_g);
+          (T*)hr, (T*)hi, s_out, nt, log_nt, cpad, cp, fft, sym_len, log_g,
+          parts);
     else
       return ls90::launch(ls_planes_v1_any_kernel<T>, cl, tiles, stream, ma,
                           mb, ms, (T*)hr, (T*)hi, s_out, nt, log_nt, cpad,
-                          cp, fft, sym_len, log_g);
+                          cp, fft, sym_len, log_g, parts);
   }
   if constexpr (F32)
     return ls90::launch<ls90::F_SMEM_BYTES>(
@@ -207,20 +211,22 @@ extern "C" {
 // with bt (2, 2*cpad, 2*fft) f32, their split TF32 high and low parts
 // (fused_ls.py::ls_sm90_constants); hr, hi (s_out*nt, cpad) each, bf16
 // when mode bit 0 is set else f32; s_out >= S >= 1. nt a power of 2 <=
-// 1024 and at least the 2^group_log(sym_len, esize) symbols of a map row
-// (any sym_len at nt >= 8), fft % 64 == 0, fft <= 256, cpad 128, 256 or
-// 512. Returns the CUDA error code of the launch (or
-// sm90::ERR_TENSOR_MAP).
+// 256 and at least the 2^group_log(sym_len, esize) symbols of a map row
+// (any sym_len at nt >= 8); or with mode bit 2 (`parts`) nt 512 .. 2048
+// and planes the part transform's Z (ls_parts.cu), sym_len = fft, cp = 0.
+// fft % 64 == 0, fft <= 256, cpad 128, 256 or 512. Returns the CUDA error
+// code of the launch (or sm90::ERR_TENSOR_MAP).
 int ls_planes_v1_launch(const void* planes, const void* bt, void* hr,
                         void* hi, int S, int s_out, int nt, int sym_len,
                         int cp, int fft, int cpad, int mode, void* stream) {
   int log_nt = 0;
   while ((1 << log_nt) < nt) ++log_nt;
   const bool f32 = mode & 2;
+  const int parts = (mode >> 2) & 1;
   int log_g;
   bool general;
-  if (!ls90::layout(log_nt, sym_len, f32 ? 4 : 2, log_g, general) ||
-      mode < 0 || mode > 3)
+  if (mode < 0 || mode > 7 ||
+      !ls90::layout(log_nt, sym_len, f32 ? 4 : 2, parts, log_g, general))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb, ms = {};
   if (f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_nt, sym_len,
@@ -229,23 +235,23 @@ int ls_planes_v1_launch(const void* planes, const void* bt, void* hr,
                             cpad, log_g, &ms))
     return sm90::ERR_TENSOR_MAP;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (mode) {
+  switch (mode & 3) {
     case 0:
       return launch_v1<float, false>(ma, mb, ms, hr, hi, s_out, nt, log_nt,
                                      cpad, cp, fft, sym_len, log_g, general,
-                                     st);
+                                     parts, st);
     case 1:
       return launch_v1<__nv_bfloat16, false>(ma, mb, ms, hr, hi, s_out, nt,
                                              log_nt, cpad, cp, fft, sym_len,
-                                             log_g, general, st);
+                                             log_g, general, parts, st);
     case 2:
       return launch_v1<float, true>(ma, mb, ms, hr, hi, s_out, nt, log_nt,
                                     cpad, cp, fft, sym_len, log_g, general,
-                                    st);
+                                    parts, st);
     default:
       return launch_v1<__nv_bfloat16, true>(ma, mb, ms, hr, hi, s_out, nt,
                                             log_nt, cpad, cp, fft, sym_len,
-                                            log_g, general, st);
+                                            log_g, general, parts, st);
   }
 }
 

@@ -49,11 +49,14 @@
 // template parameters of one epilogue (V2Epi<T, SSQ>); the float32
 // variant without sums is the store of the earlier single-variant kernel.
 //
-// Any loc up to 1024 and a symbol of any length (ls_planes_v2_any_kernel,
+// Any loc up to 2048 and a symbol of any length (ls_planes_v2_any_kernel,
 // ls90::ls_body<0>, launched where the NH = 1 and 2 kernels do not
-// apply): the same stores, each row's symbol from ls90::Rows. At Nt 512,
-// S = 512 the bytes bound it at about 0.17 ms; its products, nh = 4 times
-// those of the DFT-select (137 GFLOP once), at about 0.55 ms.
+// apply): the same stores, each row's symbol from ls90::Rows. At loc >=
+// 512 it reads the part transform's Z (ls_parts.cu, mode bit 3), one part
+// a tile; a seq rank's stores already give each part's rows the sign
+// H_n[a, rank] of the rank's parts in the whole estimate. At Nt 512, S =
+// 512 the bytes bound it at about 0.23 ms (the input's fft samples read
+// once, the f32 output written once), the pre-pass apart.
 //
 // Float32 planes run the float32 mode (ls_planes_v2_f32_kernel on
 // ls90::ls_body_f32, the same stores): 268 MB of f32 input at the bench
@@ -231,10 +234,12 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
                             const __grid_constant__ CUtensorMap ms,
                             T* __restrict__ out, float* __restrict__ ssq,
                             int S, int nt, int log_loc, int rank, int C,
-                            int cp, int fft, int sym_len, int log_g) {
+                            int cp, int fft, int sym_len, int log_g,
+                            int parts) {
   V2Epi<T, SSQ> epi{out, ssq, S, nt, log_loc, rank, C,
                     64 * (int)sm90::cluster_rank()};
-  ls90::ls_body<0>(&ma, &mb, S, log_loc, fft, cp, epi, sym_len, log_g, &ms);
+  ls90::ls_body<0>(&ma, &mb, S, log_loc, fft, cp, epi, sym_len, log_g, &ms,
+                   parts);
 }
 
 template <class T, bool SSQ>
@@ -244,29 +249,31 @@ __global__ void __launch_bounds__(ls90::THREADS, 1)
                                 const __grid_constant__ CUtensorMap ms,
                                 T* __restrict__ out, float* __restrict__ ssq,
                                 int S, int nt, int log_loc, int rank, int C,
-                                int cp, int fft, int sym_len, int log_g) {
+                                int cp, int fft, int sym_len, int log_g,
+                                int parts) {
   V2Epi<T, SSQ> epi{out, ssq, S, nt, log_loc, rank, C,
                     64 * (int)sm90::cluster_rank()};
   ls90::ls_body_f32<0>(&ma, &mb, S, log_loc, fft, cp, epi, sym_len, log_g,
-                       &ms);
+                       &ms, parts);
 }
 
 template <class T, bool SSQ, bool F32>
 int launch_v2(const CUtensorMap& ma, const CUtensorMap& mb,
               const CUtensorMap& ms, void* out, void* ssq, int S, int nt,
               int log_loc, int rank, int C, int cp, int fft, int cpad,
-              int sym_len, int log_g, bool general, cudaStream_t stream) {
+              int sym_len, int log_g, bool general, int parts,
+              cudaStream_t stream) {
   const int cl = 2 * cpad / 128, tiles = ls90::tiles(S, log_loc);
   if (general) {
     if constexpr (F32)
       return ls90::launch<ls90::F_SMEM_BYTES>(
           ls_planes_v2_any_f32_kernel<T, SSQ>, cl, tiles, stream, ma, mb,
           ms, (T*)out, (float*)ssq, S, nt, log_loc, rank, C, cp, fft,
-          sym_len, log_g);
+          sym_len, log_g, parts);
     else
       return ls90::launch(ls_planes_v2_any_kernel<T, SSQ>, cl, tiles,
                           stream, ma, mb, ms, (T*)out, (float*)ssq, S, nt,
-                          log_loc, rank, C, cp, fft, sym_len, log_g);
+                          log_loc, rank, C, cp, fft, sym_len, log_g, parts);
   }
   if constexpr (F32) {
     auto kernel = log_loc > 7 ? ls_planes_v2_f32_kernel<T, SSQ, 2>
@@ -307,10 +314,11 @@ extern "C" {
 // split TF32 high and low parts (fused_ls.py::ls_sm90_constants); out
 // (2, S, nt, C), bf16 when mode bit 0 is set, else f32; with mode bit 1,
 // ssq (tiles(S, log2 loc), 2, C) f32, else unused. Full mode: loc = nt,
-// rank = 0. loc a power of 2 <= 1024 and at least the 2^group_log(sym_len,
-// esize) symbols of a map row (any sym_len at loc >= 8), fft % 64 == 0,
-// fft <= 256, cpad 128, 256 or 512. Returns the CUDA error code of the
-// launch (or sm90::ERR_TENSOR_MAP).
+// rank = 0. loc a power of 2 <= 256 and at least the 2^group_log(sym_len,
+// esize) symbols of a map row (any sym_len at loc >= 8); or with mode bit
+// 3 (`parts`) loc 512 .. 2048 and planes the part transform's Z (ls_parts
+// .cu), sym_len = fft, cp = 0. fft % 64 == 0, fft <= 256, cpad 128, 256 or
+// 512. Returns the CUDA error code of the launch (or sm90::ERR_TENSOR_MAP).
 int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
                         void* ssq, int S, int nt, int loc, int rank, int C,
                         int sym_len, int cp, int fft, int cpad, int mode,
@@ -318,10 +326,11 @@ int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
   int log_loc = 0;
   while ((1 << log_loc) < loc) ++log_loc;
   const bool f32 = mode & 4;
+  const int parts = (mode >> 3) & 1;
   int log_g;
   bool general;
-  if (!ls90::layout(log_loc, sym_len, f32 ? 4 : 2, log_g, general) ||
-      mode < 0 || mode > 7)
+  if (mode < 0 || mode > 15 ||
+      !ls90::layout(log_loc, sym_len, f32 ? 4 : 2, parts, log_g, general))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb, ms = {};
   if (f32 ? ls90::make_maps_f32(&ma, &mb, planes, bt, S, log_loc, sym_len,
@@ -333,10 +342,10 @@ int ls_planes_v2_launch(const void* planes, const void* bt, void* out,
   if (f32)
     return launch_v2_mode<true>(mode & 3, ma, mb, ms, out, ssq, S, nt,
                                 log_loc, rank, C, cp, fft, cpad, sym_len,
-                                log_g, general, st);
+                                log_g, general, parts, st);
   return launch_v2_mode<false>(mode & 3, ma, mb, ms, out, ssq, S, nt,
                                log_loc, rank, C, cp, fft, cpad, sym_len,
-                               log_g, general, st);
+                               log_g, general, parts, st);
 }
 
 const char* ls_planes_v2_error_string(int e) {

@@ -15,7 +15,9 @@ in the weights' dtype: ``factored_heads`` writes h, ``factored_dense``
 runs hidden layers 2 .. D-1 (or, at D = 1, the output layer), and
 ``factored_rows_tail`` the last hidden layer and the output (its rows
 streamed slab by slab above 1024 units). ``fused_factored_planes``
-routes by depth and width.
+routes by depth and width. ``factored_sig_proj``'s bf16 kernel splits K
+across the card where its tiles cannot fill it (few rows, long K: 512
+and more Tx antennas; ``sig_proj_splits``).
 
 The weights' dtype picks the mode (``prepare_factored_weights``'
 ``dot_dtype``): bfloat16 weights run the bf16 kernels, float32 weights
@@ -35,6 +37,7 @@ the weights' dtype, products and sums are float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -185,6 +188,38 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(w.dtype).float() @ w.float()
 
 
+# the fewest k-steps (of 64) a range of layer 1's split K holds
+SPLIT_MIN_KSTEPS = 16
+
+
+def sig_proj_splits(m: int, n: int, k: int, sms: int) -> int:
+    """How many ranges of K the bf16 layer-1 kernel sums apart for x (2,
+    m, k) @ w1 (2, k, n) on a card of ``sms`` SMs (``csrc/gemm_sm90.cuh``,
+    the split walk): 1 where its tile groups (two 128-row M-tiles of one
+    256-column N-tile of a plane, one a 2-block cluster) are at least the
+    sms // 2 clusters that fit; else the most ranges whose blocks (a
+    range's: one an N-tile and plane at one M-tile, else two a pair of
+    M-tiles) still fit on the sms, each range at least SPLIT_MIN_KSTEPS
+    k-steps, the count then trimmed so that no range of ceil(k-steps /
+    splits) is empty."""
+    mt, nt = -(-m // 128), -(-n // 256)
+    pairs = -(-mt // 2)
+    if pairs * nt * 2 >= sms // 2:
+        return 1
+    kt = -(-k // 64)
+    blocks = (1 if mt == 1 else 2 * pairs) * nt * 2
+    splits = min(sms // blocks, kt // SPLIT_MIN_KSTEPS)
+    if splits < 2:
+        return 1
+    return -(-kt // -(-kt // splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
                       w1t: torch.Tensor | None = None) -> torch.Tensor:
     """Layer 1 of both planes: x (2, S, L) @ w1 (2, L, H) → (2, S, H)
@@ -192,7 +227,11 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
     reading W1 K-major from ``w1t`` (2, H, L), ``prepared["w1t"]``) or
     float32 (its float32 mode, 3xTF32, reading W1's TF32 parts: ``w1t``
     is then ``prepared["w1t_tf32"]``, (2, 2, H, L) float32); w1t is
-    required there. CPU: the plain version (w1t unused)."""
+    required there. The bf16 kernel splits K where its tiles cannot fill
+    the card (``sig_proj_splits``: the ranges' float32 partials in a
+    workspace, summed in range order; counted in
+    ``factored_sig_proj.launches_split``). CPU: the plain version (w1t
+    unused)."""
     if not on_cuda(x, w1):
         return _mm(x, w1)
     mode = _mode_of(w1.dtype, "factored_sig_proj")
@@ -217,19 +256,25 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
     if s == 0:
         return out
     x, w1t = tma_operand(x), tma_operand(w1t)
+    splits = 1 if mode else sig_proj_splits(s, H, L, _sm_count(x.device))
+    ws = torch.empty((splits, 2, s, H), dtype=torch.float32,
+                     device=x.device) if splits > 1 else None
     lib = _ff_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.factored_sig_proj_launch(x.data_ptr(), w1t.data_ptr(),
-                                          out.data_ptr(), s, L, H, mode,
-                                          stream)
+        rc = lib.factored_sig_proj_launch(
+            x.data_ptr(), w1t.data_ptr(), out.data_ptr(), s, L, H, mode,
+            None if ws is None else ws.data_ptr(), splits, stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_sig_proj")
     count_launch(factored_sig_proj, mode & _MODE_F32)
+    factored_sig_proj.launches_split += splits > 1
     return out
 
 
-# launches of the kernel, and of those its float32 mode's
+# launches of the kernel, and of those its float32 mode's and its split
+# walk's
 factored_sig_proj.launches = factored_sig_proj.launches_f32 = 0
+factored_sig_proj.launches_split = 0
 
 
 def _hidden_plain(p, k: int, h: torch.Tensor) -> torch.Tensor:
@@ -569,7 +614,7 @@ def _ff_lib(defines=()) -> ctypes.CDLL:
     lib = _build.library("fused_factored", defines)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-            ("factored_sig_proj_launch", [ptr] * 3 + [i32] * 4),
+            ("factored_sig_proj_launch", [ptr] * 3 + [i32] * 4 + [ptr, i32]),
             ("factored_tail_launch", [ptr] * 11 + [i32] * 7),
             ("factored_heads_launch", [ptr] * 5 + [i32] * 4),
             ("factored_dense_launch", [ptr] * 6 + [i32] * 7),

@@ -12,6 +12,11 @@ the same product at float32 accuracy from three TF32 products
 (``ls_sm90_constants(cfg, device, torch.float32)``: the constants split
 into TF32 high and low parts). No wrapper casts float32 input to bf16.
 
+Above 256 symbols a sample (``PARTS_MIN_LOC``) each first launches the
+part transform ``ls_parts`` (``csrc/ls_parts.cu``: the Walsh–Hadamard
+transform over the sample's 128-symbol parts, the cyclic prefix dropped)
+and the LS kernel reads its output, one part a tile.
+
 On a CUDA tensor ``ls_planes_v2``, ``ls_planes_v1`` and
 ``ls_estimate_pallas`` launch their kernel; on a CPU tensor they run the
 kernel's plain version (``_ls_v2_plain`` on
@@ -167,9 +172,12 @@ def _sm90_consts(cfg: SimConfig, consts, device, dtype, who: str
     return consts
 
 
-# the most Tx antennas the LS kernels take: 8 parts of 128 symbols a
-# sample (csrc/ls_sm90.cuh, the general body)
-MAX_KERNEL_TX = 1024
+# the most Tx antennas the LS kernels take: 16 parts of 128 symbols a
+# sample (csrc/ls_parts.cu, the part transform)
+MAX_KERNEL_TX = 2048
+# from this many symbols a sample the LS kernels read the part transform's
+# output (ls_parts), one 128-symbol part a tile
+PARTS_MIN_LOC = 512
 
 
 def symbol_group(sym_len: int, esize: int) -> int:
@@ -232,6 +240,90 @@ def _check_kernel_shapes(cfg: SimConfig, planes: torch.Tensor,
     if fft % 64 or fft > 256 or cp_ not in (128, 256, 512):
         raise ValueError("the Hopper LS kernels need fft_length a multiple "
                          "of 64 up to 256 and at most 512 padded carriers")
+
+
+def _ls_parts_plain(cfg: SimConfig, planes: torch.Tensor,
+                    loc: int) -> torch.Tensor:
+    """Plain version of the part transform: Z_p = Σ_v H_nl[p, v]·Y_v in
+    float32, each term added or subtracted in the order v = 0 … nl − 1
+    from a zero start (the kernel's operations), rounded once to the
+    planes' dtype."""
+    s, nl, fft = planes.shape[1], loc // 128, cfg.fft_length
+    y = planes.view(2, s, nl, 128, cfg.sym_len)[
+        ..., cfg.cp_length:cfg.cp_length + fft].float()
+    sign = torch.from_numpy(_hadamard_np(nl).astype(np.float32)).to(
+        planes.device)
+    z = torch.zeros((2, s, nl, 128, fft), device=planes.device)
+    for v in range(nl):
+        z = z + sign[:, v].view(1, 1, nl, 1, 1) * y[:, :, v:v + 1]
+    return z.to(planes.dtype).view(2, s, loc * fft)
+
+
+def ls_parts(cfg: SimConfig, planes: torch.Tensor,
+             loc: int | None = None) -> torch.Tensor:
+    """The LS kernels' part transform (``csrc/ls_parts.cu``): planes (2,
+    S, loc·sym_len) of loc = 128·nl symbols a sample (default num_tx; a
+    seq rank's loc), bfloat16 or float32, → Z (2, S, loc·fft) of the same
+    dtype: for each sample and symbol row m, Z_p[m] = Σ_v H_nl[p, v]·
+    Y_v[m], Y_v[m] the fft samples of symbol v·128 + m (the cyclic prefix
+    dropped), summed in float32 and rounded once. The LS kernels read Z at
+    loc >= PARTS_MIN_LOC, one part a tile (P_loc = H_nl ⊗ H_128). CUDA:
+    the kernel (loc 512 … 2048), counted in ``ls_parts.launches``; CPU:
+    the plain version, bit for bit the kernel's."""
+    loc = loc or cfg.num_tx
+    if loc % 128 or loc & (loc - 1) or planes.dim() != 3 \
+            or planes.shape[0] != 2 or planes.shape[2] != loc * cfg.sym_len:
+        raise ValueError(f"ls_parts needs planes (2, S, loc·sym_len) with "
+                         f"loc a power of 2 >= 128, got loc={loc}, "
+                         f"{tuple(planes.shape)}")
+    if planes.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"ls_parts takes bfloat16 or float32 planes, got "
+                        f"{planes.dtype}")
+    if not on_cuda(planes):
+        return _ls_parts_plain(cfg, planes, loc)
+    if not PARTS_MIN_LOC <= loc <= MAX_KERNEL_TX \
+            or cfg.fft_length % 64:
+        raise ValueError(f"the part transform kernel takes {PARTS_MIN_LOC} "
+                         f"to {MAX_KERNEL_TX} symbols a sample and "
+                         f"fft_length % 64 == 0, got loc={loc}, "
+                         f"fft_length={cfg.fft_length}")
+    planes = tma_operand(planes)
+    s = planes.shape[1]
+    z = torch.empty((2, s, loc * cfg.fft_length), dtype=planes.dtype,
+                    device=planes.device)
+    if s == 0:
+        return z
+    lib = _ls_parts_lib()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ls_parts_launch(planes.data_ptr(), z.data_ptr(), s, loc,
+                                 cfg.sym_len, cfg.cp_length, cfg.fft_length,
+                                 int(planes.dtype == torch.float32), stream)
+    _build.check(rc, lib, "ls_parts_error_string", "ls_parts")
+    ls_parts.launches += 1
+    return z
+
+
+ls_parts.launches = 0
+
+
+def _ls_parts_lib() -> ctypes.CDLL:
+    lib = _build.library("ls_parts")
+    fn = lib.ls_parts_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    return lib
+
+
+def _kernel_input(cfg: SimConfig, planes: torch.Tensor, loc: int):
+    """What an LS kernel reads for planes of loc symbols a sample: at loc
+    >= PARTS_MIN_LOC the part transform's Z (symbols of fft samples, no
+    cyclic prefix) and the mode bit ``parts``; below, the planes as they
+    are. Returns (input, sym_len, cp_length, parts)."""
+    if loc >= PARTS_MIN_LOC:
+        return ls_parts(cfg, planes, loc), cfg.fft_length, 0, 1
+    return planes, cfg.sym_len, cfg.cp_length, 0
 
 
 def seq_shard_symbols(cfg: SimConfig, seq_shard) -> int:
@@ -351,15 +443,16 @@ def ls_planes_v2(cfg: SimConfig, planes: torch.Tensor,
     result = (out, ssq) if with_ssq else out
     if s == 0:
         return result
+    x, sym_len, cp, parts = _kernel_input(cfg, planes, loc)
     lib = _ls_lib()
     mode = int(out_dtype == torch.bfloat16) | 2 * int(with_ssq) \
-        | 4 * int(planes.dtype == torch.float32)
+        | 4 * int(planes.dtype == torch.float32) | 8 * parts
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_planes_v2_launch(
-            planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(),
+            x.data_ptr(), consts.bt.data_ptr(), out.data_ptr(),
             ssq.data_ptr() if with_ssq else None, s, cfg.num_tx, loc, rank,
-            cfg.num_carriers, cfg.sym_len, cfg.cp_length, cfg.fft_length,
+            cfg.num_carriers, sym_len, cp, cfg.fft_length,
             consts.bt.shape[-2] // 2, mode, stream)
     _build.check(rc, lib, "ls_planes_v2_error_string", "ls_planes_v2")
     ls_planes_v2.launches += 1
@@ -426,14 +519,15 @@ def ls_planes_v1(cfg: SimConfig, planes: torch.Tensor,
                           device=planes.device) for _ in range(2))
     if s == 0:
         return hr, hi
+    x, sym_len, cp, parts = _kernel_input(cfg, planes, cfg.num_tx)
     lib = _ls_v1_lib()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_planes_v1_launch(
-            planes.data_ptr(), consts.bt.data_ptr(), hr.data_ptr(),
-            hi.data_ptr(), s, s_out, cfg.num_tx, cfg.sym_len, cfg.cp_length,
+            x.data_ptr(), consts.bt.data_ptr(), hr.data_ptr(),
+            hi.data_ptr(), s, s_out, cfg.num_tx, sym_len, cp,
             cfg.fft_length, cp_, int(out_dtype == torch.bfloat16)
-            | 2 * int(planes.dtype == torch.float32), stream)
+            | 2 * int(planes.dtype == torch.float32) | 4 * parts, stream)
     _build.check(rc, lib, "ls_planes_v1_error_string", "ls_planes_v1")
     ls_planes_v1.launches += 1
     ls_planes_v1.launches_f32 += planes.dtype == torch.float32
@@ -519,14 +613,15 @@ def ls_pair_kernel(cfg: SimConfig, planes: torch.Tensor, num_rx: int,
                       dtype=torch.complex64, device=planes.device)
     if s == 0:
         return out
+    x, sym_len, cp, parts = _kernel_input(cfg, planes, cfg.num_tx)
     lib = _ls_pair_lib()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ls_pair_launch(
-            planes.data_ptr(), consts.bt.data_ptr(), out.data_ptr(), s,
-            num_rx, cfg.num_tx, cfg.num_carriers, cfg.sym_len, cfg.cp_length,
+            x.data_ptr(), consts.bt.data_ptr(), out.data_ptr(), s,
+            num_rx, cfg.num_tx, cfg.num_carriers, sym_len, cp,
             cfg.fft_length, consts.bt.shape[-2] // 2,
-            int(planes.dtype == torch.float32), stream)
+            int(planes.dtype == torch.float32) | 2 * parts, stream)
     _build.check(rc, lib, "ls_pair_error_string", "ls_pair")
     ls_pair_kernel.launches += 1
     ls_pair_kernel.launches_f32 += planes.dtype == torch.float32

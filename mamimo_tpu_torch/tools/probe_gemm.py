@@ -35,6 +35,15 @@ shared memory) beside the package's own: ``mlp_infer_layer1``,
 layer of a one-hidden-layer model, ``matmul_pallas`` at both shapes,
 each against float64, timed in turns (old, each stretch, then back).
 
+The split walk of ``factored_sig_proj`` (bf16; K cut into ranges where
+its tile groups cannot fill the card, ``sig_proj_splits``): at Nt 1024
+(S = 128, L = 327680) and Nt 512 (S = 512, L = 163840), H = 1024, the
+wrapper's launch (the plan's ranges, the partials' sum) held to float32
+x @ W1 and to itself (two launches bit-identical), timed beside one bf16
+``torch.bmm``; with ``--old DIR`` also the earlier design's launch (one
+range) at those shapes, its error, and the two timed in turns (old, new,
+new, old).
+
 ``--old DIR``: the bf16 kernels against an earlier design whose sources
 (``fused_factored.cu``, ``mlp_infer.cu`` and their headers, e.g. a
 ``git archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``) lie in
@@ -162,6 +171,8 @@ def main() -> int:
               f"{ms:.4f} ms ({tf / ms:.0f} TFLOP/s); matmul {mm:.4f} ms "
               f"({tf / mm:.0f} TFLOP/s)  [{smi}]", flush=True)
 
+    _split_section(args, dev, g, smi)
+
     if args.f32:
         _f32_section(args, dev, g, smi, layer1_tree)
 
@@ -218,6 +229,56 @@ def main() -> int:
             print(f"  {tag}: mlp_infer_layer1 {t_m:.4f} ms; "
                   f"factored_sig_proj {t_s:.4f} ms  [{smi}]", flush=True)
     return 0
+
+
+SPLIT_SHAPES = {"Nt 1024": (128, 327680), "Nt 512": (512, 163840)}
+
+
+def _split_section(args, dev, g, smi) -> None:
+    """factored_sig_proj's split walk at SPLIT_SHAPES: error against
+    float32 x @ W1, two launches bit-identical, time beside a bf16 bmm;
+    with args.old the earlier design's one-range launch too, in turns."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels import fused_factored as ff
+    from mamimo_tpu_torch.tools.probe_tail import _launch_fn, _old_lib
+
+    old = None
+    if args.old is not None:
+        old = _launch_fn(_old_lib(args.old, "fused_factored"), args.old,
+                         "fused_factored", "factored_sig_proj_launch")
+    print("the split walk of factored_sig_proj (bf16):")
+    for tag, (s, L) in SPLIT_SHAPES.items():
+        x = torch.randn((2, s, L), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((2, L, H), generator=g, device=dev)
+             / L ** 0.5).to(torch.bfloat16)
+        wt = w.transpose(1, 2).contiguous()
+        ref = torch.bmm(x.float(), w.float())
+        a = ff.factored_sig_proj(x, w, wt)
+        b = ff.factored_sig_proj(x, w, wt)
+        splits = ff.sig_proj_splits(s, H, L, ff._sm_count(dev))
+        new = lambda: ff.factored_sig_proj(x, w, wt)       # noqa: E731
+        line = (f"  {tag} (2, {s}, {L}) @ (2, {L}, {H}): {splits} ranges, "
+                f"{_db(a, ref):.2f} dB vs float32 x @ W1, two launches "
+                f"{'bit-identical' if torch.equal(a, b) else 'DIFFER'}")
+        if old is not None:
+            sp = torch.empty((2, s, H), device=dev)
+            o = lambda: old(x.data_ptr(), wt.data_ptr(),   # noqa: E731
+                            sp.data_ptr(), s, L, H)
+            o()
+            torch.cuda.synchronize()
+            line += f"; old (one range) {_db(sp, ref):.2f} dB"
+        print(line, flush=True)
+        if old is not None:
+            ts = [(t, _time_ms(new if t == "new" else o, 10))
+                  for t in ("old", "new", "new", "old")]
+            print("  in turns: " + ", ".join(f"{t} {v:.4f}" for t, v in ts)
+                  + f" ms  [{smi}]", flush=True)
+        print(f"  new {_time_ms(new, 10):.4f} ms; bf16 bmm "
+              f"{_time_ms(lambda: torch.bmm(x, w), 10):.4f} ms  [{smi}]",
+              flush=True)
+        del x, w, wt, ref, a, b
+        torch.cuda.empty_cache()
 
 
 def _db(got, ref) -> float:

@@ -61,6 +61,19 @@ draw sampled by ``nvidia-smi`` beside each timed window
    timed in turns with it and with the earlier design (the copies, new,
    new, the copies backwards).
 
+At 512 symbols a sample and more (``--nt 512``, ``--nt 1024``) the
+package's kernels read the part transform's output (``csrc/ls_parts.cu``:
+the Walsh-Hadamard transform over a sample's 128-symbol parts, then one
+part a tile): each kernel's row is then the transform and the LS launch
+on its output together, as the wrapper launches them; the rows
+"ls_parts" (the transform alone, bf16 and float32 planes) and "<kernel>
+body" (the LS launch alone on a transform made beforehand) split it, and
+the phase cuts time the body alone. An earlier design without
+``ls_parts.cu`` runs its kernels on the planes as they are (the earlier
+general body: all parts a tile); the two designs' float32 modes are then
+held within -85 dB of each other (that body's one accumulator over
+nh·512 products read -90.87 dB against the plain version at Nt 1024).
+
 Prints one line per measurement, and a JSON summary as the last line.
 Card only.
 """
@@ -89,8 +102,10 @@ CUTS = {                  # LS_CUT bits of the LS kernels' sources
     "products only": 2 | 4 | 8 | 32,
 }
 F32_AGREE_DB = -90.0      # two designs' float32 modes against each other
+F32_PARTS_AGREE_DB = -85.0   # the same where one runs the part transform
 BF16_AGREE_DB = -45.0
 PACKETS = 1024
+PARTS_MIN_LOC = 512       # symbols a sample from which the parts path runs
 
 
 SOURCES = ("ls_v2", "ls_v1", "ls_pair")
@@ -156,6 +171,13 @@ def _same_sass(old_path: str, new_path: str, kernel: str = "") -> tuple:
     return same, sorted(k for k in new if k not in old and kernel in k)
 
 
+def _has_parts(src_dir: Path) -> bool:
+    """Whether the design in src_dir runs the part transform (its LS
+    kernels then read the transform's output at PARTS_MIN_LOC symbols a
+    sample and more)."""
+    return (src_dir / "ls_parts.cu").exists()
+
+
 def _has_f32(src_dir: Path) -> bool:
     """Whether the LS sources in src_dir have the float32 mode."""
     return "ls_body_f32" in (src_dir / "ls_sm90.cuh").read_text()
@@ -201,11 +223,13 @@ def main() -> int:
         const_copy,
     )
 
+    HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(card)
-    _build.build_all(SOURCES)
+    _build.build_all(SOURCES + ("ls_parts",))
     for name in SOURCES:
         for line in _build.ptxas_report(name).splitlines():
             print(f"  {name}: {line}")
@@ -225,56 +249,93 @@ def main() -> int:
     kc_f32 = ls_sm90_constants(cfg, dev, torch.float32).bt
     cpad = kc_old.shape[1] // 2
     out = torch.empty((2, S, nt, C), device=dev)
-    out_p = torch.empty((PACKETS, C, nt, nr), dtype=torch.complex64,
+    out_p = torch.empty((args.packets, C, nt, nr), dtype=torch.complex64,
                         device=dev)
     raw = {dt: torch.empty((2, S * nt, cpad), dtype=dt, device=dev)
            for dt in (torch.float32, torch.bfloat16)}
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     geo = (C, cfg.sym_len, cfg.cp_length, cfg.fft_length, cpad)
+    fft = cfg.fft_length
+    # the part transform's output (full mode; a seq rank of 4 holds fewer
+    # than PARTS_MIN_LOC symbols at the widths probed) and its geometry
+    parts_shape = nt >= PARTS_MIN_LOC
+    z = {f: torch.empty((2, S, nt * fft), dtype=xa.dtype, device=dev)
+         for f, xa in ((False, x), (True, x32))} if parts_shape else {}
+    zgeo = (C, fft, 0, fft, cpad)
+    parts_lib = None
 
     def check(rc, what):
         if rc:
             raise RuntimeError(f"{what}: CUDA error {rc}")
 
-    def v1(lib, consts, dt, f32=False):
-        h = raw[dt]
-        return lambda: check(lib.ls_planes_v1_launch(
-            (x32 if f32 else x).data_ptr(), consts.data_ptr(),
-            h[0].data_ptr(), h[1].data_ptr(), S, S, nt, *geo[1:],
-            int(dt == torch.bfloat16) + 2 * f32, stream()),
-            "ls_planes_v1_launch")
+    def transform(f32):
+        """The part transform of the bf16 (or float32) planes into z."""
+        return lambda: check(parts_lib.ls_parts_launch(
+            (x32 if f32 else x).data_ptr(), z[f32].data_ptr(), S, nt,
+            cfg.sym_len, cfg.cp_length, fft, int(f32), stream()),
+            "ls_parts_launch")
 
-    def both(libs, consts, f32=False):
+    def both(libs, consts, f32=False, parts=False, body=False):
         """The five timed launches of the bf16 modes on built (ls_v2,
         ls_v1, ls_pair) libraries, each with its output; consts[name]: the
         constants each library takes. With f32 also the float32 modes of
         ls_planes_v2 (full, seq rank 1 of 4), ls_planes_v1 (raw f32) and
-        ls_pair_kernel."""
+        ls_pair_kernel. With parts (a design with the part transform, at
+        PARTS_MIN_LOC symbols a sample) the full-mode launches read z in
+        the ``parts`` mode, each after the transform into z, or with body
+        without it (z made beforehand)."""
         v2, l1, pr = libs
         flag = (0,) if pr.pair_flag else ()
+
+        def inp(f32m):
+            """(planes, geometry, the kernel's parts bit) of a full-mode
+            launch, and the transform to run before it (or None)."""
+            if parts:
+                return (z[f32m], zgeo, 1,
+                        None if body else transform(f32m))
+            return x32 if f32m else x, geo, 0, None
+
+        def full(launch, f32m, what):
+            xa, g_, pb, pre = inp(f32m)
+
+            def fn():
+                if pre is not None:
+                    pre()
+                check(launch(xa, g_, pb), what)
+            return fn
+
+        def v1(consts_, dt, f32m=False):
+            h = raw[dt]
+            return full(lambda xa, g_, pb: l1.ls_planes_v1_launch(
+                xa.data_ptr(), consts_.data_ptr(), h[0].data_ptr(),
+                h[1].data_ptr(), S, S, nt, *g_[1:],
+                int(dt == torch.bfloat16) + 2 * f32m + 4 * pb, stream()),
+                f32m, "ls_planes_v1_launch")
+
         fns = {
             # f32 store without sums: mode 0, no ssq buffer
-            "ls_planes_v2": (lambda: check(v2.ls_planes_v2_launch(
-                x.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
-                None, S, nt, nt, 0, *geo, 0, stream()),
+            "ls_planes_v2": (full(lambda xa, g_, pb: v2.ls_planes_v2_launch(
+                xa.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
+                None, S, nt, nt, 0, *g_, 8 * pb, stream()), False,
                 "ls_planes_v2_launch"), out),
             "ls_planes_v2 seq 1/4": (lambda: check(v2.ls_planes_v2_launch(
                 xq.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
                 None, S, nt, nt // 4, 1, *geo, 0, stream()),
                 "ls_planes_v2_launch (seq)"), out),
-            "ls_planes_v1 raw f32": (v1(l1, consts["ls_v1"], torch.float32),
+            "ls_planes_v1 raw f32": (v1(consts["ls_v1"], torch.float32),
                                      raw[torch.float32]),
-            "ls_planes_v1 raw bf16": (v1(l1, consts["ls_v1"], torch.bfloat16),
+            "ls_planes_v1 raw bf16": (v1(consts["ls_v1"], torch.bfloat16),
                                       raw[torch.bfloat16]),
-            "ls_pair_kernel": (lambda: check(pr.ls_pair_launch(
-                x.data_ptr(), consts["ls_pair"].data_ptr(), out_p.data_ptr(),
-                S, nr, nt, *geo, *flag, stream()), "ls_pair_launch"),
-                torch.view_as_real(out_p))}
+            "ls_pair_kernel": (full(lambda xa, g_, pb: pr.ls_pair_launch(
+                xa.data_ptr(), consts["ls_pair"].data_ptr(),
+                out_p.data_ptr(), S, nr, nt, *g_,
+                *((2 * pb,) if flag else ()), stream()), False,
+                "ls_pair_launch"), torch.view_as_real(out_p))}
         if f32:
-            fns["ls_planes_v2 float32"] = (lambda: check(
-                v2.ls_planes_v2_launch(
-                    x32.data_ptr(), kc_f32.data_ptr(), out.data_ptr(), None,
-                    S, nt, nt, 0, *geo, 4, stream()),
+            fns["ls_planes_v2 float32"] = (full(
+                lambda xa, g_, pb: v2.ls_planes_v2_launch(
+                    xa.data_ptr(), kc_f32.data_ptr(), out.data_ptr(), None,
+                    S, nt, nt, 0, *g_, 4 | 8 * pb, stream()), True,
                 "ls_planes_v2_launch (float32)"), out)
             fns["ls_planes_v2 float32 seq 1/4"] = (lambda: check(
                 v2.ls_planes_v2_launch(
@@ -282,11 +343,12 @@ def main() -> int:
                     S, nt, nt // 4, 1, *geo, 4, stream()),
                 "ls_planes_v2_launch (float32, seq)"), out)
             fns["ls_planes_v1 float32"] = (
-                v1(l1, kc_f32, torch.float32, f32=True), raw[torch.float32])
-            fns["ls_pair_kernel float32"] = (lambda: check(pr.ls_pair_launch(
-                x32.data_ptr(), kc_f32.data_ptr(), out_p.data_ptr(), S, nr,
-                nt, *geo, 1, stream()), "ls_pair_launch (float32)"),
-                torch.view_as_real(out_p))
+                v1(kc_f32, torch.float32, f32m=True), raw[torch.float32])
+            fns["ls_pair_kernel float32"] = (full(
+                lambda xa, g_, pb: pr.ls_pair_launch(
+                    xa.data_ptr(), kc_f32.data_ptr(), out_p.data_ptr(), S,
+                    nr, nt, *g_, 1 | 2 * pb, stream()), True,
+                "ls_pair_launch (float32)"), torch.view_as_real(out_p))
         return fns
 
     csrc = ROOT / "mamimo_tpu_torch" / "csrc"
@@ -298,8 +360,33 @@ def main() -> int:
     k_new = dict.fromkeys(SOURCES, kc_new)
 
     summary = {"card": card, "S": S, "num_tx": nt, "cp_length": cfg.cp_length}
+    if parts_shape:
+        # the transform alone, then the body alone on its output
+        from mamimo_tpu_torch.ops.kernels.fused_ls import _ls_parts_lib
+
+        parts_lib = _ls_parts_lib()
+        nb = 2 * S * nt * fft * (2 + 2)           # bf16 read and written
+        pre = {}
+        for f32 in (False, True):
+            transform(f32)()
+            ms, clk, pwr = _time_ms(transform(f32))
+            bound = nb * (2 if f32 else 1) / HBM_BYTES_PER_S * 1e3
+            pre["float32" if f32 else "bf16"] = {"ms": ms, "bound_ms": bound}
+            print(f"  ls_parts {'float32' if f32 else 'bf16'}: "
+                  f"{_fmt(ms, clk, pwr)}; bound {bound:.4f} ms (bytes), "
+                  f"{bound / ms * 100:.1f}%  [{card}]")
+        body = {}
+        for kname, (fn, _) in both(new_libs(), k_new, True, True,
+                                   True).items():
+            if "seq" in kname:
+                continue
+            ms, clk, pwr = _time_ms(fn)
+            body[kname] = ms
+            print(f"  {kname} body: {_fmt(ms, clk, pwr)}  [{card}]")
+        summary["parts"] = {"transform": pre, "body": body}
     if not args.no_cuts:
-        print(f"phase cuts, S = {S}:")
+        print(f"phase cuts, S = {S}" + (" (the body alone)" if parts_shape
+                                        else "") + ":")
         variants = {"kernel": ()}
         variants.update({n: (f"LS_CUT={b}",) for n, b in CUTS.items()})
         with ThreadPoolExecutor(len(variants)) as pool:   # one nvcc each
@@ -307,7 +394,8 @@ def main() -> int:
                           variants.values()))
         cut = {}
         for vname, defines in variants.items():
-            fns = both(new_libs(defines), k_new, f32=True)
+            fns = both(new_libs(defines), k_new, True, parts_shape,
+                       parts_shape)
             for kname, (fn, _) in fns.items():
                 ms, clk, pwr = _time_ms(fn)
                 print(f"  {kname} {vname}: {_fmt(ms, clk, pwr)}  [{card}]")
@@ -339,10 +427,15 @@ def main() -> int:
                 lambda n, d=d: _bind(_old_lib(d, n), d, n), SOURCES))
                 for d in designs.values()]))
         f32 = all(_has_f32(d) for d in designs.values())
-        fns = {"new": both(new_libs(), k_new, f32)}
+        if parts_shape and parts_lib is None:
+            from mamimo_tpu_torch.ops.kernels.fused_ls import _ls_parts_lib
+
+            parts_lib = _ls_parts_lib()
+        fns = {"new": both(new_libs(), k_new, f32, parts_shape)}
         for tag, d in list(designs.items()):
             fns[tag] = both(libs[tag], {n: kc_new if _hopper(d, n) else kc_old
-                                        for n in SOURCES}, f32)
+                                        for n in SOURCES}, f32,
+                            parts_shape and _has_parts(d))
             try:            # an earlier design may refuse the probe's shape
                 next(iter(fns[tag].values()))[0]()
                 torch.cuda.synchronize()
@@ -367,7 +460,9 @@ def main() -> int:
                 print(f"  {kname}: new vs {tag} NMSE {db:.2f} dB, "
                       + ("bit-identical" if same[f"{tag}: {kname}"]
                          else "not identical"))
-                limit = F32_AGREE_DB if "float32" in kname else BF16_AGREE_DB
+                limit = BF16_AGREE_DB if "float32" not in kname else (
+                    F32_PARTS_AGREE_DB if parts_shape
+                    and not _has_parts(designs[tag]) else F32_AGREE_DB)
                 if not db <= limit:
                     raise AssertionError(f"{kname}: new and {tag} disagree "
                                          f"({db:.2f} dB)")

@@ -337,6 +337,8 @@ def launches(monkeypatch):
     calls = []
     for mod in (ff, mi):
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
+    # layer 1's split plan reads the card's SMs: an H100's 132
+    monkeypatch.setattr(ff, "_sm_count", lambda device: 132)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",

@@ -28,11 +28,16 @@ seed, at S <= 2:
   within a tile, the k-steps, the signs H_nh[p, v] of the parts, the
   despread's bits and ``Rows::at``), rebuilt in float64 from the planes
   and the kernels' constants, against the plain version: -120 dB
-  (float32 values summed in another order);
+  (float32 values summed in another order). At 512 symbols a sample and
+  more the rebuilt path is the part transform's (``ls_parts``: Z in the
+  planes' dtype, bf16 rounding and all) and one part a tile on Z, held
+  to the plain version of the planes whose transform is exactly that Z;
 - the wrappers' CUDA branches (the device test made to answer CUDA, the
   library one that records each launch): the new shapes reach the
-  launch with their num_tx, loc, sym_len and cp, and the shapes no body
-  takes raise by name;
+  launch with their num_tx, loc, sym_len and cp (at 512 symbols a sample
+  and more, after the part transform's launch, on its output: fft
+  samples a symbol, no cyclic prefix, the ``parts`` mode bit; below, no
+  transform), and the shapes no body takes raise by name;
 - both packages' ``CSIPredictor.estimate_full`` on one JAX checkpoint of
   a small model at Nt 512 and at BS32 with cp 18: float32 serving, 1e-4
   of the largest value (as ``test_torch_predictor.py``).
@@ -65,6 +70,8 @@ from mamimo_tpu_torch.models.predictor import CSIPredictor
 from mamimo_tpu_torch.ops.kernels import _build, fused_ls
 from mamimo_tpu_torch.ops.kernels.fused_ls import (
     MAX_KERNEL_TX,
+    PARTS_MIN_LOC,
+    _ls_parts_plain,
     _ssq_plain,
     ls_estimate_pallas,
     ls_kernel_constants,
@@ -271,7 +278,7 @@ def _box_log_symbols(log_loc):
     return 0 if log_loc == 0 else (1 if log_loc <= 5 else 3)
 
 
-def _rebuild_general(cfg, x, loc, rank, esize):
+def _rebuild_general(cfg, x, loc, rank, esize, parts=False):
     """h (S, num_tx, C) complex128 as ls_body<0> and the v2 store compute
     it from the planes x (2, S, loc·sym_len): per tile (part p of a
     sample, or samples) and k-step, the 16 boxes of the map whose rows
@@ -281,12 +288,16 @@ def _rebuild_general(cfg, x, loc, rank, esize):
     1; the k-step's 128 rows times the constants' rows; the nh parts
     summed with H_nh's signs; the despread over the tile-row bits the
     boxes put the symbols on; each row placed by Rows::at and stored n
-    times with H_n[a, rank]."""
+    times with H_n[a, rank]. With ``parts`` x is the part transform's Z
+    (2, S, loc·fft): symbols of fft samples, no cyclic prefix, and each
+    tile runs its own part p alone, with the sign +1."""
     ke, al = 128 // esize, 16 // esize       # a k-step, 16 bytes
     s = x.shape[1]
     cp_ = -(-cfg.num_carriers // 128) * 128
     bt = ls_kernel_constants(cfg, dtype=torch.float32).double().numpy()
-    g_sym = symbol_group(cfg.sym_len, esize)
+    sym_len, cpl = (cfg.fft_length, 0) if parts \
+        else (cfg.sym_len, cfg.cp_length)
+    g_sym = symbol_group(sym_len, esize)
     log_loc, log_g = loc.bit_length() - 1, g_sym.bit_length() - 1
     assert log_g <= min(log_loc, 7)
     log_nh = max(log_loc - 7, 0)
@@ -296,7 +307,7 @@ def _rebuild_general(cfg, x, loc, rank, esize):
     log_spt = 7 - log_tl
     tiles = s << log_nh if log_nh else -(-s // (1 << log_spt))
     nk0 = 2 * cfg.fft_length // ke
-    row_len = g_sym * cfg.sym_len                # a map row's elements
+    row_len = g_sym * sym_len                    # a map row's elements
     xr = x.astype(np.float64).reshape(2, s, loc // g_sym, row_len)
     n = cfg.num_tx // loc
     hmat = j_hadamard(n)
@@ -304,16 +315,17 @@ def _rebuild_general(cfg, x, loc, rank, esize):
     for t in range(tiles):
         s0, part = (t >> log_nh) << log_spt, t & (nh - 1)
         acc = np.zeros((128, 2 * cp_))
-        for half in range(nh):
-            sign = -1.0 if bin(part & half).count("1") & 1 else 1.0
+        for half in [part] if parts else range(nh):
+            sign = -1.0 if not parts and bin(part & half).count("1") & 1 \
+                else 1.0
             for k0 in range(nk0):
                 plane = int(k0 >= nk0 // 2)
-                col = cfg.cp_length + (k0 % (nk0 // 2)) * ke
+                col = cpl + (k0 % (nk0 // 2)) * ke
                 stage = np.zeros((128, ke))
                 for g in range(16):
                     a, bb = g & ((1 << nsb) - 1), g >> nsb
                     v = a << log_bs
-                    o = (v >> tq) * cfg.sym_len + col
+                    o = (v >> tq) * sym_len + col
                     a0 = o - o % al if log_g else o  # a box starts on 16 B
                     c1 = (half << (7 - log_g)) + (v & ((1 << tq) - 1))
                     c2 = s0 + (bb << (3 - log_bs))
@@ -356,13 +368,37 @@ def _rebuild_general(cfg, x, loc, rank, esize):
 def test_general_body_layout_rebuilds_the_estimate(case, seq, esize):
     """The general body's index arithmetic at each new shape and both
     input widths (bf16 rows of 1, 4 or 8 symbols, float32 of 1, 2 or 4)
-    gives the plain version's estimate."""
+    gives the plain version's estimate. At loc >= 512 the path is the
+    part transform's Z in the input's dtype (its bf16 rounding kept),
+    then one part a tile on Z, held to the plain version of the planes
+    whose transform is exactly that Z."""
     cfg, _ = _cfgs(case)
     loc = cfg.num_tx if seq is None else cfg.num_tx // seq[1]
     x = _planes(cfg, 2 if loc > 8 else 17, seed=6, nsym=loc)
-    got = _rebuild_general(cfg, x, loc, 0 if seq is None else seq[0], esize)
+    parts = loc >= PARTS_MIN_LOC
+    if parts:
+        z = _ls_parts_plain(cfg, torch.from_numpy(x).to(
+            BF16 if esize == 2 else F32), loc).double().numpy()
+        x = _unparts(cfg, z, loc)
+        got = _rebuild_general(cfg, z, loc, 0 if seq is None else seq[0],
+                               esize, parts=True)
+    else:
+        got = _rebuild_general(cfg, x, loc, 0 if seq is None else seq[0],
+                               esize)
     ref = _cplx(ls_planes_v2(cfg, torch.from_numpy(x), seq_shard=seq))
     assert _db(got, ref) <= REBUILD_DB
+
+
+def _unparts(cfg, z, loc):
+    """The planes (2, S, loc·sym_len) float32 whose part transform is z
+    (2, S, loc·fft), float64: Y_v = Σ_p H_nl[v, p] Z_p / nl (H_nl H_nl =
+    nl I), zeros in the cyclic prefix, which the LS never reads."""
+    nl, fft, s = loc // 128, cfg.fft_length, z.shape[1]
+    y = np.einsum("vp,aspmf->asvmf", j_hadamard(nl).astype(np.float64),
+                  z.reshape(2, s, nl, 128, fft)) / nl
+    x = np.zeros((2, s, nl, 128, cfg.sym_len))
+    x[..., cfg.cp_length:cfg.cp_length + fft] = y
+    return x.astype(np.float32).reshape(2, s, loc * cfg.sym_len)
 
 
 # ----------------------------------------------------------------------
@@ -402,7 +438,10 @@ def launches(monkeypatch):
 def test_cuda_branches_take_the_new_shapes(launches, case, dtype):
     """Each LS wrapper launches at the new shapes, passing num_tx, the
     symbols of a sample, sym_len and cp_length as they are (the library
-    picks its body from them); a seq rank its loc."""
+    picks its body from them); a seq rank its loc. At 512 symbols a
+    sample and more the part transform launches first, and the LS launch
+    reads its output: fft samples a symbol, no cyclic prefix, the
+    ``parts`` mode bit; below, no transform launches."""
     cfg, _ = _cfgs(case)
     k = ls_sm90_constants(cfg, dtype=dtype)
     nt, L = cfg.num_tx, cfg.len_ltf
@@ -413,22 +452,31 @@ def test_cuda_branches_take_the_new_shapes(launches, case, dtype):
     n = 2 if nt // 2 >= symbol_group(cfg.sym_len, x.element_size()) else 1
     ls_planes_v2(cfg, x[:, :, :L // n].contiguous(), k, seq_shard=(n - 1, n),
                  out_dtype=BF16, with_ssq=True)
-    (_, f2, a2), (_, f1, a1), (_, fp, ap), (_, fs, as_) = launches
+    full, seq = nt >= PARTS_MIN_LOC, nt // n >= PARTS_MIN_LOC
+    transforms = [(t[1], t[2]) for t in launches if t[0] == "ls_parts"]
+    assert [a[3] for _, a in transforms] == [nt] * (3 * full) \
+        + [nt // n] * seq
+    (_, f2, a2), (_, f1, a1), (_, fp, ap), (_, fs, as_) = [
+        t for t in launches if t[0] != "ls_parts"]
     geo = (cfg.sym_len, cfg.cp_length, cfg.fft_length)
+    zgeo = (cfg.fft_length, 0, cfg.fft_length)
     assert (f2, a2[4:8], a2[9:12]) == ("ls_planes_v2_launch",
-                                       (2, nt, nt, 0), geo)
-    assert a2[13] == 4 * (dtype == F32)
+                                       (2, nt, nt, 0), zgeo if full else geo)
+    assert a2[13] == 4 * (dtype == F32) | 8 * full
     assert (f1, a1[4:7], a1[7:10]) == ("ls_planes_v1_launch", (2, 8, nt),
-                                       geo)
-    assert (fp, ap[3:6], ap[7:10]) == ("ls_pair_launch", (2, 2, nt), geo)
+                                       zgeo if full else geo)
+    assert a1[11] & 4 == 4 * full
+    assert (fp, ap[3:6], ap[7:10]) == ("ls_pair_launch", (2, 2, nt),
+                                       zgeo if full else geo)
+    assert ap[11] == int(dtype == F32) | 2 * full
     assert (fs, as_[4:8], as_[13]) == ("ls_planes_v2_launch",
                                        (2, nt, nt // n, n - 1),
-                                       3 | 4 * (dtype == F32))
+                                       3 | 4 * (dtype == F32) | 8 * seq)
 
 
 @pytest.mark.parametrize("nt, cp, nsym, dtype, match", [
-    (2048, 64, None, BF16, "power of 2 <= 1024"),
-    (2048, 18, None, F32, "power of 2 <= 1024"),
+    (4096, 64, None, BF16, "power of 2 <= 2048"),
+    (4096, 18, None, F32, "power of 2 <= 2048"),
     (4, 9, None, BF16, "at least 8 symbols a sample, got 4"),
     (4, 18, 2, BF16, "at least 4 symbols a sample, got 2"),
     (2, 9, None, F32, "at least 4 symbols a sample, got 2"),
@@ -444,7 +492,7 @@ def test_cuda_branches_refuse_by_name(launches, nt, cp, nsym, dtype, match):
     with pytest.raises(ValueError, match=match):
         ls_planes_v2(cfg, x, k, seq_shard=seq)
     assert not launches
-    assert MAX_KERNEL_TX == 1024
+    assert MAX_KERNEL_TX == 2048
 
 
 def test_symbol_group():

@@ -232,6 +232,7 @@ def test_launch_bindings_match_the_c_signatures(monkeypatch):
     fused_ls._ls_lib()
     fused_ls._ls_v1_lib()
     fused_ls._ls_pair_lib()
+    fused_ls._ls_parts_lib()
     mi._mlp_lib()
     for src, fns in (("fused_factored", (
             "factored_sig_proj_launch", "factored_tail_launch",
@@ -240,6 +241,7 @@ def test_launch_bindings_match_the_c_signatures(monkeypatch):
             ("ls_v2", ("ls_planes_v2_launch",)),
             ("ls_v1", ("ls_planes_v1_launch",)),
             ("ls_pair", ("ls_pair_launch",)),
+            ("ls_parts", ("ls_parts_launch",)),
             ("mlp_infer", ("mlp_layer1_launch", "mlp_tail_launch"))):
         for fn in fns:
             assert len(getattr(fake, fn).argtypes) == _c_arity(src, fn), fn
@@ -322,11 +324,13 @@ def test_kernel1_plain_at_nt256_matches_jax(nt256_ls):
 
 def test_kernel1_cuda_branch_takes_nt256(monkeypatch):
     """The LS kernels' shape checks take num_tx = 256 (full mode and a seq
-    rank of 2) and 512, and refuse 2048, naming the limit (1024)."""
+    rank of 2) and 512 (whose first launch is the part transform's), and
+    refuse 4096, naming the limit (2048)."""
     monkeypatch.setattr(fused_ls, "on_cuda", lambda *t: True)
     monkeypatch.setattr(fused_ls, "_ls_lib", _stub)
     monkeypatch.setattr(fused_ls, "_ls_v1_lib", _stub)
     monkeypatch.setattr(fused_ls, "_ls_pair_lib", _stub)
+    monkeypatch.setattr(fused_ls, "_ls_parts_lib", _stub)
     consts = ls_sm90_constants(CFG256)
     planes = torch.zeros((2, 4, CFG256.len_ltf), dtype=BF16)
     for call in (lambda: ls_planes_v2(CFG256, planes, consts),
@@ -342,8 +346,8 @@ def test_kernel1_cuda_branch_takes_nt256(monkeypatch):
         ls_planes_v2(cfg512, torch.zeros((2, 1, cfg512.len_ltf),
                                          dtype=BF16),
                      ls_sm90_constants(cfg512))
-    cfg2048 = SimConfig(num_tx=2048, num_rx=1)
-    with pytest.raises(ValueError, match="power of 2 <= 1024"):
-        ls_planes_v2(cfg2048, torch.zeros((2, 1, cfg2048.len_ltf),
+    cfg4096 = SimConfig(num_tx=4096, num_rx=1)
+    with pytest.raises(ValueError, match="power of 2 <= 2048"):
+        ls_planes_v2(cfg4096, torch.zeros((2, 1, cfg4096.len_ltf),
                                           dtype=BF16),
-                     ls_sm90_constants(cfg2048))
+                     ls_sm90_constants(cfg4096))
