@@ -198,17 +198,17 @@ failure ends the run with a non-zero exit code):
                units, served through predict_complex_pallas (kernel 5)
                against the kernels' plain version;
 5l. wide     — every model the port trains, served on the card: BS32 at
-    models     hidden (2048, 2048), (4096, 1024), (1536, 640) (the tails
-               stream h above 1024 units), (1024,) and (1024, 1024,
-               1024) (the per-head rows through device memory), and Nt
+    models     hidden (2048, 2048), (4096, 1024), (1536, 640), (1024,)
+               and (1024, 1024, 1024) (the per-head rows through device
+               memory, the bf16 rows tail as two GEMMs, counted), and Nt
                256, Nr 4, hidden (1024, 1024) at 128 packets (kernel 1's
                tiles of half a sample); each a seeded checkpoint loaded
                by CSIPredictor, one request through estimate_full and
                one through all_pairs, launches of kernels 1 and 2
                counted, the served estimates within PIPE_LIMITS of the
                float32 path, each kernel of the depth's chain against
-               its plain version (factored_tail at S = 1, 65 and 3 heads
-               when h streams; factored_rows_tail at ragged rows); at Nt
+               its plain version (factored_rows_tail at ragged rows);
+               at Nt
                256 kernel 1's bf16 store and sums (check_v2_modes, S =
                512 and 5), S = 1, a seq rank, kernels 3 and 4, and the
                paths pallas_ls_v2_serving_r3 and ls_pallas counted; at
@@ -230,8 +230,9 @@ failure ends the run with a non-zero exit code):
                float32 plain LS (float32 launches counted; phase 5k's
                dryrun_multichip must launch the float32 mode too);
                matmul_pallas on bf16 and float32 operands within -90 dB
-               of float64 products, out_dtype=bf16 the float32 result
-               rounded; then holds kernels 1 and 3's float32 modes at S
+               of float64 products (bf16: B (K, N) as given, a
+               transposed view, N % 8 != 0), out_dtype=bf16 the float32
+               result rounded; then holds kernels 1 and 3's float32 modes at S
                = 4096 within -90 dB of their plain versions and times
                them there, and kernel 6 at (4096, 10240) @ (10240, 1024) and
                (131072, 1024) @ (1024, 1024), rows of the kernels line
@@ -2544,13 +2545,15 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
     def chain_names(hidden):
         """Kernel 2's kernels for a model: the fused tail for 2 hidden
         layers of at most 1024 units in the first, else the per-head rows
-        through device memory (fused_factored_planes' routing)."""
+        through device memory (fused_factored_planes' routing), the rows
+        tail of bf16 rows on its two GEMMs."""
         d = len(hidden)
         if d == 2 and hidden[0] <= 1024:
             return ("factored_sig_proj", "factored_tail")
         return ("factored_sig_proj", "factored_heads") \
             + (("factored_dense",) if d != 2 else ()) \
-            + (("factored_rows_tail",) if d >= 2 else ())
+            + (("factored_rows_tail", "factored_rows_tail gemms")
+               if d >= 2 else ())
 
     def layer_library(p, k, h):
         """One bf16 matmul and its epilogue: hidden layer k on rows h."""
@@ -2736,7 +2739,8 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
             got_pc, cnt_pc = counted(lambda: predict_complex_pallas(
                 cfg, tcfg, prep_mlp, None, sig, pil))
             require_launched(f"predict_complex_pallas, {tag}", cnt_pc,
-                             ("mlp_infer_layer1", "mlp_infer_tail"))
+                             ("mlp_infer_layer1", "mlp_infer_tail",
+                              "mlp_infer_tail gemms"))
             counts[tag]["predict_complex_pallas"] = cnt_pc
             with full_f32_matmul():
                 ref_pc = predict_complex(cfg, tcfg, params, bn, sig, pil)
@@ -2956,6 +2960,7 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
         ls_sm90_constants,
     )
     from mamimo_tpu_torch.ops.kernels.int8_mm import (
+        _matmul_float,
         _matmul_float_plain,
         matmul_float,
         matmul_pallas,
@@ -3137,10 +3142,15 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
         counts[f"sharded_ls_pallas_v2 {mode}"] = cnt
         sh_launches += cnt["ls_planes_v2 f32"]
 
-    # kernel 6: bf16 and float32 operands against float64 products
+    # kernel 6: bf16 and float32 operands against float64 products; the
+    # bf16 kernel reads B (K, N) as given (MN-major), a transposed view of
+    # a row-major Bt as it lies (K-major), and a copy of B.T where N % 8
+    # (259 x 130); its bf16 store (the STAGED epilogue, TMA stores) the
+    # f32 result rounded
     def mm_checks():
         for dt in (bf16, f32):
-            for m, k, n in ((129, 72, 40), (1, 72, 40)) + MM_SHAPES:
+            for m, k, n in ((129, 72, 40), (1, 72, 40), (259, 136, 130)) \
+                    + MM_SHAPES:
                 a = torch.randn((m, k), generator=g, device=dev).to(dt)
                 b = torch.randn((k, n), generator=g, device=dev).to(dt)
                 got = matmul_pallas(a, b)
@@ -3151,6 +3161,11 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
                 same(f"matmul_pallas {str(dt)[6:]} ({m}, {k}) @ ({k}, {n}): "
                      f"out_dtype=bf16 = the f32 result rounded",
                      matmul_pallas(a, b, out_dtype=bf16), got.to(bf16))
+                if dt == bf16 and m == 129:
+                    bv = b.T.contiguous().T          # Bt's transposed view
+                    same(f"matmul_pallas bf16 ({m}, {k}) @ ({k}, {n}), B a "
+                         f"transposed view (K-major) = B row-major",
+                         matmul_pallas(a, bv), got)
                 del a, b, got
 
     _, counts["matmul"] = counted(mm_checks)
@@ -3235,10 +3250,14 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
             b = torch.randn((k, n), generator=g, device=dev).to(dt)
             bt = b.T.contiguous()
             esz = a.element_size()
+            # the bf16 kernel alone is the launch on B as given (the call
+            # adds nothing to it); the float32 one on Bt, split per call
+            kern = (lambda a=a, b=b: _matmul_float(a, b, True)) \
+                if dt == bf16 else (lambda a=a, bt=bt: matmul_float(a, bt))
             timed("matmul_pallas", f"{str(dt)[6:]} mode: ({m}, {k}) @ "
-                  f"({k}, {n}) -> f32", "matmul.cu",
-                  "mamimo_tpu/ops/pallas/int8_mm.py:50",
-                  lambda a=a, bt=bt: matmul_float(a, bt),
+                  f"({k}, {n}) -> f32",
+                  "matmul_bf16.cu" if dt == bf16 else "matmul.cu",
+                  "mamimo_tpu/ops/pallas/int8_mm.py:50", kern,
                   lambda a=a, b=b: _matmul_float_plain(a, b),
                   lambda a=a, b=b: torch.matmul(a, b),
                   (m * k + k * n) * esz + m * n * 4, 2.0 * m * n * k, peak,
@@ -3247,6 +3266,15 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
                   "or float32 through kernel 6)",
                   errs[f"matmul_pallas {str(dt)[6:]} {m}"],
                   call=lambda a=a, b=b: matmul_pallas(a, b))
+            if dt == bf16:
+                # its bf16 store beside torch.matmul's (which stores bf16)
+                t_st = time_ms(lambda a=a, b=b: matmul_pallas(
+                    a, b, out_dtype=bf16), iters=10)
+                t_lib = time_ms(lambda a=a, b=b: torch.matmul(a, b),
+                                iters=10)
+                print(f"  matmul_pallas [bf16 mode: ({m}, {k}) @ ({k}, {n}) "
+                      f"-> bf16]: {t_st:.5f} ms; torch.matmul {t_lib:.5f} "
+                      f"ms  [{smi}]")
             del a, b, bt
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t0
@@ -4154,7 +4182,8 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
 
     (hrows, y), cnt = counted(rows_route)
     require_launched("the per-head rows route bf16, Nt 1024", cnt,
-                     ("factored_heads", "factored_rows_tail"))
+                     ("factored_heads", "factored_rows_tail",
+                      "factored_rows_tail gemms"))
     errs["factored_rows_tail Nt 1024"] = check(
         "factored_rows_tail, Nt 1024, vs its plain version", y,
         _out_plain(prep, _hidden_plain(prep, 2, hrows), C), -40.0)
@@ -4338,6 +4367,8 @@ def ls_shapes_timing(dev, smi, res) -> list:
         ls_sm90_constants,
         pair_planes,
     )
+    from mamimo_tpu_torch.ops.ltf import _hadamard_np
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
 
     f32, bf16 = torch.float32, torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(101)
@@ -4354,19 +4385,37 @@ def ls_shapes_timing(dev, smi, res) -> list:
         checks = f"phase 5o's checks, {tag}"
         if tag in PARTS_LIMITS_DB:
             # the part transform alone: the planes' fft samples read once,
-            # the transform written once; no one PyTorch call computes it
+            # the transform written once; its library call: H_nl times an
+            # as_strided view of the planes (symbol m of part v at sample
+            # s, its fft samples after the cyclic prefix), one matmul
+            nl, sl, cp = nt // 128, cfg.sym_len, cfg.cp_length
+            hnl = torch.from_numpy(_hadamard_np(nl).astype(np.float32)).to(
+                dev)
             for x in (x16, x32):
                 mode = "bf16" if x.dtype == bf16 else "float32"
                 ms = time_ms(lambda x=x: ls_parts(cfg, x), iters=10)
                 plain_ms = time_ms(lambda x=x: _ls_parts_plain(cfg, x, nt),
                                    iters=2, warmup=1)
+                yv = torch.as_strided(x, (2, S, 128, nl, fft),
+                                      (S * L, L, sl, 128 * sl, 1), cp)
+                hx = hnl.to(x.dtype)
+                with full_f32_matmul():
+                    zl = torch.matmul(hx, yv)        # (2, S, 128, nl, fft)
+                    lib_ms = time_ms(lambda hx=hx, yv=yv: torch.matmul(
+                        hx, yv), iters=10)
+                check(f"  ls_parts library call ({mode}, {tag}) vs the "
+                      f"plain version", zl.permute(0, 1, 3, 2, 4).reshape(
+                          2, S, nt * fft),
+                      _ls_parts_plain(cfg, x, nt), -45.0)
+                del zl
                 bms, by = bound_ms(2 * 2 * S * nt * fft * x.element_size(),
                                    0.0)
                 shape = (f"{tag}, {mode} planes (2, {S}, {L}) -> (2, {S}, "
                          f"{nt * fft})")
                 print(f"  ls_parts [{shape}]: {ms:.5f} ms (bound {bms:.5f} "
                       f"ms by {by}, {bms / ms * 100:.1f}% of it); plain "
-                      f"{plain_ms:.4f} ms  [{smi}]")
+                      f"{plain_ms:.4f} ms; library {lib_ms:.4f} ms  "
+                      f"[{smi}]")
                 rows.append({
                     "name": "ls_parts", "shape": shape, "route": "cuda",
                     "source": "mamimo_tpu_torch/csrc/ls_parts.cu",
@@ -4380,7 +4429,7 @@ def ls_shapes_timing(dev, smi, res) -> list:
                     if mode == "bf16" else checks,
                     "max_abs_err": 0.0, "nmse_db": None, "exact": True,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                    "bound_by": by, "library_ms": None, "call_ms": None,
+                    "bound_by": by, "library_ms": lib_ms, "call_ms": None,
                     "ms_from": "events", "call_ms_from": "events"})
         for dt, k, x, peak in ((bf16, ls_sm90_constants(cfg, dev), x16,
                                 BF16_FLOPS),
@@ -4597,10 +4646,10 @@ def main() -> int:
                                 "factored_sig_proj_split_kernel",
                                 "factored_tail_kernel",
                                 "factored_dense_kernel",
-                                "factored_rows_tail_kernel"), "HGMMA",
+                                "rows_gemm_kernel"), "HGMMA",
              "HMMA"),
-            ("mlp_infer", ("mlp_layer1_kernel", "mlp_tail_kernel"),
-             "HGMMA", "HMMA"),
+            ("mlp_infer", ("mlp_layer1_kernel", "mlp_tail_kernel",
+                           "rows_gemm_kernel"), "HGMMA", "HMMA"),
             ("ls_v2", tuple(V2_VARIANTS.values()), "HGMMA", "HMMA"),
             ("ls_v2", ("ls_planes_v2_f32_kernel",), "HGMMA", "HMMA"),
             ("ls_v1", ("ls_planes_v1_kernel", "ls_planes_v1_f32_kernel"),
@@ -4614,8 +4663,8 @@ def main() -> int:
                        "ls_planes_v1_any_f32_kernel"), "HGMMA", "HMMA"),
             ("ls_pair", ("ls_pair_any_kernel", "ls_pair_any_f32_kernel"),
              "HGMMA", "HMMA"),
-            ("matmul", ("mm_bf16_kernel", "mm_tf32x3_kernel"), "HGMMA",
-             "HMMA"),
+            ("matmul_bf16", ("mm_bf16_kernel",), "HGMMA", "HMMA"),
+            ("matmul", ("mm_tf32x3_kernel",), "HGMMA", "HMMA"),
             ("fused_factored", ("factored_sig_proj_f32_kernel",
                                 "factored_dense_f32_kernel",
                                 "factored_rows_tail_f32_kernel"), "HGMMA",
@@ -4955,22 +5004,29 @@ def main() -> int:
     f32_kernels = (ls_planes_v2, ls_planes_v1, ls_pair_kernel, matmul_float,
                    factored_sig_proj, factored_heads, factored_dense,
                    factored_rows_tail, mlp_infer_layer1, mlp_infer_tail)
+    # the tails whose bf16 rows may run as two GEMMs count those apart
+    gemm_tails = (factored_rows_tail, mlp_infer_tail)
 
     def counted(fn):
         """Run fn with every launch count set to 0 just before; returns
         fn's result and the counts just after ("<name> f32": the float32
         mode's share; "factored_sig_proj split": the launches of layer 1
-        whose K was split across the card)."""
+        whose K was split across the card; "<tail> gemms": the tails'
+        launches on their two-GEMM route)."""
         for k in all_kernels:
             k.launches = 0
         for k in f32_kernels:
             k.launches_f32 = 0
         factored_sig_proj.launches_split = 0
+        for k in gemm_tails:
+            k.launches_gemms = 0
         out = fn()
         torch.cuda.synchronize()
         return out, {**{k.__name__: k.launches for k in all_kernels},
                      **{f"{k.__name__} f32": k.launches_f32
                         for k in f32_kernels},
+                     **{f"{k.__name__} gemms": k.launches_gemms
+                        for k in gemm_tails},
                      "factored_sig_proj split":
                          factored_sig_proj.launches_split}
 

@@ -40,12 +40,15 @@
 //   factored_dense_kernel, gemm_sm90.cuh's main loop with a
 //   bias/ReLU/BN epilogue, runs each hidden layer after the first but
 //   the last (bf16 rows out), or at depth 1 the output layer (f32 out);
-//   factored_rows_tail_kernel runs the last hidden layer and the output
-//   on tail_sm90.cuh from TMA-loaded rows, as mlp_infer.cu's tail, with
-//   the rows streamed slab by slab above 1024 units. At depth 2 above
-//   1024 units this replaces building h slab by slab inside
-//   factored_tail, which ran at 11% of its bound at H 2048 on an H100
-//   (PERF.md).
+//   factored_rows_gemms_launch runs the last hidden layer and the output
+//   as two GEMMs on mm_sm90.cuh's walk (mm::rows_gemms): the
+//   last hidden layer's rows through device memory, staged in shared
+//   memory and stored by TMA while the next tile's products run. It
+//   replaces a fused tail on tail_sm90.cuh (TMA-loaded rows, the hidden
+//   activation on chip, streamed slab by slab above 1024 units), which
+//   took 1.5-2.0x as long on an H100 at every width served (PERF.md);
+//   that tail had replaced building h slab by slab inside factored_tail
+//   at depth 2 (11% of its bound at H 2048).
 //
 // The float32 mode (float32 weights from prepare_factored_weights(...,
 // dot_dtype=float32): JAX's dot_dtype=float32, the TPU kernel's products
@@ -67,6 +70,7 @@
 // H = 1024, C = 234): about 848 GFLOP (172 layer 1, 550 layer 2, 126
 // layer 3), 0.86 ms at the 989 TFLOP/s bf16 tensor-core peak; it is
 // compute-bound (inputs, weights and output are about 0.5 GB).
+#include "mm_sm90.cuh"
 #include "tail_sm90.cuh"
 
 using namespace mamimo;
@@ -204,7 +208,7 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
   b3 += (long long)p * ldb3;
   T* op = out + (long long)p * S * nt * C;
 
-  tail::layers23<false, false>(
+  tail::layers23<false>(
       nullptr, 0, &mw2, &mw3, p, H1, H2, b2, a2, c2,
       // h = relu(sig_proj + hb[t]) * a1 + c1, bf16; rows past S zero
       [&](unsigned char* sh, int i) {
@@ -393,37 +397,6 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
       });
 }
 
-// The last hidden layer and the output layer from the rows of the one
-// before (depth >= 3, or depth 2 above 1024 units: the heads' rows): 64
-// rows m0.. of plane p = blockIdx.z of h (2, M, H1) through
-// map mh; w2t (2, H2, H1), w3t (2, 256, H2) through mw2, mw3; b2, a2, c2
-// (2, H2); b3 (2, ldb3); y (2, M, C) as T.
-template <bool STREAM, class T = float>
-__global__ void __launch_bounds__(tail::THREADS, 1)
-    factored_rows_tail_kernel(const __grid_constant__ CUtensorMap mh,
-                              const __grid_constant__ CUtensorMap mw2,
-                              const __grid_constant__ CUtensorMap mw3,
-                              const float* __restrict__ b2,
-                              const float* __restrict__ a2,
-                              const float* __restrict__ c2,
-                              const float* __restrict__ b3,
-                              T* __restrict__ y, int M, int H1, int H2,
-                              int C, int ldb3) {
-  const int m0 = blockIdx.x * tail::ROWS, p = blockIdx.z;
-  b2 += (long long)p * H2;
-  a2 += (long long)p * H2;
-  c2 += (long long)p * H2;
-  b3 += (long long)p * ldb3;
-  T* yp = y + (long long)p * M * C;
-  tail::layers23<true, STREAM>(
-      &mh, m0, &mw2, &mw3, p, H1, H2, b2, a2, c2,
-      [](unsigned char*, int, int, int) {},
-      [&](int row, int col, float v0, float v1) {
-        const int m = m0 + row;
-        if (m < M) store_y(yp + (long long)m * C, b3, C, col, v0, v1);
-      });
-}
-
 // The float32 mode: h (2, M, H1) f32 through map mh (box 32 x 64), the
 // TF32 parts of w2t (2, 2, H2, H1) and of w3t (2, 2, 256, H2) f32
 // through mw2, mw3 (box 32 x SLICE_ROWS, plane 2p + part);
@@ -527,7 +500,7 @@ int factored_tail_launch(const void* sp, const void* hb, const void* a1,
   if (rc != 0) return rc;
   const dim3 grid((nt + tail::CL - 1) / tail::CL * tail::CL,
                   (S + tail::ROWS - 1) / tail::ROWS, 2);
-  const int smem = tail::smem_bytes(H1, false);
+  const int smem = tail::smem_bytes(H1);
   const cudaStream_t st = (cudaStream_t)stream;
   if (mode & MODE_BF16_OUT)
     return tail::launch(factored_tail_kernel<bf16>, grid, smem, st, mw2, mw3,
@@ -610,56 +583,59 @@ int factored_dense_launch(const void* h, const void* wt, const void* b,
                       fa, fc, y, M, N, K, C, ldb);
 }
 
-// h (2, M, H1), w2t (2, H2, H1), w3t (2, 256, H2): bf16; or with
-// MODE_F32 h f32 and w2t, w3t the TF32 parts (2, 2, H2, H1) and (2, 2,
-// 256, H2) f32 (tf32_split); b2, a2, c2 (2, H2) f32; b3 (2, ldb3) f32;
-// y (2, M, C) f32, or bf16 with MODE_BF16_OUT. H1, H2 % 128 == 0 (bf16 h
-// streams above H1 = 1024; f32 h always streams), C <= 256, h, w2t and
-// w3t 16-byte aligned.
+// factored_rows_tail's two-GEMM route: h (2, M, H1), w2t (2, H2, H1),
+// w3t (2, 256, H2) bf16 (16-byte aligned, H1 % 8 == 0, H2 % 128 == 0);
+// b2, a2, c2 (2, H2) f32; b3 (2, ldb3) f32. The last hidden layer's rows
+// bf16(relu(h @ w2 + b2) a2 + c2) go into h2 (2, M, H2) bf16 (16-byte
+// aligned), then y (2, M, C) = (h2 @ w3 + b3)[..., :C] f32, or bf16 with
+// MODE_BF16_OUT (C <= 256): mm::rows_gemms on the two planes.
+int factored_rows_gemms_launch(const void* h, const void* w2t,
+                               const void* b2, const void* a2,
+                               const void* c2, const void* w3t,
+                               const void* b3, void* y, void* h2, int M,
+                               int H1, int H2, int C, int ldb3, int mode,
+                               void* stream) {
+  if (mode < 0 || mode > MODE_BF16_OUT) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float *fb2 = (const float*)b2, *fa2 = (const float*)a2,
+              *fc2 = (const float*)c2, *fb3 = (const float*)b3;
+  if (mode & MODE_BF16_OUT)
+    return mm::rows_gemms(h, w2t, fb2, fa2, fc2, w3t, fb3, (bf16*)y, h2, M,
+                          H1, H2, C, 2, ldb3, st);
+  return mm::rows_gemms(h, w2t, fb2, fa2, fc2, w3t, fb3, (float*)y, h2, M,
+                        H1, H2, C, 2, ldb3, st);
+}
+
+// The float32 mode of factored_rows_tail (bf16 rows take
+// factored_rows_gemms_launch): h (2, M, H1) f32 and w2t, w3t the TF32
+// parts (2, 2, H2, H1) and (2, 2, 256, H2) f32 (tf32_split); b2, a2, c2
+// (2, H2) f32; b3 (2, ldb3) f32; y (2, M, C) f32, or bf16 with
+// MODE_BF16_OUT. mode must hold MODE_F32. H1 % 32 == 0, H2 % 128 == 0,
+// C <= 256, h, w2t and w3t 16-byte aligned.
 int factored_rows_tail_launch(const void* h, const void* w2t, const void* b2,
                               const void* a2, const void* c2,
                               const void* w3t, const void* b3, void* y,
                               int M, int H1, int H2, int C, int ldb3,
                               int mode, void* stream) {
-  if (mode < 0 || mode > 3) return (int)cudaErrorInvalidValue;
+  if (mode != MODE_F32 && mode != (MODE_F32 | MODE_BF16_OUT))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const float *fb2 = (const float*)b2, *fa2 = (const float*)a2,
               *fc2 = (const float*)c2, *fb3 = (const float*)b3;
   const int blocks = (M + tail::ROWS - 1) / tail::ROWS;
   const dim3 grid((blocks + tail::CL - 1) / tail::CL * tail::CL, 1, 2);
   CUtensorMap mh, mw2, mw3;
-  if (mode & MODE_F32) {
-    if (sm90::make_map_f32(&mh, h, H1, M, 2, tail::ROWS, H1) ||
-        sm90::make_map_f32(&mw2, w2t, H1, H2, 4, tail::SLICE_ROWS, H1) ||
-        sm90::make_map_f32(&mw3, w3t, H2, tail::OPP, 4, tail::SLICE_ROWS,
-                           H2))
-      return sm90::ERR_TENSOR_MAP;
-    if (mode & MODE_BF16_OUT)
-      return tail::launch(factored_rows_tail_f32_kernel<bf16>, grid,
-                          tail::F_SMEM, st, mh, mw2, mw3, fb2, fa2, fc2, fb3,
-                          (bf16*)y, M, H1, H2, C, ldb3);
-    return tail::launch(factored_rows_tail_f32_kernel<float>, grid,
+  if (sm90::make_map_f32(&mh, h, H1, M, 2, tail::ROWS, H1) ||
+      sm90::make_map_f32(&mw2, w2t, H1, H2, 4, tail::SLICE_ROWS, H1) ||
+      sm90::make_map_f32(&mw3, w3t, H2, tail::OPP, 4, tail::SLICE_ROWS, H2))
+    return sm90::ERR_TENSOR_MAP;
+  if (mode & MODE_BF16_OUT)
+    return tail::launch(factored_rows_tail_f32_kernel<bf16>, grid,
                         tail::F_SMEM, st, mh, mw2, mw3, fb2, fa2, fc2, fb3,
-                        (float*)y, M, H1, H2, C, ldb3);
-  }
-  int rc = sm90::make_map(&mh, h, H1, M, 2, tail::ROWS, H1);
-  if (rc == 0)
-    rc = sm90::make_map(&mw2, w2t, H1, H2, 2, tail::SLICE_ROWS, H1);
-  if (rc == 0)
-    rc = sm90::make_map(&mw3, w3t, H2, tail::OPP, 2, tail::SLICE_ROWS, H2);
-  if (rc != 0) return rc;
-  const bool stream_h = H1 > tail::MAX_RESIDENT;
-  const int smem = tail::smem_bytes(H1, stream_h);
-  if (mode & MODE_BF16_OUT) {
-    auto kernel = stream_h ? factored_rows_tail_kernel<true, bf16>
-                           : factored_rows_tail_kernel<false, bf16>;
-    return tail::launch(kernel, grid, smem, st, mh, mw2, mw3, fb2, fa2, fc2,
-                        fb3, (bf16*)y, M, H1, H2, C, ldb3);
-  }
-  auto kernel = stream_h ? factored_rows_tail_kernel<true>
-                         : factored_rows_tail_kernel<false>;
-  return tail::launch(kernel, grid, smem, st, mh, mw2, mw3, fb2, fa2, fc2,
-                      fb3, (float*)y, M, H1, H2, C, ldb3);
+                        (bf16*)y, M, H1, H2, C, ldb3);
+  return tail::launch(factored_rows_tail_f32_kernel<float>, grid,
+                      tail::F_SMEM, st, mh, mw2, mw3, fb2, fa2, fc2, fb3,
+                      (float*)y, M, H1, H2, C, ldb3);
 }
 
 const char* fused_factored_error_string(int e) {

@@ -1,20 +1,13 @@
-// The bf16 and float32 modes of the GEMM on Hopper: C = A @ B with A (M,
-// K) and B (K, N) bf16 or f32, f32 accumulation, C (M, N) stored as f32
-// or rounded to bf16 (the wrapper's out_dtype).
+// The float32 mode of the GEMM on Hopper: C = A @ B with A (M, K) and B
+// (K, N) f32, f32 accumulation, C (M, N) stored as f32 or rounded to
+// bf16 (the wrapper's out_dtype).
 //
 // Replaces the TPU kernel mamimo_tpu/ops/pallas/int8_mm.py::matmul_pallas
-// (body _mm_kernel) in its bf16 and f32 modes; its int8 mode is
-// int8_mm.cu. As there, B is taken transposed, Bt (N, K), so that both
-// operands are K-major (the only layout wgmma reads a TF32 B operand
-// in).
+// (body _mm_kernel) in its f32 mode; its bf16 mode is matmul_bf16.cu,
+// its int8 mode int8_mm.cu. B is taken transposed, Bt (N, K), so that
+// both operands are K-major (the only layout wgmma reads a TF32 B
+// operand in).
 //
-// * bf16 (mm_bf16_kernel): gemm_sm90.cuh's persistent walk as it is (128
-//   x 256 tiles, k-step 64, a 4-stage TMA ring, B multicast to 2-block
-//   clusters, wgmma m64n256k16), each accumulator pair stored from
-//   registers. Bound on an H100 at (4096, 10240) @ (10240, 1024): 85.9
-//   GFLOP, 0.087 ms at 989 TFLOP/s, against 113 MB of operands and
-//   output (0.034 ms): operation-bound; at (131072, 1024) @ (1024, 1024):
-//   0.28 ms of products against 805 MB (0.24 ms) in f32 out.
 // * f32 (mm_tf32x3_kernel): float32 accuracy from three TF32 products
 //   (gemm_sm90.cuh, wgmma_3xtf32_rs: -90 dB or better against the
 //   float32 product, where one TF32 pass is about -60 dB), on
@@ -23,12 +16,12 @@
 //   registers, stretches of K summed in fresh accumulators and added in
 //   registers), the stores from registers. Bt's parts come from
 //   tf32_split.cu, launched per call by the wrapper (matmul_float). The
-//   TF32 peak is 495 TFLOP/s; counted once, the shapes above are 0.17 ms
-//   and 0.56 ms of products, and the three products triple that.
+//   TF32 peak is 495 TFLOP/s; counted once, (4096, 10240) @ (10240,
+//   1024) and (131072, 1024) @ (1024, 1024) are 0.17 ms and 0.56 ms of
+//   products, and the three products triple that.
 //
 // Ragged M, N and K come from TMA's zero fill (K needs only the 16-byte
-// row pitch: K % 8 == 0 in bf16, K % 4 == 0 in f32); the stores are
-// masked.
+// row pitch, K % 4 == 0); the stores are masked.
 #include <stdint.h>
 
 #include "gemm_sm90.cuh"
@@ -52,17 +45,6 @@ __device__ __forceinline__ void store_pair(T* __restrict__ C, int M, int N,
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(THREADS, 1)
-    mm_bf16_kernel(const __grid_constant__ CUtensorMap ma,
-                   const __grid_constant__ CUtensorMap mb, T* __restrict__ C,
-                   int M, int N, int K) {
-  gemm_persistent(&ma, &mb, M, N, 1, K,
-                  [&](int, int row, int col, float v0, float v1) {
-                    store_pair(C, M, N, row, col, v0, v1);
-                  });
-}
-
 // A through map ma, Bt's TF32 parts (2, N, K) through map mb (plane =
 // part).
 template <class T>
@@ -80,34 +62,25 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 extern "C" {
 
-// a (M, K), bt (N, K), row-major and 16-byte aligned: bf16 (K % 8 == 0);
-// or with mode bit 1 a f32 (K % 4 == 0) and bt Bt's TF32 parts (2, N, K)
-// f32 (tf32_split); c (M, N), bf16 with mode bit 0, else f32. M, N, K
-// >= 1. Returns the CUDA error code of the launch (or ERR_TENSOR_MAP).
+// a (M, K) f32 (K % 4 == 0) and bt Bt's TF32 parts (2, N, K) f32
+// (tf32_split), row-major and 16-byte aligned; mode bit 1 set (float32
+// operands; the bf16 mode is matmul_bf16.cu's); c (M, N), bf16 with mode
+// bit 0, else f32. M, N, K >= 1. Returns the CUDA error code of the
+// launch (or ERR_TENSOR_MAP).
 int mm_float_launch(const void* a, const void* bt, void* c, int M, int N,
                     int K, int mode, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || mode < 0 || mode > 3)
+  if (M < 1 || N < 1 || K < 1 || (mode != 2 && mode != 3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   CUtensorMap ma, mb;
-  if (mode & 2) {
-    if (make_map_f32(&ma, a, K, M, 1, 128, K) ||
-        make_map_f32(&mb, bt, K, N, 2, TF_SLICE_ROWS, K))
-      return ERR_TENSOR_MAP;
-    if (mode & 1)
-      return launch_tf32x3(mm_tf32x3_kernel<__nv_bfloat16>, M, N, 1, st, ma,
-                           mb, (__nv_bfloat16*)c, M, N, K);
-    return launch_tf32x3(mm_tf32x3_kernel<float>, M, N, 1, st, ma, mb,
-                         (float*)c, M, N, K);
-  }
-  if (make_map(&ma, a, K, M, 1, BM, K) ||
-      make_map(&mb, bt, K, N, 1, B_SLICE_ROWS, K))
+  if (make_map_f32(&ma, a, K, M, 1, 128, K) ||
+      make_map_f32(&mb, bt, K, N, 2, TF_SLICE_ROWS, K))
     return ERR_TENSOR_MAP;
   if (mode & 1)
-    return launch(mm_bf16_kernel<__nv_bfloat16>, M, N, 1, st, ma, mb,
-                  (__nv_bfloat16*)c, M, N, K);
-  return launch(mm_bf16_kernel<float>, M, N, 1, st, ma, mb, (float*)c, M, N,
-                K);
+    return launch_tf32x3(mm_tf32x3_kernel<__nv_bfloat16>, M, N, 1, st, ma,
+                         mb, (__nv_bfloat16*)c, M, N, K);
+  return launch_tf32x3(mm_tf32x3_kernel<float>, M, N, 1, st, ma, mb,
+                       (float*)c, M, N, K);
 }
 
 const char* mm_float_error_string(int e) { return error_string(e); }

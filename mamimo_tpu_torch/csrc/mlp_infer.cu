@@ -27,10 +27,14 @@
 //   the Hopper tail of tail_sm90.cuh (shared with the factored tail
 //   kernel): W2 and W3 K-major (w2t, w3t of prepare_mlp_infer_weights)
 //   by TMA multicast to a cluster of blocks with neighbouring rows, wgmma,
-//   h2 never in device memory. C <= 256 is masked. Above H1 = 1024 h1
-//   no longer fits beside the ring: each block's 64-column slab of h1
-//   then rides by TMA in the stage of the W2 tile it meets
-//   (tail_sm90.cuh, STREAM), read again for each 128-column chunk of W2.
+//   h2 never in device memory. C <= 256 is masked. Up to H1 = 1024.
+// * Above H1 = 1024 (bf16): mlp_tail_gemms_launch, two GEMMs on
+//   mm_sm90.cuh's walk (mm::rows_gemms): h2 = bf16(relu(h1 @ W2 +
+//   b2) s2 + t2) through device memory, its rows staged in shared memory
+//   and stored by TMA while the next tile's products run, then y. A
+//   streamed tail that brought h1's slabs beside W2's tiles read each
+//   slab once per 128 columns of W2 and ran near 40% of the products'
+//   rate (PERF.md).
 //
 // The float32 mode (a tree of float32 weights: JAX's dot_dtype=float32,
 // every product on float32 operands) takes x as float32, as it is, and
@@ -45,6 +49,7 @@
 // of x (0.80 ms at 3.35 TB/s); layers 2-3 0.34 TFLOP (0.34 ms). It is
 // compute-bound; h1's round trip (268 MB written, read once) adds about
 // 0.16 ms of traffic per plane.
+#include "mm_sm90.cuh"
 #include "tail_sm90.cuh"
 
 using namespace mamimo;
@@ -108,7 +113,6 @@ __device__ __forceinline__ void store_row(float* __restrict__ y,
 // y = (relu(h1 @ w2 + b2) * s2 + t2) @ w3 + b3 for 64 rows of h1 per
 // block (blocks past M pad the last cluster and store nothing); h1, w2t
 // (H2, H1) and w3t (256, H2) through the maps mh, mw2, mw3; b3 (C).
-template <bool STREAM>
 __global__ void __launch_bounds__(tail::THREADS, 1)
     mlp_tail_kernel(const __grid_constant__ CUtensorMap mh,
                     const __grid_constant__ CUtensorMap mw2,
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
                     const float* __restrict__ b3, float* __restrict__ y,
                     int M, int H1, int H2, int C) {
   const int m0 = blockIdx.x * tail::ROWS;
-  tail::layers23<true, STREAM>(
+  tail::layers23<true>(
       &mh, m0, &mw2, &mw3, 0, H1, H2, b2, s2, t2,
       [](unsigned char*, int, int, int) {},
       [&](int row, int col, float v0, float v1) {
@@ -178,12 +182,26 @@ int mlp_layer1_launch(const void* x, const void* w1t, const void* b1,
                       (const float*)t1, (bf16*)h1, M, K, H1);
 }
 
+// The tail's two-GEMM route: h1 (M, H1), w2t (H2, H1), w3t (256, H2)
+// bf16 (16-byte aligned, H1 % 8 == 0, H2 % 128 == 0); b2, s2, t2 (H2)
+// f32; b3 (C) f32. h2 = bf16(relu(h1 @ w2 + b2) s2 + t2) goes into h2
+// (M, H2) bf16 (16-byte aligned), then y (M, C) = h2 @ w3 + b3 f32 (C <=
+// 256): mm::rows_gemms on one plane.
+int mlp_tail_gemms_launch(const void* h1, const void* w2t, const void* b2,
+                          const void* s2, const void* t2, const void* w3t,
+                          const void* b3, void* y, void* h2, int M, int H1,
+                          int H2, int C, void* stream) {
+  return mm::rows_gemms(h1, w2t, (const float*)b2, (const float*)s2,
+                        (const float*)t2, w3t, (const float*)b3, (float*)y,
+                        h2, M, H1, H2, C, 1, 0, (cudaStream_t)stream);
+}
+
 // h1 (M, H1), w2t (H2, H1) (W2 transposed), w3t (256, H2) (padded W3
 // transposed): bf16; or with mode 2 (the float32 mode) h1 f32 and w2t,
 // w3t their TF32 parts (2, H2, H1), (2, 256, H2) f32 (tf32_split); b2, s2, t2
-// (H2) f32; b3 (C) f32; y (M, C) f32. H1, H2 % 128 == 0 (bf16 h1
-// streams above H1 = 1024; f32 h1 always streams), C <= 256; h1, w2t,
-// w3t 16-byte aligned.
+// (H2) f32; b3 (C) f32; y (M, C) f32. H1, H2 % 128 == 0 (bf16 h1 up to
+// H1 = 1024, kept whole; wider ones take mlp_tail_gemms_launch; f32 h1
+// streams), C <= 256; h1, w2t, w3t 16-byte aligned.
 int mlp_tail_launch(const void* h1, const void* w2t, const void* b2,
                     const void* s2, const void* t2, const void* w3t,
                     const void* b3, void* y, int M, int H1, int H2, int C,
@@ -202,16 +220,15 @@ int mlp_tail_launch(const void* h1, const void* w2t, const void* b2,
                         (const float*)s2, (const float*)t2, (const float*)b3,
                         (float*)y, M, H1, H2, C);
   }
-  if (mode != 0) return (int)cudaErrorInvalidValue;
+  if (mode != 0 || H1 > tail::MAX_RESIDENT)
+    return (int)cudaErrorInvalidValue;
   int rc = sm90::make_map(&mh, h1, H1, M, 1, tail::ROWS, H1);
   if (rc == 0)
     rc = sm90::make_map(&mw2, w2t, H1, H2, 1, tail::SLICE_ROWS, H1);
   if (rc == 0)
     rc = sm90::make_map(&mw3, w3t, H2, tail::OPP, 1, tail::SLICE_ROWS, H2);
   if (rc != 0) return rc;
-  const bool stream_h = H1 > tail::MAX_RESIDENT;
-  auto kernel = stream_h ? mlp_tail_kernel<true> : mlp_tail_kernel<false>;
-  return tail::launch(kernel, grid, tail::smem_bytes(H1, stream_h),
+  return tail::launch(mlp_tail_kernel, grid, tail::smem_bytes(H1),
                       (cudaStream_t)stream, mh, mw2, mw3, (const float*)b2,
                       (const float*)s2, (const float*)t2, (const float*)b3,
                       (float*)y, M, H1, H2, C);

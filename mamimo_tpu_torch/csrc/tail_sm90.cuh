@@ -44,18 +44,12 @@
 //   ring, each warpgroup finishing and storing 128 of the 256 columns.
 // * setmaxnreg moves registers from the producer (40) to the consumers
 //   (232).
-// * Above H1 = MAX_RESIDENT (1024) h no longer fits beside the ring, and
-//   a tail that loads h runs in its streaming mode (STREAM): h is not
-//   kept whole but brought in one 64-column k-slab at a time, by TMA
-//   into the stage beside the W2 tile it meets (24 KB stages), for each
-//   layer-2 k-tile of each chunk, so it is read H2/128 times from L2.
-//   Chosen over splitting h across a cluster (DSMEM sums of the layer-2
-//   partials): one body serves any width (a cluster split stops at 4 x
-//   1024), and H1 <= 1024 keeps its resident path. A factored tail that
-//   built each slab from sig_proj in its threads ran at 11% of its
-//   bound at H 2048 (the build, L2 reads of f32 sig_proj H2/128 times,
-//   took 16 of 22.6 ms; PERF.md): above 1024 units the factored model
-//   writes its per-head rows once and streams them through this mode.
+// * h is whole in shared memory, so H1 <= MAX_RESIDENT (1024). Wider rows
+//   (and every bf16 factored_rows_tail, mlp_infer's tail above 1024
+//   units) run as two GEMMs on mm_sm90.cuh instead: a mode here that
+//   brought h in one 64-column slab a stage beside its W2 tile read each
+//   slab once per 128 columns of W2, 44 KB into an SM a million
+//   multiply-adds, and ran near 40% of the products' rate (PERF.md).
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -97,17 +91,13 @@ static_assert(CL == 1 || CL == 2 || CL == 4, "TAIL_CLUSTER is 1, 2 or 4");
 // the two partial y halves (2 x 32 KB) are summed in the drained ring
 static_assert(STAGES * STAGE_BYTES >= 2 * 64 * 128 * 4, "ring too small");
 
-// Bytes of the h region: all of h, or in the streaming mode one slab a
-// stage.
-__host__ __device__ inline int h_bytes(int H1, bool stream) {
-  return stream ? STAGES * SLAB_BYTES : ROWS * H1 * 2;
-}
+// Bytes of the h region: all of h.
+__host__ __device__ inline int h_bytes(int H1) { return ROWS * H1 * 2; }
 
 // Dynamic shared memory of a block: the h region, the ring, 2 * STAGES +
 // 1 mbarriers, and room to align h to 1024 bytes.
-inline int smem_bytes(int H1, bool stream) {
-  return h_bytes(H1, stream) + STAGES * STAGE_BYTES +
-         8 * (2 * STAGES + 1) + 1024;
+inline int smem_bytes(int H1) {
+  return h_bytes(H1) + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1) + 1024;
 }
 
 // Byte offset of h's element (row r, 16-byte column chunk kc) in the
@@ -124,25 +114,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Layers 2 and 3 for the block's 64 rows. W2 and W3 come through the
 // maps mw2 (w2t, box KB x SLICE_ROWS) and mw3 (w3t, same box) at plane z;
 // b2, a2, c2 (H2) f32. With LOAD_H, h is the boxes at rows h_row0.. of
-// plane z of the map mh (box KB x ROWS), whole or (STREAM) slab by slab;
-// else fill_h(h, i) runs on each consumer thread i < 256 and must write
-// all 64 x H1 values of h (bf16, h_offset layout, rows past the data as
-// zeros). store(row, col, v0, v1) then receives y (no bias) for rows <
-// 64 and even columns col < 256, two columns at a time. H1 % 128 == 0,
-// H2 % 128 == 0, and STREAM exactly when H1 > MAX_RESIDENT (which
-// needs LOAD_H). Launch through launch(); nothing may follow the call in
-// the kernel.
-template <bool LOAD_H, bool STREAM, class FillH, class Store>
+// plane z of the map mh (box KB x ROWS); else fill_h(h, i) runs on each
+// consumer thread i < 256 and must write all 64 x H1 values of h (bf16,
+// h_offset layout, rows past the data as zeros). store(row, col, v0, v1)
+// then receives y (no bias) for rows < 64 and even columns col < 256,
+// two columns at a time. H1 % 128 == 0, H1 <= MAX_RESIDENT, H2 % 128 ==
+// 0. Launch through launch(); nothing may follow the call in the kernel.
+template <bool LOAD_H, class FillH, class Store>
 __device__ __forceinline__ void layers23(
     const CUtensorMap* mh, int h_row0, const CUtensorMap* mw2,
     const CUtensorMap* mw3, int z, int H1, int H2,
     const float* __restrict__ b2, const float* __restrict__ a2,
     const float* __restrict__ c2, FillH&& fill_h, Store&& store) {
-  static_assert(LOAD_H || !STREAM, "only a loaded h streams");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t sh = (raw + 1023u) & ~1023u;
-  const uint32_t ring = sh + h_bytes(H1, STREAM);
+  const uint32_t ring = sh + h_bytes(H1);
   const uint32_t full = ring + STAGES * STAGE_BYTES;
   const uint32_t empty = full + 8 * STAGES;
   const uint32_t hfull = empty + 8 * STAGES;
@@ -170,7 +157,7 @@ __device__ __forceinline__ void layers23(
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      if constexpr (LOAD_H && !STREAM) {
+      if constexpr (LOAD_H) {
         mbar_expect_tx(hfull, ROWS * H1 * 2);
         for (int k = 0; k < KT; ++k)
           tma_load_3d(sh + k * SLAB_BYTES, mh, hfull, k * KB, h_row0, z);
@@ -181,16 +168,11 @@ __device__ __forceinline__ void layers23(
         mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
         const int c = it / SPC, r = it - c * SPC;
         const uint32_t dst = ring + s * STAGE_BYTES + rank * SLICE_BYTES;
-        // a streamed h slab rides in its W2 stage, this block's alone
-        mbar_expect_tx(full + 8 * s,
-                       STAGE_BYTES + (STREAM && r < KT ? SLAB_BYTES : 0));
-        if (r < KT) {  // W2[r*64 .., c*128 + ..] as w2t rows c*128 + ..
+        mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+        if (r < KT)    // W2[r*64 .., c*128 + ..] as w2t rows c*128 + ..
           tma_load_3d_multicast(dst, mw2, full + 8 * s, r * KB,
                                 c * NC + rank * SLICE_ROWS, z, all);
-          if constexpr (STREAM)
-            tma_load_3d(sh + s * SLAB_BYTES, mh, full + 8 * s, r * KB,
-                        h_row0, z);
-        } else         // W3 k half (r-KT)/2 of chunk c, n half (r-KT)%2
+        else           // W3 k half (r-KT)/2 of chunk c, n half (r-KT)%2
           tma_load_3d_multicast(dst, mw3, full + 8 * s,
                                 c * NC + ((r - KT) >> 1) * KB,
                                 ((r - KT) & 1) * NC + rank * SLICE_ROWS, z,
@@ -210,7 +192,7 @@ __device__ __forceinline__ void layers23(
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, q = (lane % 4) * 2;
   if constexpr (LOAD_H) {
-    if constexpr (!STREAM) mbar_wait(hfull, 0);
+    mbar_wait(hfull, 0);
   } else {
     if (!(TAIL_CUT & 1)) fill_h(gsh, threadIdx.x - 128);
     fence_proxy_async();
@@ -254,8 +236,7 @@ __device__ __forceinline__ void layers23(
     for (int kt = 0; kt < KT; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(full + 8 * s, (it / STAGES) & 1);
-      // h's slab kt: resident, or in the stage's h slot
-      const uint32_t a = sh + (STREAM ? s : kt) * SLAB_BYTES;
+      const uint32_t a = sh + kt * SLAB_BYTES;      // h's slab kt
       const uint32_t b = ring + s * STAGE_BYTES + w * (STAGE_BYTES / 2);
       fence_acc(acc);
       wgmma_fence();

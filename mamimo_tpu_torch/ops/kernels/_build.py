@@ -23,7 +23,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("ls_v2", "ls_v1", "ls_pair", "ls_parts", "fused_factored",
-           "mlp_infer", "int8_mm", "matmul", "halo", "tf32_split")
+           "mlp_infer", "int8_mm", "matmul", "matmul_bf16", "halo",
+           "tf32_split")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

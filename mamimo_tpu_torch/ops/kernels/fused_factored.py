@@ -13,8 +13,9 @@ first layer, whose heads run in one fused kernel (h stays in shared
 memory). Any other model runs the per-head rows through device memory
 in the weights' dtype: ``factored_heads`` writes h, ``factored_dense``
 runs hidden layers 2 .. D-1 (or, at D = 1, the output layer), and
-``factored_rows_tail`` the last hidden layer and the output (its rows
-streamed slab by slab above 1024 units). ``fused_factored_planes``
+``factored_rows_tail`` the last hidden layer and the output (bf16: two
+GEMMs, the last hidden layer's rows through device memory too).
+``fused_factored_planes``
 routes by depth and width. ``factored_sig_proj``'s bf16 kernel splits K
 across the card where its tiles cannot fill it (few rows, long K: 512
 and more Tx antennas; ``sig_proj_splits``).
@@ -482,12 +483,14 @@ def factored_rows_tail(prepared, h: torch.Tensor, C: int,
     """The last hidden layer D and the output layer of both planes of a
     model of D >= 2 hidden layers, from rows h (2, M, H{D-1}): y (2, M,
     C) in out_dtype (float32, or bfloat16: the float32 result rounded).
-    CUDA: the fused tail kernel on TMA-loaded rows (the last hidden
-    layer's activation stays on chip; bf16 rows stream slab by slab above
-    1024 units; float32 rows, the float32 mode, always stream), reading W
-    K-major from ``prepared["wDt"]`` and the output's (float32: their TF32
-    parts, ``prepared["wDt_tf32"]`` and the output's). CPU: the plain
-    version."""
+    CUDA (``rows_tail_route``): bf16 rows run two GEMMs, the last hidden
+    layer's rows through device memory (2, M, HD) bf16, then the output
+    layer; float32 rows, the float32 mode, the fused float32 tail (the
+    hidden activation on chip, rows streamed slab by slab); both read W
+    K-major from ``prepared["wDt"]`` and the output's (float32: their
+    TF32 parts, ``prepared["wDt_tf32"]`` and the output's). CPU: the
+    plain version, whose chain (the hidden rows rounded to the weights'
+    dtype for the output layer's product) both follow."""
     d = factored_depth(prepared)
     if d < 2:
         raise ValueError(f"factored_rows_tail serves 2 or more hidden "
@@ -524,18 +527,40 @@ def factored_rows_tail(prepared, h: torch.Tensor, C: int,
     mode |= _MODE_BF16_OUT * (out_dtype == _BF16)
     h = tma_operand(h)
     lib = _ff_lib()
+    ptrs = [h.data_ptr(), w2t.data_ptr(), *(v.data_ptr() for v in vec[:3]),
+            w3t.data_ptr(), vec[3].data_ptr(), out.data_ptr()]
+    gemms = rows_tail_route(dt) == "gemms"
+    hw = torch.empty((2, m, h2), dtype=dt, device=h.device) if gemms \
+        else None
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.factored_rows_tail_launch(
-            h.data_ptr(), w2t.data_ptr(), *(v.data_ptr() for v in vec[:3]),
-            w3t.data_ptr(), vec[3].data_ptr(), out.data_ptr(), m, h1, h2, C,
-            vec[3].shape[-1], mode, stream)
+        if gemms:
+            rc = lib.factored_rows_gemms_launch(
+                *ptrs, hw.data_ptr(), m, h1, h2, C, vec[3].shape[-1], mode,
+                stream)
+        else:
+            rc = lib.factored_rows_tail_launch(
+                *ptrs, m, h1, h2, C, vec[3].shape[-1], mode, stream)
     _build.check(rc, lib, "fused_factored_error_string", "factored_rows_tail")
     count_launch(factored_rows_tail, mode & _MODE_F32)
+    factored_rows_tail.launches_gemms += gemms
     return out
 
 
+# launches of the tail, and of those the float32 mode's and the two-GEMM
+# route's
 factored_rows_tail.launches = factored_rows_tail.launches_f32 = 0
+factored_rows_tail.launches_gemms = 0
+
+
+def rows_tail_route(dtype) -> str:
+    """Which kernels run ``factored_rows_tail`` on the card for rows in
+    ``dtype``: "gemms" for bf16 (the last hidden layer and the output
+    layer as two GEMMs, ``csrc/mm_sm90.cuh``, the hidden rows through
+    device memory; a fused bf16 tail with the hidden activation on chip
+    took 1.5-2.0x as long on an H100 at every width served, PERF.md),
+    "fused" for float32 (``layers23_f32``, 3xTF32)."""
+    return "gemms" if dtype == _BF16 else "fused"
 
 
 def fused_factored_planes(cfg: SimConfig, tcfg: TrainConfig, prepared,
@@ -618,7 +643,8 @@ def _ff_lib(defines=()) -> ctypes.CDLL:
             ("factored_tail_launch", [ptr] * 11 + [i32] * 7),
             ("factored_heads_launch", [ptr] * 5 + [i32] * 4),
             ("factored_dense_launch", [ptr] * 6 + [i32] * 7),
-            ("factored_rows_tail_launch", [ptr] * 8 + [i32] * 6)):
+            ("factored_rows_tail_launch", [ptr] * 8 + [i32] * 6),
+            ("factored_rows_gemms_launch", [ptr] * 9 + [i32] * 6)):
         f = getattr(lib, name)
         f.restype = ctypes.c_int
         f.argtypes = args + [ptr]

@@ -8,15 +8,19 @@ modes, on hand-written CUDA kernels:
   kernel's operand layout (wgmma reads 8-bit operands only K-major); the
   int8 serving weights carry that copy
   (``models/quant.py::prepare_int8_serving``);
-- bf16 → f32: ``csrc/matmul.cu`` (``gemm_sm90.cuh``'s persistent wgmma
-  walk);
+- bf16 → f32: ``csrc/matmul_bf16.cu`` (``mm_sm90.cuh``'s gemm_coop
+  wgmma walk), reading B (K, N) as it is given (MN-major, wgmma's
+  transpose bit) or Bt (N, K) (K-major);
 - f32 → f32: ``csrc/matmul.cu`` at float32 accuracy from three TF32
   products a k-slice (3xTF32, ``gemm_sm90.cuh::gemm_tf32x3``), B's TF32
   parts split per call (``tf32_split``).
 
-``matmul_pallas(a, b)`` keeps the JAX signature, B (K, N), and
-transposes per call; ``out_dtype`` rounds the result as JAX's
-``.astype(o_ref.dtype)`` does.
+``matmul_pallas(a, b)`` keeps the JAX signature, B (K, N): the bf16
+kernel reads that B as it lies (``b_operand``: no copy when B is
+row-major with N % 8 == 0, or a transposed view of a K-major Bt); the
+int8 and float32 kernels read B transposed, copied per call (wgmma
+reads 8-bit and TF32 B operands only K-major). ``out_dtype`` rounds the
+result as JAX's ``.astype(o_ref.dtype)`` does.
 
 The plain versions: for int8 a float64 product converted to int32. That
 is exact: every product is at most 2^14 in magnitude, a sum over K <
@@ -109,44 +113,82 @@ def matmul_float(a: torch.Tensor, bt: torch.Tensor,
     float32 accumulation → (M, N) in ``out_dtype`` (float32 default, or
     bfloat16: the float32 result rounded to nearest even).
 
-    CUDA: the hand-written kernels of ``csrc/matmul.cu`` (bf16: K % 8 ==
-    0; float32: K % 4 == 0, float32 accuracy, bt split into its TF32
-    parts first by the split kernel, ``tf32_split``, within the call);
+    CUDA: the hand-written kernels of ``csrc/matmul_bf16.cu`` (bf16: K %
+    8 == 0) and ``csrc/matmul.cu`` (float32: K % 4 == 0, float32
+    accuracy, bt split into its TF32 parts first by the split kernel,
+    ``tf32_split``, within the call);
     CPU: the plain version."""
     if a.dtype not in (torch.bfloat16, torch.float32) or bt.dtype != a.dtype:
         raise TypeError(f"matmul_float takes two bfloat16 or two float32 "
                         f"operands, got {a.dtype} and {bt.dtype}")
+    if a.dim() != 2 or bt.dim() != 2 or bt.shape[1] != a.shape[1]:
+        raise ValueError(f"a (M, K) and bt (N, K) expected, got "
+                         f"{tuple(a.shape)} and {tuple(bt.shape)}")
+    return _matmul_float(a, bt, False, out_dtype)
+
+
+def b_operand(b: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """How the bf16 kernel reads B (K, N): (B itself, True) where it is
+    row-major with N % 8 == 0 (the TMA map's 16-byte row pitch; MN-major,
+    no copy); (B.T, False) where B is the transposed view of a row-major
+    Bt (N, K) (K-major, no copy); else a row-major copy of B (N % 8 ==
+    0) or of B.T."""
+    k, n = b.shape
+    if b.stride() == (n, 1) and n % 8 == 0:
+        return b, True
+    if b.stride() == (1, k):
+        return b.T, False
+    if n % 8 == 0:
+        return b.contiguous(), True
+    return b.T.contiguous(), False
+
+
+def staged_epilogue(out_dtype, n: int) -> bool:
+    """Whether the bf16 kernel stores C (M, n) in ``out_dtype`` through
+    its STAGED epilogue (TMA stores running beside the next tile's
+    products, a 3-stage ring; the kernel's mode bit 3) rather than its
+    DIRECT one (row pieces from registers, a 4-stage ring): for a bf16 C
+    with 16-byte rows (n % 8 == 0). An f32 C always takes DIRECT: staged,
+    it needed two rounds a tile and ran slower on an H100 (PERF.md)."""
+    return out_dtype == torch.bfloat16 and n % 8 == 0
+
+
+def _matmul_float(a: torch.Tensor, b: torch.Tensor, bmn: bool,
+                  out_dtype=None) -> torch.Tensor:
+    """matmul_float with B as ``b``: Bt (N, K), or with bmn (bf16 only) B
+    (K, N) itself (the kernel's mode bit 2)."""
     out_dtype = out_dtype or torch.float32
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
-    if a.dim() != 2 or bt.dim() != 2 or bt.shape[1] != a.shape[1]:
-        raise ValueError(f"a (M, K) and bt (N, K) expected, got "
-                         f"{tuple(a.shape)} and {tuple(bt.shape)}")
     m, k = a.shape
-    n = bt.shape[0]
-    if not on_cuda(a, bt):
-        return _matmul_float_plain(a, bt.T, out_dtype)
+    n = b.shape[1] if bmn else b.shape[0]
+    if not on_cuda(a, b):
+        return _matmul_float_plain(a, b if bmn else b.T, out_dtype)
     f32 = a.dtype == torch.float32
     if k % (4 if f32 else 8):
         raise ValueError(f"the {str(a.dtype)[6:]} kernel needs K % "
                          f"{4 if f32 else 8} == 0 (16-byte rows), got "
                          f"K = {k}")
-    a, bt = tma_operand(a), tma_operand(bt)
+    a, b = tma_operand(a), tma_operand(b)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
     if k == 0:
         return out.zero_()
+    mode = int(out_dtype == torch.bfloat16)
     if f32:
-        bt = tf32_split(bt)
-    lib = _float_lib()
+        b, lib, fn, err = tf32_split(b), _float_lib(), "mm_float_launch", \
+            "mm_float_error_string"
+        mode |= 2
+    else:
+        lib, fn, err = _bf16_lib(), "mm_bf16_launch", "mm_bf16_error_string"
+        mode |= 4 * int(bmn) | 8 * int(staged_epilogue(out_dtype, n))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mm_float_launch(a.data_ptr(), bt.data_ptr(), out.data_ptr(),
-                                 m, n, k, int(out_dtype == torch.bfloat16)
-                                 | 2 * int(f32), stream)
-    _build.check(rc, lib, "mm_float_error_string", "matmul_float")
+        rc = getattr(lib, fn)(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+                              n, k, mode, stream)
+    _build.check(rc, lib, err, "matmul_float")
     matmul_float.launches += 1
     matmul_float.launches_f32 += f32
     return out
@@ -175,12 +217,24 @@ def matmul_pallas(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 512,
         _check_int8(a, b)
         out = matmul_int8(a, b.T.contiguous())
         return out if out_dtype in (None, torch.int32) else out.to(out_dtype)
+    if a.dtype == b.dtype == torch.bfloat16 and b.shape[0] == a.shape[1] \
+            and on_cuda(a, b):
+        return _matmul_float(a, *b_operand(b), out_dtype)
     return matmul_float(a, b.T.contiguous(), out_dtype)
 
 
 def _float_lib() -> ctypes.CDLL:
     lib = _build.library("matmul")
     fn = lib.mm_float_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    return lib
+
+
+def _bf16_lib() -> ctypes.CDLL:
+    lib = _build.library("matmul_bf16")
+    fn = lib.mm_bf16_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]

@@ -35,6 +35,7 @@ from mamimo_tpu_torch.ops.kernels.util import (
 )
 
 _OP = 256           # the tail kernel's padded output width
+_MAX_RESIDENT = 1024    # the widest bf16 h1 the fused tail keeps whole
 
 
 def fold_bn_into_dense(tcfg: TrainConfig, params, bn_state):
@@ -124,8 +125,8 @@ def prepare_mlp_infer_weights(tcfg: TrainConfig, params, bn_state,
     kernels' tile (as ``prepare_factored_weights``): the extra units get
     zero weights, biases and BN affines, so they stay 0 through ReLU and
     the answer is exact. The bf16 tail kernel keeps h1 in shared memory up
-    to H = 1024 and streams its slabs beside W2's tiles above that; the
-    float32 one always streams them.
+    to H = 1024, two GEMMs take wider h1 (``tail_route``); the float32
+    tail streams h1's slabs at any width.
 
     Run it under ``full_f32_matmul()`` on the card, as the serving paths
     do. ``plane(prepared, d)`` is one plane's tree for ``mlp_infer_pallas``.
@@ -228,13 +229,15 @@ mlp_infer_layer1.launches = mlp_infer_layer1.launches_f32 = 0
 
 def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
     """Layers 2 and 3 of one plane: h1 (M, H1) in the tree's dtype → y
-    (M, C) float32. CUDA: the kernel that keeps h2 on chip (bf16: h1 too
-    up to H1 = 1024, above it h1's slabs stream beside W2's tiles;
-    float32, the float32 mode: h1's slabs always stream, h2 is staged in
-    shared memory); it reads W2 and W3 K-major from the tree's ``w2t``
-    and ``w3t`` (``prepare_mlp_infer_weights``; a float32 tree's
-    ``w2t_tf32`` and ``w3t_tf32``, their TF32 parts), required there.
-    CPU: the plain version."""
+    (M, C) float32. CUDA: the kernel that keeps h2 on chip (bf16 up to H1
+    = 1024, h1 too; float32, the float32 mode: h1's slabs stream, h2 is
+    staged in shared memory), or for bf16 h1 above 1024 units
+    (``tail_route``) two GEMMs on ``mm_sm90.cuh``'s gemm_coop walk, h2 =
+    bf16(relu(h1 @ W2 + b2)·s2 + t2) through device memory, then y; both
+    read W2 and W3 K-major from the tree's ``w2t`` and ``w3t``
+    (``prepare_mlp_infer_weights``; a float32 tree's ``w2t_tf32`` and
+    ``w3t_tf32``, their TF32 parts), required there. CPU: the plain
+    version."""
     keys = ("w2", "b2", "s2", "t2", "w3", "b3")
     if not on_cuda(h1, *(p[k] for k in keys)):
         return _tail_plain(p, h1, p["w2"].dtype)
@@ -264,18 +267,39 @@ def mlp_infer_tail(p, h1: torch.Tensor) -> torch.Tensor:
         return out
     h1 = tma_operand(h1)
     lib = _mlp_lib()
+    ptrs = [q[k].data_ptr() for k in ("w2t", "b2", "s2", "t2", "w3t", "b3")]
+    gemms = tail_route(H1, dt) == "gemms"
+    h2 = torch.empty((m, H2), dtype=dt, device=h1.device) if gemms else None
     with torch.cuda.device(h1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mlp_tail_launch(
-            h1.data_ptr(), *(q[k].data_ptr() for k in
-                             ("w2t", "b2", "s2", "t2", "w3t", "b3")),
-            out.data_ptr(), m, H1, H2, c, mode, stream)
+        if gemms:
+            rc = lib.mlp_tail_gemms_launch(
+                h1.data_ptr(), *ptrs, out.data_ptr(), h2.data_ptr(), m, H1,
+                H2, c, stream)
+        else:
+            rc = lib.mlp_tail_launch(h1.data_ptr(), *ptrs, out.data_ptr(),
+                                     m, H1, H2, c, mode, stream)
     _build.check(rc, lib, "mlp_infer_error_string", "mlp_infer_tail")
     count_launch(mlp_infer_tail, mode)
+    mlp_infer_tail.launches_gemms += gemms
     return out
 
 
+# launches of the tail, and of those the float32 mode's and the two-GEMM
+# route's
 mlp_infer_tail.launches = mlp_infer_tail.launches_f32 = 0
+mlp_infer_tail.launches_gemms = 0
+
+
+def tail_route(h1: int, dtype) -> str:
+    """Which kernels run ``mlp_infer_tail`` on the card for h1 of ``h1``
+    units in ``dtype``: "fused" (h2 on chip: bf16 up to 1024 units,
+    float32 at any width) or "gemms" (bf16 above 1024 units: the two
+    GEMMs, h2 through device memory; a fused kernel that streamed h1's
+    slabs beside W2's tiles took 1.8x as long at 2048 units on an H100,
+    PERF.md). Up to 1024 units the fused kernel stays."""
+    return "gemms" if dtype == torch.bfloat16 and h1 > _MAX_RESIDENT \
+        else "fused"
 
 
 def mlp_infer_pallas(tcfg: TrainConfig, params, bn_state, x: torch.Tensor,
@@ -340,5 +364,9 @@ def _mlp_lib() -> ctypes.CDLL:
     f = lib.mlp_tail_launch
     f.restype = ctypes.c_int
     f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    f = lib.mlp_tail_gemms_launch
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     return lib

@@ -2,7 +2,7 @@
 """The two layer-1 GEMM kernels (csrc/gemm_sm90.cuh) across shapes, on
 the card, each beside one ``torch.matmul`` of the same operands.
 
-    python3 mamimo_tpu_torch/tools/probe_gemm.py [--f32] [--old DIR]
+    python3 mamimo_tpu_torch/tools/probe_gemm.py [--f32] [--old DIR] [--mm]
 
 ``mlp_infer_layer1`` (bias, ReLU and affine epilogue, bf16 h1) at M =
 8192, 32768 and 131072 rows with K = 10272 (the materialized input) and
@@ -44,6 +44,26 @@ x @ W1 and to itself (two launches bit-identical), timed beside one bf16
 range) at those shapes, its error, and the two timed in turns (old, new,
 new, old).
 
+``matmul_pallas`` in its bf16 mode (``csrc/matmul_bf16.cu`` on
+``mm_sm90.cuh``'s gemm_coop) at (131072, 1024) @ (1024, 1024) and (4096,
+10240) @ (10240, 1024): answers against float64 on the first 4096 rows
+(B (K, N) as given and Bt, f32 and bf16 stores), then timed in turns
+(each line's designs, then back) beside one ``torch.matmul`` (a bf16
+result): the call ``matmul_pallas(a, b)`` (the launch on B as given),
+the launch on Bt, builds with ``-DMM_CUT=1`` (no products), ``2`` (no
+epilogue) and ``3`` (loads only), the bf16 store (STAGED) beside the
+DIRECT one, and where K = N the same bytes moved by ``C.copy_(A)`` (A
+bf16 in, f32 C out) and C's alone by ``C.fill_``; the rate of the f32
+C's bytes over the cuts printed; with ``--old DIR`` the earlier
+design's kernel on Bt and its call (Bt copied per call) first and last,
+and the float32 mode (``csrc/matmul.cu``) of both designs. Then the one
+wave of 128 tiles at K = 10240: the call beside its no-epilogue cut and
+the same work on the layer-1 kernel's split walk at 1, 2 and 4 ranges
+of K (two planes of 2048 rows), in turns. ``--old`` also compares the
+SASS of every kernel of every library (``_build.SOURCES``) with DIR's,
+kernel by kernel: identical, different, or in one design only. ``--mm``
+runs this section alone (and the SASS comparison with ``--old``).
+
 ``--old DIR``: the bf16 kernels against an earlier design whose sources
 (``fused_factored.cu``, ``mlp_infer.cu`` and their headers, e.g. a
 ``git archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``) lie in
@@ -56,6 +76,7 @@ new, old, twice) at M = 131072, K = 10272 and S = 4096.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -118,11 +139,19 @@ def main() -> int:
                     help="also time the float32 mode")
     ap.add_argument("--old", type=Path, default=None,
                     help="directory of an earlier design's csrc sources")
+    ap.add_argument("--sass-only", action="store_true",
+                    help="with --old: only compare every kernel's SASS")
+    ap.add_argument("--mm", action="store_true",
+                    help="only matmul_pallas bf16 (and with --old the "
+                         "SASS comparison)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_gemm: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.sass_only and args.old is not None:
+        _sass_section(args.old)
+        return 0
     from mamimo_tpu_torch.ops.kernels.fused_factored import factored_sig_proj
     from mamimo_tpu_torch.ops.kernels.mlp_infer import mlp_infer_layer1
 
@@ -148,6 +177,11 @@ def main() -> int:
                 "t1": torch.zeros(H, device=dev)}
 
     print(f"probe_gemm on {smi}")
+    if args.mm:
+        _mm_section(args, dev, g, smi)
+        if args.old is not None:
+            _sass_section(args.old)
+        return 0
     for m, k in MLP_SHAPES:
         x = xbuf[:m * k].view(m, k)
         p = layer1_tree(k, bf16)
@@ -172,6 +206,9 @@ def main() -> int:
               f"({tf / mm:.0f} TFLOP/s)  [{smi}]", flush=True)
 
     _split_section(args, dev, g, smi)
+    _mm_section(args, dev, g, smi)
+    if args.old is not None:
+        _sass_section(args.old)
 
     if args.f32:
         _f32_section(args, dev, g, smi, layer1_tree)
@@ -229,6 +266,218 @@ def main() -> int:
             print(f"  {tag}: mlp_infer_layer1 {t_m:.4f} ms; "
                   f"factored_sig_proj {t_s:.4f} ms  [{smi}]", flush=True)
     return 0
+
+
+MM_SHAPES = ((131072, 1024, 1024), (4096, 10240, 1024))
+# bytes into an SM a million multiply-adds: gemm_coop's 128 x 256 tile
+# takes A 16 KB + B 32 KB a k-step of 64 (2M)
+INTAKE_KB = 24.0
+
+
+def _mm_section(args, dev, g, smi) -> None:
+    """matmul_pallas bf16: the answers, the cuts, the other store, the
+    bytes' rate, and (args.old) the earlier design, timed in turns beside
+    torch.matmul; then the one wave at K = 10240 (_wave_section)."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels.int8_mm import matmul_pallas
+    from mamimo_tpu_torch.tools.probe_tail import _launch_fn, _old_lib
+
+    bf16 = torch.bfloat16
+    variants = {"no products": ("MM_CUT=1",), "no epilogue": ("MM_CUT=2",),
+                "loads only": ("MM_CUT=3",)}
+    with ThreadPoolExecutor(len(variants) + 1) as pool:      # nvcc at once
+        list(pool.map(lambda d: _build.build_all(("matmul_bf16",), d),
+                      list(variants.values()) + [()]))
+    fns = {n: _launch_fn(_build.library("matmul_bf16", d), CSRC,
+                         "matmul_bf16", "mm_bf16_launch")
+           for n, d in {"new": (), **variants}.items()}
+    if args.old is not None:
+        fns["old"] = _launch_fn(_old_lib(args.old, "matmul"), args.old,
+                                "matmul", "mm_float_launch")
+    print(f"matmul_pallas bf16 (gemm_coop; {INTAKE_KB:.0f} KB into an SM a "
+          f"million multiply-adds):")
+    for m, k, n in MM_SHAPES:
+        a = torch.randn((m, k), generator=g, device=dev).to(bf16)
+        b = torch.randn((k, n), generator=g, device=dev).to(bf16)
+        bt = b.T.contiguous()
+        c = torch.empty((m, n), device=dev)
+        cb = torch.empty((m, n), device=dev, dtype=bf16)
+        ref = a[:4096].double() @ b.double()
+
+        def launch(tag, bb, out, mode):
+            return lambda: fns[tag](a.data_ptr(), bb.data_ptr(),
+                                    out.data_ptr(), m, n, k, mode)
+
+        errs = []
+        for tag, bb, mode in (("new", b, 4), ("new", bt, 0), ("old", bt, 0)):
+            if tag not in fns:
+                continue
+            c.fill_(float("nan"))
+            launch(tag, bb, c, mode)()
+            torch.cuda.synchronize()
+            errs.append(f"{tag} mode {mode} {_db(c[:4096], ref):.2f}")
+        got = matmul_pallas(a, b, out_dtype=bf16)
+        same = torch.equal(got, matmul_pallas(a, b).to(bf16))
+        print(f"  ({m}, {k}) @ ({k}, {n}) dB vs float64: " + "; ".join(errs)
+              + f"; bf16 store {'=' if same else '!='} the f32 result "
+              f"rounded", flush=True)
+        runs = {"call matmul_pallas(a, b)": lambda: matmul_pallas(a, b),
+                "B as Bt (K-major)": launch("new", bt, c, 0),
+                "no products": launch("no products", b, c, 4),
+                "no epilogue": launch("no epilogue", b, c, 4),
+                "loads only": launch("loads only", b, c, 4),
+                "torch.matmul (bf16 C)": lambda: torch.matmul(a, b),
+                "bf16 C (STAGED)": lambda: matmul_pallas(a, b,
+                                                         out_dtype=bf16),
+                "bf16 C, DIRECT": launch("new", b, cb, 5)}
+        if k == n:
+            # the same bytes as the f32 C's GEMM (A read, C written) moved
+            # by one PyTorch copy, and C's alone by a fill
+            runs["C.copy_(A): A in, f32 C out"] = lambda: c.copy_(a)
+            runs["C.fill_: f32 C out"] = lambda: c.fill_(1.0)
+        if "old" in fns:
+            runs = {"old kernel (Bt)": launch("old", bt, c, 0),
+                    "old call (B.T copied)": lambda: fns["old"](
+                        a.data_ptr(), b.T.contiguous().data_ptr(),
+                        c.data_ptr(), m, n, k, 0),
+                    "old bf16 C": launch("old", bt, cb, 1), **runs}
+            # the float32 mode (untouched): the two designs on the same
+            # split Bt, bit for bit, and in turns below
+            from mamimo_tpu_torch.ops.kernels.util import tf32_split
+            f32 = {t: _launch_fn(lib, d, "matmul", "mm_float_launch")
+                   for t, lib, d in (("old", _old_lib(args.old, "matmul"),
+                                      args.old),
+                                     ("new", _build.library("matmul"), CSRC))}
+            a32 = a.float()
+            p32 = tf32_split(bt.float())
+            c32 = [torch.empty((m, n), device=dev) for _ in range(2)]
+            for tag, cc in zip(("old", "new"), c32):
+                f32[tag](a32.data_ptr(), p32.data_ptr(), cc.data_ptr(), m, n,
+                         k, 2)
+            torch.cuda.synchronize()
+            print(f"  float32 mode: old and new "
+                  f"{'bit-identical' if torch.equal(*c32) else 'DIFFER'}")
+            for tag, cc in zip(("old", "new"), c32):
+                runs[f"float32 mode, {tag}"] = (
+                    lambda f=f32[tag], cc=cc: f(a32.data_ptr(),
+                                                p32.data_ptr(),
+                                                cc.data_ptr(), m, n, k, 2))
+        order = list(runs) + list(runs)[::-1]
+        ts = {r: [] for r in runs}
+        iters = 20 if m * n * k < 2 ** 36 else 10
+        for r in order:
+            ts[r].append(_time_ms(runs[r], iters))
+        moved = (m * k + k * n) * 2 + m * n * 4
+        for r, v in ts.items():
+            print(f"    {r}: " + " / ".join(f"{x:.4f}" for x in v)
+                  + f" ms  [{smi}]", flush=True)
+        print(f"    the f32 C's GEMM moves {moved / 1e6:.1f} MB (A and B "
+              f"read once, C written): {moved / min(ts['loads only']) / 1e9:.2f}"
+              f" TB/s over 'loads only' (A and B alone), "
+              f"{moved / min(ts['no products']) / 1e9:.2f} over 'no "
+              f"products'", flush=True)
+        del a, b, bt, c, cb
+        torch.cuda.empty_cache()
+    _wave_section(dev, g, smi)
+
+
+def _wave_section(dev, g, smi) -> None:
+    """(4096, 10240) @ (10240, 1024), 128 tiles of 128 x 256 for 132 SMs:
+    one wave. matmul_pallas beside its no-epilogue cut, and the same
+    work split across the card by the layer-1 kernel's split walk
+    (``factored_sig_proj_launch``: two planes of 2048 rows, K cut into 1,
+    2 or 4 ranges, the ranges' f32 partials summed in order), each
+    against float64, timed in turns."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels.int8_mm import matmul_pallas
+    from mamimo_tpu_torch.tools.probe_tail import _launch_fn
+
+    bf16 = torch.bfloat16
+    m, k, n = 4096, 10240, 1024
+    a = torch.randn((m, k), generator=g, device=dev).to(bf16)
+    b = torch.randn((k, n), generator=g, device=dev).to(bf16)
+    c = torch.empty((m, n), device=dev)
+    cut = _launch_fn(_build.library("matmul_bf16", ("MM_CUT=2",)), CSRC,
+                     "matmul_bf16", "mm_bf16_launch")
+    sig = _launch_fn(_build.library("fused_factored"), CSRC, "fused_factored",
+                     "factored_sig_proj_launch")
+    # the same product as two planes of m / 2 rows, one weight a plane
+    x2 = a.view(2, m // 2, k)
+    w2t = b.T.contiguous().expand(2, n, k).contiguous()
+    out = torch.empty((2, m // 2, n), device=dev)
+    ws = torch.empty((4, 2, m // 2, n), device=dev)
+    ref = a[:2048].double() @ b.double()
+    runs = {"matmul_pallas(a, b)": lambda: matmul_pallas(a, b),
+            "no epilogue": lambda: cut(a.data_ptr(), b.data_ptr(),
+                                       c.data_ptr(), m, n, k, 4)}
+    errs = [f"matmul_pallas {_db(matmul_pallas(a, b)[:2048], ref):.2f}"]
+    for splits in (1, 2, 4):
+        run = (lambda s=splits: sig(x2.data_ptr(), w2t.data_ptr(),
+                                    out.data_ptr(), m // 2, k, n, 0,
+                                    ws.data_ptr(), s))
+        run()
+        torch.cuda.synchronize()
+        errs.append(f"{splits} range(s) {_db(out[0], ref):.2f}")
+        runs[f"split walk, {splits} range(s)"] = run
+    print(f"one wave at ({m}, {k}) @ ({k}, {n}): 128 tiles of 128 x 256 on "
+          f"132 SMs; dB vs float64 (2048 rows): " + ", ".join(errs))
+    ts = {r: [] for r in runs}
+    for r in list(runs) + list(runs)[::-1]:
+        ts[r].append(_time_ms(runs[r], 20))
+    for r, v in ts.items():
+        print(f"    {r}: " + " / ".join(f"{x:.4f}" for x in v)
+              + f" ms  [{smi}]", flush=True)
+    del a, b, c, x2, w2t, out, ws
+    torch.cuda.empty_cache()
+
+
+def _base(mangled: str) -> str:
+    """A kernel's name without its template arguments and parameters."""
+    m = re.search(r"\(anonymous\)\d+(\w+?)(?:I|E|$)", mangled)
+    return m.group(1) if m else mangled
+
+
+def _sass_section(old) -> None:
+    """Every kernel of every library against DIR's, by mangled name (a
+    kernel the new design has under one name only, and the earlier under
+    several template instantiations, against each of them); the first
+    differing lines of any that differ."""
+    import difflib
+
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.tools.probe_ls import _sass_kernels
+    from mamimo_tpu_torch.tools.probe_tail import _old_lib
+
+    _build.build_all()
+    names = [s for s in _build.SOURCES if (old / f"{s}.cu").exists()]
+    with ThreadPoolExecutor(len(names)) as pool:             # nvcc at once
+        olds = dict(zip(names, pool.map(lambda s: _old_lib(old, s), names)))
+    print("SASS of every kernel against the earlier design's:")
+    for s in names:
+        a = _sass_kernels(olds[s]._name)
+        b = _sass_kernels(str(_build._target(s)))
+        same = sorted(k for k in a if b.get(k) == a[k])
+        diff = sorted(k for k in a if k in b and b[k] != a[k])
+        print(f"  {s}: {len(same)} identical, {len(diff)} different"
+              + "".join(f"\n    only earlier: {k}" for k in sorted(a)
+                        if k not in b)
+              + "".join(f"\n    only new: {k}" for k in sorted(b)
+                        if k not in a), flush=True)
+        for k in (k for k in b if k not in a):
+            twins = [o for o in a if o not in b and _base(o) == _base(k)]
+            for o in twins:
+                print(f"    new {k} against earlier {o}: "
+                      f"{'identical' if a[o] == b[k] else 'different'}")
+        for k in diff:
+            lines = [d for d in difflib.unified_diff(
+                a[k].splitlines(), b[k].splitlines(), lineterm="", n=0)
+                if d[:1] in "+-" and d[:3] not in ("+++", "---")]
+            print(f"    different: {k}, {len(lines)} lines, the first:"
+                  + "".join(f"\n      {d}" for d in lines[:12]))
 
 
 SPLIT_SHAPES = {"Nt 1024": (128, 327680), "Nt 512": (512, 163840)}

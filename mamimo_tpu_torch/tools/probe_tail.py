@@ -19,10 +19,16 @@ sampled by ``nvidia-smi`` beside each timed window:
    (blocks sharing each weight tile by TMA multicast; 2 is the kernel's),
    ``factored_tail`` at S = 4096 and ``mlp_infer_tail`` at M = 131072
    rows; each build's answer must equal the default build's;
-4. the streaming mode above 1024 units (``STREAM`` in
-   ``csrc/tail_sm90.cuh``): ``factored_rows_tail`` on both planes'
-   rows at hidden (2048, 2048) and (4096, 1024), 131072 rows a plane,
-   whole and with the phase cuts, and ``mlp_infer_tail`` at H 2048;
+4. the bf16 rows tails: ``factored_rows_tail`` on both planes' rows at
+   hidden (2048, 2048), (4096, 1024), (1536, 640) and (1024, 1024,
+   1024), and ``mlp_infer_tail`` at 2048 units, on their two-GEMM route
+   (``csrc/mm_sm90.cuh``), held to the plain version in dB,
+   each design's bytes into an SM a row printed beside it; with ``--old
+   DIR`` the earlier fused tail of DIR (its rows streamed slab by slab
+   above 1024 units) beside them, held in dB too, and at the streamed
+   widths its phase cuts (``-DTAIL_CUT``), cluster sizes
+   (``-DTAIL_CLUSTER=1/4``) and a copy without the loads of h's slabs
+   (``NO_H_LOADS``), timed in turns (old, new, ..., new, old);
 5. with ``--f32``: the float32 mode's tail (``layers23_f32``):
    ``factored_rows_tail`` on both planes' float32 rows and
    ``mlp_infer_tail`` on one plane's, 131072 rows a plane, hidden (1024,
@@ -35,14 +41,15 @@ sampled by ``nvidia-smi`` beside each timed window:
    held to its plain version in dB, timed in turns (old, each stretch,
    then back);
 6. with ``--old DIR``: the bf16 tails (``factored_tail``,
-   ``mlp_infer_tail``, ``factored_rows_tail`` at (1024, 1024) on the
-   per-head rows) against an earlier design whose sources
-   (``fused_factored.cu``, ``mlp_infer.cu`` and their headers, e.g. a
-   ``git archive`` of an earlier commit's ``mamimo_tpu_torch/csrc``, PR
-   17 or later: two hidden widths) lie in DIR: each launch function is
-   bound from its declaration in its own source (an earlier design's
-   has no mode argument), the answers compared bit for bit, then timed
-   in turns (old, new, new, old) in one process at H 1024.
+   ``mlp_infer_tail`` at H 1024, held bit for bit; ``factored_rows_tail``
+   at (1024, 1024) on the per-head rows, the earlier fused tail against
+   the two GEMMs, each in dB of the plain version) against an earlier
+   design whose sources (``fused_factored.cu``, ``mlp_infer.cu`` and their
+   headers, e.g. a ``git archive`` of an earlier commit's
+   ``mamimo_tpu_torch/csrc``, one that serves two hidden widths) lie in
+   DIR: each launch function is bound from its declaration in its own
+   source (an earlier design's has no mode argument), then timed in turns
+   (old, new, new, old) in one process at H 1024.
 
 Prints one line per measurement, and a JSON summary as the last line.
 Card only.
@@ -256,6 +263,221 @@ def _f32_ab(old, ff_lib, mlp_lib, rows_run, mlp_run, p32, pm32, h32, y32,
     summary["f32 ab"] = ab
 
 
+def _db(got, ref) -> float:
+    import torch
+
+    g64, r64 = got.double(), ref.double()
+    return 10 * float(torch.log10((g64 - r64).square().sum()
+                                  / r64.square().sum()))
+
+
+def _copy_lib(src_dir: Path, name: str, defines=(), edits=()):
+    """csrc/<name>.cu of src_dir built with -D defines into _build/, after
+    the regex edits (file, pattern, replacement) to a copy of the sources
+    (hashed apart from every other build)."""
+    from mamimo_tpu_torch.ops.kernels import _build
+
+    h = hashlib.sha256(repr((defines, edits)).encode())
+    for src in sorted(src_dir.glob("*.cu*")):
+        h.update(src.read_bytes())
+    tag = h.hexdigest()[:16]
+    out = _build.BUILD_DIR / f"copy-{name}-{tag}.so"
+    if not out.exists():
+        d = _build.BUILD_DIR / f"copy-src-{tag}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(src_dir, d)
+        for f, pat, rep in edits:
+            text, n = re.subn(pat, rep, (d / f).read_text())
+            if n == 0:
+                raise ValueError(f"{f} has no {pat!r}")
+            (d / f).write_text(text)
+        subprocess.run([_build._nvcc(), *_build._flags(defines), "-o",
+                        str(out), str(d / f"{name}.cu")], check=True,
+                       capture_output=True, timeout=900)
+    return ctypes.CDLL(str(out))
+
+
+# the earlier streamed tail (tail_sm90.cuh's STREAM mode, before the
+# two-GEMM route)
+# without the TMA loads of h's slabs: what the loads of W alone cost
+NO_H_LOADS = (
+    ("tail_sm90.cuh", r"STREAM && r < KT \? SLAB_BYTES : 0", "0"),
+    ("tail_sm90.cuh", r"if constexpr \(STREAM\)\n(\s+)tma_load_3d\(sh",
+     r"if constexpr (false)\n\1tma_load_3d(sh"))
+
+
+def _intake_per_row(design: str, h1: int, h2: int) -> float:
+    """Bytes into an SM per row of the last hidden layer and the output
+    (256 padded columns), bf16, as each design's tiles bring them in (a
+    multicast box counted in every block that receives it): the fused
+    tail's 64-row block takes W2 and W3 once per 64 rows and h once
+    (resident) or once per 128 columns of W2 (streamed); a GEMM on 128 x
+    256 tiles takes a row's A once per 256 columns and B's 256 x K once
+    per 128 rows, for both layers (h2 written and read once on top)."""
+    w = (h1 * h2 + h2 * 256) * 2 / 64
+    if design == "fused":
+        return w + h1 * 2 * (h2 // 128 if h1 > 1024 else 1)
+    gemm = lambda k, n: n / 256 * (k * 2 + 256 * k * 2 / 128)  # noqa: E731
+    return gemm(h1, h2) + gemm(h2, 256)
+
+
+def _rows_section(args, cfg, card, summary, g, M) -> None:
+    """The bf16 rows tails (factored_rows_tail on both planes' rows,
+    mlp_infer_tail at 2048 units): the two-GEMM route against the
+    plain version in dB and timed; with args.old the earlier fused tail
+    of DIR (streamed slab by slab above 1024 units) beside them, held in
+    dB too, its phase cuts (TAIL_CUT), cluster sizes (TAIL_CLUSTER) and
+    a copy without h's loads at the streamed widths, all in turns (old,
+    new, new, old); each design's bytes into an SM a row printed beside
+    its time."""
+    import torch
+
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.models.mlp import init_stacked, plane
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        _hidden_plain,
+        _out_plain,
+        factored_rows_tail,
+        prepare_factored_weights,
+    )
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import (
+        _tail_plain,
+        mlp_infer_tail,
+        prepare_mlp_infer_weights,
+    )
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
+
+    C = cfg.num_carriers
+    keys = ("w2t", "b2", "a2", "c2", "w3t", "b3")
+    old_libs = {}
+    if args.old is not None:
+        variants = {"old": ((), ())}
+        variants.update({f"old {n}": ((f"TAIL_CUT={b}",), ())
+                         for n, b in CUTS.items() if b != 1})
+        variants.update({f"old CL={c}": ((f"TAIL_CLUSTER={c}",), ())
+                         for c in (1, 4)})
+        variants["old no h loads"] = ((), NO_H_LOADS)
+        with ThreadPoolExecutor(len(variants)) as pool:       # nvcc at once
+            built = list(pool.map(lambda v: _copy_lib(
+                args.old, "fused_factored", *v), variants.values()))
+        old_libs = {n: _launch_fn(lib, args.old, "fused_factored",
+                                  "factored_rows_tail_launch")
+                    for n, lib in zip(variants, built)}
+    print(f"the bf16 rows tails, M = 2 x {M} rows (bytes into an SM a row "
+          f"beside each design):")
+    for hidden in ((2048, 2048), (4096, 1024), (1536, 640),
+                   (1024, 1024, 1024)):
+        tw = TrainConfig(hidden=hidden)
+        pw, bw = init_stacked(torch.Generator().manual_seed(2), cfg, tw,
+                              device="cuda")
+        prw = prepare_factored_weights(cfg, tw, pw, bw)
+        d = len(hidden)
+        h1, h2 = prw[f"w{d}"].shape[1], prw[f"w{d}"].shape[2]
+        kd = (f"w{d}t", f"b{d}", f"a{d}", f"c{d}", f"w{d + 1}t", f"b{d + 1}")
+        hw = torch.relu(torch.randn((2, M, h1), generator=g,
+                                    device="cuda")).to(torch.bfloat16)
+        yw = torch.empty((2, M, C), device="cuda")
+        argw = [hw.data_ptr(), *(prw[k].data_ptr() for k in kd),
+                yw.data_ptr()]
+        ints = [M, h1, h2, C, prw[f"b{d + 1}"].shape[-1]]
+        with full_f32_matmul():
+            ref = _out_plain(prw, _hidden_plain(prw, d, hw[:, :8192]), C)
+        runs = {"new": lambda: factored_rows_tail(prw, hw, C)}
+        runs.update({n: (lambda f=f: f(*argw, *ints, 0))
+                     for n, f in old_libs.items()})
+        for n, run in runs.items():
+            if n not in ("new", "old"):
+                continue             # the cuts' answers are wrong by design
+            yw.fill_(float("nan"))
+            got = run()
+            torch.cuda.synchronize()
+            got = yw if got is None else got
+            print(f"  {hidden} {n}: {_db(got[:, :8192], ref):.2f} dB vs the "
+                  f"plain version")
+        fused_in = _intake_per_row("fused", h1, h2)
+        gemm_in = _intake_per_row("gemms", h1, h2)
+        print(f"  {hidden}: bytes into an SM a row: fused tail "
+              f"{fused_in:.0f}, two GEMMs {gemm_in:.0f}")
+        order = [n for n in runs if n in ("old", "new")]
+        order += [n for n in runs if n not in order]
+        ts = {n: [] for n in runs}
+        for n in order + order[::-1]:
+            if n.startswith("old ") and (h1 <= 1024 or len(ts[n])):
+                continue             # the old cuts: streamed widths, once
+            ts[n].append(_time_ms(runs[n], iters=3)[0])
+        for n, v in ts.items():
+            if v:
+                print(f"  {hidden} {n}: " + " / ".join(f"{x:.4f}" for x in v)
+                      + f" ms  [{card}]", flush=True)
+        summary[f"rows {hidden}"] = {"ms": ts, "intake_per_row": {
+            "fused": fused_in, "gemms": gemm_in}}
+        del pw, bw, prw, hw, yw
+        torch.cuda.empty_cache()
+    # mlp_infer_tail at 1024 units, one plane: the resident fused tail it
+    # runs beside the two GEMMs it does not take there
+    tw = TrainConfig(hidden=(1024, 1024))
+    pw, bw = init_stacked(torch.Generator().manual_seed(3), cfg, tw,
+                          device="cuda")
+    pm = plane(prepare_mlp_infer_weights(tw, pw, bw), 0)
+    h1w = torch.relu(torch.randn((M, 1024), generator=g,
+                                 device="cuda")).to(torch.bfloat16)
+    h2w = torch.empty((M, 1024), device="cuda", dtype=torch.bfloat16)
+    yw = torch.empty((M, C), device="cuda")
+    gemms = _launch_fn(_build.library("mlp_infer"), CSRC, "mlp_infer",
+                       "mlp_tail_gemms_launch")
+    argg = [h1w.data_ptr(), *(pm[k].data_ptr() for k in
+                              ("w2t", "b2", "s2", "t2", "w3t", "b3")),
+            yw.data_ptr(), h2w.data_ptr(), M, 1024, 1024, C]
+    with full_f32_matmul():
+        ref = _tail_plain(pm, h1w[:8192])
+    gemms(*argg)
+    torch.cuda.synchronize()
+    print(f"  mlp_infer_tail 1024: fused {_db(mlp_infer_tail(pm, h1w)[:8192], ref):.2f}"
+          f" dB, two GEMMs {_db(yw[:8192], ref):.2f} dB vs the plain version")
+    runs = {"fused (the route)": lambda: mlp_infer_tail(pm, h1w),
+            "two GEMMs": lambda: gemms(*argg)}
+    ts = {n: [] for n in runs}
+    for n in list(runs) + list(runs)[::-1]:
+        ts[n].append(_time_ms(runs[n], iters=5)[0])
+    print("  mlp_infer_tail (1024, 1024): " + "; ".join(
+        f"{n} " + " / ".join(f"{x:.4f}" for x in v) for n, v in ts.items())
+        + f" ms  [{card}]")
+    summary["mlp_infer_tail (1024, 1024)"] = ts
+    del pw, bw, pm, h1w, h2w
+    # mlp_infer_tail at 2048 units, one plane
+    tw = TrainConfig(hidden=(2048, 2048))
+    pw, bw = init_stacked(torch.Generator().manual_seed(3), cfg, tw,
+                          device="cuda")
+    pm = plane(prepare_mlp_infer_weights(tw, pw, bw), 0)
+    h1w = torch.relu(torch.randn((M, 2048), generator=g,
+                                 device="cuda")).to(torch.bfloat16)
+    yw = torch.empty((M, C), device="cuda")
+    with full_f32_matmul():
+        ref = _tail_plain(pm, h1w[:8192])
+    runs = {"new": lambda: mlp_infer_tail(pm, h1w)}
+    if args.old is not None:
+        old_mlp = _launch_fn(_old_lib(args.old, "mlp_infer"), args.old,
+                             "mlp_infer", "mlp_tail_launch")
+        argm = [h1w.data_ptr(), *(pm[k].data_ptr() for k in
+                                  ("w2t", "b2", "s2", "t2", "w3t", "b3")),
+                yw.data_ptr(), M, 2048, 2048, C]
+        runs["old"] = lambda: old_mlp(*argm)
+        old_mlp(*argm)
+        torch.cuda.synchronize()
+        print(f"  mlp_infer_tail 2048: old {_db(yw[:8192], ref):.2f} dB, new "
+              f"{_db(mlp_infer_tail(pm, h1w[:8192]), ref):.2f} dB vs the "
+              f"plain version")
+    order = ["old", "new", "new", "old"] if "old" in runs else ["new"]
+    ts = {n: [] for n in runs}
+    for n in order:
+        ts[n].append(_time_ms(runs[n], iters=3)[0])
+    print("  mlp_infer_tail (2048, 2048): " + "; ".join(
+        f"{n} " + " / ".join(f"{x:.4f}" for x in v) for n, v in ts.items())
+        + f" ms  [{card}]")
+    summary["mlp_infer_tail (2048, 2048)"] = ts
+
+
 def main() -> int:
     import torch
 
@@ -274,10 +496,14 @@ def main() -> int:
     from mamimo_tpu_torch.ops.kernels import _build
     from mamimo_tpu_torch.ops.kernels.fused_factored import (
         _TAIL_ARGS,
+        _hidden_plain,
+        _out_plain,
         factored_heads,
+        factored_rows_tail,
         factored_tail,
         prepare_factored_weights,
     )
+    from mamimo_tpu_torch.utils.numerics import full_f32_matmul
     from mamimo_tpu_torch.ops.kernels.mlp_infer import (
         prepare_mlp_infer_weights,
     )
@@ -370,38 +596,7 @@ def main() -> int:
         summary[f"CL={cl}"] = {"factored_tail": t_ff[0],
                                "mlp_infer_tail": t_mlp[0]}
 
-    print(f"streaming mode (rows above 1024 units), M = 2 x {M}:")
-    for hidden in ((2048, 2048), (4096, 1024)):
-        tw = TrainConfig(hidden=hidden)
-        pw, bw = init_stacked(torch.Generator().manual_seed(2), cfg, tw,
-                              device="cuda")
-        prw = prepare_factored_weights(cfg, tw, pw, bw)
-        hw = torch.randn((2, M, hidden[0]), generator=g,
-                         device="cuda").to(torch.bfloat16)
-        yw = torch.empty((2, M, C), device="cuda")
-        argw = [hw.data_ptr(), *(prw[k].data_ptr() for k in
-                                 ("w2t", "b2", "a2", "c2", "w3t", "b3")),
-                yw.data_ptr(), M, hidden[0], hidden[1], C,
-                prw["b3"].shape[-1]]
-
-        for n, lib in libs.items():
-            ms, clk, pwr = _time_ms(lambda lib=lib: rows_run(lib, argw),
-                                    iters=5)
-            print(f"  factored_rows_tail {hidden} {n}: {_fmt(ms, clk, pwr)}"
-                  f"  [{card}]")
-            summary[f"stream {hidden} {n}"] = ms
-        del pw, bw, prw, hw, yw
-    tw = TrainConfig(hidden=(2048, 2048))
-    pw, bw = init_stacked(torch.Generator().manual_seed(3), cfg, tw,
-                          device="cuda")
-    pmw = plane(prepare_mlp_infer_weights(tw, pw, bw), 0)
-    h1w = torch.randn((M, 2048), generator=g, device="cuda").to(torch.bfloat16)
-    argm = [h1w.data_ptr(), *(pmw[k].data_ptr() for k in mk), y.data_ptr(),
-            M, 2048, 2048, C]
-    ms, clk, pwr = _time_ms(lambda: mlp_run(mlp_lib(), argm), iters=5)
-    print(f"  mlp_infer_tail (2048, 2048): {_fmt(ms, clk, pwr)}  [{card}]")
-    summary["stream mlp_infer_tail (2048, 2048)"] = ms
-    del pw, bw, pmw, h1w
+    _rows_section(args, cfg, card, summary, g, M)
 
     # the per-head rows of the (1024, 1024) model: factored_rows_tail's
     # argv (bf16), for the A/B below
@@ -450,21 +645,32 @@ def main() -> int:
     if args.old is not None:
         old_ff, old_mlp = ff_lib(src=args.old), mlp_lib(src=args.old)
         new_ff, new_mlp = ff_lib(), mlp_lib()
-        # the two designs' answers, bit for bit
+        # the resident tails' answers, bit for bit
         outs = []
         for lf, lm in ((old_ff, old_mlp), (new_ff, new_mlp)):
-            for t in (out, y, yr):
+            for t in (out, y):
                 t.zero_()
             ff_run(lf)
             mlp_run(lm)
-            rows_run(lf, rows_args)
             torch.cuda.synchronize()
-            outs.append((out.clone(), y.clone(), yr.clone()))
+            outs.append((out.clone(), y.clone()))
         same = all(torch.equal(a, b) for a, b in zip(*outs))
-        print(f"old and new designs' answers: "
-              f"{'bit-identical' if same else 'DIFFER'}")
+        print(f"old and new designs' answers (factored_tail, mlp_infer_tail "
+              f"at H 1024): {'bit-identical' if same else 'DIFFER'}")
         if not same:
-            raise AssertionError("the bf16 tails' answers changed")
+            raise AssertionError("the resident bf16 tails' answers changed")
+        # factored_rows_tail at (1024, 1024) on the per-head rows: the old
+        # fused tail against the new two-GEMM route, each in dB of the
+        # plain version on 8192 rows a plane
+        with full_f32_matmul():
+            ref_r = _out_plain(prep, _hidden_plain(prep, 2, hr[:, :8192]), C)
+        new_rows = lambda: factored_rows_tail(prep, hr, C)  # noqa: E731
+        rows_run(old_ff, rows_args)
+        torch.cuda.synchronize()
+        e_old = _db(yr.view(2, M, C)[:, :8192], ref_r)
+        e_new = _db(new_rows()[:, :8192], ref_r)
+        print(f"factored_rows_tail (1024, 1024) vs its plain version: old "
+              f"{e_old:.2f} dB, new {e_new:.2f} dB")
         print(f"A/B in turns (old, new, new, old), S={s} / M={M}:")
         ab = {"factored_tail": [], "mlp_infer_tail": [],
               "factored_rows_tail": []}
@@ -472,7 +678,8 @@ def main() -> int:
                             ("new", new_ff, new_mlp), ("old", old_ff, old_mlp)):
             t_ff = _time_ms(lambda: ff_run(lf))
             t_mlp = _time_ms(lambda: mlp_run(lm))
-            t_rows = _time_ms(lambda: rows_run(lf, rows_args))
+            t_rows = _time_ms(new_rows if tag == "new"
+                              else lambda: rows_run(lf, rows_args))
             print(f"  {tag}: factored_tail {_fmt(*t_ff)}; mlp_infer_tail "
                   f"{_fmt(*t_mlp)}; factored_rows_tail {_fmt(*t_rows)}  "
                   f"[{card}]")

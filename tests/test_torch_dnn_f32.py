@@ -382,9 +382,12 @@ def _ff_calls(prep, dtype, out):
         calls["dense"] = (lambda: ff.factored_dense(prep, 2, rows),
                           "factored_dense_launch", 0, 1, "w2t" + sfx, 12,
                           rows)
+        # bf16 rows take the two-GEMM launch (its workspace before M)
+        rt, rt_mode = (("factored_rows_tail_launch", 13) if dtype == F32
+                       else ("factored_rows_gemms_launch", 14))
         calls["rows_tail"] = (lambda: ff.factored_rows_tail(
             prep, rows[:, :, :prep[f"w{d}"].shape[1]], C, out),
-            "factored_rows_tail_launch", 0, 1, f"w{d}t" + sfx, 13, None)
+            rt, 0, 1, f"w{d}t" + sfx, rt_mode, None)
     return calls
 
 

@@ -433,14 +433,16 @@ def test_cuda_branch_refuses_the_other_dtypes_constants(
 @pytest.mark.parametrize("out", [None, BF16])
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_cuda_branch_matmul_takes_float_operands(launches, dtype, out):
-    """matmul_pallas on bf16 and float32 operands launches the float
-    kernel (mode bit 0 the bf16 store, bit 1 float32 operands) on A and
-    B transposed, and counts the launch."""
+    """matmul_pallas on bf16 and float32 operands launches the bf16
+    kernel (csrc/matmul_bf16.cu) or the float32 one (csrc/matmul.cu;
+    mode bit 0 the bf16 store, bit 1 float32 operands) on A and B
+    transposed (N % 8 here), and counts the launch."""
     a, b = torch.ones((3, 16), dtype=dtype), torch.ones((16, 5), dtype=dtype)
     before = matmul_float.launches
     got = matmul_pallas(a, b, out_dtype=out)
     (name, fn, args), = launches
-    assert (name, fn) == ("matmul", "mm_float_launch")
+    assert (name, fn) == (("matmul", "mm_float_launch") if dtype == F32
+                          else ("matmul_bf16", "mm_bf16_launch"))
     assert args[3:7] == (3, 5, 16, int(out == BF16) | 2 * int(dtype == F32))
     assert args[0] == a.data_ptr()
     assert got.dtype == (out or F32) and tuple(got.shape) == (3, 5)

@@ -259,7 +259,7 @@ def test_cuda_branch_matmul_splits_bt_per_call(launches):
     assert s[2:4] == (1, 5 * 16) and m[1] == s[1] and m[6] == 2
     launches.clear()
     int8_mm.matmul_pallas(a.to(BF16), b.to(BF16))
-    assert [f for _, f, _ in launches] == ["mm_float_launch"]
+    assert [f for _, f, _ in launches] == ["mm_bf16_launch"]
 
 
 def test_cuda_branch_raw_mlp_splits_per_call(launches):
