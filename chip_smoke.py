@@ -20,9 +20,10 @@ failure ends the run with a non-zero exit code):
                (ls_planes_v2_f32_kernel, ls_planes_v1_f32_kernel,
                ls_pair_f32_kernel), the float GEMMs (mm_bf16_kernel,
                mm_tf32x3_kernel) and the DNN kernels' float32 modes
-               (factored_sig_proj_f32_kernel, factored_dense_f32_kernel,
-               factored_rows_tail_f32_kernel, mlp_layer1_f32_kernel,
-               mlp_tail_f32_kernel) run wgmma (HGMMA) and
+               (factored_sig_proj_f32_kernel, its split walk
+               factored_sig_proj_split_f32_kernel, factored_dense_f32_
+               kernel, factored_rows_tail_f32_kernel, mlp_layer1_f32_
+               kernel, mlp_tail_f32_kernel) run wgmma (HGMMA) and
                no mma.sync (HMMA), and the int8
                GEMM (int8_mm_kernel_slab, int8_mm_kernel_ring) int8
                wgmma (IGMMA) and no int8 mma.sync (IMMA);
@@ -207,15 +208,18 @@ failure ends the run with a non-zero exit code):
                one through all_pairs, launches of kernels 1 and 2
                counted, the served estimates within PIPE_LIMITS of the
                float32 path, each kernel of the depth's chain against
-               its plain version (factored_rows_tail at ragged rows);
-               at Nt
+               its plain version (factored_rows_tail and factored_dense
+               at ragged rows and 1 row too, factored_dense's output
+               layer's bf16 store exactly its f32 result rounded); at Nt
                256 kernel 1's bf16 store and sums (check_v2_modes, S =
                512 and 5), S = 1, a seq rank, kernels 3 and 4, and the
                paths pallas_ls_v2_serving_r3 and ls_pallas counted; at
                (2048, 2048) kernel 5 through predict_complex_pallas;
                then each new kernel shape timed (CUDA events, S = 4096
                at BS32, 512 at Nt 256) beside its plain version, bound
-               and library yardstick, rows of the kernels line;
+               and library yardstick, rows of the kernels line
+               (factored_dense held to its plain version at that shape
+               first);
 5m. float32 — float32 planes through kernels 1 (full and seq, f32 and
                bf16 store, sums of h^2), 3 (raw, complex, as_planes) and
                4 (complex64 rx) in their float32 mode at BS32 (S = 256
@@ -288,9 +292,12 @@ failure ends the run with a non-zero exit code):
                1 split across the card (counted "factored_sig_proj
                split") at Nt 1024 (S = 128) and Nt 512 (S = 512) within
                -85 dB of float32 x @ W1, two launches bit-identical, its
-               ranges printed, and BS32's layer 1 in one range; phase 6
-               rows of the transform, the split layer 1 and the float32
-               layer 1 at Nt 1024;
+               ranges printed, and BS32's layer 1 in one range; its
+               float32 mode split there too (counted "factored_sig_proj
+               split f32"; the float32 rows route at Nt 1024 and 512)
+               within -90 dB of float32 x @ W1, two launches
+               bit-identical; phase 6 rows of the transform and of the
+               split layer 1 in both modes;
 6.  timing   — each kernel, its plain version and a library yardstick at
                the bench shape (1024 packets, S = 4096), CUDA events (the
                LS kernel also in its bf16-store-and-sums variant;
@@ -2625,17 +2632,35 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
             errs["factored_heads"] = check(
                 f"  factored_heads, {tag}, vs its plain version", h,
                 _heads_plain(prep, sp).view(2, -1, sp.shape[2]), -40.0)
+            # factored_dense (on the tails' GEMM, mm_sm90.cuh) also on
+            # ragged rows (a cluster's second tile past them) and 1 row
+            m = h.shape[1] - 3
             for k in range(2, depth):
                 hk = factored_dense(prep, k, h)
                 errs["factored_dense"] = check(
                     f"  factored_dense layer {k}, {tag}, vs its plain "
                     f"version", hk, _hidden_plain(prep, k, h), -40.0)
+                for what, he in ((f"{m} rows", h[:, :m]), ("1 row", h[:, :1])):
+                    check(f"  factored_dense layer {k} {what}, {tag}, vs its "
+                          f"plain version", factored_dense(prep, k, he),
+                          _hidden_plain(prep, k, he), -40.0)
                 h = hk
             if depth == 1:
+                y = factored_dense(prep, 2, h, C)
                 errs["factored_dense"] = check(
                     f"  factored_dense output layer, {tag}, vs its plain "
-                    f"version", factored_dense(prep, 2, h, C),
-                    _out_plain(prep, h, C), -40.0)
+                    f"version", y, _out_plain(prep, h, C), -40.0)
+                if not torch.equal(factored_dense(prep, 2, h, C, bf16),
+                                   y.to(bf16)):
+                    raise AssertionError(f"factored_dense output layer, "
+                                         f"{tag}: the bf16 store is not the "
+                                         f"f32 result rounded")
+                print(f"  factored_dense output layer, {tag}: bf16 store = "
+                      f"the f32 result rounded")
+                for what, he in ((f"{m} rows", h[:, :m]), ("1 row", h[:, :1])):
+                    check(f"  factored_dense output layer {what}, {tag}, vs "
+                          f"its plain version", factored_dense(prep, 2, he, C),
+                          _out_plain(prep, he, C), -40.0)
             else:
                 errs["factored_rows_tail"] = check(
                     f"  factored_rows_tail, {tag}, vs its plain version",
@@ -2833,6 +2858,9 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
             M = S * nt
             for k in range(2, depth):
                 hk = factored_dense(prep, k, h)
+                check(f"  factored_dense layer {k}, {tag}, rows (2, {M}, "
+                      f"{h.shape[2]}), vs its plain version", hk,
+                      _hidden_plain(prep, k, h), -40.0)
                 kin, kout = h.shape[2], hk.shape[2]
                 timed("factored_dense", f"hidden {tcfg.hidden}, layer "
                       f"{k}: rows (2, {M}, {kin}) bf16 -> (2, {M}, "
@@ -2847,6 +2875,9 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
                 h = hk
             kin, o = h.shape[2], depth + 1
             if depth == 1:
+                check(f"  factored_dense output layer, {tag}, rows (2, {M}, "
+                      f"{kin}), vs its plain version", factored_dense(
+                          prep, 2, h, C), _out_plain(prep, h, C), -40.0)
                 timed("factored_dense", f"hidden {tcfg.hidden}, output "
                       f"layer: rows (2, {M}, {kin}) bf16 -> (2, {M}, "
                       f"{C}) f32", "fused_factored.cu",
@@ -3938,6 +3969,7 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         ls_sm90_constants,
         pair_planes,
     )
+    from mamimo_tpu_torch.ops.kernels.util import tf32_split
     from mamimo_tpu_torch.parallel.mesh import make_mesh
     from mamimo_tpu_torch.parallel.sharded import sharded_ls_pallas_v2
     from mamimo_tpu_torch.train.ckpt import save_checkpoint
@@ -4188,46 +4220,34 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         "factored_rows_tail, Nt 1024, vs its plain version", y,
         _out_plain(prep, _hidden_plain(prep, 2, hrows), C), -40.0)
     del hrows
-    y, cnt = counted(lambda: fused_factored_planes(
-        cfg, tcfg, prep32, x32, dot_dtype=f32))
-    require_launched("fused_factored_planes float32, Nt 1024", cnt, (
-        "factored_sig_proj f32", "factored_heads f32",
-        "factored_rows_tail f32"))
-    errs["fused_factored_planes f32 Nt 1024"] = check(
-        "fused_factored_planes float32 (rows route), Nt 1024, vs f32 "
-        "_factored_all_pairs", y, ref32, F32_LIMIT_DB)
-    counts["fused_factored_planes f32 Nt 1024"] = cnt
-    # the float32 layer 1 at Nt 1024 (3xTF32, one range: its epilogues
-    # need the whole sum), measured beside its bound and library
-    s1, L1, H1 = x32.shape[1], cfg.len_ltf, prep32["w1"].shape[2]
-    sp_ms = time_ms(lambda: factored_sig_proj(
-        x32, prep32["w1"], prep32["w1t_tf32"]), iters=5)
-    sp_plain = time_ms(lambda: x32 @ prep32["w1"], iters=2, warmup=1)
-    sp_bound, sp_by = bound_ms(
-        x32.numel() * 4 + prep32["w1"].numel() * 4 + 2 * s1 * H1 * 4,
-        2.0 * 2 * s1 * L1 * H1, TF32_FLOPS)
-    sp_err = check("factored_sig_proj float32, Nt 1024, vs f32 x @ W1",
-                   factored_sig_proj(x32, prep32["w1"], prep32["w1t_tf32"]),
-                   x32 @ prep32["w1"], F32_LIMIT_DB)
-    print(f"  factored_sig_proj float32 [Nt 1024: (2, {s1}, {L1}) @ (2, "
-          f"{L1}, {H1}) f32 -> f32]: {sp_ms:.5f} ms (bound {sp_bound:.5f} "
-          f"ms by {sp_by}, {sp_bound / sp_ms * 100:.1f}% of it); plain "
-          f"{sp_plain:.4f} ms = the library call (torch.bmm f32, TF32 off)")
-    layer1_rows = [{
-        "name": "factored_sig_proj",
-        "shape": f"Nt 1024, float32 mode: (2, {s1}, {L1}) @ (2, {L1}, {H1})"
-                 f" f32 -> f32",
-        "route": "cuda", "source": "mamimo_tpu_torch/csrc/fused_factored.cu",
-        "replaces": "mamimo_tpu/ops/pallas/fused_factored.py:169",
-        "launches": cnt["factored_sig_proj f32"],
-        "launches_in": "fused_factored_planes(dot_dtype=float32) x1, Nt "
-                       "1024 (phase 5o)",
-        "max_abs_err": sp_err["max_abs_err"], "nmse_db": sp_err["nmse_db"],
-        "exact": False, "ms": sp_ms, "plain_ms": sp_plain,
-        "bound_ms": sp_bound, "bound_by": sp_by, "library_ms": sp_plain,
-        "call_ms": None, "ms_from": "events", "call_ms_from": "events"}]
-    del params, bn, prep, prep32, x16, x32, ref16, ref32, y
-    torch.cuda.empty_cache()
+    del params, bn, prep, x16, ref16
+    # the float32 rows route at Nt 1024 (S = 128, layer 1 split in one-block
+    # units) and at Nt 512 (S = 512, M-tile pairs), counted
+    names32 = ("factored_sig_proj f32", "factored_sig_proj split f32",
+               "factored_heads f32", "factored_rows_tail f32")
+    for tag in ("Nt 1024", "Nt 512"):
+        if tag == "Nt 512":
+            cfg = shape_cfg(tag)
+            params, bn = make_model(cfg, tcfg, seed=101, device=dev)
+            x32 = torch.randn((2, SPLIT_SHAPES[tag][0], cfg.len_ltf),
+                              generator=g, device=dev)
+            with full_f32_matmul():
+                prep32 = prepare_factored_weights(cfg, tcfg, params, bn,
+                                                  dot_dtype=f32)
+                ref32 = _factored_all_pairs(cfg, tcfg, params, bn, x32)
+            del params, bn
+        y, cnt = counted(lambda: fused_factored_planes(
+            cfg, tcfg, prep32, x32, dot_dtype=f32))
+        require_launched(f"fused_factored_planes float32, {tag}", cnt,
+                         names32)
+        errs[f"fused_factored_planes f32 {tag}"] = check(
+            f"fused_factored_planes float32 (rows route), {tag}, S = "
+            f"{x32.shape[1]}, vs f32 _factored_all_pairs", y, ref32,
+            F32_LIMIT_DB)
+        counts[f"fused_factored_planes f32 {tag}"] = cnt
+        del prep32, x32, ref32, y
+        torch.cuda.empty_cache()
+    layer1_rows = []
 
     # layer 1 split across the card (K cut into ranges where the tiles
     # cannot fill it) at SPLIT_SHAPES: within SPLIT_LIMIT_DB of float32 x
@@ -4283,18 +4303,82 @@ def ls_shapes_phase(dev, counted, require_launched) -> dict:
         errs[f"factored_sig_proj split {tag}"] = sp_err
         del xs, ws, wst, a, ref
         torch.cuda.empty_cache()
+    # the float32 mode (3xTF32 on W1's TF32 parts) split at the same
+    # shapes: within F32_LIMIT_DB of float32 x @ W1, two launches
+    # bit-identical, timed beside its bound (W1 read once in float32, as
+    # the bf16 row's) and the floor of the bytes it reads (both TF32 parts)
+    for tag, (s1, nt1) in SPLIT_SHAPES.items():
+        L1, H1 = nt1 * 320, SHAPE_MODEL[0]
+        xs = torch.randn((2, s1, L1), generator=g, device=dev)
+        ws = torch.randn((2, L1, H1), generator=g, device=dev) / L1 ** 0.5
+        wsp = tf32_split(ws.transpose(1, 2).contiguous(), 1)
+        a, cnt = counted(lambda: factored_sig_proj(xs, ws, wsp))
+        require_launched(f"factored_sig_proj float32, {tag}", cnt,
+                         ("factored_sig_proj f32",
+                          "factored_sig_proj split f32"))
+        splits = sig_proj_splits(s1, H1, L1, sms, float32=True)
+        same(f"factored_sig_proj float32, {tag}: two launches ({splits} "
+             f"ranges)", factored_sig_proj(xs, ws, wsp), a)
+        with full_f32_matmul():
+            ref = torch.bmm(xs, ws)
+        sp_err = check(f"factored_sig_proj float32, {tag}, {splits} ranges "
+                       f"of K, vs f32 x @ W1", a, ref, F32_LIMIT_DB)
+        sp_ms = time_ms(lambda: factored_sig_proj(xs, ws, wsp), iters=10)
+        with full_f32_matmul():
+            # the plain version is the library call: torch.bmm f32, TF32
+            # off
+            sp_plain = time_ms(lambda: torch.bmm(xs, ws), iters=3,
+                               warmup=1)
+        out_b = 2 * s1 * H1 * 4
+        sp_bound, sp_by = bound_ms(xs.numel() * 4 + ws.numel() * 4 + out_b,
+                                   2.0 * 2 * s1 * L1 * H1, TF32_FLOPS)
+        parts_ms = (xs.numel() * 4 + wsp.numel() * 4 + out_b) \
+            / HBM_BYTES_PER_S * 1e3
+        print(f"  factored_sig_proj float32 [{tag}: (2, {s1}, {L1}) @ (2, "
+              f"{L1}, {H1}) f32 -> f32, {splits} ranges of K]: {sp_ms:.5f} "
+              f"ms (bound {sp_bound:.5f} ms by {sp_by}, "
+              f"{sp_bound / sp_ms * 100:.1f}% of it; both TF32 parts' bytes "
+              f"{parts_ms:.5f} ms, {parts_ms / sp_ms * 100:.1f}%); plain "
+              f"{sp_plain:.4f} ms = the library call (torch.bmm f32, TF32 "
+              f"off)")
+        layer1_rows.append({
+            "name": "factored_sig_proj",
+            "shape": f"{tag}, float32 mode: (2, {s1}, {L1}) @ (2, {L1}, "
+                     f"{H1}) f32 -> f32, {splits} ranges of K",
+            "route": "cuda",
+            "source": "mamimo_tpu_torch/csrc/fused_factored.cu",
+            "replaces": "mamimo_tpu/ops/pallas/fused_factored.py:169",
+            "launches": counts[f"fused_factored_planes f32 {tag}"][
+                "factored_sig_proj split f32"],
+            "launches_in": f"fused_factored_planes(dot_dtype=float32) x1, "
+                           f"{tag} (phase 5o)", "splits": splits,
+            "max_abs_err": sp_err["max_abs_err"],
+            "nmse_db": sp_err["nmse_db"], "exact": False, "ms": sp_ms,
+            "plain_ms": sp_plain, "bound_ms": sp_bound, "bound_by": sp_by,
+            "library_ms": sp_plain, "call_ms": None, "ms_from": "events",
+            "call_ms_from": "events"})
+        errs[f"factored_sig_proj split f32 {tag}"] = sp_err
+        del xs, ws, wsp, a, ref
+        torch.cuda.empty_cache()
     xs = torch.randn((2, BENCH_PACKETS * 4, 10240), generator=g,
-                     device=dev).to(bf16)
-    ws = (0.01 * torch.randn((2, 10240, SHAPE_MODEL[0]), generator=g,
-                             device=dev)).to(bf16)
-    _, cnt = counted(lambda: factored_sig_proj(
-        xs, ws, ws.transpose(1, 2).contiguous()))
-    splits = sig_proj_splits(xs.shape[1], ws.shape[2], 10240, sms)
-    print(f"  factored_sig_proj at BS32's bench shape (2, {xs.shape[1]}, "
-          f"10240) @ (2, 10240, {ws.shape[2]}): {splits} range of K, split "
-          f"launches {cnt['factored_sig_proj split']}")
-    if splits != 1 or cnt["factored_sig_proj split"]:
-        raise AssertionError("BS32's layer 1 at S = 4096 was split")
+                     device=dev)
+    ws = 0.01 * torch.randn((2, 10240, SHAPE_MODEL[0]), generator=g,
+                            device=dev)
+    for dt in (bf16, f32):
+        x_, w_ = xs.to(dt), ws.to(dt)
+        wt_ = w_.transpose(1, 2).contiguous()
+        if dt == f32:
+            wt_ = tf32_split(wt_, 1)
+        _, cnt = counted(lambda: factored_sig_proj(x_, w_, wt_))
+        splits = sig_proj_splits(xs.shape[1], ws.shape[2], 10240, sms,
+                                 float32=dt == f32)
+        print(f"  factored_sig_proj {str(dt)[6:]} at BS32's bench shape (2, "
+              f"{xs.shape[1]}, 10240) @ (2, 10240, {ws.shape[2]}): {splits} "
+              f"range of K, split launches {cnt['factored_sig_proj split']}")
+        if splits != 1 or cnt["factored_sig_proj split"]:
+            raise AssertionError(f"BS32's layer 1 at S = 4096 was split "
+                                 f"({str(dt)[6:]})")
+        del x_, w_, wt_
     del xs, ws
     torch.cuda.empty_cache()
 
@@ -4645,7 +4729,6 @@ def main() -> int:
             ("fused_factored", ("factored_sig_proj_kernel",
                                 "factored_sig_proj_split_kernel",
                                 "factored_tail_kernel",
-                                "factored_dense_kernel",
                                 "rows_gemm_kernel"), "HGMMA",
              "HMMA"),
             ("mlp_infer", ("mlp_layer1_kernel", "mlp_tail_kernel",
@@ -4666,6 +4749,7 @@ def main() -> int:
             ("matmul_bf16", ("mm_bf16_kernel",), "HGMMA", "HMMA"),
             ("matmul", ("mm_tf32x3_kernel",), "HGMMA", "HMMA"),
             ("fused_factored", ("factored_sig_proj_f32_kernel",
+                                "factored_sig_proj_split_f32_kernel",
                                 "factored_dense_f32_kernel",
                                 "factored_rows_tail_f32_kernel"), "HGMMA",
              "HMMA"),
@@ -5011,13 +5095,15 @@ def main() -> int:
         """Run fn with every launch count set to 0 just before; returns
         fn's result and the counts just after ("<name> f32": the float32
         mode's share; "factored_sig_proj split": the launches of layer 1
-        whose K was split across the card; "<tail> gemms": the tails'
-        launches on their two-GEMM route)."""
+        whose K was split across the card, "factored_sig_proj split f32"
+        the float32 mode's of those; "<tail> gemms": the tails' launches
+        on their two-GEMM route)."""
         for k in all_kernels:
             k.launches = 0
         for k in f32_kernels:
             k.launches_f32 = 0
         factored_sig_proj.launches_split = 0
+        factored_sig_proj.launches_split_f32 = 0
         for k in gemm_tails:
             k.launches_gemms = 0
         out = fn()
@@ -5028,7 +5114,9 @@ def main() -> int:
                      **{f"{k.__name__} gemms": k.launches_gemms
                         for k in gemm_tails},
                      "factored_sig_proj split":
-                         factored_sig_proj.launches_split}
+                         factored_sig_proj.launches_split,
+                     "factored_sig_proj split f32":
+                         factored_sig_proj.launches_split_f32}
 
     def require_launched(what, counts, names):
         print(f"  launches in {what}: {counts}")

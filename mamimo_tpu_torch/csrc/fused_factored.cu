@@ -37,13 +37,16 @@
 //   layers only; the JAX serving call runs any depth in XLA):
 //   factored_heads_kernel writes the per-head rows h0 = relu(sig_proj +
 //   hb) a1 + c1 (2, S*nt, H1) bf16 to device memory;
-//   factored_dense_kernel, gemm_sm90.cuh's main loop with a
-//   bias/ReLU/BN epilogue, runs each hidden layer after the first but
-//   the last (bf16 rows out), or at depth 1 the output layer (f32 out);
+//   factored_dense_launch runs each hidden layer after the first but the
+//   last (bf16 rows out, staged in shared memory and stored by TMA while
+//   the next tile's products run), or at depth 1 the output layer (f32
+//   or bf16 row pieces), on mm_sm90.cuh's walk (mm::rows_gemm_kernel,
+//   the tails' GEMM; its own kernel on gemm_sm90.cuh's persistent walk
+//   stored accumulator pairs from registers after each tile's products,
+//   PERF.md section 6, row 2d);
 //   factored_rows_gemms_launch runs the last hidden layer and the output
-//   as two GEMMs on mm_sm90.cuh's walk (mm::rows_gemms): the
-//   last hidden layer's rows through device memory, staged in shared
-//   memory and stored by TMA while the next tile's products run. It
+//   as two GEMMs on that walk (mm::rows_gemms): the last hidden layer's
+//   rows through device memory. It
 //   replaces a fused tail on tail_sm90.cuh (TMA-loaded rows, the hidden
 //   activation on chip, streamed slab by slab above 1024 units), which
 //   took 1.5-2.0x as long on an H100 at every width served (PERF.md);
@@ -56,11 +59,14 @@
 // wgmma (gemm_sm90.cuh, wgmma_3xtf32_rs), always through the per-head rows,
 // which stay float32 as JAX keeps h in float32: factored_sig_proj_f32_
 // kernel and factored_dense_f32_kernel on gemm_sm90.cuh's float32 body
-// gemm_tf32x3 (plain, hidden-layer and output epilogues),
-// factored_heads_f32_kernel (elementwise), factored_rows_tail_f32_kernel
-// on tail_sm90.cuh's layers23_f32. Their K-major weights come as TF32
-// high and low parts, split once by prepare_factored_weights
-// (tf32_split.cu); the rows are split in registers. The output stores
+// gemm_tf32x3 (plain, hidden-layer and output epilogues; layer 1 with K
+// split across the card where its tiles cannot fill it,
+// factored_sig_proj_split_f32_kernel on gemm_tf32x3's split walk, as the
+// bf16 layer 1), factored_heads_f32_kernel (elementwise),
+// factored_rows_tail_f32_kernel on tail_sm90.cuh's layers23_f32. Their
+// K-major weights come as TF32 high and low parts, split once by
+// prepare_factored_weights (tf32_split.cu); the rows are split in
+// registers. The output stores
 // of the tails and of factored_dense's output layer also come rounded to
 // bf16 (out_dtype bfloat16, as the TPU kernel's default), to nearest
 // even: the float32 result rounded. The launch functions take a mode:
@@ -108,7 +114,10 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 // tensor-core additions run over K / splits only. Bound: W1's bytes
 // (1.34 GB at Nt 1024, 0.40 ms at 3.35 TB/s), which the units read once
 // between them; the partials add 2 x splits x S x H x 4 bytes (16.8 MB
-// at that shape, written once and read once).
+// at that shape, written once and read once). The float32 mode splits
+// the same way on gemm_tf32x3 (factored_sig_proj_split_f32_kernel below;
+// 128 x 128 tiles: at Nt 1024, S = 128, 16 one-block units where one
+// range ran on 16 SMs): its epilogue is a plain store as this one's.
 template <int CL>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
     factored_sig_proj_split_kernel(const __grid_constant__ CUtensorMap mx,
@@ -156,6 +165,26 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
         if (row < S && col < H)
           sm90::put2(out + ((long long)p * S + row) * H + col, v0, v1);
       });
+}
+
+// The float32 mode with K split across the card: gemm_tf32x3's split
+// walk on the maps of factored_sig_proj_f32_kernel, each range's float32
+// partial into ws (splits, 2, S, H), summed by split_sum_kernel. Both TF32
+// parts of W1 are read (5.37 GB at Nt 1024: 1.60 ms at 3.35 TB/s, twice
+// the float32 W1's bytes); CL = 1 at one M-tile.
+template <int CL>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    factored_sig_proj_split_f32_kernel(const __grid_constant__ CUtensorMap mx,
+                                       const __grid_constant__ CUtensorMap mw,
+                                       float* __restrict__ ws, int S, int L,
+                                       int H, int splits) {
+  sm90::gemm_tf32x3<CL, true>(
+      &mx, &mw, S, H, 2, L,
+      [&](int p, int row, int col, float v0, float v1) {
+        if (row < S && col < H)
+          sm90::put2(ws + ((long long)p * S + row) * H + col, v0, v1);
+      },
+      splits);
 }
 
 // ---------------------------------------------------------------------
@@ -336,42 +365,12 @@ __global__ void factored_heads_f32_kernel(const float* __restrict__ sp,
   }
 }
 
-// One dense layer of both planes on the Hopper main loop: v = h[p] @
-// W[p] (h (2, M, K) bf16 through map mx, wt = W transposed (2, N, K)
-// through map mw). OUT: y[p][m][col] = v + b[p][col] as T for col < C
-// (the output layer, y (2, M, C)); else bf16(relu(v + b) * a + c), the
-// next hidden rows (2, M, N). b, a, c (2, ldb) f32.
-template <bool OUT, class T = float>
-__global__ void __launch_bounds__(sm90::THREADS, 1)
-    factored_dense_kernel(const __grid_constant__ CUtensorMap mx,
-                          const __grid_constant__ CUtensorMap mw,
-                          const float* __restrict__ b,
-                          const float* __restrict__ a,
-                          const float* __restrict__ c, void* __restrict__ y,
-                          int M, int N, int K, int C, int ldb) {
-  sm90::gemm_persistent(
-      &mx, &mw, M, N, 2, K, [&](int p, int row, int col, float v0, float v1) {
-        if (row >= M || col >= N) return;
-        const long long r = (long long)p * M + row;
-        const int j = p * ldb + col;
-        if constexpr (OUT) {
-          store_y(reinterpret_cast<T*>(y) + r * C, b + p * ldb, C, col,
-                  v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(y) +
-                                             r * N + col) =
-              __floats2bfloat162_rn(
-                  fmaxf(v0 + b[j], 0.f) * a[j] + c[j],
-                  fmaxf(v1 + b[j + 1], 0.f) * a[j + 1] + c[j + 1]);
-        }
-      });
-}
-
-// The float32 mode of factored_dense_kernel: h (2, M, K) f32 through map
-// mx (make_map_f32, box 32 x 128), wt's TF32 parts (2, 2, N, K) f32
-// through map mw (box 32 x TF_SLICE_ROWS, plane 2p + part). OUT: y = v +
-// b as T for col < C (y (2, M, C)); else f32 rows relu(v + b) * a + c
-// (2, M, N).
+// One dense layer of both planes in the float32 mode (the bf16 mode runs
+// mm::rows_gemm_kernel, factored_dense_launch): v = h[p] @ W[p], h (2, M,
+// K) f32 through map mx (make_map_f32, box 32 x 128), wt's TF32 parts (2,
+// 2, N, K) f32 through map mw (box 32 x TF_SLICE_ROWS, plane 2p + part).
+// OUT: y = v + b as T for col < C (y (2, M, C)); else f32 rows relu(v +
+// b) * a + c (2, M, N). b, a, c (2, ldb) f32.
 template <bool OUT, class T>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
     factored_dense_f32_kernel(const __grid_constant__ CUtensorMap mx,
@@ -438,42 +437,55 @@ extern "C" {
 // x (2, S, L), w1t (2, H, L) (W1[:L] transposed): bf16 (L % 8 == 0); or
 // with MODE_F32 x f32 (L % 4 == 0) and w1t the TF32 parts of W1[:L]
 // transposed, (2, 2, H, L) f32 (tf32_split); out (2, S, H) f32. H % 128
-// == 0, x and w1t 16-byte aligned. splits > 1 (bf16 only): the split walk
-// into ws (splits, 2, S, H) f32, 16-byte aligned, then the sum into out;
-// every range of ceil(ceil(L / 64) / splits) k-steps must hold one.
-// splits 0 or 1: one range, ws unused.
+// == 0, x and w1t 16-byte aligned. splits > 1: the split walk into ws
+// (splits, 2, S, H) f32, 16-byte aligned, then the sum into out; every
+// range of ceil(KT / splits) k-steps must hold one (KT = ceil(L / 64) in
+// bf16, ceil(L / 32) in the float32 mode). splits 0 or 1: one range, ws
+// unused.
 int factored_sig_proj_launch(const void* x, const void* w1t, void* out,
                              int S, int L, int H, int mode, void* ws,
                              int splits, void* stream) {
+  if (mode != 0 && mode != MODE_F32) return (int)cudaErrorInvalidValue;
+  const bool f32 = mode == MODE_F32;
+  cudaStream_t st = (cudaStream_t)stream;
   CUtensorMap mx, mw;
-  if (mode == MODE_F32) {
-    if (splits > 1) return (int)cudaErrorInvalidValue;
+  int rc;
+  if (f32) {
     if (sm90::make_map_f32(&mx, x, L, S, 2, 128, L) ||
         sm90::make_map_f32(&mw, w1t, L, H, 4, sm90::TF_SLICE_ROWS, L))
       return sm90::ERR_TENSOR_MAP;
-    return sm90::launch_tf32x3(factored_sig_proj_f32_kernel, S, H, 2,
-                               (cudaStream_t)stream, mx, mw, (float*)out, S,
-                               L, H);
+    if (splits <= 1)
+      return sm90::launch_tf32x3(factored_sig_proj_f32_kernel, S, H, 2, st,
+                                 mx, mw, (float*)out, S, L, H);
+  } else {
+    rc = sm90::make_map(&mx, x, L, S, 2, sm90::BM, L);
+    if (rc == 0)
+      rc = sm90::make_map(&mw, w1t, L, H, 2, sm90::B_SLICE_ROWS, L);
+    if (rc != 0) return rc;
+    if (splits <= 1)
+      return sm90::launch(factored_sig_proj_kernel, S, H, 2, st, mx, mw,
+                          (float*)out, S, L, H);
   }
-  if (mode != 0) return (int)cudaErrorInvalidValue;
-  int rc = sm90::make_map(&mx, x, L, S, 2, sm90::BM, L);
-  if (rc == 0)
-    rc = sm90::make_map(&mw, w1t, L, H, 2, sm90::B_SLICE_ROWS, L);
-  if (rc != 0) return rc;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (splits <= 1)
-    return sm90::launch(factored_sig_proj_kernel, S, H, 2, st, mx, mw,
-                        (float*)out, S, L, H);
-  const int KT = (L + sm90::BK - 1) / sm90::BK;
+  const int bk = f32 ? sm90::TF_K : sm90::BK;
+  const int KT = (L + bk - 1) / bk;
   if ((splits - 1) * ((KT + splits - 1) / splits) >= KT)
     return (int)cudaErrorInvalidValue;                 // an empty range
-  rc = S <= sm90::BM
-           ? sm90::launch_split<1>(factored_sig_proj_split_kernel<1>, S, H,
-                                   2, splits, st, mx, mw, (float*)ws, S, L,
-                                   H, splits)
-           : sm90::launch_split<sm90::CLUSTER>(
-                 factored_sig_proj_split_kernel<sm90::CLUSTER>, S, H, 2,
-                 splits, st, mx, mw, (float*)ws, S, L, H, splits);
+  float* w = (float*)ws;
+  if (f32)
+    rc = S <= 128 ? sm90::launch_tf32x3_split<1>(
+                        factored_sig_proj_split_f32_kernel<1>, S, H, 2,
+                        splits, st, mx, mw, w, S, L, H, splits)
+                  : sm90::launch_tf32x3_split<sm90::TF_CLUSTER>(
+                        factored_sig_proj_split_f32_kernel<sm90::TF_CLUSTER>,
+                        S, H, 2, splits, st, mx, mw, w, S, L, H, splits);
+  else
+    rc = S <= sm90::BM
+             ? sm90::launch_split<1>(factored_sig_proj_split_kernel<1>, S,
+                                     H, 2, splits, st, mx, mw, w, S, L, H,
+                                     splits)
+             : sm90::launch_split<sm90::CLUSTER>(
+                   factored_sig_proj_split_kernel<sm90::CLUSTER>, S, H, 2,
+                   splits, st, mx, mw, w, S, L, H, splits);
   if (rc != 0) return rc;
   const long long n4 = 2LL * S * H / 4;
   split_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
@@ -544,7 +556,10 @@ int factored_heads_launch(const void* sp, const void* hb, const void* a1,
 // 2, N, K) f32 (tf32_split); b, a, c (2, ldb) f32 (a, c unused for the
 // output layer). out_layer: y (2, M, C) f32, or bf16 with MODE_BF16_OUT;
 // else y the next hidden rows (2, M, N) in the operands' type (C
-// unused). N % 128 == 0, h and wt 16-byte aligned.
+// unused). N % 128 == 0, h, wt and y 16-byte aligned. bf16: the hidden
+// layer's epilogue reads b, a and c up to column round_up(N, 256) of each
+// plane (mm::rows_gemm_kernel), so ldb must reach that; the output
+// layer's reads C values a plane.
 int factored_dense_launch(const void* h, const void* wt, const void* b,
                           const void* a, const void* c, void* y, int M,
                           int N, int K, int C, int ldb, int out_layer,
@@ -570,17 +585,23 @@ int factored_dense_launch(const void* h, const void* wt, const void* b,
     return sm90::launch_tf32x3(factored_dense_f32_kernel<true, float>, M, N,
                                2, st, mx, mw, fb, fa, fc, y, M, N, K, C, ldb);
   }
-  int rc = sm90::make_map(&mx, h, K, M, 2, sm90::BM, K);
-  if (rc == 0) rc = sm90::make_map(&mw, wt, K, N, 2, sm90::B_SLICE_ROWS, K);
+  // bf16: the tails' GEMM on mm_sm90.cuh's walk, the hidden rows staged
+  // and stored by TMA, the output layer's in row pieces (its map of y is
+  // unused: mx stands in)
+  CUtensorMap my;
+  int rc = mm::make_a_map(&mx, h, K, M, 2);
+  if (rc == 0) rc = mm::make_bt_map(&mw, wt, K, N, 2);
+  if (rc == 0 && !out_layer) rc = mm::make_c_map(&my, y, M, N, 2);
   if (rc != 0) return rc;
   if (!out_layer)
-    return sm90::launch(factored_dense_kernel<false>, M, N, 2, st, mx, mw, fb,
-                        fa, fc, y, M, N, K, C, ldb);
+    return mm::launch<mm::STAGED>(mm::rows_gemm_kernel<false>, M, N, 2, st,
+                                  mx, mw, my, fb, fa, fc, y, M, N, 2, K, 0,
+                                  ldb);
   if (mode & MODE_BF16_OUT)
-    return sm90::launch(factored_dense_kernel<true, bf16>, M, N, 2, st, mx,
-                        mw, fb, fa, fc, y, M, N, K, C, ldb);
-  return sm90::launch(factored_dense_kernel<true>, M, N, 2, st, mx, mw, fb,
-                      fa, fc, y, M, N, K, C, ldb);
+    return mm::launch(mm::rows_gemm_kernel<true, bf16>, M, N, 2, st, mx, mw,
+                      mx, fb, fa, fc, y, M, N, 2, K, C, ldb);
+  return mm::launch(mm::rows_gemm_kernel<true, float>, M, N, 2, st, mx, mw,
+                    mx, fb, fa, fc, y, M, N, 2, K, C, ldb);
 }
 
 // factored_rows_tail's two-GEMM route: h (2, M, H1), w2t (2, H2, H1),

@@ -729,6 +729,17 @@ __device__ __forceinline__ void put1(__nv_bfloat16* p, float a) {
 //   half of each part of the Bt tile and multicasts it to both; the ring
 //   runs on across tiles, so one tile's epilogue overlaps the next one's
 //   loads.
+// * The split walk (SPLIT, launch_tf32x3_split), as gemm_persistent's:
+//   where the tile groups cannot fill the card (layer 1 at small M and
+//   long K), K's KT k-steps are cut into `splits` ranges of ks =
+//   ceil(KT / splits) (none empty: the caller's duty), and the units
+//   (N-tile, M-tile group, plane z, range j) each sum their range and hand
+//   epi the plane j * Z + z of the caller's workspace of partials. A range
+//   starts in a fresh accumulator, its stretches count its own k-steps
+//   (the consumers' half-stretch offset from the range's start), and it
+//   ends on a drained stretch. At one M-tile (M <= 128) the units take
+//   clusters of CL = 1 block, which load both parts of their whole Bt
+//   tile themselves, so no block runs on the zero rows past M.
 // Ragged M, N and K come from TMA's zero fill (K % 4 == 0 for the
 // 16-byte row pitch); the epilogue masks its stores. The bound on an
 // H100 is the tensor cores: three TF32 products a multiply-add, so at
@@ -756,12 +767,16 @@ static_assert(TF_SMEM <= 232448, "more shared memory than a block has");
 // (..., 2, N, K) layout), in 128 x 128 tiles walked as gemm_persistent
 // walks its own. After each tile every consumer thread calls epi(z, row,
 // col, v0, v1) for each of its pairs of adjacent accumulators (columns
-// col, col + 1; col even; row and col may lie past M and N). Launch
-// through launch_tf32x3(); nothing may follow the call in the kernel.
-template <class Epi>
+// col, col + 1; col even; row and col may lie past M and N); the split
+// walk (SPLIT) hands it the plane j * Z + z of range j instead. Launch
+// through launch_tf32x3() (launch_tf32x3_split<CL>() for the split walk);
+// nothing may follow the call in the kernel.
+template <int CL = TF_CLUSTER, bool SPLIT = false, class Epi>
 __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
                                             const CUtensorMap* mb, int M,
-                                            int N, int Z, int K, Epi&& epi) {
+                                            int N, int Z, int K, Epi&& epi,
+                                            int splits = 1) {
+  static_assert(CL == TF_CLUSTER || CL == 1, "pairs of M-tiles, or none");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -772,13 +787,23 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
   const int cid = cluster_index(), ncl = cluster_count();
   const int KT = (K + TF_K - 1) / TF_K;
   const int ntn = (N + 127) / 128;
-  const int ntg = ((M + 127) / 128 + TF_CLUSTER - 1) / TF_CLUSTER;
-  const int T = ntn * ntg * Z;
-  auto coords = [&](int t, int& m0, int& n0, int& z) {
+  const int ntg = ((M + 127) / 128 + CL - 1) / CL;
+  const int ks = SPLIT ? (KT + splits - 1) / splits : KT;
+  const int T = ntn * ntg * Z * (SPLIT ? splits : 1);
+  // tile t: its corner, its plane z, the plane zo of epi, its k-steps
+  auto coords = [&](int t, int& m0, int& n0, int& z, int& zo, int& kb,
+                    int& ke) {
     n0 = (t % ntn) * 128;
     t /= ntn;
-    m0 = ((t % ntg) * TF_CLUSTER + rank) * 128;
-    z = t / ntg;
+    m0 = ((t % ntg) * CL + rank) * 128;
+    z = zo = t / ntg;
+    kb = 0;
+    ke = KT;
+    if constexpr (SPLIT) {
+      z = zo % Z;
+      kb = zo / Z * ks;
+      ke = kb + ks < KT ? kb + ks : KT;
+    }
   };
 
   if (threadIdx.x == 0) {
@@ -786,7 +811,7 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
     for (int s = 0; s < TF_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);       // the producer's expect_tx
       // both consumer warpgroups of every block of the cluster
-      mbar_init(empty + 8 * s, 2 * TF_CLUSTER);
+      mbar_init(empty + 8 * s, 2 * CL);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -795,23 +820,36 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == 0) {
-      const uint16_t all = (uint16_t)((1u << TF_CLUSTER) - 1);
+      const uint16_t all = (uint16_t)((1u << CL) - 1);
       int it = 0;
       for (int t = cid; t < T; t += ncl) {
-        int m0, n0, z;
-        coords(t, m0, n0, z);
-        for (int kt = 0; kt < KT; ++kt, ++it) {
+        int m0, n0, z, zo, kb, ke;
+        coords(t, m0, n0, z, zo, kb, ke);
+        for (int kt = kb; kt < ke; ++kt, ++it) {
           const int s = it % TF_STAGES;
           const uint32_t st = ring + s * TF_STAGE;
           mbar_wait(empty + 8 * s, ((it / TF_STAGES) & 1) ^ 1);
           mbar_expect_tx(full + 8 * s, TF_STAGE);
           tma_load_3d(st, ma, full + 8 * s, kt * TF_K, m0, z);
-          // this block's slice of each part of Bt, into both blocks
-          const int nb = n0 + rank * TF_SLICE_ROWS;
-          tma_load_3d_multicast(st + TF_TILE + rank * TF_SLICE, mb,
-                                full + 8 * s, kt * TF_K, nb, 2 * z, all);
-          tma_load_3d_multicast(st + 2 * TF_TILE + rank * TF_SLICE, mb,
-                                full + 8 * s, kt * TF_K, nb, 2 * z + 1, all);
+          if constexpr (CL == 1) {
+            // both slices of each part of the Bt tile
+#pragma unroll
+            for (int h = 0; h < TF_CLUSTER; ++h) {
+              const int nb = n0 + h * TF_SLICE_ROWS;
+              tma_load_3d(st + TF_TILE + h * TF_SLICE, mb, full + 8 * s,
+                          kt * TF_K, nb, 2 * z);
+              tma_load_3d(st + 2 * TF_TILE + h * TF_SLICE, mb, full + 8 * s,
+                          kt * TF_K, nb, 2 * z + 1);
+            }
+          } else {
+            // this block's slice of each part of Bt, into both blocks
+            const int nb = n0 + rank * TF_SLICE_ROWS;
+            tma_load_3d_multicast(st + TF_TILE + rank * TF_SLICE, mb,
+                                  full + 8 * s, kt * TF_K, nb, 2 * z, all);
+            tma_load_3d_multicast(st + 2 * TF_TILE + rank * TF_SLICE, mb,
+                                  full + 8 * s, kt * TF_K, nb, 2 * z + 1,
+                                  all);
+          }
         }
       }
       // stay until every block of the cluster has released each stage's
@@ -830,21 +868,21 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
   auto release = [&](int i) {
     if (tid == 0)
 #pragma unroll
-      for (int c = 0; c < TF_CLUSTER; ++c)
+      for (int c = 0; c < CL; ++c)
         mbar_arrive_cluster(empty + 8 * (i % TF_STAGES), c);
   };
   TfA A = {};
   int it = 0;
   for (int t = cid; t < T; t += ncl) {
-    int m0, n0, z;
-    coords(t, m0, n0, z);
+    int m0, n0, z, zo, kb, ke;
+    coords(t, m0, n0, z, zo, kb, ke);
     // acc: the sum so far, in float32 in registers; part: this stretch's
     // products, summed by the tensor cores
     float acc[64], part[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
     bool fresh = true;           // the next k-step starts a stretch
-    for (int kt = 0; kt < KT; ++kt, ++it) {
+    for (int kt = kb; kt < ke; ++kt, ++it) {
       const int s = it % TF_STAGES;
       const uint32_t st = ring + s * TF_STAGE;
       // the previous k-step's stage, unless its stretch end released it
@@ -857,7 +895,8 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
           st + TF_TILE, st + 2 * TF_TILE, !fresh, [&] {
             if (held) release(it - 1);
           });
-      fresh = tf_stretch_end(kt, KT, w);
+      // the range's own k-steps: a stretch ends at its last one
+      fresh = tf_stretch_end(kt - kb, ke - kb, w);
       if (fresh) {
         drain_3xtf32(part, A);
         release(it);
@@ -871,8 +910,8 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
     const int q = n0 + 2 * tq;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      epi(z, r, q + 8 * j, acc[4 * j], acc[4 * j + 1]);
-      epi(z, r + 8, q + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+      epi(zo, r, q + 8 * j, acc[4 * j], acc[4 * j + 1]);
+      epi(zo, r + 8, q + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
@@ -891,15 +930,16 @@ __device__ __forceinline__ void gemm_tf32x3(const CUtensorMap* ma,
 // producer and consumer paths never rejoin).
 //
 // The split walk (SPLIT, launch_split): where the tile groups are too few
-// to fill the card (layer 1 at small M and long K), K's KT k-steps are
-// cut into `splits` ranges of ks = ceil(KT / splits) (every range
-// non-empty: the caller's duty), and the units (N-tile, M-tile group,
-// plane z, range j) each sum their range in fresh accumulators and hand
-// epi the plane j * Z + z: the caller's workspace of per-range partials,
-// which it sums afterwards in a fixed order. With one M-tile (M <= 128)
-// the units take clusters of CL = 1 block, which load their whole B tile
-// themselves (nothing to share), so no block loads the zero rows past M
-// of an M-tile pair; with more, pairs of M-tiles share B as above.
+// to fill the card (the bf16 layer 1 at small M and long K; gemm_tf32x3
+// walks its float32 mode the same way), K's KT k-steps are cut into
+// `splits` ranges of ks = ceil(KT / splits) (every range non-empty: the
+// caller's duty), and the units (N-tile, M-tile group, plane z, range j)
+// each sum their range in fresh accumulators and hand epi the plane j * Z
+// + z: the caller's workspace of per-range partials, which it sums
+// afterwards in a fixed order. With one M-tile (M <= 128) the units take
+// clusters of CL = 1 block, which load their whole B tile themselves
+// (nothing to share), so no block loads the zero rows past M of an
+// M-tile pair; with more, pairs of M-tiles share B as above.
 template <int CL = CLUSTER, bool SPLIT = false, class Epi>
 __device__ __forceinline__ void gemm_persistent(const CUtensorMap* ma,
                                                 const CUtensorMap* mb, int M,
@@ -1176,6 +1216,19 @@ inline int launch_tf32x3(void (*kernel)(Params...), int M, int N, int Z,
       (long long)(((M + 127) / 128 + TF_CLUSTER - 1) / TF_CLUSTER) *
       ((N + 127) / 128) * Z;
   return launch_units<TF_CLUSTER, TF_SMEM>(kernel, groups, stream, args...);
+}
+
+// Launches a kernel built on gemm_tf32x3<CL, true> (the split walk) for
+// an M x N output over Z planes and `splits` ranges of K: its units (group
+// of CL M-tiles, N-tile, plane, range), one a cluster of CL blocks.
+// Returns a cudaError_t code.
+template <int CL, class... Params, class... Args>
+inline int launch_tf32x3_split(void (*kernel)(Params...), int M, int N,
+                               int Z, int splits, cudaStream_t stream,
+                               Args... args) {
+  const long long units = (long long)(((M + 127) / 128 + CL - 1) / CL) *
+                          ((N + 127) / 128) * Z * splits;
+  return launch_units<CL, TF_SMEM>(kernel, units, stream, args...);
 }
 
 // Error text of a launch function's return code.

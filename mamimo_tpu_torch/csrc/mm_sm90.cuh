@@ -4,12 +4,15 @@
 // JAX passes it), f32 accumulation, and an epilogue functor.
 //
 // Serves the bf16 mode of matmul_bf16.cu (the TPU kernel mamimo_tpu/ops/
-// pallas/int8_mm.py::matmul_pallas) and the two-GEMM route of the DNN
+// pallas/int8_mm.py::matmul_pallas), the two-GEMM route of the DNN
 // tails (rows_gemms below, launched by fused_factored.cu and
 // mlp_infer.cu: the last hidden layer with its bias/ReLU/affine
-// epilogue, then the output layer), the layer-2/3 halves of
-// mamimo_tpu/ops/pallas/fused_factored.py::fused_factored_planes and
-// mlp_infer.py::mlp_infer_pallas.
+// epilogue, then the output layer) and, with the same kernel
+// (rows_gemm_kernel), the bf16 dense layers of the per-head rows route
+// (fused_factored.cu's factored_dense_launch: the hidden layers between
+// the first and the last, or at depth 1 the output layer): the layer-2/3
+// halves of mamimo_tpu/ops/pallas/fused_factored.py::fused_factored_planes
+// and mlp_infer.py::mlp_infer_pallas.
 //
 // Bound on an H100 (989 TFLOP/s bf16): the products at every shape it
 // serves, but what measured on the card (tools/probe_gemm.py, PERF.md) is
@@ -462,18 +465,20 @@ inline int make_c_map(CUtensorMap* map, void* ptr, int M, int N,
 }
 
 // The DNN tails' two-GEMM route (bf16 rows: fused_factored.py::
-// rows_tail_route, mlp_infer.py::tail_route), one layer of Z planes on
-// gemm_coop: h (Z, M, K) bf16 through map mx (make_a_map), wt (Z, N, K)
-// through mw (make_bt_map); b, a, c f32, plane p's at p * ldb. OUT: y =
-// (v + b)[..., :C] as T, (Z, M, C) (the output layer; DIRECT row pieces,
-// C's rows need not be 16-byte multiples; b's first C values a plane are
-// all it reads); else the last hidden layer's rows bf16(relu(v + b) * a
-// + c) (Z, M, N) through the map my (make_c_map; STAGED). A fused tail's
-// 64-row block reads each W tile per 64 rows, and above 1024 units each
-// row's slab of h once per 128 columns of W2; the GEMM's 128 x 256 tiles
-// take 24 KB into an SM a million multiply-adds, and the hidden rows'
-// round trip through device memory (Z x M x N bf16, written and read
-// once) runs beside the products.
+// rows_tail_route, mlp_infer.py::tail_route) and bf16 factored_dense, one
+// layer of Z planes on gemm_coop: h (Z, M, K) bf16 through map mx
+// (make_a_map), wt (Z, N, K) through mw (make_bt_map); b, a, c f32, plane
+// p's at p * ldb. OUT: y = (v + b)[..., :C] as T, (Z, M, C) (the output
+// layer; DIRECT row pieces, C's rows need not be 16-byte multiples; b's
+// first C values a plane are all it reads); else a hidden layer's rows
+// bf16(relu(v + b) * a + c) (Z, M, N) through the map my (make_c_map;
+// STAGED; b, a and c are read up to column round_up(N, CN) of each plane,
+// the values past N not stored). A fused tail's 64-row block reads each W
+// tile per 64 rows, and above 1024 units each row's slab of h once per
+// 128 columns of W2; the GEMM's 128 x 256 tiles take 24 KB into an SM a
+// million multiply-adds, and the hidden rows' round trip through device
+// memory (Z x M x N bf16, written and read once) runs beside the
+// products.
 template <bool OUT, class T = float>
 __global__ void __launch_bounds__(THREADS, 1)
     rows_gemm_kernel(const __grid_constant__ CUtensorMap mx,

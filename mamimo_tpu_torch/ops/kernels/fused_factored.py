@@ -16,9 +16,9 @@ runs hidden layers 2 .. D-1 (or, at D = 1, the output layer), and
 ``factored_rows_tail`` the last hidden layer and the output (bf16: two
 GEMMs, the last hidden layer's rows through device memory too).
 ``fused_factored_planes``
-routes by depth and width. ``factored_sig_proj``'s bf16 kernel splits K
-across the card where its tiles cannot fill it (few rows, long K: 512
-and more Tx antennas; ``sig_proj_splits``).
+routes by depth and width. ``factored_sig_proj`` splits K across the
+card where its tiles cannot fill it (few rows, long K: 512 and more Tx
+antennas; ``sig_proj_splits``), in both modes.
 
 The weights' dtype picks the mode (``prepare_factored_weights``'
 ``dot_dtype``): bfloat16 weights run the bf16 kernels, float32 weights
@@ -189,27 +189,34 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(w.dtype).float() @ w.float()
 
 
-# the fewest k-steps (of 64) a range of layer 1's split K holds
+# the fewest k-steps a range of layer 1's split K holds: 16 of 64 in
+# bf16, and the same 1024 elements of K, 32 k-steps of 32, in float32
 SPLIT_MIN_KSTEPS = 16
+SPLIT_MIN_KSTEPS_F32 = 32
 
 
-def sig_proj_splits(m: int, n: int, k: int, sms: int) -> int:
-    """How many ranges of K the bf16 layer-1 kernel sums apart for x (2,
-    m, k) @ w1 (2, k, n) on a card of ``sms`` SMs (``csrc/gemm_sm90.cuh``,
-    the split walk): 1 where its tile groups (two 128-row M-tiles of one
-    256-column N-tile of a plane, one a 2-block cluster) are at least the
-    sms // 2 clusters that fit; else the most ranges whose blocks (a
-    range's: one an N-tile and plane at one M-tile, else two a pair of
-    M-tiles) still fit on the sms, each range at least SPLIT_MIN_KSTEPS
-    k-steps, the count then trimmed so that no range of ceil(k-steps /
-    splits) is empty."""
-    mt, nt = -(-m // 128), -(-n // 256)
+def sig_proj_splits(m: int, n: int, k: int, sms: int,
+                    float32: bool = False) -> int:
+    """How many ranges of K the layer-1 kernel sums apart for x (2, m,
+    k) @ w1 (2, k, n) on a card of ``sms`` SMs (``csrc/gemm_sm90.cuh``,
+    the split walk; ``float32``: its float32 mode, ``gemm_tf32x3``'s): 1
+    where its tile groups (two 128-row M-tiles of one N-tile of a plane,
+    256 columns in bf16 and 128 in float32, one a 2-block cluster) are at
+    least the sms // 2 clusters that fit; else the most ranges whose
+    blocks (a range's: one an N-tile and plane at one M-tile, else two a
+    pair of M-tiles) still fit on the sms, each range at least
+    SPLIT_MIN_KSTEPS k-steps of 64 (float32: SPLIT_MIN_KSTEPS_F32 of 32),
+    the count then trimmed so that no range of ceil(k-steps / splits) is
+    empty."""
+    bn, bk, least = (128, 32, SPLIT_MIN_KSTEPS_F32) if float32 else \
+        (256, 64, SPLIT_MIN_KSTEPS)
+    mt, nt = -(-m // 128), -(-n // bn)
     pairs = -(-mt // 2)
     if pairs * nt * 2 >= sms // 2:
         return 1
-    kt = -(-k // 64)
+    kt = -(-k // bk)
     blocks = (1 if mt == 1 else 2 * pairs) * nt * 2
-    splits = min(sms // blocks, kt // SPLIT_MIN_KSTEPS)
+    splits = min(sms // blocks, kt // least)
     if splits < 2:
         return 1
     return -(-kt // -(-kt // splits))
@@ -228,11 +235,11 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
     reading W1 K-major from ``w1t`` (2, H, L), ``prepared["w1t"]``) or
     float32 (its float32 mode, 3xTF32, reading W1's TF32 parts: ``w1t``
     is then ``prepared["w1t_tf32"]``, (2, 2, H, L) float32); w1t is
-    required there. The bf16 kernel splits K where its tiles cannot fill
-    the card (``sig_proj_splits``: the ranges' float32 partials in a
+    required there. Either mode splits K where its tiles cannot fill the
+    card (``sig_proj_splits``: the ranges' float32 partials in a
     workspace, summed in range order; counted in
-    ``factored_sig_proj.launches_split``). CPU: the plain version (w1t
-    unused)."""
+    ``factored_sig_proj.launches_split``, the float32 mode's also in
+    ``launches_split_f32``). CPU: the plain version (w1t unused)."""
     if not on_cuda(x, w1):
         return _mm(x, w1)
     mode = _mode_of(w1.dtype, "factored_sig_proj")
@@ -257,7 +264,7 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
     if s == 0:
         return out
     x, w1t = tma_operand(x), tma_operand(w1t)
-    splits = 1 if mode else sig_proj_splits(s, H, L, _sm_count(x.device))
+    splits = sig_proj_splits(s, H, L, _sm_count(x.device), bool(mode))
     ws = torch.empty((splits, 2, s, H), dtype=torch.float32,
                      device=x.device) if splits > 1 else None
     lib = _ff_lib()
@@ -269,13 +276,14 @@ def factored_sig_proj(x: torch.Tensor, w1: torch.Tensor,
     _build.check(rc, lib, "fused_factored_error_string", "factored_sig_proj")
     count_launch(factored_sig_proj, mode & _MODE_F32)
     factored_sig_proj.launches_split += splits > 1
+    factored_sig_proj.launches_split_f32 += splits > 1 and mode == _MODE_F32
     return out
 
 
-# launches of the kernel, and of those its float32 mode's and its split
-# walk's
+# launches of the kernel, and of those its float32 mode's, its split
+# walk's and the float32 mode's split walk's
 factored_sig_proj.launches = factored_sig_proj.launches_f32 = 0
-factored_sig_proj.launches_split = 0
+factored_sig_proj.launches_split = factored_sig_proj.launches_split_f32 = 0
 
 
 def _hidden_plain(p, k: int, h: torch.Tensor) -> torch.Tensor:
@@ -422,10 +430,12 @@ def factored_dense(prepared, k: int, h: torch.Tensor, C: int | None = None,
     (k <= depth) → relu(h @ wk + bk)·ak + ck rows (2, M, Hk) in the
     weights' dtype; the output layer (k = depth + 1) → (h @ wk + bk)[...,
     :C] (2, M, C) in out_dtype (float32, or bfloat16: the float32 result
-    rounded). CUDA: the Hopper GEMM kernel with that epilogue (bf16 rows
-    and weights, or float32 rows and weights in the float32 mode),
-    reading wk K-major from ``prepared["wkt"]`` (float32:
-    ``prepared["wkt_tf32"]``, its TF32 parts). CPU: the plain
+    rounded). CUDA: a Hopper GEMM kernel with that epilogue, reading wk
+    K-major from ``prepared["wkt"]`` (float32: ``prepared["wkt_tf32"]``,
+    its TF32 parts): bf16 rows and weights on the tails' GEMM
+    (``csrc/mm_sm90.cuh``'s ``rows_gemm_kernel``: hidden rows staged and
+    stored by TMA, the output layer in row pieces), float32 rows and
+    weights on the 3xTF32 GEMM (``gemm_tf32x3``). CPU: the plain
     version."""
     out_layer = k == factored_depth(prepared) + 1
     if out_layer and C is None:
@@ -455,6 +465,10 @@ def factored_dense(prepared, k: int, h: torch.Tensor, C: int | None = None,
     b = prepared[f"b{k}"].contiguous()
     a, c = (b, b) if out_layer else \
         (prepared[f"a{k}"].contiguous(), prepared[f"c{k}"].contiguous())
+    if not (mode or out_layer) and n % 256:
+        # the bf16 hidden layer's epilogue reads b, a and c up to its last
+        # 256-column tile's end in each plane (csrc/mm_sm90.cuh)
+        b, a, c = (_pad_to(v, _round_up(n, 256)) for v in (b, a, c))
     shape = (2, m, C) if out_layer else (2, m, n)
     out = torch.empty(shape, device=h.device,
                       dtype=out_dtype if out_layer else w.dtype)

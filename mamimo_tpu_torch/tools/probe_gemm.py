@@ -3,6 +3,7 @@
 the card, each beside one ``torch.matmul`` of the same operands.
 
     python3 mamimo_tpu_torch/tools/probe_gemm.py [--f32] [--old DIR] [--mm]
+        [--f32-split] [--dense]
 
 ``mlp_infer_layer1`` (bias, ReLU and affine epilogue, bf16 h1) at M =
 8192, 32768 and 131072 rows with K = 10272 (the materialized input) and
@@ -34,6 +35,30 @@ shared memory) beside the package's own: ``mlp_infer_layer1``,
 ``factored_sig_proj``, ``factored_dense``'s hidden layer and the output
 layer of a one-hidden-layer model, ``matmul_pallas`` at both shapes,
 each against float64, timed in turns (old, each stretch, then back).
+
+``--f32`` also runs the float32 split section (``--f32-split`` runs it
+alone, with ``--old`` the SASS comparison after): ``factored_sig_proj``'s
+float32 mode at Nt 1024 (S = 128, L = 327680) and Nt 512 (S = 512, L =
+163840), H = 1024, the wrapper's launch (the plan's ranges on
+``gemm_tf32x3``'s split walk, the partials' sum) against float32 and
+float64 x @ W1 and itself (two launches bit-identical), then timed in
+turns beside the same launch built with ``-DGEMM_CUT=1, 2, 3`` (no split
+of A, no products, loads only) and one float32 ``torch.bmm`` (TF32 off),
+the bytes of x, both TF32 parts of W1 and the output over each time;
+with ``--old DIR`` the earlier design's one-range launch first and last
+(its answer against the same references), and at BS32's S = 4096 (one
+range in both designs) the two held bit for bit and timed in turns.
+
+``--dense`` (alone, with ``--old`` the SASS comparison after):
+``factored_dense`` bf16 on (2, 131072, 1024) rows, the hidden layer of a
+(1024 x 3) model (1024 units, bias, ReLU and affine, bf16 rows out) and
+the output layer of a one-hidden-layer model (256 K-major rows of W, 234
+columns stored, f32 and bf16 stores): each against its plain version,
+then timed in turns beside one bf16 ``torch.bmm`` with its epilogue in
+PyTorch and the hidden layer's builds with ``-DMM_CUT=1, 2, 3``; with
+``--old DIR`` the earlier design's launch of the same function first and
+last, its answers against the same plain versions and against the new
+route's (bit for bit or not).
 
 The split walk of ``factored_sig_proj`` (bf16; K cut into ranges where
 its tile groups cannot fill the card, ``sig_proj_splits``): at Nt 1024
@@ -144,6 +169,12 @@ def main() -> int:
     ap.add_argument("--mm", action="store_true",
                     help="only matmul_pallas bf16 (and with --old the "
                          "SASS comparison)")
+    ap.add_argument("--f32-split", action="store_true",
+                    help="only the float32 layer 1's split walk (and with "
+                         "--old the SASS comparison)")
+    ap.add_argument("--dense", action="store_true",
+                    help="only factored_dense bf16 (and with --old the "
+                         "SASS comparison)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_gemm: no CUDA device", file=sys.stderr)
@@ -177,8 +208,13 @@ def main() -> int:
                 "t1": torch.zeros(H, device=dev)}
 
     print(f"probe_gemm on {smi}")
-    if args.mm:
-        _mm_section(args, dev, g, smi)
+    if args.mm or args.f32_split or args.dense:
+        if args.f32_split:
+            _f32_split_section(args, dev, g, smi)
+        if args.dense:
+            _dense_section(args, dev, g, smi)
+        if args.mm:
+            _mm_section(args, dev, g, smi)
         if args.old is not None:
             _sass_section(args.old)
         return 0
@@ -212,6 +248,7 @@ def main() -> int:
 
     if args.f32:
         _f32_section(args, dev, g, smi, layer1_tree)
+        _f32_split_section(args, dev, g, smi)
 
     if args.old is not None:
         m, k, s, L = 131072, 10272, 4096, 10240
@@ -530,6 +567,218 @@ def _split_section(args, dev, g, smi) -> None:
         torch.cuda.empty_cache()
 
 
+F32_SPLIT_CUTS = {"no A split": "GEMM_CUT=1", "no products": "GEMM_CUT=2",
+                  "loads only": "GEMM_CUT=3"}
+
+
+def _f32_split_section(args, dev, g, smi) -> None:
+    """factored_sig_proj's float32 mode split across the card at
+    SPLIT_SHAPES: errors, two launches bit-identical, the cuts and (with
+    args.old) the earlier one-range design, in turns; with args.old also
+    BS32's S = 4096 in one range, bit for bit against the earlier
+    design."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels import fused_factored as ff
+    from mamimo_tpu_torch.ops.kernels.util import tf32_split
+    from mamimo_tpu_torch.tools.probe_tail import _launch_fn, _old_lib
+
+    with ThreadPoolExecutor(len(F32_SPLIT_CUTS)) as pool:    # nvcc at once
+        list(pool.map(lambda d: _build.build_all(("fused_factored",), (d,)),
+                      F32_SPLIT_CUTS.values()))
+    fns = {n: _launch_fn(_build.library("fused_factored", (d,)), CSRC,
+                         "fused_factored", "factored_sig_proj_launch")
+           for n, d in F32_SPLIT_CUTS.items()}
+    old = None
+    if args.old is not None:
+        old = _launch_fn(_old_lib(args.old, "fused_factored"), args.old,
+                         "fused_factored", "factored_sig_proj_launch")
+    sms = ff._sm_count(dev)
+    print("the float32 layer 1 (factored_sig_proj, 3xTF32) split across the "
+          "card:")
+    for tag, (s, L) in SPLIT_SHAPES.items():
+        x = torch.randn((2, s, L), generator=g, device=dev)
+        w = torch.randn((2, L, H), generator=g, device=dev) / L ** 0.5
+        wp = tf32_split(w.transpose(1, 2).contiguous(), 1)
+        ref32 = torch.bmm(x, w)                      # TF32 off (main)
+        ref64 = torch.bmm(x.double(), w.double())
+        splits = ff.sig_proj_splits(s, H, L, sms, float32=True)
+        a = ff.factored_sig_proj(x, w, wp)
+        b = ff.factored_sig_proj(x, w, wp)
+        out = torch.empty((2, s, H), device=dev)
+        ws = torch.empty((max(splits, 1), 2, s, H), device=dev)
+        errs = [f"new ({splits} ranges) {_db(a, ref32):.2f} / "
+                f"{_db(a, ref64):.2f}"]
+        runs = {"new": lambda: ff.factored_sig_proj(x, w, wp)}
+        if old is not None:
+            runs["old (one range)"] = lambda: old(
+                x.data_ptr(), wp.data_ptr(), out.data_ptr(), s, L, H, 2)
+            runs["old (one range)"]()
+            torch.cuda.synchronize()
+            errs.append(f"old {_db(out, ref32):.2f} / {_db(out, ref64):.2f}")
+        for n, f in fns.items():
+            runs[n] = (lambda f=f: f(x.data_ptr(), wp.data_ptr(),
+                                     out.data_ptr(), s, L, H, 2,
+                                     ws.data_ptr(), splits))
+        runs["torch.bmm f32 (TF32 off)"] = lambda: torch.bmm(x, w)
+        print(f"  {tag} (2, {s}, {L}) @ (2, {L}, {H}) f32: dB vs float32 / "
+              f"float64 x @ W1: " + "; ".join(errs) + "; two launches "
+              f"{'bit-identical' if torch.equal(a, b) else 'DIFFER'}",
+              flush=True)
+        order = list(runs)
+        if old is not None:                  # old first and last
+            order.remove("old (one range)")
+            order = ["old (one range)"] + order
+        ts = {r: [] for r in order}
+        for r in order + order[::-1]:
+            ts[r].append(_time_ms(runs[r], 5))
+        moved = (x.numel() + wp.numel() + 2 * s * H) * 4
+        ops = 2.0 * 2 * s * L * H
+        for r, v in ts.items():
+            print(f"    {r}: " + " / ".join(f"{t:.4f}" for t in v)
+                  + f" ms; x, W1's two parts and the output "
+                  f"{moved / min(v) / 1e9:.2f} TB/s; {ops / min(v) / 1e9:.0f}"
+                  f" TFLOP/s counting each product once  [{smi}]",
+                  flush=True)
+        del x, w, wp, ref32, ref64, a, b, out, ws
+        torch.cuda.empty_cache()
+    if old is None:
+        return
+    # BS32's bench shape: one range in both designs, bit for bit
+    s, L = 4096, 10240
+    x = torch.randn((2, s, L), generator=g, device=dev)
+    w = 0.02 * torch.randn((2, L, H), generator=g, device=dev)
+    wp = tf32_split(w.transpose(1, 2).contiguous(), 1)
+    out = torch.empty((2, s, H), device=dev)
+    runs = {"old": lambda: old(x.data_ptr(), wp.data_ptr(), out.data_ptr(),
+                               s, L, H, 2),
+            "new": lambda: ff.factored_sig_proj(x, w, wp)}
+    runs["old"]()
+    torch.cuda.synchronize()
+    same = torch.equal(out, runs["new"]())
+    ts = [(t, _time_ms(runs[t], 10)) for t in ("old", "new", "new", "old")]
+    print(f"  BS32 (2, {s}, {L}) @ (2, {L}, {H}) f32, "
+          f"{ff.sig_proj_splits(s, H, L, sms, float32=True)} range: old and "
+          f"new {'bit-identical' if same else 'DIFFER'}; in turns "
+          + ", ".join(f"{t} {v:.4f}" for t, v in ts) + f" ms  [{smi}]",
+          flush=True)
+    if not same:
+        raise AssertionError("the float32 layer 1 at S = 4096 changed")
+
+
+DENSE_M = 131072                 # rows of a plane: S = 4096 at Nt 32
+DENSE_CUTS = {"no products": "MM_CUT=1", "no epilogue": "MM_CUT=2",
+              "loads only": "MM_CUT=3"}
+
+
+def _dense_section(args, dev, g, smi) -> None:
+    """factored_dense bf16: the hidden layer and the output layer, each
+    against its plain version, timed in turns beside a bf16 bmm with its
+    epilogue, the hidden layer's cuts and (args.old) the earlier design."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels import fused_factored as ff
+    from mamimo_tpu_torch.tools.probe_tail import _launch_fn, _old_lib
+
+    bf16 = torch.bfloat16
+    with ThreadPoolExecutor(len(DENSE_CUTS)) as pool:        # nvcc at once
+        list(pool.map(lambda d: _build.build_all(("fused_factored",), (d,)),
+                      DENSE_CUTS.values()))
+    cuts = {n: _launch_fn(_build.library("fused_factored", (d,)), CSRC,
+                          "fused_factored", "factored_dense_launch")
+            for n, d in DENSE_CUTS.items()}
+    old = None
+    if args.old is not None:
+        old = _launch_fn(_old_lib(args.old, "fused_factored"), args.old,
+                         "fused_factored", "factored_dense_launch")
+    M, C, NO = DENSE_M, 234, 256
+    h = torch.relu(torch.randn((2, M, H), generator=g, device=dev)).to(bf16)
+    vec = lambda n, lo, hi: (lo + (hi - lo) * torch.rand(   # noqa: E731
+        (2, 1, n), generator=g, device=dev))
+    w = (torch.randn((2, H, H), generator=g, device=dev) / H ** 0.5).to(bf16)
+    wo = torch.zeros((2, H, NO), device=dev)
+    wo[..., :C] = torch.randn((2, H, C), generator=g, device=dev) / H ** 0.5
+    wo = wo.to(bf16)
+    # a (1024 x 3)-like tree for the hidden layer (k = 2 of depth 2) and a
+    # (1024,) one for the output layer (k = 2 of depth 1)
+    hid = {"w1": w, "a1": vec(H, 1, 1), "w2": w,
+           "w2t": w.transpose(1, 2).contiguous(), "b2": vec(H, -0.1, 0.1),
+           "a2": vec(H, 0.5, 1.5), "c2": vec(H, -0.1, 0.1)}
+    out = {"w1": w, "a1": vec(H, 1, 1), "w2": wo,
+           "w2t": wo.transpose(1, 2).contiguous(), "b2": vec(NO, -0.1, 0.1)}
+    y_h = torch.empty((2, M, H), dtype=bf16, device=dev)
+    y_o = {torch.float32: torch.empty((2, M, C), device=dev),
+           bf16: torch.empty((2, M, C), dtype=bf16, device=dev)}
+    a_hid = [h.data_ptr(), hid["w2t"].data_ptr(),
+             *(hid[k].data_ptr() for k in ("b2", "a2", "c2")),
+             y_h.data_ptr(), M, H, H, 0, H, 0, 0]
+
+    def a_out(dt):
+        return [h.data_ptr(), out["w2t"].data_ptr(),
+                *(out["b2"].data_ptr(),) * 3, y_o[dt].data_ptr(), M, NO, H,
+                C, NO, 1, int(dt == bf16)]
+
+    ref_h = ff._hidden_plain(hid, 2, h[:, :8192]).to(bf16)
+    ref_o = ff._out_plain(out, h[:, :8192], C)
+    new_h = ff.factored_dense(hid, 2, h)
+    new_o = ff.factored_dense(out, 2, h, C)
+    same_o = torch.equal(ff.factored_dense(out, 2, h, C, bf16),
+                         new_o.to(bf16))
+    same = {True: "bit-identical", False: "differ"}
+    line = (f"factored_dense bf16, rows (2, {M}, {H}), dB vs the plain "
+            f"version on 8192 rows: hidden layer "
+            f"{_db(new_h[:, :8192], ref_h):.2f}, output layer "
+            f"{_db(new_o[:, :8192], ref_o):.2f} (bf16 store "
+            f"{'=' if same_o else '!='} the f32 result rounded)")
+    if old is not None:
+        old(*a_hid)
+        old(*a_out(torch.float32))
+        torch.cuda.synchronize()
+        y32 = y_o[torch.float32]
+        line += (f"; old {_db(y_h[:, :8192], ref_h):.2f} / "
+                 f"{_db(y32[:, :8192], ref_o):.2f}, old and new "
+                 f"{same[torch.equal(y_h, new_h)]} / "
+                 f"{same[torch.equal(y32, new_o)]}")
+    print(line, flush=True)
+    del new_h, new_o, ref_h, ref_o
+
+    def lib_hidden():
+        y = torch.relu(torch.bmm(h, w) + hid["b2"])
+        return (y * hid["a2"] + hid["c2"]).to(bf16)
+
+    groups = {
+        "hidden layer (1024 x 3, layer 2)": (
+            {"new": lambda: ff.factored_dense(hid, 2, h),
+             **{n: (lambda f=f: f(*a_hid)) for n, f in cuts.items()},
+             "bf16 bmm + epilogue": lib_hidden},
+            lambda: old(*a_hid), 2.0 * 2 * M * H * H),
+        "output layer (1024,), f32 store": (
+            {"new": lambda: ff.factored_dense(out, 2, h, C),
+             "bf16 bmm + bias": lambda: torch.bmm(h, wo)[..., :C]
+             + out["b2"][..., :C]},
+            lambda: old(*a_out(torch.float32)), 2.0 * 2 * M * H * C),
+        "output layer (1024,), bf16 store": (
+            {"new": lambda: ff.factored_dense(out, 2, h, C, bf16)},
+            lambda: old(*a_out(bf16)), 2.0 * 2 * M * H * C)}
+    for name, (runs, run_old, ops) in groups.items():
+        order = list(runs)
+        if old is not None:
+            runs = {"old": run_old, **runs}
+            order = ["old"] + order
+        ts = {r: [] for r in order}
+        for r in order + order[::-1]:
+            ts[r].append(_time_ms(runs[r], 10))
+        print(f"  {name}: bound {ops / 989e12 * 1e3:.4f} ms (ops at 989 "
+              f"TFLOP/s bf16)", flush=True)
+        for r, v in ts.items():
+            print(f"    {r}: " + " / ".join(f"{t:.4f}" for t in v)
+                  + f" ms  [{smi}]", flush=True)
+    del h, w, wo, y_h, y_o, hid, out
+    torch.cuda.empty_cache()
+
+
 def _db(got, ref) -> float:
     import torch
 
@@ -714,12 +963,15 @@ def _f32_section(args, dev, g, smi, layer1_tree) -> None:
                       [am.data_ptr(), None, cm.data_ptr(), mm, nn, kk, 2],
                       lambda cm=cm: cm[:8192], am[:8192].double()
                       @ bm.double().T, 5))
+    # an earlier design with csrc/tf32_split.cu reads the weights' parts
+    unsplit = args.old is not None and not (args.old
+                                            / "tf32_split.cu").exists()
     for name, lib, fn, w_old, w_new, argv_, got, ref, it in cases:
         for tag, d in designs.items():
             run = _launch_fn(_build.library(lib) if d == CSRC
                              else _old_lib(d, lib), d, lib, fn)
             av = list(argv_)
-            av[1] = (w_old if tag == "old" else w_new).data_ptr()
+            av[1] = (w_old if tag == "old" and unsplit else w_new).data_ptr()
             runs[(name, tag)] = (lambda run=run, av=av: run(*av), it)
             run(*av)
             torch.cuda.synchronize()

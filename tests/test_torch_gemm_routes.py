@@ -17,6 +17,11 @@ DNN tails' two-GEMM route above 1024 units (``factored_rows_tail``,
 - the route functions at their edges (1024 / 1152 units, bf16 and
   float32) and the CUDA branches' launches along each route (H2 = 128,
   C = 234 / 256 taken, 257 refused);
+- bf16 ``factored_dense`` on the same GEMM (``csrc/mm_sm90.cuh``'s
+  ``rows_gemm_kernel``): its launch's arguments for a hidden layer
+  (bias and affine padded to a 256-column tile where the width is not
+  one) and for the output layer (float32 and bf16 stores), and the C
+  launch function's bf16 branch on that kernel;
 - the two-GEMM route's plain chain (the last hidden layer's rows rounded
   to bf16 for the output layer, as the route stores them) against JAX's
   bf16 factored all-pairs at hidden (1152, 128) and (1152, 256, 128):
@@ -24,6 +29,7 @@ DNN tails' two-GEMM route above 1024 units (``factored_rows_tail``,
 """
 
 import contextlib
+import ctypes
 import re
 import types
 from pathlib import Path
@@ -198,6 +204,7 @@ def _c_arity(src, fn):
     ("matmul_bf16", "mm_bf16_launch", lambda: int8_mm._bf16_lib()),
     ("fused_factored", "factored_rows_tail_launch", lambda: ff._ff_lib()),
     ("fused_factored", "factored_rows_gemms_launch", lambda: ff._ff_lib()),
+    ("fused_factored", "factored_dense_launch", lambda: ff._ff_lib()),
     ("mlp_infer", "mlp_tail_launch", lambda: mi._mlp_lib()),
     ("mlp_infer", "mlp_tail_gemms_launch", lambda: mi._mlp_lib()),
 ])
@@ -267,6 +274,98 @@ def test_cuda_branch_rows_tail_routes(launches, hidden, dtype, C):
         before[0] + 1, before[1] + gemms)
     with pytest.raises(ValueError, match="C <= 256"):
         ff.factored_rows_tail(prep, rows, 257)
+
+
+def _floats(ptr, n):
+    """n float32 values at a host address (a CPU tensor's data_ptr)."""
+    return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
+
+
+@pytest.mark.parametrize("out", [F32, BF16])
+@pytest.mark.parametrize("hidden", [(128, 128, 128), (128, 256, 128),
+                                    (128,)])
+def test_cuda_branch_bf16_dense_routes(launches, monkeypatch, hidden, out):
+    """bf16 factored_dense reaches factored_dense_launch with the rows,
+    the K-major weight as prepared, (M, N, K, C, ldb, out_layer, mode):
+    a hidden layer (depth 3: layer 2) with N = its width and bias,
+    affine in a (2, ldb) copy padded with zeros to ldb = round_up(N, 256)
+    where N is not a multiple of 256 (the GEMM's epilogue reads a whole
+    column tile), as prepared otherwise; the output layer (depth 1) with
+    N = 256 rows of W^T, C = 234 and mode bit 0 for a bf16 store; counted
+    once, never as the float32 mode."""
+    tcfg = TrainConfig(hidden=hidden)
+    tp, tb = mlp.init_stacked(torch.Generator().manual_seed(3), CFG, tcfg)
+    prep = ff.prepare_factored_weights(CFG, tcfg, tp, tb)
+    gen = torch.Generator().manual_seed(4)
+    for k in ("b2", "a2", "c2"):
+        if k in prep:                     # values to find in the copies
+            prep[k] = torch.rand(prep[k].shape, generator=gen) + 0.5
+    out_layer = len(hidden) == 1
+    seen = {}
+
+    def record(args):
+        # the vectors as the kernel would read them, during the launch
+        ldb = args[10]
+        seen.update({k: _floats(args[i], 2 * ldb).reshape(2, ldb).copy()
+                     for k, i in (("b", 2), ("a", 3), ("c", 4))})
+
+    def library(name, defines=()):
+        lib = _Lib(name, launches)
+        lib.factored_dense_launch = _Fn(lambda a: (record(a), launches.append(
+            (name, "factored_dense_launch", a))))
+        return lib
+
+    monkeypatch.setattr(_build, "library", library)
+    kin = prep["w1"].shape[2]
+    rows = torch.zeros((2, 24, kin), dtype=BF16)
+    before = (ff.factored_dense.launches, ff.factored_dense.launches_f32)
+    y = ff.factored_dense(prep, 2, rows, CFG.num_carriers, out) \
+        if out_layer else ff.factored_dense(prep, 2, rows)
+    (name, fn, args), = launches
+    assert (name, fn) == ("fused_factored", "factored_dense_launch")
+    assert args[0] == rows.data_ptr() and args[1] == prep["w2t"].data_ptr()
+    if out_layer:
+        n, ldb = 256, prep["b2"].shape[-1]
+        assert args[6:] == (24, n, kin, CFG.num_carriers, ldb, 1,
+                            int(out == BF16), 0)
+        assert y.dtype == out and tuple(y.shape) == (2, 24,
+                                                      CFG.num_carriers)
+    else:
+        n = prep["w2"].shape[2]
+        ldb = -(-n // 256) * 256
+        assert args[6:] == (24, n, kin, 0, ldb, 0, 0, 0)
+        assert y.dtype == BF16 and tuple(y.shape) == (2, 24, n)
+        for k in ("b", "a", "c"):
+            want = np.zeros((2, ldb), np.float32)
+            want[:, :n] = prep[f"{k}2"].reshape(2, n).numpy()
+            np.testing.assert_array_equal(seen[k], want)
+        if n % 256 == 0:
+            assert args[2] == prep["b2"].data_ptr()
+    assert (ff.factored_dense.launches, ff.factored_dense.launches_f32) == (
+        before[0] + 1, before[1])
+
+
+def _c_body(src, fn):
+    """The body of launch function fn in csrc/<src>.cu."""
+    text = (CSRC / f"{src}.cu").read_text()
+    start = text.index(f"int {fn}(")
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_bf16_dense_launch_runs_the_tails_gemm():
+    """factored_dense_launch's bf16 branch launches mm_sm90.cuh's
+    rows_gemm_kernel: the hidden layer with the STAGED epilogue (its rows
+    through a TMA store map of y), the output layer in DIRECT row pieces
+    with an f32 and a bf16 store; no kernel of its own is left in the
+    source, and the float32 mode keeps factored_dense_f32_kernel."""
+    body = _c_body("fused_factored", "factored_dense_launch")
+    assert "mm::launch<mm::STAGED>(mm::rows_gemm_kernel<false>" in body
+    assert "mm::make_c_map(&my, y, M, N, 2)" in body
+    for t in ("bf16", "float"):
+        assert f"mm::launch(mm::rows_gemm_kernel<true, {t}>" in body
+    assert "factored_dense_f32_kernel<" in body
+    text = (CSRC / "fused_factored.cu").read_text()
+    assert "factored_dense_kernel" not in text
 
 
 @pytest.mark.parametrize("H, fn", [(1024, "mlp_tail_launch"),
