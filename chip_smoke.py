@@ -107,7 +107,8 @@ failure ends the run with a non-zero exit code):
                sums of h^2 and DNN planes are held to the float32 plain
                path; entry() runs once (its LS held to the float32 LS);
                run_bench (64 packets, 2 calls a window) yields a line
-               with all 16 paths;
+               with all 16 paths; the path pallas_factored once, counted
+               (its factored_tail launches are kernel 2's bf16 store);
 5g. train    — the training step (train/loop.py) at the full BS32 width,
                a seeded model and a seeded 64-packet device dataset: one
                f32 and one bf16 step (method 'default', dropout 0) on the
@@ -203,23 +204,28 @@ failure ends the run with a non-zero exit code):
                and (1024, 1024, 1024) (the per-head rows through device
                memory, the bf16 rows tail as two GEMMs, counted), and Nt
                256, Nr 4, hidden (1024, 1024) at 128 packets (kernel 1's
-               tiles of half a sample); each a seeded checkpoint loaded
-               by CSIPredictor, one request through estimate_full and
+               halves body, one sample a unit); each a seeded checkpoint
+               loaded by CSIPredictor, one request through estimate_full and
                one through all_pairs, launches of kernels 1 and 2
                counted, the served estimates within PIPE_LIMITS of the
                float32 path, each kernel of the depth's chain against
                its plain version (factored_rows_tail and factored_dense
                at ragged rows and 1 row too, factored_dense's output
-               layer's bf16 store exactly its f32 result rounded); at Nt
+               layer's bf16 store exactly its f32 result rounded,
+               factored_heads bit for bit the plain version's bf16 rows
+               with its product and sum in one rounding); at Nt
                256 kernel 1's bf16 store and sums (check_v2_modes, S =
-               512 and 5), S = 1, a seq rank, kernels 3 and 4, and the
+               512 and 5), S = 1, a seq rank, kernels 3 and 4 (4 in both
+               modes: ls_estimate_pallas, and bf16 pair planes), and the
                paths pallas_ls_v2_serving_r3 and ls_pallas counted; at
                (2048, 2048) kernel 5 through predict_complex_pallas;
                then each new kernel shape timed (CUDA events, S = 4096
                at BS32, 512 at Nt 256) beside its plain version, bound
                and library yardstick, rows of the kernels line
                (factored_dense held to its plain version at that shape
-               first);
+               first); last, where the toolkit has compute-sanitizer, a
+               memcheck of the two-GEMM route at H2 % 256 = 128
+               (tools/memcheck_route.py);
 5m. float32 — float32 planes through kernels 1 (full and seq, f32 and
                bf16 store, sums of h^2), 3 (raw, complex, as_planes) and
                4 (complex64 rx) in their float32 mode at BS32 (S = 256
@@ -238,7 +244,9 @@ failure ends the run with a non-zero exit code):
                transposed view, N % 8 != 0), out_dtype=bf16 the float32
                result rounded; then holds kernels 1 and 3's float32 modes at S
                = 4096 within -90 dB of their plain versions and times
-               them there, and kernel 6 at (4096, 10240) @ (10240, 1024) and
+               them there, kernels 1, 3 and 4's at Nt 256 and S = 512
+               (the halves body) the same way, and kernel 6 at (4096,
+               10240) @ (10240, 1024) and
                (131072, 1024) @ (1024, 1024), rows of the kernels line
                (kernel 4's float32 mode is phase 6's pallas_full row);
 5n. f32 DNN  — BS32 models with float32 weights, hidden (1024, 1024),
@@ -357,6 +365,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2445,6 +2454,84 @@ def check_v2_modes(cfg, x16, k90, tag, seq=None):
     return out
 
 
+def heads_rows_fused(prep, sp):
+    """The plain version's per-head rows (_heads_plain: relu(sp + hb) in
+    float32, times a1, plus c1) with the product and the sum in one
+    rounding, as the kernel's FMA: exact in float64 (a float32 product
+    is), then float32, then bf16; (2, S*nt, H1) bf16. (A float64 sum
+    rounded twice could miss fmaf only where it lands on a float32
+    midpoint, about 2^-28 of the values, and then the bf16 rounding too.)"""
+    import torch
+
+    h = torch.relu(sp[:, :, None, :] + prep["hb"][:, None, :, :])
+    v = h.double() * prep["a1"][:, None].double() \
+        + prep["c1"][:, None].double()
+    return v.float().to(torch.bfloat16).view(2, -1, sp.shape[2])
+
+
+# compute-sanitizer's own errors that say it cannot check the process here
+MEMCHECK_NO_ATTACH = ("Device not supported",)
+
+
+def memcheck_route(dev) -> dict:
+    """The two-GEMM route at H2 % 256 = 128 under compute-sanitizer's
+    memcheck (tools/memcheck_route.py, the caching allocator off), where
+    the toolkit has it. The run counts as not checked only where the
+    checker says that it cannot attach to this card (MEMCHECK_NO_ATTACH,
+    e.g. "Device not supported"), before any access report; anything
+    else fails the phase: an access report ("Invalid ...", "Program hit
+    ..."), a non-zero ERROR SUMMARY or none, a non-zero exit, a time-out,
+    or the script's line missing."""
+    import shutil
+
+    tool = shutil.which("compute-sanitizer") or \
+        "/usr/local/cuda/bin/compute-sanitizer"
+    if not Path(tool).exists():
+        print("  [5l] memcheck: the toolkit has no compute-sanitizer; not run")
+        return {"ran": False, "reason": "no compute-sanitizer"}
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [tool, "--tool", "memcheck", sys.executable,
+             str(ROOT / "mamimo_tpu_torch" / "tools" / "memcheck_route.py")],
+            capture_output=True, text=True, timeout=300, env=env,
+            cwd=str(ROOT))
+        out, rc = r.stdout + r.stderr, r.returncode
+    except subprocess.TimeoutExpired as e:
+        out, rc = f"timed out after {e.timeout} s", None
+    secs = time.perf_counter() - t0
+    lines = [ln.strip() for ln in out.splitlines()]
+    checker = [ln for ln in lines if ln.startswith("=========")]
+    reports = [ln for ln in checker
+               if re.match(r"=+ +(Invalid |Program hit )", ln)]
+    no_attach = [ln for ln in checker
+                 if any(m in ln for m in MEMCHECK_NO_ATTACH)]
+    if no_attach and not any(ln.startswith("========= Invalid ")
+                             for ln in reports):
+        # the checker's own error: a "Program hit" that follows it is
+        # the failed attach breaking the CUDA runtime, not a kernel fault
+        tail = " | ".join(no_attach[:2])[:400]
+        print(f"  [5l] memcheck: compute-sanitizer cannot check this card "
+              f"({secs:.1f} s): {tail}")
+        return {"ran": False, "reason": tail, "seconds": secs}
+    summary = [ln for ln in lines if "ERROR SUMMARY:" in ln]
+    errors = summary[-1].split("ERROR SUMMARY:")[1].split()[0] \
+        if summary else None
+    ran = any(ln.startswith("memcheck_route: ") for ln in lines)
+    if reports or errors != "0" or rc != 0 or not ran:
+        print(out[-4000:])
+        raise AssertionError(
+            f"memcheck of the two-GEMM route: exit {rc}, "
+            f"{summary[-1] if summary else 'no ERROR SUMMARY'}, "
+            f"{len(reports)} access reports, script's line "
+            f"{'printed' if ran else 'missing'}")
+    print(f"  [5l] memcheck of the two-GEMM route (factored_dense 640, "
+          f"factored_rows_tail (640, 640), mlp_infer_tail 1152): "
+          f"{summary[-1]} ({secs:.1f} s)")
+    return {"ran": True, "summary": summary[-1], "seconds": secs}
+
+
 # phase 5l: every depth and width the port trains, and 256 Tx antennas
 WIDE_MODELS = ((2048, 2048), (4096, 1024), (1536, 640), (1024,),
                (1024, 1024, 1024))
@@ -2632,6 +2719,11 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
             errs["factored_heads"] = check(
                 f"  factored_heads, {tag}, vs its plain version", h,
                 _heads_plain(prep, sp).view(2, -1, sp.shape[2]), -40.0)
+            if not torch.equal(h, heads_rows_fused(prep, sp)):
+                raise AssertionError(f"factored_heads, {tag}: not bit for "
+                                     f"bit the plain version's rows")
+            print(f"  factored_heads, {tag}: bit for bit the plain "
+                  f"version's bf16 rows (product and sum in one rounding)")
             # factored_dense (on the tails' GEMM, mm_sm90.cuh) also on
             # ragged rows (a cluster's second tile past them) and 1 row
             m = h.shape[1] - 3
@@ -2682,7 +2774,7 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
                       cfg, tcfg, params, bn, x16.float()), -40.0)
         del sp, h_ls, h_dnn, ap
         if big_nt:
-            # kernel 1's modes at Nt 256 (two tiles a sample), its edges,
+            # kernel 1's modes at Nt 256 (the halves body), its edges,
             # a seq rank, and kernels 3 and 4 at Nt 256
             x32 = x16.float()
             errs["ls_planes_v2"] = check(
@@ -2721,6 +2813,11 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
                 f"  ls_estimate_pallas (8 packets, float32 mode), {tag}, vs "
                 f"ls_estimate_matmul (f32)",
                 ls_estimate_pallas(cfg, rxp), ref_pp, F32_LIMIT_DB)
+            # its bf16 mode (the halves body), bf16 pair planes
+            errs["ls_pair_kernel bf16"] = check(
+                f"  ls_pair_kernel (8 packets, bf16 pair planes), {tag}, vs "
+                f"ls_estimate_matmul (f32)", ls_pair_kernel(
+                    cfg, pair_planes(rxp), nr, k90), ref_pp, -45.0)
             del rxp, ref_pp
             # the two planes paths whose LS modes these are: the bf16
             # store and sums (pallas_ls_v2_serving_r3, as entry), and
@@ -2839,7 +2936,7 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
                   lambda: ls_estimate_matmul(cfg, rx_b), ls_library,
                   ls_in + S * nt * C * 8, ls_ops, 0,
                   "pallas_full is not run at Nt 256 (its materialized "
-                  "rows are S*Nt x (L + Nt))", errs["ls_pair_kernel"],
+                  "rows are S*Nt x (L + Nt))", errs["ls_pair_kernel bf16"],
                   replaces=lsrc + "110", in_line=False)
             del xb32, rx_b, ppl
         else:
@@ -2932,12 +3029,14 @@ def wide_phase(dev, smi, counted, require_launched) -> dict:
         del pred, prep, params, bn, x0, x16
         torch.cuda.empty_cache()
         print(f"  [5l] {tag}: {time.perf_counter() - t_model:.1f} s")
+    mc = memcheck_route(dev)
     secs = time.perf_counter() - t0
     print(f"[5l wide] {len(WIDE_MODELS) + 1} models served through kernels "
           f"1 and 2, each kernel held to its plain version; {secs:.1f} s")
     return {"served_nmse_db": {k: {n: v["nmse_db"] for n, v in d.items()}
                                for k, d in served.items()},
-            "launches": counts, "rows": rows, "seconds": secs}
+            "launches": counts, "rows": rows, "memcheck": mc,
+            "seconds": secs}
 
 
 # phase 5m: the float32 modes of kernels 1, 3 and 4, kernel 6's bf16 and
@@ -2965,7 +3064,8 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
     (F32_LIMIT_DB) at ragged and timed shapes, out_dtype=bf16 exactly
     the float32 result rounded, counted. Then holds kernel 1 and 3's
     float32 modes to their plain versions at the bench shape (S = 4096,
-    F32_LIMIT_DB), times them there, and kernel 6 at
+    F32_LIMIT_DB), times them there, kernels 1, 3 and 4's at Nt 256 (S =
+    512, the halves body) the same way, and kernel 6 at
     MM_SHAPES beside their plain versions, bounds (float32 bytes once,
     products once at the TF32 peak) and library calls. Returns the
     errors, the counts and the kernel rows (for the kernels line)."""
@@ -2983,12 +3083,14 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
         _ls_v2_plain,
         _ssq_plain,
         ls_estimate_pallas,
+        ls_pair_kernel,
         ls_planes_pallas,
         ls_planes_pallas_v2_constants,
         ls_planes_v1,
         ls_planes_v2,
         ls_raw_to_complex,
         ls_sm90_constants,
+        pair_planes,
     )
     from mamimo_tpu_torch.ops.kernels.int8_mm import (
         _matmul_float,
@@ -3271,6 +3373,66 @@ def f32_modes_phase(dev, smi, counted, require_launched) -> dict:
           "phase 5m's checks (no serving path passes float32 planes to "
           "kernel 3)", errs["ls_planes_v1 f32 bench"])
     del xb
+    torch.cuda.empty_cache()
+
+    # kernels 1, 3 and 4's float32 mode at Nt 256 (the halves body), at
+    # phase 5l's request (S = 512): held to their plain versions, timed
+    # beside them, their bound and the float32 matmul LS
+    c2 = SimConfig(num_tx=256, num_rx=4)
+    nt2, L2, S2 = c2.num_tx, c2.len_ltf, NT256_PACKETS * c2.num_rx
+    x2 = torch.randn((2, S2, L2), generator=g, device=dev)
+    k2, f2 = ls_sm90_constants(c2, dev, f32), ls_planes_constants(
+        c2, device=dev)
+    b2, _ = ls_planes_pallas_v2_constants(c2, 1, f32, dev)
+    cp2 = b2.shape[1] // 2
+
+    def ls_library_256():
+        t = torch.matmul(x2.view(2, S2 * nt2, c2.sym_len), b2)
+        zr = t[0, :, :C] - t[1, :, cp2:cp2 + C]
+        zi = t[0, :, cp2:cp2 + C] + t[1, :, :C]
+        return torch.matmul(f2[2], torch.stack([zr, zi]).view(2, S2, nt2, C))
+
+    rx2 = _planes_to_time_major(x2, c2.num_rx)
+    pp2 = pair_planes(rx2, f32)
+    with full_f32_matmul():
+        ref_p2 = ls_estimate_matmul(c2, rx2)
+    e2 = {"v2": check(f"ls_planes_v2 float32, Nt 256, S = {S2}, vs its "
+                      f"plain version (f32)", ls_planes_v2(c2, x2, k2),
+                      _ls_v2_plain(c2, x2), F32_LIMIT_DB),
+          "v1": check(f"ls_planes_v1 float32 raw, Nt 256, S = {S2}, vs its "
+                      f"plain version (f32)", torch.stack(ls_planes_v1(
+                          c2, x2, k2)), torch.stack(_ls_v1_plain(
+                              c2, x2, 8, f32)), F32_LIMIT_DB),
+          "pair": check(f"ls_pair_kernel float32, Nt 256, {S2 // 4} "
+                        f"packets, vs ls_estimate_matmul (f32)",
+                        ls_pair_kernel(c2, pp2, c2.num_rx, k2), ref_p2,
+                        F32_LIMIT_DB)}
+    del ref_p2
+    in2 = 2 * S2 * nt2 * c2.fft_length * 4 + k2.bt.numel() * 4
+    ops2 = 2.0 * (S2 * nt2) * (2 * c2.fft_length) * (2 * C)
+    n_chk = counts["ls checks"]
+    chk = "phase 5m's checks (no path runs it at Nt 256)"
+    timed("ls_planes_v2", f"float32 mode, Nt 256: planes (2, {S2}, {L2}) "
+          f"f32 -> (2, {S2}, {nt2}, {C}) f32", "ls_v2.cu", lsrc + "424",
+          lambda: ls_planes_v2(c2, x2, k2),
+          lambda: ls_estimate_planes(c2, x2, f2), ls_library_256,
+          in2 + 2 * S2 * nt2 * C * 4, ops2, TF32_FLOPS,
+          n_chk["ls_planes_v2 f32"], chk, e2["v2"])
+    timed("ls_planes_v1", f"float32 mode, Nt 256: planes (2, {S2}, {L2}) "
+          f"f32 -> raw 2 x ({S2 * nt2}, {cp2}) f32", "ls_v1.cu", lsrc + "253",
+          lambda: ls_planes_v1(c2, x2, k2),
+          lambda: _ls_v1_plain(c2, x2, 8, f32), ls_library_256,
+          in2 + 2 * S2 * nt2 * cp2 * 4, ops2, TF32_FLOPS,
+          n_chk["ls_planes_v1 f32"], chk, e2["v1"])
+    timed("ls_pair_kernel", f"float32 mode, Nt 256: rx ({S2 // 4}, {L2}, 4) "
+          f"c64 -> ({S2 // 4}, {C}, {nt2}, 4) c64", "ls_pair.cu",
+          lsrc + "110", lambda: ls_pair_kernel(c2, pp2, c2.num_rx, k2),
+          lambda: ls_estimate_matmul(c2, rx2), ls_library_256,
+          in2 + S2 * nt2 * C * 8, ops2, TF32_FLOPS,
+          n_chk["ls_pair_kernel f32"], "ls_estimate_pallas in "
+          "phase 5m's checks (no path runs it at Nt 256)", e2["pair"],
+          call=lambda: ls_estimate_pallas(c2, rx2, consts=k2))
+    del x2, rx2, pp2
 
     # kernel 6 at the DNN's layer shapes; launches of each mode's kernel
     n_f32 = counts["matmul"]["matmul_float f32"]
@@ -4602,6 +4764,7 @@ def main() -> int:
         PATHS,
         _planes_to_time_major,
         make_estimation_fn,
+        make_estimation_fn_pallas_factored,
         make_estimation_fn_planes,
         make_estimation_fn_serving_r3,
         run_bench,
@@ -5457,6 +5620,15 @@ def main() -> int:
           f"{short['extra']['device']}")
     if len(eps) != 16 or not all(v > 0 for v in eps.values()):
         raise AssertionError(f"run_bench gave {len(eps)} paths: {eps}")
+    # the bench path pallas_factored alone, counted: every factored_tail
+    # launch of it is kernel 2's bf16 store (out_dtype=bfloat16)
+    fn_pf = make_estimation_fn_pallas_factored(cfg, tcfg, params, bn)
+    _, cnt_pf = counted(lambda: fn_pf(reqs_r3[0].float()))
+    require_launched("pallas_factored (kernel 2's bf16 store)", cnt_pf,
+                     ("factored_sig_proj", "factored_tail"))
+    print(f"  pallas_factored x1 (64 packets): factored_tail's bf16 store "
+          f"launched {cnt_pf['factored_tail']} time(s)")
+    del fn_pf
 
     # 5g. the training step at the full BS32 width -----------------------
     train = train_phase(cfg, dev, counted)

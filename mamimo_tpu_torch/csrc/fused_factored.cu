@@ -295,40 +295,53 @@ __global__ void __launch_bounds__(tail::THREADS, 1)
 // ---------------------------------------------------------------------
 // h0[p][s*nt + t] = bf16(relu(sp[p][s] + hb[p][t]) * a1[p] + c1[p]):
 // sp (2, S, H) f32, hb (2, nt, H), a1, c1 (2, H); h0 (2, S*nt, H) bf16.
-// One thread writes 8 columns (16 bytes); rows are written in order, so
-// a warp's stores are whole 512-byte pieces.
-__global__ void factored_heads_kernel(const float* __restrict__ sp,
-                                      const float* __restrict__ hb,
-                                      const float* __restrict__ a1,
-                                      const float* __restrict__ c1,
-                                      bf16* __restrict__ h0, int S, int nt,
-                                      int H) {
-  const int vpr = H / 8;
-  const long long n = 2LL * S * nt * vpr;
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       idx < n; idx += (long long)gridDim.x * blockDim.x) {
-    const int k = (int)(idx % vpr) * 8;
-    const long long row = idx / vpr;           // (p * S + s) * nt + t
-    const int t = (int)(row % nt);
-    const long long ps = row / nt;             // p * S + s
-    const int p = (int)(ps / S);
-    const float4* x = reinterpret_cast<const float4*>(sp + ps * H + k);
-    const float4* b =
-        reinterpret_cast<const float4*>(hb + ((long long)p * nt + t) * H + k);
-    const float4* a = reinterpret_cast<const float4*>(a1 + (long long)p * H + k);
-    const float4* c = reinterpret_cast<const float4*>(c1 + (long long)p * H + k);
+// Bound on an H100: the bytes, 2 S nt H bf16 written and sp read once
+// (0.17 ms at S = 4096, nt = 32, H = 1024, 3.35 TB/s). A warp takes one
+// (plane, sample, 256-column chunk): lane l keeps columns 256 j + 8 l ..
+// + 7 of the sample's sig_proj row, of a1 and of c1 in registers and
+// walks the heads t = 0 .. nt - 1, reading hb[p][t]'s 32 bytes (from L1:
+// a block's HEADS_WARPS warps take consecutive samples of one chunk and
+// plane) and writing 16 bytes. So the warp writes each row's chunk as one
+// 512-byte piece, rows s*nt + t in order, its offsets stepped by H and
+// never divided (the grid-stride kernel it replaces did five 64-bit
+// divisions and loaded 128 bytes a 16-byte store: 49% of the bound).
+constexpr int HEADS_WARPS = 8;        // samples of a block
+constexpr int HEADS_CHUNK = 256;      // columns of a warp: 8 a lane
+
+__global__ void __launch_bounds__(32 * HEADS_WARPS)
+    factored_heads_kernel(const float* __restrict__ sp,
+                          const float* __restrict__ hb,
+                          const float* __restrict__ a1,
+                          const float* __restrict__ c1,
+                          bf16* __restrict__ h0, int S, int nt, int H) {
+  const int p = blockIdx.z;
+  const int k = blockIdx.y * HEADS_CHUNK + 8 * (threadIdx.x % 32);
+  const int s = blockIdx.x * HEADS_WARPS + threadIdx.x / 32;
+  if (s >= S || k >= H) return;
+  const long long ps = (long long)p * S + s;   // the sample's sig_proj row
+  const float4* xp = reinterpret_cast<const float4*>(sp + ps * H + k);
+  const long long pk = (long long)p * H + k;    // a1's and c1's columns
+  const float4* ap = reinterpret_cast<const float4*>(a1 + pk);
+  const float4* cp = reinterpret_cast<const float4*>(c1 + pk);
+  const float4 x[2] = {__ldg(xp), __ldg(xp + 1)};
+  const float4 a[2] = {__ldg(ap), __ldg(ap + 1)};
+  const float4 c[2] = {__ldg(cp), __ldg(cp + 1)};
+  const float* b = hb + (long long)p * nt * H + k;     // head t's columns
+  bf16* o = h0 + ps * nt * H + k;                      // row s*nt + t's
+#pragma unroll 4
+  for (int t = 0; t < nt; ++t, b += H, o += H) {
     uint4 v;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&v);
+    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float4 xx = __ldg(x + h), bb = __ldg(b + h), aa = __ldg(a + h),
-                   cc = __ldg(c + h);
-      o[2 * h] = tail::pack_bf16(fmaxf(xx.x + bb.x, 0.f) * aa.x + cc.x,
+      const float4 xx = x[h], aa = a[h], cc = c[h],
+                   bb = __ldg(reinterpret_cast<const float4*>(b) + h);
+      w[2 * h] = tail::pack_bf16(fmaxf(xx.x + bb.x, 0.f) * aa.x + cc.x,
                                  fmaxf(xx.y + bb.y, 0.f) * aa.y + cc.y);
-      o[2 * h + 1] = tail::pack_bf16(fmaxf(xx.z + bb.z, 0.f) * aa.z + cc.z,
+      w[2 * h + 1] = tail::pack_bf16(fmaxf(xx.z + bb.z, 0.f) * aa.z + cc.z,
                                      fmaxf(xx.w + bb.w, 0.f) * aa.w + cc.w);
     }
-    *reinterpret_cast<uint4*>(h0 + row * H + k) = v;
+    *reinterpret_cast<uint4*>(o) = v;
   }
 }
 
@@ -535,19 +548,23 @@ int factored_heads_launch(const void* sp, const void* hb, const void* a1,
                           const void* c1, void* h0, int S, int nt, int H,
                           int mode, void* stream) {
   if (mode != 0 && mode != MODE_F32) return (int)cudaErrorInvalidValue;
-  const int per = mode == MODE_F32 ? 4 : 8;    // columns a thread
-  const long long n = 2LL * S * nt * (H / per);
-  const int threads = 256;
-  const long long want = (n + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  if (mode == MODE_F32)
+  if (mode == MODE_F32) {
+    const long long n = 2LL * S * nt * (H / 4);  // 4 columns a thread
+    const int threads = 256;
+    const long long want = (n + threads - 1) / threads;
+    const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
     factored_heads_f32_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)sp, (const float*)hb, (const float*)a1,
         (const float*)c1, (float*)h0, S, nt, H);
-  else
-    factored_heads_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  } else {
+    // a block: HEADS_WARPS samples x one chunk of one plane
+    const dim3 grid((S + HEADS_WARPS - 1) / HEADS_WARPS,
+                    (H + HEADS_CHUNK - 1) / HEADS_CHUNK, 2);
+    factored_heads_kernel<<<grid, 32 * HEADS_WARPS, 0,
+                            (cudaStream_t)stream>>>(
         (const float*)sp, (const float*)hb, (const float*)a1,
         (const float*)c1, (bf16*)h0, S, nt, H);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -556,10 +573,9 @@ int factored_heads_launch(const void* sp, const void* hb, const void* a1,
 // 2, N, K) f32 (tf32_split); b, a, c (2, ldb) f32 (a, c unused for the
 // output layer). out_layer: y (2, M, C) f32, or bf16 with MODE_BF16_OUT;
 // else y the next hidden rows (2, M, N) in the operands' type (C
-// unused). N % 128 == 0, h, wt and y 16-byte aligned. bf16: the hidden
-// layer's epilogue reads b, a and c up to column round_up(N, 256) of each
-// plane (mm::rows_gemm_kernel), so ldb must reach that; the output
-// layer's reads C values a plane.
+// unused). N % 128 == 0, h, wt and y 16-byte aligned. The hidden
+// layer's epilogue reads N values of b, a and c a plane, the output
+// layer's C values of b.
 int factored_dense_launch(const void* h, const void* wt, const void* b,
                           const void* a, const void* c, void* y, int M,
                           int N, int K, int C, int ldb, int out_layer,

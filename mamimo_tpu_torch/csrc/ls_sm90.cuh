@@ -28,26 +28,34 @@
 //   tile of its cluster (CL x 134 MB over the card), where the mma.sync
 //   body these kernels replaced read each input tile once per column
 //   block and B once per tile (1.07 GB).
-// * A tile is SPT = 128/loc samples x loc symbols (128 GEMM rows). At
-//   loc = 256 (NH = 2, a template parameter, so that loc <= 128 runs
-//   the code it always ran) a tile is part a (0 or 1) of a sample's
-//   output rows, a*128 .. a*128 + 127: P_256 is Sylvester, [[P_128, P_128], [P_128, -P_128]],
-//   so h[a*128 + b] = (P_128 (z_lo + (-1)^a z_hi))[b], z_lo / z_hi the
-//   DFT-select of symbols 0..127 / 128..255. The tile's k-steps run over
-//   both symbol halves into one accumulator, the second half's products
-//   with A scaled by (-1)^a (wgmma's imm-scale-a), and the 128-symbol
-//   despread follows: the combine costs no pass and no buffer, and each
-//   output row is written once; the input is read by both halves' tiles
-//   (the second read mostly from L2). One
+// * A tile is SPT = 128/loc samples x loc symbols (128 GEMM rows). One
 //   producer thread loads it in k-steps of 64 (16 KB) into a ring of
 //   STAGES stages, as 16 boxes of 8 rows each multicast to the cluster
 //   (each block loads 16/CL of them) through a 4-d map (sym_len, loc
 //   symbols, S samples, 2 planes) whose box is bs symbols x 8/bs samples,
 //   bs = 2 (1 for loc = 1, 8 for loc >= 64), symbols fastest.
+// * At loc = 256 (NH = 2, a template parameter; ls_body_halves) a unit is
+//   one sample, both of its output halves a = 0 and 1 (rows a*128 ..
+//   a*128 + 127): P_256 is Sylvester, [[P_128, P_128], [P_128, -P_128]],
+//   so h[a*128 + b] = (P_128 (z_lo + (-1)^a z_hi))[b], z_lo / z_hi the
+//   DFT-select of symbols 0..127 / 128..255. Each consumer warpgroup takes
+//   one set of the block's columns (real or imaginary) of the sample from
+//   the same ring stages and accumulates z_lo and z_hi apart; h_0 = z_lo +
+//   z_hi and h_1 = z_lo - z_hi follow in registers, the 128-symbol despread
+//   on each, and the warpgroups swap halves through shared memory, so that
+//   warpgroup a stores half a. The sample's input enters each SM of the
+//   cluster once and each product runs once: the body before it took a
+//   tile per half, whose k-steps ran over both symbol halves, so each SM
+//   took the input in twice and ran every product twice, and the products
+//   set its time (PERF.md). The float32 mode takes the same schedule
+//   (ls_body_f32_halves), and so do all three stores. The pair store's
+//   (8-byte pieces 32 bytes apart) ran slower on it than on the tile
+//   body, whose other warpgroup's products overlapped it (PERF.md).
 // * Any num_tx up to 2048, and symbols whose rows TMA cannot stride
-//   (NH = 0, the general instantiation; NH = 1 and 2 keep the code they
-//   ran before it): a tile is part p of nh = loc/128 parts of a sample
-//   (or, at loc <= 128, whole samples as above). P_{128 nh} = H_nh (x)
+//   (NH = 0, the general instantiation; NH = 1 keeps the code it ran
+//   before it, NH = 2 runs ls_body_halves): a tile is part p of nh =
+//   loc/128 parts of a sample (or, at loc <= 128, whole samples as
+//   above). P_{128 nh} = H_nh (x)
 //   H_128, so part p's rows are the 128-symbol despread of Z_p = sum_v
 //   H_nh[p, v] Y_v, H_nh[p, v] = (-1)^popcount(p & v), Y_v the DFT-select
 //   input of part v. At loc >= 512 (`parts`) the input is Z itself,
@@ -101,7 +109,9 @@
 //   layout's straight from registers, the planes' of ls_v2 and ls_v1
 //   through the warpgroup's two 8 KB staging buffers) while the other
 //   runs its products. Each releases a stage as soon as its own products on it
-//   are done; the producer runs ahead across tile boundaries.
+//   are done; the producer runs ahead across tile boundaries. At NH = 2
+//   both take the same sample: products and epilogues run together, and
+//   the producer fills the ring during the epilogues.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -360,12 +370,11 @@ __device__ __forceinline__ void shift_stage(const unsigned char* st,
   }
 }
 
-// The body. ma: 4-d map of the planes (sym_len, loc, S, 2), box KB x bs x
-// 8/bs x 1, SW128; mb: 2-d map (as 3-d, one plane) of the permuted Bt
-// (2*fft, 2*cpad rows), box KB x 128, SW128 (make_maps). loc = 2^log_loc
-// <= 128 with NH = 1, or loc = 128 NH with NH symbol halves a tile (see
-// the header); or, with NH = 0, any loc <= 256 and the map (sym_len g,
-// loc / g, S, 2) of make_maps(..., log_g), g = 2^log_g <= min(loc, 128),
+// The tile body (ls_body below). ma: 4-d map of the planes (sym_len,
+// loc, S, 2), box KB x bs x 8/bs x 1, SW128; mb: 2-d map (as 3-d, one
+// plane) of the permuted Bt (2*fft, 2*cpad rows), box KB x 128, SW128
+// (make_maps). loc = 2^log_loc <= 128 with NH = 1; or, with NH = 0, any loc <= 256 and the map (sym_len g, loc / g, S, 2) of
+// make_maps(..., log_g), g = 2^log_g <= min(loc, 128),
 // whose box holds 2^box_log(log_tl, log_g) of a row's symbols; or, with
 // NH = 0 and `parts`, loc = 512 .. 2048 and the map of the part
 // transform's Z (ls_parts.cu: sym_len = fft, cp = 0, log_g = 0). fft % 64
@@ -377,22 +386,22 @@ __device__ __forceinline__ void shift_stage(const unsigned char* st,
 //   epi.template store<NH>(acc0, acc1, s0, sym0, warp, lane, stg, bar, rows)
 //
 // with acc0 / acc1 the real / imaginary set, s0 the tile's first sample
-// and sym0 its first output symbol (0 with NH = 1, 128 * part with NH =
-// 2; row_coords over min(loc, 128) symbols gives the rest; with NH = 0,
-// 128 * part or 0, and rows.at gives sample and symbol), the block's
+// and sym0 its first output symbol (0 with NH = 1, row_coords over loc
+// symbols giving the rest; with NH = 0, 128 * part or 0, and rows.at
+// gives sample and symbol), the block's
 // carriers starting at 64 *
 // cluster rank, and the warpgroup's two staging buffers (stg, 2 x
 // STG_FLOATS) and named barrier (bar, 128 threads) for an epilogue that
 // stages its stores. Launch through launch(); nothing may follow the call in
 // the kernel (the producer and consumer paths never rejoin).
 template <int NH, class Epi>
-__device__ __forceinline__ void ls_body(const CUtensorMap* ma,
-                                        const CUtensorMap* mb, int S,
-                                        int log_loc, int fft, int cp,
-                                        Epi& epi, int sym_len = 0,
-                                        int log_g = 0,
-                                        const CUtensorMap* ms = nullptr,
-                                        bool parts = false) {
+__device__ __forceinline__ void ls_body_tiles(const CUtensorMap* ma,
+                                              const CUtensorMap* mb, int S,
+                                              int log_loc, int fft, int cp,
+                                              Epi& epi, int sym_len,
+                                              int log_g,
+                                              const CUtensorMap* ms,
+                                              bool parts) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t sb = (raw + 1023u) & ~1023u;    // the resident Bt slab
@@ -416,11 +425,11 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
   const int cid = cluster_index(), ncl = cluster_count();
   // a tile: 2^log_tl symbols of 2^log_spt samples, or part t % nh of
   // sample t / nh; its k-steps run over the nh symbol parts of 128
-  static_assert(NH >= 0 && NH <= 2, "one or two symbol halves a tile, or "
-                                    "0: any at run time");
+  static_assert(NH == 0 || NH == 1, "one 128-symbol half a tile, or 0: "
+                                     "any at run time");
   const int log_nh = log_loc > 7 ? log_loc - 7 : 0;  // NH = 0 only
   const int nh = NH ? NH : 1 << log_nh;
-  const int log_tl = NH == 1 ? log_loc : (NH == 2 || log_nh ? 7 : log_loc);
+  const int log_tl = NH == 1 ? log_loc : (log_nh ? 7 : log_loc);
   const int log_bs = box_log(log_tl, log_g);      // NH = 0 only
   const int NK0 = 2 * fft / KB;                   // k-steps of a half
   // symbol parts a tile's k-steps run over: one of Z with `parts`
@@ -570,8 +579,7 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
       if (!(LS_CUT & 1)) {
         // symbol part i enters output part p = part(t) with the sign
         // H_nh[p, i] = (-1)^popcount(p & i); Z_p with +1
-        if (NH == 0 ? !parts && __popc(part(t) & i) & 1
-                    : NH > 1 && (part(t) & i)) {
+        if (NH == 0 && !parts && __popc(part(t) & i) & 1) {
 #pragma unroll
           for (int kk = 0; kk < KB / 16; ++kk) {
             wgmma_m64n128k16<-1>(acc0, desc_sw128(a + kk * 32),
@@ -617,6 +625,218 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
   }
 }
 
+// A k-step of ls_body_halves: k-step it of the cluster's sequence (its
+// stage it % STAGES) against the slab's k-block at a, 4 products into z;
+// then the stage is released in every block of the cluster.
+__device__ __forceinline__ void halves_kstep(float (&z)[64], int it,
+                                             uint32_t a, uint32_t ring,
+                                             uint32_t full, uint32_t empty,
+                                             int tid, int cl) {
+  const int s = it % STAGES;
+  mbar_wait(full + 8 * s, (it / STAGES) & 1);
+  const uint32_t b = ring + s * STAGE_BYTES;
+  fence_acc(z);
+  wgmma_fence();
+  if (!(LS_CUT & 1)) {
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk)
+      wgmma_m64n128k16<1>(z, desc_sw128(a + kk * 32),
+                          desc_sw128(b + kk * 32));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(z);
+  if (tid == 0)
+    for (int c = 0; c < cl; ++c) mbar_arrive_cluster(empty + 8 * s, c);
+}
+
+// ls_body_halves' swap: x's values into this warpgroup's staging buffers
+// (mine, 2 x STG_FLOATS), the other's (other) at the same fragment places
+// into x, in two rounds of 32 values a thread (float4 q of a round at q *
+// 128 + tid: no bank conflict) between 256-thread barriers (named
+// barrier 3). First the warpgroup's own barrier (1 + w): its last
+// epilogue has read its staging buffers.
+__device__ __forceinline__ void swap_halves(float (&x)[64], float* mine,
+                                            const float* other, int w,
+                                            int tid) {
+  bar_sync(1 + w, 128);
+  float4* const m4 = reinterpret_cast<float4*>(mine);
+  const float4* const o4 = reinterpret_cast<const float4*>(other);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      m4[q * 128 + tid] =
+          make_float4(x[32 * r + 4 * q], x[32 * r + 4 * q + 1],
+                      x[32 * r + 4 * q + 2], x[32 * r + 4 * q + 3]);
+    bar_sync(3, 256);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 v = o4[q * 128 + tid];
+      x[32 * r + 4 * q] = v.x;
+      x[32 * r + 4 * q + 1] = v.y;
+      x[32 * r + 4 * q + 2] = v.z;
+      x[32 * r + 4 * q + 3] = v.w;
+    }
+    bar_sync(3, 256);            // both have read before either writes
+  }
+}
+
+// ls_body_halves' loads of one k-step: k-step k0 (of NK0, K columns
+// each) of symbol half i of sample t, the block's 16 / cl boxes (box g:
+// stage rows 8g .. 8g + 7, symbols 8g .. of the half) into the stage at
+// st, multicast to the cluster, completing on bar.
+__device__ __forceinline__ void halves_load(uint32_t st, const CUtensorMap* ma,
+                                            uint32_t bar, int k0, int NK0,
+                                            int K, int cp, int i, int t,
+                                            uint32_t rank, int cl) {
+  const int plane = k0 >= NK0 / 2;
+  const int col = cp + (k0 - plane * (NK0 / 2)) * K;
+  const int boxes = 16 / cl;                 // boxes a block loads a stage
+  const uint16_t all = (uint16_t)((1u << cl) - 1);
+  for (int q = 0; q < boxes; ++q) {
+    const int g = rank * boxes + q;
+    tma_load_4d_multicast(st + g * 1024, ma, bar, col, 8 * g + (i << 7), t,
+                          plane, all);
+  }
+}
+
+// ls_body_halves' consumers, warpgroup w = 0 (real) or 1 (imaginary) of
+// the block: for the cluster's u-th sample t, z_lo over its k-steps 2u
+// NK0 .. and z_hi over the next NK0 (kstep(z, it, k0): k-step it of the
+// cluster's sequence, k0 of its half, products into z), then h_0 = z_lo
+// + z_hi and h_1 = z_lo - z_hi and each one's despread; warpgroup 0 hands
+// h_1's real part to warpgroup 1 for h_0's imaginary part, through their
+// staging buffers (base: 2 x STG_FLOATS a warpgroup; 32 KB, two rounds of
+// 16 KB each way, between 256-thread barriers), and warpgroup w calls
+// epi.store<2> for half a = w (sym0 = 128 w), as ls_body_tiles calls it
+// for a tile.
+template <class Epi, class KStep>
+__device__ __forceinline__ void halves_consume(int S, int NK0, float* base,
+                                               Epi& epi, KStep&& kstep) {
+  const int w = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int cid = cluster_index(), ncl = cluster_count();
+  float* const mine = base + 2 * STG_FLOATS * w;
+  const float* const other = base + 2 * STG_FLOATS * (1 - w);
+  for (int u = 0, t = cid; t < S; ++u, t += ncl) {
+    float lo[64], hi[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) lo[i] = hi[i] = 0.f;
+    for (int k0 = 0; k0 < NK0; ++k0) kstep(lo, 2 * u * NK0 + k0, k0);
+    for (int k0 = 0; k0 < NK0; ++k0) kstep(hi, (2 * u + 1) * NK0 + k0, k0);
+    if (!(LS_CUT & 2)) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float l = lo[i], h = hi[i];
+        lo[i] = l + h;                  // h_0
+        hi[i] = l - h;                  // h_1
+      }
+      despread(lo, 7, lane);
+      despread(hi, 7, lane);
+    }
+    // warpgroup 0: (h_0 real, h_1 real) -> (h_0 real, h_0 imaginary);
+    // warpgroup 1: (h_0 imaginary, h_1 imaginary) -> (h_1 real, h_1
+    // imaginary)
+    if (w == 0)
+      swap_halves(hi, mine, other, w, tid);
+    else
+      swap_halves(lo, mine, other, w, tid);
+    epi.template store<2>(lo, hi, t, w << 7, warp, lane, mine, 1 + w,
+                          Rows{7, 3, 0, w << 7});
+  }
+}
+
+// The body at loc = 256 (NH = 2; see the header): maps as ls_body_tiles'
+// at log_loc = 8. One sample a unit, cluster c the samples c, c + (number
+// of clusters), ...; per sample 2 NK0 k-steps, symbol half i = 0 then 1
+// (halves_load). Warpgroup w takes the slab's set w of every stage (4
+// products a k-step); a stage is released by both warpgroups of every
+// block of the cluster; halves_consume combines, despreads and stores.
+template <class Epi>
+__device__ __forceinline__ void ls_body_halves(const CUtensorMap* ma,
+                                               const CUtensorMap* mb, int S,
+                                               int fft, int cp, Epi& epi) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = saddr(smem_raw);
+  const uint32_t sb = (raw + 1023u) & ~1023u;    // the resident Bt slab
+  const uint32_t ring = sb + B_BYTES;
+  const uint32_t stg = ring + STAGES * STAGE_BYTES;   // 2 per warpgroup
+  const uint32_t full = stg + 4 * STG_FLOATS * 4;     // STAGES x 8 bytes
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t bfull = empty + 8 * STAGES;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const uint32_t rank = cluster_rank();
+  const int cl = cluster_ctas();
+  const int cid = cluster_index(), ncl = cluster_count();
+  const int NK0 = 2 * fft / KB;                   // k-steps of a half
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);       // the producer's expect_tx
+      // both consumer warpgroups of every block of the cluster
+      mbar_init(empty + 8 * s, 2 * cl);
+    }
+    mbar_init(bfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      // the block's slab of Bt, once
+      mbar_expect_tx(bfull, NK0 * KBLOCK_BYTES);
+      for (int kb = 0; kb < NK0; ++kb)
+        tma_load_3d(sb + kb * KBLOCK_BYTES, mb, bfull, kb * KB, rank * 128,
+                    0);
+      int it = 0;
+      for (int t = cid; t < S; t += ncl)
+        for (int i = 0; i < 2; ++i)
+          for (int k0 = 0; k0 < NK0; ++k0, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+            halves_load(ring + s * STAGE_BYTES, ma, full + 8 * s, k0, NK0,
+                        KB, cp, i, t, rank, cl);
+          }
+      // stay until every block of the cluster has released each stage's
+      // last use
+      for (int j = 0; j < STAGES; ++j, ++it)
+        mbar_wait(empty + 8 * (it % STAGES), ((it / STAGES) & 1) ^ 1);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  // the warpgroup's set of the slab
+  const uint32_t aset = sb + (wg - 1) * (KBLOCK_BYTES / 2);
+  mbar_wait(bfull, 0);
+  halves_consume(S, NK0, reinterpret_cast<float*>(smem_raw + (stg - raw)),
+                 epi, [&](float (&z)[64], int it, int k0) {
+                   halves_kstep(z, it, aset + k0 * KBLOCK_BYTES, ring, full,
+                                empty, tid, cl);
+                 });
+}
+
+// The LS body: ls_body_halves at NH = 2, else ls_body_tiles.
+template <int NH, class Epi>
+__device__ __forceinline__ void ls_body(const CUtensorMap* ma,
+                                        const CUtensorMap* mb, int S,
+                                        int log_loc, int fft, int cp,
+                                        Epi& epi, int sym_len = 0,
+                                        int log_g = 0,
+                                        const CUtensorMap* ms = nullptr,
+                                        bool parts = false) {
+  if constexpr (NH == 2)
+    ls_body_halves(ma, mb, S, fft, cp, epi);
+  else
+    ls_body_tiles<NH>(ma, mb, S, log_loc, fft, cp, epi, sym_len, log_g, ms,
+                      parts);
+}
+
 // ---------------------------------------------------------------------
 // The float32 mode (float32 planes, float32 constants): the same tiles,
 // clusters, despread and epilogues, with the DFT product at float32
@@ -641,7 +861,10 @@ __device__ __forceinline__ void ls_body(const CUtensorMap* ma,
 // each stage once its products on it are done; its last k-step of a tile
 // hands the products over to the other consumer as soon as that stage is
 // taken. Who splits does not change the products or their order: the
-// answers are those of a split in the consumer, bit for bit.
+// answers are those of a split in the consumer, bit for bit. At loc 256
+// (NH = 2) the consumers take one sample together, a set each
+// (ls_body_f32_halves, as ls_body_halves): the Nt 256 products, 3 TF32
+// passes each, are then single (PERF.md).
 //
 // Bound on an H100 at the bench shape (S = 4096, nt = 32): 268 MB of f32
 // input (the fft samples) and 245 MB of f32 output, about 0.153 ms at
@@ -707,19 +930,20 @@ __device__ __forceinline__ void split_stage(float4* x, float4* lo, int j) {
   }
 }
 
-// ls_body for float32 planes: ma a 4-d FLOAT32 map of the planes (box KF
-// x bs x 8/bs x 1, SW128), mb a 3-d FLOAT32 map of the split constants
-// (2*fft, 2*cpad rows, 2 parts; box KF x 128 x 1) (make_maps_f32). The
-// tiles, the ping-pong of the consumer warpgroups and the call of
-// epi.store are those of ls_body; launch with launch<F_SMEM_BYTES>.
+// ls_body_tiles for float32 planes at NH = 0 and 1 (NH = 2 runs
+// ls_body_f32_halves): ma a 4-d FLOAT32 map of the planes (box KF x bs x
+// 8/bs x 1, SW128), mb a 3-d FLOAT32 map of the split constants (2*fft,
+// 2*cpad rows, 2 parts; box KF x 128 x 1) (make_maps_f32). The tiles,
+// the ping-pong of the consumer warpgroups and the call of epi.store are
+// those of ls_body_tiles; launch with launch<F_SMEM_BYTES>.
 template <int NH, class Epi>
-__device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
-                                            const CUtensorMap* mb, int S,
-                                            int log_loc, int fft, int cp,
-                                            Epi& epi, int sym_len = 0,
-                                            int log_g = 0,
-                                            const CUtensorMap* ms = nullptr,
-                                            bool parts = false) {
+__device__ __forceinline__ void ls_body_f32_tiles(const CUtensorMap* ma,
+                                                  const CUtensorMap* mb,
+                                                  int S, int log_loc, int fft,
+                                                  int cp, Epi& epi,
+                                                  int sym_len, int log_g,
+                                                  const CUtensorMap* ms,
+                                                  bool parts) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = saddr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -739,11 +963,11 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
   const uint32_t rank = cluster_rank();
   const int cl = cluster_ctas();
   const int cid = cluster_index(), ncl = cluster_count();
-  static_assert(NH >= 0 && NH <= 2, "one or two symbol halves a tile, or "
-                                    "0: any at run time");
+  static_assert(NH == 0 || NH == 1, "one 128-symbol half a tile, or 0: "
+                                     "any at run time");
   const int log_nh = log_loc > 7 ? log_loc - 7 : 0;  // NH = 0 only
   const int nh = NH ? NH : 1 << log_nh;
-  const int log_tl = NH == 1 ? log_loc : (NH == 2 || log_nh ? 7 : log_loc);
+  const int log_tl = NH == 1 ? log_loc : (log_nh ? 7 : log_loc);
   const int log_bs = box_log(log_tl, log_g);      // NH = 0 only
   const int NK0 = 2 * fft / KF;                   // k-steps of a half
   // symbol parts a tile's k-steps run over: one of Z with `parts`
@@ -910,8 +1134,7 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
       if (!(LS_CUT & 1)) {
         // symbol part i enters output part p = part(t) with the sign
         // H_nh[p, i] = (-1)^popcount(p & i); Z_p with +1
-        if (NH == 0 ? !parts && __popc(part(t) & i) & 1
-                    : NH > 1 && (part(t) & i)) {
+        if (NH == 0 && !parts && __popc(part(t) & i) & 1) {
 #pragma unroll
           for (int kk = 0; kk < KF / 8; ++kk) {
             wgmma_3xtf32<-1>(acc0, desc_sw128(ah + kk * 32),
@@ -960,6 +1183,144 @@ __device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
                                2 * STG_FLOATS * w,
                            1 + w, Rows{log_tl, log_bs, log_g, part(t) << 7});
   }
+}
+
+// A k-step of ls_body_f32_halves: k-step it of the cluster's sequence,
+// its stage st (split: the input's TF32 high part in place, the low part
+// F_X_BYTES on; the constants' two parts after them, the set's 64 rows
+// at set * F_B_BYTES / 2), 4 x 3 TF32 products into z; then the stage is
+// released in every block of the cluster.
+__device__ __forceinline__ void f32_halves_kstep(float (&z)[64], int it,
+                                                 uint32_t ring, int set,
+                                                 uint32_t split,
+                                                 uint32_t empty, int tid,
+                                                 int cl) {
+  const int s = it % F_STAGES;
+  const uint32_t st = ring + s * F_STAGE_BYTES;
+  mbar_wait(split + 8 * s, (it / F_STAGES) & 1);
+  const uint32_t lo = st + F_X_BYTES;
+  const uint32_t ah = st + 2 * F_X_BYTES + set * (F_B_BYTES / 2);
+  const uint32_t al = ah + F_B_BYTES;
+  fence_acc(z);
+  wgmma_fence();
+  if (!(LS_CUT & 1)) {
+#pragma unroll
+    for (int kk = 0; kk < KF / 8; ++kk)
+      wgmma_3xtf32<1>(z, desc_sw128(ah + kk * 32), desc_sw128(al + kk * 32),
+                      desc_sw128(st + kk * 32), desc_sw128(lo + kk * 32));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(z);
+  if (tid == 0)
+    for (int c = 0; c < cl; ++c) mbar_arrive_cluster(empty + 8 * s, c);
+}
+
+// ls_body_halves for float32 planes (maps as ls_body_f32_tiles' at
+// log_loc = 8): one sample a unit, its stages loaded by halves_load with
+// the constants' k-step beside, warpgroup w set w of the constants' rows
+// from the same split stages (halves_consume: the sums, the despread, the
+// swap and the stores of ls_body_halves). The splitters (warps 1-3 of
+// the producer warpgroup) split every stage as in ls_body_f32_tiles.
+template <class Epi>
+__device__ __forceinline__ void ls_body_f32_halves(const CUtensorMap* ma,
+                                                   const CUtensorMap* mb,
+                                                   int S, int fft, int cp,
+                                                   Epi& epi) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = saddr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t stg = ring + F_STAGES * F_STAGE_BYTES;  // 2 per warpgroup
+  const uint32_t full = stg + 4 * STG_FLOATS * 4;        // F_STAGES x 8
+  const uint32_t split = full + 8 * F_STAGES;            // F_STAGES x 8
+  const uint32_t empty = split + 8 * F_STAGES;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const uint32_t rank = cluster_rank();
+  const int cl = cluster_ctas();
+  const int cid = cluster_index(), ncl = cluster_count();
+  const int NK0 = 2 * fft / KF;                   // k-steps of a half
+  const int NK = 2 * NK0;                         // k-steps of a sample
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(split + 8 * s, F_SPLITTERS);
+      // both consumer warpgroups of every block of the cluster
+      mbar_init(empty + 8 * s, 2 * cl);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int it = 0;
+      for (int t = cid; t < S; t += ncl)
+        for (int i = 0; i < 2; ++i)
+          for (int k0 = 0; k0 < NK0; ++k0, ++it) {
+            const int s = it % F_STAGES;
+            const uint32_t st = ring + s * F_STAGE_BYTES;
+            mbar_wait(empty + 8 * s, ((it / F_STAGES) & 1) ^ 1);
+            if (LS_CUT & 32) {
+              mbar_arrive(full + 8 * s);
+              continue;
+            }
+            mbar_expect_tx(full + 8 * s, F_LOAD_BYTES);
+            halves_load(st, ma, full + 8 * s, k0, NK0, KF, cp, i, t, rank,
+                        cl);
+            // the block's 128 rows of the constants' k-step, both parts
+            const uint32_t c = st + 2 * F_X_BYTES;
+            tma_load_3d(c, mb, full + 8 * s, k0 * KF, rank * 128, 0);
+            tma_load_3d(c + F_B_BYTES, mb, full + 8 * s, k0 * KF,
+                        rank * 128, 1);
+          }
+      for (int j = 0; j < F_STAGES; ++j, ++it)
+        mbar_wait(empty + 8 * (it % F_STAGES), ((it / F_STAGES) & 1) ^ 1);
+    } else if (tid >= 32) {
+      // the splitters: every k-step of the cluster's samples, in order
+      const int n = (S - cid + ncl - 1) / ncl * NK;
+      for (int it = 0; it < n; ++it) {
+        const int s = it % F_STAGES;
+        const uint32_t st = ring + s * F_STAGE_BYTES;
+        mbar_wait(full + 8 * s, (it / F_STAGES) & 1);
+        if (!(LS_CUT & 8))
+          split_stage(reinterpret_cast<float4*>(smem_raw + (st - raw)),
+                      reinterpret_cast<float4*>(smem_raw +
+                                                (st + F_X_BYTES - raw)),
+                      tid - 32);
+        fence_proxy_async();
+        mbar_arrive(split + 8 * s);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  halves_consume(S, NK0, reinterpret_cast<float*>(smem_raw + (stg - raw)),
+                 epi, [&](float (&z)[64], int it, int) {
+                   f32_halves_kstep(z, it, ring, wg - 1, split, empty, tid,
+                                    cl);
+                 });
+}
+
+// The float32 LS body: ls_body_f32_halves at NH = 2, else
+// ls_body_f32_tiles.
+template <int NH, class Epi>
+__device__ __forceinline__ void ls_body_f32(const CUtensorMap* ma,
+                                            const CUtensorMap* mb, int S,
+                                            int log_loc, int fft, int cp,
+                                            Epi& epi, int sym_len = 0,
+                                            int log_g = 0,
+                                            const CUtensorMap* ms = nullptr,
+                                            bool parts = false) {
+  if constexpr (NH == 2)
+    ls_body_f32_halves(ma, mb, S, fft, cp, epi);
+  else
+    ls_body_f32_tiles<NH>(ma, mb, S, log_loc, fft, cp, epi, sym_len, log_g,
+                          ms, parts);
 }
 
 // Launches a kernel built on ls_body (SMEM = SMEM_BYTES) or ls_body_f32

@@ -472,8 +472,8 @@ inline int make_c_map(CUtensorMap* map, void* ptr, int M, int N,
 // layer; DIRECT row pieces, C's rows need not be 16-byte multiples; b's
 // first C values a plane are all it reads); else a hidden layer's rows
 // bf16(relu(v + b) * a + c) (Z, M, N) through the map my (make_c_map;
-// STAGED; b, a and c are read up to column round_up(N, CN) of each plane,
-// the values past N not stored). A fused tail's 64-row block reads each W
+// STAGED; b, a and c are read at the N columns of each plane, N % 128 ==
+// 0). A fused tail's 64-row block reads each W
 // tile per 64 rows, and above 1024 units each row's slab of h once per
 // 128 columns of W2; the GEMM's 128 x 256 tiles take 24 KB into an SM a
 // million multiply-adds, and the hidden rows' round trip through device
@@ -508,6 +508,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     gemm_coop<false, STAGED>(
         &mx, &mw, &my, M, N, Z, K,
         [&](int p, int, int col, float v0, float v1) {
+          // the tile's columns past N are not stored: read nothing there
+          if (col >= N) return make_float2(0.f, 0.f);
           const int j = p * ldb + col;
           return make_float2(fmaxf(v0 + b[j], 0.f) * a[j] + c[j],
                              fmaxf(v1 + b[j + 1], 0.f) * a[j + 1] + c[j + 1]);

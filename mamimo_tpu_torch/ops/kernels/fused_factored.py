@@ -465,10 +465,6 @@ def factored_dense(prepared, k: int, h: torch.Tensor, C: int | None = None,
     b = prepared[f"b{k}"].contiguous()
     a, c = (b, b) if out_layer else \
         (prepared[f"a{k}"].contiguous(), prepared[f"c{k}"].contiguous())
-    if not (mode or out_layer) and n % 256:
-        # the bf16 hidden layer's epilogue reads b, a and c up to its last
-        # 256-column tile's end in each plane (csrc/mm_sm90.cuh)
-        b, a, c = (_pad_to(v, _round_up(n, 256)) for v in (b, a, c))
     shape = (2, m, C) if out_layer else (2, m, n)
     out = torch.empty(shape, device=h.device,
                       dtype=out_dtype if out_layer else w.dtype)

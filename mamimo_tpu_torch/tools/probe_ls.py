@@ -16,7 +16,8 @@ their bf16 rounding, CUDA events, with the card's SM clock and power
 draw sampled by ``nvidia-smi`` beside each timed window
 (``tools/probe_tail.py``'s timer):
 
-1. phase cuts: ``ls_planes_v2_kernel`` (full mode, and seq rank 1 of 4),
+1. phase cuts: ``ls_planes_v2_kernel`` (full mode with the f32 store
+   and with the bf16 store and per-tile sums, and seq rank 1 of 4),
    ``ls_planes_v1_kernel`` (raw f32 and raw bf16 planes) and
    ``ls_pair_kernel``, and the float32 modes of ``ls_planes_v2`` (full
    mode, and seq rank 1 of 4), ``ls_planes_v1`` (raw f32) and
@@ -47,13 +48,22 @@ draw sampled by ``nvidia-smi`` beside each timed window
    take are read from its sources. An earlier design's kernel takes the
    (2·fft, 2·Cp) constants of ``ls_kernel_constants`` where its source
    does not include ``ls_sm90.cuh`` (the mma.sync bodies before them).
-   Also says whether the bf16 LS kernels' SASS is the same in both, and
+   Also says whether the LS kernels' SASS (every kernel of ``ls_v2``,
+   ``ls_v1`` and ``ls_pair``, both modes) is the same in both, and
    that of every kernel of the sources on the headers the LS body shares
    (``fused_factored``, ``mlp_infer``, ``matmul``, ``int8_mm``,
    ``tf32_split``), kernel by kernel: each kernel of the earlier design
    against the kernel of the same mangled name (kernels only the new
-   sources have, such as the general body's, are listed apart). The
-   earlier design must take the probe's shape;
+   sources have, such as the general body's, are listed apart; the
+   instantiations whose SASS differs are named). The
+   earlier design must take the probe's shape. At the bench shape it
+   also serves one request of 1024 packets through
+   ``CSIPredictor.estimate_full`` (BS32, hidden (1024, 1024), seeded
+   random weights: kernel 1's float32 store, layer 1 and the fused
+   tail) twice, on the package's libraries and with the earlier
+   design's ``ls_v2`` and ``fused_factored`` in their place (the same C
+   launch functions; the Python between the launches is the package's
+   own), and says whether h_ls and h_dnn are bit-identical;
 3. with ``--const NAME=VALUE`` (repeatable): a copy of the package's
    sources with ``constexpr int NAME`` of ``ls_sm90.cuh`` set to VALUE
    (a settled choice of the float32 body, such as ``F_STAGES``), held to
@@ -109,8 +119,8 @@ PARTS_MIN_LOC = 512       # symbols a sample from which the parts path runs
 
 
 SOURCES = ("ls_v2", "ls_v1", "ls_pair")
-BF16_KERNELS = ("ls_planes_v2_kernel", "ls_planes_v1_kernel",
-                "ls_pair_kernel")            # one a source, as SOURCES
+SERVE_SOURCES = ("ls_v2", "fused_factored")  # estimate_full's at BS32
+SERVE_PACKETS = 1024                          # its request: S = 4096
 # the other sources on the headers the LS body shares (gemm_sm90.cuh,
 # tail_sm90.cuh): the GEMM, tail, split and int8 kernels
 SHARED = ("fused_factored", "mlp_infer", "matmul", "int8_mm", "tf32_split")
@@ -165,10 +175,48 @@ def _sass_kernels(path: str) -> dict:
 def _same_sass(old_path: str, new_path: str, kernel: str = "") -> tuple:
     """(every kernel of the earlier library whose name holds `kernel` has
     the same SASS in the new one, the new library's kernels the earlier
-    one lacks)."""
+    one lacks, the earlier library's kernels whose SASS differs)."""
     old, new = _sass_kernels(old_path), _sass_kernels(new_path)
-    same = all(new.get(k) == v for k, v in old.items() if kernel in k)
-    return same, sorted(k for k in new if k not in old and kernel in k)
+    differ = sorted(k for k, v in old.items()
+                    if kernel in k and new.get(k) != v)
+    return (not differ,
+            sorted(k for k in new if k not in old and kernel in k), differ)
+
+
+def _serve_bits(old_dir: Path, dev) -> dict:
+    """{"h_ls": ..., "h_dnn": ...}: whether BS32 ``estimate_full`` of one
+    seeded request answers bit for bit the same on the package's
+    libraries and on the earlier design's SERVE_SOURCES (in
+    ``_build``'s table of loaded libraries for the second call)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mamimo_tpu_torch.config import SimConfig, TrainConfig
+    from mamimo_tpu_torch.models.mlp import init_stacked
+    from mamimo_tpu_torch.models.predictor import CSIPredictor
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.tools.probe_tail import _old_lib
+    from mamimo_tpu_torch.train.ckpt import save_checkpoint
+
+    cfg, tcfg = SimConfig(), TrainConfig()
+    params, bn = init_stacked(torch.Generator().manual_seed(11), cfg, tcfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(str(Path(tmp) / "best"), cfg, tcfg, params, bn)
+        pred = CSIPredictor(tmp, device=dev)
+    req = np.random.default_rng(12).standard_normal(
+        (2, SERVE_PACKETS * cfg.num_rx, cfg.len_ltf)).astype(np.float32)
+    new = [torch.as_tensor(a) for a in pred.estimate_full(req)]
+    own = {n: _build.library(n) for n in SERVE_SOURCES}
+    try:
+        for n in SERVE_SOURCES:
+            _build._libs[(n, ())] = _old_lib(old_dir, n)
+        old = [torch.as_tensor(a) for a in pred.estimate_full(req)]
+    finally:
+        _build._libs.update({(n, ()): lib for n, lib in own.items()})
+    return {k: bool(torch.equal(a, b))
+            for k, a, b in zip(("h_ls", "h_dnn"), new, old)}
 
 
 def _has_parts(src_dir: Path) -> bool:
@@ -249,6 +297,8 @@ def main() -> int:
     kc_f32 = ls_sm90_constants(cfg, dev, torch.float32).bt
     cpad = kc_old.shape[1] // 2
     out = torch.empty((2, S, nt, C), device=dev)
+    out16 = torch.empty((2, S, nt, C), dtype=torch.bfloat16, device=dev)
+    ssq = torch.empty((-(-S * nt // 128), 2, C), device=dev)  # tiles
     out_p = torch.empty((args.packets, C, nt, nr), dtype=torch.complex64,
                         device=dev)
     raw = {dt: torch.empty((2, S * nt, cpad), dtype=dt, device=dev)
@@ -318,6 +368,13 @@ def main() -> int:
                 xa.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
                 None, S, nt, nt, 0, *g_, 8 * pb, stream()), False,
                 "ls_planes_v2_launch"), out),
+            # bf16 store with the per-tile sums: mode 3
+            "ls_planes_v2 bf16 + ssq": (full(
+                lambda xa, g_, pb: v2.ls_planes_v2_launch(
+                    xa.data_ptr(), consts["ls_v2"].data_ptr(),
+                    out16.data_ptr(), ssq.data_ptr(), S, nt, nt, 0, *g_,
+                    3 + 8 * pb, stream()), False,
+                "ls_planes_v2_launch (bf16 + ssq)"), out16),
             "ls_planes_v2 seq 1/4": (lambda: check(v2.ls_planes_v2_launch(
                 xq.data_ptr(), consts["ls_v2"].data_ptr(), out.data_ptr(),
                 None, S, nt, nt // 4, 1, *geo, 0, stream()),
@@ -466,14 +523,19 @@ def main() -> int:
                 if not db <= limit:
                     raise AssertionError(f"{kname}: new and {tag} disagree "
                                          f"({db:.2f} dB)")
-            # the bf16 kernels' machine code, design against design
-            for kern, lo, ln in zip(BF16_KERNELS, libs[tag], new_libs()):
-                ok, extra = _same_sass(lo._name, ln._name, kern)
-                sass[f"{tag}: {kern}"] = ok
-                print(f"  SASS of {kern}: "
+            # the LS kernels' machine code, design against design: every
+            # kernel of each library (bf16 and float32 modes, every
+            # instantiation), those that differ named
+            for name, lo, ln in zip(SOURCES, libs[tag], new_libs()):
+                ok, extra, differ = _same_sass(lo._name, ln._name)
+                sass[f"{tag}: {name}.cu"] = ok
+                print(f"  SASS of every kernel of {name}.cu: "
                       f"{'identical' if ok else 'DIFFERS'} in new and {tag}"
                       + (f" (new only: {len(extra)} kernels)" if extra
                          else ""))
+                for k in differ:        # the instantiations that changed
+                    print(f"    differs: {k}")
+                sass[f"{tag}: {name}.cu differs"] = differ
         if args.old is not None:
             # every kernel of the sources that share the LS body's headers
             _build.build_all(SHARED)
@@ -481,10 +543,20 @@ def main() -> int:
                 olds = list(pool.map(lambda n: _old_lib(args.old, n),
                                      SHARED))
             for n, lo in zip(SHARED, olds):
-                ok = _same_sass(lo._name, _build.library(n)._name)[0]
+                ok, _, differ = _same_sass(lo._name,
+                                           _build.library(n)._name)
                 sass[f"old: {n}.cu"] = ok
                 print(f"  SASS of every kernel of {n}.cu: "
                       f"{'identical' if ok else 'DIFFERS'} in new and old")
+                for k in differ:
+                    print(f"    differs: {k}")
+            if (nt, cfg.cp_length) == (32, 64):
+                serve = _serve_bits(args.old, dev)
+                summary["estimate_full_identical"] = serve
+                print(f"  estimate_full (BS32, {SERVE_PACKETS} packets) on "
+                      f"new and old {'+'.join(SERVE_SOURCES)}: " + ", ".join(
+                          f"{k} {'bit-identical' if v else 'DIFFERS'}"
+                          for k, v in serve.items()))
         summary["identical"] = same
         summary["sass_identical"] = sass
         # in turns: the others, new, new, the others backwards (old, new,

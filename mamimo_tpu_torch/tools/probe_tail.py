@@ -2,6 +2,7 @@
 """Where the two MLP tail kernels spend their time, on the card.
 
     python3 mamimo_tpu_torch/tools/probe_tail.py [--old DIR] [--f32]
+        [--heads]
 
 At the full BS32 width (H = 1024, num_tx = 32, 234 carriers), random
 seeded weights, CUDA events, with the card's SM clock and power draw
@@ -40,7 +41,18 @@ sampled by ``nvidia-smi`` beside each timed window:
    float32 tails (their weights unsplit) beside the package's own, each
    held to its plain version in dB, timed in turns (old, each stretch,
    then back);
-6. with ``--old DIR``: the bf16 tails (``factored_tail``,
+6. with ``--heads --old DIR`` (alone, instead of 1-7): the bf16
+   per-head rows ``factored_heads`` (``factored_heads_launch``, mode 0)
+   at S = 4096, nt = 32 and H1 1024, 1536, 2048 and 4096 against DIR's,
+   bit for bit, then in turns (old, new, new, old) beside its byte bound;
+   and the two-GEMM route's outputs bit for bit against DIR's at widths
+   where H2 % 256 = 128 (the hidden layer's epilogue reads its bias and
+   affine only at the layer's N columns): ``factored_rows_gemms_launch``
+   at hidden (1536, 640), ``mlp_tail_gemms_launch`` at 1152 units and
+   bf16 ``factored_dense``'s hidden layer of 640 units (DIR's launch
+   given the vectors padded to 768 a plane, as its wrapper padded them),
+   each with its hidden rows;
+7. with ``--old DIR``: the bf16 tails (``factored_tail``,
    ``mlp_infer_tail`` at H 1024, held bit for bit; ``factored_rows_tail``
    at (1024, 1024) on the per-head rows, the earlier fused tail against
    the two GEMMs, each in dB of the plain version) against an earlier
@@ -478,6 +490,166 @@ def _rows_section(args, cfg, card, summary, g, M) -> None:
     summary["mlp_infer_tail (2048, 2048)"] = ts
 
 
+HBM_BYTES_PER_S = 3.35e12                # H100 SXM
+
+
+def _heads_section(old: Path, card: str, summary: dict) -> None:
+    """factored_heads (bf16 rows) against DIR's kernel, bit for bit and in
+    turns, at H1 1024 / 1536 / 2048 / 4096 (S = 4096, nt = 32)."""
+    import torch
+
+    from mamimo_tpu_torch.ops.kernels import _build
+
+    S, nt = 4096, 32
+    fn = "factored_heads_launch"
+    new = _launch_fn(_build.library("fused_factored"), CSRC,
+                     "fused_factored", fn)
+    oldf = _launch_fn(_old_lib(old, "fused_factored"), old,
+                      "fused_factored", fn)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    print(f"factored_heads (bf16 rows), S = {S}, nt = {nt}, in turns (old, "
+          f"new, new, old):")
+    for h1 in (1024, 1536, 2048, 4096):
+        sp = torch.randn((2, S, h1), generator=g, device="cuda")
+        hb = torch.randn((2, nt, h1), generator=g, device="cuda")
+        a1 = torch.rand((2, h1), generator=g, device="cuda") + 0.5
+        c1 = torch.randn((2, h1), generator=g, device="cuda")
+        outs = {t: torch.empty((2, S * nt, h1), dtype=torch.bfloat16,
+                               device="cuda") for t in ("old", "new")}
+        runs = {t: (lambda f=f, o=outs[t]: f(sp.data_ptr(), hb.data_ptr(),
+                                             a1.data_ptr(), c1.data_ptr(),
+                                             o.data_ptr(), S, nt, h1))
+                for t, f in (("old", oldf), ("new", new))}
+        for r in runs.values():
+            r()
+        torch.cuda.synchronize()
+        same = torch.equal(outs["old"], outs["new"])
+        nb = 2 * S * nt * h1 * 2 + (2 * S * h1 + 2 * nt * h1 + 4 * h1) * 4
+        bound = nb / HBM_BYTES_PER_S * 1e3
+        ts = []
+        for t in ("old", "new", "new", "old"):
+            ms, clk, pwr = _time_ms(runs[t])
+            ts.append((t, ms, clk, pwr))
+            print(f"  H1 {h1} {t}: {_fmt(ms, clk, pwr)}, "
+                  f"{bound / ms * 100:.1f}% of {bound:.4f} ms  [{card}]",
+                  flush=True)
+        print(f"  H1 {h1}: new and old "
+              + ("bit-identical" if same else "DIFFER"))
+        summary[f"heads H1={h1}"] = {"bound_ms": bound, "ms": ts,
+                                     "identical": same}
+        if not same:
+            raise AssertionError(f"factored_heads at H1 {h1} changed")
+        del sp, hb, a1, c1, outs
+
+
+def _route_bits_section(old: Path, cfg, summary: dict) -> None:
+    """The two-GEMM route where H2 % 256 = 128, against DIR's launches
+    bit for bit: factored_rows_gemms_launch at (1536, 640),
+    mlp_tail_gemms_launch at 1152 units, factored_dense's hidden layer of
+    640 units (DIR's given the vectors padded to 768, as its wrapper
+    did)."""
+    import torch
+
+    from mamimo_tpu_torch.config import TrainConfig
+    from mamimo_tpu_torch.models.mlp import init_stacked, plane
+    from mamimo_tpu_torch.ops.kernels import _build
+    from mamimo_tpu_torch.ops.kernels.fused_factored import (
+        factored_dense,
+        prepare_factored_weights,
+    )
+    from mamimo_tpu_torch.ops.kernels.mlp_infer import (
+        prepare_mlp_infer_weights,
+    )
+
+    C, M = cfg.num_carriers, 32768
+    g = torch.Generator(device="cuda").manual_seed(6)
+    lib_o = _old_lib(old, "fused_factored")
+    lib_n = _build.library("fused_factored")
+    same = {}
+
+    def run_both(src_fn, name, argv_of):
+        """argv_of(tag) -> (argv, outputs) for DIR's and the package's."""
+        got = {}
+        for tag, lib, src in (("old", lib_o, old), ("new", lib_n, CSRC)):
+            argv, outs = argv_of(tag)
+            for o in outs:
+                o.fill_(float("nan"))
+            _launch_fn(lib, src, src_fn[0], src_fn[1])(*argv)
+            torch.cuda.synchronize()
+            got[tag] = [o.clone() for o in outs]
+        same[name] = all(torch.equal(a, b) for a, b in zip(got["old"],
+                                                            got["new"]))
+        print(f"  {name}: new and old "
+              + ("bit-identical" if same[name] else "DIFFER"))
+
+    # factored_rows_tail's two GEMMs at hidden (1536, 640)
+    tw = TrainConfig(hidden=(1536, 640))
+    pw, bw = init_stacked(torch.Generator().manual_seed(7), cfg, tw,
+                          device="cuda")
+    prw = prepare_factored_weights(cfg, tw, pw, bw)
+    for k in ("b2", "a2", "c2"):
+        prw[k] = torch.randn(prw[k].shape, generator=g, device="cuda")
+    h = torch.relu(torch.randn((2, M, 1536), generator=g,
+                               device="cuda")).to(torch.bfloat16)
+    y = torch.empty((2, M, C), device="cuda")
+    h2 = torch.empty((2, M, 640), dtype=torch.bfloat16, device="cuda")
+    keys = ("w2t", "b2", "a2", "c2", "w3t", "b3")
+    run_both(("fused_factored", "factored_rows_gemms_launch"),
+             "factored_rows_tail (1536, 640)",
+             lambda tag: ([h.data_ptr(), *(prw[k].data_ptr() for k in keys),
+                           y.data_ptr(), h2.data_ptr(), M, 1536, 640, C,
+                           prw["b3"].shape[-1], 0], [y, h2]))
+    # bf16 factored_dense, the hidden layer of 640 units of (1536, 640,
+    # 640): DIR's launch on vectors padded to 768 a plane
+    tw = TrainConfig(hidden=(1536, 640, 640))
+    pw, bw = init_stacked(torch.Generator().manual_seed(8), cfg, tw,
+                          device="cuda")
+    prd = prepare_factored_weights(cfg, tw, pw, bw)
+    for k in ("b2", "a2", "c2"):
+        prd[k] = torch.randn(prd[k].shape, generator=g, device="cuda")
+    pad = {k: torch.nn.functional.pad(prd[k].reshape(2, 640), (0, 128))
+           .contiguous() for k in ("b2", "a2", "c2")}
+    yd = torch.empty((2, M, 640), dtype=torch.bfloat16, device="cuda")
+    hd = h
+
+    def dense_argv(tag):
+        v = pad if tag == "old" else {k: prd[k] for k in pad}
+        return ([hd.data_ptr(), prd["w2t"].data_ptr(),
+                 *(v[k].data_ptr() for k in ("b2", "a2", "c2")),
+                 yd.data_ptr(), M, 640, 1536, 0, 768 if tag == "old"
+                 else 640, 0, 0], [yd])
+    run_both(("fused_factored", "factored_dense_launch"),
+             "factored_dense hidden 640", dense_argv)
+    ref = yd.clone()
+    torch.cuda.synchronize()
+    same["factored_dense wrapper"] = torch.equal(
+        factored_dense(prd, 2, hd), ref)
+    print("  factored_dense(prepared, 2, h): "
+          + ("bit-identical" if same["factored_dense wrapper"]
+             else "DIFFERS") + " to the launch above")
+    # mlp_infer_tail's two GEMMs at 1152 units, one plane
+    tw = TrainConfig(hidden=(1152, 1152))
+    pw, bw = init_stacked(torch.Generator().manual_seed(9), cfg, tw,
+                          device="cuda")
+    pm = plane(prepare_mlp_infer_weights(tw, pw, bw), 0)
+    for k in ("b2", "s2", "t2"):
+        pm[k] = torch.randn(pm[k].shape, generator=g, device="cuda")
+    h1 = torch.relu(torch.randn((M, 1152), generator=g,
+                                device="cuda")).to(torch.bfloat16)
+    ym = torch.empty((M, C), device="cuda")
+    h2m = torch.empty((M, 1152), dtype=torch.bfloat16, device="cuda")
+    lib_o, lib_n = _old_lib(old, "mlp_infer"), _build.library("mlp_infer")
+    mk = ("w2t", "b2", "s2", "t2", "w3t", "b3")
+    run_both(("mlp_infer", "mlp_tail_gemms_launch"),
+             "mlp_infer_tail 1152",
+             lambda tag: ([h1.data_ptr(), *(pm[k].data_ptr() for k in mk),
+                           ym.data_ptr(), h2m.data_ptr(), M, 1152, 1152, C],
+                          [ym, h2m]))
+    summary["route identical"] = same
+    if not all(same.values()):
+        raise AssertionError(f"the two-GEMM route changed: {same}")
+
+
 def main() -> int:
     import torch
 
@@ -486,7 +658,12 @@ def main() -> int:
                     help="directory of an earlier design's csrc sources")
     ap.add_argument("--f32", action="store_true",
                     help="also time the float32 mode's tail")
+    ap.add_argument("--heads", action="store_true",
+                    help="alone, with --old: factored_heads and the "
+                         "two-GEMM route against DIR's")
     args = ap.parse_args()
+    if args.heads and args.old is None:
+        ap.error("--heads needs --old DIR")
     if not torch.cuda.is_available():
         print("probe_tail: no CUDA device", file=sys.stderr)
         return 2
@@ -514,6 +691,13 @@ def main() -> int:
     print(card)
     _build.build_all(("fused_factored", "mlp_infer"))
     cfg, tcfg = SimConfig(), TrainConfig()
+    if args.heads:
+        summary = {"card": card}
+        _heads_section(args.old, card, summary)
+        print("the two-GEMM route where H2 % 256 = 128, against DIR's:")
+        _route_bits_section(args.old, cfg, summary)
+        print(json.dumps(summary))
+        return 0
     C, nt, H = cfg.num_carriers, cfg.num_tx, tcfg.hidden[0]
     params, bn = init_stacked(torch.Generator().manual_seed(0), cfg, tcfg,
                               device="cuda")

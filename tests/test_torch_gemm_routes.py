@@ -18,10 +18,17 @@ DNN tails' two-GEMM route above 1024 units (``factored_rows_tail``,
   float32) and the CUDA branches' launches along each route (H2 = 128,
   C = 234 / 256 taken, 257 refused);
 - bf16 ``factored_dense`` on the same GEMM (``csrc/mm_sm90.cuh``'s
-  ``rows_gemm_kernel``): its launch's arguments for a hidden layer
-  (bias and affine padded to a 256-column tile where the width is not
-  one) and for the output layer (float32 and bf16 stores), and the C
-  launch function's bf16 branch on that kernel;
+  ``rows_gemm_kernel``): its launch's arguments for a hidden layer (bias
+  and affine as prepared, N values a plane, at widths that are and are
+  not a multiple of the 256-column tile) and for the output layer
+  (float32 and bf16 stores), and the C launch function's bf16 branch on
+  that kernel;
+- the hidden layer's epilogue reads its bias and affine at the layer's
+  N columns only (the functor returns before reading at col >= N), so
+  ``factored_rows_tail`` at H2 = 640 and ``mlp_infer_tail`` at 1152
+  units (H2 % 256 = 128) pass their vectors as prepared, of H2 values a
+  plane: every column the epilogue reads, modelled over the 256-column
+  tiles, lies inside them;
 - the two-GEMM route's plain chain (the last hidden layer's rows rounded
   to bf16 for the output layer, as the route stores them) against JAX's
   bf16 factored all-pairs at hidden (1152, 128) and (1152, 256, 128):
@@ -288,11 +295,10 @@ def test_cuda_branch_bf16_dense_routes(launches, monkeypatch, hidden, out):
     """bf16 factored_dense reaches factored_dense_launch with the rows,
     the K-major weight as prepared, (M, N, K, C, ldb, out_layer, mode):
     a hidden layer (depth 3: layer 2) with N = its width and bias,
-    affine in a (2, ldb) copy padded with zeros to ldb = round_up(N, 256)
-    where N is not a multiple of 256 (the GEMM's epilogue reads a whole
-    column tile), as prepared otherwise; the output layer (depth 1) with
-    N = 256 rows of W^T, C = 234 and mode bit 0 for a bf16 store; counted
-    once, never as the float32 mode."""
+    affine as prepared, ldb = N, whether or not N is a multiple of 256
+    (the GEMM's epilogue reads no column past N); the output layer
+    (depth 1) with N = 256 rows of W^T, C = 234 and mode bit 0 for a
+    bf16 store; counted once, never as the float32 mode."""
     tcfg = TrainConfig(hidden=hidden)
     tp, tb = mlp.init_stacked(torch.Generator().manual_seed(3), CFG, tcfg)
     prep = ff.prepare_factored_weights(CFG, tcfg, tp, tb)
@@ -332,17 +338,81 @@ def test_cuda_branch_bf16_dense_routes(launches, monkeypatch, hidden, out):
                                                       CFG.num_carriers)
     else:
         n = prep["w2"].shape[2]
-        ldb = -(-n // 256) * 256
-        assert args[6:] == (24, n, kin, 0, ldb, 0, 0, 0)
+        assert args[6:] == (24, n, kin, 0, n, 0, 0, 0)
         assert y.dtype == BF16 and tuple(y.shape) == (2, 24, n)
-        for k in ("b", "a", "c"):
-            want = np.zeros((2, ldb), np.float32)
-            want[:, :n] = prep[f"{k}2"].reshape(2, n).numpy()
-            np.testing.assert_array_equal(seen[k], want)
-        if n % 256 == 0:
-            assert args[2] == prep["b2"].data_ptr()
+        for k, i in (("b", 2), ("a", 3), ("c", 4)):
+            np.testing.assert_array_equal(
+                seen[k], prep[f"{k}2"].reshape(2, n).numpy())
+            assert args[i] == prep[f"{k}2"].data_ptr()
     assert (ff.factored_dense.launches, ff.factored_dense.launches_f32) == (
         before[0] + 1, before[1])
+
+
+def _staged_reads(N, Z, ldb):
+    """The reads of b, a and c the hidden layer's STAGED epilogue makes
+    over the 256-column tiles of N columns and Z planes, as (plane, the
+    functor's column col, index p·ldb + col or + 1): (every read its
+    functor would make at each even column of every tile, those its guard
+    lets through). The guard is taken from the source: a statement of the
+    functor before any read of a vector, `if (col >= N) return` zeros."""
+    body = (CSRC / "mm_sm90.cuh").read_text()
+    body = body[body.index("gemm_coop<false, STAGED>("):]
+    functor = body[:body.index("});")]
+    m = re.search(r"if \((\w+) (>=) (\w+)\) return make_float2\(0\.f, 0\.f\);",
+                  functor)
+    assert m is not None and m.groups() == ("col", ">=", "N")
+    assert m.end() < min(functor.index(v) for v in ("b[", "a[", "c["))
+    reads = []
+    for p in range(Z):
+        for n0 in range(0, -(-N // 256) * 256, 256):
+            for c in range(0, 256, 2):
+                col = n0 + c
+                reads += [(p, col, p * ldb + col + e) for e in (0, 1)]
+    guarded = [r for r in reads if not r[1] >= N]      # the source's guard
+    return reads, guarded
+
+
+@pytest.mark.parametrize("hidden, H", [((1536, 640), None), (None, 1152)])
+def test_two_gemm_route_reads_its_vectors_inside(launches, hidden, H):
+    """factored_rows_tail at hidden (1536, 640) (H2 = 640) and
+    mlp_infer_tail at 1152 units (H2 % 256 = 128 both) launch the two
+    GEMMs with b2 and the affine as prepared, H2 values a plane; the
+    STAGED epilogue's reads, modelled over its 256-column tiles, would
+    run 128 values past the last plane's H2 values, and the guard read
+    from the source removes exactly those at columns >= H2, leaving each
+    vector read once, inside it."""
+    if hidden is not None:
+        tcfg = TrainConfig(hidden=hidden)
+        tp, tb = mlp.init_stacked(torch.Generator().manual_seed(5), CFG,
+                                  tcfg)
+        prep = ff.prepare_factored_weights(CFG, tcfg, tp, tb)
+        rows = torch.zeros((2, 24, 1536), dtype=BF16)
+        ff.factored_rows_tail(prep, rows, CFG.num_carriers)
+        (name, fn, args), = launches
+        assert fn == "factored_rows_gemms_launch"
+        vec, z, h2 = [prep[k] for k in ("b2", "a2", "c2")], 2, 640
+        assert args[9:12] == (24, 1536, h2)
+    else:
+        tcfg = TrainConfig(hidden=(H, H))
+        tp, tb = mlp.init_stacked(torch.Generator().manual_seed(6), CFG,
+                                  tcfg)
+        p = mlp.plane(mi.prepare_mlp_infer_weights(tcfg, tp, tb), 0)
+        mi.mlp_infer_tail(p, torch.zeros((24, H), dtype=BF16))
+        (name, fn, args), = launches
+        assert fn == "mlp_tail_gemms_launch"
+        vec, z, h2 = [p[k] for k in ("b2", "s2", "t2")], 1, H
+        assert args[9:12] == (24, H, h2)
+    assert [args[i] for i in (2, 3, 4)] == [v.data_ptr() for v in vec]
+    for v in vec:
+        assert v.is_contiguous() and v.numel() == z * h2
+    reads, guarded = _staged_reads(h2, z, h2)
+    # unguarded, the last plane's tile would read 128 values past its end
+    assert max(j for _, _, j in reads) == z * h2 - 1 + 128
+    # the guard removes exactly the reads at columns >= H2, and the rest
+    # cover each vector once, inside it
+    assert [r for r in reads if r not in guarded] == \
+        [r for r in reads if r[1] >= h2]
+    assert sorted(j for _, _, j in guarded) == list(range(z * h2))
 
 
 def _c_body(src, fn):
